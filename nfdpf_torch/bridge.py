@@ -1,0 +1,99 @@
+"""Load the JAX package's parameters into the port's modules.
+
+``variables`` is the JAX engine's pytree (``DPF.init`` there) as nested
+dicts of numpy arrays: ``{"encoder": {"params": .., "batch_stats": ..},
+"decoder": {..}, "measurement": {"params": ..}, ...}``.  The flow
+subtrees (``nf_dyn``, ``cond_model``) are skipped: the port has no flows yet.
+
+Mapping rules:
+
+* Conv kernels HWIO → OIHW;
+* Dense kernels (in, out) → Linear weights (out, in);
+* the encoder's flatten and the decoder's reshape run in NHWC order in both
+  packages (see ``nets.py``), so the Dense rows need no permutation;
+* ``nn.ConvTranspose(k4, s2, "SAME")`` equals
+  ``ConvTranspose2d(k=4, s=2, p=1)`` only with the kernel flipped in both
+  spatial axes: (kh, kw, in, out) → flip → (in, out, kh, kw);
+* BatchNorm scale/bias → weight/bias, batch_stats mean/var → running
+  mean/var.
+
+Every map is a permutation of entries, so ``torch_state_from_jax`` also
+carries gradient pytrees (``params`` only) into the port's parameter names.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _conv(k):
+    return np.transpose(k, (3, 2, 0, 1))
+
+
+def _deconv(k):
+    return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+
+
+def _dense_w(k):
+    return np.transpose(k)
+
+
+def _bn(out, prefix, params, stats, i):
+    if params is not None:
+        out[f"{prefix}.norms.{i}.weight"] = params[f"BatchNorm_{i}"]["scale"]
+        out[f"{prefix}.norms.{i}.bias"] = params[f"BatchNorm_{i}"]["bias"]
+    if stats is not None:
+        out[f"{prefix}.norms.{i}.running_mean"] = stats[f"BatchNorm_{i}"]["mean"]
+        out[f"{prefix}.norms.{i}.running_var"] = stats[f"BatchNorm_{i}"]["var"]
+
+
+def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
+    """Map a JAX ``variables`` (or gradient) pytree to the port's
+    ``state_dict`` names and layouts.  Collections that are absent
+    (e.g. ``batch_stats`` in a gradient tree) are left out."""
+    out: Dict[str, np.ndarray] = {}
+    enc = variables["encoder"]
+    p, s = enc.get("params"), enc.get("batch_stats")
+    for i in range(5):
+        if p is not None:
+            out[f"encoder.convs.{i}.weight"] = _conv(p[f"Conv_{i}"]["kernel"])
+        _bn(out, "encoder", p, s, i)
+    if p is not None:
+        out["encoder.dense.weight"] = _dense_w(p["Dense_0"]["kernel"])
+        out["encoder.dense.bias"] = p["Dense_0"]["bias"]
+
+    dec = variables["decoder"]
+    p, s = dec.get("params"), dec.get("batch_stats")
+    for i in range(5):
+        if p is not None:
+            out[f"decoder.deconvs.{i}.weight"] = _deconv(p[f"ConvTranspose_{i}"]["kernel"])
+        _bn(out, "decoder", p, s, i)
+    if p is not None:
+        out["decoder.dense.weight"] = _dense_w(p["Dense_0"]["kernel"])
+        out["decoder.dense.bias"] = p["Dense_0"]["bias"]
+
+    pe = variables["measurement"]["params"]["particle_encoder"]
+    for i in range(3):
+        out[f"measurement.particle_encoder.fc{i + 1}.weight"] = _dense_w(pe[f"Dense_{i}"]["kernel"])
+        out[f"measurement.particle_encoder.fc{i + 1}.bias"] = pe[f"Dense_{i}"]["bias"]
+    return {k: np.ascontiguousarray(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+@torch.no_grad()
+def load_jax_variables(engine: torch.nn.Module, variables) -> None:
+    """Fill ``engine`` (a port ``DPF``) with the JAX ``variables``: every
+    parameter and BN buffer of the port must be covered."""
+    state = torch_state_from_jax(variables)
+    own = engine.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"bridge mismatch: missing {missing}, unexpected {extra}")
+    for name, value in state.items():
+        if tuple(own[name].shape) != value.shape:
+            raise ValueError(f"{name}: port shape {tuple(own[name].shape)}, "
+                             f"JAX shape {value.shape}")
+        own[name].copy_(torch.tensor(value))

@@ -1,0 +1,226 @@
+"""The differentiable particle filter engine.
+
+Counterpart of ``nfdpf_tpu/models/dpf.py``, on the bootstrap DPF's path:
+no flows, the cosine measurement, OT resampling on the streaming-Sinkhorn
+kernels.  As in the JAX package:
+
+* the conv encoder runs ONCE over all B·T frames before the time loop (BN
+  statistics over all of them);
+* resampling is gated by the scalar batch-mean ESS — here a Python ``if``
+  on the gate, so only the taken branch runs.  Reading the gate costs one
+  device sync per time step.
+
+Random draws come in through ``noise`` (a dict of tensors) or from a
+``torch.Generator``:
+
+* ``"init"``: the initial particles, (B, N, 2);
+* ``"motion"``: standard-normal motion draws, (T, B, N, 2), scaled by
+  ``pos_noise`` inside ``motion_update``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from nfdpf_torch.config import DPFConfig
+from nfdpf_torch.models.dynamics import motion_update, nf_dynamic_model, proposal_likelihood
+from nfdpf_torch.models.measurement import build_measurement_model
+from nfdpf_torch.models.nets import ObservationDecoder, ObservationEncoder, flax_init_
+from nfdpf_torch.ops.cuda.sinkhorn_cuda import ot_resample_streaming
+from nfdpf_torch.ops.density import (
+    effective_sample_size,
+    normalize_log_weights,
+    uniform_log_weights,
+)
+
+
+class FilterOutput(NamedTuple):
+    """Stacked per-step filter histories, time axis second."""
+
+    particles: torch.Tensor         # (B, T, N, d)
+    weights: torch.Tensor           # (B, T, N) normalised linear (+1e-12)
+    noise: torch.Tensor             # (B, T, N, d) motion noise
+    likelihoods: torch.Tensor       # (B, T, N) measurement log-lik
+    indices: torch.Tensor           # (B, T, N) ancestor indices (int32)
+    jacobians: torch.Tensor         # (B, T, N) dynamics-flow jac (zeros: no flow)
+    priors: torch.Tensor            # (B, T, N) prior log terms
+    init_weights_log: torch.Tensor  # (B, N)
+    obs_likelihood: torch.Tensor    # scalar: Σ_t mean(log w̃_t)
+    resampled: torch.Tensor         # (T,) bool: ESS gate fired at step t
+    sinkhorn_iters: torch.Tensor    # (T,) int32: Sinkhorn loop iterations at step t
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else ``cuda``; with no GPU and no explicit
+    device this raises rather than run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the port "
+                           "on the CPU (its kernels then use their plain versions)")
+    return torch.device("cuda")
+
+
+def check_supported(cfg: DPFConfig) -> None:
+    """Raise ``NotImplementedError`` for any setting the port does not run
+    yet, naming the ROADMAP (queue 1) item that brings it."""
+    todo = [
+        (cfg.nf_dyn or cfg.nf_cond, "NF dynamics / NF proposal (--NF-dyn, --NF-cond)", 11),
+        (cfg.resampler_type == "soft", "soft resampling", 10),
+        (cfg.resampler_type == "ot" and not cfg.use_pallas,
+         "dense OT resampling (use_pallas=False)", 3),
+        (cfg.ot_transport_grad, "ot_transport_grad (dense OT path)", 3),
+        (cfg.sinkhorn_warm_start, "Sinkhorn warm start", 9),
+        (cfg.train_type == "SDPF", "the SDPF pseudo-likelihood losses", 13),
+        (cfg.encode_per_step, "the encode_per_step ablation", 18),
+        (cfg.remat_scan_step, "remat_scan_step", 18),
+        (cfg.compute_dtype != "float32", f"compute_dtype={cfg.compute_dtype!r}", 18),
+        (cfg.torch_init, "torch_init", 4),
+        (cfg.mesh_data > 1 or cfg.mesh_particle > 1, "device meshes", 19),
+    ]
+    for hit, what, item in todo:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+    if cfg.resampler_type not in ("ot", "soft"):
+        raise ValueError(f"unknown resampler {cfg.resampler_type!r}")
+    if cfg.train_type not in ("DPF", "SDPF"):
+        raise ValueError("trainType must be DPF (supervised) or SDPF (semi-supervised)")
+
+
+def particle_initialization(
+    start_state: torch.Tensor,
+    width: float,
+    num_particles: int,
+    state_dim: int = 2,
+    init_with_true_state: bool = False,
+    generator: Optional[torch.Generator] = None,
+):
+    """True state + N(0, 1), or uniform over ±width/2.  Returns
+    (particles (B, N, 2), log-weights (B, N))."""
+    batch = start_state.shape[0]
+    dev = start_state.device
+    if init_with_true_state:
+        noise = torch.randn((batch, num_particles, state_dim), generator=generator,
+                            device=dev)
+        particles = start_state[:, None, :state_dim] + noise
+    else:
+        u = torch.rand((batch, num_particles, 2), generator=generator, device=dev)
+        particles = u * width - width / 2.0
+    return particles, uniform_log_weights(batch, num_particles, dev)
+
+
+class DPF(nn.Module):
+    """Filter engine and model container: ``encoder``, ``decoder`` and
+    ``measurement`` submodules.  BatchNorm follows the module's train/eval
+    mode.  Runs on ``cuda`` unless ``device`` says otherwise."""
+
+    def __init__(self, config: DPFConfig, device=None):
+        super().__init__()
+        check_supported(config)
+        self.config = config
+        self.device = resolve_device(device)
+        self.encoder = ObservationEncoder(config.hidden_size)
+        self.decoder = ObservationDecoder(config.hidden_size)
+        self.measurement = build_measurement_model(config)
+        self.init(config.seed)
+        self.to(self.device)
+
+    def init(self, seed: int) -> None:
+        """Re-initialise every parameter and BN statistic from ``seed``
+        (flax's default initialisers, drawn on the CPU)."""
+        flax_init_(self, torch.Generator().manual_seed(seed))
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """(..., H, W, 3) → (..., h); updates BN running stats in train mode."""
+        return self.encoder(images)
+
+    def decode(self, encodings: torch.Tensor) -> torch.Tensor:
+        return self.decoder(encodings)
+
+    def filter_from_encodings(
+        self,
+        encodings: torch.Tensor,     # (B, T, h)
+        start_state: torch.Tensor,   # (B, 4) pos + vel
+        vel_seq: torch.Tensor,       # (B, T, 2) teacher-forced velocities
+        noise: Optional[dict] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> FilterOutput:
+        """Run the T-step filter loop."""
+        cfg = self.config
+        batch, seq_len = vel_seq.shape[:2]
+        n = cfg.num_particles
+        dev = encodings.device
+        noise = noise or {}
+
+        if "init" in noise:
+            particles = noise["init"]
+            init_w_log = uniform_log_weights(batch, n, dev)
+        else:
+            particles, init_w_log = particle_initialization(
+                start_state[:, :2], cfg.width, n, cfg.state_dim,
+                cfg.init_with_true_state, generator)
+        probs = normalize_log_weights(init_w_log)
+        vel = start_state[:, 2:]
+        motion = noise.get("motion")
+        idx0 = torch.arange(n, dtype=torch.int32, device=dev).expand(batch, n)
+        obs_lik = torch.zeros((), device=dev)
+
+        hist = {k: [] for k in ("particles", "weights", "noise", "likelihoods",
+                                "indices", "jacobians", "priors")}
+        gates, iters = [], []
+        for t in range(seq_len):
+            ess = effective_sample_size(probs)
+            gate = bool(ess < cfg.ess_threshold * n)      # one device sync
+            if gate:
+                particles_r, probs_r, idx, sk_iters = ot_resample_streaming(
+                    particles, probs, eps=cfg.epsilon, scaling=cfg.scaling,
+                    threshold=cfg.threshold, max_iter=cfg.max_iter,
+                    convergence=cfg.sinkhorn_convergence)
+            else:
+                particles_r, probs_r, idx, sk_iters = particles, probs, idx0, 0
+            log_probs_r = torch.log(probs_r)
+
+            particles_phys, noise_t = motion_update(
+                particles_r, vel, cfg.pos_noise,
+                None if motion is None else motion[t], generator)
+            new_vel = vel_seq[:, t]
+            particles_dyn, jac = nf_dynamic_model(particles_phys)
+            propose, lki_log, prior_log, propose_log = proposal_likelihood(
+                self.measurement, particles_dyn, encodings[:, t], noise_t, jac,
+                cfg.pos_noise, cfg.vel_noise)
+
+            log_w = log_probs_r + lki_log + prior_log - propose_log
+            obs_lik = obs_lik + torch.mean(log_w)
+            new_probs = normalize_log_weights(log_w) + 1e-12
+
+            for k, v in zip(hist, (propose, new_probs, noise_t, lki_log, idx, jac,
+                                   prior_log)):
+                hist[k].append(v)
+            gates.append(gate)
+            iters.append(sk_iters)
+            particles, probs, vel = propose, new_probs, new_vel
+
+        stacked = {k: torch.stack(v, dim=1) for k, v in hist.items()}
+        return FilterOutput(
+            **stacked,
+            init_weights_log=init_w_log,
+            obs_likelihood=obs_lik,
+            resampled=torch.tensor(gates, dtype=torch.bool),
+            sinkhorn_iters=torch.tensor(iters, dtype=torch.int32),
+        )
+
+    def filter(self, images, start_state, vel_seq, noise=None, generator=None):
+        """Encode all frames once, then run the filter.
+
+        images: (B, T, H, W, 3).  Returns (FilterOutput, encodings (B, T, h)).
+        """
+        b, t = images.shape[:2]
+        encodings = self.encode(images.reshape((b * t,) + images.shape[2:]))
+        encodings = encodings.reshape(b, t, -1)
+        out = self.filter_from_encodings(encodings, start_state, vel_seq, noise,
+                                         generator)
+        return out, encodings

@@ -1,0 +1,141 @@
+"""NN building blocks: observation encoder/decoder and particle encoder.
+
+Counterparts of ``nfdpf_tpu/models/nets.py:59-145``.  The public functions
+keep the JAX package's NHWC image layout; the convolutions run in PyTorch's
+NCHW inside.  Layer order is Conv → ReLU → BatchNorm, with the flax
+BatchNorm's rule for running statistics (``FlaxBatchNorm``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+ENC_CHANNELS = (3, 16, 32, 64, 128, 256)
+
+
+class FlaxBatchNorm(nn.Module):
+    """BatchNorm over dim 1 that follows ``flax.linen.BatchNorm``:
+
+    * batch variance E[x²] − E[x]² (clipped at 0), biased, both for
+      normalising and for the running variance (torch's own BatchNorm stores
+      the unbiased one, which breaks eval-mode parity);
+    * running = (1 − momentum)·running + momentum·batch, torch momentum 0.1
+      = flax momentum 0.9; eps 1e-5.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            dims = [0] + list(range(2, x.dim()))
+            mean = torch.mean(x, dim=dims)
+            var = torch.clamp_min(torch.mean(x * x, dim=dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+class ObservationEncoder(nn.Module):
+    """5× (Conv k4 s2 p1 → ReLU → BN) 3→16→32→64→128→256 over 128²→4²,
+    flatten in NHWC order, Linear → out_features.  (..., H, W, 3) → (..., out)."""
+
+    def __init__(self, out_features: int = 32):
+        super().__init__()
+        pairs = list(zip(ENC_CHANNELS[:-1], ENC_CHANNELS[1:]))
+        self.convs = nn.ModuleList(
+            nn.Conv2d(ci, co, 4, stride=2, padding=1, bias=False) for ci, co in pairs)
+        self.norms = nn.ModuleList(FlaxBatchNorm(co) for _, co in pairs)
+        self.dense = nn.Linear(256 * 4 * 4, out_features)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        lead = images.shape[:-3]
+        x = images.reshape((-1,) + images.shape[-3:]).permute(0, 3, 1, 2)
+        for conv, norm in zip(self.convs, self.norms):
+            x = norm(F.relu(conv(x)))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.dense(x).reshape(lead + (-1,))
+
+
+class ObservationDecoder(nn.Module):
+    """Linear → (4, 4, 256) → 4× (ConvTranspose k4 s2 → ReLU → BN) →
+    ConvTranspose to 3 channels → BN → Sigmoid.  (..., in) → (..., 128, 128, 3)."""
+
+    def __init__(self, in_features: int = 32):
+        super().__init__()
+        chans = ENC_CHANNELS[::-1]                      # 256 → 3
+        pairs = list(zip(chans[:-1], chans[1:]))
+        self.dense = nn.Linear(in_features, 256 * 4 * 4)
+        self.deconvs = nn.ModuleList(
+            nn.ConvTranspose2d(ci, co, 4, stride=2, padding=1, bias=False)
+            for ci, co in pairs)
+        self.norms = nn.ModuleList(FlaxBatchNorm(co) for _, co in pairs)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        lead = z.shape[:-1]
+        x = self.dense(z.reshape(-1, z.shape[-1]))
+        x = x.reshape(-1, 4, 4, 256).permute(0, 3, 1, 2)
+        last = len(self.deconvs) - 1
+        for k, (deconv, norm) in enumerate(zip(self.deconvs, self.norms)):
+            x = deconv(x)
+            x = norm(x if k == last else F.relu(x))
+        x = torch.sigmoid(x).permute(0, 2, 3, 1)
+        return x.reshape(lead + x.shape[1:])
+
+
+class ParticleEncoder(nn.Module):
+    """MLP state(d)→16→32→out, applied on (..., d)."""
+
+    def __init__(self, out_features: int = 32, state_dim: int = 2):
+        super().__init__()
+        self.fc1 = nn.Linear(state_dim, 16)
+        self.fc2 = nn.Linear(16, 32)
+        self.fc3 = nn.Linear(32, out_features)
+
+    def forward(self, s: torch.Tensor) -> torch.Tensor:
+        return self.fc3(F.relu(self.fc2(F.relu(self.fc1(s)))))
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialise ``module`` with flax's defaults, as the JAX package does:
+    lecun-normal kernels (normal with variance 1/fan_in, truncated at two
+    standard deviations), zero biases, BatchNorm scale 1 / bias 0 and
+    running statistics 0 / 1.  ``generator`` must live on the CPU; the draws
+    are copied to the parameters' device."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            if isinstance(m, nn.Linear):
+                fan_in = w.shape[1]
+            else:  # flax counts the kernel's input channels for both convs
+                in_ch = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
+                fan_in = in_ch * w.shape[2] * w.shape[3]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            draw = torch.empty(w.shape)
+            nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            w.copy_(draw)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, FlaxBatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

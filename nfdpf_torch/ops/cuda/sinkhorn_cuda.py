@@ -1,0 +1,296 @@
+"""Streaming-Sinkhorn OT resampling on hand-written CUDA kernels.
+
+Counterpart of ``nfdpf_tpu/ops/pallas/sinkhorn_pallas.py``.  Two kernels
+(``csrc/sinkhorn.cu``) stream the cost ``C_ij = ½‖x_i − y_j‖²`` from the
+(B, N, 2) coordinates instead of materialising (B, N, M) matrices:
+
+* ``streaming_lse_multi``  out[b,g,i] = logsumexp_j(f[b,g,j] − C_ij/ε_b)
+  (replaces ``_lse_kernel``, ``sinkhorn_pallas.py:78``);
+* ``transport_apply_rc``   out = T @ v with T_ij = exp(r_i + c_j − C_ij/ε_b)
+  (replaces ``_apply_kernel``, ``sinkhorn_pallas.py:180``); a
+  ``torch.autograd.Function`` whose backward is the same kernel with rows
+  and columns swapped (Tᵀg), for ``values`` only.
+
+Each wrapper takes its plain PyTorch version for tensors on the CPU and
+launches its kernel for CUDA tensors; anything else raises.  ``LAUNCHES``
+counts the kernel launches, so a run can show which path it took.
+
+``ot_resample_streaming`` is the driver (``ot_resample_pallas``,
+``sinkhorn_pallas.py:291-454``), cold start only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from nfdpf_torch.ops.sinkhorn import diameter, max_min
+
+# kernel launches since the last reset, by kernel
+LAUNCHES = {"sinkhorn_lse": 0, "transport_apply": 0, "transport_apply_bwd": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "nfdpf_sinkhorn_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "nfdpf_transport_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _library():
+    from nfdpf_torch.ops.cuda.build import load
+
+    return load("sinkhorn", _SIGNATURES)
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU, False when all are on one CUDA
+    device; raises for anything else (the kernels take no other place)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no streaming-Sinkhorn kernel for device {dev}")
+    return False
+
+
+def _kernel_args(*tensors: torch.Tensor):
+    """float32, contiguous, 8-byte aligned (float2 reads) — or raise."""
+    out = []
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"streaming-Sinkhorn kernels take float32, got {t.dtype}")
+        t = t.contiguous()
+        if t.data_ptr() % 8:
+            raise ValueError("streaming-Sinkhorn kernels need 8-byte aligned inputs")
+        out.append(t)
+    return out
+
+
+def _check_launch(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
+
+
+def _pair_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """½‖x_i − y_j‖² from coordinate differences, (B, N, M) — the kernels'
+    own arithmetic (not the x²+y²−2xy expansion of ``sinkhorn.cost``)."""
+    diff = x[:, :, None, :] - y[:, None, :, :]
+    return 0.5 * torch.sum(diff * diff, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# K1: streaming logsumexp
+# ---------------------------------------------------------------------------
+
+
+def lse_multi_plain(eps: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    fs: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 over the materialised cost: (B,G,M) → (B,G,N)."""
+    neg_cost = -_pair_cost(x, y) / eps[:, None, None]          # (B, N, M)
+    return torch.logsumexp(fs[:, :, None, :] + neg_cost[:, None], dim=-1)
+
+
+def streaming_lse_multi(eps: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        fs: torch.Tensor) -> torch.Tensor:
+    """out[b,g,i] = logsumexp_j(fs[b,g,j] − ‖x_i−y_j‖²/(2ε_b)).
+
+    eps: (B,); x: (B, N, 2); y: (B, M, 2); fs: (B, G, M), G ∈ {1, 2} → (B, G, N).
+    """
+    b, n, d = x.shape
+    g, m = fs.shape[1], fs.shape[2]
+    if (d != 2 or y.shape != (b, m, 2) or fs.shape[0] != b
+            or eps.shape != (b,) or n == 0 or m == 0):
+        raise ValueError(f"bad shapes eps{tuple(eps.shape)} x{tuple(x.shape)} "
+                         f"y{tuple(y.shape)} fs{tuple(fs.shape)}")
+    if _on_cpu(eps, x, y, fs):
+        return lse_multi_plain(eps, x, y, fs)
+    if g not in (1, 2) or b > 65535:
+        raise ValueError(f"K1 takes G in (1, 2) and B <= 65535, got G={g}, B={b}")
+    eps, x, y, fs = _kernel_args(eps, x, y, fs)
+    out = torch.empty((b, g, n), device=x.device, dtype=torch.float32)
+    rc = _library().nfdpf_sinkhorn_lse(
+        eps.data_ptr(), x.data_ptr(), y.data_ptr(), fs.data_ptr(),
+        out.data_ptr(), b, n, m, g, torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(rc, "sinkhorn_lse")
+    LAUNCHES["sinkhorn_lse"] += 1
+    return out
+
+
+def streaming_lse(eps, x, y, f) -> torch.Tensor:
+    """Single-potential wrapper: (B, M) → (B, N)."""
+    return streaming_lse_multi(eps, x, y, f[:, None, :])[:, 0]
+
+
+def streaming_softmin(eps, x, y, f) -> torch.Tensor:
+    """−ε·logsumexp(f − C/ε): the Sinkhorn softmin."""
+    return -eps[:, None] * streaming_lse(eps, x, y, f)
+
+
+def streaming_softmin_multi(eps, x, y, fs) -> torch.Tensor:
+    """Fused G-potential softmin: fs (B, G, M) → (B, G, N)."""
+    return -eps[:, None, None] * streaming_lse_multi(eps, x, y, fs)
+
+
+# ---------------------------------------------------------------------------
+# K2: streaming transport apply
+# ---------------------------------------------------------------------------
+
+
+def transport_apply_plain(values, eps, x_rows, y_cols, r, c) -> torch.Tensor:
+    """Plain version of K2: ``einsum("bij,bjd->bid", T, values)`` over the
+    materialised T_ij = exp(r_i + c_j − C_ij/ε).  Differentiable in every
+    input by ordinary autograd."""
+    t = torch.exp(r[:, :, None] + c[:, None, :]
+                  - _pair_cost(x_rows, y_cols) / eps[:, None, None])
+    return torch.einsum("bij,bjd->bid", t, values)
+
+
+def _apply(eps, x_rows, y_cols, values, r, c, counter: str) -> torch.Tensor:
+    b, n, d = x_rows.shape
+    m = y_cols.shape[1]
+    if (d != 2 or y_cols.shape != (b, m, 2) or values.shape != (b, m, 2)
+            or r.shape != (b, n) or c.shape != (b, m) or eps.shape != (b,)
+            or n == 0 or m == 0):
+        raise ValueError(
+            f"bad shapes eps{tuple(eps.shape)} x{tuple(x_rows.shape)} "
+            f"y{tuple(y_cols.shape)} v{tuple(values.shape)} r{tuple(r.shape)} "
+            f"c{tuple(c.shape)}")
+    if _on_cpu(eps, x_rows, y_cols, values, r, c):
+        return transport_apply_plain(values, eps, x_rows, y_cols, r, c)
+    if b > 65535:
+        raise ValueError(f"K2 takes B <= 65535, got {b}")
+    eps, x_rows, y_cols, values, r, c = _kernel_args(eps, x_rows, y_cols, values, r, c)
+    out = torch.empty((b, n, 2), device=x_rows.device, dtype=torch.float32)
+    rc = _library().nfdpf_transport_apply(
+        eps.data_ptr(), x_rows.data_ptr(), y_cols.data_ptr(), values.data_ptr(),
+        r.data_ptr(), c.data_ptr(), out.data_ptr(), b, n, m,
+        torch.cuda.current_stream(x_rows.device).cuda_stream)
+    _check_launch(rc, counter)
+    LAUNCHES[counter] += 1
+    return out
+
+
+class TransportApplyRC(torch.autograd.Function):
+    """out = T @ values, differentiable in ``values`` only (grad = Tᵀg):
+    the transport plan is a constant, as in the original resampler."""
+
+    @staticmethod
+    def forward(ctx, values, eps, x_rows, y_cols, r, c):
+        ctx.save_for_backward(eps, x_rows, y_cols, r, c)
+        return _apply(eps, x_rows, y_cols, values, r, c, "transport_apply")
+
+    @staticmethod
+    def backward(ctx, g):
+        eps, x_rows, y_cols, r, c = ctx.saved_tensors
+        # (Tᵀg)_j = Σ_i exp(c_j + r_i − C_ij/ε) g_i: same kernel, roles swapped
+        grad_values = _apply(eps, y_cols, x_rows, g, c, r, "transport_apply_bwd")
+        return grad_values, None, None, None, None, None
+
+
+def transport_apply_rc(values, eps, x_rows, y_cols, r, c) -> torch.Tensor:
+    """T @ values with implicit T_ij = exp(r_i + c_j − ½‖x_i − y_j‖²/ε),
+    separate row and column point sets; gradient to ``values`` only."""
+    return TransportApplyRC.apply(values, eps, x_rows, y_cols, r, c)
+
+
+def streaming_transport_apply(values, eps, scaled_x, r, c) -> torch.Tensor:
+    """Self-transport wrapper (rows = columns = scaled_x)."""
+    return transport_apply_rc(values, eps, scaled_x, scaled_x, r, c)
+
+
+# ---------------------------------------------------------------------------
+# the resampler
+# ---------------------------------------------------------------------------
+
+
+def ot_resample_streaming(
+    particles: torch.Tensor,
+    probs: torch.Tensor,
+    eps: float = 0.1,
+    scaling: float = 0.75,
+    threshold: float = 1e-3,
+    max_iter: int = 100,
+    convergence: str = "all",
+):
+    """ε-annealed OT resampling on the streaming kernels, cold start.
+
+    The whole Sinkhorn loop runs on detached inputs; the gradient reaches
+    ``particles`` only through the values operand of T @ particles, and
+    ``probs`` gets none.  Returns ``(particles', uniform probs, identity
+    indices, iters)`` with ``iters`` the raw loop count (a host int).
+
+    The loop's stopping test is read on the host once per iteration (eager
+    PyTorch has no on-device while loop): one device sync per iteration.
+    """
+    if convergence not in ("all", "any"):
+        raise ValueError(f"convergence must be 'all' or 'any', got {convergence!r}")
+    b, n, d = particles.shape
+    dev = particles.device
+    x_sg = particles.detach()
+    logw_sg = torch.log(probs.detach())
+    centered = x_sg - torch.mean(x_sg, dim=1, keepdim=True)
+    diam = diameter(x_sg, x_sg)
+    scaled_x = centered / (diam[:, None, None] * math.sqrt(d))
+    uniform_logw = torch.full_like(logw_sg, -math.log(n))
+
+    # a device fill, not a host→device copy (which would sync each firing)
+    eps_b = torch.full((b,), eps, dtype=torch.float32, device=dev)
+    scaling_factor = scaling**2
+
+    def sm2(e, fvecs):
+        return streaming_softmin_multi(e, scaled_x, scaled_x, fvecs)
+
+    # Only (a_y, b_x) are live: the self-transport (a_x, b_y) of the
+    # symmetric loop never feed them, the stopping test or the plan.
+    eps_run = max_min(scaled_x, scaled_x) ** 2
+    init = sm2(eps_run, torch.stack([logw_sg, uniform_logw], dim=1))
+    a_y, b_x = init[:, 0], init[:, 1]
+
+    running = torch.ones(b, dtype=torch.bool, device=dev)
+    agg = torch.all if convergence == "all" else torch.any
+    i = 0
+    # the loop continues while i < max_iter-1 and every ('all') / some
+    # ('any') row is still running
+    while i < max_iter - 1 and bool(agg(running)):
+        eps_col = eps_run[:, None]
+        run = running[:, None]
+        outs = sm2(eps_run, torch.stack([logw_sg + b_x / eps_col,
+                                         uniform_logw + a_y / eps_col], dim=1))
+        at_y = torch.where(run, outs[:, 0], a_y)
+        bt_x = torch.where(run, outs[:, 1], b_x)
+        a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
+        a_diff = torch.amax(torch.abs(a_y_new - a_y), dim=1)
+        b_diff = torch.amax(torch.abs(b_x_new - b_x), dim=1)
+        local = (a_diff > threshold) | (b_diff > threshold)
+        new_eps = torch.maximum(eps_run * scaling_factor, eps_b)
+        running = (new_eps < eps_run) | local
+        a_y, b_x, eps_run = a_y_new, b_x_new, new_eps
+        i += 1
+
+    finals = sm2(eps_b, torch.stack([logw_sg + b_x / eps_b[:, None],
+                                     uniform_logw + a_y / eps_b[:, None]], dim=1))
+    final_f, final_g = finals[:, 0], finals[:, 1]
+
+    # T_ij = exp((f_i + g_j − C_ij)/ε − colnorm_j + log n + logw_j), with
+    # colnorm_j = g_j/ε + logsumexp_i(f_i/ε − C_ij/ε) since C is symmetric
+    lse_col = streaming_lse(eps_b, scaled_x, scaled_x, final_f / eps_b[:, None])
+    colnorm = final_g / eps_b[:, None] + lse_col
+    r = final_f / eps_b[:, None]
+    c = final_g / eps_b[:, None] - colnorm + math.log(n) + logw_sg
+
+    # T is applied to the RAW particles; the geometry stays scaled
+    transported = streaming_transport_apply(particles, eps_b, scaled_x, r, c)
+    uniform = torch.full_like(probs, 1.0 / n)
+    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
+    return transported, uniform, idx, i

@@ -1,0 +1,233 @@
+"""nfdpf_torch models vs the JAX package: the networks through the parameter
+bridge (train and eval mode, BN running statistics), the bootstrap dynamics
+and measurement, and the filter loop on the streaming-OT path.  Inputs and
+noise come from numpy / the JAX key schedule; the JAX Pallas kernels run in
+interpret mode."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nfdpf_tpu.ops.pallas.sinkhorn_pallas as sp
+from nfdpf_tpu.config import DPFConfig as JaxConfig
+from nfdpf_tpu.models import dynamics as jdyn
+from nfdpf_tpu.models.dpf import DPF as JaxDPF
+from nfdpf_torch.bridge import load_jax_variables, torch_state_from_jax
+from nfdpf_torch.config import DPFConfig
+from nfdpf_torch.models import dynamics as tdyn
+from nfdpf_torch.models.dpf import DPF, particle_initialization
+from nfdpf_torch.models.nets import FlaxBatchNorm
+
+B, N, T = 2, 16, 5
+SLICE = dict(num_particles=N, sequence_length=T, batch_size=B, width=128,
+             resampler_type="ot", measurement="cos", train_type="DPF",
+             use_pallas=True, compute_dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setattr(sp, "_INTERPRET", True)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """A JAX engine with its variables and the port loaded with them."""
+    je = JaxDPF(JaxConfig(**SLICE))
+    variables = je.init(jax.random.PRNGKey(3))
+    pe = DPF(DPFConfig(**SLICE), device="cpu")
+    load_jax_variables(pe, _np_tree(variables))
+    return je, variables, pe
+
+
+def _images(seed, frames):
+    return np.random.default_rng(seed).random((frames, 128, 128, 3), dtype=np.float32)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_encoder_matches_jax(engines, train):
+    """Encodings (rtol/atol 1e-4: five conv+BN layers in float32) and, in
+    train mode, the updated BN running statistics (biased variance)."""
+    je, variables, pe = engines
+    imgs = _images(0, 6)
+    ref, stats = je.encode(variables, jnp.asarray(imgs), train=train)
+    enc = pe.encoder
+    saved = {k: v.clone() for k, v in enc.state_dict().items()}
+    enc.train(train)
+    with torch.no_grad():
+        got = pe.encode(torch.from_numpy(imgs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    if train:
+        _assert_running_stats(enc, stats)
+    enc.load_state_dict(saved)
+
+
+def _assert_running_stats(module, stats):
+    """BN running mean/var against flax's batch_stats (rtol 1e-4 / atol 1e-5)."""
+    for i, bn in enumerate(module.norms):
+        for ours, theirs in (("running_mean", "mean"), ("running_var", "var")):
+            np.testing.assert_allclose(
+                getattr(bn, ours).numpy(), np.asarray(stats[f"BatchNorm_{i}"][theirs]),
+                rtol=1e-4, atol=1e-5, err_msg=f"BatchNorm_{i}.{theirs}")
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_decoder_matches_jax(engines, train):
+    """Reconstructions (atol 1e-5 on sigmoid outputs) and running stats."""
+    je, variables, pe = engines
+    z = np.random.default_rng(1).standard_normal((4, 32)).astype(np.float32)
+    ref, stats = je.decode(variables, jnp.asarray(z), train=train)
+    dec = pe.decoder
+    saved = {k: v.clone() for k, v in dec.state_dict().items()}
+    dec.train(train)
+    with torch.no_grad():
+        got = pe.decode(torch.from_numpy(z))
+    assert got.shape == (4, 128, 128, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+    if train:
+        _assert_running_stats(dec, stats)
+    dec.load_state_dict(saved)
+
+
+def test_cosine_measurement_matches_jax(engines):
+    """Particle encoder + cosine log-likelihood (rtol 1e-5 / atol 1e-5)."""
+    je, variables, pe = engines
+    rng = np.random.default_rng(2)
+    enc = rng.standard_normal((B, 32)).astype(np.float32)
+    particles = (rng.standard_normal((B, N, 2)) * 40).astype(np.float32)
+    ref = je.measurement.apply(variables["measurement"], jnp.asarray(enc),
+                               jnp.asarray(particles))
+    with torch.no_grad():
+        got = pe.measurement(torch.from_numpy(enc), torch.from_numpy(particles))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_flax_batchnorm_running_variance_is_biased():
+    """torch's BatchNorm stores the unbiased variance; the flax rule the port
+    follows stores the biased one."""
+    bn = FlaxBatchNorm(1)
+    x = torch.tensor([1.0, 2.0, 4.0, 7.0]).reshape(4, 1, 1, 1)
+    bn.train()
+    bn(x)
+    biased = float(x.var(correction=0))
+    assert bn.running_var.item() == pytest.approx(0.9 + 0.1 * biased, rel=1e-6)
+    assert bn.running_mean.item() == pytest.approx(0.1 * 3.5, rel=1e-6)
+
+
+def test_bridge_covers_every_parameter_and_buffer(engines):
+    _, variables, pe = engines
+    assert set(torch_state_from_jax(_np_tree(variables))) == set(pe.state_dict())
+    broken = _np_tree(variables)
+    del broken["encoder"]["params"]["Dense_0"]
+    with pytest.raises(KeyError):
+        load_jax_variables(pe, broken)
+
+
+def test_motion_update_and_bootstrap_identity():
+    """motion_update with injected noise equals the JAX one on the same draw
+    (exact up to float32 add order); with the flows off prior == proposal."""
+    key = jax.random.PRNGKey(4)
+    particles = np.random.default_rng(3).standard_normal((B, N, 2)).astype(np.float32)
+    vel = np.ones((B, 2), np.float32)
+    ref, ref_noise = jdyn.motion_update(key, jnp.asarray(particles), jnp.asarray(vel), 20.0)
+    draw = torch.tensor(np.asarray(jax.random.normal(key, (B, N, 2))))
+    got, noise = tdyn.motion_update(torch.from_numpy(particles), torch.from_numpy(vel),
+                                    20.0, draw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(noise.numpy(), np.asarray(ref_noise), rtol=1e-6)
+    phys, jac = tdyn.nf_dynamic_model(got)
+    propose, lki, prior, propose_log = tdyn.proposal_likelihood(
+        lambda e, p: torch.zeros(p.shape[:2]), phys, torch.zeros(B, 32), noise, jac,
+        20.0, 20.0)
+    assert torch.equal(prior, propose_log) and torch.equal(propose, got)
+    assert torch.equal(jac, torch.zeros(B, N))
+
+
+def test_particle_initialization_modes():
+    start = torch.tensor([[10.0, -5.0, 1.0, 1.0]])
+    gen = torch.Generator().manual_seed(0)
+    p_true, w = particle_initialization(start[:, :2], 128.0, 50, 2, True, gen)
+    assert p_true.shape == (1, 50, 2)
+    assert abs(float(p_true.mean(dim=1)[0, 0]) - 10.0) < 1.0
+    p_unif, w = particle_initialization(start[:, :2], 128.0, 50, 2, False, gen)
+    assert float(p_unif.min()) >= -64.0 and float(p_unif.max()) <= 64.0
+    np.testing.assert_allclose(w.numpy(), np.log(1.0 / 50), rtol=1e-6)
+
+
+def _jax_filter_noise(key, width=128.0):
+    """Replay the JAX filter's key schedule (dpf.py:325,384; dynamics.py:38)."""
+    k_init, k_scan = jax.random.split(key)
+    init = jax.random.uniform(k_init, (B, N, 2), minval=-width / 2, maxval=width / 2)
+    motion, k = [], k_scan
+    for _ in range(T):
+        k, _, k_motion = jax.random.split(k, 3)
+        motion.append(np.asarray(jax.random.normal(k_motion, (B, N, 2))))
+    return {"init": torch.tensor(np.asarray(init)),
+            "motion": torch.from_numpy(np.stack(motion))}
+
+
+def test_filter_from_encodings_matches_jax():
+    """B=2, N=16, T=5, width 128, use_pallas=True, with JAX encodings and JAX
+    noise.  ess_threshold 0.97 makes the gate fire on steps 2 and 4 only, so
+    both branches run; gate steps and Sinkhorn iteration counts must be equal,
+    histories within atol 2e-4 (particles of magnitude ~130)."""
+    cfg = dict(SLICE, ess_threshold=0.97)
+    je = JaxDPF(JaxConfig(**cfg))
+    variables = je.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    imgs = rng.random((B, T, 128, 128, 3), dtype=np.float32)
+    start = (rng.standard_normal((B, 4)) * 10).astype(np.float32)
+    vel = (rng.standard_normal((B, T, 2)) * 2).astype(np.float32)
+    enc, _ = je.encode(variables, jnp.asarray(imgs.reshape(B * T, 128, 128, 3)),
+                       train=False)
+    enc = enc.reshape(B, T, -1)
+    key = jax.random.PRNGKey(100)
+    ref = je.filter_from_encodings(variables, enc, jnp.asarray(start),
+                                   jnp.asarray(vel), key, train=True)
+
+    pe = DPF(DPFConfig(**cfg), device="cpu")
+    load_jax_variables(pe, _np_tree(variables))
+    with torch.no_grad():
+        out = pe.filter_from_encodings(torch.tensor(np.asarray(enc)),
+                                       torch.from_numpy(start), torch.from_numpy(vel),
+                                       _jax_filter_noise(key))
+    np.testing.assert_array_equal(out.resampled.numpy(), np.asarray(ref.resampled))
+    assert out.resampled.any() and not out.resampled.all()
+    np.testing.assert_array_equal(out.sinkhorn_iters.numpy(),
+                                  np.asarray(ref.sinkhorn_iters))
+    np.testing.assert_array_equal(out.indices.numpy(), np.asarray(ref.indices))
+    for field, atol in (("particles", 2e-4), ("weights", 1e-6), ("noise", 1e-4),
+                        ("likelihoods", 1e-5), ("jacobians", 0), ("priors", 1e-5),
+                        ("init_weights_log", 1e-6), ("obs_likelihood", 1e-5)):
+        np.testing.assert_allclose(getattr(out, field).numpy(),
+                                   np.asarray(getattr(ref, field)),
+                                   rtol=1e-5, atol=atol, err_msg=field)
+
+
+UNSUPPORTED = {
+    "nf_dyn": dict(nf_dyn=True),
+    "nf_cond": dict(nf_cond=True),
+    "measurement_NN": dict(measurement="NN"),
+    "measurement_CGLOW": dict(measurement="CGLOW"),
+    "soft_resampler": dict(resampler_type="soft"),
+    "dense_ot": dict(use_pallas=False),
+    "ot_transport_grad": dict(ot_transport_grad=True),
+    "warm_start": dict(sinkhorn_warm_start=True),
+    "encode_per_step": dict(encode_per_step=True),
+    "remat": dict(remat_scan_step=True),
+    "bf16": dict(compute_dtype="bfloat16"),
+    "sdpf": dict(train_type="SDPF"),
+    "torch_init": dict(torch_init=True),
+    "mesh": dict(mesh_data=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
+def test_unported_settings_raise(case):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+        DPF(DPFConfig(**dict(SLICE, **UNSUPPORTED[case])), device="cpu")
