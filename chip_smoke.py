@@ -5,18 +5,27 @@
 
 Phases, one line of output each, then the device line last:
 
-1. setup: the card's name and power limit (nvidia-smi), the kernels' build;
+1. setup: the card's name and power limit (nvidia-smi), the kernels' build
+   (one nvcc process per source, started together);
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the main path's shape (B=32, N=M=100) and a ragged one (B=4,
-   N=M=4097), with its time, the plain version's time, the time of one
-   PyTorch library call where one computes the same function, and the
-   least time the card could take (bound);
-3. slice: the bootstrap-DPF training step at full width (B=32, N=100, T=50,
-   128×128×3 frames, OT resampling on the streaming-Sinkhorn kernels):
+   at the main path's shapes and a ragged large one, with its time, the
+   plain version's time, the time of one PyTorch library call where one
+   computes the same function, and the least time the card could take
+   (bound).  The streaming-Sinkhorn kernels at (B=32, N=M=100) and (B=4,
+   N=M=4097); the coupling-chain kernels (forward K4, backward K5) in both
+   directions at (B=32, N=100) with the dynamics flow's context (4 wide)
+   and the proposal flow's (36 wide), each one row per batch element
+   broadcast over the particles as the filter passes it, and at (B=4,
+   N=4097) with a dense 36-wide context and with none; beside them the
+   time of the same call through the ``FlowChain`` module;
+3. slices, each at full width (B=32, N=100, T=50, 128×128×3 frames, OT
+   resampling on the streaming-Sinkhorn kernels, every step resampled):
    3 train steps and 1 eval step, the launch counts of each kernel over
-   them, step time, transitions/s, peak memory, device syncs per step;
-4. parity: one loss + gradient on the kernels (cuda) and on the plain
-   versions (cpu) from the same parameters and noise;
+   them (set to 0 just before, read just after), step time, transitions/s,
+   peak memory, device syncs per step.  First the bootstrap DPF, then the
+   CNF-DPF (RealNVP dynamics and proposal on the fused coupling kernels);
+4. parity, for both slices: one loss + gradient on the kernels (cuda) and
+   on the plain versions (cpu) from the same parameters and noise;
 5. the ``kernels`` JSON line.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
@@ -47,18 +56,32 @@ H100_FP32_OPS_PER_S = 67e12    # fp32 outside the tensor cores, H100 SXM data sh
 SLICE = dict(num_particles=100, sequence_length=50, batch_size=32, width=128,
              resampler_type="ot", measurement="cos", train_type="DPF",
              use_pallas=True, compute_dtype="float32", ess_threshold=1.01)
-# the kernels of the path → the TPU kernel each replaces.  K2's backward
-# (Tᵀg, the same kernel with rows and columns swapped) is checked and timed
-# in phase 2 but is not on this slice's path: the bootstrap DPF's particles
-# carry no gradient (they come from noise and teacher-forced velocities),
-# so autograd never asks for it.
+# the CNF-DPF slice: the same with both RealNVP flows on the fused coupling
+# kernels.  Per time step: dynamics chain inverse, proposal chain inverse,
+# dynamics chain forward; the particles now depend on the flows' parameters,
+# so the backward runs the coupling backward kernel three times per step and
+# the transport's backward (Tᵀg) once.
+CNF_SLICE = dict(SLICE, nf_dyn=True, nf_cond=True, pallas_coupling=True)
+# the kernels → source and the TPU kernel each replaces
+SINKHORN_CU = "nfdpf_torch/ops/cuda/csrc/sinkhorn.cu"
+COUPLING_CU = "nfdpf_torch/ops/cuda/csrc/coupling.cu"
 KERNELS = {
-    "sinkhorn_lse": "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:78",
-    "transport_apply": "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:180",
+    "sinkhorn_lse": (SINKHORN_CU, "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:78"),
+    "transport_apply": (SINKHORN_CU, "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:180"),
+    "coupling_chain": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:100"),
+    "coupling_chain_bwd": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
 }
-KERNEL_SOURCE = "nfdpf_torch/ops/cuda/csrc/sinkhorn.cu"
+# launch counters that must be non-zero after a slice's train steps / eval step.
+# The bootstrap DPF's particles carry no gradient (noise and teacher-forced
+# velocities), so autograd never asks for the transport's backward there.
+BOOTSTRAP_TRAIN = BOOTSTRAP_EVAL = ("sinkhorn_lse", "transport_apply")
+CNF_EVAL = BOOTSTRAP_EVAL + ("coupling_chain", "coupling_chain_inverse")
+CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd")
 LSE_TOL = 1e-5     # K1: |err| <= tol + tol·|ref|
 APPLY_TOL = 1e-4   # K2: |err| <= tol·|ref| + tol·max|ref|
+CHAIN_TOL = 1e-5   # K4: |err| <= tol + tol·|ref| (outputs of magnitude ~1-10)
+CHAIN_GRAD_TOL = 1e-4   # K5: |err| <= tol·|ref| + tol·max|ref| per gradient; the weight
+                        # gradients sum over all rows in another order than autograd
 
 
 def log(obj) -> None:
@@ -112,20 +135,22 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_setup():
+def phase_setup(hidden: int):
     from nfdpf_torch.ops.cuda import build    # fails first when the port is absent
+    from nfdpf_torch.ops.cuda.coupling_cuda import build_defines
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    build.build("sinkhorn")
-    info = build.build_log["sinkhorn"]
-    ptxas = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln]
+    build.build_all([("sinkhorn", ()), ("coupling", build_defines(hidden))])
+    builds = {label: {"nvcc_s": info["seconds"],
+                      "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
+                                if "registers" in ln or "spill" in ln]}
+              for label, info in build.build_log.items()}
     log({"phase": "setup", "card": smi, "torch": torch.__version__,
-         "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
-         "nvcc_s": info["seconds"], "ptxas": ptxas})
+         "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0, "builds": builds})
     return smi
 
 
@@ -231,6 +256,155 @@ def phase_kernels():
     return results
 
 
+def chain_ops(rows: int, ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int) -> float:
+    """fp32 operations one chain pass needs: per row and MLP the products of
+    layers 0 (the half's column), 1 and 2 (multiply and add counted apart),
+    the bias adds and 2·H tanh (one each); per row and block four MLPs, two
+    exp and six more for the affine updates.  The context's share of layer 0
+    (2·H·C per MLP) is needed once per distinct context row: a context that
+    is one row per batch element broadcast over the particles needs it B
+    times, plus one add per hidden unit and row to bring it in."""
+    h = hidden
+    mlp_row = 2 * h + 2 * h * h + 2 * h + 2 * h + 1 + 2 * h
+    if ctx_dim and ctx_rows != rows:
+        mlp_row += h
+    per_row = float(rows) * n_blocks * (4 * mlp_row + 8)
+    return per_row + float(ctx_rows) * n_blocks * 4 * 2 * h * ctx_dim
+
+
+def phase_chain_kernels(n_blocks: int, hidden: int):
+    """K4 (forward kernel) and K5 (backward kernel) of the coupling chain,
+    through the wrapper the filter calls, against the plain version and its
+    autograd, both directions."""
+    from nfdpf_torch.models.nets import flax_init_
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+    from nfdpf_torch.ops.flows import realnvp_chain
+
+    dev = torch.device("cuda")
+    results = {}
+    # (B, N, C, context broadcast over the particles as the filter passes it, timing iterations)
+    for b, n, c, broadcast, iters in ((32, 100, 4, True, 200), (32, 100, 36, True, 200),
+                                      (4, 4097, 36, False, 20), (4, 4097, 0, False, 20)):
+        gen = torch.Generator().manual_seed(1000 * b + n + c)
+        chain = realnvp_chain(n_blocks, 2, hidden, 0.3, ctx_dim=c)
+        flax_init_(chain, gen)                      # weights N(0, 0.3²): a flow far from identity
+        for name, p in chain.named_parameters():
+            if name.endswith("bias"):
+                p.data.normal_(0.0, 0.1, generator=gen)
+        chain.to(dev)
+        x = torch.randn(b, n, 2, generator=gen).to(dev)
+        ctx = None
+        if c:
+            ctx = torch.randn(b, 1 if broadcast else n, c, generator=gen).to(dev).expand(b, n, c)
+        gy = torch.randn(b, n, 2, generator=gen).to(dev)
+        gld = torch.randn(b, n, generator=gen).to(dev)
+        # the same cotangent as a strided view: the wrapper must take it as it comes
+        gy_wide = torch.zeros(b, n, 4, device=dev)
+        gy_wide[..., ::2] = gy
+        gy_strided = gy_wide[..., ::2]
+        with torch.no_grad():
+            w, bias = (t.contiguous() for t in cc.pack_chain_params(chain))
+        rows, f4 = b * n, 4.0
+        ctx_rows = b if broadcast else rows
+        params_bytes = f4 * (w.numel() + bias.numel())
+        ctx_bytes = f4 * c * ctx_rows
+        ops_fwd = chain_ops(rows, ctx_rows, n_blocks, c, hidden)
+
+        for inverse in (False, True):
+            case = f"B{b}_N{n}_C{c}_{'inverse' if inverse else 'forward'}"
+
+            def module_fwd():
+                return chain.inverse(x, ctx) if inverse else chain(x, ctx)[::2]
+
+            def fwd_bwd(fn, want_ctx, cot_y=gy, with_ld=True):
+                """(y, log_det, gradients of x, w, bias[, ctx]) through ``fn``
+                and ordinary autograd, for the cotangents (cot_y, gld) or,
+                without ``with_ld``, for y alone (log_det unused)."""
+                leaves = [t.detach().clone().requires_grad_() for t in (x, w, bias)]
+                c_leaf = ctx.detach().clone().requires_grad_() if want_ctx else ctx
+                y, ld = fn(leaves[0], c_leaf, leaves[1], leaves[2], inverse)
+                wanted = leaves + ([c_leaf] if want_ctx else [])
+                if with_ld:
+                    grads = torch.autograd.grad([y, ld], wanted, [cot_y, gld])
+                else:
+                    grads = torch.autograd.grad(y, wanted, cot_y)
+                return y.detach(), ld.detach(), grads
+
+            def module_fwd_bwd():
+                y, ld = module_fwd()
+                return torch.autograd.grad([y, ld], list(chain.parameters()), [gy, gld])
+
+            # ---- K4 and K5 through fused_coupling_chain and its autograd
+            # Function: every gradient, the context's too, from a strided
+            # cotangent; then as the filter calls it (a detached context asks
+            # for no gradient); then with log_det unused (its cotangent
+            # arrives as zeros)
+            want_ctx = ctx is not None
+            cc.reset_launches()
+            y, ld, grads = fwd_bwd(cc.fused_coupling_chain, want_ctx, gy_strided)
+            _, _, grads_no_ctx = fwd_bwd(cc.fused_coupling_chain, False)
+            _, _, grads_y_only = fwd_bwd(cc.fused_coupling_chain, want_ctx, with_ld=False)
+            torch.cuda.synchronize()
+            counts = dict(cc.LAUNCHES)
+            fwd_name = "coupling_chain_inverse" if inverse else "coupling_chain"
+            if counts[fwd_name] != 3 or counts["coupling_chain_bwd"] != 3:
+                raise AssertionError(f"chain@{case}: the wrapper launched {counts}, "
+                                     "expected 3 forward and 3 backward kernels")
+            y_ref, ld_ref, refs = fwd_bwd(cc.chain_apply_packed_plain, want_ctx)
+            _, _, refs_y_only = fwd_bwd(cc.chain_apply_packed_plain, want_ctx, with_ld=False)
+            with torch.no_grad():
+                y_mod, ld_mod = module_fwd()
+            torch.cuda.synchronize()
+            errs = [check(f"chain_fwd.{k}@{case}", got, ref, ("lse", CHAIN_TOL))
+                    for k, got, ref in (("y", y, y_ref), ("ld", ld, ld_ref),
+                                        ("y_module", y, y_mod), ("ld_module", ld, ld_mod))]
+            bound, by = bound_ms(f4 * rows * (2 + 2 + 1) + ctx_bytes + params_bytes, ops_fwd)
+            with torch.no_grad():
+                results.setdefault("coupling_chain", {})[case] = {
+                    "max_abs_err": max(e[0] for e in errs), "tol": CHAIN_TOL,
+                    "ms": device_ms(lambda: cc._launch_forward(x, ctx, w, bias, inverse), iters),
+                    "call_ms": call_ms(lambda: cc._launch_forward(x, ctx, w, bias, inverse),
+                                       iters),
+                    "plain_ms": device_ms(
+                        lambda: cc.chain_apply_packed_plain(x, ctx, w, bias, inverse), iters),
+                    "module_ms": device_ms(module_fwd, iters),
+                    "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+            names = ["gx", "gw", "gb"] + (["gctx"] if want_ctx else [])
+            errs = {k: check(f"chain_bwd.{k}@{case}", got, ref, ("apply", CHAIN_GRAD_TOL))
+                    for k, got, ref in zip(names, grads, refs)}
+            errs_y_only = [check(f"chain_bwd.{k}(log_det unused)@{case}", got, ref,
+                                 ("apply", CHAIN_GRAD_TOL))
+                           for k, got, ref in zip(names, grads_y_only, refs_y_only)]
+            if not all(torch.equal(a, g) for a, g in zip(grads_no_ctx, grads)):
+                raise AssertionError(f"chain_bwd@{case}: a second launch gave other bits")
+            bound, by = bound_ms(f4 * rows * (2 + 2 + 1 + 2) + ctx_bytes + 2 * params_bytes,
+                                 3 * ops_fwd)
+            results.setdefault("coupling_chain_bwd", {})[case] = {
+                "max_abs_err": max(e[0] for e in list(errs.values()) + errs_y_only),
+                "max_rel_err": {k: e[1] for k, e in errs.items()}, "tol": CHAIN_GRAD_TOL,
+                "ms": device_ms(
+                    lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False), iters),
+                "call_ms": call_ms(
+                    lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False), iters),
+                # the plain version's forward and autograd backward, eager calls
+                "plain_ms": call_ms(lambda: fwd_bwd(cc.chain_apply_packed_plain, False),
+                                    max(iters // 4, 3)),
+                "kernels_fwd_bwd_ms": call_ms(lambda: fwd_bwd(cc.fused_coupling_chain, False),
+                                              max(iters // 4, 3)),
+                "module_fwd_bwd_ms": call_ms(module_fwd_bwd, max(iters // 4, 3)),
+                "library_ms": None, "bound_ms": bound, "bound_by": by}
+        del chain, x, ctx, gy, gld, gy_wide, gy_strided, w, bias
+        torch.cuda.empty_cache()
+    log({"phase": "chain_kernels", "results": results,
+         "note": "checked through fused_coupling_chain and its autograd Function; no single "
+                 "PyTorch call computes a coupling chain: library_ms null; module_ms is the "
+                 "same call through the FlowChain module; plain_ms, kernels_fwd_bwd_ms and "
+                 "module_fwd_bwd_ms of the backward are eager forward + autograd calls (CUDA "
+                 "events), the other times CUDA-graph replays of the kernel's launcher"})
+    return results
+
+
 def synthetic_batch(cfg, device, seed):
     """bench.py's synthetic batch (uniform frames, N(0, 10²) states), from a seed."""
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -252,18 +426,35 @@ def count_syncs(fn):
     return result, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_slice(profile: bool):
-    from nfdpf_torch import DPFConfig
+def launch_counts():
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
     from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+
+    return {**sc.LAUNCHES, **cc.LAUNCHES}
+
+
+def reset_launch_counts():
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+
+    sc.reset_launches()
+    cc.reset_launches()
+
+
+def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile: bool):
+    """3 train steps and 1 eval step of one configuration through
+    ``Trainer``; the launch counters are set to 0 just before each part and
+    read just after; every counter named must have moved."""
+    from nfdpf_torch import DPFConfig
     from nfdpf_torch.train import Trainer
 
-    cfg = DPFConfig(**SLICE)
+    cfg = DPFConfig(**settings)
     trainer = Trainer(cfg)                           # on cuda: no device given
     batch = synthetic_batch(cfg, trainer.device, seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    sc.reset_launches()
+    reset_launch_counts()
     steps = []
     for i in range(3):
         t0 = time.perf_counter()
@@ -275,19 +466,19 @@ def phase_slice(profile: bool):
         torch.cuda.synchronize()
         steps.append({"s": time.perf_counter() - t0,
                       **{k: float(v) for k, v in metrics.items()}})
-    train_launches = dict(sc.LAUNCHES)
+    train_launches = launch_counts()
 
-    sc.reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     ev, aux = trainer.eval_step(batch, generator=trainer.generator(20))
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    eval_launches = dict(sc.LAUNCHES)
+    eval_launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     median_s = statistics.median(s["s"] for s in steps)
     transitions = cfg.batch_size * cfg.num_particles * cfg.sequence_length
-    row = {"phase": "slice", "config": SLICE, "step_s": [s["s"] for s in steps],
+    row = {"phase": name, "config": settings, "step_s": [s["s"] for s in steps],
            "median_step_ms": median_s * 1e3,
            "transitions_per_s": transitions / median_s,
            "losses": [s["loss"] for s in steps], "eval_loss": float(ev["loss"]),
@@ -309,18 +500,24 @@ def phase_slice(profile: bool):
 
     for s in steps:
         if not all(math.isfinite(s[k]) for k in ("loss", "loss_sup", "loss_ae")):
-            raise AssertionError(f"non-finite training loss: {s}")
+            raise AssertionError(f"{name}: non-finite training loss: {s}")
         if s["resample_count"] <= 0:
-            raise AssertionError("the ESS gate never fired: the kernels were not on the path")
+            raise AssertionError(f"{name}: the ESS gate never fired")
     if not math.isfinite(float(ev["loss"])):
-        raise AssertionError(f"non-finite eval loss: {ev}")
+        raise AssertionError(f"{name}: non-finite eval loss: {ev}")
     out = aux["filter_out"]
-    if out.particles.shape != (cfg.batch_size, cfg.sequence_length, cfg.num_particles, 2):
-        raise AssertionError(f"particle history shape {tuple(out.particles.shape)}")
-    for launches in (train_launches, eval_launches):
-        for name in KERNELS:
-            if launches[name] <= 0:
-                raise AssertionError(f"kernel {name} was not launched on the main path")
+    want = (cfg.batch_size, cfg.sequence_length, cfg.num_particles)
+    if out.particles.shape != want + (2,) or out.jacobians.shape != want:
+        raise AssertionError(f"{name}: history shapes {tuple(out.particles.shape)}, "
+                             f"{tuple(out.jacobians.shape)}")
+    if not bool(torch.isfinite(out.particles).all() and torch.isfinite(out.weights).all()):
+        raise AssertionError(f"{name}: non-finite particles or weights in the eval step")
+    if cfg.nf_dyn and float(out.jacobians.abs().max()) == 0.0:
+        raise AssertionError(f"{name}: the dynamics flow left no jacobian")
+    for launches, kernels in ((train_launches, train_kernels), (eval_launches, eval_kernels)):
+        for kernel in kernels:
+            if launches[kernel] <= 0:
+                raise AssertionError(f"{name}: kernel {kernel} was not launched on the path")
     return row
 
 
@@ -341,9 +538,13 @@ def profile_step(trainer, batch):
             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    groups = {"lse_kernel": 0.0, "apply_kernel": 0.0, "conv (cudnn)": 0.0, "other": 0.0}
+    ours = ("lse_kernel", "apply_kernel", "chain_fwd_kernel", "chain_bwd_kernel")
+    groups = {**{k: 0.0 for k in ours}, "conv (cudnn)": 0.0, "other": 0.0}
+    counts = {k: 0 for k in ours}
     for r in rows:
-        key = next((k for k in ("lse_kernel", "apply_kernel") if k in r["name"]), None)
+        key = next((k for k in ours if k in r["name"]), None)
+        if key is not None:
+            counts[key] += r["count"]
         if key is None:
             key = "conv (cudnn)" if any(w in r["name"] for w in
                                         ("cudnn", "xmma", "grad_alg", "dgrad", "wgrad",
@@ -352,16 +553,19 @@ def profile_step(trainer, batch):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
             "launches": sum(r["count"] for r in rows), "by_group_ms": groups,
+            "launches_by_kernel": counts,
             "top": rows[:25]}
 
 
-def phase_parity():
+def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
     """One loss + backward from the same parameters and noise on the kernels
-    (cuda) and on the plain versions (cpu): B=4, T=10, N=100."""
+    (cuda) and on the plain versions (cpu): B=4, T=10, N=100.  ``flow_scale``
+    multiplies the flows' initial N(0, 0.01²) weights on both sides, so the
+    flows are not near the identity."""
     from nfdpf_torch import DPFConfig
     from nfdpf_torch.train import Trainer
 
-    cfg = DPFConfig(**dict(SLICE, batch_size=4, sequence_length=10))
+    cfg = DPFConfig(**dict(settings, batch_size=4, sequence_length=10))
     b, t, n = cfg.batch_size, cfg.sequence_length, cfg.num_particles
     gen = torch.Generator().manual_seed(3)
     batch = synthetic_batch(cfg, "cpu", seed=4)
@@ -371,30 +575,48 @@ def phase_parity():
     runs = {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, device=device)         # same seed: same parameters
+        with torch.no_grad():
+            for chain in (trainer.engine.nf_dyn, trainer.engine.cond_model):
+                for p in chain.parameters():
+                    p.mul_(flow_scale)
         dev_noise = {k: v.to(device) for k, v in noise.items()}
+        reset_launch_counts()
         loss, aux = trainer._loss({k: v.to(device) for k, v in batch.items()}, True,
                                   dev_noise)
         loss.backward()
         runs[device] = {
             "loss": loss.item(), "resampled": aux["filter_out"].resampled.tolist(),
             "iters": aux["filter_out"].sinkhorn_iters.tolist(),
-            "grads": {k: p.grad.detach().cpu() for k, p in trainer.engine.named_parameters()}}
+            "launches": launch_counts(),
+            "grads": {k: p.grad.detach().cpu() for k, p in trainer.engine.named_parameters()
+                      if p.grad is not None}}
     gpu, cpu = runs["cuda"], runs["cpu"]
+    if any(cpu["launches"].values()):
+        raise AssertionError(f"{name}: the CPU run launched kernels: {cpu['launches']}")
     if gpu["resampled"] != cpu["resampled"] or gpu["iters"] != cpu["iters"]:
-        raise AssertionError(f"gate/iterations differ: cuda {gpu['iters']} cpu {cpu['iters']}")
+        raise AssertionError(f"{name}: gate/iterations differ: cuda {gpu['iters']} "
+                             f"cpu {cpu['iters']}")
+    if set(gpu["grads"]) != set(cpu["grads"]):
+        raise AssertionError(f"{name}: cuda and cpu give gradients to different parameters")
+    for chain, used in (("nf_dyn", cfg.nf_dyn), ("cond_model", cfg.nf_cond)):
+        norm = sum(float(g.abs().sum()) for k, g in cpu["grads"].items() if k.startswith(chain))
+        if used and not norm > 0:
+            raise AssertionError(f"{name}: no gradient reached {chain}")
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
     worst = {}
-    for name, g_cpu in cpu["grads"].items():
-        rel = float((gpu["grads"][name] - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
-        bound = 1e-2 if name.startswith("decoder.") else 1e-3
+    for pname, g_cpu in cpu["grads"].items():
+        rel = float((gpu["grads"][pname] - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        bound = 1e-2 if pname.startswith("decoder.") else 1e-3
         if not rel <= bound:
-            raise AssertionError(f"gradient {name}: cuda vs cpu rel err {rel:.2e} > {bound}")
-        worst[name.split(".")[0]] = max(worst.get(name.split(".")[0], 0.0), rel)
+            raise AssertionError(f"{name}: gradient {pname}: cuda vs cpu rel err {rel:.2e} "
+                                 f"> {bound}")
+        worst[pname.split(".")[0]] = max(worst.get(pname.split(".")[0], 0.0), rel)
     if not loss_rel <= 1e-4:
-        raise AssertionError(f"loss cuda {gpu['loss']} vs cpu {cpu['loss']}")
-    log({"phase": "parity", "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
+        raise AssertionError(f"{name}: loss cuda {gpu['loss']} vs cpu {cpu['loss']}")
+    log({"phase": name, "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
          "loss_rel_err": loss_rel, "loss_tol": 1e-4, "grad_rel_err_max": worst,
-         "grad_tol": {"decoder": 1e-2, "other": 1e-3}, "iters": gpu["iters"]})
+         "grad_tol": {"decoder": 1e-2, "other": 1e-3}, "flow_scale": flow_scale,
+         "iters": gpu["iters"], "launches_cuda": gpu["launches"]})
 
 
 def main() -> int:
@@ -410,26 +632,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_setup()
-    kernels = phase_kernels()
-    sl = phase_slice(args.profile)
-    phase_parity()
+    from nfdpf_torch import DPFConfig
 
-    main_shape = "B32_N100"
+    cnf = DPFConfig(**CNF_SLICE)
+    card = phase_setup(cnf.flow_hidden_dim)
+    kernels = phase_kernels()
+    kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
+    boot = phase_slice("slice", SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL, args.profile)
+    sl = phase_slice("slice_cnf", CNF_SLICE, CNF_TRAIN, CNF_EVAL, args.profile)
+    phase_parity("parity", SLICE)
+    phase_parity("parity_cnf", CNF_SLICE, flow_scale=10.0)
+
+    # each kernel's numbers at the shape and direction the CNF-DPF slice runs
+    # it most heavily; its launches over that slice's 3 train steps (the
+    # forward coupling kernel's: both directions together)
+    at = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100",
+          "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse"}
+    counts = dict(sl["launches_train_3_steps"])
+    counts["coupling_chain"] += counts["coupling_chain_inverse"]
     line = []
-    for name, replaces in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         # K1's entry covers both of its instantiations (G=2 timed, G=1 checked)
         cases = [kernels[name]] + ([kernels["sinkhorn_lse_g1"]] if name == "sinkhorn_lse" else [])
         worst = max(c[s]["max_abs_err"] for c in cases for s in c)
-        m = kernels[name][main_shape]
-        line.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                     "replaces": replaces,
-                     "launches": sl["launches_train_3_steps"][name], "max_abs_err": worst,
-                     "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                     "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+        m = kernels[name][at[name]]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": counts[name], "max_abs_err": worst,
+                 "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                 "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": at[name]}
+        if name == "transport_apply":
+            entry["launches_backward"] = counts["transport_apply_bwd"]
+        if name in BOOTSTRAP_TRAIN:
+            entry["launches_bootstrap_slice"] = boot["launches_train_3_steps"][name]
+        line.append(entry)
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "kernels": kernels, "slice": sl}, fh, indent=1)
+            json.dump({"card": card, "kernels": kernels, "slice": boot, "slice_cnf": sl},
+                      fh, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,8 +2,10 @@
 
 ``variables`` is the JAX engine's pytree (``DPF.init`` there) as nested
 dicts of numpy arrays: ``{"encoder": {"params": .., "batch_stats": ..},
-"decoder": {..}, "measurement": {"params": ..}, ...}``.  The flow
-subtrees (``nf_dyn``, ``cond_model``) are skipped: the port has no flows yet.
+"decoder": {..}, "nf_dyn": {"params": ..}, "cond_model": {"params": ..},
+"measurement": {"params": ..}}``.  All five subtrees must be present: the
+engine owns both flow chains whatever ``nf_dyn`` / ``nf_cond`` say, as the
+JAX engine does.
 
 Mapping rules:
 
@@ -15,7 +17,11 @@ Mapping rules:
   ``ConvTranspose2d(k=4, s=2, p=1)`` only with the kernel flipped in both
   spatial axes: (kh, kw, in, out) → flip → (in, out, kh, kw);
 * BatchNorm scale/bias → weight/bias, batch_stats mean/var → running
-  mean/var.
+  mean/var;
+* the RealNVP chains ``nf_dyn`` and ``cond_model``:
+  ``params/flows_{k}/{t1,s1,t2,s2}/Dense_{i}/{kernel,bias}`` →
+  ``{chain}.flows.{k}.{t1,s1,t2,s2}.fc{i+1}.{weight,bias}``, kernels
+  transposed like every Dense.
 
 Every map is a permutation of entries, so ``torch_state_from_jax`` also
 carries gradient pytrees (``params`` only) into the port's parameter names.
@@ -41,6 +47,10 @@ def _dense_w(k):
     return np.transpose(k)
 
 
+def _f32(a):
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float32))
+
+
 def _bn(out, prefix, params, stats, i):
     if params is not None:
         out[f"{prefix}.norms.{i}.weight"] = params[f"BatchNorm_{i}"]["scale"]
@@ -48,6 +58,20 @@ def _bn(out, prefix, params, stats, i):
     if stats is not None:
         out[f"{prefix}.norms.{i}.running_mean"] = stats[f"BatchNorm_{i}"]["mean"]
         out[f"{prefix}.norms.{i}.running_var"] = stats[f"BatchNorm_{i}"]["var"]
+
+
+def flow_chain_state_from_jax(chain_variables, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Map one RealNVP ``FlowChain``'s ``{"params": {"flows_{k}": ..}}`` to
+    the port's ``FlowChain`` names, each prefixed with ``prefix``."""
+    out: Dict[str, np.ndarray] = {}
+    blocks = chain_variables["params"]
+    for k in range(len(blocks)):
+        for net, layers in blocks[f"flows_{k}"].items():
+            for i in range(3):
+                name = f"{prefix}flows.{k}.{net}.fc{i + 1}"
+                out[f"{name}.weight"] = _dense_w(layers[f"Dense_{i}"]["kernel"])
+                out[f"{name}.bias"] = layers[f"Dense_{i}"]["bias"]
+    return {k: _f32(v) for k, v in out.items()}
 
 
 def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
@@ -75,11 +99,14 @@ def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
         out["decoder.dense.weight"] = _dense_w(p["Dense_0"]["kernel"])
         out["decoder.dense.bias"] = p["Dense_0"]["bias"]
 
+    for chain in ("nf_dyn", "cond_model"):
+        out.update(flow_chain_state_from_jax(variables[chain], prefix=f"{chain}."))
+
     pe = variables["measurement"]["params"]["particle_encoder"]
     for i in range(3):
         out[f"measurement.particle_encoder.fc{i + 1}.weight"] = _dense_w(pe[f"Dense_{i}"]["kernel"])
         out[f"measurement.particle_encoder.fc{i + 1}.bias"] = pe[f"Dense_{i}"]["bias"]
-    return {k: np.ascontiguousarray(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
+    return {k: _f32(v) for k, v in out.items()}
 
 
 @torch.no_grad()

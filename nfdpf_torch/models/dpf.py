@@ -1,9 +1,16 @@
 """The differentiable particle filter engine.
 
-Counterpart of ``nfdpf_tpu/models/dpf.py``, on the bootstrap DPF's path:
-no flows, the cosine measurement, OT resampling on the streaming-Sinkhorn
-kernels.  As in the JAX package:
+Counterpart of ``nfdpf_tpu/models/dpf.py`` for the bootstrap DPF and the
+CNF-DPF (``nf_dyn`` RealNVP dynamics, ``nf_cond`` RealNVP proposal, each
+alone or together): the cosine measurement, OT resampling on the
+streaming-Sinkhorn kernels.  As in the JAX package:
 
+* the engine owns both flow chains whatever the switches say; an unused
+  chain takes no part in the filter and gets no gradient;
+* with ``pallas_coupling`` (and state dim 2) each used chain is packed once
+  before the time loop and runs through the fused coupling kernels
+  (``ops/cuda/coupling_cuda.py``); otherwise through its ``FlowChain``
+  module;
 * the conv encoder runs ONCE over all B·T frames before the time loop (BN
   statistics over all of them);
 * resampling is gated by the scalar batch-mean ESS — here a Python ``if``
@@ -29,12 +36,14 @@ from nfdpf_torch.config import DPFConfig
 from nfdpf_torch.models.dynamics import motion_update, nf_dynamic_model, proposal_likelihood
 from nfdpf_torch.models.measurement import build_measurement_model
 from nfdpf_torch.models.nets import ObservationDecoder, ObservationEncoder, flax_init_
+from nfdpf_torch.ops.cuda.coupling_cuda import pack_chain_params
 from nfdpf_torch.ops.cuda.sinkhorn_cuda import ot_resample_streaming
 from nfdpf_torch.ops.density import (
     effective_sample_size,
     normalize_log_weights,
     uniform_log_weights,
 )
+from nfdpf_torch.ops.flows import realnvp_chain
 
 
 class FilterOutput(NamedTuple):
@@ -45,7 +54,7 @@ class FilterOutput(NamedTuple):
     noise: torch.Tensor             # (B, T, N, d) motion noise
     likelihoods: torch.Tensor       # (B, T, N) measurement log-lik
     indices: torch.Tensor           # (B, T, N) ancestor indices (int32)
-    jacobians: torch.Tensor         # (B, T, N) dynamics-flow jac (zeros: no flow)
+    jacobians: torch.Tensor         # (B, T, N) dynamics-flow jac (zeros without nf_dyn)
     priors: torch.Tensor            # (B, T, N) prior log terms
     init_weights_log: torch.Tensor  # (B, N)
     obs_likelihood: torch.Tensor    # scalar: Σ_t mean(log w̃_t)
@@ -68,7 +77,6 @@ def check_supported(cfg: DPFConfig) -> None:
     """Raise ``NotImplementedError`` for any setting the port does not run
     yet, naming the ROADMAP (queue 1) item that brings it."""
     todo = [
-        (cfg.nf_dyn or cfg.nf_cond, "NF dynamics / NF proposal (--NF-dyn, --NF-cond)", 11),
         (cfg.resampler_type == "soft", "soft resampling", 10),
         (cfg.resampler_type == "ot" and not cfg.use_pallas,
          "dense OT resampling (use_pallas=False)", 3),
@@ -114,9 +122,11 @@ def particle_initialization(
 
 
 class DPF(nn.Module):
-    """Filter engine and model container: ``encoder``, ``decoder`` and
-    ``measurement`` submodules.  BatchNorm follows the module's train/eval
-    mode.  Runs on ``cuda`` unless ``device`` says otherwise."""
+    """Filter engine and model container: ``encoder``, ``decoder``,
+    ``measurement`` and the two RealNVP chains ``nf_dyn`` (context: particle
+    mean‖std) and ``cond_model`` (context: encoding‖mean‖std).  BatchNorm
+    follows the module's train/eval mode.  Runs on ``cuda`` unless ``device``
+    says otherwise."""
 
     def __init__(self, config: DPFConfig, device=None):
         super().__init__()
@@ -126,12 +136,21 @@ class DPF(nn.Module):
         self.encoder = ObservationEncoder(config.hidden_size)
         self.decoder = ObservationDecoder(config.hidden_size)
         self.measurement = build_measurement_model(config)
+        # registered last: the other modules' initial draws do not depend on
+        # the flows being there
+        stats = 2 * config.state_dim
+        self.nf_dyn = realnvp_chain(config.n_sequence, config.state_dim,
+                                    config.flow_hidden_dim, 0.01, ctx_dim=stats)
+        self.cond_model = realnvp_chain(config.n_sequence, config.state_dim,
+                                        config.flow_hidden_dim, 0.01,
+                                        ctx_dim=stats + config.hidden_size)
         self.init(config.seed)
         self.to(self.device)
 
     def init(self, seed: int) -> None:
         """Re-initialise every parameter and BN statistic from ``seed``
-        (flax's default initialisers, drawn on the CPU)."""
+        (flax's default initialisers, N(0, 0.01²) for the flows' conditioners;
+        drawn on the CPU)."""
         flax_init_(self, torch.Generator().manual_seed(seed))
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
@@ -169,6 +188,15 @@ class DPF(nn.Module):
         idx0 = torch.arange(n, dtype=torch.int32, device=dev).expand(batch, n)
         obs_lik = torch.zeros((), device=dev)
 
+        # the fused coupling path: pack each used chain once, outside the
+        # loop (gradients flow back through the pack)
+        fused_dyn = fused_cond = None
+        if cfg.pallas_coupling and cfg.state_dim == 2:
+            if cfg.nf_dyn:
+                fused_dyn = pack_chain_params(self.nf_dyn)
+            if cfg.nf_cond:
+                fused_cond = pack_chain_params(self.cond_model)
+
         hist = {k: [] for k in ("particles", "weights", "noise", "likelihoods",
                                 "indices", "jacobians", "priors")}
         gates, iters = [], []
@@ -188,10 +216,13 @@ class DPF(nn.Module):
                 particles_r, vel, cfg.pos_noise,
                 None if motion is None else motion[t], generator)
             new_vel = vel_seq[:, t]
-            particles_dyn, jac = nf_dynamic_model(particles_phys)
+            particles_dyn, jac = nf_dynamic_model(
+                self.nf_dyn, particles_phys, use_nf=cfg.nf_dyn, fused=fused_dyn)
             propose, lki_log, prior_log, propose_log = proposal_likelihood(
-                self.measurement, particles_dyn, encodings[:, t], noise_t, jac,
-                cfg.pos_noise, cfg.vel_noise)
+                self.cond_model, self.nf_dyn, self.measurement,
+                particles_dyn, particles_phys, encodings[:, t], noise_t, jac,
+                cfg.nf_dyn, cfg.nf_cond, cfg.pos_noise, cfg.vel_noise,
+                fused_dyn=fused_dyn, fused_cond=fused_cond)
 
             log_w = log_probs_r + lki_log + prior_log - propose_log
             obs_lik = obs_lik + torch.mean(log_w)

@@ -1,9 +1,21 @@
-"""Motion model and the importance-weight bookkeeping of the bootstrap DPF.
+"""Motion model, NF dynamics, NF proposal, and the importance-weight
+bookkeeping that ties them together.
 
-Counterparts of ``nfdpf_tpu/models/dynamics.py:32-39`` (``motion_update``),
-the ``use_nf=False`` branch of ``nf_dynamic_model`` (``:82-83``) and the
-bootstrap branch of ``proposal_likelihood`` (``:177-183``).  The flow
-branches wait for ROADMAP queue 1, item 11.
+Counterpart of ``nfdpf_tpu/models/dynamics.py``.  The flows are the port's
+``FlowChain`` modules; ``fused`` optionally carries a chain's packed
+(weights, biases) and routes it through the fused coupling kernels
+(``ops/cuda/coupling_cuda.py``).
+
+Stop-gradient topology, as in the JAX package:
+
+* the particle mean/std contexts are detached;
+* the observation encodings are detached before they enter the proposal:
+  the gradient reaches the encoder only through the measurement model and
+  the AE loss.
+
+The particle std is the unbiased (N−1) estimator (``torch.std``'s default).
+A context is one row per batch element broadcast over the particles; it is
+returned as an expanded view, not a copy.
 """
 
 from __future__ import annotations
@@ -12,7 +24,11 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from nfdpf_torch.ops.cuda.coupling_cuda import fused_coupling_chain
 from nfdpf_torch.ops.density import log_normal_density
+from nfdpf_torch.ops.flows import FlowChain
+
+Packed = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def motion_update(
@@ -35,25 +51,115 @@ def motion_update(
     return particles + vel[:, None, :] + noise, noise
 
 
-def nf_dynamic_model(particles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dynamics flow switched off: identity and zero jacobian (B, N)."""
-    return particles, torch.zeros(particles.shape[:2], device=particles.device)
+def _particle_stats(particles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Detached per-batch particle mean and unbiased std, (B, 1, d) each."""
+    p = particles.detach()
+    return torch.mean(p, dim=1, keepdim=True), torch.std(p, dim=1, keepdim=True)
+
+
+def _stats_context(particles: torch.Tensor, mean=None, std=None,
+                   lead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Detached mean‖std (of ``particles`` unless given), with ``lead``
+    (B, 1, h) in front when given, broadcast to a per-particle context
+    (B, N, [h +] 2d)."""
+    if mean is None:
+        mean, std = _particle_stats(particles)
+    parts = [mean.detach(), std.detach()]
+    if lead is not None:
+        parts.insert(0, lead)
+    ctx = torch.cat(parts, dim=-1)                            # (B, 1, C)
+    return ctx.expand(particles.shape[0], particles.shape[1], ctx.shape[-1])
+
+
+def nf_dynamic_model(
+    dyn_flow: Optional[FlowChain],
+    particles: torch.Tensor,
+    use_nf: bool,
+    forward: bool = False,
+    mean: Optional[torch.Tensor] = None,
+    std: Optional[torch.Tensor] = None,
+    fused: Packed = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Conditional-)flow refinement of physically propagated particles.
+
+    ``forward=False`` (the filter's path) applies the INVERSE of the dynamics
+    flow; ``forward=True`` is the consistency pass used when inverting
+    proposals.  The context is the detached mean‖std of ``particles``, or
+    the given ``mean``/``std`` (detached here).  Returns (particles', jac)
+    with jac = −log_det, (B, N); with ``use_nf`` off, the identity and zeros.
+    """
+    if not use_nf:
+        return particles, torch.zeros(particles.shape[:2], device=particles.device)
+    ctx = _stats_context(particles, mean, std)
+    if fused is not None:
+        out, log_det = fused_coupling_chain(particles, ctx, fused[0], fused[1], not forward)
+    elif forward:
+        out, _, log_det = dyn_flow.forward(particles, ctx)
+    else:
+        out, log_det = dyn_flow.inverse(particles, ctx)
+    return out, -log_det
+
+
+def normalising_flow_propose(
+    cond_flow: Optional[FlowChain],
+    particles_pred: torch.Tensor,
+    obs_encoding: torch.Tensor,
+    fused: Packed = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conditional-NF proposal: the inverse of the proposal flow with the
+    per-particle context obs encoding ‖ detached particle mean ‖ std.
+    Returns (proposed, jac = −log_det)."""
+    ctx = _stats_context(particles_pred, lead=obs_encoding[:, None, :])
+    if fused is not None:
+        out, log_det = fused_coupling_chain(particles_pred, ctx, fused[0], fused[1], True)
+    else:
+        out, log_det = cond_flow.inverse(particles_pred, ctx)
+    return out, -log_det
 
 
 def proposal_likelihood(
+    cond_flow: Optional[FlowChain],
+    dyn_flow: Optional[FlowChain],
     measurement_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     particles_dynamic: torch.Tensor,
+    particles_physical: torch.Tensor,
     encodings: torch.Tensor,
     noise: torch.Tensor,
     jac_dynamic: torch.Tensor,
+    use_nf: bool,
+    use_nf_cond: bool,
     pos_noise: float,
     vel_noise: float,
+    fused_dyn: Packed = None,
+    fused_cond: Packed = None,
 ):
-    """Bootstrap weight bookkeeping: prior == proposal, so the filter's
-    ``log w += lki + prior − propose`` reduces to ``log w += lki``.
+    """Central importance-weight bookkeeping.
 
-    Returns (proposed_particles, lki_log, prior_log, propose_log).
+    Returns (proposed_particles, lki_log, prior_log, propose_log) so the
+    filter can update ``log w += lki + prior − propose``.  With the proposal
+    flow off, prior == propose and the update reduces to the bootstrap
+    ``log w += lki``.
     """
-    prior_log = log_normal_density(noise, pos_noise, vel_noise) + jac_dynamic
-    lki_log = measurement_fn(encodings, particles_dynamic)
-    return particles_dynamic, lki_log, prior_log, prior_log
+    def density(x):
+        return log_normal_density(x, pos_noise, vel_noise)
+
+    if use_nf_cond:
+        propose, jac_prop = normalising_flow_propose(
+            cond_flow, particles_dynamic, encodings.detach(), fused=fused_cond)
+        if use_nf:
+            phys_mean, phys_std = _particle_stats(particles_physical)
+            prop_dyn_inv, jac_prop_dyn_inv = nf_dynamic_model(
+                dyn_flow, propose, use_nf=True, forward=True,
+                mean=phys_mean, std=phys_std, fused=fused_dyn)
+            prior_log = (density(prop_dyn_inv - (particles_physical - noise))
+                         - jac_prop_dyn_inv)
+        else:
+            prior_log = density(propose - (particles_physical - noise))
+        propose_log = density(noise) + jac_dynamic + jac_prop
+    else:
+        propose = particles_dynamic
+        prior_log = density(noise) + jac_dynamic
+        propose_log = prior_log
+
+    lki_log = measurement_fn(encodings, propose)
+    return propose, lki_log, prior_log, propose_log

@@ -117,20 +117,26 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Re-initialise ``module`` with flax's defaults, as the JAX package does:
     lecun-normal kernels (normal with variance 1/fan_in, truncated at two
     standard deviations), zero biases, BatchNorm scale 1 / bias 0 and
-    running statistics 0 / 1.  ``generator`` must live on the CPU; the draws
-    are copied to the parameters' device."""
+    running statistics 0 / 1.  A ``Linear`` that carries an ``init_std`` (the
+    flows' conditioners) draws N(0, init_std²) instead.  ``generator`` must
+    live on the CPU; the draws are copied to the parameters' device, in the
+    order the modules were registered."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
-            if isinstance(m, nn.Linear):
-                fan_in = w.shape[1]
-            else:  # flax counts the kernel's input channels for both convs
-                in_ch = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
-                fan_in = in_ch * w.shape[2] * w.shape[3]
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             draw = torch.empty(w.shape)
-            nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
+            init_std = getattr(m, "init_std", None)
+            if init_std is not None:
+                draw.normal_(0.0, init_std, generator=generator)
+            else:
+                if isinstance(m, nn.Linear):
+                    fan_in = w.shape[1]
+                else:  # flax counts the kernel's input channels for both convs
+                    in_ch = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
+                    fan_in = in_ch * w.shape[2] * w.shape[3]
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
             w.copy_(draw)
             if m.bias is not None:
                 m.bias.zero_()

@@ -3,7 +3,9 @@
 Each source under ``csrc/`` is compiled at first use into a shared library
 with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -shared -Xcompiler -fPIC``), named by a hash of its text and flags so an
-edited source is rebuilt.  The libraries live in ``_build/`` beside this file
+edited source is rebuilt.  A source may be built several times with
+different ``-D`` defines (a kernel's compile-time width); each build is a
+library of its own.  The libraries live in ``_build/`` beside this file
 (listed in ``.gitignore``).  A missing ``nvcc`` or a failed build raises.
 """
 
@@ -16,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -24,8 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, dict] = {}   # source name → {"seconds", "ptxas", "path"}
+_loaded: dict[tuple, ctypes.CDLL] = {}
+build_log: dict[str, dict] = {}   # build label → {"seconds", "ptxas", "path"}
 
 
 def find_nvcc() -> str:
@@ -42,41 +45,54 @@ def find_nvcc() -> str:
         "kernels of nfdpf_torch are built from source at first use")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (if not built yet) and return the library path."""
+def build(name: str, defines: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``-D<define>`` for each of ``defines``
+    (if not built yet) and return the library path.  The build is logged
+    under ``name`` followed by its defines."""
     src = CSRC / f"{name}.cu"
     text = src.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    label = " ".join((name,) + tuple(defines))
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
-        build_log.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": str(lib)})
+        build_log.setdefault(label, {"seconds": 0.0, "ptxas": "", "path": str(lib)})
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)   # atomic: concurrent builders never load a half file
-    build_log[name] = {"seconds": time.perf_counter() - t0,
+    build_log[label] = {"seconds": time.perf_counter() - t0,
                        "ptxas": proc.stderr, "path": str(lib)}
     return lib
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build and load ``csrc/<name>.cu`` once per process.
+def build_all(specs) -> None:
+    """Compile several ``(name, defines)`` builds at once, one nvcc process each."""
+    specs = list(specs)
+    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+        for future in [pool.submit(build, name, defines) for name, defines in specs]:
+            future.result()
+
+
+def load(name: str, signatures: dict, defines: tuple = ()) -> ctypes.CDLL:
+    """Build and load ``csrc/<name>.cu`` (with ``defines``) once per process.
 
     ``signatures`` maps each C entry point to its ctypes ``argtypes``; every
     entry returns an int (a ``cudaError_t``).
     """
     with _lock:
-        if name not in _loaded:
-            lib = ctypes.CDLL(str(build(name)))
+        key = (name, defines)
+        if key not in _loaded:
+            lib = ctypes.CDLL(str(build(name, defines)))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _loaded[name] = lib
-        return _loaded[name]
+            _loaded[key] = lib
+        return _loaded[key]

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu
 from nfdpf_torch.ops.sinkhorn import diameter, max_min
 
 # kernel launches since the last reset, by kernel
@@ -48,38 +49,6 @@ def _library():
     from nfdpf_torch.ops.cuda.build import load
 
     return load("sinkhorn", _SIGNATURES)
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU, False when all are on one CUDA
-    device; raises for anything else (the kernels take no other place)."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no streaming-Sinkhorn kernel for device {dev}")
-    return False
-
-
-def _kernel_args(*tensors: torch.Tensor):
-    """float32, contiguous, 8-byte aligned (float2 reads) — or raise."""
-    out = []
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"streaming-Sinkhorn kernels take float32, got {t.dtype}")
-        t = t.contiguous()
-        if t.data_ptr() % 8:
-            raise ValueError("streaming-Sinkhorn kernels need 8-byte aligned inputs")
-        out.append(t)
-    return out
-
-
-def _check_launch(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
 
 
 def _pair_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -113,16 +82,16 @@ def streaming_lse_multi(eps: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
             or eps.shape != (b,) or n == 0 or m == 0):
         raise ValueError(f"bad shapes eps{tuple(eps.shape)} x{tuple(x.shape)} "
                          f"y{tuple(y.shape)} fs{tuple(fs.shape)}")
-    if _on_cpu(eps, x, y, fs):
+    if on_cpu(eps, x, y, fs):
         return lse_multi_plain(eps, x, y, fs)
     if g not in (1, 2) or b > 65535:
         raise ValueError(f"K1 takes G in (1, 2) and B <= 65535, got G={g}, B={b}")
-    eps, x, y, fs = _kernel_args(eps, x, y, fs)
+    eps, x, y, fs = kernel_args(eps, x, y, fs)
     out = torch.empty((b, g, n), device=x.device, dtype=torch.float32)
     rc = _library().nfdpf_sinkhorn_lse(
         eps.data_ptr(), x.data_ptr(), y.data_ptr(), fs.data_ptr(),
         out.data_ptr(), b, n, m, g, torch.cuda.current_stream(x.device).cuda_stream)
-    _check_launch(rc, "sinkhorn_lse")
+    check_launch(rc, "sinkhorn_lse")
     LAUNCHES["sinkhorn_lse"] += 1
     return out
 
@@ -166,17 +135,17 @@ def _apply(eps, x_rows, y_cols, values, r, c, counter: str) -> torch.Tensor:
             f"bad shapes eps{tuple(eps.shape)} x{tuple(x_rows.shape)} "
             f"y{tuple(y_cols.shape)} v{tuple(values.shape)} r{tuple(r.shape)} "
             f"c{tuple(c.shape)}")
-    if _on_cpu(eps, x_rows, y_cols, values, r, c):
+    if on_cpu(eps, x_rows, y_cols, values, r, c):
         return transport_apply_plain(values, eps, x_rows, y_cols, r, c)
     if b > 65535:
         raise ValueError(f"K2 takes B <= 65535, got {b}")
-    eps, x_rows, y_cols, values, r, c = _kernel_args(eps, x_rows, y_cols, values, r, c)
+    eps, x_rows, y_cols, values, r, c = kernel_args(eps, x_rows, y_cols, values, r, c)
     out = torch.empty((b, n, 2), device=x_rows.device, dtype=torch.float32)
     rc = _library().nfdpf_transport_apply(
         eps.data_ptr(), x_rows.data_ptr(), y_cols.data_ptr(), values.data_ptr(),
         r.data_ptr(), c.data_ptr(), out.data_ptr(), b, n, m,
         torch.cuda.current_stream(x_rows.device).cuda_stream)
-    _check_launch(rc, counter)
+    check_launch(rc, counter)
     LAUNCHES[counter] += 1
     return out
 

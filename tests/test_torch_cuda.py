@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+"""The port's CUDA kernels (streaming Sinkhorn K1/K2, coupling chain K4/K5)
+against their plain PyTorch versions, on a GPU.
 
 Marked ``cuda``: each test skips where no CUDA device is present.  This
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -12,6 +13,7 @@ import math
 import pytest
 import torch
 
+from nfdpf_torch.ops.cuda import coupling_cuda as cc
 from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
 
 
@@ -81,3 +83,108 @@ def test_ot_resample_on_kernels_matches_cpu(cuda):
     p_gpu, _, _, it_gpu = sc.ot_resample_streaming(x.to(cuda), probs.to(cuda))
     assert it_gpu == it_cpu > 0
     torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-5, atol=1e-3)
+
+
+def _chain_case(b, n, ctx_dim, seed, broadcast_ctx=False, n_blocks=2, hidden=8):
+    """Packed chain parameters at std 0.3 (layout of ``pack_chain_params``:
+    only the rows and columns the chain reads are filled) and inputs."""
+    gen = torch.Generator().manual_seed(seed)
+    in_dim, max_in = 1 + ctx_dim, max(1 + ctx_dim, hidden)
+    w = torch.zeros(n_blocks, 4, 3, max_in, hidden)
+    w[:, :, 0, :in_dim] = torch.randn(n_blocks, 4, in_dim, hidden, generator=gen) * 0.3
+    w[:, :, 1, :hidden] = torch.randn(n_blocks, 4, hidden, hidden, generator=gen) * 0.3
+    w[:, :, 2, :hidden, 0] = torch.randn(n_blocks, 4, hidden, generator=gen) * 0.3
+    bias = torch.randn(n_blocks, 4, 3, hidden, generator=gen) * 0.1
+    bias[:, :, 2, 1:] = 0.0
+    x = torch.randn(b, n, 2, generator=gen)
+    ctx = None
+    if ctx_dim:
+        ctx = torch.randn(b, 1 if broadcast_ctx else n, ctx_dim, generator=gen)
+    gy = torch.randn(b, n, 2, generator=gen)
+    gld = torch.randn(b, n, generator=gen)
+    return x, ctx, w, bias, gy, gld
+
+
+CHAIN_SHAPES = [(32, 100, 4, True), (32, 100, 36, True), (4, 4097, 36, False),
+                (4, 4097, 0, False), (3, 33, 4, False)]
+
+
+@pytest.mark.cuda
+def test_coupling_chain_other_hidden_width(cuda):
+    """Each hidden width is a library of its own, built at first use: width
+    4 against the plain version (rtol/atol 1e-5, gradients 1e-4 of scale)."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(3, 70, 5, 2, n_blocks=3,
+                                                                hidden=4))
+    outs = []
+    for fn in (cc.fused_coupling_chain, cc.chain_apply_packed_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, ctx, w, bias)]
+        y, ld = fn(*leaves, True)
+        outs.append((y, ld) + torch.autograd.grad([y, ld], leaves, [gy, gld]))
+    for got, ref in zip(*outs):
+        got, ref = got.detach(), ref.detach()
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n,ctx_dim,broadcast", CHAIN_SHAPES)
+def test_coupling_chain_kernels_match_plain(cuda, b, n, ctx_dim, broadcast, inverse):
+    """K4 and K5 against the plain version and its autograd at the filter's
+    shapes (context broadcast over the particles, as the filter passes it),
+    a ragged large one and a tiny one: outputs to rtol/atol 1e-5, gradients
+    to 1e-4 of each gradient's scale (weight gradients sum over all rows in
+    another order than autograd's matrix products)."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) if t is not None else None
+                                for t in _chain_case(b, n, ctx_dim, 11 * b + n + ctx_dim,
+                                                     broadcast))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        c = None if ctx is None else ctx.clone().requires_grad_()
+        c_in = None if c is None else c.expand(b, n, ctx_dim)
+        y, ld = fn(leaves[0], c_in, leaves[1], leaves[2], inverse)
+        wanted = leaves + ([] if c is None else [c])
+        grads = torch.autograd.grad([y, ld], wanted, [gy, gld])
+        return y, ld, grads
+
+    cc.reset_launches()
+    y, ld, grads = run(cc.fused_coupling_chain)
+    torch.cuda.synchronize()
+    fwd = "coupling_chain_inverse" if inverse else "coupling_chain"
+    assert cc.LAUNCHES[fwd] == 1 and cc.LAUNCHES["coupling_chain_bwd"] == 1
+    y_ref, ld_ref, grads_ref = run(cc.chain_apply_packed_plain)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ld, ld_ref, rtol=1e-5, atol=1e-5)
+    for got, ref in zip(grads, grads_ref):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_coupling_chain_backward_repeats_bitwise_and_skips_unasked_ctx(cuda):
+    """The backward sums its partials in a fixed order (no float atomics):
+    two runs give the same bits.  A context that asks for no gradient gets
+    none and the other gradients do not change."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(32, 100, 36, 5))
+
+    def grads(ctx_grad):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        c = ctx.clone().requires_grad_(ctx_grad)
+        y, ld = cc.fused_coupling_chain(leaves[0], c, leaves[1], leaves[2], True)
+        return torch.autograd.grad([y, ld], leaves + ([c] if ctx_grad else []), [gy, gld])
+
+    first, second, no_ctx = grads(True), grads(True), grads(False)
+    for a, b_, c in zip(first, second, no_ctx):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_coupling_chain_refuses_what_the_kernels_do_not_take(cuda):
+    """On CUDA tensors the wrapper launches or raises: no plain fallback."""
+    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, hidden=40))
+    with pytest.raises(ValueError, match="hidden"):
+        cc.fused_coupling_chain(x, ctx, w, bias)
+    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 400, 1, n_blocks=8))
+    with pytest.raises(ValueError, match="shared memory"):
+        cc.fused_coupling_chain(x, ctx, w, bias)
+    with pytest.raises(ValueError, match="several devices"):
+        cc.fused_coupling_chain(x.cpu(), ctx, w, bias)

@@ -1,6 +1,7 @@
 """nfdpf_torch models vs the JAX package: the networks through the parameter
 bridge (train and eval mode, BN running statistics), the bootstrap dynamics
-and measurement, and the filter loop on the streaming-OT path.  Inputs and
+and measurement, and the filter loop on the streaming-OT path (the flows and
+the CNF-DPF slice are in tests/test_torch_flows.py and test_torch_cnf.py).  Inputs and
 noise come from numpy / the JAX key schedule; the JAX Pallas kernels run in
 interpret mode."""
 
@@ -140,10 +141,10 @@ def test_motion_update_and_bootstrap_identity():
                                     20.0, draw)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-5)
     np.testing.assert_allclose(noise.numpy(), np.asarray(ref_noise), rtol=1e-6)
-    phys, jac = tdyn.nf_dynamic_model(got)
+    phys, jac = tdyn.nf_dynamic_model(None, got, use_nf=False)
     propose, lki, prior, propose_log = tdyn.proposal_likelihood(
-        lambda e, p: torch.zeros(p.shape[:2]), phys, torch.zeros(B, 32), noise, jac,
-        20.0, 20.0)
+        None, None, lambda e, p: torch.zeros(p.shape[:2]), phys, got, torch.zeros(B, 32),
+        noise, jac, False, False, 20.0, 20.0)
     assert torch.equal(prior, propose_log) and torch.equal(propose, got)
     assert torch.equal(jac, torch.zeros(B, N))
 
@@ -210,8 +211,6 @@ def test_filter_from_encodings_matches_jax():
 
 
 UNSUPPORTED = {
-    "nf_dyn": dict(nf_dyn=True),
-    "nf_cond": dict(nf_cond=True),
     "measurement_NN": dict(measurement="NN"),
     "measurement_CGLOW": dict(measurement="CGLOW"),
     "soft_resampler": dict(resampler_type="soft"),
