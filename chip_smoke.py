@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``nfdpf_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py --tune [--out results.json]
 
 Phases, one line of output each, then the device line last:
 
@@ -11,8 +12,10 @@ Phases, one line of output each, then the device line last:
    at the main path's shapes and a ragged large one, with its time, the
    plain version's time, the time of one PyTorch library call where one
    computes the same function, and the least time the card could take
-   (bound).  The streaming-Sinkhorn kernels at (B=32, N=M=100) and (B=4,
-   N=M=4097); the coupling-chain kernels (forward K4, backward K5) in both
+   (bound) and the device time of an empty kernel launched the same way
+   (``launch_floor_ms``).  The streaming-Sinkhorn kernels at (B=32,
+   N=M=100), (B=4, N=M=4097) and (B=4, N=M=10240), each launched twice for
+   equal bits; the coupling-chain kernels (forward K4, backward K5) in both
    directions at (B=32, N=100) with the dynamics flow's context (4 wide)
    and the proposal flow's (36 wide), each one row per batch element
    broadcast over the particles as the filter passes it, and at (B=4,
@@ -31,6 +34,13 @@ Phases, one line of output each, then the device line last:
 Every comparison runs with TF32 off.  Any failed check raises, so the
 script exits non-zero without printing the last line.  The port has no CPU
 fallback: with no CUDA device the script stops before any phase.
+
+``--tune`` runs no slice and prints no device line: it builds
+``sinkhorn.cu`` once per entry of ``TUNE_VARIANTS`` (rows per warp, columns
+per lane, a multiplication by −½/ε or an IEEE division per pair), holds
+each build to the plain versions at the three shapes, times it twice in
+turns, and runs the resampler on it against the CPU for equal iteration
+counts.
 """
 
 from __future__ import annotations
@@ -80,6 +90,25 @@ CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd")
 LSE_TOL = 1e-5     # K1: |err| <= tol + tol·|ref|
 APPLY_TOL = 1e-4   # K2: |err| <= tol·|ref| + tol·max|ref|
 CHAIN_TOL = 1e-5   # K4: |err| <= tol + tol·|ref| (outputs of magnitude ~1-10)
+# (B, N = M) of the streaming-Sinkhorn kernels' checks, with timing iterations:
+# the main path's, a ragged large one, and the largest particle count trained
+SINKHORN_SHAPES = (((32, 100), 200), ((4, 4097), 20), ((4, 10240), 10))
+# builds of sinkhorn.cu that --tune compares: -D defines by name.  SMALL_* act
+# at M <= 128 (R rows per warp, RG warps per block), LARGE_* beyond (R rows per
+# warp, C columns per lane and tile); DIVIDE computes −½·d²/ε by an IEEE
+# division per pair where the shipped kernel multiplies by a per-batch −½/ε.
+_TUNE_SHAPES = {
+    "shipped": (),      # small R=2, RG=4; large R=4, C=8
+    "small_r1x8": ("NFDPF_SMALL_R=1", "NFDPF_SMALL_RG=8"),
+    "small_r4x2_large_r4c4": ("NFDPF_SMALL_R=4", "NFDPF_SMALL_RG=2", "NFDPF_LARGE_C=4"),
+    "small_r4x4_large_r8c4": ("NFDPF_SMALL_R=4", "NFDPF_LARGE_R=8", "NFDPF_LARGE_C=4"),
+    "small_r2x2_large_r2c8": ("NFDPF_SMALL_RG=2", "NFDPF_LARGE_R=2"),
+    "small_r1x4_large_r2c4": ("NFDPF_SMALL_R=1", "NFDPF_LARGE_R=2", "NFDPF_LARGE_C=4"),
+    "small_r2x8_large_r8c2": ("NFDPF_SMALL_RG=8", "NFDPF_LARGE_R=8", "NFDPF_LARGE_C=2"),
+}
+TUNE_VARIANTS = {**_TUNE_SHAPES,
+                 **{f"{k}_divide": _TUNE_SHAPES[k] + ("NFDPF_SINKHORN_DIVIDE",)
+                    for k in ("shipped", "small_r4x2_large_r4c4", "small_r2x2_large_r2c8")}}
 CHAIN_GRAD_TOL = 1e-4   # K5: |err| <= tol·|ref| + tol·max|ref| per gradient; the weight
                         # gradients sum over all rows in another order than autograd
 
@@ -146,8 +175,9 @@ def phase_setup(hidden: int):
     t0 = time.perf_counter()
     build.build_all([("sinkhorn", ()), ("coupling", build_defines(hidden))])
     builds = {label: {"nvcc_s": info["seconds"],
-                      "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
-                                if "registers" in ln or "spill" in ln]}
+                      "ptxas": [ln.strip()[:120] for ln in info["ptxas"].splitlines()
+                                if "registers" in ln or "spill" in ln
+                                or "Compiling entry function" in ln]}
               for label, info in build.build_log.items()}
     log({"phase": "setup", "card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0, "builds": builds})
@@ -220,11 +250,16 @@ def check(name, got, ref, tol):
 
 
 def phase_kernels():
-    """Every kernel against its plain version at both shapes; times at both."""
+    """Every streaming-Sinkhorn kernel against its plain version at the
+    shapes of ``SINKHORN_SHAPES``, with its times; the empty kernel's time."""
     from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
 
+    # the same floor under every launch; the second grid is the size of the
+    # kernels' own at (B=32, N=100)
+    floor = device_ms(sc.empty_launch, 200)
+    floor_grid = device_ms(lambda: sc.empty_launch(416, 128), 200)
     results = {}
-    for (b, n), iters in (((32, 100), 200), ((4, 4097), 3)):
+    for (b, n), iters in SINKHORN_SHAPES:
         cases = kernel_cases(b, n, seed=b + n)
         ag = cases.pop("_autograd")
         shape = f"B{b}_N{n}"
@@ -232,10 +267,13 @@ def phase_kernels():
             got, ref = cs["kernel"](), cs["plain"]()
             torch.cuda.synchronize()
             max_abs, rel = check(f"{name}@{shape}", got, ref, cs["tol"])
+            if not torch.equal(cs["kernel"](), got):
+                raise AssertionError(f"{name}@{shape}: a second launch gave other bits")
+            del got, ref
             bound, by = bound_ms(cs["nbytes"], cs["ops"])
             results.setdefault(name, {})[shape] = {
                 "max_abs_err": max_abs, "max_rel_err": rel, "tol": cs["tol"][1],
-                "ms": device_ms(cs["kernel"], iters),
+                "ms": device_ms(cs["kernel"], iters), "launch_floor_ms": floor,
                 "call_ms": call_ms(cs["kernel"], iters),
                 "plain_ms": device_ms(cs["plain"], iters),
                 "library_ms": device_ms(cs["library"], iters) if cs["library"] else None,
@@ -251,9 +289,69 @@ def phase_kernels():
         results["transport_apply_bwd"][shape]["autograd_max_abs_err"] = max_abs
         del cases, ag
         torch.cuda.empty_cache()
-    log({"phase": "kernels", "results": results,
-         "note": "K1 (sinkhorn_lse) has no single PyTorch call computing it: library_ms null"})
+    log({"phase": "kernels", "results": results, "launch_floor_ms": floor,
+         "launch_floor_416x128_ms": floor_grid,
+         "note": "K1 (sinkhorn_lse) has no single PyTorch call computing it: library_ms "
+                 "null; K2's library_ms is torch.bmm on a T that was built outside the timed "
+                 "call; launch_floor_ms is an empty kernel on 1 block of 32 threads"})
     return results
+
+
+def phase_tune():
+    """Build every entry of ``TUNE_VARIANTS``, hold it to the plain versions
+    and time it (two rounds in turns, device ms by graph replay), then count
+    the resampler's iterations on it against the CPU's."""
+    from nfdpf_torch.ops.cuda import build
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+
+    t0 = time.perf_counter()
+    build.build_all([("sinkhorn", defines) for defines in TUNE_VARIANTS.values()])
+    report = {"build_s": time.perf_counter() - t0, "variants": {}}
+    for vname, defines in TUNE_VARIANTS.items():
+        info = build.build_log[" ".join(("sinkhorn",) + defines)]
+        report["variants"][vname] = {
+            "defines": list(defines), "nvcc_s": info["seconds"], "ms": {}, "max_abs_err": {},
+            "spills": [ln.strip() for ln in info["ptxas"].splitlines()
+                       if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln],
+            "max_registers": max([int(ln.split("Used ")[1].split()[0])
+                                  for ln in info["ptxas"].splitlines() if "Used " in ln] or [0])}
+    try:
+        for (b, n), iters in SINKHORN_SHAPES:
+            cases = kernel_cases(b, n, seed=b + n)
+            del cases["_autograd"], cases["transport_apply_bwd"]
+            shape = f"B{b}_N{n}"
+            refs = {name: cs["plain"]() for name, cs in cases.items()}
+            for _ in range(2):
+                for vname, defines in TUNE_VARIANTS.items():
+                    sc.BUILD_DEFINES = defines
+                    row = report["variants"][vname]
+                    for name, cs in cases.items():
+                        got = cs["kernel"]()
+                        torch.cuda.synchronize()
+                        row["max_abs_err"][f"{name}@{shape}"] = check(
+                            f"{vname}: {name}@{shape}", got, refs[name], cs["tol"])[0]
+                        row["ms"].setdefault(f"{name}@{shape}", []).append(
+                            device_ms(cs["kernel"], iters))
+            del cases, refs
+            torch.cuda.empty_cache()
+        # the Sinkhorn loop must stop where the plain versions stop it
+        clouds = []
+        for seed, (b, n) in enumerate([(8, 100)] * 6 + [(4, 300)] * 2):
+            gen = torch.Generator().manual_seed(seed)
+            x = torch.randn(b, n, 2, generator=gen) * 20
+            probs = torch.softmax(torch.randn(b, n, generator=gen) * (1 + seed % 3), dim=-1)
+            clouds.append((x, probs, sc.ot_resample_streaming(x, probs)[3]))
+        report["resampler_iters_cpu"] = [it for _, _, it in clouds]
+        for vname, defines in TUNE_VARIANTS.items():
+            sc.BUILD_DEFINES = defines
+            its = [sc.ot_resample_streaming(x.cuda(), p.cuda())[3] for x, p, _ in clouds]
+            report["variants"][vname]["resampler_iters"] = its
+            report["variants"][vname]["resampler_iters_equal"] = (
+                its == report["resampler_iters_cpu"])
+    finally:
+        sc.BUILD_DEFINES = ()
+    log({"phase": "tune", **report})
+    return report
 
 
 def chain_ops(rows: int, ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int) -> float:
@@ -624,6 +722,8 @@ def main() -> int:
     parser.add_argument("--out", help="also write every phase's numbers to this JSON file")
     parser.add_argument("--profile", action="store_true",
                         help="profile one extra train step by kernel (torch.profiler)")
+    parser.add_argument("--tune", action="store_true",
+                        help="build and time the alternatives of sinkhorn.cu, then stop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs its kernels on a GPU only",
@@ -636,6 +736,12 @@ def main() -> int:
 
     cnf = DPFConfig(**CNF_SLICE)
     card = phase_setup(cnf.flow_hidden_dim)
+    if args.tune:
+        report = phase_tune()
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump({"card": card, "tune": report}, fh, indent=1)
+        return 0
     kernels = phase_kernels()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
     boot = phase_slice("slice", SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL, args.profile)
@@ -650,6 +756,7 @@ def main() -> int:
           "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse"}
     counts = dict(sl["launches_train_3_steps"])
     counts["coupling_chain"] += counts["coupling_chain_inverse"]
+    floor = kernels["sinkhorn_lse"][at["sinkhorn_lse"]]["launch_floor_ms"]
     line = []
     for name, (source, replaces) in KERNELS.items():
         # K1's entry covers both of its instantiations (G=2 timed, G=1 checked)
@@ -659,7 +766,8 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": counts[name], "max_abs_err": worst,
                  "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                 "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": at[name]}
+                 "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": at[name],
+                 "launch_floor_ms": floor}
         if name == "transport_apply":
             entry["launches_backward"] = counts["transport_apply_bwd"]
         if name in BOOTSTRAP_TRAIN:

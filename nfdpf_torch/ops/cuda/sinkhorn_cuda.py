@@ -15,6 +15,12 @@ Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; anything else raises.  ``LAUNCHES``
 counts the kernel launches, so a run can show which path it took.
 
+In both kernels a warp owns a few rows and its lanes stride the columns of
+a tile staged in shared memory; how many rows, warps and column splits a
+launch takes is chosen in ``csrc/sinkhorn.cu`` from (B, N, M).
+``BUILD_DEFINES`` selects a build of that source with other compile-time
+constants (``chip_smoke.py --tune`` times them); the default build has none.
+
 ``ot_resample_streaming`` is the driver (``ot_resample_pallas``,
 ``sinkhorn_pallas.py:291-454``), cold start only.
 """
@@ -37,7 +43,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "nfdpf_sinkhorn_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "nfdpf_transport_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nfdpf_empty_launch": [_I, _I, _P],
 }
+# -D defines of the build the wrappers load: () is the shipped kernel
+BUILD_DEFINES: tuple = ()
 
 
 def reset_launches() -> None:
@@ -48,7 +57,16 @@ def reset_launches() -> None:
 def _library():
     from nfdpf_torch.ops.cuda.build import load
 
-    return load("sinkhorn", _SIGNATURES)
+    return load("sinkhorn", _SIGNATURES, BUILD_DEFINES)
+
+
+def empty_launch(blocks: int = 1, threads: int = 32) -> None:
+    """Launch a kernel that returns at once on the current CUDA stream, the
+    way the wrappers below launch theirs: its device time is the floor under
+    every kernel's.  Counted nowhere."""
+    rc = _library().nfdpf_empty_launch(blocks, threads,
+                                       torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "empty")
 
 
 def _pair_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,8 @@ def _inputs(b, n, seed):
 @pytest.mark.parametrize("b,n", [(32, 100), (4, 4097)])
 @pytest.mark.parametrize("groups", [1, 2])
 def test_lse_kernel_matches_plain(cuda, b, n, groups):
-    """K1 to rtol/atol 1e-5 at the main path's shape and a ragged one."""
+    """K1 to rtol/atol 1e-5 at the main path's shape (one staged tile, a
+    two-pass logsumexp) and a ragged large one (33 tiles, running maxima)."""
     x, _, _, _, _, gen = _inputs(b, n, b + n)
     fs = torch.randn(b, groups, n, generator=gen).to(cuda)
     x = x.to(cuda)
@@ -70,6 +71,105 @@ def test_apply_kernel_forward_and_backward_match_plain(cuda, b, n):
     torch.cuda.synchronize()
     assert sc.LAUNCHES["transport_apply"] == 1 and sc.LAUNCHES["transport_apply_bwd"] == 1
     torch.testing.assert_close(g_k, g_p, rtol=1e-4, atol=1e-4 * float(g_p.abs().max()))
+
+
+# (B, rows N, columns M) that the kernels' decomposition makes ragged: N != M,
+# a single row or column, M around the 128-column tile and its multiples, N
+# that no rows-per-warp count divides, one batch row with few rows against
+# many columns (several warps then split the columns of a row group), and
+# batches that do not fill the card
+RAGGED = [(32, 100, 37), (4, 37, 4097), (2, 1, 100), (2, 100, 1), (1, 1, 1),
+          (3, 50, 127), (3, 50, 128), (3, 50, 129), (3, 7, 257), (5, 1030, 513),
+          (1, 700, 700), (1, 3, 5000), (1, 4097, 4097)]
+
+
+def _ragged_inputs(b, n, m, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, n, 2, generator=gen) * 0.5
+    y = torch.randn(b, m, 2, generator=gen) * 0.5
+    v = torch.randn(b, m, 2, generator=gen) * 30
+    r = torch.randn(b, n, generator=gen) * 0.1
+    c = torch.randn(b, m, generator=gen) * 0.1 - math.log(m)
+    fs = torch.randn(b, 2, m, generator=gen)
+    probe = torch.randn(b, n, 2, generator=gen)
+    eps = torch.linspace(0.1, 2.0, b)
+    return tuple(t.to(device) for t in (eps, x, y, v, r, c, fs, probe))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", RAGGED)
+@pytest.mark.parametrize("groups", [1, 2])
+def test_lse_kernel_ragged_shapes(cuda, b, n, m, groups):
+    """K1 to rtol/atol 1e-5 where rows, columns and tiles do not line up."""
+    eps, x, y, _, _, _, fs, _ = _ragged_inputs(b, n, m, 3 * b + n + m, cuda)
+    fs = fs[:, :groups].contiguous()
+    got = sc.streaming_lse_multi(eps, x, y, fs)
+    torch.cuda.synchronize()
+    assert got.shape == (b, groups, n)
+    torch.testing.assert_close(got, sc.lse_multi_plain(eps, x, y, fs), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", RAGGED)
+def test_apply_kernel_ragged_shapes(cuda, b, n, m):
+    """K2 forward and its VJP (rows and columns swapped: the M columns become
+    the rows) to 1e-4 relative to the output's scale."""
+    eps, x, y, v, r, c, _, probe = _ragged_inputs(b, n, m, 5 * b + n + m, cuda)
+    v = v.requires_grad_()
+    out = sc.transport_apply_rc(v, eps, x, y, r, c)
+    ref = sc.transport_apply_plain(v, eps, x, y, r, c)
+    assert out.shape == (b, n, 2)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * float(ref.detach().abs().max()))
+    (g_k,) = torch.autograd.grad(torch.sum(out * probe), [v])
+    (g_p,) = torch.autograd.grad(torch.sum(ref * probe), [v])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(g_k, g_p, rtol=1e-4, atol=1e-4 * float(g_p.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(4, 100, 100), (2, 40, 300), (1, 3, 5000)])
+def test_lse_kernel_takes_minus_infinity(cuda, b, n, m):
+    """Columns whose potential is −inf add nothing; a potential that is −inf
+    everywhere gives −inf, not NaN (no inf − inf in the running maximum)."""
+    eps, x, y, _, _, _, fs, _ = _ragged_inputs(b, n, m, 17, cuda)
+    fs[:, :, 3] = -math.inf
+    fs[:, 1, m // 2:] = -math.inf
+    fs[0, 0] = -math.inf
+    got = sc.streaming_lse_multi(eps, x, y, fs)
+    ref = sc.lse_multi_plain(eps, x, y, fs)
+    assert bool(torch.isneginf(got[0, 0]).all()) and not bool(torch.isnan(got).any())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(4, 100, 100), (2, 40, 300), (1, 3, 5000)])
+def test_apply_kernel_takes_very_negative_rows_and_columns(cuda, b, n, m):
+    """A row whose r is −1e30 comes out as exact zeros; a column whose c is
+    −inf adds nothing."""
+    eps, x, y, v, r, c, _, _ = _ragged_inputs(b, n, m, 19, cuda)
+    r[:, n // 2] = -1e30
+    c[:, 1] = -math.inf
+    got = sc.transport_apply_rc(v, eps, x, y, r, c)
+    ref = sc.transport_apply_plain(v, eps, x, y, r, c)
+    assert float(got[:, n // 2].abs().max()) == 0.0 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(32, 100, 100), (4, 4097, 4097), (1, 700, 700)])
+def test_sinkhorn_kernels_repeat_bitwise(cuda, b, n, m):
+    """Every reduction has a fixed order (no float atomics): K1, K2 and K2's
+    backward give the same bits on a second launch."""
+    eps, x, y, v, r, c, fs, probe = _ragged_inputs(b, n, m, 23, cuda)
+
+    def run():
+        leaf = v.clone().requires_grad_()
+        out = sc.transport_apply_rc(leaf, eps, x, y, r, c)
+        (grad,) = torch.autograd.grad(out, [leaf], probe)
+        return sc.streaming_lse_multi(eps, x, y, fs), out.detach(), grad
+
+    for first, second in zip(run(), run()):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

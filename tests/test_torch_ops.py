@@ -121,7 +121,8 @@ def test_sinkhorn_helper_matches_jax(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n,m,g", [(40, 40, 2), (37, 37, 1), (37, 53, 2)])
+@pytest.mark.parametrize("n,m,g", [(40, 40, 2), (37, 37, 1), (37, 53, 2), (100, 37, 2),
+                                   (37, 4097, 1), (1, 40, 2), (40, 1, 1)])
 def test_lse_plain_matches_pallas_kernel(n, m, g):
     rng = np.random.default_rng(n * 100 + m + g)
     b = 3
@@ -155,7 +156,8 @@ def _apply_inputs(seed, b, n, m):
     return eps, x, y, v, r, c
 
 
-@pytest.mark.parametrize("n,m", [(24, 24), (37, 37), (37, 29)])
+@pytest.mark.parametrize("n,m", [(24, 24), (37, 37), (37, 29), (100, 37), (37, 4097),
+                                 (1, 24), (24, 1)])
 def test_transport_apply_plain_matches_pallas_kernel(n, m):
     eps, x, y, v, r, c = _apply_inputs(n + m, 2, n, m)
     ref = np.asarray(sp.transport_apply_rc(_j(v), _j(eps), _j(x), _j(y), _j(r), _j(c)))
@@ -163,7 +165,7 @@ def test_transport_apply_plain_matches_pallas_kernel(n, m):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,m", [(16, 16), (37, 29)])
+@pytest.mark.parametrize("n,m", [(16, 16), (37, 29), (100, 37), (1, 24), (24, 1)])
 def test_transport_apply_vjp_matches_pallas(n, m):
     """Backward is Tᵀg for ``values`` and nothing for the other inputs."""
     eps, x, y, v, r, c = _apply_inputs(7 * n + m, 2, n, m)
