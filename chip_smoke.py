@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (``nfdpf_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--profile]
-    python3 chip_smoke.py --tune [--out results.json]
 
 Phases, one line of output each, then the device line last:
 
@@ -34,13 +33,6 @@ Phases, one line of output each, then the device line last:
 Every comparison runs with TF32 off.  Any failed check raises, so the
 script exits non-zero without printing the last line.  The port has no CPU
 fallback: with no CUDA device the script stops before any phase.
-
-``--tune`` runs no slice and prints no device line: it builds
-``sinkhorn.cu`` once per entry of ``TUNE_VARIANTS`` (rows per warp, columns
-per lane, a multiplication by −½/ε or an IEEE division per pair), holds
-each build to the plain versions at the three shapes, times it twice in
-turns, and runs the resampler on it against the CPU for equal iteration
-counts.
 """
 
 from __future__ import annotations
@@ -93,22 +85,6 @@ CHAIN_TOL = 1e-5   # K4: |err| <= tol + tol·|ref| (outputs of magnitude ~1-10)
 # (B, N = M) of the streaming-Sinkhorn kernels' checks, with timing iterations:
 # the main path's, a ragged large one, and the largest particle count trained
 SINKHORN_SHAPES = (((32, 100), 200), ((4, 4097), 20), ((4, 10240), 10))
-# builds of sinkhorn.cu that --tune compares: -D defines by name.  SMALL_* act
-# at M <= 128 (R rows per warp, RG warps per block), LARGE_* beyond (R rows per
-# warp, C columns per lane and tile); DIVIDE computes −½·d²/ε by an IEEE
-# division per pair where the shipped kernel multiplies by a per-batch −½/ε.
-_TUNE_SHAPES = {
-    "shipped": (),      # small R=2, RG=4; large R=4, C=8
-    "small_r1x8": ("NFDPF_SMALL_R=1", "NFDPF_SMALL_RG=8"),
-    "small_r4x2_large_r4c4": ("NFDPF_SMALL_R=4", "NFDPF_SMALL_RG=2", "NFDPF_LARGE_C=4"),
-    "small_r4x4_large_r8c4": ("NFDPF_SMALL_R=4", "NFDPF_LARGE_R=8", "NFDPF_LARGE_C=4"),
-    "small_r2x2_large_r2c8": ("NFDPF_SMALL_RG=2", "NFDPF_LARGE_R=2"),
-    "small_r1x4_large_r2c4": ("NFDPF_SMALL_R=1", "NFDPF_LARGE_R=2", "NFDPF_LARGE_C=4"),
-    "small_r2x8_large_r8c2": ("NFDPF_SMALL_RG=8", "NFDPF_LARGE_R=8", "NFDPF_LARGE_C=2"),
-}
-TUNE_VARIANTS = {**_TUNE_SHAPES,
-                 **{f"{k}_divide": _TUNE_SHAPES[k] + ("NFDPF_SINKHORN_DIVIDE",)
-                    for k in ("shipped", "small_r4x2_large_r4c4", "small_r2x2_large_r2c8")}}
 CHAIN_GRAD_TOL = 1e-4   # K5: |err| <= tol·|ref| + tol·max|ref| per gradient; the weight
                         # gradients sum over all rows in another order than autograd
 
@@ -209,6 +185,11 @@ def kernel_cases(b: int, n: int, seed: int):
                          - sc._pair_cost(rows, cols) / eps[:, None, None])
 
     t_fwd, t_bwd = t_mat(x, x, r, c), t_mat(x, x, c, r)
+    # the (B, G, N, M) matrices K1 reduces, built here like T: the library
+    # calls below time the reduction (K1) or the product (K2) alone
+    neg_cost = -sc._pair_cost(x, x) / eps[:, None, None]
+    s1, s2 = (f[:, :, None, :] + neg_cost[:, None] for f in (f1, f2))
+    del neg_cost
     f4 = 4.0
     lse_bytes = lambda g_: f4 * (b + 4 * b * n + b * g_ * n + b * g_ * n)  # noqa: E731
     apply_bytes = f4 * (b + 4 * b * n + 2 * b * n + 2 * b * n + 2 * b * n)
@@ -217,12 +198,12 @@ def kernel_cases(b: int, n: int, seed: int):
         "sinkhorn_lse_g1": dict(
             kernel=lambda: sc.streaming_lse_multi(eps, x, x, f1),
             plain=lambda: sc.lse_multi_plain(eps, x, x, f1),
-            library=None, tol=("lse", LSE_TOL),
+            library=lambda: torch.logsumexp(s1, dim=-1), tol=("lse", LSE_TOL),
             nbytes=lse_bytes(1), ops=pairs * (7 + 4 * 1)),
         "sinkhorn_lse": dict(
             kernel=lambda: sc.streaming_lse_multi(eps, x, x, f2),
             plain=lambda: sc.lse_multi_plain(eps, x, x, f2),
-            library=None, tol=("lse", LSE_TOL),
+            library=lambda: torch.logsumexp(s2, dim=-1), tol=("lse", LSE_TOL),
             nbytes=lse_bytes(2), ops=pairs * (7 + 4 * 2)),
         "transport_apply": dict(
             kernel=lambda: sc._apply(eps, x, x, v, r, c, "transport_apply"),
@@ -291,67 +272,11 @@ def phase_kernels():
         torch.cuda.empty_cache()
     log({"phase": "kernels", "results": results, "launch_floor_ms": floor,
          "launch_floor_416x128_ms": floor_grid,
-         "note": "K1 (sinkhorn_lse) has no single PyTorch call computing it: library_ms "
-                 "null; K2's library_ms is torch.bmm on a T that was built outside the timed "
-                 "call; launch_floor_ms is an empty kernel on 1 block of 32 threads"})
+         "note": "no single PyTorch call computes K1 or K2 from the coordinates: library_ms "
+                 "is torch.logsumexp (K1) or torch.bmm (K2) on a (B, G, N, M) matrix or a T "
+                 "that was built outside the timed call, the reduction or the product alone; "
+                 "launch_floor_ms is an empty kernel on 1 block of 32 threads"})
     return results
-
-
-def phase_tune():
-    """Build every entry of ``TUNE_VARIANTS``, hold it to the plain versions
-    and time it (two rounds in turns, device ms by graph replay), then count
-    the resampler's iterations on it against the CPU's."""
-    from nfdpf_torch.ops.cuda import build
-    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
-
-    t0 = time.perf_counter()
-    build.build_all([("sinkhorn", defines) for defines in TUNE_VARIANTS.values()])
-    report = {"build_s": time.perf_counter() - t0, "variants": {}}
-    for vname, defines in TUNE_VARIANTS.items():
-        info = build.build_log[" ".join(("sinkhorn",) + defines)]
-        report["variants"][vname] = {
-            "defines": list(defines), "nvcc_s": info["seconds"], "ms": {}, "max_abs_err": {},
-            "spills": [ln.strip() for ln in info["ptxas"].splitlines()
-                       if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln],
-            "max_registers": max([int(ln.split("Used ")[1].split()[0])
-                                  for ln in info["ptxas"].splitlines() if "Used " in ln] or [0])}
-    try:
-        for (b, n), iters in SINKHORN_SHAPES:
-            cases = kernel_cases(b, n, seed=b + n)
-            del cases["_autograd"], cases["transport_apply_bwd"]
-            shape = f"B{b}_N{n}"
-            refs = {name: cs["plain"]() for name, cs in cases.items()}
-            for _ in range(2):
-                for vname, defines in TUNE_VARIANTS.items():
-                    sc.BUILD_DEFINES = defines
-                    row = report["variants"][vname]
-                    for name, cs in cases.items():
-                        got = cs["kernel"]()
-                        torch.cuda.synchronize()
-                        row["max_abs_err"][f"{name}@{shape}"] = check(
-                            f"{vname}: {name}@{shape}", got, refs[name], cs["tol"])[0]
-                        row["ms"].setdefault(f"{name}@{shape}", []).append(
-                            device_ms(cs["kernel"], iters))
-            del cases, refs
-            torch.cuda.empty_cache()
-        # the Sinkhorn loop must stop where the plain versions stop it
-        clouds = []
-        for seed, (b, n) in enumerate([(8, 100)] * 6 + [(4, 300)] * 2):
-            gen = torch.Generator().manual_seed(seed)
-            x = torch.randn(b, n, 2, generator=gen) * 20
-            probs = torch.softmax(torch.randn(b, n, generator=gen) * (1 + seed % 3), dim=-1)
-            clouds.append((x, probs, sc.ot_resample_streaming(x, probs)[3]))
-        report["resampler_iters_cpu"] = [it for _, _, it in clouds]
-        for vname, defines in TUNE_VARIANTS.items():
-            sc.BUILD_DEFINES = defines
-            its = [sc.ot_resample_streaming(x.cuda(), p.cuda())[3] for x, p, _ in clouds]
-            report["variants"][vname]["resampler_iters"] = its
-            report["variants"][vname]["resampler_iters_equal"] = (
-                its == report["resampler_iters_cpu"])
-    finally:
-        sc.BUILD_DEFINES = ()
-    log({"phase": "tune", **report})
-    return report
 
 
 def chain_ops(rows: int, ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int) -> float:
@@ -722,8 +647,6 @@ def main() -> int:
     parser.add_argument("--out", help="also write every phase's numbers to this JSON file")
     parser.add_argument("--profile", action="store_true",
                         help="profile one extra train step by kernel (torch.profiler)")
-    parser.add_argument("--tune", action="store_true",
-                        help="build and time the alternatives of sinkhorn.cu, then stop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs its kernels on a GPU only",
@@ -736,12 +659,6 @@ def main() -> int:
 
     cnf = DPFConfig(**CNF_SLICE)
     card = phase_setup(cnf.flow_hidden_dim)
-    if args.tune:
-        report = phase_tune()
-        if args.out:
-            with open(args.out, "w") as fh:
-                json.dump({"card": card, "tune": report}, fh, indent=1)
-        return 0
     kernels = phase_kernels()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
     boot = phase_slice("slice", SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL, args.profile)

@@ -53,9 +53,9 @@
 //   * precise expf/logf (no fast-math, no __expf): the Sinkhorn loop's
 //     stopping test must fire on the same iteration as the plain version's.
 //     -0.5*d2/eps is a multiplication by a per-batch -0.5/eps (one IEEE
-//     division per thread, none per pair); -DNFDPF_SINKHORN_DIVIDE brings the
-//     division per pair back.  PERF.md records the timing of both and why
-//     the multiplication stayed.
+//     division per thread, none per pair): against a division per pair it
+//     gave the same errors and the same stopping iterations and was 25-45 %
+//     faster at large M (PERF.md has the timing of both).
 // Not used, and why: TMA wants 2-D boxes of at least 16 bytes a row and pays
 // off for tiles of tens of KB, these are 1-D runs of 1-4 KB; tensor cores
 // would take the product T @ v, which has 2 output columns and 4 of the 14
@@ -72,25 +72,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-// Compile-time knobs; `chip_smoke.py --tune` builds and times the
-// alternatives with -D.
-#ifndef NFDPF_SMALL_R
-#define NFDPF_SMALL_R 2     // rows per warp, M <= 128
-#endif
-#ifndef NFDPF_SMALL_RG
-#define NFDPF_SMALL_RG 4    // warps (row groups) per block, M <= 128
-#endif
-#ifndef NFDPF_LARGE_R
-#define NFDPF_LARGE_R 4     // rows per warp, M > 128
-#endif
-#ifndef NFDPF_LARGE_C
-#define NFDPF_LARGE_C 8     // columns per lane and tile, M > 128
-#endif
-
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+// Tile sizes, settled by timing the alternatives on an H100 (PERF.md).
+constexpr int kSmallR = 2;        // M <= 128: rows per warp
+constexpr int kSmallRG = 4;       // M <= 128: warps (row groups) per block
 constexpr int kSmallC = 4;        // M <= 128: one tile of 32 * 4 columns
+constexpr int kLargeR = 4;        // M > 128: rows per warp
+constexpr int kLargeC = 8;        // M > 128: columns per lane and tile
 constexpr int kLargeWarps = 8;    // M > 128: RG * CS warps per block
 
 // A block is RG row groups x CS column splits, one warp each.  Warp (rg, cs)
@@ -119,23 +109,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // exp(v - guarded(m)) stays 0 when both are -inf
 __device__ __forceinline__ float guarded(float m) { return m == -INFINITY ? 0.f : m; }
 
-// The per-batch constant of the cost and -C_ij / eps from it.
-__device__ __forceinline__ float cost_scale(float e) {
-#ifdef NFDPF_SINKHORN_DIVIDE
-  return e;
-#else
-  return -0.5f / e;
-#endif
-}
-
+// -C_ij / eps_b from the per-batch scale = -0.5 / eps_b.
 __device__ __forceinline__ float neg_cost(float2 xi, float2 yj, float scale) {
   const float dx = xi.x - yj.x;
   const float dy = xi.y - yj.y;
-#ifdef NFDPF_SINKHORN_DIVIDE
-  return -0.5f * (dx * dx + dy * dy) / scale;
-#else
   return (dx * dx + dy * dy) * scale;
-#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -185,7 +163,7 @@ lse_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
   const int cs = warp % CS;
   const int row0 = (blockIdx.x * RG + rg) * R;
   const bool live = row0 < n;                  // the same for a whole warp
-  const float scale = cost_scale(eps[b]);
+  const float scale = -0.5f / eps[b];
   const float2* yb = y + (size_t)b * m;
   const float* fb = f + (size_t)b * G * m;
 
@@ -362,7 +340,7 @@ apply_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
   const int cs = warp % CS;
   const int row0 = (blockIdx.x * RG + rg) * R;
   const bool live = row0 < n;                  // the same for a whole warp
-  const float scale = cost_scale(eps[b]);
+  const float scale = -0.5f / eps[b];
   const float2* yb = y + (size_t)b * m;
   const float2* vb = v + (size_t)b * m;
   const float* cb = c + (size_t)b * m;
@@ -467,9 +445,9 @@ int sm_count() {
 int pick_split(int b, int n, int m) {
   int cs = 1;
   while (cs < 4) {
-    const int block_rows = NFDPF_LARGE_R * (kLargeWarps / cs);
+    const int block_rows = kLargeR * (kLargeWarps / cs);
     const long blocks = (long)((n + block_rows - 1) / block_rows) * b;
-    if (blocks >= 2L * sm_count() || 32 * (2 * cs) * NFDPF_LARGE_C > m) break;
+    if (blocks >= 2L * sm_count() || 32 * (2 * cs) * kLargeC > m) break;
     cs *= 2;
   }
   return cs;
@@ -483,8 +461,8 @@ dim3 grid_for(int b, int n) {
 template <int G, int CS>
 void launch_lse_large(cudaStream_t s, const float* eps, const float2* x, const float2* y,
                       const float* f, float* out, int b, int n, int m) {
-  constexpr int R = NFDPF_LARGE_R, RG = kLargeWarps / CS;
-  lse_kernel<G, R, RG, CS, NFDPF_LARGE_C, false>
+  constexpr int R = kLargeR, RG = kLargeWarps / CS;
+  lse_kernel<G, R, RG, CS, kLargeC, false>
       <<<grid_for<R, RG>(b, n), 32 * kLargeWarps, 0, s>>>(eps, x, y, f, out, n, m);
 }
 
@@ -492,7 +470,7 @@ template <int G>
 void launch_lse(cudaStream_t s, const float* eps, const float2* x, const float2* y,
                 const float* f, float* out, int b, int n, int m) {
   if (m <= 32 * kSmallC) {
-    constexpr int R = NFDPF_SMALL_R, RG = NFDPF_SMALL_RG;
+    constexpr int R = kSmallR, RG = kSmallRG;
     lse_kernel<G, R, RG, 1, kSmallC, true>
         <<<grid_for<R, RG>(b, n), 32 * RG, 0, s>>>(eps, x, y, f, out, n, m);
     return;
@@ -508,8 +486,8 @@ template <int CS>
 void launch_apply_large(cudaStream_t s, const float* eps, const float2* x, const float2* y,
                         const float2* v, const float* r, const float* c, float2* out, int b,
                         int n, int m) {
-  constexpr int R = NFDPF_LARGE_R, RG = kLargeWarps / CS;
-  apply_kernel<R, RG, CS, NFDPF_LARGE_C>
+  constexpr int R = kLargeR, RG = kLargeWarps / CS;
+  apply_kernel<R, RG, CS, kLargeC>
       <<<grid_for<R, RG>(b, n), 32 * kLargeWarps, 0, s>>>(eps, x, y, v, r, c, out, n, m);
 }
 
@@ -544,7 +522,7 @@ extern "C" int nfdpf_transport_apply(const float* eps, const float* x, const flo
   const float2* v2 = reinterpret_cast<const float2*>(v);
   float2* out2 = reinterpret_cast<float2*>(out);
   if (m <= 32 * kSmallC) {
-    constexpr int R = NFDPF_SMALL_R, RG = NFDPF_SMALL_RG;
+    constexpr int R = kSmallR, RG = kSmallRG;
     apply_kernel<R, RG, 1, kSmallC>
         <<<grid_for<R, RG>(b, n), 32 * RG, 0, s>>>(eps, x2, y2, v2, r, c, out2, n, m);
   } else {

@@ -18,8 +18,6 @@ counts the kernel launches, so a run can show which path it took.
 In both kernels a warp owns a few rows and its lanes stride the columns of
 a tile staged in shared memory; how many rows, warps and column splits a
 launch takes is chosen in ``csrc/sinkhorn.cu`` from (B, N, M).
-``BUILD_DEFINES`` selects a build of that source with other compile-time
-constants (``chip_smoke.py --tune`` times them); the default build has none.
 
 ``ot_resample_streaming`` is the driver (``ot_resample_pallas``,
 ``sinkhorn_pallas.py:291-454``), cold start only.
@@ -45,8 +43,6 @@ _SIGNATURES = {
     "nfdpf_transport_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nfdpf_empty_launch": [_I, _I, _P],
 }
-# -D defines of the build the wrappers load: () is the shipped kernel
-BUILD_DEFINES: tuple = ()
 
 
 def reset_launches() -> None:
@@ -57,7 +53,7 @@ def reset_launches() -> None:
 def _library():
     from nfdpf_torch.ops.cuda.build import load
 
-    return load("sinkhorn", _SIGNATURES, BUILD_DEFINES)
+    return load("sinkhorn", _SIGNATURES)
 
 
 def empty_launch(blocks: int = 1, threads: int = 32) -> None:
