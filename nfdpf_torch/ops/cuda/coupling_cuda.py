@@ -10,7 +10,11 @@ memory:
   outputs and the summed log-det, forward or inverse;
 * ``chain_bwd_kernel`` (replaces ``_chain_bwd_kernel``, ``:262``): recomputes
   the forward from the inputs and emits the gradients of x, ctx and one
-  weight/bias partial per thread block, summed here.
+  weight/bias partial per thread block, summed here.  A block of 1-8 warps
+  (one row per thread) loops over tiles of rows; each tile's weight and bias
+  gradients are sums over its rows taken from a tile of per-row factors in
+  shared memory, and the context's share of layer 0 is computed once per
+  distinct context row.
 
 ``fused_coupling_chain`` takes the plain PyTorch version
 (``chain_apply_packed_plain``, differentiated by ordinary autograd) for
@@ -22,7 +26,8 @@ up to 8 (fixed at compile time: one library per width, built at first use;
 8 is the filter's width, 4 and 8 are the widths held against the plain
 version on the card, and at 16 the backward's register arrays spill), at
 most 8 blocks, and parameters that fit the card's shared memory (227 KB;
-the backward needs twice the parameters' size).
+the backward needs twice the parameters' size plus its tiles,
+``bwd_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ MAX_HIDDEN = 8                    # the H-wide activations are register arrays
 MAX_BLOCKS = 8                    # block inputs the backward keeps per row
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
 BWD_MAX_GRID = 528                # backward blocks (one warp each): 4 per SM on 132 SMs
+BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -159,6 +165,21 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
     return ctx, ctx.data_ptr(), ctx.stride(0), ctx.stride(1)
 
 
+def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
+                   threads: int = BWD_MIN_THREADS) -> int:
+    """Shared memory of the backward kernel for a block of ``threads`` rows
+    (``bwd_smem_floats`` in ``csrc/coupling.cu``): the parameters and their
+    gradient accumulators, the factor tile (3 + 8·hidden floats a row) and,
+    per distinct context row of a tile, its context, its summed layer-0
+    gradients (2·hidden) and its layer-0 shares (4·K·hidden + 1)."""
+    params = n_blocks * 12 * (max_in * hidden + hidden)
+    segments = threads if ctx_dim else 1
+    floats = (2 * params + threads * (3 + 8 * hidden)
+              + (threads * (ctx_dim + 2 * hidden) if ctx_dim else 0)
+              + segments * (4 * n_blocks * hidden + 1))
+    return 4 * floats
+
+
 def _check_chain(x, ctx, weights, biases, backward: bool):
     """Shapes the packed chain must have; on CUDA also what the kernels take."""
     b, n, d = x.shape
@@ -177,10 +198,11 @@ def _check_chain(x, ctx, weights, biases, backward: bool):
     if hidden > MAX_HIDDEN or n_blocks > MAX_BLOCKS:
         raise ValueError(f"the coupling kernels take hidden <= {MAX_HIDDEN} and at "
                          f"most {MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
-    smem = 4 * (weights.numel() + biases.numel()) * (2 if backward else 1)
+    smem = (bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden) if backward
+            else 4 * (weights.numel() + biases.numel()))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"the chain's parameters need {smem} bytes of shared memory in the "
+            f"the chain needs {smem} bytes of shared memory in the "
             f"{'backward' if backward else 'forward'} kernel; a block has {MAX_SMEM_BYTES}")
 
 

@@ -20,27 +20,49 @@
 //
 // What bounds them on an H100: a row moves 20 + 4C bytes (forward) against
 // about K * 4 * 2H(1 + C + H + 1) fp32 operations (the C term only once per
-// distinct context row: these kernels redo it for every row), so at H = 8 the
-// operation bound (67 TFLOP/s) is the larger one, and at the filter's sizes
-// (3,200 rows) both bounds are far below a launch's latency: the time is one
-// thread's serial walk through 4K dependent MLPs (times against bounds in
-// PERF.md).  The design keeps everything but inputs and outputs on chip:
-//   * one thread per row over the flattened (B*N) rows, the ragged last
-//     tile masked; lower, upper, log_det and the H-wide activations stay in
-//     registers;
-//   * the chain's parameters are staged in (dynamic) shared memory once per
-//     block; every lane reads the same weight at the same time (a broadcast,
-//     no bank conflicts);
-//   * ctx is read through its own batch/row strides, so a context that is
-//     one row per batch broadcast over the particles is never materialised;
-//   * backward: a block is ONE warp that loops over row tiles; each weight
-//     gradient entry is a warp-shuffle sum added by lane 0 into a
-//     shared-memory accumulator, written out once per block at the end.  No
-//     float atomics: the same launch gives the same bits.
+// distinct context row: the forward kernel redoes it for every row), so at
+// H = 8 the operation bound (67 TFLOP/s) is the larger one, and at the
+// filter's sizes (3,200 rows) both bounds are far below a launch's latency:
+// the time is one thread's serial walk through 4K dependent MLPs (times
+// against bounds in PERF.md).  Both keep everything but inputs and outputs
+// on chip: one thread per row over the flattened (B*N) rows, the ragged last
+// tile masked; lower, upper and the H-wide activations in registers; the
+// chain's parameters staged in (dynamic) shared memory once per block, every
+// lane reading the same weight at the same time (a broadcast); ctx read
+// through its own batch/row strides, so a context that is one row per batch
+// broadcast over the particles is never materialised.
+//
+// The backward adds what the forward does not have: every weight and bias
+// gradient is a sum over all rows, K * 4 * (H*H + 4H + 1 + C*H) of them.
+//   * A block of 1-8 warps loops over tiles of one row per thread; the wrapper
+//     picks the grid from the row count (at most one block per SM) and the
+//     entry point the warps per block, so that few rows spread one warp per
+//     SM and many rows share one staged copy of the parameters.
+//   * Per coupling half (two nets on the same input) each row writes its
+//     factors (input, output gradients, h1, h2 and the pre-activation
+//     gradients g1, g2 of both nets) to a tile in shared memory (odd row
+//     stride: no bank conflicts).  After a barrier every thread owns fixed
+//     gradient entries and sums them over the tile's rows in row order into
+//     its own shared-memory accumulator (a transpose-reduce, as the Pallas
+//     kernel's x_in.T @ g): no shuffles, no float atomics, so the same launch
+//     gives the same bits.  Each block writes its accumulators once, as its
+//     partial; the caller sums the partials in a fixed order.
+//   * Rows that read the same context row (a run of rows of one batch element
+//     when ctx's particle stride is 0, else one row each) share layer 0's
+//     context term: per distinct context row P = b + ctx . w[1..C] is computed
+//     once per tile for all 4K nets, and the context-weight gradient is
+//     Σ_d ctx[d] ⊗ G[d], G[d] the sum of g1 over the rows of context row d.
+//     The context gradient (asked by the tests only; the filter detaches its
+//     contexts) stays per row and changes no other gradient's bits.
+//   * No tensor cores: each product is 8 x (rows) x 8 per net and tile, and
+//     TF32 would break the 1e-4 tolerance of the gradients.
 // Precise tanhf/expf (no fast-math).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
+#include <cstdint>
 
 #ifndef NFDPF_HIDDEN
 #define NFDPF_HIDDEN 8
@@ -50,7 +72,8 @@ namespace {
 
 constexpr int kHidden = NFDPF_HIDDEN;   // the conditioners' hidden width H
 constexpr int kFwdThreads = 64;   // rows per forward block
-constexpr int kWarp = 32;         // rows per backward tile; a backward block is one warp
+constexpr int kWarp = 32;
+constexpr int kMaxWarps = 8;      // a backward block: 1-8 warps, one row per thread
 constexpr int kMaxBlocks = 8;     // chain blocks whose inputs the backward keeps per row
 constexpr size_t kStaticSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;   // most dynamic shared memory a block can opt in to
@@ -90,88 +113,6 @@ __device__ __forceinline__ float mlp_fwd(const float* __restrict__ w,
 #pragma unroll
   for (int i = 0; i < H; ++i) out = fmaf(h2[i], w2[i * H], out);
   return out;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;   // the full sum in lane 0
-}
-
-// Backward of one MLP.  Adds the warp's weight/bias gradient sums into the
-// net's shared-memory accumulators gw[3][max_in][H], gb[3][H] (lane 0 only),
-// this row's context gradient into gctx (when not null), and returns the
-// gradient with respect to `half`.  Every lane of the warp must call it.
-template <int H>
-__device__ __forceinline__ float mlp_bwd(const float* __restrict__ w, int max_in, float half,
-                                         const float* __restrict__ ctx, int C,
-                                         const float (&h1)[H], const float (&h2)[H],
-                                         float g_out, float* gw, float* gb,
-                                         float* __restrict__ gctx, bool lead) {
-  const float* w1 = w + max_in * H;
-  const float* w2 = w + 2 * max_in * H;
-  float* gw1 = gw + max_in * H;
-  float* gw2 = gw + 2 * max_in * H;
-  float g2[H], g1[H];
-
-  // layer 3: out = sum_i h2[i] * w2[i][0] + b[2][0]
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float v = warp_sum(h2[i] * g_out);
-    if (lead) gw2[i * H] += v;
-    g2[i] = g_out * w2[i * H] * (1.f - h2[i] * h2[i]);
-  }
-  {
-    const float v = warp_sum(g_out);
-    if (lead) gb[2 * H] += v;
-  }
-  // layer 2
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      const float v = warp_sum(h1[i] * g2[j]);
-      if (lead) gw1[i * H + j] += v;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    const float v = warp_sum(g2[j]);
-    if (lead) gb[H + j] += v;
-  }
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < H; ++j) acc = fmaf(g2[j], w1[i * H + j], acc);
-    g1[i] = acc * (1.f - h1[i] * h1[i]);
-  }
-  // layer 1: input row 0 is `half`, rows 1..C the context
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    const float vw = warp_sum(half * g1[j]);
-    const float vb = warp_sum(g1[j]);
-    if (lead) {
-      gw[j] += vw;
-      gb[j] += vb;
-    }
-  }
-  for (int c = 0; c < C; ++c) {
-    const float cv = __ldg(ctx + c);
-    const float* wr = w + (1 + c) * H;
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      const float v = warp_sum(cv * g1[j]);
-      if (lead) gw[(1 + c) * H + j] += v;
-      acc = fmaf(g1[j], wr[j], acc);
-    }
-    if (gctx != nullptr) gctx[c] += acc;
-  }
-  float g_half = 0.f;
-#pragma unroll
-  for (int j = 0; j < H; ++j) g_half = fmaf(g1[j], w[j], g_half);
-  return g_half;
 }
 
 // Stage the packed parameters in shared memory: sw[nw] then sb[nb].
@@ -228,8 +169,227 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   ld_out[row] = ld;
 }
 
+// ---- K5: the backward kernel ------------------------------------------------
+
+// Stage with 16-byte loads where both sides allow it.
+__device__ __forceinline__ void stage_bwd(float* dst, const float* __restrict__ src, int count) {
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) != 0) {
+    stage(dst, src, count);
+    return;
+  }
+  const int n4 = count / 4;
+  for (int t = threadIdx.x; t < n4; t += blockDim.x) {
+    reinterpret_cast<float4*>(dst)[t] = __ldg(reinterpret_cast<const float4*>(src) + t);
+  }
+  for (int t = 4 * n4 + threadIdx.x; t < count; t += blockDim.x) dst[t] = src[t];
+}
+
+// A row of the factor tile: the coupling half's input, the two nets' output
+// gradients, then per net h1, h2, g1, g2 (H each).  The stride is odd, so the
+// rows' own writes hit 32 different banks.
+template <int H>
+struct Factors {
+  static constexpr int kStride = 3 + 8 * H;
+  static constexpr int kHalf = 0;
+  __host__ __device__ static constexpr int gout(int x) { return 1 + x; }
+  __host__ __device__ static constexpr int h1(int x) { return 3 + 4 * H * x; }
+  __host__ __device__ static constexpr int h2(int x) { return h1(x) + H; }
+  __host__ __device__ static constexpr int g1(int x) { return h1(x) + 2 * H; }
+  __host__ __device__ static constexpr int g2(int x) { return h1(x) + 3 * H; }
+};
+
+// What the threads of a backward block share for one tile of rows.
+struct BwdTile {
+  const float* sw;   // parameters w[K][4][3][max_in][H], staged
+  const float* sb;   // b[K][4][3][H], staged
+  float* aw;         // weight-gradient accumulators, laid out like sw
+  float* ab;         // bias-gradient accumulators, laid out like sb
+  float* fac;        // factor tile, one row per thread
+  const float* cs;   // the tile's distinct context rows, C floats each
+  float* gsum;       // per distinct context row and net of a half, g1 summed over its rows
+  int net_w, net_b, max_in, C;
+  int nseg;          // distinct context rows in the tile
+  bool share;        // a distinct context row is a run of rows of one batch element
+  int seg0, n;       // then run d covers tile rows [seg0 + d·n, seg0 + (d+1)·n), clipped
+  __device__ int seg_begin(int d) const { return share ? max(0, seg0 + d * n) : d; }
+  __device__ int seg_end(int d) const {
+    return share ? min(static_cast<int>(blockDim.x), seg0 + (d + 1) * n) : d + 1;
+  }
+};
+
+// One conditioner MLP in the backward kernel: layer 0 takes its bias and
+// context share from p[H] (computed once per distinct context row).  Keeps
+// both tanh activations.
+template <int H>
+__device__ __forceinline__ float mlp_fwd_shared(const float* __restrict__ w,
+                                                const float* __restrict__ b, int max_in,
+                                                float half, const float* __restrict__ p,
+                                                float (&h1)[H], float (&h2)[H]) {
+#pragma unroll
+  for (int j = 0; j < H; ++j) h1[j] = tanhf(fmaf(half, w[j], p[j]));
+  const float* w1 = w + max_in * H;
+  float a[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) a[j] = b[H + j];
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], w1[i * H + j], a[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < H; ++j) h2[j] = tanhf(a[j]);
+  const float* w2 = w + 2 * max_in * H;
+  float out = b[2 * H];
+#pragma unroll
+  for (int i = 0; i < H; ++i) out = fmaf(h2[i], w2[i * H], out);
+  return out;
+}
+
+// Backward of one MLP for this thread's row: writes h1, h2, g1, g2 (the
+// pre-activation gradients of layers 0 and 1) to f[0 .. 4H), adds the row's
+// context gradient into grow (when not null), returns d out / d half.
+template <int H>
+__device__ __forceinline__ float mlp_bwd_row(const float* __restrict__ w, int max_in, int C,
+                                             const float (&h1)[H], const float (&h2)[H],
+                                             float g_out, float* f, float* __restrict__ grow) {
+  const float* w1 = w + max_in * H;
+  const float* w2 = w + 2 * max_in * H;
+  float g2[H], g1[H];
+#pragma unroll
+  for (int i = 0; i < H; ++i) g2[i] = g_out * w2[i * H] * (1.f - h2[i] * h2[i]);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) acc = fmaf(g2[j], w1[i * H + j], acc);
+    g1[i] = acc * (1.f - h1[i] * h1[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    f[j] = h1[j];
+    f[H + j] = h2[j];
+    f[2 * H + j] = g1[j];
+    f[3 * H + j] = g2[j];
+  }
+  if (grow != nullptr) {
+    for (int c = 0; c < C; ++c) {
+      const float* wr = w + (1 + c) * H;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < H; ++j) acc = fmaf(g1[j], wr[j], acc);
+      grow[c] += acc;
+    }
+  }
+  float g_half = 0.f;
+#pragma unroll
+  for (int j = 0; j < H; ++j) g_half = fmaf(g1[j], w[j], g_half);
+  return g_half;
+}
+
+// The weight and bias gradient entries of nets m0 and m0 + 1 (one coupling
+// half), each summed over the tile's rows in row order by the one thread
+// that owns it and added into its accumulator.  Entry q of a net:
+//   gw[1][i][j] = Σ h1[i]·g2[j] (H·H), gb[1][j] = Σ g2[j] (H),
+//   gw[0][0][j] = Σ half·g1[j] (H), gb[0][j] = Σ g1[j] (H),
+//   gw[2][i][0] = Σ h2[i]·g_out (H), gb[2][0] = Σ g_out (1).
+// The rows past the end carry zero gradients and add exact zeros.
+template <int H>
+__device__ __forceinline__ void reduce_half(const BwdTile& s, int m0) {
+  using F = Factors<H>;
+  constexpr int S = F::kStride, E = H * H + 4 * H + 1;
+  const int rows = blockDim.x;
+  for (int e = threadIdx.x; e < 2 * E; e += blockDim.x) {
+    const int x = e / E, q = e % E;
+    float* aw = s.aw + (m0 + x) * s.net_w;
+    float* ab = s.ab + (m0 + x) * s.net_b;
+    int fa = -1, fb;   // factor columns; fa < 0: a plain sum of column fb
+    float* dst;
+    if (q < H * H) {
+      fa = F::h1(x) + q / H;
+      fb = F::g2(x) + q % H;
+      dst = aw + (s.max_in + q / H) * H + q % H;
+    } else if (q < H * H + H) {
+      fb = F::g2(x) + q - H * H;
+      dst = ab + H + q - H * H;
+    } else if (q < H * H + 2 * H) {
+      fa = F::kHalf;
+      fb = F::g1(x) + q - H * H - H;
+      dst = aw + q - H * H - H;
+    } else if (q < H * H + 3 * H) {
+      fb = F::g1(x) + q - H * H - 2 * H;
+      dst = ab + q - H * H - 2 * H;
+    } else if (q < H * H + 4 * H) {
+      fa = F::h2(x) + q - H * H - 3 * H;
+      fb = F::gout(x);
+      dst = aw + (2 * s.max_in + q - H * H - 3 * H) * H;
+    } else {
+      fb = F::gout(x);
+      dst = ab + 2 * H;
+    }
+    const float* col_b = s.fac + fb;
+    float acc = 0.f;
+    if (fa < 0) {
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) acc += col_b[r * S];
+    } else {
+      const float* col_a = s.fac + fa;
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) acc = fmaf(col_a[r * S], col_b[r * S], acc);
+    }
+    *dst += acc;
+  }
+}
+
+// Backward of one coupling half: nets m0 and m0 + 1 of a block, both reading
+// `half` and the context.  Per row: both nets' gradients and factors; then,
+// block-wide, their weight and bias entries over the tile (reduce_half) and
+// their context-weight entries gw[0][1 + c][j] = Σ_d ctx[d][c]·G[d][j], G
+// being g1 summed over the rows that share context row d.  Every thread of
+// the block calls it.  Returns the row's gradient with respect to `half`.
+template <int H>
+__device__ __forceinline__ float half_bwd(const BwdTile& s, int m0, float half, float g_a,
+                                          const float (&h1a)[H], const float (&h2a)[H],
+                                          float g_b, const float (&h1b)[H],
+                                          const float (&h2b)[H], float* grow) {
+  using F = Factors<H>;
+  constexpr int S = F::kStride;
+  float* f = s.fac + threadIdx.x * S;
+  f[F::kHalf] = half;
+  f[F::gout(0)] = g_a;
+  f[F::gout(1)] = g_b;
+  const float g_half =
+      mlp_bwd_row<H>(s.sw + m0 * s.net_w, s.max_in, s.C, h1a, h2a, g_a, f + F::h1(0), grow) +
+      mlp_bwd_row<H>(s.sw + (m0 + 1) * s.net_w, s.max_in, s.C, h1b, h2b, g_b, f + F::h1(1),
+                     grow);
+  __syncthreads();
+  reduce_half<H>(s, m0);
+  for (int i = threadIdx.x; i < (s.C ? s.nseg * 2 * H : 0); i += blockDim.x) {
+    const int d = i / (2 * H), col = F::g1(i / H % 2) + i % H;
+    float acc = 0.f;
+    for (int r = s.seg_begin(d); r < s.seg_end(d); ++r) acc += s.fac[r * S + col];
+    s.gsum[i] = acc;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * s.C * H; e += blockDim.x) {
+    const int x = e / (s.C * H), c = e / H % s.C, j = e % H;
+    float acc = 0.f;
+    for (int d = 0; d < s.nseg; ++d) {
+      acc = fmaf(s.cs[d * s.C + c], s.gsum[(2 * d + x) * H + j], acc);
+    }
+    s.aw[(m0 + x) * s.net_w + (1 + c) * H + j] += acc;
+  }
+  return g_half;
+}
+
+// The row of P, the layer-0 shares of one distinct context row: 4·K·H + 1
+// floats, odd, so rows that each have their own context row read P without
+// bank conflicts.
+__host__ __device__ inline int bwd_p_stride(int n_blocks, int hidden) {
+  return 4 * n_blocks * hidden + 1;
+}
+
 template <int H, bool INV>
-__global__ void __launch_bounds__(kWarp)
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
 chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
                  const float* __restrict__ bias, const float2* __restrict__ gy,
@@ -237,27 +397,82 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  float* __restrict__ gctx, float* __restrict__ gw_part,
                  float* __restrict__ gb_part, int rows, int n, int K, int C, int max_in) {
   extern __shared__ float smem[];
-  const int net_w = 3 * max_in * H, net_b = 3 * H;
-  const int nw = K * 4 * net_w, nb = K * 4 * net_b;
+  const int T = blockDim.x, t = threadIdx.x;
+  const int net_w = 3 * max_in * H, net_b = 3 * H, nets = 4 * K;
+  const int nw = nets * net_w, nb = nets * net_b, p_stride = bwd_p_stride(K, H);
+  // shared memory, in floats: parameters (nw + nb), their gradient
+  // accumulators (nw + nb), the factor tile (T rows), then per distinct
+  // context row of a tile (at most T; 1 without a context) its context (C),
+  // its g1 sums (2H) and its P row
+  BwdTile s;
   float* sw = smem;
   float* sb = sw + nw;
-  float* aw = sb + nb;   // weight-gradient accumulator, laid out like sw
-  float* ab = aw + nw;   // bias-gradient accumulator, laid out like sb
-  stage(sw, w, nw);
-  stage(sb, bias, nb);
-  for (int t = threadIdx.x; t < nw + nb; t += kWarp) aw[t] = 0.f;
-  __syncthreads();
+  float* aw = sb + nb;
+  float* ab = aw + nw;
+  float* fac = ab + nb;
+  float* cs = fac + T * Factors<H>::kStride;
+  float* gsum = cs + (C ? T * C : 0);
+  float* p = gsum + (C ? T * 2 * H : 0);
+  s.sw = sw;
+  s.sb = sb;
+  s.aw = aw;
+  s.ab = ab;
+  s.fac = fac;
+  s.cs = cs;
+  s.gsum = gsum;
+  s.net_w = net_w;
+  s.net_b = net_b;
+  s.max_in = max_in;
+  s.C = C;
+  s.n = n;
+  stage_bwd(sw, w, nw);
+  stage_bwd(sb, bias, nb);
+  for (int i = t; i < nw + nb; i += T) aw[i] = 0.f;
 
-  const bool lead = threadIdx.x == 0;
-  const int tiles = (rows + kWarp - 1) / kWarp;
+  const int tiles = (rows + T - 1) / T;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row = tile * kWarp + threadIdx.x;
+    const int r0 = tile * T, row = r0 + t;
     const bool valid = row < rows;
-    // a lane past the end walks the last row with zero incoming gradients:
-    // it takes part in every shuffle and adds exact zeros
+    // a thread past the end walks the last row with zero incoming gradients
     const int r = valid ? row : rows - 1;
-    const float* crow =
-        C ? ctx + (long long)(r / n) * ctx_sb + (long long)(r % n) * ctx_sn : nullptr;
+    const int last = min(rows, r0 + T) - 1;
+    // the tile's distinct context rows: every row its own
+    s.share = false;
+    s.seg0 = 0;
+    int seg;
+    if (C == 0) {
+      seg = 0;
+      s.nseg = 1;
+    } else if (s.share) {
+      seg = r / n - r0 / n;
+      s.nseg = last / n - r0 / n + 1;
+      s.seg0 = (r0 / n) * n - r0;
+    } else {
+      seg = r - r0;
+      s.nseg = last - r0 + 1;
+    }
+    __syncthreads();   // parameters staged; the previous tile's readers are done
+    for (int i = t; i < s.nseg * C; i += T) {
+      const int d = i / C, c = i % C;
+      const long long at = s.share ? (long long)(r0 / n + d) * ctx_sb
+                                   : (long long)((r0 + d) / n) * ctx_sb +
+                                         (long long)((r0 + d) % n) * ctx_sn;
+      cs[i] = __ldg(ctx + at + c);
+    }
+    __syncthreads();
+    // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
+    // distinct context row
+    for (int i = t; i < s.nseg * nets * H; i += T) {
+      const int j = i % H, m = i / H % nets, d = i / (H * nets);
+      const float* wc = sw + m * net_w + H + j;
+      const float* cd = cs + d * C;
+      float acc = 0.f;
+      for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * H], acc);
+      p[d * p_stride + m * H + j] = sb[m * net_b + j] + acc;
+    }
+    __syncthreads();
+
+    const float* prow = p + seg * p_stride;
     float* grow = (gctx != nullptr && valid) ? gctx + (size_t)row * C : nullptr;
     const float2 xv = x[r];
     float lo = xv.x, up = xv.y;
@@ -268,80 +483,76 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     float st_lo[kMaxBlocks], st_up[kMaxBlocks];
 
     // forward sweep, keeping each block's input
-    for (int s = 0; s < K; ++s) {
-      const int k = INV ? K - 1 - s : s;
+    for (int st = 0; st < K; ++st) {
+      const int k = INV ? K - 1 - st : st;
       const float* wk = sw + k * 4 * net_w;
       const float* bk = sb + k * 4 * net_b;
-      st_lo[s] = lo;
-      st_up[s] = up;
+      const float* pk = prow + k * 4 * H;
+      st_lo[st] = lo;
+      st_up[st] = up;
       if (!INV) {
-        const float t1 = mlp_fwd<H>(wk, bk, max_in, lo, crow, C, t1h1, t1h2);
-        const float s1 = mlp_fwd<H>(wk + net_w, bk + net_b, max_in, lo, crow, C, s1h1, s1h2);
+        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo, pk, t1h1, t1h2);
+        const float s1 = mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, s1h1, s1h2);
         up = t1 + up * expf(s1);
-        const float t2 =
-            mlp_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, crow, C, t2h1, t2h2);
-        const float s2 =
-            mlp_fwd<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, crow, C, s2h1, s2h2);
+        const float t2 = mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
+                                           pk + 2 * H, t2h1, t2h2);
+        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
+                                           pk + 3 * H, s2h1, s2h2);
         lo = t2 + lo * expf(s2);
       } else {
-        const float t2 =
-            mlp_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, crow, C, t2h1, t2h2);
-        const float s2 =
-            mlp_fwd<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, crow, C, s2h1, s2h2);
+        const float t2 = mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
+                                           pk + 2 * H, t2h1, t2h2);
+        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
+                                           pk + 3 * H, s2h1, s2h2);
         lo = (lo - t2) * expf(-s2);
-        const float t1 = mlp_fwd<H>(wk, bk, max_in, lo, crow, C, t1h1, t1h2);
-        const float s1 = mlp_fwd<H>(wk + net_w, bk + net_b, max_in, lo, crow, C, s1h1, s1h2);
+        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo, pk, t1h1, t1h2);
+        const float s1 = mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, s1h1, s1h2);
         up = (up - t1) * expf(-s1);
       }
     }
 
     // reverse sweep: recompute each block from its input, then its gradients
     float g_lo = gv.x, g_up = gv.y;
-    for (int s = K - 1; s >= 0; --s) {
-      const int k = INV ? K - 1 - s : s;
+    for (int st = K - 1; st >= 0; --st) {
+      const int k = INV ? K - 1 - st : st;
       const float* wk = sw + k * 4 * net_w;
       const float* bk = sb + k * 4 * net_b;
-      float* awk = aw + k * 4 * net_w;
-      float* abk = ab + k * 4 * net_b;
-      const float lo_in = st_lo[s], up_in = st_up[s];
+      const float* pk = prow + k * 4 * H;
+      const float lo_in = st_lo[st], up_in = st_up[st];
       if (!INV) {
-        const float t1 = mlp_fwd<H>(wk, bk, max_in, lo_in, crow, C, t1h1, t1h2);
-        const float s1 = mlp_fwd<H>(wk + net_w, bk + net_b, max_in, lo_in, crow, C, s1h1, s1h2);
+        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo_in, pk, t1h1, t1h2);
+        const float s1 =
+            mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo_in, pk + H, s1h1, s1h2);
         const float e1 = expf(s1);
         const float up_mid = t1 + up_in * e1;
-        mlp_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up_mid, crow, C, t2h1, t2h2);
-        const float s2 =
-            mlp_fwd<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up_mid, crow, C, s2h1, s2h2);
+        mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up_mid, pk + 2 * H, t2h1,
+                          t2h2);
+        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up_mid,
+                                           pk + 3 * H, s2h1, s2h2);
         const float e2 = expf(s2);
         // lower_out = t2 + lo_in * exp(s2); log_det += s1 + s2
         const float g_t2 = g_lo;
         const float g_s2 = g_lo * lo_in * e2 + g_ld;
         const float g_lo_in = g_lo * e2;
         const float g_b =
-            mlp_bwd<H>(wk + 2 * net_w, max_in, up_mid, crow, C, t2h1, t2h2, g_t2,
-                       awk + 2 * net_w, abk + 2 * net_b, grow, lead) +
-            mlp_bwd<H>(wk + 3 * net_w, max_in, up_mid, crow, C, s2h1, s2h2, g_s2,
-                       awk + 3 * net_w, abk + 3 * net_b, grow, lead);
+            half_bwd<H>(s, 4 * k + 2, up_mid, g_t2, t2h1, t2h2, g_s2, s2h1, s2h2, grow);
         const float g_up_mid = g_up + g_b;
         // up_mid = t1 + up_in * exp(s1)
         const float g_t1 = g_up_mid;
         const float g_s1 = g_up_mid * up_in * e1 + g_ld;
-        const float g_a =
-            mlp_bwd<H>(wk, max_in, lo_in, crow, C, t1h1, t1h2, g_t1, awk, abk, grow, lead) +
-            mlp_bwd<H>(wk + net_w, max_in, lo_in, crow, C, s1h1, s1h2, g_s1, awk + net_w,
-                       abk + net_b, grow, lead);
+        const float g_a = half_bwd<H>(s, 4 * k, lo_in, g_t1, t1h1, t1h2, g_s1, s1h1, s1h2, grow);
         g_lo = g_lo_in + g_a;
         g_up = g_up_mid * e1;
       } else {
-        const float t2 =
-            mlp_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up_in, crow, C, t2h1, t2h2);
-        const float s2 =
-            mlp_fwd<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up_in, crow, C, s2h1, s2h2);
+        const float t2 = mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up_in,
+                                           pk + 2 * H, t2h1, t2h2);
+        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up_in,
+                                           pk + 3 * H, s2h1, s2h2);
         const float e2 = expf(-s2);
         const float lo_out = (lo_in - t2) * e2;
-        const float t1 = mlp_fwd<H>(wk, bk, max_in, lo_out, crow, C, t1h1, t1h2);
+        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo_out, pk, t1h1, t1h2);
         const float s1 =
-            mlp_fwd<H>(wk + net_w, bk + net_b, max_in, lo_out, crow, C, s1h1, s1h2);
+            mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo_out, pk + H, s1h1, s1h2);
         const float e1 = expf(-s1);
         const float up_out = (up_in - t1) * e1;
         // up_out = (up_in - t1) * exp(-s1); log_det -= s1 + s2
@@ -349,18 +560,13 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
         const float g_s1 = -g_up * up_out - g_ld;
         const float g_up_in = g_up * e1;
         const float g_a =
-            mlp_bwd<H>(wk, max_in, lo_out, crow, C, t1h1, t1h2, g_t1, awk, abk, grow, lead) +
-            mlp_bwd<H>(wk + net_w, max_in, lo_out, crow, C, s1h1, s1h2, g_s1, awk + net_w,
-                       abk + net_b, grow, lead);
+            half_bwd<H>(s, 4 * k, lo_out, g_t1, t1h1, t1h2, g_s1, s1h1, s1h2, grow);
         const float g_lo_out = g_lo + g_a;
         // lo_out = (lo_in - t2) * exp(-s2)
         const float g_t2 = -g_lo_out * e2;
         const float g_s2 = -g_lo_out * lo_out - g_ld;
         const float g_b =
-            mlp_bwd<H>(wk + 2 * net_w, max_in, up_in, crow, C, t2h1, t2h2, g_t2,
-                       awk + 2 * net_w, abk + 2 * net_b, grow, lead) +
-            mlp_bwd<H>(wk + 3 * net_w, max_in, up_in, crow, C, s2h1, s2h2, g_s2,
-                       awk + 3 * net_w, abk + 3 * net_b, grow, lead);
+            half_bwd<H>(s, 4 * k + 2, up_in, g_t2, t2h1, t2h2, g_s2, s2h1, s2h2, grow);
         g_up = g_up_in + g_b;
         g_lo = g_lo_out * e2;
       }
@@ -368,11 +574,11 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     if (valid) gx[row] = make_float2(g_lo, g_up);
   }
 
-  __syncwarp();
+  __syncthreads();
   float* gw_out = gw_part + (size_t)blockIdx.x * nw;
   float* gb_out = gb_part + (size_t)blockIdx.x * nb;
-  for (int t = threadIdx.x; t < nw; t += kWarp) gw_out[t] = aw[t];
-  for (int t = threadIdx.x; t < nb; t += kWarp) gb_out[t] = ab[t];
+  for (int i = t; i < nw; i += T) gw_out[i] = aw[i];
+  for (int i = t; i < nb; i += T) gb_out[i] = ab[i];
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
@@ -388,6 +594,15 @@ int reserve_smem(Kernel kernel, size_t bytes) {
 
 size_t param_floats(int n_blocks, int max_in) {
   return (size_t)n_blocks * 12 * ((size_t)max_in * kHidden + kHidden);
+}
+
+// The backward's shared memory in floats for a block of `threads` rows (the
+// layout at the top of chain_bwd_kernel).
+size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads) {
+  const size_t segs = ctx_dim ? threads : 1;
+  return 2 * param_floats(n_blocks, max_in) + (size_t)threads * Factors<kHidden>::kStride +
+         (ctx_dim ? (size_t)threads * (ctx_dim + 2 * kHidden) : 0) +
+         segs * bwd_p_stride(n_blocks, kHidden);
 }
 
 }  // namespace
@@ -429,11 +644,19 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* ctx, long l
       hidden != kHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * param_floats(n_blocks, max_in) * sizeof(float);
+  // warps per block: enough for `grid` blocks to cover the rows in one tile
+  // each, as far as shared memory allows; the blocks loop over the tiles
+  int warps = std::min<long long>(kMaxWarps, (rows + (long long)kWarp * grid - 1) /
+                                                 ((long long)kWarp * grid));
+  while (warps > 1 &&
+         bwd_smem_floats(n_blocks, ctx_dim, max_in, warps * kWarp) * sizeof(float) > kMaxSmem) {
+    --warps;
+  }
+  const size_t smem = bwd_smem_floats(n_blocks, ctx_dim, max_in, warps * kWarp) * sizeof(float);
   auto kernel = inverse ? chain_bwd_kernel<kHidden, true> : chain_bwd_kernel<kHidden, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
-  kernel<<<grid, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
       reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), gctx, gw_part,
       gb_part, rows, n, n_blocks, ctx_dim, max_in);

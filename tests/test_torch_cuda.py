@@ -277,6 +277,59 @@ def test_coupling_chain_backward_repeats_bitwise_and_skips_unasked_ctx(cuda):
         assert torch.equal(a, b_) and torch.equal(a, c)
 
 
+# shapes that meet the backward's decomposition at its edges, as (B, N, C,
+# blocks, hidden), each context one row per batch element broadcast over
+# the particles with stride 0: particle counts that no tile divides (tiles
+# straddle batch rows), one particle per batch row, one batch row over many
+# thread blocks, one and eight coupling blocks, hidden width 4
+CHAIN_BWD_SHAPES = [(5, 33, 4, 2, 8), (2, 300, 36, 2, 8), (40, 1, 4, 2, 8), (1, 5000, 4, 2, 8),
+                    (3, 70, 5, 1, 8), (3, 70, 5, 8, 8), (5, 33, 4, 2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n,ctx_dim,n_blocks,hidden", CHAIN_BWD_SHAPES)
+def test_coupling_chain_backward_tiles(cuda, b, n, ctx_dim, n_blocks, hidden, inverse):
+    """K5 where its row tiles, runs of rows that share a context row and grid
+    meet awkward shapes: outputs to rtol/atol 1e-5, every gradient (the
+    context's too) to 1e-4 of its scale against the plain version's
+    autograd, and a second launch gives the same bits."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(
+        b, n, ctx_dim, 13 * b + n + n_blocks, True, n_blocks, hidden))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, ctx, w, bias)]
+        c_in = torch.as_strided(leaves[1], (b, n, ctx_dim), (ctx_dim, 0, 1))
+        y, ld = fn(leaves[0], c_in, leaves[2], leaves[3], inverse)
+        return [y, ld] + list(torch.autograd.grad([y, ld], leaves, [gy, gld]))
+
+    cc.reset_launches()
+    got, again = run(cc.fused_coupling_chain), run(cc.fused_coupling_chain)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["coupling_chain_bwd"] == 2
+    ref = run(cc.chain_apply_packed_plain)
+    for k, (a, a2, r) in enumerate(zip(got, again, ref)):
+        a, a2, r = a.detach(), a2.detach(), r.detach()
+        assert torch.equal(a, a2)
+        if k < 2:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_coupling_chain_backward_refuses_what_its_shared_memory_cannot_hold(cuda):
+    """Parameters that fit the forward kernel but not the backward's shared
+    memory (twice the parameters plus its tiles): the forward launches, the
+    backward raises before a launch the card would refuse."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(2, 10, 250, 3))
+    assert cc.bwd_smem_bytes(2, 250, 251, 8) > cc.MAX_SMEM_BYTES >= 4 * (w.numel() + bias.numel())
+    w.requires_grad_()
+    y, ld = cc.fused_coupling_chain(x, ctx, w, bias)
+    with pytest.raises(ValueError, match="shared memory in the backward"):
+        torch.autograd.grad([y, ld], [w], [gy, gld])
+
+
 @pytest.mark.cuda
 def test_coupling_chain_refuses_what_the_kernels_do_not_take(cuda):
     """On CUDA tensors the wrapper launches or raises: no plain fallback."""
