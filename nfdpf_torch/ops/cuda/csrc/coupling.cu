@@ -436,8 +436,9 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     // a thread past the end walks the last row with zero incoming gradients
     const int r = valid ? row : rows - 1;
     const int last = min(rows, r0 + T) - 1;
-    // the tile's distinct context rows: every row its own
-    s.share = false;
+    // the tile's distinct context rows: a run of rows of one batch element
+    // when the context is broadcast over the particles, else every row
+    s.share = C > 0 && ctx_sn == 0;
     s.seg0 = 0;
     int seg;
     if (C == 0) {
