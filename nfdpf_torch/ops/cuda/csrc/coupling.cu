@@ -178,6 +178,7 @@ __device__ __forceinline__ void stage_bwd(float* dst, const float* __restrict__ 
     return;
   }
   const int n4 = count / 4;
+#pragma unroll 8
   for (int t = threadIdx.x; t < n4; t += blockDim.x) {
     reinterpret_cast<float4*>(dst)[t] = __ldg(reinterpret_cast<const float4*>(src) + t);
   }
@@ -326,17 +327,24 @@ __device__ __forceinline__ void reduce_half(const BwdTile& s, int m0) {
       fb = F::gout(x);
       dst = ab + 2 * H;
     }
+    // four partial sums (rows r mod 4) for independent chains; a fixed order
     const float* col_b = s.fac + fb;
-    float acc = 0.f;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
     if (fa < 0) {
-#pragma unroll 8
-      for (int r = 0; r < rows; ++r) acc += col_b[r * S];
+#pragma unroll 2
+      for (int r = 0; r < rows; r += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] += col_b[(r + u) * S];
+      }
     } else {
       const float* col_a = s.fac + fa;
-#pragma unroll 8
-      for (int r = 0; r < rows; ++r) acc = fmaf(col_a[r * S], col_b[r * S], acc);
+#pragma unroll 2
+      for (int r = 0; r < rows; r += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] = fmaf(col_a[(r + u) * S], col_b[(r + u) * S], acc[u]);
+      }
     }
-    *dst += acc;
+    *dst += (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
 }
 
@@ -365,18 +373,29 @@ __device__ __forceinline__ float half_bwd(const BwdTile& s, int m0, float half, 
   reduce_half<H>(s, m0);
   for (int i = threadIdx.x; i < (s.C ? s.nseg * 2 * H : 0); i += blockDim.x) {
     const int d = i / (2 * H), col = F::g1(i / H % 2) + i % H;
-    float acc = 0.f;
-    for (int r = s.seg_begin(d); r < s.seg_end(d); ++r) acc += s.fac[r * S + col];
-    s.gsum[i] = acc;
+    const int end = s.seg_end(d);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int r = s.seg_begin(d);
+    for (; r + 4 <= end; r += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] += s.fac[(r + u) * S + col];
+    }
+    for (; r < end; ++r) acc[0] += s.fac[r * S + col];
+    s.gsum[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < 2 * s.C * H; e += blockDim.x) {
     const int x = e / (s.C * H), c = e / H % s.C, j = e % H;
-    float acc = 0.f;
-    for (int d = 0; d < s.nseg; ++d) {
-      acc = fmaf(s.cs[d * s.C + c], s.gsum[(2 * d + x) * H + j], acc);
+    const float* cc = s.cs + c;
+    const float* gs = s.gsum + x * H + j;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int d = 0;
+    for (; d + 4 <= s.nseg; d += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(cc[(d + u) * s.C], gs[(d + u) * 2 * H], acc[u]);
     }
-    s.aw[(m0 + x) * s.net_w + (1 + c) * H + j] += acc;
+    for (; d < s.nseg; ++d) acc[0] = fmaf(cc[d * s.C], gs[d * 2 * H], acc[0]);
+    s.aw[(m0 + x) * s.net_w + (1 + c) * H + j] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
   return g_half;
 }
@@ -463,13 +482,20 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     __syncthreads();
     // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
     // distinct context row
-    for (int i = t; i < s.nseg * nets * H; i += T) {
-      const int j = i % H, m = i / H % nets, d = i / (H * nets);
-      const float* wc = sw + m * net_w + H + j;
+    for (int i = t; i < s.nseg * nets; i += T) {
+      const int m = i % nets, d = i / nets;
       const float* cd = cs + d * C;
-      float acc = 0.f;
-      for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * H], acc);
-      p[d * p_stride + m * H + j] = sb[m * net_b + j] + acc;
+      float acc[H];
+#pragma unroll
+      for (int j = 0; j < H; ++j) acc[j] = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const float cv = cd[c];
+        const float* wr = sw + m * net_w + (1 + c) * H;
+#pragma unroll
+        for (int j = 0; j < H; ++j) acc[j] = fmaf(cv, wr[j], acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < H; ++j) p[d * p_stride + m * H + j] = sb[m * net_b + j] + acc[j];
     }
     __syncthreads();
 
