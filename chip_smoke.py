@@ -317,9 +317,10 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                 p.data.normal_(0.0, 0.1, generator=gen)
         chain.to(dev)
         x = torch.randn(b, n, 2, generator=gen).to(dev)
-        ctx = None
+        ctx_base = ctx = None
         if c:
-            ctx = torch.randn(b, 1 if broadcast else n, c, generator=gen).to(dev).expand(b, n, c)
+            ctx_base = torch.randn(b, 1 if broadcast else n, c, generator=gen).to(dev)
+            ctx = ctx_base.expand(b, n, c)
         gy = torch.randn(b, n, 2, generator=gen).to(dev)
         gld = torch.randn(b, n, generator=gen).to(dev)
         # the same cotangent as a strided view: the wrapper must take it as it comes
@@ -345,8 +346,11 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                 and ordinary autograd, for the cotangents (cot_y, gld) or,
                 without ``with_ld``, for y alone (log_det unused)."""
                 leaves = [t.detach().clone().requires_grad_() for t in (x, w, bias)]
-                c_leaf = ctx.detach().clone().requires_grad_() if want_ctx else ctx
-                y, ld = fn(leaves[0], c_leaf, leaves[1], leaves[2], inverse)
+                # the context keeps its layout (a broadcast stays a view): the
+                # backward sums once per distinct context row it reads
+                c_leaf = ctx_base.detach().clone().requires_grad_() if want_ctx else None
+                c_in = c_leaf.expand(b, n, c) if want_ctx else ctx
+                y, ld = fn(leaves[0], c_in, leaves[1], leaves[2], inverse)
                 wanted = leaves + ([c_leaf] if want_ctx else [])
                 if with_ld:
                     grads = torch.autograd.grad([y, ld], wanted, [cot_y, gld])
@@ -430,7 +434,7 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                         iters)
                 cc.BWD_MAX_GRID = saved
                 results["coupling_chain_bwd"][case]["ms_by_grid"] = by_grid
-        del chain, x, ctx, gy, gld, gy_wide, gy_strided, w, bias
+        del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias
         torch.cuda.empty_cache()
     log({"phase": "chain_kernels", "results": results,
          "note": "checked through fused_coupling_chain and its autograd Function; no single "

@@ -11,10 +11,11 @@ memory:
 * ``chain_bwd_kernel`` (replaces ``_chain_bwd_kernel``, ``:262``): recomputes
   the forward from the inputs and emits the gradients of x, ctx and one
   weight/bias partial per thread block, summed here.  A block of 1-8 warps
-  (one row per thread) loops over tiles of rows; each tile's weight and bias
-  gradients are sums over its rows taken from a tile of per-row factors in
-  shared memory, and the context's share of layer 0 is computed once per
-  distinct context row.
+  (one row per thread) loops over tiles of rows; the forward sweep keeps each
+  row's activations in shared memory, the reverse sweep adds the gradients
+  there, and each weight and bias gradient is then a sum over the tile's
+  rows; the context's share of layer 0 is computed once per distinct
+  context row.
 
 ``fused_coupling_chain`` takes the plain PyTorch version
 (``chain_apply_packed_plain``, differentiated by ordinary autograd) for
@@ -166,17 +167,20 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
 
 
 def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
-                   threads: int = BWD_MIN_THREADS) -> int:
+                   threads: int = BWD_MIN_THREADS, segments: int = BWD_MIN_THREADS) -> int:
     """Shared memory of the backward kernel for a block of ``threads`` rows
     (``bwd_smem_floats`` in ``csrc/coupling.cu``): the parameters and their
-    gradient accumulators, the factor tile (3 + 8·hidden floats a row) and,
-    per distinct context row of a tile, its context, its summed layer-0
-    gradients (2·hidden) and its layer-0 shares (4·K·hidden + 1)."""
+    gradient accumulators, a record of 7 + 16·hidden floats per row and
+    coupling block, and per distinct context row of a tile (at most
+    ``segments``) its context, its summed layer-0 gradients (4·K·hidden) and
+    its layer-0 shares (4·K·hidden + 1)."""
     params = n_blocks * 12 * (max_in * hidden + hidden)
-    segments = threads if ctx_dim else 1
-    floats = (2 * params + threads * (3 + 8 * hidden)
-              + (threads * (ctx_dim + 2 * hidden) if ctx_dim else 0)
-              + segments * (4 * n_blocks * hidden + 1))
+    nets = 4 * n_blocks
+    if not ctx_dim:
+        segments = 1
+    floats = (2 * params + n_blocks * threads * (7 + 16 * hidden)
+              + (segments * (ctx_dim + nets * hidden) if ctx_dim else 0)
+              + segments * (nets * hidden + 1))
     return 4 * floats
 
 
@@ -198,8 +202,15 @@ def _check_chain(x, ctx, weights, biases, backward: bool):
     if hidden > MAX_HIDDEN or n_blocks > MAX_BLOCKS:
         raise ValueError(f"the coupling kernels take hidden <= {MAX_HIDDEN} and at "
                          f"most {MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
-    smem = (bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden) if backward
-            else 4 * (weights.numel() + biases.numel()))
+    if backward:
+        # the distinct context rows of a one-warp tile: a run per batch
+        # element when the context is broadcast over the particles, else a row
+        threads = BWD_MIN_THREADS
+        segments = (min(threads, (threads - 1) // n + 2) if ctx is not None
+                    and ctx.stride(1) == 0 else threads)
+        smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, threads, segments)
+    else:
+        smem = 4 * (weights.numel() + biases.numel())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"the chain needs {smem} bytes of shared memory in the "
@@ -225,10 +236,10 @@ def _launch_forward(x, ctx, weights, biases, inverse: bool):
 
 
 def _launch_backward(x, ctx, weights, biases, gy, gld, inverse: bool, want_gctx: bool):
+    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
     _check_chain(x, ctx, weights, biases, backward=True)
     b, n, _ = x.shape
     x, weights, biases, gy, gld = kernel_args(x, weights, biases, gy, gld)
-    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
     dev = x.device
     grid = min((b * n + 31) // 32, BWD_MAX_GRID)
     gx = torch.empty((b, n, 2), device=dev, dtype=torch.float32)

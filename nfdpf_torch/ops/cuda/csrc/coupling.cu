@@ -185,51 +185,35 @@ __device__ __forceinline__ void stage_bwd(float* dst, const float* __restrict__ 
   for (int t = 4 * n4 + threadIdx.x; t < count; t += blockDim.x) dst[t] = src[t];
 }
 
-// A row of the factor tile: the coupling half's input, the two nets' output
-// gradients, then per net h1, h2, g1, g2 (H each).  The stride is odd, so the
-// rows' own writes hit 32 different banks.
+// A row's record of one coupling block in the factor tile: the block's input
+// upper half, the input of nets 0-1 and of nets 2-3, the four nets' outputs
+// (overwritten by their gradients in the reverse sweep), then per net h1, h2
+// and the pre-activation gradients g1 (layer 0) and g2 (layer 1), H each.
+// Odd length: the rows' own accesses hit 32 different banks.
 template <int H>
-struct Factors {
-  static constexpr int kStride = 3 + 8 * H;
-  static constexpr int kHalf = 0;
-  __host__ __device__ static constexpr int gout(int x) { return 1 + x; }
-  __host__ __device__ static constexpr int h1(int x) { return 3 + 4 * H * x; }
-  __host__ __device__ static constexpr int h2(int x) { return h1(x) + H; }
-  __host__ __device__ static constexpr int g1(int x) { return h1(x) + 2 * H; }
-  __host__ __device__ static constexpr int g2(int x) { return h1(x) + 3 * H; }
+struct Record {
+  static constexpr int kLen = 7 + 16 * H;
+  static constexpr int kUpper = 0;
+  __host__ __device__ static constexpr int half(int net) { return 1 + net / 2; }
+  __host__ __device__ static constexpr int out(int net) { return 3 + net; }
+  __host__ __device__ static constexpr int h1(int net) { return 7 + 4 * H * net; }
+  __host__ __device__ static constexpr int h2(int net) { return h1(net) + H; }
+  __host__ __device__ static constexpr int g1(int net) { return h1(net) + 2 * H; }
+  __host__ __device__ static constexpr int g2(int net) { return h1(net) + 3 * H; }
 };
 
-// What the threads of a backward block share for one tile of rows.
-struct BwdTile {
-  const float* sw;   // parameters w[K][4][3][max_in][H], staged
-  const float* sb;   // b[K][4][3][H], staged
-  float* aw;         // weight-gradient accumulators, laid out like sw
-  float* ab;         // bias-gradient accumulators, laid out like sb
-  float* fac;        // factor tile, one row per thread
-  const float* cs;   // the tile's distinct context rows, C floats each
-  float* gsum;       // per distinct context row and net of a half, g1 summed over its rows
-  int net_w, net_b, max_in, C;
-  int nseg;          // distinct context rows in the tile
-  bool share;        // a distinct context row is a run of rows of one batch element
-  int seg0, n;       // then run d covers tile rows [seg0 + d·n, seg0 + (d+1)·n), clipped
-  __device__ int seg_begin(int d) const { return share ? max(0, seg0 + d * n) : d; }
-  __device__ int seg_end(int d) const {
-    return share ? min(static_cast<int>(blockDim.x), seg0 + (d + 1) * n) : d + 1;
-  }
-};
-
-// One conditioner MLP in the backward kernel: layer 0 takes its bias and
-// context share from p[H] (computed once per distinct context row).  Keeps
-// both tanh activations.
+// One conditioner MLP in the backward kernel's forward sweep: layer 0 takes
+// its bias and context share from p[H] (computed once per distinct context
+// row); h1 and h2 go to the row's record rec.
 template <int H>
-__device__ __forceinline__ float mlp_fwd_shared(const float* __restrict__ w,
+__device__ __forceinline__ float mlp_fwd_record(const float* __restrict__ w,
                                                 const float* __restrict__ b, int max_in,
                                                 float half, const float* __restrict__ p,
-                                                float (&h1)[H], float (&h2)[H]) {
+                                                float* rec_h1) {
+  float h1[H], a[H];
 #pragma unroll
   for (int j = 0; j < H; ++j) h1[j] = tanhf(fmaf(half, w[j], p[j]));
   const float* w1 = w + max_in * H;
-  float a[H];
 #pragma unroll
   for (int j = 0; j < H; ++j) a[j] = b[H + j];
 #pragma unroll
@@ -237,40 +221,47 @@ __device__ __forceinline__ float mlp_fwd_shared(const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], w1[i * H + j], a[j]);
   }
-#pragma unroll
-  for (int j = 0; j < H; ++j) h2[j] = tanhf(a[j]);
   const float* w2 = w + 2 * max_in * H;
   float out = b[2 * H];
 #pragma unroll
-  for (int i = 0; i < H; ++i) out = fmaf(h2[i], w2[i * H], out);
+  for (int i = 0; i < H; ++i) {
+    const float h2 = tanhf(a[i]);
+    rec_h1[i] = h1[i];
+    rec_h1[H + i] = h2;
+    out = fmaf(h2, w2[i * H], out);
+  }
   return out;
 }
 
-// Backward of one MLP for this thread's row: writes h1, h2, g1, g2 (the
-// pre-activation gradients of layers 0 and 1) to f[0 .. 4H), adds the row's
-// context gradient into grow (when not null), returns d out / d half.
+// Backward of net `net` of a block for this thread's row, from the h1, h2 in
+// its record: writes g_out, g1 and g2 there, adds the row's context gradient
+// into grow (when not null), returns d out / d half.
 template <int H>
-__device__ __forceinline__ float mlp_bwd_row(const float* __restrict__ w, int max_in, int C,
-                                             const float (&h1)[H], const float (&h2)[H],
-                                             float g_out, float* f, float* __restrict__ grow) {
+__device__ __forceinline__ float mlp_bwd_record(const float* __restrict__ w, int max_in, int C,
+                                                float* rec, int net, float g_out,
+                                                float* __restrict__ grow) {
+  using R = Record<H>;
   const float* w1 = w + max_in * H;
   const float* w2 = w + 2 * max_in * H;
   float g2[H], g1[H];
 #pragma unroll
-  for (int i = 0; i < H; ++i) g2[i] = g_out * w2[i * H] * (1.f - h2[i] * h2[i]);
+  for (int i = 0; i < H; ++i) {
+    const float h2 = rec[R::h2(net) + i];
+    g2[i] = g_out * w2[i * H] * (1.f - h2 * h2);
+  }
 #pragma unroll
   for (int i = 0; i < H; ++i) {
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < H; ++j) acc = fmaf(g2[j], w1[i * H + j], acc);
-    g1[i] = acc * (1.f - h1[i] * h1[i]);
+    const float h1 = rec[R::h1(net) + i];
+    g1[i] = acc * (1.f - h1 * h1);
   }
+  rec[R::out(net)] = g_out;
 #pragma unroll
   for (int j = 0; j < H; ++j) {
-    f[j] = h1[j];
-    f[H + j] = h2[j];
-    f[2 * H + j] = g1[j];
-    f[3 * H + j] = g2[j];
+    rec[R::g1(net) + j] = g1[j];
+    rec[R::g2(net) + j] = g2[j];
   }
   if (grow != nullptr) {
     for (int c = 0; c < C; ++c) {
@@ -287,124 +278,26 @@ __device__ __forceinline__ float mlp_bwd_row(const float* __restrict__ w, int ma
   return g_half;
 }
 
-// The weight and bias gradient entries of nets m0 and m0 + 1 (one coupling
-// half), each summed over the tile's rows in row order by the one thread
-// that owns it and added into its accumulator.  Entry q of a net:
-//   gw[1][i][j] = Σ h1[i]·g2[j] (H·H), gb[1][j] = Σ g2[j] (H),
-//   gw[0][0][j] = Σ half·g1[j] (H), gb[0][j] = Σ g1[j] (H),
-//   gw[2][i][0] = Σ h2[i]·g_out (H), gb[2][0] = Σ g_out (1).
-// The rows past the end carry zero gradients and add exact zeros.
-template <int H>
-__device__ __forceinline__ void reduce_half(const BwdTile& s, int m0) {
-  using F = Factors<H>;
-  constexpr int S = F::kStride, E = H * H + 4 * H + 1;
-  const int rows = blockDim.x;
-  for (int e = threadIdx.x; e < 2 * E; e += blockDim.x) {
-    const int x = e / E, q = e % E;
-    float* aw = s.aw + (m0 + x) * s.net_w;
-    float* ab = s.ab + (m0 + x) * s.net_b;
-    int fa = -1, fb;   // factor columns; fa < 0: a plain sum of column fb
-    float* dst;
-    if (q < H * H) {
-      fa = F::h1(x) + q / H;
-      fb = F::g2(x) + q % H;
-      dst = aw + (s.max_in + q / H) * H + q % H;
-    } else if (q < H * H + H) {
-      fb = F::g2(x) + q - H * H;
-      dst = ab + H + q - H * H;
-    } else if (q < H * H + 2 * H) {
-      fa = F::kHalf;
-      fb = F::g1(x) + q - H * H - H;
-      dst = aw + q - H * H - H;
-    } else if (q < H * H + 3 * H) {
-      fb = F::g1(x) + q - H * H - 2 * H;
-      dst = ab + q - H * H - 2 * H;
-    } else if (q < H * H + 4 * H) {
-      fa = F::h2(x) + q - H * H - 3 * H;
-      fb = F::gout(x);
-      dst = aw + (2 * s.max_in + q - H * H - 3 * H) * H;
-    } else {
-      fb = F::gout(x);
-      dst = ab + 2 * H;
-    }
-    // four partial sums (rows r mod 4) for independent chains; a fixed order
-    const float* col_b = s.fac + fb;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    if (fa < 0) {
+// Sum of a[r]·b[r] (or of b[r] alone, a == nullptr) over `rows` rows `stride`
+// floats apart: four partial sums (rows r mod 4) for independent chains,
+// added in a fixed order.  rows is a multiple of 4.
+__device__ __forceinline__ float column_dot(const float* a, const float* b, int rows,
+                                            int stride) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (a == nullptr) {
 #pragma unroll 2
-      for (int r = 0; r < rows; r += 4) {
+    for (int r = 0; r < rows; r += 4) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] += col_b[(r + u) * S];
-      }
-    } else {
-      const float* col_a = s.fac + fa;
+      for (int u = 0; u < 4; ++u) acc[u] += b[(r + u) * stride];
+    }
+  } else {
 #pragma unroll 2
-      for (int r = 0; r < rows; r += 4) {
+    for (int r = 0; r < rows; r += 4) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] = fmaf(col_a[(r + u) * S], col_b[(r + u) * S], acc[u]);
-      }
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(a[(r + u) * stride], b[(r + u) * stride], acc[u]);
     }
-    *dst += (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
-}
-
-// Backward of one coupling half: nets m0 and m0 + 1 of a block, both reading
-// `half` and the context.  Per row: both nets' gradients and factors; then,
-// block-wide, their weight and bias entries over the tile (reduce_half) and
-// their context-weight entries gw[0][1 + c][j] = Σ_d ctx[d][c]·G[d][j], G
-// being g1 summed over the rows that share context row d.  Every thread of
-// the block calls it.  Returns the row's gradient with respect to `half`.
-template <int H>
-__device__ __forceinline__ float half_bwd(const BwdTile& s, int m0, float half, float g_a,
-                                          const float (&h1a)[H], const float (&h2a)[H],
-                                          float g_b, const float (&h1b)[H],
-                                          const float (&h2b)[H], float* grow) {
-  using F = Factors<H>;
-  constexpr int S = F::kStride;
-  float* f = s.fac + threadIdx.x * S;
-  f[F::kHalf] = half;
-  f[F::gout(0)] = g_a;
-  f[F::gout(1)] = g_b;
-  const float g_half =
-      mlp_bwd_row<H>(s.sw + m0 * s.net_w, s.max_in, s.C, h1a, h2a, g_a, f + F::h1(0), grow) +
-      mlp_bwd_row<H>(s.sw + (m0 + 1) * s.net_w, s.max_in, s.C, h1b, h2b, g_b, f + F::h1(1),
-                     grow);
-  __syncthreads();
-  reduce_half<H>(s, m0);
-  for (int i = threadIdx.x; i < (s.C ? s.nseg * 2 * H : 0); i += blockDim.x) {
-    const int d = i / (2 * H), col = F::g1(i / H % 2) + i % H;
-    const int end = s.seg_end(d);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    int r = s.seg_begin(d);
-    for (; r + 4 <= end; r += 4) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] += s.fac[(r + u) * S + col];
-    }
-    for (; r < end; ++r) acc[0] += s.fac[r * S + col];
-    s.gsum[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 2 * s.C * H; e += blockDim.x) {
-    const int x = e / (s.C * H), c = e / H % s.C, j = e % H;
-    const float* cc = s.cs + c;
-    const float* gs = s.gsum + x * H + j;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    int d = 0;
-    for (; d + 4 <= s.nseg; d += 4) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] = fmaf(cc[(d + u) * s.C], gs[(d + u) * 2 * H], acc[u]);
-    }
-    for (; d < s.nseg; ++d) acc[0] = fmaf(cc[d * s.C], gs[d * 2 * H], acc[0]);
-    s.aw[(m0 + x) * s.net_w + (1 + c) * H + j] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
-  }
-  return g_half;
-}
-
-// The row of P, the layer-0 shares of one distinct context row: 4·K·H + 1
-// floats, odd, so rows that each have their own context row read P without
-// bank conflicts.
-__host__ __device__ inline int bwd_p_stride(int n_blocks, int hidden) {
-  return 4 * n_blocks * hidden + 1;
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
 template <int H, bool INV>
@@ -414,36 +307,26 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  const float* __restrict__ bias, const float2* __restrict__ gy,
                  const float* __restrict__ gld, float2* __restrict__ gx,
                  float* __restrict__ gctx, float* __restrict__ gw_part,
-                 float* __restrict__ gb_part, int rows, int n, int K, int C, int max_in) {
+                 float* __restrict__ gb_part, int rows, int n, int K, int C, int max_in,
+                 int max_seg) {
+  using R = Record<H>;
+  constexpr int L = R::kLen, E = H * H + 4 * H + 1;
   extern __shared__ float smem[];
   const int T = blockDim.x, t = threadIdx.x;
   const int net_w = 3 * max_in * H, net_b = 3 * H, nets = 4 * K;
-  const int nw = nets * net_w, nb = nets * net_b, p_stride = bwd_p_stride(K, H);
+  const int nw = nets * net_w, nb = nets * net_b, p_stride = 4 * K * H + 1;
   // shared memory, in floats: parameters (nw + nb), their gradient
-  // accumulators (nw + nb), the factor tile (T rows), then per distinct
-  // context row of a tile (at most T; 1 without a context) its context (C),
-  // its g1 sums (2H) and its P row
-  BwdTile s;
+  // accumulators (nw + nb), the factor tile (K records per row), then per
+  // distinct context row of a tile (at most max_seg) its context (C), its g1
+  // sums (4K·H) and its layer-0 shares P (p_stride)
   float* sw = smem;
   float* sb = sw + nw;
   float* aw = sb + nb;
   float* ab = aw + nw;
   float* fac = ab + nb;
-  float* cs = fac + T * Factors<H>::kStride;
-  float* gsum = cs + (C ? T * C : 0);
-  float* p = gsum + (C ? T * 2 * H : 0);
-  s.sw = sw;
-  s.sb = sb;
-  s.aw = aw;
-  s.ab = ab;
-  s.fac = fac;
-  s.cs = cs;
-  s.gsum = gsum;
-  s.net_w = net_w;
-  s.net_b = net_b;
-  s.max_in = max_in;
-  s.C = C;
-  s.n = n;
+  float* cs = fac + K * T * L;
+  float* gsum = cs + (C ? max_seg * C : 0);
+  float* p = gsum + (C ? max_seg * nets * H : 0);
   stage_bwd(sw, w, nw);
   stage_bwd(sb, bias, nb);
   for (int i = t; i < nw + nb; i += T) aw[i] = 0.f;
@@ -457,32 +340,31 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     const int last = min(rows, r0 + T) - 1;
     // the tile's distinct context rows: a run of rows of one batch element
     // when the context is broadcast over the particles, else every row
-    s.share = C > 0 && ctx_sn == 0;
-    s.seg0 = 0;
-    int seg;
+    const bool share = C > 0 && ctx_sn == 0;
+    int seg, nseg, seg0 = 0;
     if (C == 0) {
       seg = 0;
-      s.nseg = 1;
-    } else if (s.share) {
+      nseg = 1;
+    } else if (share) {
       seg = r / n - r0 / n;
-      s.nseg = last / n - r0 / n + 1;
-      s.seg0 = (r0 / n) * n - r0;
+      nseg = last / n - r0 / n + 1;
+      seg0 = (r0 / n) * n - r0;
     } else {
       seg = r - r0;
-      s.nseg = last - r0 + 1;
+      nseg = last - r0 + 1;
     }
     __syncthreads();   // parameters staged; the previous tile's readers are done
-    for (int i = t; i < s.nseg * C; i += T) {
+    for (int i = t; i < nseg * C; i += T) {
       const int d = i / C, c = i % C;
-      const long long at = s.share ? (long long)(r0 / n + d) * ctx_sb
-                                   : (long long)((r0 + d) / n) * ctx_sb +
-                                         (long long)((r0 + d) % n) * ctx_sn;
+      const long long at = share ? (long long)(r0 / n + d) * ctx_sb
+                                 : (long long)((r0 + d) / n) * ctx_sb +
+                                       (long long)((r0 + d) % n) * ctx_sn;
       cs[i] = __ldg(ctx + at + c);
     }
     __syncthreads();
     // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
     // distinct context row
-    for (int i = t; i < s.nseg * nets; i += T) {
+    for (int i = t; i < nseg * nets; i += T) {
       const int m = i % nets, d = i / nets;
       const float* cd = cs + d * C;
       float acc[H];
@@ -503,102 +385,171 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     float* grow = (gctx != nullptr && valid) ? gctx + (size_t)row * C : nullptr;
     const float2 xv = x[r];
     float lo = xv.x, up = xv.y;
-    const float2 gv = valid ? gy[row] : make_float2(0.f, 0.f);
-    const float g_ld = valid ? gld[row] : 0.f;
 
-    float t1h1[H], t1h2[H], s1h1[H], s1h2[H], t2h1[H], t2h2[H], s2h1[H], s2h2[H];
-    float st_lo[kMaxBlocks], st_up[kMaxBlocks];
-
-    // forward sweep, keeping each block's input
+    // forward sweep: each block's inputs, outputs and activations into its record
     for (int st = 0; st < K; ++st) {
       const int k = INV ? K - 1 - st : st;
       const float* wk = sw + k * 4 * net_w;
       const float* bk = sb + k * 4 * net_b;
       const float* pk = prow + k * 4 * H;
-      st_lo[st] = lo;
-      st_up[st] = up;
+      float* rec = fac + (k * T + t) * L;
       if (!INV) {
-        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo, pk, t1h1, t1h2);
-        const float s1 = mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, s1h1, s1h2);
+        rec[R::kUpper] = up;
+        rec[R::half(0)] = lo;
+        const float t1 = mlp_fwd_record<H>(wk, bk, max_in, lo, pk, rec + R::h1(0));
+        const float s1 =
+            mlp_fwd_record<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, rec + R::h1(1));
         up = t1 + up * expf(s1);
-        const float t2 = mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
-                                           pk + 2 * H, t2h1, t2h2);
-        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
-                                           pk + 3 * H, s2h1, s2h2);
+        rec[R::half(2)] = up;
+        const float t2 = mlp_fwd_record<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
+                                           pk + 2 * H, rec + R::h1(2));
+        const float s2 = mlp_fwd_record<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
+                                           pk + 3 * H, rec + R::h1(3));
         lo = t2 + lo * expf(s2);
+        rec[R::out(0)] = t1;
+        rec[R::out(1)] = s1;
+        rec[R::out(2)] = t2;
+        rec[R::out(3)] = s2;
       } else {
-        const float t2 = mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
-                                           pk + 2 * H, t2h1, t2h2);
-        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
-                                           pk + 3 * H, s2h1, s2h2);
+        rec[R::half(2)] = up;
+        const float t2 = mlp_fwd_record<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
+                                           pk + 2 * H, rec + R::h1(2));
+        const float s2 = mlp_fwd_record<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
+                                           pk + 3 * H, rec + R::h1(3));
         lo = (lo - t2) * expf(-s2);
-        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo, pk, t1h1, t1h2);
-        const float s1 = mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, s1h1, s1h2);
+        rec[R::half(0)] = lo;
+        const float t1 = mlp_fwd_record<H>(wk, bk, max_in, lo, pk, rec + R::h1(0));
+        const float s1 =
+            mlp_fwd_record<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, rec + R::h1(1));
         up = (up - t1) * expf(-s1);
+        rec[R::out(0)] = t1;
+        rec[R::out(1)] = s1;
+        rec[R::out(2)] = t2;
+        rec[R::out(3)] = s2;
       }
     }
 
-    // reverse sweep: recompute each block from its input, then its gradients
+    // reverse sweep: each block's gradients from its record, into its record
+    const float2 gv = valid ? gy[row] : make_float2(0.f, 0.f);
+    const float g_ld = valid ? gld[row] : 0.f;
     float g_lo = gv.x, g_up = gv.y;
     for (int st = K - 1; st >= 0; --st) {
       const int k = INV ? K - 1 - st : st;
       const float* wk = sw + k * 4 * net_w;
-      const float* bk = sb + k * 4 * net_b;
-      const float* pk = prow + k * 4 * H;
-      const float lo_in = st_lo[st], up_in = st_up[st];
+      float* rec = fac + (k * T + t) * L;
       if (!INV) {
-        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo_in, pk, t1h1, t1h2);
-        const float s1 =
-            mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo_in, pk + H, s1h1, s1h2);
-        const float e1 = expf(s1);
-        const float up_mid = t1 + up_in * e1;
-        mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up_mid, pk + 2 * H, t2h1,
-                          t2h2);
-        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up_mid,
-                                           pk + 3 * H, s2h1, s2h2);
-        const float e2 = expf(s2);
+        const float lo_in = rec[R::half(0)], up_in = rec[R::kUpper];
+        const float e1 = expf(rec[R::out(1)]), e2 = expf(rec[R::out(3)]);
         // lower_out = t2 + lo_in * exp(s2); log_det += s1 + s2
         const float g_t2 = g_lo;
         const float g_s2 = g_lo * lo_in * e2 + g_ld;
         const float g_lo_in = g_lo * e2;
         const float g_b =
-            half_bwd<H>(s, 4 * k + 2, up_mid, g_t2, t2h1, t2h2, g_s2, s2h1, s2h2, grow);
+            mlp_bwd_record<H>(wk + 2 * net_w, max_in, C, rec, 2, g_t2, grow) +
+            mlp_bwd_record<H>(wk + 3 * net_w, max_in, C, rec, 3, g_s2, grow);
         const float g_up_mid = g_up + g_b;
         // up_mid = t1 + up_in * exp(s1)
         const float g_t1 = g_up_mid;
         const float g_s1 = g_up_mid * up_in * e1 + g_ld;
-        const float g_a = half_bwd<H>(s, 4 * k, lo_in, g_t1, t1h1, t1h2, g_s1, s1h1, s1h2, grow);
+        const float g_a = mlp_bwd_record<H>(wk, max_in, C, rec, 0, g_t1, grow) +
+                          mlp_bwd_record<H>(wk + net_w, max_in, C, rec, 1, g_s1, grow);
         g_lo = g_lo_in + g_a;
         g_up = g_up_mid * e1;
       } else {
-        const float t2 = mlp_fwd_shared<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up_in,
-                                           pk + 2 * H, t2h1, t2h2);
-        const float s2 = mlp_fwd_shared<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up_in,
-                                           pk + 3 * H, s2h1, s2h2);
-        const float e2 = expf(-s2);
-        const float lo_out = (lo_in - t2) * e2;
-        const float t1 = mlp_fwd_shared<H>(wk, bk, max_in, lo_out, pk, t1h1, t1h2);
-        const float s1 =
-            mlp_fwd_shared<H>(wk + net_w, bk + net_b, max_in, lo_out, pk + H, s1h1, s1h2);
-        const float e1 = expf(-s1);
-        const float up_out = (up_in - t1) * e1;
+        const float lo_out = rec[R::half(0)], up_in = rec[R::half(2)];
+        const float e2 = expf(-rec[R::out(3)]), e1 = expf(-rec[R::out(1)]);
+        const float up_out = (up_in - rec[R::out(0)]) * e1;
         // up_out = (up_in - t1) * exp(-s1); log_det -= s1 + s2
         const float g_t1 = -g_up * e1;
         const float g_s1 = -g_up * up_out - g_ld;
         const float g_up_in = g_up * e1;
-        const float g_a =
-            half_bwd<H>(s, 4 * k, lo_out, g_t1, t1h1, t1h2, g_s1, s1h1, s1h2, grow);
+        const float g_a = mlp_bwd_record<H>(wk, max_in, C, rec, 0, g_t1, grow) +
+                          mlp_bwd_record<H>(wk + net_w, max_in, C, rec, 1, g_s1, grow);
         const float g_lo_out = g_lo + g_a;
         // lo_out = (lo_in - t2) * exp(-s2)
         const float g_t2 = -g_lo_out * e2;
         const float g_s2 = -g_lo_out * lo_out - g_ld;
         const float g_b =
-            half_bwd<H>(s, 4 * k + 2, up_in, g_t2, t2h1, t2h2, g_s2, s2h1, s2h2, grow);
+            mlp_bwd_record<H>(wk + 2 * net_w, max_in, C, rec, 2, g_t2, grow) +
+            mlp_bwd_record<H>(wk + 3 * net_w, max_in, C, rec, 3, g_s2, grow);
         g_up = g_up_in + g_b;
         g_lo = g_lo_out * e2;
       }
     }
     if (valid) gx[row] = make_float2(g_lo, g_up);
+    __syncthreads();
+
+    // the tile's weight and bias gradient entries, each summed over the
+    // tile's rows by the one thread that owns it, into its accumulator.
+    // Entry q of net m = 4k + net: gw[1][i][j] = Σ h1[i]·g2[j] (H·H),
+    // gb[1][j] = Σ g2[j] (H), gw[0][0][j] = Σ half·g1[j] (H), gb[0][j] =
+    // Σ g1[j] (H), gw[2][i][0] = Σ h2[i]·g_out (H), gb[2][0] = Σ g_out (1).
+    // The rows past the end carry zero gradients and add exact zeros.
+    for (int e = t; e < nets * E; e += T) {
+      const int m = e / E, q = e % E, net = m % 4;
+      const float* recs = fac + (m / 4) * T * L;
+      float* awm = aw + m * net_w;
+      float* abm = ab + m * net_b;
+      int fa = -1, fb;   // record fields; fa < 0: a plain sum of field fb
+      float* dst;
+      if (q < H * H) {
+        fa = R::h1(net) + q / H;
+        fb = R::g2(net) + q % H;
+        dst = awm + (max_in + q / H) * H + q % H;
+      } else if (q < H * H + H) {
+        fb = R::g2(net) + q - H * H;
+        dst = abm + H + q - H * H;
+      } else if (q < H * H + 2 * H) {
+        fa = R::half(net);
+        fb = R::g1(net) + q - H * H - H;
+        dst = awm + q - H * H - H;
+      } else if (q < H * H + 3 * H) {
+        fb = R::g1(net) + q - H * H - 2 * H;
+        dst = abm + q - H * H - 2 * H;
+      } else if (q < H * H + 4 * H) {
+        fa = R::h2(net) + q - H * H - 3 * H;
+        fb = R::out(net);
+        dst = awm + (2 * max_in + q - H * H - 3 * H) * H;
+      } else {
+        fb = R::out(net);
+        dst = abm + 2 * H;
+      }
+      *dst += column_dot(fa < 0 ? nullptr : recs + fa, recs + fb, T, L);
+    }
+    if (C) {
+      // per distinct context row and net, g1 summed over the rows that read it
+      for (int i = t; i < nseg * nets * H; i += T) {
+        const int d = i / (nets * H), m = i / H % nets, j = i % H;
+        const float* col = fac + (m / 4) * T * L + R::g1(m % 4) + j;
+        const int begin = share ? max(0, seg0 + d * n) : d;
+        const int end = share ? min(T, seg0 + (d + 1) * n) : d + 1;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        int rr = begin;
+        for (; rr + 4 <= end; rr += 4) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[u] += col[(rr + u) * L];
+        }
+        for (; rr < end; ++rr) acc[0] += col[rr * L];
+        gsum[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
+      __syncthreads();
+      // context-weight entries gw[m][0][1 + c][j] = Σ_d ctx[d][c]·G[d][m][j]
+      for (int e = t; e < nets * C * H; e += T) {
+        const int m = e / (C * H), c = e / H % C, j = e % H;
+        const float* cc = cs + c;
+        const float* gs = gsum + m * H + j;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        int d = 0;
+        for (; d + 4 <= nseg; d += 4) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[u] = fmaf(cc[(d + u) * C], gs[(d + u) * nets * H], acc[u]);
+          }
+        }
+        for (; d < nseg; ++d) acc[0] = fmaf(cc[d * C], gs[d * nets * H], acc[0]);
+        aw[m * net_w + (1 + c) * H + j] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
+    }
   }
 
   __syncthreads();
@@ -623,13 +574,22 @@ size_t param_floats(int n_blocks, int max_in) {
   return (size_t)n_blocks * 12 * ((size_t)max_in * kHidden + kHidden);
 }
 
+// Distinct context rows a tile of `threads` rows can read: one without a
+// context, one per batch element touched when the context is broadcast over
+// the particles (particle stride 0), else one per row.
+int bwd_max_seg(int threads, int n, int ctx_dim, long long ctx_sn) {
+  if (ctx_dim == 0) return 1;
+  return ctx_sn == 0 ? std::min(threads, (threads - 1) / n + 2) : threads;
+}
+
 // The backward's shared memory in floats for a block of `threads` rows (the
 // layout at the top of chain_bwd_kernel).
-size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads) {
-  const size_t segs = ctx_dim ? threads : 1;
-  return 2 * param_floats(n_blocks, max_in) + (size_t)threads * Factors<kHidden>::kStride +
-         (ctx_dim ? (size_t)threads * (ctx_dim + 2 * kHidden) : 0) +
-         segs * bwd_p_stride(n_blocks, kHidden);
+size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int max_seg) {
+  const size_t nets = 4 * (size_t)n_blocks;
+  return 2 * param_floats(n_blocks, max_in) +
+         (size_t)n_blocks * threads * Record<kHidden>::kLen +
+         (ctx_dim ? (size_t)max_seg * (ctx_dim + nets * kHidden) : 0) +
+         (size_t)max_seg * (nets * kHidden + 1);
 }
 
 }  // namespace
@@ -675,17 +635,19 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* ctx, long l
   // each, as far as shared memory allows; the blocks loop over the tiles
   int warps = std::min<long long>(kMaxWarps, (rows + (long long)kWarp * grid - 1) /
                                                  ((long long)kWarp * grid));
-  while (warps > 1 &&
-         bwd_smem_floats(n_blocks, ctx_dim, max_in, warps * kWarp) * sizeof(float) > kMaxSmem) {
-    --warps;
-  }
-  const size_t smem = bwd_smem_floats(n_blocks, ctx_dim, max_in, warps * kWarp) * sizeof(float);
+  auto smem_of = [&](int w) {
+    return bwd_smem_floats(n_blocks, ctx_dim, max_in, w * kWarp,
+                           bwd_max_seg(w * kWarp, n, ctx_dim, ctx_sn)) * sizeof(float);
+  };
+  while (warps > 1 && smem_of(warps) > kMaxSmem) --warps;
+  const size_t smem = smem_of(warps);
+  const int max_seg = bwd_max_seg(warps * kWarp, n, ctx_dim, ctx_sn);
   auto kernel = inverse ? chain_bwd_kernel<kHidden, true> : chain_bwd_kernel<kHidden, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
   kernel<<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
       reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), gctx, gw_part,
-      gb_part, rows, n, n_blocks, ctx_dim, max_in);
+      gb_part, rows, n, n_blocks, ctx_dim, max_in, max_seg);
   return static_cast<int>(cudaGetLastError());
 }
