@@ -300,6 +300,22 @@ __device__ __forceinline__ float column_dot(const float* a, const float* b, int 
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
+#ifdef NFDPF_BWD_PHASES
+// diagnostic: clock64() of thread 0 at each phase boundary of its block's first tile
+constexpr int kPhases = 10, kPhaseBlocks = 1024;
+__device__ long long g_phase_clock[kPhaseBlocks * kPhases];
+#define NFDPF_PHASE(i)                                                          \
+  do {                                                                          \
+    if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks && (i == 0 || i == 9 ||   \
+                                                          tile_no == 0))        \
+      g_phase_clock[blockIdx.x * kPhases + (i)] = clock64();                    \
+  } while (0)
+#else
+#define NFDPF_PHASE(i) \
+  do {             \
+  } while (0)
+#endif
+
 template <int H, bool INV>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
 chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
@@ -312,6 +328,8 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   using R = Record<H>;
   constexpr int L = R::kLen, E = H * H + 4 * H + 1;
   extern __shared__ float smem[];
+  int tile_no = 0;
+  NFDPF_PHASE(0);
   const int T = blockDim.x, t = threadIdx.x;
   const int net_w = 3 * max_in * H, net_b = 3 * H, nets = 4 * K;
   const int nw = nets * net_w, nb = nets * net_b, p_stride = 4 * K * H + 1;
@@ -332,7 +350,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   for (int i = t; i < nw + nb; i += T) aw[i] = 0.f;
 
   const int tiles = (rows + T - 1) / T;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++tile_no) {
     const int r0 = tile * T, row = r0 + t;
     const bool valid = row < rows;
     // a thread past the end walks the last row with zero incoming gradients
@@ -354,6 +372,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       nseg = last - r0 + 1;
     }
     __syncthreads();   // parameters staged; the previous tile's readers are done
+  NFDPF_PHASE(1);
     for (int i = t; i < nseg * C; i += T) {
       const int d = i / C, c = i % C;
       const long long at = share ? (long long)(r0 / n + d) * ctx_sb
@@ -362,6 +381,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       cs[i] = __ldg(ctx + at + c);
     }
     __syncthreads();
+  NFDPF_PHASE(2);
     // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
     // distinct context row
     for (int i = t; i < nseg * nets; i += T) {
@@ -380,6 +400,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       for (int j = 0; j < H; ++j) p[d * p_stride + m * H + j] = sb[m * net_b + j] + acc[j];
     }
     __syncthreads();
+  NFDPF_PHASE(3);
 
     const float* prow = p + seg * p_stride;
     float* grow = (gctx != nullptr && valid) ? gctx + (size_t)row * C : nullptr;
@@ -476,8 +497,10 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
         g_lo = g_lo_out * e2;
       }
     }
+  NFDPF_PHASE(4);
     if (valid) gx[row] = make_float2(g_lo, g_up);
     __syncthreads();
+  NFDPF_PHASE(5);
 
     // the tile's weight and bias gradient entries, each summed over the
     // tile's rows by the one thread that owns it, into its accumulator.
@@ -516,6 +539,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       }
       *dst += column_dot(fa < 0 ? nullptr : recs + fa, recs + fb, T, L);
     }
+  NFDPF_PHASE(7);
     if (C) {
       // per distinct context row and net, g1 summed over the rows that read it
       for (int i = t; i < nseg * nets * H; i += T) {
@@ -533,6 +557,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
         gsum[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
       }
       __syncthreads();
+  NFDPF_PHASE(6);
       // context-weight entries gw[m][0][1 + c][j] = Σ_d ctx[d][c]·G[d][m][j]
       for (int e = t; e < nets * C * H; e += T) {
         const int m = e / (C * H), c = e / H % C, j = e % H;
@@ -553,10 +578,12 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   }
 
   __syncthreads();
+  NFDPF_PHASE(8);
   float* gw_out = gw_part + (size_t)blockIdx.x * nw;
   float* gb_out = gb_part + (size_t)blockIdx.x * nb;
   for (int i = t; i < nw; i += T) gw_out[i] = aw[i];
   for (int i = t; i < nb; i += T) gb_out[i] = ab[i];
+  NFDPF_PHASE(9);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
@@ -593,6 +620,12 @@ size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int m
 }
 
 }  // namespace
+
+#ifdef NFDPF_BWD_PHASES
+extern "C" int nfdpf_bwd_phase_clocks(long long* out, int count) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_clock, count * sizeof(long long)));
+}
+#endif
 
 // Plain C entry points (loaded with ctypes).  Each launches on the caller's
 // stream and returns a cudaError_t: that of the shared-memory opt-in, else
