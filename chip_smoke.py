@@ -85,7 +85,7 @@ CHAIN_TOL = 1e-5   # K4: |err| <= tol + tol·|ref| (outputs of magnitude ~1-10)
 # (B, N = M) of the streaming-Sinkhorn kernels' checks, with timing iterations:
 # the main path's, a ragged large one, and the largest particle count trained
 SINKHORN_SHAPES = (((32, 100), 200), ((4, 4097), 20), ((4, 10240), 10))
-BWD_GRID_SWEEP = ()     # K5 grid caps to time besides the default (--bwd-grid-sweep)
+BWD_GRID_SWEEP = ()     # K5 (rows per block, grid cap) to time besides the default
 CHAIN_GRAD_TOL = 1e-4   # K5: |err| <= tol·|ref| + tol·max|ref| per gradient; the weight
                         # gradients sum over all rows in another order than autograd
 
@@ -424,15 +424,15 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                 "library_ms": None, "bound_ms": bound, "bound_by": by}
             if BWD_GRID_SWEEP:
                 # K5 at other grids (the entry point derives warps per block)
-                saved, by_grid = cc.BWD_MAX_GRID, {}
-                for max_grid in BWD_GRID_SWEEP:
-                    cc.BWD_MAX_GRID = max_grid
-                    grid = min((rows + 31) // 32, max_grid)
+                saved, by_grid = (cc.BWD_ROWS_PER_BLOCK, cc.BWD_MAX_GRID), {}
+                for per_block, max_grid in BWD_GRID_SWEEP:
+                    cc.BWD_ROWS_PER_BLOCK, cc.BWD_MAX_GRID = per_block, max_grid
+                    grid = min(-(-rows // per_block), max_grid)
                     warps = min(8, -(-rows // (32 * grid)))
                     by_grid[f"grid{grid}_warps{warps}"] = device_ms(
                         lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False),
                         iters)
-                cc.BWD_MAX_GRID = saved
+                cc.BWD_ROWS_PER_BLOCK, cc.BWD_MAX_GRID = saved
                 results["coupling_chain_bwd"][case]["ms_by_grid"] = by_grid
         del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias
         torch.cuda.empty_cache()
@@ -669,7 +669,7 @@ def main() -> int:
     args = parser.parse_args()
     if args.bwd_grid_sweep:
         global BWD_GRID_SWEEP
-        BWD_GRID_SWEEP = (528, 264, 132, 66, 33, 16)
+        BWD_GRID_SWEEP = ((32, 528), (64, 264), (128, 132), (256, 132))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs its kernels on a GPU only",
               file=sys.stderr)

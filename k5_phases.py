@@ -33,10 +33,10 @@ def main():
     cc._library = lambda hidden: lib
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    for b, n, c, bcast, grids in ((32, 100, 4, True, (100, 66, 33)),
-                                  (32, 100, 36, True, (100, 66, 33)),
-                                  (4, 4097, 36, False, (528, 264, 132)),
-                                  (4, 4097, 0, False, (528, 264, 132))):
+    for b, n, c, bcast, grids in ((32, 100, 4, True, (100, 50, 25)),
+                                  (32, 100, 36, True, (100, 50, 25)),
+                                  (4, 4097, 36, False, (513, 257, 129)),
+                                  (4, 4097, 0, False, (513, 257, 129))):
         gen = torch.Generator().manual_seed(1000 * b + n + c)
         chain = realnvp_chain(2, 2, 8, 0.3, ctx_dim=c)
         flax_init_(chain, gen)
@@ -47,9 +47,8 @@ def main():
         gld = torch.randn(b, n, generator=gen).to(dev)
         with torch.no_grad():
             w, bias = (t.contiguous().to(dev) for t in cc.pack_chain_params(chain))
-        for max_grid in grids:
-            cc.BWD_MAX_GRID = max_grid
-            grid = min((b * n + 31) // 32, max_grid)
+        for grid in grids:
+            cc.BWD_ROWS_PER_BLOCK, cc.BWD_MAX_GRID = -(-b * n // grid), grid
 
             def run():
                 return cc._launch_backward(x, ctx, w, bias, gy, gld, True, False)

@@ -50,7 +50,8 @@ NETS = ("t1", "s1", "t2", "s2")
 MAX_HIDDEN = 8                    # the H-wide activations are register arrays
 MAX_BLOCKS = 8                    # block inputs the backward keeps per row
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
-BWD_MAX_GRID = 528                # backward blocks (one warp each): 4 per SM on 132 SMs
+BWD_MAX_GRID = 132                # backward blocks: at most one per SM
+BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)
 BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
 
 _P = ctypes.c_void_p
@@ -170,16 +171,17 @@ def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
                    threads: int = BWD_MIN_THREADS, segments: int = BWD_MIN_THREADS) -> int:
     """Shared memory of the backward kernel for a block of ``threads`` rows
     (``bwd_smem_floats`` in ``csrc/coupling.cu``): the parameters and their
-    gradient accumulators, a record of 7 + 16·hidden floats per row and
-    coupling block, and per distinct context row of a tile (at most
-    ``segments``) its context, its summed layer-0 gradients (4·K·hidden) and
-    its layer-0 shares (4·K·hidden + 1)."""
+    gradient accumulators, the factor tile (2 + K·(7 + 16·hidden) fields of
+    threads + 4 floats) and, per distinct context row of a tile (at most
+    ``segments``), its context, its summed layer-0 gradients (4·K·hidden)
+    and its layer-0 shares (4·K·hidden + 1)."""
     params = n_blocks * 12 * (max_in * hidden + hidden)
     nets = 4 * n_blocks
     if not ctx_dim:
         segments = 1
-    floats = (2 * params + n_blocks * threads * (7 + 16 * hidden)
-              + (segments * (ctx_dim + nets * hidden) if ctx_dim else 0)
+    cs_stride = (segments + 3) // 4 * 4 + 4
+    floats = (2 * params + (2 + n_blocks * (7 + 16 * hidden)) * (threads + 4)
+              + (ctx_dim * cs_stride + segments * nets * hidden if ctx_dim else 0)
               + segments * (nets * hidden + 1))
     return 4 * floats
 
@@ -241,7 +243,7 @@ def _launch_backward(x, ctx, weights, biases, gy, gld, inverse: bool, want_gctx:
     b, n, _ = x.shape
     x, weights, biases, gy, gld = kernel_args(x, weights, biases, gy, gld)
     dev = x.device
-    grid = min((b * n + 31) // 32, BWD_MAX_GRID)
+    grid = min(-(-b * n // BWD_ROWS_PER_BLOCK), BWD_MAX_GRID)
     gx = torch.empty((b, n, 2), device=dev, dtype=torch.float32)
     # the kernel adds each MLP's share into its row of gctx
     gctx = torch.zeros(ctx.shape, device=dev, dtype=torch.float32) if want_gctx else None

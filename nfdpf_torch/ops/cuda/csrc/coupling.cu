@@ -171,133 +171,175 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
 
 // ---- K5: the backward kernel ------------------------------------------------
 
-// Stage with 16-byte loads where both sides allow it.
-__device__ __forceinline__ void stage_bwd(float* dst, const float* __restrict__ src, int count) {
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) != 0) {
-    stage(dst, src, count);
-    return;
-  }
-  const int n4 = count / 4;
-#pragma unroll 8
-  for (int t = threadIdx.x; t < n4; t += blockDim.x) {
-    reinterpret_cast<float4*>(dst)[t] = __ldg(reinterpret_cast<const float4*>(src) + t);
-  }
-  for (int t = 4 * n4 + threadIdx.x; t < count; t += blockDim.x) dst[t] = src[t];
+// Asynchronous copies from device to shared memory (cp.async): every thread
+// keeps all of its copies in flight at once.
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// A row's record of one coupling block in the factor tile: the block's input
-// upper half, the input of nets 0-1 and of nets 2-3, the four nets' outputs
-// (overwritten by their gradients in the reverse sweep), then per net h1, h2
-// and the pre-activation gradients g1 (layer 0) and g2 (layer 1), H each.
-// Odd length: the rows' own accesses hit 32 different banks.
+// Stage `count` floats (16-byte copies where both sides allow them).
+__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src,
+                                            int count) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    done = count / 4 * 4;
+    for (int i = 4 * threadIdx.x; i < done; i += 4 * blockDim.x) copy_async16(dst + i, src + i);
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x) copy_async4(dst + i, src + i);
+}
+
+// H consecutive floats of a staged parameter row, with 16-byte loads when H
+// is a multiple of 4 (every row of the packed parameters then starts on 16
+// bytes).
 template <int H>
-struct Record {
-  static constexpr int kLen = 7 + 16 * H;
-  static constexpr int kUpper = 0;
-  __host__ __device__ static constexpr int half(int net) { return 1 + net / 2; }
-  __host__ __device__ static constexpr int out(int net) { return 3 + net; }
-  __host__ __device__ static constexpr int h1(int net) { return 7 + 4 * H * net; }
-  __host__ __device__ static constexpr int h2(int net) { return h1(net) + H; }
-  __host__ __device__ static constexpr int g1(int net) { return h1(net) + 2 * H; }
-  __host__ __device__ static constexpr int g2(int net) { return h1(net) + 3 * H; }
+__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&v)[H]) {
+  if constexpr (H % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < H; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(src + j);
+      v[j] = q.x;
+      v[j + 1] = q.y;
+      v[j + 2] = q.z;
+      v[j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < H; ++j) v[j] = src[j];
+  }
+}
+
+// The factor tile is field-major: field f of tile row r at f * stride + r
+// (stride = rows + 4, a multiple of 4), so a row's own accesses are
+// consecutive across the warp and a thread reads four rows of one field in
+// one 16-byte load.  Fields: a column of ones and one of zeros, then per
+// coupling block its input upper half, the inputs of nets 0-1 and 2-3, and
+// per net its output (overwritten by the output's gradient in the reverse
+// sweep), h1, h2 and the pre-activation gradients g1 (layer 0) and g2
+// (layer 1), H each.
+template <int H>
+struct Fields {
+  static constexpr int kOne = 0, kZero = 1;
+  static constexpr int kBlock = 7 + 16 * H;
+  __host__ __device__ static constexpr int count(int n_blocks) { return 2 + n_blocks * kBlock; }
+  __host__ __device__ static constexpr int upper(int k) { return 2 + k * kBlock; }
+  __host__ __device__ static constexpr int half(int k, int net) { return upper(k) + 1 + net / 2; }
+  __host__ __device__ static constexpr int out(int k, int net) {
+    return upper(k) + 3 + net * (1 + 4 * H);
+  }
+  __host__ __device__ static constexpr int h1(int k, int net) { return out(k, net) + 1; }
+  __host__ __device__ static constexpr int h2(int k, int net) { return h1(k, net) + H; }
+  __host__ __device__ static constexpr int g1(int k, int net) { return h1(k, net) + 2 * H; }
+  __host__ __device__ static constexpr int g2(int k, int net) { return h1(k, net) + 3 * H; }
 };
 
 // One conditioner MLP in the backward kernel's forward sweep: layer 0 takes
 // its bias and context share from p[H] (computed once per distinct context
-// row); h1 and h2 go to the row's record rec.
+// row); h1 and h2 go to this row's fields (h1 at f[0], h2 at f[H * fs]).
 template <int H>
-__device__ __forceinline__ float mlp_fwd_record(const float* __restrict__ w,
-                                                const float* __restrict__ b, int max_in,
-                                                float half, const float* __restrict__ p,
-                                                float* rec_h1) {
-  float h1[H], a[H];
+__device__ __forceinline__ float mlp_fwd_tile(const float* __restrict__ w,
+                                              const float* __restrict__ b, int max_in,
+                                              float half, const float* __restrict__ p, float* f,
+                                              int fs) {
+  float h1[H], a[H], wr[H];
+  load_row<H>(w, wr);
 #pragma unroll
-  for (int j = 0; j < H; ++j) h1[j] = tanhf(fmaf(half, w[j], p[j]));
+  for (int j = 0; j < H; ++j) h1[j] = tanhf(fmaf(half, wr[j], p[j]));
   const float* w1 = w + max_in * H;
-#pragma unroll
-  for (int j = 0; j < H; ++j) a[j] = b[H + j];
+  load_row<H>(b + H, a);
 #pragma unroll
   for (int i = 0; i < H; ++i) {
+    load_row<H>(w1 + i * H, wr);
 #pragma unroll
-    for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], w1[i * H + j], a[j]);
+    for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], wr[j], a[j]);
   }
   const float* w2 = w + 2 * max_in * H;
   float out = b[2 * H];
 #pragma unroll
   for (int i = 0; i < H; ++i) {
     const float h2 = tanhf(a[i]);
-    rec_h1[i] = h1[i];
-    rec_h1[H + i] = h2;
+    f[i * fs] = h1[i];
+    f[(H + i) * fs] = h2;
     out = fmaf(h2, w2[i * H], out);
   }
   return out;
 }
 
-// Backward of net `net` of a block for this thread's row, from the h1, h2 in
-// its record: writes g_out, g1 and g2 there, adds the row's context gradient
-// into grow (when not null), returns d out / d half.
+// Backward of one net for this thread's row, from its h1, h2 (f points at
+// the row's h1[0], fields fs apart): writes g1 and g2 there, adds the row's
+// context gradient into grow (when not null), returns d out / d half.
 template <int H>
-__device__ __forceinline__ float mlp_bwd_record(const float* __restrict__ w, int max_in, int C,
-                                                float* rec, int net, float g_out,
-                                                float* __restrict__ grow) {
-  using R = Record<H>;
+__device__ __forceinline__ float mlp_bwd_tile(const float* __restrict__ w, int max_in, int C,
+                                              float* f, int fs, float g_out,
+                                              float* __restrict__ grow) {
   const float* w1 = w + max_in * H;
   const float* w2 = w + 2 * max_in * H;
-  float g2[H], g1[H];
+  float g2[H], g1[H], wr[H];
 #pragma unroll
   for (int i = 0; i < H; ++i) {
-    const float h2 = rec[R::h2(net) + i];
+    const float h2 = f[(H + i) * fs];
     g2[i] = g_out * w2[i * H] * (1.f - h2 * h2);
   }
 #pragma unroll
   for (int i = 0; i < H; ++i) {
+    load_row<H>(w1 + i * H, wr);
     float acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < H; ++j) acc = fmaf(g2[j], w1[i * H + j], acc);
-    const float h1 = rec[R::h1(net) + i];
+    for (int j = 0; j < H; ++j) acc = fmaf(g2[j], wr[j], acc);
+    const float h1 = f[i * fs];
     g1[i] = acc * (1.f - h1 * h1);
   }
-  rec[R::out(net)] = g_out;
 #pragma unroll
   for (int j = 0; j < H; ++j) {
-    rec[R::g1(net) + j] = g1[j];
-    rec[R::g2(net) + j] = g2[j];
+    f[(2 * H + j) * fs] = g1[j];
+    f[(3 * H + j) * fs] = g2[j];
   }
   if (grow != nullptr) {
     for (int c = 0; c < C; ++c) {
-      const float* wr = w + (1 + c) * H;
+      load_row<H>(w + (1 + c) * H, wr);
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < H; ++j) acc = fmaf(g1[j], wr[j], acc);
       grow[c] += acc;
     }
   }
+  load_row<H>(w, wr);
   float g_half = 0.f;
 #pragma unroll
-  for (int j = 0; j < H; ++j) g_half = fmaf(g1[j], w[j], g_half);
+  for (int j = 0; j < H; ++j) g_half = fmaf(g1[j], wr[j], g_half);
   return g_half;
 }
 
-// Sum of a[r]·b[r] (or of b[r] alone, a == nullptr) over `rows` rows `stride`
-// floats apart: four partial sums (rows r mod 4) for independent chains,
-// added in a fixed order.  rows is a multiple of 4.
-__device__ __forceinline__ float column_dot(const float* a, const float* b, int rows,
-                                            int stride) {
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (a == nullptr) {
+// One task of the transpose-reduce: Σ_r a[r]·b_i[r] over the tile's rows for
+// the four fields b_0..b_3 (fields fs floats apart, rows a multiple of 4),
+// four rows per 16-byte load, two partial sums per entry (even and odd
+// rows) added in a fixed order; entry i goes into *dst[i] unless null.
+__device__ __forceinline__ void reduce_task(const float* a, const float* const (&b)[4],
+                                            float* const (&dst)[4], int rows) {
+  float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll 2
-    for (int r = 0; r < rows; r += 4) {
+  for (int r = 0; r < rows; r += 4) {
+    const float4 va = *reinterpret_cast<const float4*>(a + r);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] += b[(r + u) * stride];
-    }
-  } else {
-#pragma unroll 2
-    for (int r = 0; r < rows; r += 4) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] = fmaf(a[(r + u) * stride], b[(r + u) * stride], acc[u]);
+    for (int i = 0; i < 4; ++i) {
+      const float4 vb = *reinterpret_cast<const float4*>(b[i] + r);
+      acc[i][0] = fmaf(va.x, vb.x, acc[i][0]);
+      acc[i][1] = fmaf(va.y, vb.y, acc[i][1]);
+      acc[i][0] = fmaf(va.z, vb.z, acc[i][0]);
+      acc[i][1] = fmaf(va.w, vb.w, acc[i][1]);
     }
   }
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (dst[i] != nullptr) *dst[i] += acc[i][0] + acc[i][1];
+  }
 }
 
 #ifdef NFDPF_BWD_PHASES
@@ -325,29 +367,36 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  float* __restrict__ gctx, float* __restrict__ gw_part,
                  float* __restrict__ gb_part, int rows, int n, int K, int C, int max_in,
                  int max_seg) {
-  using R = Record<H>;
-  constexpr int L = R::kLen, E = H * H + 4 * H + 1;
+  using F = Fields<H>;
+  constexpr int Q = (H + 3) / 4;                   // quads of H fields
+  constexpr int kTasks = (H + 3) * Q + Q + 1;      // reduce tasks per net
   extern __shared__ float smem[];
   int tile_no = 0;
   NFDPF_PHASE(0);
-  const int T = blockDim.x, t = threadIdx.x;
+  const int T = blockDim.x, t = threadIdx.x, fs = T + 4;
   const int net_w = 3 * max_in * H, net_b = 3 * H, nets = 4 * K;
-  const int nw = nets * net_w, nb = nets * net_b, p_stride = 4 * K * H + 1;
+  const int nw = nets * net_w, nb = nets * net_b, p_stride = nets * H + 1;
+  const int cs_stride = (max_seg + 3) / 4 * 4 + 4;
   // shared memory, in floats: parameters (nw + nb), their gradient
-  // accumulators (nw + nb), the factor tile (K records per row), then per
-  // distinct context row of a tile (at most max_seg) its context (C), its g1
-  // sums (4K·H) and its layer-0 shares P (p_stride)
+  // accumulators (nw + nb), the factor tile (Fields::count(K) fields of fs),
+  // then per distinct context row of a tile (at most max_seg) its context
+  // (C fields of cs_stride), the g1 sums of its rows (4K·H) and its layer-0
+  // shares P (p_stride)
   float* sw = smem;
   float* sb = sw + nw;
   float* aw = sb + nb;
   float* ab = aw + nw;
   float* fac = ab + nb;
-  float* cs = fac + K * T * L;
-  float* gsum = cs + (C ? max_seg * C : 0);
+  float* cs = fac + F::count(K) * fs;
+  float* gsum = cs + (C ? C * cs_stride : 0);
   float* p = gsum + (C ? max_seg * nets * H : 0);
-  stage_bwd(sw, w, nw);
-  stage_bwd(sb, bias, nb);
+  stage_async(sw, w, nw);
+  stage_async(sb, bias, nb);
   for (int i = t; i < nw + nb; i += T) aw[i] = 0.f;
+  for (int r = t; r < T; r += T) {
+    fac[F::kOne * fs + r] = 1.f;
+    fac[F::kZero * fs + r] = 0.f;
+  }
 
   const int tiles = (rows + T - 1) / T;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++tile_no) {
@@ -371,28 +420,28 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       seg = r - r0;
       nseg = last - r0 + 1;
     }
-    __syncthreads();   // parameters staged; the previous tile's readers are done
-  NFDPF_PHASE(1);
+    __syncthreads();   // the previous tile's readers are done
     for (int i = t; i < nseg * C; i += T) {
       const int d = i / C, c = i % C;
       const long long at = share ? (long long)(r0 / n + d) * ctx_sb
                                  : (long long)((r0 + d) / n) * ctx_sb +
                                        (long long)((r0 + d) % n) * ctx_sn;
-      cs[i] = __ldg(ctx + at + c);
+      copy_async4(cs + c * cs_stride + d, ctx + at + c);
     }
+    copy_async_wait();   // the context rows and, on the first tile, the parameters
     __syncthreads();
-  NFDPF_PHASE(2);
+    NFDPF_PHASE(1);
+    NFDPF_PHASE(2);
     // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
     // distinct context row
     for (int i = t; i < nseg * nets; i += T) {
       const int m = i % nets, d = i / nets;
-      const float* cd = cs + d * C;
-      float acc[H];
+      float acc[H], wr[H];
 #pragma unroll
       for (int j = 0; j < H; ++j) acc[j] = 0.f;
       for (int c = 0; c < C; ++c) {
-        const float cv = cd[c];
-        const float* wr = sw + m * net_w + (1 + c) * H;
+        const float cv = cs[c * cs_stride + d];
+        load_row<H>(sw + m * net_w + (1 + c) * H, wr);
 #pragma unroll
         for (int j = 0; j < H; ++j) acc[j] = fmaf(cv, wr[j], acc[j]);
       }
@@ -400,183 +449,187 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       for (int j = 0; j < H; ++j) p[d * p_stride + m * H + j] = sb[m * net_b + j] + acc[j];
     }
     __syncthreads();
-  NFDPF_PHASE(3);
+    NFDPF_PHASE(3);
 
     const float* prow = p + seg * p_stride;
     float* grow = (gctx != nullptr && valid) ? gctx + (size_t)row * C : nullptr;
+    float* ft = fac + t;   // this row's fields, fs apart
     const float2 xv = x[r];
     float lo = xv.x, up = xv.y;
 
-    // forward sweep: each block's inputs, outputs and activations into its record
+    // forward sweep: each block's inputs, outputs and activations into the tile
     for (int st = 0; st < K; ++st) {
       const int k = INV ? K - 1 - st : st;
       const float* wk = sw + k * 4 * net_w;
       const float* bk = sb + k * 4 * net_b;
       const float* pk = prow + k * 4 * H;
-      float* rec = fac + (k * T + t) * L;
+      float o[4];
       if (!INV) {
-        rec[R::kUpper] = up;
-        rec[R::half(0)] = lo;
-        const float t1 = mlp_fwd_record<H>(wk, bk, max_in, lo, pk, rec + R::h1(0));
-        const float s1 =
-            mlp_fwd_record<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, rec + R::h1(1));
-        up = t1 + up * expf(s1);
-        rec[R::half(2)] = up;
-        const float t2 = mlp_fwd_record<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
-                                           pk + 2 * H, rec + R::h1(2));
-        const float s2 = mlp_fwd_record<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
-                                           pk + 3 * H, rec + R::h1(3));
-        lo = t2 + lo * expf(s2);
-        rec[R::out(0)] = t1;
-        rec[R::out(1)] = s1;
-        rec[R::out(2)] = t2;
-        rec[R::out(3)] = s2;
+        ft[F::upper(k) * fs] = up;
+        ft[F::half(k, 0) * fs] = lo;
+        o[0] = mlp_fwd_tile<H>(wk, bk, max_in, lo, pk, ft + F::h1(k, 0) * fs, fs);
+        o[1] = mlp_fwd_tile<H>(wk + net_w, bk + net_b, max_in, lo, pk + H,
+                               ft + F::h1(k, 1) * fs, fs);
+        up = o[0] + up * expf(o[1]);
+        ft[F::half(k, 2) * fs] = up;
+        o[2] = mlp_fwd_tile<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, pk + 2 * H,
+                               ft + F::h1(k, 2) * fs, fs);
+        o[3] = mlp_fwd_tile<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, pk + 3 * H,
+                               ft + F::h1(k, 3) * fs, fs);
+        lo = o[2] + lo * expf(o[3]);
       } else {
-        rec[R::half(2)] = up;
-        const float t2 = mlp_fwd_record<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up,
-                                           pk + 2 * H, rec + R::h1(2));
-        const float s2 = mlp_fwd_record<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up,
-                                           pk + 3 * H, rec + R::h1(3));
-        lo = (lo - t2) * expf(-s2);
-        rec[R::half(0)] = lo;
-        const float t1 = mlp_fwd_record<H>(wk, bk, max_in, lo, pk, rec + R::h1(0));
-        const float s1 =
-            mlp_fwd_record<H>(wk + net_w, bk + net_b, max_in, lo, pk + H, rec + R::h1(1));
-        up = (up - t1) * expf(-s1);
-        rec[R::out(0)] = t1;
-        rec[R::out(1)] = s1;
-        rec[R::out(2)] = t2;
-        rec[R::out(3)] = s2;
+        ft[F::half(k, 2) * fs] = up;
+        o[2] = mlp_fwd_tile<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, pk + 2 * H,
+                               ft + F::h1(k, 2) * fs, fs);
+        o[3] = mlp_fwd_tile<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, pk + 3 * H,
+                               ft + F::h1(k, 3) * fs, fs);
+        lo = (lo - o[2]) * expf(-o[3]);
+        ft[F::half(k, 0) * fs] = lo;
+        o[0] = mlp_fwd_tile<H>(wk, bk, max_in, lo, pk, ft + F::h1(k, 0) * fs, fs);
+        o[1] = mlp_fwd_tile<H>(wk + net_w, bk + net_b, max_in, lo, pk + H,
+                               ft + F::h1(k, 1) * fs, fs);
+        up = (up - o[0]) * expf(-o[1]);
       }
+#pragma unroll
+      for (int net = 0; net < 4; ++net) ft[F::out(k, net) * fs] = o[net];
     }
 
-    // reverse sweep: each block's gradients from its record, into its record
+    // reverse sweep: each block's gradients from its fields, into its fields
     const float2 gv = valid ? gy[row] : make_float2(0.f, 0.f);
     const float g_ld = valid ? gld[row] : 0.f;
     float g_lo = gv.x, g_up = gv.y;
     for (int st = K - 1; st >= 0; --st) {
       const int k = INV ? K - 1 - st : st;
       const float* wk = sw + k * 4 * net_w;
-      float* rec = fac + (k * T + t) * L;
+      // d/d half of nets `net0` and net0 + 1 for the output gradients ga, gb
+      auto nets_bwd = [&](int net0, float ga, float gb) {
+        ft[F::out(k, net0) * fs] = ga;
+        ft[F::out(k, net0 + 1) * fs] = gb;
+        return mlp_bwd_tile<H>(wk + net0 * net_w, max_in, C, ft + F::h1(k, net0) * fs, fs,
+                               ga, grow) +
+               mlp_bwd_tile<H>(wk + (net0 + 1) * net_w, max_in, C,
+                               ft + F::h1(k, net0 + 1) * fs, fs, gb, grow);
+      };
       if (!INV) {
-        const float lo_in = rec[R::half(0)], up_in = rec[R::kUpper];
-        const float e1 = expf(rec[R::out(1)]), e2 = expf(rec[R::out(3)]);
+        const float lo_in = ft[F::half(k, 0) * fs], up_in = ft[F::upper(k) * fs];
+        const float e1 = expf(ft[F::out(k, 1) * fs]), e2 = expf(ft[F::out(k, 3) * fs]);
         // lower_out = t2 + lo_in * exp(s2); log_det += s1 + s2
-        const float g_t2 = g_lo;
-        const float g_s2 = g_lo * lo_in * e2 + g_ld;
         const float g_lo_in = g_lo * e2;
-        const float g_b =
-            mlp_bwd_record<H>(wk + 2 * net_w, max_in, C, rec, 2, g_t2, grow) +
-            mlp_bwd_record<H>(wk + 3 * net_w, max_in, C, rec, 3, g_s2, grow);
-        const float g_up_mid = g_up + g_b;
+        const float g_b = nets_bwd(2, g_lo, g_lo * lo_in * e2 + g_ld);
         // up_mid = t1 + up_in * exp(s1)
-        const float g_t1 = g_up_mid;
-        const float g_s1 = g_up_mid * up_in * e1 + g_ld;
-        const float g_a = mlp_bwd_record<H>(wk, max_in, C, rec, 0, g_t1, grow) +
-                          mlp_bwd_record<H>(wk + net_w, max_in, C, rec, 1, g_s1, grow);
+        const float g_up_mid = g_up + g_b;
+        const float g_a = nets_bwd(0, g_up_mid, g_up_mid * up_in * e1 + g_ld);
         g_lo = g_lo_in + g_a;
         g_up = g_up_mid * e1;
       } else {
-        const float lo_out = rec[R::half(0)], up_in = rec[R::half(2)];
-        const float e2 = expf(-rec[R::out(3)]), e1 = expf(-rec[R::out(1)]);
-        const float up_out = (up_in - rec[R::out(0)]) * e1;
+        const float lo_out = ft[F::half(k, 0) * fs], up_in = ft[F::half(k, 2) * fs];
+        const float e2 = expf(-ft[F::out(k, 3) * fs]), e1 = expf(-ft[F::out(k, 1) * fs]);
+        const float up_out = (up_in - ft[F::out(k, 0) * fs]) * e1;
         // up_out = (up_in - t1) * exp(-s1); log_det -= s1 + s2
-        const float g_t1 = -g_up * e1;
-        const float g_s1 = -g_up * up_out - g_ld;
         const float g_up_in = g_up * e1;
-        const float g_a = mlp_bwd_record<H>(wk, max_in, C, rec, 0, g_t1, grow) +
-                          mlp_bwd_record<H>(wk + net_w, max_in, C, rec, 1, g_s1, grow);
-        const float g_lo_out = g_lo + g_a;
+        const float g_a = nets_bwd(0, -g_up * e1, -g_up * up_out - g_ld);
         // lo_out = (lo_in - t2) * exp(-s2)
-        const float g_t2 = -g_lo_out * e2;
-        const float g_s2 = -g_lo_out * lo_out - g_ld;
-        const float g_b =
-            mlp_bwd_record<H>(wk + 2 * net_w, max_in, C, rec, 2, g_t2, grow) +
-            mlp_bwd_record<H>(wk + 3 * net_w, max_in, C, rec, 3, g_s2, grow);
+        const float g_lo_out = g_lo + g_a;
+        const float g_b = nets_bwd(2, -g_lo_out * e2, -g_lo_out * lo_out - g_ld);
         g_up = g_up_in + g_b;
         g_lo = g_lo_out * e2;
       }
     }
-  NFDPF_PHASE(4);
+    NFDPF_PHASE(4);
     if (valid) gx[row] = make_float2(g_lo, g_up);
     __syncthreads();
-  NFDPF_PHASE(5);
+    NFDPF_PHASE(5);
 
-    // the tile's weight and bias gradient entries, each summed over the
-    // tile's rows by the one thread that owns it, into its accumulator.
-    // Entry q of net m = 4k + net: gw[1][i][j] = Σ h1[i]·g2[j] (H·H),
-    // gb[1][j] = Σ g2[j] (H), gw[0][0][j] = Σ half·g1[j] (H), gb[0][j] =
-    // Σ g1[j] (H), gw[2][i][0] = Σ h2[i]·g_out (H), gb[2][0] = Σ g_out (1).
-    // The rows past the end carry zero gradients and add exact zeros.
-    for (int e = t; e < nets * E; e += T) {
-      const int m = e / E, q = e % E, net = m % 4;
-      const float* recs = fac + (m / 4) * T * L;
+    // the transpose-reduce: each weight and bias gradient entry summed over
+    // the tile's rows by the one thread that owns it, into its accumulator.
+    // Task q of net m = 4k + net takes one field a and four fields b:
+    //   q < (H+1)Q:  a = h1[i] or ones, b = a quad of g2: gw[1][i][j], gb[1][j]
+    //   q < (H+3)Q:  a = half or ones,  b = a quad of g1: gw[0][0][j], gb[0][j]
+    //   else:        a = g_out,         b = a quad of h2, or (ones): gw[2][i][0], gb[2][0]
+    // (a quad past H is filled with the zeros field and written nowhere).  The
+    // rows past the end carry zero gradients and add exact zeros.
+    for (int e = t; e < nets * kTasks; e += T) {
+      const int m = e / kTasks, q = e % kTasks, k = m / 4, net = m % 4;
       float* awm = aw + m * net_w;
       float* abm = ab + m * net_b;
-      int fa = -1, fb;   // record fields; fa < 0: a plain sum of field fb
-      float* dst;
-      if (q < H * H) {
-        fa = R::h1(net) + q / H;
-        fb = R::g2(net) + q % H;
-        dst = awm + (max_in + q / H) * H + q % H;
-      } else if (q < H * H + H) {
-        fb = R::g2(net) + q - H * H;
-        dst = abm + H + q - H * H;
-      } else if (q < H * H + 2 * H) {
-        fa = R::half(net);
-        fb = R::g1(net) + q - H * H - H;
-        dst = awm + q - H * H - H;
-      } else if (q < H * H + 3 * H) {
-        fb = R::g1(net) + q - H * H - 2 * H;
-        dst = abm + q - H * H - 2 * H;
-      } else if (q < H * H + 4 * H) {
-        fa = R::h2(net) + q - H * H - 3 * H;
-        fb = R::out(net);
-        dst = awm + (2 * max_in + q - H * H - 3 * H) * H;
-      } else {
-        fb = R::out(net);
-        dst = abm + 2 * H;
-      }
-      *dst += column_dot(fa < 0 ? nullptr : recs + fa, recs + fb, T, L);
-    }
-  NFDPF_PHASE(7);
-    if (C) {
-      // per distinct context row and net, g1 summed over the rows that read it
-      for (int i = t; i < nseg * nets * H; i += T) {
-        const int d = i / (nets * H), m = i / H % nets, j = i % H;
-        const float* col = fac + (m / 4) * T * L + R::g1(m % 4) + j;
-        const int begin = share ? max(0, seg0 + d * n) : d;
-        const int end = share ? min(T, seg0 + (d + 1) * n) : d + 1;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        int rr = begin;
-        for (; rr + 4 <= end; rr += 4) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) acc[u] += col[(rr + u) * L];
+      int fa, fb[4];
+      float* dst[4];
+      if (q < (H + 3) * Q) {
+        const bool layer1 = q < (H + 1) * Q;
+        const int qq = layer1 ? q : q - (H + 1) * Q;
+        const int i = qq / Q, j0 = qq % Q * 4;
+        const bool ones = layer1 ? i == H : i == 1;
+        fa = ones ? F::kOne : layer1 ? F::h1(k, net) + i : F::half(k, net);
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + u;
+          fb[u] = j < H ? (layer1 ? F::g2(k, net) : F::g1(k, net)) + j : F::kZero;
+          dst[u] = j >= H ? nullptr
+                   : layer1 ? (ones ? abm + H + j : awm + (max_in + i) * H + j)
+                            : (ones ? abm + j : awm + j);
         }
-        for (; rr < end; ++rr) acc[0] += col[rr * L];
-        gsum[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      } else {
+        const int i0 = (q - (H + 3) * Q) * 4;
+        fa = F::out(k, net);
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u;
+          const bool bias_sum = i0 == 4 * Q && u == 0;
+          fb[u] = i < H ? F::h2(k, net) + i : bias_sum ? F::kOne : F::kZero;
+          dst[u] = i < H ? awm + (2 * max_in + i) * H : bias_sum ? abm + 2 * H : nullptr;
+        }
+      }
+      const float* const b4[4] = {fac + fb[0] * fs, fac + fb[1] * fs, fac + fb[2] * fs,
+                                  fac + fb[3] * fs};
+      float* const d4[4] = {dst[0], dst[1], dst[2], dst[3]};
+      reduce_task(fac + fa * fs, b4, d4, T);
+    }
+    NFDPF_PHASE(7);
+    if (C) {
+      // with a shared context row: per run and net, g1 summed over its rows
+      if (share) {
+        for (int i = t; i < nseg * nets * H; i += T) {
+          const int d = i / (nets * H), m = i / H % nets, j = i % H;
+          const float* col = fac + (F::g1(m / 4, m % 4) + j) * fs;
+          const int end = min(T, seg0 + (d + 1) * n);
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          int rr = max(0, seg0 + d * n);
+          for (; rr + 4 <= end; rr += 4) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) acc[u] += col[rr + u];
+          }
+          for (; rr < end; ++rr) acc[0] += col[rr];
+          gsum[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        }
       }
       __syncthreads();
-  NFDPF_PHASE(6);
-      // context-weight entries gw[m][0][1 + c][j] = Σ_d ctx[d][c]·G[d][m][j]
+      NFDPF_PHASE(6);
+      // context-weight entries gw[m][0][1 + c][j] = Σ_d ctx[d][c]·G[d][m][j],
+      // G the run sums or, one row per context row, g1 itself
       for (int e = t; e < nets * C * H; e += T) {
         const int m = e / (C * H), c = e / H % C, j = e % H;
-        const float* cc = cs + c;
-        const float* gs = gsum + m * H + j;
+        const float* cc = cs + c * cs_stride;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
         int d = 0;
-        for (; d + 4 <= nseg; d += 4) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            acc[u] = fmaf(cc[(d + u) * C], gs[(d + u) * nets * H], acc[u]);
+        if (share) {
+          const float* gs = gsum + m * H + j;
+          for (; d < nseg; ++d) acc[d & 3] = fmaf(cc[d], gs[d * nets * H], acc[d & 3]);
+        } else {
+          const float* gs = fac + (F::g1(m / 4, m % 4) + j) * fs;
+          for (; d + 4 <= nseg; d += 4) {
+            const float4 vc = *reinterpret_cast<const float4*>(cc + d);
+            const float4 vg = *reinterpret_cast<const float4*>(gs + d);
+            acc[0] = fmaf(vc.x, vg.x, acc[0]);
+            acc[1] = fmaf(vc.y, vg.y, acc[1]);
+            acc[2] = fmaf(vc.z, vg.z, acc[2]);
+            acc[3] = fmaf(vc.w, vg.w, acc[3]);
           }
+          for (; d < nseg; ++d) acc[d & 3] = fmaf(cc[d], gs[d], acc[d & 3]);
         }
-        for (; d < nseg; ++d) acc[0] = fmaf(cc[d * C], gs[d * nets * H], acc[0]);
         aw[m * net_w + (1 + c) * H + j] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
       }
     }
   }
 
+  copy_async_wait();   // a block without a tile still staged its parameters
   __syncthreads();
   NFDPF_PHASE(8);
   float* gw_out = gw_part + (size_t)blockIdx.x * nw;
@@ -612,10 +665,10 @@ int bwd_max_seg(int threads, int n, int ctx_dim, long long ctx_sn) {
 // The backward's shared memory in floats for a block of `threads` rows (the
 // layout at the top of chain_bwd_kernel).
 size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int max_seg) {
-  const size_t nets = 4 * (size_t)n_blocks;
+  const size_t nets = 4 * (size_t)n_blocks, cs_stride = (max_seg + 3) / 4 * 4 + 4;
   return 2 * param_floats(n_blocks, max_in) +
-         (size_t)n_blocks * threads * Record<kHidden>::kLen +
-         (ctx_dim ? (size_t)max_seg * (ctx_dim + nets * kHidden) : 0) +
+         (size_t)Fields<kHidden>::count(n_blocks) * (threads + 4) +
+         (ctx_dim ? ctx_dim * cs_stride + (size_t)max_seg * nets * kHidden : 0) +
          (size_t)max_seg * (nets * kHidden + 1);
 }
 
