@@ -240,106 +240,144 @@ struct Fields {
   __host__ __device__ static constexpr int g2(int k, int net) { return h1(k, net) + 3 * H; }
 };
 
-// One conditioner MLP in the backward kernel's forward sweep: layer 0 takes
-// its bias and context share from p[H] (computed once per distinct context
-// row); h1 and h2 go to this row's fields (h1 at f[0], h2 at f[H * fs]).
+// The two nets of a coupling half in the backward kernel's forward sweep
+// (nets 0-1 or 2-3 of a block, both on `half`; w, b and p point at the
+// first): layer 0 takes its bias and context share from p (computed once per
+// distinct context row).  Both nets are computed before any activation is
+// stored, so their instructions interleave; their h1 and h2 then go to this
+// row's fields at f0 and f1 (h1 at f[0], h2 at f[H * fs]).  Returns both
+// outputs.
 template <int H>
-__device__ __forceinline__ float mlp_fwd_tile(const float* __restrict__ w,
-                                              const float* __restrict__ b, int max_in,
-                                              float half, const float* __restrict__ p, float* f,
-                                              int fs) {
-  float h1[H], a[H], wr[H];
-  load_row<H>(w, wr);
+__device__ __forceinline__ float2 half_fwd(const float* __restrict__ w,
+                                           const float* __restrict__ b, int net_w, int net_b,
+                                           int max_in, float half, const float* __restrict__ p,
+                                           float* f0, float* f1, int fs) {
+  float h1[2][H], h2[2][H], out[2];
 #pragma unroll
-  for (int j = 0; j < H; ++j) h1[j] = tanhf(fmaf(half, wr[j], p[j]));
-  const float* w1 = w + max_in * H;
-  load_row<H>(b + H, a);
+  for (int x = 0; x < 2; ++x) {
+    const float* wx = w + x * net_w;
+    const float* bx = b + x * net_b;
+    float wr[H], a[H];
+    load_row<H>(wx, wr);
 #pragma unroll
-  for (int i = 0; i < H; ++i) {
-    load_row<H>(w1 + i * H, wr);
+    for (int j = 0; j < H; ++j) h1[x][j] = tanhf(fmaf(half, wr[j], p[x * H + j]));
+    load_row<H>(bx + H, a);
 #pragma unroll
-    for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], wr[j], a[j]);
-  }
-  const float* w2 = w + 2 * max_in * H;
-  float out = b[2 * H];
+    for (int i = 0; i < H; ++i) {
+      load_row<H>(wx + (max_in + i) * H, wr);
 #pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float h2 = tanhf(a[i]);
-    f[i * fs] = h1[i];
-    f[(H + i) * fs] = h2;
-    out = fmaf(h2, w2[i * H], out);
-  }
-  return out;
-}
-
-// Backward of one net for this thread's row, from its h1, h2 (f points at
-// the row's h1[0], fields fs apart): writes g1 and g2 there, adds the row's
-// context gradient into grow (when not null), returns d out / d half.
-template <int H>
-__device__ __forceinline__ float mlp_bwd_tile(const float* __restrict__ w, int max_in, int C,
-                                              float* f, int fs, float g_out,
-                                              float* __restrict__ grow) {
-  const float* w1 = w + max_in * H;
-  const float* w2 = w + 2 * max_in * H;
-  float g2[H], g1[H], wr[H];
+      for (int j = 0; j < H; ++j) a[j] = fmaf(h1[x][i], wr[j], a[j]);
+    }
+    const float* w2 = wx + 2 * max_in * H;
+    out[x] = bx[2 * H];
 #pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float h2 = f[(H + i) * fs];
-    g2[i] = g_out * w2[i * H] * (1.f - h2 * h2);
-  }
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    load_row<H>(w1 + i * H, wr);
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < H; ++j) acc = fmaf(g2[j], wr[j], acc);
-    const float h1 = f[i * fs];
-    g1[i] = acc * (1.f - h1 * h1);
+    for (int i = 0; i < H; ++i) {
+      h2[x][i] = tanhf(a[i]);
+      out[x] = fmaf(h2[x][i], w2[i * H], out[x]);
+    }
   }
 #pragma unroll
   for (int j = 0; j < H; ++j) {
-    f[(2 * H + j) * fs] = g1[j];
-    f[(3 * H + j) * fs] = g2[j];
+    f0[j * fs] = h1[0][j];
+    f0[(H + j) * fs] = h2[0][j];
+    f1[j * fs] = h1[1][j];
+    f1[(H + j) * fs] = h2[1][j];
+  }
+  return make_float2(out[0], out[1]);
+}
+
+// Backward of the two nets of a coupling half for this thread's row, from
+// their h1, h2 (fields at f0 and f1) and output gradients ga, gb: every load
+// before any store, so the two nets interleave; writes g1 and g2 back next
+// to h1, h2, adds the row's context gradient into grow (when not null), and
+// returns the gradient with respect to `half`.
+template <int H>
+__device__ __forceinline__ float half_bwd(const float* __restrict__ w, int net_w, int max_in,
+                                          int C, float* f0, float* f1, int fs, float ga,
+                                          float gb, float* __restrict__ grow) {
+  float* const f[2] = {f0, f1};
+  const float g_out[2] = {ga, gb};
+  float h1[2][H], h2[2][H], g1[2][H], g2[2][H], wr[H];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      h1[x][i] = f[x][i * fs];
+      h2[x][i] = f[x][(H + i) * fs];
+    }
+  }
+  float g_half = 0.f;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const float* wx = w + x * net_w;
+    const float* w2 = wx + 2 * max_in * H;
+#pragma unroll
+    for (int i = 0; i < H; ++i) g2[x][i] = g_out[x] * w2[i * H] * (1.f - h2[x][i] * h2[x][i]);
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      load_row<H>(wx + (max_in + i) * H, wr);
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < H; ++j) acc = fmaf(g2[x][j], wr[j], acc);
+      g1[x][i] = acc * (1.f - h1[x][i] * h1[x][i]);
+    }
+    load_row<H>(wx, wr);
+    float gh = 0.f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) gh = fmaf(g1[x][j], wr[j], gh);
+    g_half += gh;
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      f[x][(2 * H + j) * fs] = g1[x][j];
+      f[x][(3 * H + j) * fs] = g2[x][j];
+    }
   }
   if (grow != nullptr) {
     for (int c = 0; c < C; ++c) {
-      load_row<H>(w + (1 + c) * H, wr);
-      float acc = 0.f;
+      float acc[2];
 #pragma unroll
-      for (int j = 0; j < H; ++j) acc = fmaf(g1[j], wr[j], acc);
-      grow[c] += acc;
+      for (int x = 0; x < 2; ++x) {
+        load_row<H>(w + x * net_w + (1 + c) * H, wr);
+        acc[x] = 0.f;
+#pragma unroll
+        for (int j = 0; j < H; ++j) acc[x] = fmaf(g1[x][j], wr[j], acc[x]);
+      }
+      grow[c] += acc[0] + acc[1];
     }
   }
-  load_row<H>(w, wr);
-  float g_half = 0.f;
-#pragma unroll
-  for (int j = 0; j < H; ++j) g_half = fmaf(g1[j], wr[j], g_half);
   return g_half;
 }
 
 // One task of the transpose-reduce: Σ_r a[r]·b_i[r] over the tile's rows for
-// the four fields b_0..b_3 (fields fs floats apart, rows a multiple of 4),
-// four rows per 16-byte load, two partial sums per entry (even and odd
-// rows) added in a fixed order; entry i goes into *dst[i] unless null.
-__device__ __forceinline__ void reduce_task(const float* a, const float* const (&b)[4],
-                                            float* const (&dst)[4], int rows) {
+// four fields b0..b3 (rows a multiple of 4), four rows per 16-byte load, two
+// partial sums per entry (even and odd rows) added in a fixed order; entry i
+// goes into *d_i unless d_i is null.
+__device__ __forceinline__ void reduce_task(const float* a, const float* b0, const float* b1,
+                                            const float* b2, const float* b3, float* d0,
+                                            float* d1, float* d2, float* d3, int rows) {
   float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll 2
   for (int r = 0; r < rows; r += 4) {
     const float4 va = *reinterpret_cast<const float4*>(a + r);
+    const float4 vb[4] = {*reinterpret_cast<const float4*>(b0 + r),
+                          *reinterpret_cast<const float4*>(b1 + r),
+                          *reinterpret_cast<const float4*>(b2 + r),
+                          *reinterpret_cast<const float4*>(b3 + r)};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float4 vb = *reinterpret_cast<const float4*>(b[i] + r);
-      acc[i][0] = fmaf(va.x, vb.x, acc[i][0]);
-      acc[i][1] = fmaf(va.y, vb.y, acc[i][1]);
-      acc[i][0] = fmaf(va.z, vb.z, acc[i][0]);
-      acc[i][1] = fmaf(va.w, vb.w, acc[i][1]);
+      acc[i][0] = fmaf(va.x, vb[i].x, acc[i][0]);
+      acc[i][1] = fmaf(va.y, vb[i].y, acc[i][1]);
+      acc[i][0] = fmaf(va.z, vb[i].z, acc[i][0]);
+      acc[i][1] = fmaf(va.w, vb[i].w, acc[i][1]);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (dst[i] != nullptr) *dst[i] += acc[i][0] + acc[i][1];
-  }
+  if (d0 != nullptr) *d0 += acc[0][0] + acc[0][1];
+  if (d1 != nullptr) *d1 += acc[1][0] + acc[1][1];
+  if (d2 != nullptr) *d2 += acc[2][0] + acc[2][1];
+  if (d3 != nullptr) *d3 += acc[3][0] + acc[3][1];
 }
 
 #ifdef NFDPF_BWD_PHASES
@@ -392,7 +430,9 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   float* p = gsum + (C ? max_seg * nets * H : 0);
   stage_async(sw, w, nw);
   stage_async(sb, bias, nb);
-  for (int i = t; i < nw + nb; i += T) aw[i] = 0.f;
+  for (int i = 4 * t; i < nw + nb; i += 4 * T) {   // nw and nb are multiples of 4
+    *reinterpret_cast<float4*>(aw + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   for (int r = t; r < T; r += T) {
     fac[F::kOne * fs + r] = 1.f;
     fac[F::kZero * fs + r] = 0.f;
@@ -463,35 +503,31 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       const float* wk = sw + k * 4 * net_w;
       const float* bk = sb + k * 4 * net_b;
       const float* pk = prow + k * 4 * H;
-      float o[4];
+      float2 o1, o2;   // (t1, s1), (t2, s2)
       if (!INV) {
         ft[F::upper(k) * fs] = up;
         ft[F::half(k, 0) * fs] = lo;
-        o[0] = mlp_fwd_tile<H>(wk, bk, max_in, lo, pk, ft + F::h1(k, 0) * fs, fs);
-        o[1] = mlp_fwd_tile<H>(wk + net_w, bk + net_b, max_in, lo, pk + H,
-                               ft + F::h1(k, 1) * fs, fs);
-        up = o[0] + up * expf(o[1]);
+        o1 = half_fwd<H>(wk, bk, net_w, net_b, max_in, lo, pk, ft + F::h1(k, 0) * fs,
+                         ft + F::h1(k, 1) * fs, fs);
+        up = o1.x + up * expf(o1.y);
         ft[F::half(k, 2) * fs] = up;
-        o[2] = mlp_fwd_tile<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, pk + 2 * H,
-                               ft + F::h1(k, 2) * fs, fs);
-        o[3] = mlp_fwd_tile<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, pk + 3 * H,
-                               ft + F::h1(k, 3) * fs, fs);
-        lo = o[2] + lo * expf(o[3]);
+        o2 = half_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, net_w, net_b, max_in, up, pk + 2 * H,
+                         ft + F::h1(k, 2) * fs, ft + F::h1(k, 3) * fs, fs);
+        lo = o2.x + lo * expf(o2.y);
       } else {
         ft[F::half(k, 2) * fs] = up;
-        o[2] = mlp_fwd_tile<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, pk + 2 * H,
-                               ft + F::h1(k, 2) * fs, fs);
-        o[3] = mlp_fwd_tile<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, pk + 3 * H,
-                               ft + F::h1(k, 3) * fs, fs);
-        lo = (lo - o[2]) * expf(-o[3]);
+        o2 = half_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, net_w, net_b, max_in, up, pk + 2 * H,
+                         ft + F::h1(k, 2) * fs, ft + F::h1(k, 3) * fs, fs);
+        lo = (lo - o2.x) * expf(-o2.y);
         ft[F::half(k, 0) * fs] = lo;
-        o[0] = mlp_fwd_tile<H>(wk, bk, max_in, lo, pk, ft + F::h1(k, 0) * fs, fs);
-        o[1] = mlp_fwd_tile<H>(wk + net_w, bk + net_b, max_in, lo, pk + H,
-                               ft + F::h1(k, 1) * fs, fs);
-        up = (up - o[0]) * expf(-o[1]);
+        o1 = half_fwd<H>(wk, bk, net_w, net_b, max_in, lo, pk, ft + F::h1(k, 0) * fs,
+                         ft + F::h1(k, 1) * fs, fs);
+        up = (up - o1.x) * expf(-o1.y);
       }
-#pragma unroll
-      for (int net = 0; net < 4; ++net) ft[F::out(k, net) * fs] = o[net];
+      ft[F::out(k, 0) * fs] = o1.x;
+      ft[F::out(k, 1) * fs] = o1.y;
+      ft[F::out(k, 2) * fs] = o2.x;
+      ft[F::out(k, 3) * fs] = o2.y;
     }
 
     // reverse sweep: each block's gradients from its fields, into its fields
@@ -505,10 +541,8 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       auto nets_bwd = [&](int net0, float ga, float gb) {
         ft[F::out(k, net0) * fs] = ga;
         ft[F::out(k, net0 + 1) * fs] = gb;
-        return mlp_bwd_tile<H>(wk + net0 * net_w, max_in, C, ft + F::h1(k, net0) * fs, fs,
-                               ga, grow) +
-               mlp_bwd_tile<H>(wk + (net0 + 1) * net_w, max_in, C,
-                               ft + F::h1(k, net0 + 1) * fs, fs, gb, grow);
+        return half_bwd<H>(wk + net0 * net_w, net_w, max_in, C, ft + F::h1(k, net0) * fs,
+                           ft + F::h1(k, net0 + 1) * fs, fs, ga, gb, grow);
       };
       if (!INV) {
         const float lo_in = ft[F::half(k, 0) * fs], up_in = ft[F::upper(k) * fs];
@@ -552,35 +586,41 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       const int m = e / kTasks, q = e % kTasks, k = m / 4, net = m % 4;
       float* awm = aw + m * net_w;
       float* abm = ab + m * net_b;
-      int fa, fb[4];
-      float* dst[4];
+      // field a; the four fields b are `first` + u, or past `n_fields` the zeros
+      // field (an entry written nowhere)
+      int fa, first, n_fields;
+      float* dst;       // entry u goes to dst + u * dst_step
+      int dst_step = 1;
+      float* bias_dst = nullptr;   // gb[2][0]: the ones field in place of u = 0
       if (q < (H + 3) * Q) {
         const bool layer1 = q < (H + 1) * Q;
         const int qq = layer1 ? q : q - (H + 1) * Q;
         const int i = qq / Q, j0 = qq % Q * 4;
         const bool ones = layer1 ? i == H : i == 1;
         fa = ones ? F::kOne : layer1 ? F::h1(k, net) + i : F::half(k, net);
-        for (int u = 0; u < 4; ++u) {
-          const int j = j0 + u;
-          fb[u] = j < H ? (layer1 ? F::g2(k, net) : F::g1(k, net)) + j : F::kZero;
-          dst[u] = j >= H ? nullptr
-                   : layer1 ? (ones ? abm + H + j : awm + (max_in + i) * H + j)
-                            : (ones ? abm + j : awm + j);
-        }
+        first = (layer1 ? F::g2(k, net) : F::g1(k, net)) + j0;
+        n_fields = H - j0;
+        dst = layer1 ? (ones ? abm + H : awm + (max_in + i) * H) : (ones ? abm : awm);
+        dst += j0;
       } else {
         const int i0 = (q - (H + 3) * Q) * 4;
         fa = F::out(k, net);
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u;
-          const bool bias_sum = i0 == 4 * Q && u == 0;
-          fb[u] = i < H ? F::h2(k, net) + i : bias_sum ? F::kOne : F::kZero;
-          dst[u] = i < H ? awm + (2 * max_in + i) * H : bias_sum ? abm + 2 * H : nullptr;
-        }
+        first = F::h2(k, net) + i0;
+        n_fields = H - i0;
+        dst = awm + (2 * max_in + i0) * H;
+        dst_step = H;
+        if (i0 == 4 * Q) bias_dst = abm + 2 * H;
       }
-      const float* const b4[4] = {fac + fb[0] * fs, fac + fb[1] * fs, fac + fb[2] * fs,
-                                  fac + fb[3] * fs};
-      float* const d4[4] = {dst[0], dst[1], dst[2], dst[3]};
-      reduce_task(fac + fa * fs, b4, d4, T);
+      auto field = [&](int u) {
+        return fac + (u < n_fields ? first + u : (bias_dst != nullptr && u == 0) ? F::kOne
+                                                                             : F::kZero) * fs;
+      };
+      auto target = [&](int u) {
+        return u < n_fields ? dst + u * dst_step : (bias_dst != nullptr && u == 0) ? bias_dst
+                                                                               : nullptr;
+      };
+      reduce_task(fac + fa * fs, field(0), field(1), field(2), field(3), target(0), target(1),
+                  target(2), target(3), T);
     }
     NFDPF_PHASE(7);
     if (C) {
@@ -634,8 +674,17 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   NFDPF_PHASE(8);
   float* gw_out = gw_part + (size_t)blockIdx.x * nw;
   float* gb_out = gb_part + (size_t)blockIdx.x * nb;
-  for (int i = t; i < nw; i += T) gw_out[i] = aw[i];
-  for (int i = t; i < nb; i += T) gb_out[i] = ab[i];
+  if (((reinterpret_cast<uintptr_t>(gw_out) | reinterpret_cast<uintptr_t>(gb_out)) & 15) == 0) {
+    for (int i = 4 * t; i < nw; i += 4 * T) {
+      *reinterpret_cast<float4*>(gw_out + i) = *reinterpret_cast<const float4*>(aw + i);
+    }
+    for (int i = 4 * t; i < nb; i += 4 * T) {
+      *reinterpret_cast<float4*>(gb_out + i) = *reinterpret_cast<const float4*>(ab + i);
+    }
+  } else {
+    for (int i = t; i < nw; i += T) gw_out[i] = aw[i];
+    for (int i = t; i < nb; i += T) gb_out[i] = ab[i];
+  }
   NFDPF_PHASE(9);
 }
 
