@@ -351,33 +351,78 @@ __device__ __forceinline__ float half_bwd(const float* __restrict__ w, int net_w
   return g_half;
 }
 
-// One task of the transpose-reduce: Σ_r a[r]·b_i[r] over the tile's rows for
-// four fields b0..b3 (rows a multiple of 4), four rows per 16-byte load, two
-// partial sums per entry (even and odd rows) added in a fixed order; entry i
-// goes into *d_i unless d_i is null.
-__device__ __forceinline__ void reduce_task(const float* a, const float* b0, const float* b1,
-                                            const float* b2, const float* b3, float* d0,
-                                            float* d1, float* d2, float* d3, int rows) {
-  float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 2
-  for (int r = 0; r < rows; r += 4) {
-    const float4 va = *reinterpret_cast<const float4*>(a + r);
-    const float4 vb[4] = {*reinterpret_cast<const float4*>(b0 + r),
-                          *reinterpret_cast<const float4*>(b1 + r),
-                          *reinterpret_cast<const float4*>(b2 + r),
-                          *reinterpret_cast<const float4*>(b3 + r)};
+// The transpose-reduce of a tile: every weight and bias gradient of every
+// net summed over the tile's rows.  Sixteen lanes take one net (a warp two):
+// each lane sums the rows r = lane mod 16, 16 apart, in row order, all H·H +
+// 4H + 1 entries in registers from one load of each of the row's fields;
+// then a 4-step butterfly adds the 16 lanes' sums in a fixed order, and the
+// group's first lane adds them into the net's accumulators.  The rows past
+// the end carry zero gradients and add exact zeros.
+template <int H>
+__device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, int nets,
+                                            float* aw, float* ab, int net_w, int net_b,
+                                            int max_in) {
+  using F = Fields<H>;
+  constexpr int E = H * H + 4 * H + 1;
+  const int lane = threadIdx.x % kWarp, sub = lane % 16;
+  const int warps = blockDim.x / kWarp;
+  for (int m0 = 2 * (threadIdx.x / kWarp); m0 < nets; m0 += 2 * warps) {   // warp-uniform
+    const int m = m0 + lane / 16, k = m / 4, net = m % 4;
+    float acc[E];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[i][0] = fmaf(va.x, vb[i].x, acc[i][0]);
-      acc[i][1] = fmaf(va.y, vb[i].y, acc[i][1]);
-      acc[i][0] = fmaf(va.z, vb[i].z, acc[i][0]);
-      acc[i][1] = fmaf(va.w, vb[i].w, acc[i][1]);
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+    if (m < nets) {
+      const float* f_half = fac + F::half(k, net) * fs;
+      const float* f_out = fac + F::out(k, net) * fs;
+      const float* f_h1 = fac + F::h1(k, net) * fs;
+      for (int r = sub; r < rows; r += 16) {
+        const float half = f_half[r], g_out = f_out[r];
+        float h1[H], h2[H], g1[H], g2[H];
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+          h1[i] = f_h1[i * fs + r];
+          h2[i] = f_h1[(H + i) * fs + r];
+          g1[i] = f_h1[(2 * H + i) * fs + r];
+          g2[i] = f_h1[(3 * H + i) * fs + r];
+        }
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+#pragma unroll
+          for (int j = 0; j < H; ++j) acc[i * H + j] = fmaf(h1[i], g2[j], acc[i * H + j]);
+        }
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+          acc[H * H + j] += g2[j];
+          acc[H * H + H + j] = fmaf(half, g1[j], acc[H * H + H + j]);
+          acc[H * H + 2 * H + j] += g1[j];
+          acc[H * H + 3 * H + j] = fmaf(h2[j], g_out, acc[H * H + 3 * H + j]);
+        }
+        acc[H * H + 4 * H] += g_out;
+      }
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    }
+    if (m < nets && sub == 0) {
+      float* awm = aw + m * net_w;
+      float* abm = ab + m * net_b;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+#pragma unroll
+        for (int j = 0; j < H; ++j) awm[(max_in + i) * H + j] += acc[i * H + j];
+      }
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        abm[H + j] += acc[H * H + j];
+        awm[j] += acc[H * H + H + j];
+        abm[j] += acc[H * H + 2 * H + j];
+        awm[(2 * max_in + j) * H] += acc[H * H + 3 * H + j];
+      }
+      abm[2 * H] += acc[H * H + 4 * H];
     }
   }
-  if (d0 != nullptr) *d0 += acc[0][0] + acc[0][1];
-  if (d1 != nullptr) *d1 += acc[1][0] + acc[1][1];
-  if (d2 != nullptr) *d2 += acc[2][0] + acc[2][1];
-  if (d3 != nullptr) *d3 += acc[3][0] + acc[3][1];
 }
 
 #ifdef NFDPF_BWD_PHASES
@@ -406,8 +451,6 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  float* __restrict__ gb_part, int rows, int n, int K, int C, int max_in,
                  int max_seg) {
   using F = Fields<H>;
-  constexpr int Q = (H + 3) / 4;                   // quads of H fields
-  constexpr int kTasks = (H + 3) * Q + Q + 1;      // reduce tasks per net
   extern __shared__ float smem[];
   int tile_no = 0;
   NFDPF_PHASE(0);
@@ -574,54 +617,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     __syncthreads();
     NFDPF_PHASE(5);
 
-    // the transpose-reduce: each weight and bias gradient entry summed over
-    // the tile's rows by the one thread that owns it, into its accumulator.
-    // Task q of net m = 4k + net takes one field a and four fields b:
-    //   q < (H+1)Q:  a = h1[i] or ones, b = a quad of g2: gw[1][i][j], gb[1][j]
-    //   q < (H+3)Q:  a = half or ones,  b = a quad of g1: gw[0][0][j], gb[0][j]
-    //   else:        a = g_out,         b = a quad of h2, or (ones): gw[2][i][0], gb[2][0]
-    // (a quad past H is filled with the zeros field and written nowhere).  The
-    // rows past the end carry zero gradients and add exact zeros.
-    for (int e = t; e < nets * kTasks; e += T) {
-      const int m = e / kTasks, q = e % kTasks, k = m / 4, net = m % 4;
-      float* awm = aw + m * net_w;
-      float* abm = ab + m * net_b;
-      // field a; the four fields b are `first` + u, or past `n_fields` the zeros
-      // field (an entry written nowhere)
-      int fa, first, n_fields;
-      float* dst;       // entry u goes to dst + u * dst_step
-      int dst_step = 1;
-      float* bias_dst = nullptr;   // gb[2][0]: the ones field in place of u = 0
-      if (q < (H + 3) * Q) {
-        const bool layer1 = q < (H + 1) * Q;
-        const int qq = layer1 ? q : q - (H + 1) * Q;
-        const int i = qq / Q, j0 = qq % Q * 4;
-        const bool ones = layer1 ? i == H : i == 1;
-        fa = ones ? F::kOne : layer1 ? F::h1(k, net) + i : F::half(k, net);
-        first = (layer1 ? F::g2(k, net) : F::g1(k, net)) + j0;
-        n_fields = H - j0;
-        dst = layer1 ? (ones ? abm + H : awm + (max_in + i) * H) : (ones ? abm : awm);
-        dst += j0;
-      } else {
-        const int i0 = (q - (H + 3) * Q) * 4;
-        fa = F::out(k, net);
-        first = F::h2(k, net) + i0;
-        n_fields = H - i0;
-        dst = awm + (2 * max_in + i0) * H;
-        dst_step = H;
-        if (i0 == 4 * Q) bias_dst = abm + 2 * H;
-      }
-      auto field = [&](int u) {
-        return fac + (u < n_fields ? first + u : (bias_dst != nullptr && u == 0) ? F::kOne
-                                                                             : F::kZero) * fs;
-      };
-      auto target = [&](int u) {
-        return u < n_fields ? dst + u * dst_step : (bias_dst != nullptr && u == 0) ? bias_dst
-                                                                               : nullptr;
-      };
-      reduce_task(fac + fa * fs, field(0), field(1), field(2), field(3), target(0), target(1),
-                  target(2), target(3), T);
-    }
+    reduce_tile<H>(fac, fs, T, nets, aw, ab, net_w, net_b, max_in);
     NFDPF_PHASE(7);
     if (C) {
       // with a shared context row: per run and net, g1 summed over its rows
@@ -651,7 +647,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
         int d = 0;
         if (share) {
           const float* gs = gsum + m * H + j;
-          for (; d < nseg; ++d) acc[d & 3] = fmaf(cc[d], gs[d * nets * H], acc[d & 3]);
+          for (; d < nseg; ++d) acc[0] = fmaf(cc[d], gs[d * nets * H], acc[0]);
         } else {
           const float* gs = fac + (F::g1(m / 4, m % 4) + j) * fs;
           for (; d + 4 <= nseg; d += 4) {
@@ -662,7 +658,7 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
             acc[2] = fmaf(vc.z, vg.z, acc[2]);
             acc[3] = fmaf(vc.w, vg.w, acc[3]);
           }
-          for (; d < nseg; ++d) acc[d & 3] = fmaf(cc[d], gs[d], acc[d & 3]);
+          for (; d < nseg; ++d) acc[0] = fmaf(cc[d], gs[d], acc[0]);
         }
         aw[m * net_w + (1 + c) * H + j] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
       }
@@ -770,9 +766,10 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* ctx, long l
   // each, as far as shared memory allows; the blocks loop over the tiles
   int warps = std::min<long long>(kMaxWarps, (rows + (long long)kWarp * grid - 1) /
                                                  ((long long)kWarp * grid));
-  auto smem_of = [&](int w) {
-    return bwd_smem_floats(n_blocks, ctx_dim, max_in, w * kWarp,
-                           bwd_max_seg(w * kWarp, n, ctx_dim, ctx_sn)) * sizeof(float);
+  auto smem_of = [&](int warps_per_block) {
+    const int threads = warps_per_block * kWarp;
+    return bwd_smem_floats(n_blocks, ctx_dim, max_in, threads,
+                           bwd_max_seg(threads, n, ctx_dim, ctx_sn)) * sizeof(float);
   };
   while (warps > 1 && smem_of(warps) > kMaxSmem) --warps;
   const size_t smem = smem_of(warps);
