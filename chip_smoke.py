@@ -85,7 +85,6 @@ CHAIN_TOL = 1e-5   # K4: |err| <= tol + tol·|ref| (outputs of magnitude ~1-10)
 # (B, N = M) of the streaming-Sinkhorn kernels' checks, with timing iterations:
 # the main path's, a ragged large one, and the largest particle count trained
 SINKHORN_SHAPES = (((32, 100), 200), ((4, 4097), 20), ((4, 10240), 10))
-BWD_GRID_SWEEP = ()     # K5 (rows per block, grid cap) to time besides the default
 CHAIN_GRAD_TOL = 1e-4   # K5: |err| <= tol·|ref| + tol·max|ref| per gradient; the weight
                         # gradients sum over all rows in another order than autograd
 
@@ -422,18 +421,6 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                                               max(iters // 4, 3)),
                 "module_fwd_bwd_ms": call_ms(module_fwd_bwd, max(iters // 4, 3)),
                 "library_ms": None, "bound_ms": bound, "bound_by": by}
-            if BWD_GRID_SWEEP:
-                # K5 at other grids (the entry point derives warps per block)
-                saved, by_grid = (cc.BWD_ROWS_PER_BLOCK, cc.BWD_MAX_GRID), {}
-                for per_block, max_grid in BWD_GRID_SWEEP:
-                    cc.BWD_ROWS_PER_BLOCK, cc.BWD_MAX_GRID = per_block, max_grid
-                    grid = min(-(-rows // per_block), max_grid)
-                    warps = min(8, -(-rows // (32 * grid)))
-                    by_grid[f"grid{grid}_warps{warps}"] = device_ms(
-                        lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False),
-                        iters)
-                cc.BWD_ROWS_PER_BLOCK, cc.BWD_MAX_GRID = saved
-                results["coupling_chain_bwd"][case]["ms_by_grid"] = by_grid
         del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias
         torch.cuda.empty_cache()
     log({"phase": "chain_kernels", "results": results,
@@ -664,12 +651,7 @@ def main() -> int:
     parser.add_argument("--out", help="also write every phase's numbers to this JSON file")
     parser.add_argument("--profile", action="store_true",
                         help="profile one extra train step by kernel (torch.profiler)")
-    parser.add_argument("--bwd-grid-sweep", action="store_true",
-                        help="also time the backward coupling kernel at other grid caps")
     args = parser.parse_args()
-    if args.bwd_grid_sweep:
-        global BWD_GRID_SWEEP
-        BWD_GRID_SWEEP = ((32, 528), (64, 264), (128, 132), (256, 132))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs its kernels on a GPU only",
               file=sys.stderr)

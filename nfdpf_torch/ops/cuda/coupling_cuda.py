@@ -171,7 +171,7 @@ def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
                    threads: int = BWD_MIN_THREADS, segments: int = BWD_MIN_THREADS) -> int:
     """Shared memory of the backward kernel for a block of ``threads`` rows
     (``bwd_smem_floats`` in ``csrc/coupling.cu``): the parameters and their
-    gradient accumulators, the factor tile (2 + K·(7 + 16·hidden) fields of
+    gradient accumulators, the factor tile (K·(7 + 16·hidden) fields of
     threads + 4 floats) and, per distinct context row of a tile (at most
     ``segments``), its context, its summed layer-0 gradients (4·K·hidden)
     and its layer-0 shares (4·K·hidden + 1)."""
@@ -180,7 +180,7 @@ def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
     if not ctx_dim:
         segments = 1
     cs_stride = (segments + 3) // 4 * 4 + 4
-    floats = (2 * params + (2 + n_blocks * (7 + 16 * hidden)) * (threads + 4)
+    floats = (2 * params + n_blocks * (7 + 16 * hidden) * (threads + 4)
               + (ctx_dim * cs_stride + segments * nets * hidden if ctx_dim else 0)
               + segments * (nets * hidden + 1))
     return 4 * floats

@@ -218,18 +218,16 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&
 
 // The factor tile is field-major: field f of tile row r at f * stride + r
 // (stride = rows + 4, a multiple of 4), so a row's own accesses are
-// consecutive across the warp and a thread reads four rows of one field in
-// one 16-byte load.  Fields: a column of ones and one of zeros, then per
-// coupling block its input upper half, the inputs of nets 0-1 and 2-3, and
-// per net its output (overwritten by the output's gradient in the reverse
-// sweep), h1, h2 and the pre-activation gradients g1 (layer 0) and g2
-// (layer 1), H each.
+// consecutive across the warp, and the context-weight entries read four rows
+// of a field in one 16-byte load.  Per coupling block the fields are its
+// input upper half, the inputs of nets 0-1 and 2-3, and per net its output
+// (overwritten by the output's gradient in the reverse sweep), h1, h2 and the
+// pre-activation gradients g1 (layer 0) and g2 (layer 1), H each.
 template <int H>
 struct Fields {
-  static constexpr int kOne = 0, kZero = 1;
   static constexpr int kBlock = 7 + 16 * H;
-  __host__ __device__ static constexpr int count(int n_blocks) { return 2 + n_blocks * kBlock; }
-  __host__ __device__ static constexpr int upper(int k) { return 2 + k * kBlock; }
+  __host__ __device__ static constexpr int count(int n_blocks) { return n_blocks * kBlock; }
+  __host__ __device__ static constexpr int upper(int k) { return k * kBlock; }
   __host__ __device__ static constexpr int half(int k, int net) { return upper(k) + 1 + net / 2; }
   __host__ __device__ static constexpr int out(int k, int net) {
     return upper(k) + 3 + net * (1 + 4 * H);
@@ -355,8 +353,8 @@ __device__ __forceinline__ float half_bwd(const float* __restrict__ w, int net_w
 // net summed over the tile's rows.  Sixteen lanes take one net (a warp two):
 // each lane sums the rows r = lane mod 16, 16 apart, in row order, all H·H +
 // 4H + 1 entries in registers from one load of each of the row's fields;
-// then a 4-step butterfly adds the 16 lanes' sums in a fixed order, and the
-// group's first lane adds them into the net's accumulators.  The rows past
+// then a 4-step butterfly adds the 16 lanes' sums in a fixed order, and each
+// lane adds a sixteenth of them into the net's accumulators.  The rows past
 // the end carry zero gradients and add exact zeros.
 template <int H>
 __device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, int nets,
@@ -375,6 +373,7 @@ __device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, 
       const float* f_half = fac + F::half(k, net) * fs;
       const float* f_out = fac + F::out(k, net) * fs;
       const float* f_h1 = fac + F::h1(k, net) * fs;
+#pragma unroll 2
       for (int r = sub; r < rows; r += 16) {
         const float half = f_half[r], g_out = f_out[r];
         float h1[H], h2[H], g1[H], g2[H];
@@ -405,41 +404,32 @@ __device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, 
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
     }
-    if (m < nets && sub == 0) {
+    // lane `sub` adds the entries e = sub (mod 16) into the accumulators
+    if (m < nets) {
       float* awm = aw + m * net_w;
       float* abm = ab + m * net_b;
 #pragma unroll
-      for (int i = 0; i < H; ++i) {
-#pragma unroll
-        for (int j = 0; j < H; ++j) awm[(max_in + i) * H + j] += acc[i * H + j];
+      for (int e = 0; e < E; ++e) {
+        if (e % 16 != sub) continue;
+        float* dst;
+        if (e < H * H) {
+          dst = awm + (max_in + e / H) * H + e % H;        // gw[1][i][j]
+        } else if (e < H * H + H) {
+          dst = abm + H + e - H * H;                        // gb[1][j]
+        } else if (e < H * H + 2 * H) {
+          dst = awm + e - H * H - H;                        // gw[0][0][j]
+        } else if (e < H * H + 3 * H) {
+          dst = abm + e - H * H - 2 * H;                    // gb[0][j]
+        } else if (e < H * H + 4 * H) {
+          dst = awm + (2 * max_in + e - H * H - 3 * H) * H; // gw[2][i][0]
+        } else {
+          dst = abm + 2 * H;                                // gb[2][0]
+        }
+        *dst += acc[e];
       }
-#pragma unroll
-      for (int j = 0; j < H; ++j) {
-        abm[H + j] += acc[H * H + j];
-        awm[j] += acc[H * H + H + j];
-        abm[j] += acc[H * H + 2 * H + j];
-        awm[(2 * max_in + j) * H] += acc[H * H + 3 * H + j];
-      }
-      abm[2 * H] += acc[H * H + 4 * H];
     }
   }
 }
-
-#ifdef NFDPF_BWD_PHASES
-// diagnostic: clock64() of thread 0 at each phase boundary of its block's first tile
-constexpr int kPhases = 10, kPhaseBlocks = 1024;
-__device__ long long g_phase_clock[kPhaseBlocks * kPhases];
-#define NFDPF_PHASE(i)                                                          \
-  do {                                                                          \
-    if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks && (i == 0 || i == 9 ||   \
-                                                          tile_no == 0))        \
-      g_phase_clock[blockIdx.x * kPhases + (i)] = clock64();                    \
-  } while (0)
-#else
-#define NFDPF_PHASE(i) \
-  do {             \
-  } while (0)
-#endif
 
 template <int H, bool INV>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
@@ -452,8 +442,6 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  int max_seg) {
   using F = Fields<H>;
   extern __shared__ float smem[];
-  int tile_no = 0;
-  NFDPF_PHASE(0);
   const int T = blockDim.x, t = threadIdx.x, fs = T + 4;
   const int net_w = 3 * max_in * H, net_b = 3 * H, nets = 4 * K;
   const int nw = nets * net_w, nb = nets * net_b, p_stride = nets * H + 1;
@@ -476,13 +464,9 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   for (int i = 4 * t; i < nw + nb; i += 4 * T) {   // nw and nb are multiples of 4
     *reinterpret_cast<float4*>(aw + i) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int r = t; r < T; r += T) {
-    fac[F::kOne * fs + r] = 1.f;
-    fac[F::kZero * fs + r] = 0.f;
-  }
 
   const int tiles = (rows + T - 1) / T;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++tile_no) {
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int r0 = tile * T, row = r0 + t;
     const bool valid = row < rows;
     // a thread past the end walks the last row with zero incoming gradients
@@ -513,8 +497,6 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     }
     copy_async_wait();   // the context rows and, on the first tile, the parameters
     __syncthreads();
-    NFDPF_PHASE(1);
-    NFDPF_PHASE(2);
     // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
     // distinct context row
     for (int i = t; i < nseg * nets; i += T) {
@@ -532,7 +514,6 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       for (int j = 0; j < H; ++j) p[d * p_stride + m * H + j] = sb[m * net_b + j] + acc[j];
     }
     __syncthreads();
-    NFDPF_PHASE(3);
 
     const float* prow = p + seg * p_stride;
     float* grow = (gctx != nullptr && valid) ? gctx + (size_t)row * C : nullptr;
@@ -612,13 +593,10 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
         g_lo = g_lo_out * e2;
       }
     }
-    NFDPF_PHASE(4);
     if (valid) gx[row] = make_float2(g_lo, g_up);
     __syncthreads();
-    NFDPF_PHASE(5);
 
     reduce_tile<H>(fac, fs, T, nets, aw, ab, net_w, net_b, max_in);
-    NFDPF_PHASE(7);
     if (C) {
       // with a shared context row: per run and net, g1 summed over its rows
       if (share) {
@@ -637,7 +615,6 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
         }
       }
       __syncthreads();
-      NFDPF_PHASE(6);
       // context-weight entries gw[m][0][1 + c][j] = Σ_d ctx[d][c]·G[d][m][j],
       // G the run sums or, one row per context row, g1 itself
       for (int e = t; e < nets * C * H; e += T) {
@@ -667,21 +644,15 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
 
   copy_async_wait();   // a block without a tile still staged its parameters
   __syncthreads();
-  NFDPF_PHASE(8);
   float* gw_out = gw_part + (size_t)blockIdx.x * nw;
   float* gb_out = gb_part + (size_t)blockIdx.x * nb;
-  if (((reinterpret_cast<uintptr_t>(gw_out) | reinterpret_cast<uintptr_t>(gb_out)) & 15) == 0) {
-    for (int i = 4 * t; i < nw; i += 4 * T) {
-      *reinterpret_cast<float4*>(gw_out + i) = *reinterpret_cast<const float4*>(aw + i);
-    }
-    for (int i = 4 * t; i < nb; i += 4 * T) {
-      *reinterpret_cast<float4*>(gb_out + i) = *reinterpret_cast<const float4*>(ab + i);
-    }
-  } else {
-    for (int i = t; i < nw; i += T) gw_out[i] = aw[i];
-    for (int i = t; i < nb; i += T) gb_out[i] = ab[i];
+  // the wrapper allocates the partials: 16-byte aligned, rows of nw and nb floats
+  for (int i = 4 * t; i < nw; i += 4 * T) {
+    *reinterpret_cast<float4*>(gw_out + i) = *reinterpret_cast<const float4*>(aw + i);
   }
-  NFDPF_PHASE(9);
+  for (int i = 4 * t; i < nb; i += 4 * T) {
+    *reinterpret_cast<float4*>(gb_out + i) = *reinterpret_cast<const float4*>(ab + i);
+  }
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
@@ -718,12 +689,6 @@ size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int m
 }
 
 }  // namespace
-
-#ifdef NFDPF_BWD_PHASES
-extern "C" int nfdpf_bwd_phase_clocks(long long* out, int count) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_clock, count * sizeof(long long)));
-}
-#endif
 
 // Plain C entry points (loaded with ctypes).  Each launches on the caller's
 // stream and returns a cudaError_t: that of the shared-memory opt-in, else
