@@ -48,7 +48,7 @@ LAUNCHES = {"coupling_chain": 0, "coupling_chain_inverse": 0, "coupling_chain_bw
 
 NETS = ("t1", "s1", "t2", "s2")
 MAX_HIDDEN = 8                    # the H-wide activations are register arrays
-MAX_BLOCKS = 8                    # block inputs the backward keeps per row
+MAX_BLOCKS = 8                    # chain blocks the kernels take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
 BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)

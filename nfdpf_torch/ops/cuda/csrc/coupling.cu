@@ -14,7 +14,7 @@
 // chain_fwd_kernel  replaces nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_kernel
 //   y, log_det for every row in one pass.
 // chain_bwd_kernel  replaces nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_bwd_kernel
-//   recomputes the forward from x, then walks the blocks backwards: g_x,
+//   runs the chain forward from x, then walks the blocks backwards: g_x,
 //   g_ctx (optional) per row, and the weight/bias gradients as one partial
 //   per thread block, summed by the caller.
 //
@@ -26,36 +26,42 @@
 // the time is one thread's serial walk through 4K dependent MLPs (times
 // against bounds in PERF.md).  Both keep everything but inputs and outputs
 // on chip: one thread per row over the flattened (B*N) rows, the ragged last
-// tile masked; lower, upper and the H-wide activations in registers; the
-// chain's parameters staged in (dynamic) shared memory once per block, every
-// lane reading the same weight at the same time (a broadcast); ctx read
-// through its own batch/row strides, so a context that is one row per batch
-// broadcast over the particles is never materialised.
+// tile masked; the chain's parameters staged in (dynamic) shared memory once
+// per block, every lane reading the same weight at the same time (a
+// broadcast); ctx read through its own batch/row strides, so a context that
+// is one row per batch broadcast over the particles is never materialised.
 //
 // The backward adds what the forward does not have: every weight and bias
-// gradient is a sum over all rows, K * 4 * (H*H + 4H + 1 + C*H) of them.
-//   * A block of 1-8 warps loops over tiles of one row per thread; the wrapper
-//     picks the grid from the row count (at most one block per SM) and the
-//     entry point the warps per block, so that few rows spread one warp per
-//     SM and many rows share one staged copy of the parameters.
-//   * Per coupling half (two nets on the same input) each row writes its
-//     factors (input, output gradients, h1, h2 and the pre-activation
-//     gradients g1, g2 of both nets) to a tile in shared memory (odd row
-//     stride: no bank conflicts).  After a barrier every thread owns fixed
-//     gradient entries and sums them over the tile's rows in row order into
-//     its own shared-memory accumulator (a transpose-reduce, as the Pallas
-//     kernel's x_in.T @ g): no shuffles, no float atomics, so the same launch
-//     gives the same bits.  Each block writes its accumulators once, as its
-//     partial; the caller sums the partials in a fixed order.
-//   * Rows that read the same context row (a run of rows of one batch element
-//     when ctx's particle stride is 0, else one row each) share layer 0's
-//     context term: per distinct context row P = b + ctx . w[1..C] is computed
-//     once per tile for all 4K nets, and the context-weight gradient is
+// gradient is a sum over all rows, K * 4 * (H*H + 4H + 1 + C*H) of them, and
+// it must not depend on the order blocks run in.  Its design:
+//   * A block of 1-8 warps loops over tiles of one row per thread; the
+//     wrapper aims at 128 rows (four warps) per block and at most one block
+//     per SM, and the entry point takes fewer warps where shared memory would
+//     not hold them.  A lone warp per SM left every phase latency-bound.
+//   * The forward sweep keeps each row's block inputs, net outputs and tanh
+//     activations in a field-major tile in shared memory; the reverse sweep
+//     reads them (no recompute) and adds the pre-activation gradients g1, g2.
+//     The two nets of a coupling half are computed before either stores, so
+//     their instructions interleave.
+//   * The weight and bias gradients are the tile's sums of outer products
+//     (as the Pallas kernel's x_in.T @ g): sixteen lanes take one net, each
+//     lane sums its rows in registers, a 4-step butterfly adds the lanes, and
+//     one lane adds the result into the block's accumulators in shared
+//     memory, written out once as the block's partial.  Fixed orders and no
+//     float atomics: the same launch gives the same bits.
+//   * Rows that read the same context row (a run of rows of one batch
+//     element when ctx's particle stride is 0, else one row each) share
+//     layer 0's context term: per distinct context row P = b + ctx . w[1..C]
+//     is computed once per tile, and the context-weight gradient is
 //     Σ_d ctx[d] ⊗ G[d], G[d] the sum of g1 over the rows of context row d.
 //     The context gradient (asked by the tests only; the filter detaches its
 //     contexts) stays per row and changes no other gradient's bits.
+//   * Parameters and context rows are staged with cp.async, all copies of a
+//     thread in flight at once.
 //   * No tensor cores: each product is 8 x (rows) x 8 per net and tile, and
 //     TF32 would break the 1e-4 tolerance of the gradients.
+// ptxas (CUDA 12.8, H = 8): about 150 registers a thread, no spills, no
+// stack (PERF.md has the counts).
 // Precise tanhf/expf (no fast-math).
 
 #include <cuda_runtime.h>
@@ -74,7 +80,7 @@ constexpr int kHidden = NFDPF_HIDDEN;   // the conditioners' hidden width H
 constexpr int kFwdThreads = 64;   // rows per forward block
 constexpr int kWarp = 32;
 constexpr int kMaxWarps = 8;      // a backward block: 1-8 warps, one row per thread
-constexpr int kMaxBlocks = 8;     // chain blocks whose inputs the backward keeps per row
+constexpr int kMaxBlocks = 8;     // most chain blocks the backward takes
 constexpr size_t kStaticSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;   // most dynamic shared memory a block can opt in to
 
@@ -353,8 +359,8 @@ __device__ __forceinline__ float half_bwd(const float* __restrict__ w, int net_w
 // net summed over the tile's rows.  Sixteen lanes take one net (a warp two):
 // each lane sums the rows r = lane mod 16, 16 apart, in row order, all H·H +
 // 4H + 1 entries in registers from one load of each of the row's fields;
-// then a 4-step butterfly adds the 16 lanes' sums in a fixed order, and each
-// lane adds a sixteenth of them into the net's accumulators.  The rows past
+// then a 4-step butterfly adds the 16 lanes' sums in a fixed order, and the
+// group's first lane adds them into the net's accumulators.  The rows past
 // the end carry zero gradients and add exact zeros.
 template <int H>
 __device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, int nets,
@@ -373,7 +379,6 @@ __device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, 
       const float* f_half = fac + F::half(k, net) * fs;
       const float* f_out = fac + F::out(k, net) * fs;
       const float* f_h1 = fac + F::h1(k, net) * fs;
-#pragma unroll 2
       for (int r = sub; r < rows; r += 16) {
         const float half = f_half[r], g_out = f_out[r];
         float h1[H], h2[H], g1[H], g2[H];
@@ -404,29 +409,22 @@ __device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, 
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
     }
-    // lane `sub` adds the entries e = sub (mod 16) into the accumulators
-    if (m < nets) {
+    if (m < nets && sub == 0) {
       float* awm = aw + m * net_w;
       float* abm = ab + m * net_b;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        if (e % 16 != sub) continue;
-        float* dst;
-        if (e < H * H) {
-          dst = awm + (max_in + e / H) * H + e % H;        // gw[1][i][j]
-        } else if (e < H * H + H) {
-          dst = abm + H + e - H * H;                        // gb[1][j]
-        } else if (e < H * H + 2 * H) {
-          dst = awm + e - H * H - H;                        // gw[0][0][j]
-        } else if (e < H * H + 3 * H) {
-          dst = abm + e - H * H - 2 * H;                    // gb[0][j]
-        } else if (e < H * H + 4 * H) {
-          dst = awm + (2 * max_in + e - H * H - 3 * H) * H; // gw[2][i][0]
-        } else {
-          dst = abm + 2 * H;                                // gb[2][0]
-        }
-        *dst += acc[e];
+      for (int i = 0; i < H; ++i) {
+#pragma unroll
+        for (int j = 0; j < H; ++j) awm[(max_in + i) * H + j] += acc[i * H + j];
       }
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        abm[H + j] += acc[H * H + j];
+        awm[j] += acc[H * H + H + j];
+        abm[j] += acc[H * H + 2 * H + j];
+        awm[(2 * max_in + j) * H] += acc[H * H + 3 * H + j];
+      }
+      abm[2 * H] += acc[H * H + 4 * H];
     }
   }
 }
