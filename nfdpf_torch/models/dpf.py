@@ -36,7 +36,7 @@ from nfdpf_torch.config import DPFConfig
 from nfdpf_torch.models.dynamics import motion_update, nf_dynamic_model, proposal_likelihood
 from nfdpf_torch.models.measurement import build_measurement_model
 from nfdpf_torch.models.nets import ObservationDecoder, ObservationEncoder, flax_init_
-from nfdpf_torch.ops.cuda.coupling_cuda import pack_chain_params
+from nfdpf_torch.ops.cuda.coupling_cuda import chain_refusal, pack_chain_params
 from nfdpf_torch.ops.cuda.sinkhorn_cuda import ot_resample_streaming
 from nfdpf_torch.ops.density import (
     effective_sample_size,
@@ -99,6 +99,30 @@ def check_supported(cfg: DPFConfig) -> None:
         raise ValueError("trainType must be DPF (supervised) or SDPF (semi-supervised)")
 
 
+def check_coupling_kernels(cfg: DPFConfig) -> None:
+    """On CUDA the packed chains run on the coupling kernels K4 (forward) and
+    K5 (backward): raise ``NotImplementedError`` for a chain that either
+    kernel does not take, with the limits the wrapper applies at launch.  The
+    filter's contexts are one row per batch element broadcast over the
+    particles: the dynamics flow's 2·state_dim wide, the proposal's
+    2·state_dim + hidden_size."""
+    if not (cfg.pallas_coupling and cfg.state_dim == 2):
+        return
+    stats = 2 * cfg.state_dim
+    chains = (("dynamics", cfg.nf_dyn, stats),
+              ("proposal", cfg.nf_cond, stats + cfg.hidden_size))
+    for name, used, ctx_dim in chains:
+        if not used:
+            continue
+        for backward in (False, True):
+            why = chain_refusal(cfg.n_sequence, cfg.flow_hidden_dim, ctx_dim,
+                                cfg.num_particles, True, backward)
+            if why is not None:
+                raise NotImplementedError(
+                    f"the {name} flow's packed chain does not run on the CUDA coupling "
+                    f"kernels K4/K5 yet: {why} (ROADMAP queue 2, item 20)")
+
+
 def particle_initialization(
     start_state: torch.Tensor,
     width: float,
@@ -133,6 +157,8 @@ class DPF(nn.Module):
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_coupling_kernels(config)
         self.encoder = ObservationEncoder(config.hidden_size)
         self.decoder = ObservationDecoder(config.hidden_size)
         self.measurement = build_measurement_model(config)

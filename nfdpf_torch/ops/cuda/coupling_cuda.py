@@ -186,6 +186,32 @@ def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
     return 4 * floats
 
 
+def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: bool,
+                  backward: bool) -> Optional[str]:
+    """Why the forward kernel (K4) or, with ``backward``, the backward kernel
+    (K5) cannot take a chain of ``n_blocks`` blocks at hidden width
+    ``hidden`` with a ``ctx_dim``-wide context over ``n`` particles per batch
+    element (``broadcast``: one context row per batch element, particle
+    stride 0, as the filter passes it); None when it can.  The wrapper raises
+    it at launch, the filter when it is built."""
+    if hidden > MAX_HIDDEN or n_blocks > MAX_BLOCKS:
+        return (f"the coupling kernels take hidden <= {MAX_HIDDEN} and at most "
+                f"{MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
+    max_in = max(1 + ctx_dim, hidden)
+    if backward:
+        # the distinct context rows of a one-warp tile: a run per batch
+        # element when the context is broadcast over the particles, else a row
+        threads = BWD_MIN_THREADS
+        segments = min(threads, (threads - 1) // n + 2) if broadcast else threads
+        smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, threads, segments)
+    else:
+        smem = 4 * n_blocks * 12 * (max_in * hidden + hidden)
+    if smem > MAX_SMEM_BYTES:
+        return (f"the chain needs {smem} bytes of shared memory in the "
+                f"{'backward' if backward else 'forward'} kernel; a block has {MAX_SMEM_BYTES}")
+    return None
+
+
 def _check_chain(x, ctx, weights, biases, backward: bool):
     """Shapes the packed chain must have; on CUDA also what the kernels take."""
     b, n, d = x.shape
@@ -201,22 +227,10 @@ def _check_chain(x, ctx, weights, biases, backward: bool):
             f"weights{tuple(weights.shape)} biases{tuple(biases.shape)}")
     if not x.is_cuda:
         return
-    if hidden > MAX_HIDDEN or n_blocks > MAX_BLOCKS:
-        raise ValueError(f"the coupling kernels take hidden <= {MAX_HIDDEN} and at "
-                         f"most {MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
-    if backward:
-        # the distinct context rows of a one-warp tile: a run per batch
-        # element when the context is broadcast over the particles, else a row
-        threads = BWD_MIN_THREADS
-        segments = (min(threads, (threads - 1) // n + 2) if ctx is not None
-                    and ctx.stride(1) == 0 else threads)
-        smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, threads, segments)
-    else:
-        smem = 4 * (weights.numel() + biases.numel())
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"the chain needs {smem} bytes of shared memory in the "
-            f"{'backward' if backward else 'forward'} kernel; a block has {MAX_SMEM_BYTES}")
+    why = chain_refusal(n_blocks, hidden, ctx_dim, n,
+                        ctx is not None and ctx.stride(1) == 0, backward)
+    if why is not None:
+        raise ValueError(why)
 
 
 def _launch_forward(x, ctx, weights, biases, inverse: bool):

@@ -18,8 +18,9 @@ from nfdpf_tpu.models.dpf import DPF as JaxDPF
 from nfdpf_torch.bridge import load_jax_variables, torch_state_from_jax
 from nfdpf_torch.config import DPFConfig
 from nfdpf_torch.models import dynamics as tdyn
-from nfdpf_torch.models.dpf import DPF, particle_initialization
+from nfdpf_torch.models.dpf import DPF, check_coupling_kernels, particle_initialization
 from nfdpf_torch.models.nets import FlaxBatchNorm
+from nfdpf_torch.train import Trainer
 
 B, N, T = 2, 16, 5
 SLICE = dict(num_particles=N, sequence_length=T, batch_size=B, width=128,
@@ -230,3 +231,36 @@ UNSUPPORTED = {
 def test_unported_settings_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         DPF(DPFConfig(**dict(SLICE, **UNSUPPORTED[case])), device="cpu")
+
+
+# chains the CUDA coupling kernels do not take, as (overrides, refused on CUDA)
+COUPLING_LIMITS = {
+    "hidden16": (dict(flow_hidden_dim=16), True),
+    "blocks9": (dict(n_sequence=9), True),
+    "hidden16_module_route": (dict(flow_hidden_dim=16, pallas_coupling=False), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COUPLING_LIMITS))
+def test_coupling_kernel_limits_are_refused_when_built(case):
+    """A CNF-DPF whose packed chains K4/K5 cannot take is refused when it is
+    built for CUDA, before anything reaches the card (so this runs without
+    one); the module route is not refused.  On the CPU the same configuration
+    builds and takes a train step on the plain version."""
+    overrides, refused = COUPLING_LIMITS[case]
+    cfg = DPFConfig(**{**SLICE, "num_particles": 10, "ess_threshold": 1.01, "nf_dyn": True,
+                       "nf_cond": True, "pallas_coupling": True, **overrides})
+    if refused:
+        with pytest.raises(NotImplementedError, match=r"K4/K5.*queue 2, item 20"):
+            DPF(cfg, device="cuda")
+    else:
+        check_coupling_kernels(cfg)
+    rng = np.random.default_rng(7)
+    batch = {"image": rng.random((B, T, 128, 128, 3), dtype=np.float32),
+             "state": (rng.standard_normal((B, T, 4)) * 10).astype(np.float32),
+             "start_state": (rng.standard_normal((B, 4)) * 10).astype(np.float32)}
+    trainer = Trainer(cfg, device="cpu")
+    metrics = trainer.train_step(batch, generator=trainer.generator(0))
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["resample_count"]) > 0
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for name, p in trainer.engine.named_parameters() if name.startswith("nf_dyn"))
