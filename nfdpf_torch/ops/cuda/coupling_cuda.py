@@ -167,6 +167,13 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
     return ctx, ctx.data_ptr(), ctx.stride(0), ctx.stride(1)
 
 
+def fwd_smem_bytes(n_blocks: int, ctx_dim: int, hidden: int) -> int:
+    """Shared memory of the forward kernel (``FwdLayout`` in
+    ``csrc/coupling.cu``): per net its biases (3·hidden), layer 0's rows
+    0..ctx_dim, layer 1 and layer 2's column 0."""
+    return 4 * 4 * n_blocks * (3 * hidden + (1 + ctx_dim) * hidden + hidden * hidden + hidden)
+
+
 def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
                    threads: int = BWD_MIN_THREADS, segments: int = BWD_MIN_THREADS) -> int:
     """Shared memory of the backward kernel for a block of ``threads`` rows
@@ -205,7 +212,7 @@ def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: b
         segments = min(threads, (threads - 1) // n + 2) if broadcast else threads
         smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, threads, segments)
     else:
-        smem = 4 * n_blocks * 12 * (max_in * hidden + hidden)
+        smem = fwd_smem_bytes(n_blocks, ctx_dim, hidden)
     if smem > MAX_SMEM_BYTES:
         return (f"the chain needs {smem} bytes of shared memory in the "
                 f"{'backward' if backward else 'forward'} kernel; a block has {MAX_SMEM_BYTES}")

@@ -84,97 +84,6 @@ constexpr int kMaxBlocks = 8;     // most chain blocks the backward takes
 constexpr size_t kStaticSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;   // most dynamic shared memory a block can opt in to
 
-// One conditioner MLP on (half | ctx) with the packed parameters of one net:
-// w[3][max_in][H], b[3][H].  Keeps both tanh activations for the backward.
-template <int H>
-__device__ __forceinline__ float mlp_fwd(const float* __restrict__ w,
-                                         const float* __restrict__ b, int max_in,
-                                         float half, const float* __restrict__ ctx, int C,
-                                         float (&h1)[H], float (&h2)[H]) {
-  float a[H];
-#pragma unroll
-  for (int j = 0; j < H; ++j) a[j] = fmaf(half, w[j], b[j]);
-  for (int c = 0; c < C; ++c) {
-    const float cv = __ldg(ctx + c);
-    const float* wr = w + (1 + c) * H;
-#pragma unroll
-    for (int j = 0; j < H; ++j) a[j] = fmaf(cv, wr[j], a[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < H; ++j) h1[j] = tanhf(a[j]);
-
-  const float* w1 = w + max_in * H;
-#pragma unroll
-  for (int j = 0; j < H; ++j) a[j] = b[H + j];
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], w1[i * H + j], a[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < H; ++j) h2[j] = tanhf(a[j]);
-
-  const float* w2 = w + 2 * max_in * H;
-  float out = b[2 * H];
-#pragma unroll
-  for (int i = 0; i < H; ++i) out = fmaf(h2[i], w2[i * H], out);
-  return out;
-}
-
-// Stage the packed parameters in shared memory: sw[nw] then sb[nb].
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int count) {
-  for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = src[t];
-}
-
-template <int H, bool INV>
-__global__ void __launch_bounds__(kFwdThreads)
-chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
-                 long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
-                 const float* __restrict__ bias, float2* __restrict__ y,
-                 float* __restrict__ ld_out, int rows, int n, int K, int C, int max_in) {
-  extern __shared__ float smem[];
-  const int net_w = 3 * max_in * H, net_b = 3 * H;
-  const int nw = K * 4 * net_w, nb = K * 4 * net_b;
-  float* sw = smem;
-  float* sb = smem + nw;
-  stage(sw, w, nw);
-  stage(sb, bias, nb);
-  __syncthreads();
-
-  const int row = blockIdx.x * kFwdThreads + threadIdx.x;
-  if (row >= rows) return;   // past the only barrier
-  const float* crow =
-      C ? ctx + (long long)(row / n) * ctx_sb + (long long)(row % n) * ctx_sn : nullptr;
-  const float2 v = x[row];
-  float lo = v.x, up = v.y, ld = 0.f;
-  float h1[H], h2[H];
-
-  for (int s = 0; s < K; ++s) {
-    const int k = INV ? K - 1 - s : s;
-    const float* wk = sw + k * 4 * net_w;
-    const float* bk = sb + k * 4 * net_b;
-    if (!INV) {
-      const float t1 = mlp_fwd<H>(wk, bk, max_in, lo, crow, C, h1, h2);
-      const float s1 = mlp_fwd<H>(wk + net_w, bk + net_b, max_in, lo, crow, C, h1, h2);
-      up = t1 + up * expf(s1);
-      const float t2 = mlp_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, crow, C, h1, h2);
-      const float s2 = mlp_fwd<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, crow, C, h1, h2);
-      lo = t2 + lo * expf(s2);
-      ld = ld + s1 + s2;
-    } else {
-      const float t2 = mlp_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, max_in, up, crow, C, h1, h2);
-      const float s2 = mlp_fwd<H>(wk + 3 * net_w, bk + 3 * net_b, max_in, up, crow, C, h1, h2);
-      lo = (lo - t2) * expf(-s2);
-      const float t1 = mlp_fwd<H>(wk, bk, max_in, lo, crow, C, h1, h2);
-      const float s1 = mlp_fwd<H>(wk + net_w, bk + net_b, max_in, lo, crow, C, h1, h2);
-      up = (up - t1) * expf(-s1);
-      ld = ld - s1 - s2;
-    }
-  }
-  y[row] = make_float2(lo, up);
-  ld_out[row] = ld;
-}
-
 // ---- K5: the backward kernel ------------------------------------------------
 
 // Asynchronous copies from device to shared memory (cp.async): every thread
@@ -653,6 +562,127 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   }
 }
 
+// ---- K4: the forward kernel ------------------------------------------------
+
+// The forward kernel's parameters in shared memory, in floats: the biases as
+// packed (nets x 3H), then per net layer 0's rows 0..C ((1 + C) x H), per net
+// layer 1 (H x H) and per net layer 2's column 0 (H): what the chain reads,
+// none of the packing's zero rows.
+template <int H>
+struct FwdLayout {
+  int nets, C;
+  __host__ __device__ int l0() const { return (1 + C) * H; }
+  __host__ __device__ int w0() const { return nets * 3 * H; }
+  __host__ __device__ int w1() const { return w0() + nets * l0(); }
+  __host__ __device__ int w2() const { return w1() + nets * H * H; }
+  __host__ __device__ int floats() const { return w2() + nets * H; }
+};
+
+// Stage the parameters of FwdLayout from the packing with cp.async, every
+// copy of a thread in flight at once (16-byte copies where H allows them).
+template <int H>
+__device__ __forceinline__ void stage_fwd(float* s, const float* __restrict__ w,
+                                          const float* __restrict__ b, int nets, int C,
+                                          int max_in) {
+  const FwdLayout<H> L{nets, C};
+  const int T = blockDim.x, t = threadIdx.x, net_w = 3 * max_in * H, l0 = L.l0();
+  stage_async(s, b, nets * 3 * H);
+  // layer 0's rows 0..C and layer 1 of each net are runs of the packing
+  const bool v4 = H % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const int step = v4 ? 4 : 1, per = (l0 + H * H) / step;
+  for (int i = t; i < nets * per; i += T) {
+    const int m = i / per, q = i % per * step;
+    const bool first = q < l0;
+    const float* src = w + (size_t)m * net_w + (first ? q : max_in * H + q - l0);
+    float* dst = s + (first ? L.w0() + m * l0 + q : L.w1() + m * H * H + q - l0);
+    if (v4) {
+      copy_async16(dst, src);
+    } else {
+      copy_async4(dst, src);
+    }
+  }
+  for (int i = t; i < nets * H; i += T) {   // layer 2's column 0
+    copy_async4(s + L.w2() + i, w + (size_t)(i / H) * net_w + (2 * max_in + i % H) * H);
+  }
+}
+
+// One conditioner MLP on (half | ctx) for this thread's row, from the staged
+// biases b (3 x H), layer 0 w0 ((1 + C) x H), layer 1 w1 and layer 2's column
+// w2; the context row crow read from device memory.
+template <int H>
+__device__ __forceinline__ float mlp_row(const float* __restrict__ b,
+                                         const float* __restrict__ w0,
+                                         const float* __restrict__ w1,
+                                         const float* __restrict__ w2, float half,
+                                         const float* __restrict__ crow, int C) {
+  float a[H], h1[H], wr[H];
+  load_row<H>(w0, wr);
+#pragma unroll
+  for (int j = 0; j < H; ++j) a[j] = fmaf(half, wr[j], b[j]);
+  for (int c = 0; c < C; ++c) {
+    const float cv = __ldg(crow + c);
+    load_row<H>(w0 + (1 + c) * H, wr);
+#pragma unroll
+    for (int j = 0; j < H; ++j) a[j] = fmaf(cv, wr[j], a[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < H; ++j) h1[j] = tanhf(a[j]);
+  load_row<H>(b + H, a);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    load_row<H>(w1 + i * H, wr);
+#pragma unroll
+    for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], wr[j], a[j]);
+  }
+  float out = b[2 * H];
+#pragma unroll
+  for (int i = 0; i < H; ++i) out = fmaf(tanhf(a[i]), w2[i], out);
+  return out;
+}
+
+template <int H, bool INV>
+__global__ void __launch_bounds__(kFwdThreads)
+chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
+                 long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
+                 const float* __restrict__ bias, float2* __restrict__ y,
+                 float* __restrict__ ld_out, int rows, int n, int K, int C, int max_in) {
+  extern __shared__ float smem[];
+  const int nets = 4 * K;
+  const FwdLayout<H> L{nets, C};
+  stage_fwd<H>(smem, w, bias, nets, C, max_in);
+  copy_async_wait();
+  __syncthreads();
+
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;   // past the only barrier
+  const float* crow =
+      C ? ctx + (long long)(row / n) * ctx_sb + (long long)(row % n) * ctx_sn : nullptr;
+  auto mlp = [&](int m, float half) {
+    return mlp_row<H>(smem + m * 3 * H, smem + L.w0() + m * L.l0(), smem + L.w1() + m * H * H,
+                      smem + L.w2() + m * H, half, crow, C);
+  };
+  const float2 v = x[row];
+  float lo = v.x, up = v.y, ld = 0.f;
+  for (int s = 0; s < K; ++s) {
+    const int m = 4 * (INV ? K - 1 - s : s);
+    if (!INV) {
+      const float t1 = mlp(m, lo), s1 = mlp(m + 1, lo);
+      up = t1 + up * expf(s1);
+      const float t2 = mlp(m + 2, up), s2 = mlp(m + 3, up);
+      lo = t2 + lo * expf(s2);
+      ld = ld + s1 + s2;
+    } else {
+      const float t2 = mlp(m + 2, up), s2 = mlp(m + 3, up);
+      lo = (lo - t2) * expf(-s2);
+      const float t1 = mlp(m, lo), s1 = mlp(m + 1, lo);
+      up = (up - t1) * expf(-s1);
+      ld = ld - s1 - s2;
+    }
+  }
+  y[row] = make_float2(lo, up);
+  ld_out[row] = ld;
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
 template <typename Kernel>
 int reserve_smem(Kernel kernel, size_t bytes) {
@@ -704,7 +734,7 @@ extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* ctx, long l
   if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = param_floats(n_blocks, max_in) * sizeof(float);
+  const size_t smem = FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() * sizeof(float);
   auto kernel = inverse ? chain_fwd_kernel<kHidden, true> : chain_fwd_kernel<kHidden, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
