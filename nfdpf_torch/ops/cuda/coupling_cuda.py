@@ -50,6 +50,7 @@ NETS = ("t1", "s1", "t2", "s2")
 MAX_HIDDEN = 8                    # the H-wide activations are register arrays
 MAX_BLOCKS = 8                    # chain blocks the kernels take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
+FWD_ROWS_PER_BLOCK = 64           # forward rows per block
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
 BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)
 BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
@@ -167,11 +168,15 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
     return ctx, ctx.data_ptr(), ctx.stride(0), ctx.stride(1)
 
 
-def fwd_smem_bytes(n_blocks: int, ctx_dim: int, hidden: int) -> int:
-    """Shared memory of the forward kernel (``FwdLayout`` in
-    ``csrc/coupling.cu``): per net its biases (3·hidden), layer 0's rows
-    0..ctx_dim, layer 1 and layer 2's column 0."""
-    return 4 * 4 * n_blocks * (3 * hidden + (1 + ctx_dim) * hidden + hidden * hidden + hidden)
+def fwd_smem_bytes(n_blocks: int, ctx_dim: int, hidden: int, segments: int) -> int:
+    """Shared memory of the forward kernel (``FwdLayout`` and
+    ``fwd_ctx_floats`` in ``csrc/coupling.cu``): per net its biases
+    (3·hidden), layer 0's rows 0..ctx_dim, layer 1 and layer 2's column 0;
+    then per distinct context row of a block (at most ``segments``) its
+    context and its layer-0 shares (4·K·hidden)."""
+    nets = 4 * n_blocks
+    params = nets * (3 * hidden + (1 + ctx_dim) * hidden + hidden * hidden + hidden)
+    return 4 * (params + (segments * ctx_dim + 3) // 4 * 4 + segments * nets * hidden)
 
 
 def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
@@ -205,14 +210,15 @@ def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: b
         return (f"the coupling kernels take hidden <= {MAX_HIDDEN} and at most "
                 f"{MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
     max_in = max(1 + ctx_dim, hidden)
+    # the distinct context rows of a block's rows: a run per batch element
+    # when the context is broadcast over the particles, else a row
+    threads = BWD_MIN_THREADS if backward else FWD_ROWS_PER_BLOCK
+    segments = (1 if not ctx_dim else
+                min(threads, (threads - 1) // n + 2) if broadcast else threads)
     if backward:
-        # the distinct context rows of a one-warp tile: a run per batch
-        # element when the context is broadcast over the particles, else a row
-        threads = BWD_MIN_THREADS
-        segments = min(threads, (threads - 1) // n + 2) if broadcast else threads
         smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, threads, segments)
     else:
-        smem = fwd_smem_bytes(n_blocks, ctx_dim, hidden)
+        smem = fwd_smem_bytes(n_blocks, ctx_dim, hidden, segments)
     if smem > MAX_SMEM_BYTES:
         return (f"the chain needs {smem} bytes of shared memory in the "
                 f"{'backward' if backward else 'forward'} kernel; a block has {MAX_SMEM_BYTES}")

@@ -607,26 +607,18 @@ __device__ __forceinline__ void stage_fwd(float* s, const float* __restrict__ w,
 }
 
 // One conditioner MLP on (half | ctx) for this thread's row, from the staged
-// biases b (3 x H), layer 0 w0 ((1 + C) x H), layer 1 w1 and layer 2's column
-// w2; the context row crow read from device memory.
+// biases b (3 x H), layer 0's half column w0, layer 1 w1, layer 2's column w2
+// and p, layer 0's bias and context share of the row's context row.
 template <int H>
 __device__ __forceinline__ float mlp_row(const float* __restrict__ b,
                                          const float* __restrict__ w0,
                                          const float* __restrict__ w1,
                                          const float* __restrict__ w2, float half,
-                                         const float* __restrict__ crow, int C) {
+                                         const float* __restrict__ p) {
   float a[H], h1[H], wr[H];
   load_row<H>(w0, wr);
 #pragma unroll
-  for (int j = 0; j < H; ++j) a[j] = fmaf(half, wr[j], b[j]);
-  for (int c = 0; c < C; ++c) {
-    const float cv = __ldg(crow + c);
-    load_row<H>(w0 + (1 + c) * H, wr);
-#pragma unroll
-    for (int j = 0; j < H; ++j) a[j] = fmaf(cv, wr[j], a[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < H; ++j) h1[j] = tanhf(a[j]);
+  for (int j = 0; j < H; ++j) h1[j] = tanhf(fmaf(half, wr[j], p[j]));
   load_row<H>(b + H, a);
 #pragma unroll
   for (int i = 0; i < H; ++i) {
@@ -640,26 +632,66 @@ __device__ __forceinline__ float mlp_row(const float* __restrict__ b,
   return out;
 }
 
+// Shared memory of the forward kernel past its parameters, in floats: the
+// block's distinct context rows (C each, rounded up to a multiple of 4), then
+// per distinct context row layer 0's shares P (4K x H).
+__host__ __device__ inline int fwd_ctx_floats(int max_seg, int C) {
+  return (max_seg * C + 3) / 4 * 4;
+}
+
 template <int H, bool INV>
 __global__ void __launch_bounds__(kFwdThreads)
 chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
                  const float* __restrict__ bias, float2* __restrict__ y,
-                 float* __restrict__ ld_out, int rows, int n, int K, int C, int max_in) {
+                 float* __restrict__ ld_out, int rows, int n, int K, int C, int max_in,
+                 int max_seg) {
   extern __shared__ float smem[];
-  const int nets = 4 * K;
+  const int T = blockDim.x, t = threadIdx.x, nets = 4 * K, ps = nets * H;
   const FwdLayout<H> L{nets, C};
+  float* cs = smem + L.floats();
+  float* p = cs + fwd_ctx_floats(max_seg, C);
   stage_fwd<H>(smem, w, bias, nets, C, max_in);
+
+  // the block's distinct context rows: a run of rows of one batch element
+  // when the context is broadcast over the particles, else every row
+  const int r0 = blockIdx.x * T, row = r0 + t, last = min(rows, r0 + T) - 1;
+  const int r = min(row, last);
+  const bool share = C > 0 && ctx_sn == 0;
+  int seg = 0, nseg = 1;
+  if (share) {
+    seg = r / n - r0 / n;
+    nseg = last / n - r0 / n + 1;
+  } else if (C) {
+    seg = r - r0;
+    nseg = last - r0 + 1;
+  }
+  for (int i = t; i < nseg * C; i += T) {
+    const int d = i / C, c = i % C;
+    const long long at = share ? (long long)(r0 / n + d) * ctx_sb
+                               : (long long)((r0 + d) / n) * ctx_sb +
+                                     (long long)((r0 + d) % n) * ctx_sn;
+    copy_async4(cs + i, ctx + at + c);
+  }
   copy_async_wait();
   __syncthreads();
+  // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
+  // distinct context row, summed in the backward kernel's order
+  for (int i = t; i < nseg * ps; i += T) {
+    const int d = i / ps, m = i / H % nets, j = i % H;
+    const float* wc = smem + L.w0() + m * L.l0() + H + j;
+    const float* cd = cs + d * C;
+    float acc = 0.f;
+    for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * H], acc);
+    p[i] = smem[m * 3 * H + j] + acc;
+  }
+  __syncthreads();
 
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;   // past the only barrier
-  const float* crow =
-      C ? ctx + (long long)(row / n) * ctx_sb + (long long)(row % n) * ctx_sn : nullptr;
+  if (row >= rows) return;   // past the last barrier
+  const float* prow = p + seg * ps;
   auto mlp = [&](int m, float half) {
     return mlp_row<H>(smem + m * 3 * H, smem + L.w0() + m * L.l0(), smem + L.w1() + m * H * H,
-                      smem + L.w2() + m * H, half, crow, C);
+                      smem + L.w2() + m * H, half, prow + m * H);
   };
   const float2 v = x[row];
   float lo = v.x, up = v.y, ld = 0.f;
@@ -734,14 +766,18 @@ extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* ctx, long l
   if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() * sizeof(float);
+  // a block's distinct context rows are counted as the backward's tiles are
+  const int max_seg = bwd_max_seg(kFwdThreads, n, ctx_dim, ctx_sn);
+  const size_t smem = (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
+                       fwd_ctx_floats(max_seg, ctx_dim) + max_seg * 4 * n_blocks * kHidden) *
+                      sizeof(float);
   auto kernel = inverse ? chain_fwd_kernel<kHidden, true> : chain_fwd_kernel<kHidden, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
   const int grid = (rows + kFwdThreads - 1) / kFwdThreads;
   kernel<<<grid, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
-      reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in);
+      reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in, max_seg);
   return static_cast<int>(cudaGetLastError());
 }
 
