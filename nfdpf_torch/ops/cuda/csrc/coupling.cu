@@ -606,30 +606,39 @@ __device__ __forceinline__ void stage_fwd(float* s, const float* __restrict__ w,
   }
 }
 
-// One conditioner MLP on (half | ctx) for this thread's row, from the staged
-// biases b (3 x H), layer 0's half column w0, layer 1 w1, layer 2's column w2
-// and p, layer 0's bias and context share of the row's context row.
+// The two nets of a coupling half (nets m and m + 1, both on `half`) for
+// this thread's row, from the staged parameters s (FwdLayout) and p, layer
+// 0's bias and context share of the row's context row for net m then m + 1.
+// Layer by layer, both nets' loads come before either net's results are
+// used, so their instructions interleave.  Returns both outputs.
 template <int H>
-__device__ __forceinline__ float mlp_row(const float* __restrict__ b,
-                                         const float* __restrict__ w0,
-                                         const float* __restrict__ w1,
-                                         const float* __restrict__ w2, float half,
-                                         const float* __restrict__ p) {
-  float a[H], h1[H], wr[H];
-  load_row<H>(w0, wr);
+__device__ __forceinline__ float2 half_row(const float* __restrict__ s, const FwdLayout<H>& L,
+                                           int m, float half, const float* __restrict__ p) {
+  float h1[2][H], a[2][H], wr[H], out[2];
 #pragma unroll
-  for (int j = 0; j < H; ++j) h1[j] = tanhf(fmaf(half, wr[j], p[j]));
-  load_row<H>(b + H, a);
+  for (int x = 0; x < 2; ++x) {
+    load_row<H>(s + L.w0() + (m + x) * L.l0(), wr);
+#pragma unroll
+    for (int j = 0; j < H; ++j) h1[x][j] = tanhf(fmaf(half, wr[j], p[x * H + j]));
+    load_row<H>(s + (m + x) * 3 * H + H, a[x]);
+  }
 #pragma unroll
   for (int i = 0; i < H; ++i) {
-    load_row<H>(w1 + i * H, wr);
 #pragma unroll
-    for (int j = 0; j < H; ++j) a[j] = fmaf(h1[i], wr[j], a[j]);
+    for (int x = 0; x < 2; ++x) {
+      load_row<H>(s + L.w1() + ((m + x) * H + i) * H, wr);
+#pragma unroll
+      for (int j = 0; j < H; ++j) a[x][j] = fmaf(h1[x][i], wr[j], a[x][j]);
+    }
   }
-  float out = b[2 * H];
 #pragma unroll
-  for (int i = 0; i < H; ++i) out = fmaf(tanhf(a[i]), w2[i], out);
-  return out;
+  for (int x = 0; x < 2; ++x) {
+    const float* w2 = s + L.w2() + (m + x) * H;
+    out[x] = s[(m + x) * 3 * H + 2 * H];
+#pragma unroll
+    for (int i = 0; i < H; ++i) out[x] = fmaf(tanhf(a[x][i]), w2[i], out[x]);
+  }
+  return make_float2(out[0], out[1]);
 }
 
 // Shared memory of the forward kernel past its parameters, in floats: the
@@ -689,26 +698,22 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
 
   if (row >= rows) return;   // past the last barrier
   const float* prow = p + seg * ps;
-  auto mlp = [&](int m, float half) {
-    return mlp_row<H>(smem + m * 3 * H, smem + L.w0() + m * L.l0(), smem + L.w1() + m * H * H,
-                      smem + L.w2() + m * H, half, prow + m * H);
-  };
   const float2 v = x[row];
   float lo = v.x, up = v.y, ld = 0.f;
-  for (int s = 0; s < K; ++s) {
-    const int m = 4 * (INV ? K - 1 - s : s);
+  for (int st = 0; st < K; ++st) {
+    const int m = 4 * (INV ? K - 1 - st : st);
     if (!INV) {
-      const float t1 = mlp(m, lo), s1 = mlp(m + 1, lo);
-      up = t1 + up * expf(s1);
-      const float t2 = mlp(m + 2, up), s2 = mlp(m + 3, up);
-      lo = t2 + lo * expf(s2);
-      ld = ld + s1 + s2;
+      const float2 o1 = half_row<H>(smem, L, m, lo, prow + m * H);   // (t1, s1)
+      up = o1.x + up * expf(o1.y);
+      const float2 o2 = half_row<H>(smem, L, m + 2, up, prow + (m + 2) * H);   // (t2, s2)
+      lo = o2.x + lo * expf(o2.y);
+      ld = ld + o1.y + o2.y;
     } else {
-      const float t2 = mlp(m + 2, up), s2 = mlp(m + 3, up);
-      lo = (lo - t2) * expf(-s2);
-      const float t1 = mlp(m, lo), s1 = mlp(m + 1, lo);
-      up = (up - t1) * expf(-s1);
-      ld = ld - s1 - s2;
+      const float2 o2 = half_row<H>(smem, L, m + 2, up, prow + (m + 2) * H);
+      lo = (lo - o2.x) * expf(-o2.y);
+      const float2 o1 = half_row<H>(smem, L, m, lo, prow + m * H);
+      up = (up - o1.x) * expf(-o1.y);
+      ld = ld - o1.y - o2.y;
     }
   }
   y[row] = make_float2(lo, up);
