@@ -50,7 +50,7 @@ NETS = ("t1", "s1", "t2", "s2")
 MAX_HIDDEN = 8                    # the H-wide activations are register arrays
 MAX_BLOCKS = 8                    # chain blocks the kernels take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
-FWD_ROWS_PER_BLOCK = 64           # forward rows per block
+FWD_WARP = 32                     # a forward block is whole warps of 2·fwd_lanes(H) lanes a row
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
 BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)
 BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
@@ -61,6 +61,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "nfdpf_coupling_chain_fwd": [_P, _P, _L, _L, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "nfdpf_coupling_chain_fwd_sweep": [_P, _P, _L, _L, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_chain_bwd": [_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -168,6 +170,11 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
     return ctx, ctx.data_ptr(), ctx.stride(0), ctx.stride(1)
 
 
+def fwd_lanes(hidden: int) -> int:
+    """Lanes per net of a row in the forward kernel (``U`` in ``csrc/coupling.cu``)."""
+    return 1 if hidden % 8 else 8
+
+
 def fwd_smem_bytes(n_blocks: int, ctx_dim: int, hidden: int, segments: int) -> int:
     """Shared memory of the forward kernel (``FwdLayout`` and
     ``fwd_ctx_floats`` in ``csrc/coupling.cu``): per net its biases
@@ -212,7 +219,7 @@ def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: b
     max_in = max(1 + ctx_dim, hidden)
     # the distinct context rows of a block's rows: a run per batch element
     # when the context is broadcast over the particles, else a row
-    threads = BWD_MIN_THREADS if backward else FWD_ROWS_PER_BLOCK
+    threads = BWD_MIN_THREADS if backward else FWD_WARP // (2 * fwd_lanes(hidden))
     segments = (1 if not ctx_dim else
                 min(threads, (threads - 1) // n + 2) if broadcast else threads)
     if backward:
@@ -261,6 +268,24 @@ def _launch_forward(x, ctx, weights, biases, inverse: bool):
     counter = "coupling_chain_inverse" if inverse else "coupling_chain"
     check_launch(rc, counter)
     LAUNCHES[counter] += 1
+    return y, ld
+
+
+def _launch_forward_sweep(x, ctx, weights, biases, inverse: bool, lanes_u: int,
+                          rows_per_block: int):
+    """The forward kernel at another block shape (lanes per net, rows per
+    block), for timing; no count."""
+    b, n, _ = x.shape
+    x, weights, biases = kernel_args(x, weights, biases)
+    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
+    y = torch.empty((b, n, 2), device=x.device, dtype=torch.float32)
+    ld = torch.empty((b, n), device=x.device, dtype=torch.float32)
+    rc = _library(weights.shape[-1]).nfdpf_coupling_chain_fwd_sweep(
+        x.data_ptr(), ctx_ptr, ctx_sb, ctx_sn, weights.data_ptr(), biases.data_ptr(),
+        y.data_ptr(), ld.data_ptr(), b * n, n, weights.shape[0],
+        0 if ctx is None else ctx.shape[-1], weights.shape[-2], weights.shape[-1],
+        int(inverse), lanes_u, rows_per_block, torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(rc, "coupling_chain_sweep")
     return y, ld
 
 

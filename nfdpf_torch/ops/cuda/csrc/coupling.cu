@@ -77,7 +77,7 @@
 namespace {
 
 constexpr int kHidden = NFDPF_HIDDEN;   // the conditioners' hidden width H
-constexpr int kFwdThreads = 64;   // rows per forward block
+constexpr int kFwdMaxThreads = 1024;   // a forward block
 constexpr int kWarp = 32;
 constexpr int kMaxWarps = 8;      // a backward block: 1-8 warps, one row per thread
 constexpr int kMaxBlocks = 8;     // most chain blocks the backward takes
@@ -606,39 +606,55 @@ __device__ __forceinline__ void stage_fwd(float* s, const float* __restrict__ w,
   }
 }
 
-// The two nets of a coupling half (nets m and m + 1, both on `half`) for
-// this thread's row, from the staged parameters s (FwdLayout) and p, layer
-// 0's bias and context share of the row's context row for net m then m + 1.
-// Layer by layer, both nets' loads come before either net's results are
-// used, so their instructions interleave.  Returns both outputs.
-template <int H>
-__device__ __forceinline__ float2 half_row(const float* __restrict__ s, const FwdLayout<H>& L,
-                                           int m, float half, const float* __restrict__ p) {
-  float h1[2][H], a[2][H], wr[H], out[2];
+// The two nets of a coupling half (nets m and m + 1, both on `half`) for a
+// row that 2U lanes share: lane u of net xn (0 or 1) takes hidden units
+// [u*J, u*J + J), J = H / U, of net m + xn; each layer's inputs come from the
+// lanes that hold them by shuffles within the row's 2U lanes, and every lane
+// of a net sums its output in the same order, so all of them hold it.  From
+// the staged parameters s (FwdLayout) and p, layer 0's bias and context
+// share of the row's context row.  Returns both outputs on every lane.
+template <int H, int U>
+__device__ __forceinline__ float2 half_lanes(const float* __restrict__ s, const FwdLayout<H>& L,
+                                             int m, float half, const float* __restrict__ p,
+                                             int xn, int u) {
+  constexpr int G = 2 * U, J = H / U;
+  const int mx = m + xn, j0 = u * J;
+  const float* b = s + mx * 3 * H;
+  const float* w0 = s + L.w0() + mx * L.l0() + j0;
+  const float* w1 = s + L.w1() + mx * H * H + j0;
+  const float* w2 = s + L.w2() + mx * H;
+  float h1[J], a[J];
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    load_row<H>(s + L.w0() + (m + x) * L.l0(), wr);
-#pragma unroll
-    for (int j = 0; j < H; ++j) h1[x][j] = tanhf(fmaf(half, wr[j], p[x * H + j]));
-    load_row<H>(s + (m + x) * 3 * H + H, a[x]);
+  for (int jj = 0; jj < J; ++jj) {
+    h1[jj] = tanhf(fmaf(half, w0[jj], p[mx * H + j0 + jj]));
+    a[jj] = b[H + j0 + jj];
   }
 #pragma unroll
   for (int i = 0; i < H; ++i) {
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      load_row<H>(s + L.w1() + ((m + x) * H + i) * H, wr);
-#pragma unroll
-      for (int j = 0; j < H; ++j) a[x][j] = fmaf(h1[x][i], wr[j], a[x][j]);
+    float hi;
+    if constexpr (U == 1) {
+      hi = h1[i];
+    } else {
+      hi = __shfl_sync(0xffffffffu, h1[i % J], xn * U + i / J, G);
     }
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) a[jj] = fmaf(hi, w1[i * H + jj], a[jj]);
   }
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const float* w2 = s + L.w2() + (m + x) * H;
-    out[x] = s[(m + x) * 3 * H + 2 * H];
+  for (int jj = 0; jj < J; ++jj) a[jj] = tanhf(a[jj]);   // h2
+  float out = b[2 * H];
 #pragma unroll
-    for (int i = 0; i < H; ++i) out[x] = fmaf(tanhf(a[x][i]), w2[i], out[x]);
+  for (int i = 0; i < H; ++i) {
+    float hi;
+    if constexpr (U == 1) {
+      hi = a[i];
+    } else {
+      hi = __shfl_sync(0xffffffffu, a[i % J], xn * U + i / J, G);
+    }
+    out = fmaf(hi, w2[i], out);
   }
-  return make_float2(out[0], out[1]);
+  const float other = __shfl_xor_sync(0xffffffffu, out, U, G);   // the other net's
+  return xn == 0 ? make_float2(out, other) : make_float2(other, out);
 }
 
 // Shared memory of the forward kernel past its parameters, in floats: the
@@ -648,15 +664,16 @@ __host__ __device__ inline int fwd_ctx_floats(int max_seg, int C) {
   return (max_seg * C + 3) / 4 * 4;
 }
 
-template <int H, bool INV>
-__global__ void __launch_bounds__(kFwdThreads)
+template <int H, int U, bool INV>
+__global__ void __launch_bounds__(kFwdMaxThreads)
 chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
                  const float* __restrict__ bias, float2* __restrict__ y,
                  float* __restrict__ ld_out, int rows, int n, int K, int C, int max_in,
                  int max_seg) {
   extern __shared__ float smem[];
-  const int T = blockDim.x, t = threadIdx.x, nets = 4 * K, ps = nets * H;
+  constexpr int G = 2 * U;   // lanes per row
+  const int T = blockDim.x, t = threadIdx.x, RB = T / G, nets = 4 * K, ps = nets * H;
   const FwdLayout<H> L{nets, C};
   float* cs = smem + L.floats();
   float* p = cs + fwd_ctx_floats(max_seg, C);
@@ -664,7 +681,7 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
 
   // the block's distinct context rows: a run of rows of one batch element
   // when the context is broadcast over the particles, else every row
-  const int r0 = blockIdx.x * T, row = r0 + t, last = min(rows, r0 + T) - 1;
+  const int r0 = blockIdx.x * RB, row = r0 + t / G, last = min(rows, r0 + RB) - 1;
   const int r = min(row, last);
   const bool share = C > 0 && ctx_sn == 0;
   int seg = 0, nseg = 1;
@@ -696,28 +713,31 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   }
   __syncthreads();
 
-  if (row >= rows) return;   // past the last barrier
+  // lanes past the last row walk it too (the shuffles need whole warps)
+  const int xn = t % G / U, u = t % U;
   const float* prow = p + seg * ps;
-  const float2 v = x[row];
+  const float2 v = x[r];
   float lo = v.x, up = v.y, ld = 0.f;
   for (int st = 0; st < K; ++st) {
     const int m = 4 * (INV ? K - 1 - st : st);
     if (!INV) {
-      const float2 o1 = half_row<H>(smem, L, m, lo, prow + m * H);   // (t1, s1)
+      const float2 o1 = half_lanes<H, U>(smem, L, m, lo, prow, xn, u);   // (t1, s1)
       up = o1.x + up * expf(o1.y);
-      const float2 o2 = half_row<H>(smem, L, m + 2, up, prow + (m + 2) * H);   // (t2, s2)
+      const float2 o2 = half_lanes<H, U>(smem, L, m + 2, up, prow, xn, u);   // (t2, s2)
       lo = o2.x + lo * expf(o2.y);
       ld = ld + o1.y + o2.y;
     } else {
-      const float2 o2 = half_row<H>(smem, L, m + 2, up, prow + (m + 2) * H);
+      const float2 o2 = half_lanes<H, U>(smem, L, m + 2, up, prow, xn, u);
       lo = (lo - o2.x) * expf(-o2.y);
-      const float2 o1 = half_row<H>(smem, L, m, lo, prow + m * H);
+      const float2 o1 = half_lanes<H, U>(smem, L, m, lo, prow, xn, u);
       up = (up - o1.x) * expf(-o1.y);
       ld = ld - o1.y - o2.y;
     }
   }
-  y[row] = make_float2(lo, up);
-  ld_out[row] = ld;
+  if (row < rows && t % G == 0) {
+    y[row] = make_float2(lo, up);
+    ld_out[row] = ld;
+  }
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
@@ -753,8 +773,6 @@ size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int m
          (size_t)max_seg * (nets * kHidden + 1);
 }
 
-}  // namespace
-
 // Plain C entry points (loaded with ctypes).  Each launches on the caller's
 // stream and returns a cudaError_t: that of the shared-memory opt-in, else
 // cudaGetLastError() right after the launch.  Shapes, types, devices,
@@ -763,27 +781,77 @@ size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int m
 // builds one library per width at first use), so the H-wide activations are
 // register arrays with every loop over them unrolled.
 
+// Launch the forward kernel with 2U lanes per row and `rb` rows per block
+// (fewer where shared memory would not hold them, down to one warp).
+template <int U>
+int launch_fwd(const float* x, const float* ctx, long long ctx_sb, long long ctx_sn,
+               const float* w, const float* b, float* y, float* ld, int rows, int n,
+               int n_blocks, int ctx_dim, int max_in, int inverse, int rb, void* stream) {
+  if constexpr (kHidden % U != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    constexpr int G = 2 * U;
+    if (rb <= 0 || rb * G > kFwdMaxThreads || rb * G % kWarp) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // a block's distinct context rows are counted as the backward's tiles are
+    auto smem_of = [&](int rows_per_block) {
+      const int max_seg = bwd_max_seg(rows_per_block, n, ctx_dim, ctx_sn);
+      return (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
+              fwd_ctx_floats(max_seg, ctx_dim) + (size_t)max_seg * 4 * n_blocks * kHidden) *
+             sizeof(float);
+    };
+    while (rb * G > kWarp && smem_of(rb) > kMaxSmem) rb /= 2;
+    const size_t smem = smem_of(rb);
+    auto kernel = inverse ? chain_fwd_kernel<kHidden, U, true> : chain_fwd_kernel<kHidden, U, false>;
+    const int rc = reserve_smem(kernel, smem);
+    if (rc != 0) return rc;
+    const int grid = (rows + rb - 1) / rb;
+    kernel<<<grid, rb * G, smem, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
+        reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in,
+        bwd_max_seg(rb, n, ctx_dim, ctx_sn));
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+}  // namespace
+
+extern "C" int nfdpf_coupling_chain_fwd_sweep(const float* x, const float* ctx,
+                                              long long ctx_sb, long long ctx_sn, const float* w,
+                                              const float* b, float* y, float* ld, int rows,
+                                              int n, int n_blocks, int ctx_dim, int max_in,
+                                              int hidden, int inverse, int lanes_u,
+                                              int rows_per_block, void* stream) {
+  if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (lanes_u) {
+    case 1:
+      return launch_fwd<1>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
+                           max_in, inverse, rows_per_block, stream);
+    case 2:
+      return launch_fwd<2>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
+                           max_in, inverse, rows_per_block, stream);
+    case 4:
+      return launch_fwd<4>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
+                           max_in, inverse, rows_per_block, stream);
+    case 8:
+      return launch_fwd<8>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
+                           max_in, inverse, rows_per_block, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* ctx, long long ctx_sb,
                                         long long ctx_sn, const float* w, const float* b,
                                         float* y, float* ld, int rows, int n, int n_blocks,
                                         int ctx_dim, int max_in, int hidden, int inverse,
                                         void* stream) {
-  if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // a block's distinct context rows are counted as the backward's tiles are
-  const int max_seg = bwd_max_seg(kFwdThreads, n, ctx_dim, ctx_sn);
-  const size_t smem = (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
-                       fwd_ctx_floats(max_seg, ctx_dim) + max_seg * 4 * n_blocks * kHidden) *
-                      sizeof(float);
-  auto kernel = inverse ? chain_fwd_kernel<kHidden, true> : chain_fwd_kernel<kHidden, false>;
-  const int rc = reserve_smem(kernel, smem);
-  if (rc != 0) return rc;
-  const int grid = (rows + kFwdThreads - 1) / kFwdThreads;
-  kernel<<<grid, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
-      reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in, max_seg);
-  return static_cast<int>(cudaGetLastError());
+  return nfdpf_coupling_chain_fwd_sweep(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks,
+                                        ctx_dim, max_in, hidden, inverse, kHidden % 8 ? 1 : 8,
+                                        16, stream);
 }
 
 extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* ctx, long long ctx_sb,
