@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -158,6 +159,34 @@ def phase_setup(hidden: int):
     log({"phase": "setup", "card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0, "builds": builds})
     return smi
+
+
+def chain_resources(hidden: int) -> dict:
+    """Registers and spilled bytes per thread of each coupling kernel
+    (``-Xptxas -v`` of this run's build), by kernel and direction."""
+    from nfdpf_torch.ops.cuda import build
+    from nfdpf_torch.ops.cuda.coupling_cuda import build_defines
+
+    out, name = {}, None
+    text = build.build_log[" ".join(("coupling",) + build_defines(hidden))]["ptxas"]
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            # e.g. _ZN12_GLOBAL__N_116chain_fwd_kernelILi8ELi8ELb1EEEv...: <H, U, inverse>
+            hit = re.search(r"(chain_(?:fwd|bwd)_kernel)I((?:Li\d+E)+)Lb([01])E", ln)
+            name = None
+            if hit is not None:
+                args = re.findall(r"\d+", hit.group(2)) + [("forward", "inverse")[int(hit.group(3))]]
+                name = f"{hit.group(1)}<{', '.join(args)}>"
+                out[name] = {}
+        elif name is not None and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            out[name]["spill_bytes"] = int(words[words.index("spill") - 2]) + int(
+                words[words.index("loads") - 3])
+        elif name is not None and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", "").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+            name = None
+    return out
 
 
 def kernel_cases(b: int, n: int, seed: int):
@@ -295,10 +324,12 @@ def chain_ops(rows: int, ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int
     return per_row + float(ctx_rows) * n_blocks * 4 * 2 * h * ctx_dim
 
 
-def phase_chain_kernels(n_blocks: int, hidden: int):
+def phase_chain_kernels(n_blocks: int, hidden: int, fwd_sweep: bool = False):
     """K4 (forward kernel) and K5 (backward kernel) of the coupling chain,
     through the wrapper the filter calls, against the plain version and its
-    autograd, both directions."""
+    autograd, both directions; each launched again for equal bits.  With
+    ``fwd_sweep``, K4 also at other block shapes (lanes per net, rows per
+    block)."""
     from nfdpf_torch.models.nets import flax_init_
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
     from nfdpf_torch.ops.flows import realnvp_chain
@@ -385,6 +416,11 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
             errs = [check(f"chain_fwd.{k}@{case}", got, ref, ("lse", CHAIN_TOL))
                     for k, got, ref in (("y", y, y_ref), ("ld", ld, ld_ref),
                                         ("y_module", y, y_mod), ("ld_module", ld, ld_mod))]
+            # the eval route (no autograd) launches the same kernel: the same bits
+            with torch.no_grad():
+                y_again, ld_again = cc.fused_coupling_chain(x, ctx, w, bias, inverse)
+            if not (torch.equal(y_again, y) and torch.equal(ld_again, ld)):
+                raise AssertionError(f"chain_fwd@{case}: a second launch gave other bits")
             bound, by = bound_ms(f4 * rows * (2 + 2 + 1) + ctx_bytes + params_bytes, ops_fwd)
             with torch.no_grad():
                 results.setdefault("coupling_chain", {})[case] = {
@@ -396,6 +432,19 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                         lambda: cc.chain_apply_packed_plain(x, ctx, w, bias, inverse), iters),
                     "module_ms": device_ms(module_fwd, iters),
                     "library_ms": None, "bound_ms": bound, "bound_by": by}
+                if fwd_sweep:
+                    sweep = {}
+                    for lanes in (1, 2, 4, 8):
+                        for rb in (8, 16, 32, 64, 128, 256):
+                            if rb * 2 * lanes > 1024 or rb * 2 * lanes % 32:
+                                continue
+                            def run(lanes=lanes, rb=rb):
+                                return cc._launch_forward_sweep(x, ctx, w, bias, inverse, lanes, rb)
+                            got = run()
+                            if not (torch.equal(got[0], y) and torch.equal(got[1], ld)):
+                                raise AssertionError(f"chain_fwd@{case}: U={lanes} R={rb} differs")
+                            sweep[f"U{lanes}_R{rb}"] = device_ms(run, iters)
+                    results["coupling_chain"][case]["sweep_ms"] = sweep
 
             names = ["gx", "gw", "gb"] + (["gctx"] if want_ctx else [])
             errs = {k: check(f"chain_bwd.{k}@{case}", got, ref, ("apply", CHAIN_GRAD_TOL))
@@ -651,6 +700,10 @@ def main() -> int:
     parser.add_argument("--out", help="also write every phase's numbers to this JSON file")
     parser.add_argument("--profile", action="store_true",
                         help="profile one extra train step by kernel (torch.profiler)")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after the kernel phases (no slices, no parity, no result lines)")
+    parser.add_argument("--fwd-sweep", action="store_true",
+                        help="also time the coupling forward kernel at other block shapes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs its kernels on a GPU only",
@@ -664,7 +717,11 @@ def main() -> int:
     cnf = DPFConfig(**CNF_SLICE)
     card = phase_setup(cnf.flow_hidden_dim)
     kernels = phase_kernels()
-    kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
+    kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim, args.fwd_sweep))
+    resources = chain_resources(cnf.flow_hidden_dim)
+    log({"phase": "chain_resources", "ptxas": resources})
+    if args.kernels_only:
+        return 0
     boot = phase_slice("slice", SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL, args.profile)
     sl = phase_slice("slice_cnf", CNF_SLICE, CNF_TRAIN, CNF_EVAL, args.profile)
     phase_parity("parity", SLICE)

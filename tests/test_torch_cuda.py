@@ -317,6 +317,43 @@ def test_coupling_chain_backward_tiles(cuda, b, n, ctx_dim, n_blocks, hidden, in
             torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
 
 
+# the forward kernel alone: the backward's edge shapes, each context broadcast
+# over the particles, and a dense context given as a non-contiguous view
+CHAIN_FWD_SHAPES = [shape + (True,) for shape in CHAIN_BWD_SHAPES] + [(3, 70, 36, 2, 8, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n,ctx_dim,n_blocks,hidden,broadcast", CHAIN_FWD_SHAPES)
+def test_coupling_chain_forward_kernel(cuda, b, n, ctx_dim, n_blocks, hidden, broadcast,
+                                       inverse):
+    """K4 as the eval route calls it (no autograd), where its blocks, lanes
+    and runs of rows that share a context row meet awkward shapes: outputs
+    to rtol/atol 1e-5 against the plain version, one launch per call, and a
+    second launch gives the same bits."""
+    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(
+        b, n, ctx_dim, 17 * b + n + n_blocks, broadcast, n_blocks, hidden))
+    if broadcast:
+        ctx = torch.as_strided(ctx, (b, n, ctx_dim), (ctx_dim, 0, 1))
+    else:
+        wide = torch.zeros(b, n, ctx_dim + 3, device=cuda)
+        wide[..., 1:ctx_dim + 1] = ctx
+        ctx = wide[..., 1:ctx_dim + 1]   # particle stride ctx_dim + 3
+        assert not ctx.is_contiguous() and ctx.stride(1) == ctx_dim + 3
+
+    cc.reset_launches()
+    with torch.no_grad():
+        got = cc.fused_coupling_chain(x, ctx, w, bias, inverse)
+        again = cc.fused_coupling_chain(x, ctx, w, bias, inverse)
+    torch.cuda.synchronize()
+    fwd = "coupling_chain_inverse" if inverse else "coupling_chain"
+    assert cc.LAUNCHES[fwd] == 2 and sum(cc.LAUNCHES.values()) == 2
+    ref = cc.chain_apply_packed_plain(x, ctx, w, bias, inverse)
+    for a, a2, r in zip(got, again, ref):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_coupling_chain_backward_refuses_what_its_shared_memory_cannot_hold(cuda):
     """Parameters that fit the forward kernel but not the backward's shared
