@@ -702,14 +702,24 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   copy_async_wait();
   __syncthreads();
   // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
-  // distinct context row, summed in the backward kernel's order
-  for (int i = t; i < nseg * ps; i += T) {
-    const int d = i / ps, m = i / H % nets, j = i % H;
-    const float* wc = smem + L.w0() + m * L.l0() + H + j;
+  // distinct context row, summed in the backward kernel's order; a thread
+  // takes all H units of a net, so each step's loads serve H multiply-adds
+  for (int i = t; i < nseg * nets; i += T) {
+    const int d = i / nets, m = i % nets;
+    const float* wc = smem + L.w0() + m * L.l0() + H;
     const float* cd = cs + d * C;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * H], acc);
-    p[i] = smem[m * 3 * H + j] + acc;
+    float acc[H], wr[H];
+#pragma unroll
+    for (int j = 0; j < H; ++j) acc[j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      const float cv = cd[c];
+      load_row<H>(wc + c * H, wr);
+#pragma unroll
+      for (int j = 0; j < H; ++j) acc[j] = fmaf(cv, wr[j], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < H; ++j) p[i * H + j] = smem[m * 3 * H + j] + acc[j];
   }
   __syncthreads();
 
