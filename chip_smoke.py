@@ -324,12 +324,10 @@ def chain_ops(rows: int, ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int
     return per_row + float(ctx_rows) * n_blocks * 4 * 2 * h * ctx_dim
 
 
-def phase_chain_kernels(n_blocks: int, hidden: int, fwd_sweep: bool = False):
+def phase_chain_kernels(n_blocks: int, hidden: int):
     """K4 (forward kernel) and K5 (backward kernel) of the coupling chain,
     through the wrapper the filter calls, against the plain version and its
-    autograd, both directions; each launched again for equal bits.  With
-    ``fwd_sweep``, K4 also at other block shapes (lanes per net, rows per
-    block)."""
+    autograd, both directions; each launched again for equal bits."""
     from nfdpf_torch.models.nets import flax_init_
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
     from nfdpf_torch.ops.flows import realnvp_chain
@@ -432,19 +430,6 @@ def phase_chain_kernels(n_blocks: int, hidden: int, fwd_sweep: bool = False):
                         lambda: cc.chain_apply_packed_plain(x, ctx, w, bias, inverse), iters),
                     "module_ms": device_ms(module_fwd, iters),
                     "library_ms": None, "bound_ms": bound, "bound_by": by}
-                if fwd_sweep:
-                    sweep = {}
-                    for lanes in (1, 2, 4, 8):
-                        for rb in (8, 16, 32, 64, 128, 256):
-                            if rb * 2 * lanes > 1024 or rb * 2 * lanes % 32:
-                                continue
-                            def run(lanes=lanes, rb=rb):
-                                return cc._launch_forward_sweep(x, ctx, w, bias, inverse, lanes, rb)
-                            got = run()
-                            if not (torch.equal(got[0], y) and torch.equal(got[1], ld)):
-                                raise AssertionError(f"chain_fwd@{case}: U={lanes} R={rb} differs")
-                            sweep[f"U{lanes}_R{rb}"] = device_ms(run, iters)
-                    results["coupling_chain"][case]["sweep_ms"] = sweep
 
             names = ["gx", "gw", "gb"] + (["gctx"] if want_ctx else [])
             errs = {k: check(f"chain_bwd.{k}@{case}", got, ref, ("apply", CHAIN_GRAD_TOL))
@@ -702,8 +687,6 @@ def main() -> int:
                         help="profile one extra train step by kernel (torch.profiler)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel phases (no slices, no parity, no result lines)")
-    parser.add_argument("--fwd-sweep", action="store_true",
-                        help="also time the coupling forward kernel at other block shapes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs its kernels on a GPU only",
@@ -717,7 +700,7 @@ def main() -> int:
     cnf = DPFConfig(**CNF_SLICE)
     card = phase_setup(cnf.flow_hidden_dim)
     kernels = phase_kernels()
-    kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim, args.fwd_sweep))
+    kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
     resources = chain_resources(cnf.flow_hidden_dim)
     log({"phase": "chain_resources", "ptxas": resources})
     if args.kernels_only:

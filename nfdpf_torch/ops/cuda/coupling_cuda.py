@@ -7,7 +7,9 @@ Counterpart of ``nfdpf_tpu/ops/pallas/coupling_pallas.py``.  Two kernels
 memory:
 
 * ``chain_fwd_kernel`` (replaces ``_chain_kernel``, ``coupling_pallas.py:100``):
-  outputs and the summed log-det, forward or inverse;
+  outputs and the summed log-det, forward or inverse.  A row takes 2·U lanes
+  (``fwd_lanes``), U per net of a coupling half, 32 rows a block; the
+  context's share of layer 0 is computed once per distinct context row;
 * ``chain_bwd_kernel`` (replaces ``_chain_bwd_kernel``, ``:262``): recomputes
   the forward from the inputs and emits the gradients of x, ctx and one
   weight/bias partial per thread block, summed here.  A block of 1-8 warps
@@ -27,8 +29,10 @@ up to 8 (fixed at compile time: one library per width, built at first use;
 8 is the filter's width, 4 and 8 are the widths held against the plain
 version on the card, and at 16 the backward's register arrays spill), at
 most 8 blocks, and parameters that fit the card's shared memory (227 KB;
-the backward needs twice the parameters' size plus its tiles,
-``bwd_smem_bytes``).
+``fwd_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' layouts, the
+backward's twice the parameters' size plus its tiles).  ``chain_refusal``
+says what a chain breaks of these, for the wrapper at launch and for the
+filter when it is built.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ NETS = ("t1", "s1", "t2", "s2")
 MAX_HIDDEN = 8                    # the H-wide activations are register arrays
 MAX_BLOCKS = 8                    # chain blocks the kernels take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
-FWD_WARP = 32                     # a forward block is whole warps of 2·fwd_lanes(H) lanes a row
+FWD_ROWS_PER_BLOCK = 32           # forward rows per block (the entry point may take fewer)
+FWD_MIN_THREADS = 32              # the smallest forward block (one warp)
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
 BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)
 BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
@@ -61,8 +66,6 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "nfdpf_coupling_chain_fwd": [_P, _P, _L, _L, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
-    "nfdpf_coupling_chain_fwd_sweep": [_P, _P, _L, _L, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_chain_bwd": [_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -171,8 +174,9 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
 
 
 def fwd_lanes(hidden: int) -> int:
-    """Lanes per net of a row in the forward kernel (``U`` in ``csrc/coupling.cu``)."""
-    return 1 if hidden % 8 else 8
+    """Lanes per net of a row in the forward kernel (``kFwdLanes`` in
+    ``csrc/coupling.cu``): a row takes twice as many."""
+    return 4 if hidden % 4 == 0 else 2 if hidden % 2 == 0 else 1
 
 
 def fwd_smem_bytes(n_blocks: int, ctx_dim: int, hidden: int, segments: int) -> int:
@@ -219,7 +223,7 @@ def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: b
     max_in = max(1 + ctx_dim, hidden)
     # the distinct context rows of a block's rows: a run per batch element
     # when the context is broadcast over the particles, else a row
-    threads = BWD_MIN_THREADS if backward else FWD_WARP // (2 * fwd_lanes(hidden))
+    threads = BWD_MIN_THREADS if backward else FWD_MIN_THREADS // (2 * fwd_lanes(hidden))
     segments = (1 if not ctx_dim else
                 min(threads, (threads - 1) // n + 2) if broadcast else threads)
     if backward:
@@ -268,24 +272,6 @@ def _launch_forward(x, ctx, weights, biases, inverse: bool):
     counter = "coupling_chain_inverse" if inverse else "coupling_chain"
     check_launch(rc, counter)
     LAUNCHES[counter] += 1
-    return y, ld
-
-
-def _launch_forward_sweep(x, ctx, weights, biases, inverse: bool, lanes_u: int,
-                          rows_per_block: int):
-    """The forward kernel at another block shape (lanes per net, rows per
-    block), for timing; no count."""
-    b, n, _ = x.shape
-    x, weights, biases = kernel_args(x, weights, biases)
-    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
-    y = torch.empty((b, n, 2), device=x.device, dtype=torch.float32)
-    ld = torch.empty((b, n), device=x.device, dtype=torch.float32)
-    rc = _library(weights.shape[-1]).nfdpf_coupling_chain_fwd_sweep(
-        x.data_ptr(), ctx_ptr, ctx_sb, ctx_sn, weights.data_ptr(), biases.data_ptr(),
-        y.data_ptr(), ld.data_ptr(), b * n, n, weights.shape[0],
-        0 if ctx is None else ctx.shape[-1], weights.shape[-2], weights.shape[-1],
-        int(inverse), lanes_u, rows_per_block, torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(rc, "coupling_chain_sweep")
     return y, ld
 
 

@@ -19,17 +19,38 @@
 //   per thread block, summed by the caller.
 //
 // What bounds them on an H100: a row moves 20 + 4C bytes (forward) against
-// about K * 4 * 2H(1 + C + H + 1) fp32 operations (the C term only once per
-// distinct context row: the forward kernel redoes it for every row), so at
-// H = 8 the operation bound (67 TFLOP/s) is the larger one, and at the
-// filter's sizes (3,200 rows) both bounds are far below a launch's latency:
-// the time is one thread's serial walk through 4K dependent MLPs (times
-// against bounds in PERF.md).  Both keep everything but inputs and outputs
-// on chip: one thread per row over the flattened (B*N) rows, the ragged last
-// tile masked; the chain's parameters staged in (dynamic) shared memory once
-// per block, every lane reading the same weight at the same time (a
-// broadcast); ctx read through its own batch/row strides, so a context that
-// is one row per batch broadcast over the particles is never materialised.
+// about K * 4 * 2H(1 + H + 1) fp32 operations, plus the context's 2HC per
+// MLP once per distinct context row, so at H = 8 the operation bound
+// (67 TFLOP/s) is the larger one, and at the filter's sizes (3,200 rows)
+// both bounds are far below a launch's latency: the time is latency, of
+// staging the parameters and of 4K dependent MLPs per row (times against
+// bounds in PERF.md).  Both keep everything but inputs and outputs on chip:
+// the chain's parameters staged in (dynamic) shared memory once per block
+// with cp.async, all copies of a thread in flight at once; ctx read through
+// its own batch/row strides, so a context that is one row per batch
+// broadcast over the particles is never materialised; rows that read the
+// same context row (a run of rows of one batch element when ctx's particle
+// stride is 0, else one row each) share layer 0's context term
+// P = b + ctx . w[1..C], computed once per block in one order in both
+// kernels.
+//
+// The forward's design:
+//   * A row takes 2U lanes of a warp (U = 4 at H = 8): U lanes per net of a
+//     coupling half, H/U hidden units each, so the t and s nets run side by
+//     side.  A layer's inputs come from the row's lanes by shuffles, every
+//     lane of a net sums the output in the same order, and one shuffle
+//     swaps the two nets' outputs: every lane holds the row's state, and
+//     one lane writes it.  One thread walking a row through 4K MLPs (~3,800
+//     instructions at K = 2) left one or two warps on 50 SMs, each bound by
+//     its own issue and latency.
+//   * 32 rows (256 threads) a block, settled with U by a sweep at the
+//     filter's shapes; fewer rows where shared memory would not hold them.
+//   * Only what the rows read is staged (FwdLayout: no zero rows of the
+//     packing), and P once per distinct context row (a thread per context
+//     row and net, H units each).
+//   * Layers 1 and 2 sum in the backward's order: a row's outputs do not
+//     depend on U or on the block shape, and the same launch gives the same
+//     bits.
 //
 // The backward adds what the forward does not have: every weight and bias
 // gradient is a sum over all rows, K * 4 * (H*H + 4H + 1 + C*H) of them, and
@@ -77,7 +98,10 @@
 namespace {
 
 constexpr int kHidden = NFDPF_HIDDEN;   // the conditioners' hidden width H
-constexpr int kFwdMaxThreads = 1024;   // a forward block
+// lanes per net of a forward row (H / kFwdLanes hidden units each) and rows
+// per forward block, settled by a sweep at the filter's shapes (PERF.md)
+constexpr int kFwdLanes = kHidden % 4 == 0 ? 4 : kHidden % 2 == 0 ? 2 : 1;
+constexpr int kFwdRows = 32;
 constexpr int kWarp = 32;
 constexpr int kMaxWarps = 8;      // a backward block: 1-8 warps, one row per thread
 constexpr int kMaxBlocks = 8;     // most chain blocks the backward takes
@@ -665,7 +689,7 @@ __host__ __device__ inline int fwd_ctx_floats(int max_seg, int C) {
 }
 
 template <int H, int U, bool INV>
-__global__ void __launch_bounds__(kFwdMaxThreads)
+__global__ void __launch_bounds__(kFwdRows * 2 * U)
 chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
                  long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
                  const float* __restrict__ bias, float2* __restrict__ y,
@@ -783,6 +807,8 @@ size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int m
          (size_t)max_seg * (nets * kHidden + 1);
 }
 
+}  // namespace
+
 // Plain C entry points (loaded with ctypes).  Each launches on the caller's
 // stream and returns a cudaError_t: that of the shared-memory opt-in, else
 // cudaGetLastError() right after the launch.  Shapes, types, devices,
@@ -791,77 +817,36 @@ size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int m
 // builds one library per width at first use), so the H-wide activations are
 // register arrays with every loop over them unrolled.
 
-// Launch the forward kernel with 2U lanes per row and `rb` rows per block
-// (fewer where shared memory would not hold them, down to one warp).
-template <int U>
-int launch_fwd(const float* x, const float* ctx, long long ctx_sb, long long ctx_sn,
-               const float* w, const float* b, float* y, float* ld, int rows, int n,
-               int n_blocks, int ctx_dim, int max_in, int inverse, int rb, void* stream) {
-  if constexpr (kHidden % U != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    constexpr int G = 2 * U;
-    if (rb <= 0 || rb * G > kFwdMaxThreads || rb * G % kWarp) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    // a block's distinct context rows are counted as the backward's tiles are
-    auto smem_of = [&](int rows_per_block) {
-      const int max_seg = bwd_max_seg(rows_per_block, n, ctx_dim, ctx_sn);
-      return (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
-              fwd_ctx_floats(max_seg, ctx_dim) + (size_t)max_seg * 4 * n_blocks * kHidden) *
-             sizeof(float);
-    };
-    while (rb * G > kWarp && smem_of(rb) > kMaxSmem) rb /= 2;
-    const size_t smem = smem_of(rb);
-    auto kernel = inverse ? chain_fwd_kernel<kHidden, U, true> : chain_fwd_kernel<kHidden, U, false>;
-    const int rc = reserve_smem(kernel, smem);
-    if (rc != 0) return rc;
-    const int grid = (rows + rb - 1) / rb;
-    kernel<<<grid, rb * G, smem, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
-        reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in,
-        bwd_max_seg(rb, n, ctx_dim, ctx_sn));
-    return static_cast<int>(cudaGetLastError());
-  }
-}
-
-}  // namespace
-
-extern "C" int nfdpf_coupling_chain_fwd_sweep(const float* x, const float* ctx,
-                                              long long ctx_sb, long long ctx_sn, const float* w,
-                                              const float* b, float* y, float* ld, int rows,
-                                              int n, int n_blocks, int ctx_dim, int max_in,
-                                              int hidden, int inverse, int lanes_u,
-                                              int rows_per_block, void* stream) {
-  if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (lanes_u) {
-    case 1:
-      return launch_fwd<1>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
-                           max_in, inverse, rows_per_block, stream);
-    case 2:
-      return launch_fwd<2>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
-                           max_in, inverse, rows_per_block, stream);
-    case 4:
-      return launch_fwd<4>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
-                           max_in, inverse, rows_per_block, stream);
-    case 8:
-      return launch_fwd<8>(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks, ctx_dim,
-                           max_in, inverse, rows_per_block, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* ctx, long long ctx_sb,
                                         long long ctx_sn, const float* w, const float* b,
                                         float* y, float* ld, int rows, int n, int n_blocks,
                                         int ctx_dim, int max_in, int hidden, int inverse,
                                         void* stream) {
-  return nfdpf_coupling_chain_fwd_sweep(x, ctx, ctx_sb, ctx_sn, w, b, y, ld, rows, n, n_blocks,
-                                        ctx_dim, max_in, hidden, inverse, kHidden % 8 ? 1 : 8,
-                                        16, stream);
+  if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int G = 2 * kFwdLanes;   // lanes per row
+  // a block's distinct context rows are counted as the backward's tiles are
+  auto smem_of = [&](int rows_per_block) {
+    const int max_seg = bwd_max_seg(rows_per_block, n, ctx_dim, ctx_sn);
+    return (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
+            fwd_ctx_floats(max_seg, ctx_dim) + (size_t)max_seg * 4 * n_blocks * kHidden) *
+           sizeof(float);
+  };
+  // fewer rows per block where shared memory would not hold them, down to one warp
+  int rb = kFwdRows;
+  while (rb * G > kWarp && smem_of(rb) > kMaxSmem) rb /= 2;
+  const size_t smem = smem_of(rb);
+  auto kernel = inverse ? chain_fwd_kernel<kHidden, kFwdLanes, true>
+                        : chain_fwd_kernel<kHidden, kFwdLanes, false>;
+  const int rc = reserve_smem(kernel, smem);
+  if (rc != 0) return rc;
+  const int grid = (rows + rb - 1) / rb;
+  kernel<<<grid, rb * G, smem, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
+      reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in,
+      bwd_max_seg(rb, n, ctx_dim, ctx_sn));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* ctx, long long ctx_sb,
