@@ -189,6 +189,19 @@ def chain_resources(hidden: int) -> dict:
     return out
 
 
+def chain_smem(n_blocks: int, hidden: int, n: int = 100, ctx_dim: int = 36) -> dict:
+    """Dynamic shared memory of a block of each coupling kernel at the
+    filter's heaviest call (N=100, the proposal's 36-wide context, one row
+    per batch element), from the wrapper's mirrors of the kernels' layouts."""
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+
+    rf, rb = cc.FWD_ROWS_PER_BLOCK, cc.BWD_ROWS_PER_BLOCK
+    return {"coupling_chain": cc.fwd_smem_bytes(n_blocks, ctx_dim, hidden,
+                                                min(rf, (rf - 1) // n + 2)),
+            "coupling_chain_bwd": cc.bwd_smem_bytes(n_blocks, ctx_dim, max(1 + ctx_dim, hidden),
+                                                    hidden, rb, min(rb, (rb - 1) // n + 2))}
+
+
 def kernel_cases(b: int, n: int, seed: int):
     """Inputs shaped like the resampler's at (B, N): scaled coordinates,
     per-row ε between the target 0.1 and an annealing start, log-weights,
@@ -702,7 +715,8 @@ def main() -> int:
     kernels = phase_kernels()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
     resources = chain_resources(cnf.flow_hidden_dim)
-    log({"phase": "chain_resources", "ptxas": resources})
+    smem = chain_smem(cnf.n_sequence, cnf.flow_hidden_dim)
+    log({"phase": "chain_resources", "ptxas": resources, "smem_bytes_per_block": smem})
     if args.kernels_only:
         return 0
     boot = phase_slice("slice", SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL, args.profile)
@@ -731,6 +745,11 @@ def main() -> int:
                  "launch_floor_ms": floor}
         if name == "transport_apply":
             entry["launches_backward"] = counts["transport_apply_bwd"]
+        if name in smem:   # the coupling kernels' registers (both directions) and shared memory
+            kernel = "chain_bwd_kernel" if name.endswith("bwd") else "chain_fwd_kernel"
+            entry["registers"] = [r["registers"] for k, r in resources.items()
+                                  if k.startswith(kernel)]
+            entry["smem_bytes_per_block"] = smem[name]
         if name in BOOTSTRAP_TRAIN:
             entry["launches_bootstrap_slice"] = boot["launches_train_3_steps"][name]
         line.append(entry)
