@@ -6,7 +6,8 @@ with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
 edited source is rebuilt.  A source may be built several times with
 different ``-D`` defines (a kernel's compile-time width); each build is a
 library of its own.  The libraries live in ``_build/`` beside this file
-(listed in ``.gitignore``).  A missing ``nvcc`` or a failed build raises.
+(listed in ``.gitignore``), each with the compiler's ``-v`` report beside it.
+A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -55,8 +56,10 @@ def build(name: str, defines: tuple = ()) -> Path:
     label = " ".join((name,) + tuple(defines))
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    report = lib.with_name(f"{lib.name}.ptxas.txt")   # the compiler's -v report, kept beside it
     if lib.exists():
-        build_log.setdefault(label, {"seconds": 0.0, "ptxas": "", "path": str(lib)})
+        build_log.setdefault(label, {"seconds": 0.0, "path": str(lib),
+                                     "ptxas": report.read_text() if report.exists() else ""})
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -67,6 +70,7 @@ def build(name: str, defines: tuple = ()) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    report.write_text(proc.stderr)
     os.replace(tmp, lib)   # atomic: concurrent builders never load a half file
     build_log[label] = {"seconds": time.perf_counter() - t0,
                        "ptxas": proc.stderr, "path": str(lib)}
