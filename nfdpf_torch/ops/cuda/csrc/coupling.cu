@@ -46,8 +46,7 @@
 //   * 32 rows (256 threads) a block, settled with U by a sweep at the
 //     filter's shapes; fewer rows where shared memory would not hold them.
 //   * Only what the rows read is staged (FwdLayout: no zero rows of the
-//     packing), and P once per distinct context row (a thread per context
-//     row and net, H units each).
+//     packing), and P once per distinct context row (a thread per entry).
 //   * Layers 1 and 2 sum in the backward's order: a row's outputs do not
 //     depend on U or on the block shape, and the same launch gives the same
 //     bits.
@@ -727,23 +726,14 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   __syncthreads();
   // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
   // distinct context row, summed in the backward kernel's order; a thread
-  // takes all H units of a net, so each step's loads serve H multiply-adds
-  for (int i = t; i < nseg * nets; i += T) {
-    const int d = i / nets, m = i % nets;
-    const float* wc = smem + L.w0() + m * L.l0() + H;
+  // per entry, so a broadcast context's few rows still spread over the block
+  for (int i = t; i < nseg * ps; i += T) {
+    const int d = i / ps, m = i / H % nets, j = i % H;
+    const float* wc = smem + L.w0() + m * L.l0() + H + j;
     const float* cd = cs + d * C;
-    float acc[H], wr[H];
-#pragma unroll
-    for (int j = 0; j < H; ++j) acc[j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < C; ++c) {
-      const float cv = cd[c];
-      load_row<H>(wc + c * H, wr);
-#pragma unroll
-      for (int j = 0; j < H; ++j) acc[j] = fmaf(cv, wr[j], acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < H; ++j) p[i * H + j] = smem[m * 3 * H + j] + acc[j];
+    float acc = 0.f;
+    for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * H], acc);
+    p[i] = smem[m * 3 * H + j] + acc;
   }
   __syncthreads();
 
