@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``nfdpf_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py [--out results.json] [--profile] [--kernels-only]
 
 Phases, one line of output each, then the device line last:
 
@@ -18,8 +18,10 @@ Phases, one line of output each, then the device line last:
    directions at (B=32, N=100) with the dynamics flow's context (4 wide)
    and the proposal flow's (36 wide), each one row per batch element
    broadcast over the particles as the filter passes it, and at (B=4,
-   N=4097) with a dense 36-wide context and with none; beside them the
-   time of the same call through the ``FlowChain`` module;
+   N=4097) with a dense 36-wide context and with none, each launched again
+   for equal bits; beside them the time of the same call through the
+   ``FlowChain`` module; then the coupling kernels' registers (ptxas) and
+   shared memory per block (``--kernels-only`` stops here);
 3. slices, each at full width (B=32, N=100, T=50, 128×128×3 frames, OT
    resampling on the streaming-Sinkhorn kernels, every step resampled):
    3 train steps and 1 eval step, the launch counts of each kernel over

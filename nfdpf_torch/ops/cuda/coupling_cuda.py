@@ -7,9 +7,9 @@ Counterpart of ``nfdpf_tpu/ops/pallas/coupling_pallas.py``.  Two kernels
 memory:
 
 * ``chain_fwd_kernel`` (replaces ``_chain_kernel``, ``coupling_pallas.py:100``):
-  outputs and the summed log-det, forward or inverse.  A row takes 2·U lanes
-  (``fwd_lanes``), U per net of a coupling half, 32 rows a block; the
-  context's share of layer 0 is computed once per distinct context row;
+  outputs and the summed log-det, forward or inverse.  A row takes eight
+  lanes at hidden width 8, four per net of a coupling half, 32 rows a block;
+  the context's share of layer 0 is computed once per distinct context row;
 * ``chain_bwd_kernel`` (replaces ``_chain_bwd_kernel``, ``:262``): recomputes
   the forward from the inputs and emits the gradients of x, ctx and one
   weight/bias partial per thread block, summed here.  A block of 1-8 warps
@@ -54,8 +54,7 @@ NETS = ("t1", "s1", "t2", "s2")
 MAX_HIDDEN = 8                    # the H-wide activations are register arrays
 MAX_BLOCKS = 8                    # chain blocks the kernels take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
-FWD_ROWS_PER_BLOCK = 32           # forward rows per block (the entry point may take fewer)
-FWD_MIN_THREADS = 32              # the smallest forward block (one warp)
+FWD_ROWS_PER_BLOCK = 32           # forward rows per block
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
 BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)
 BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
@@ -173,12 +172,6 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
     return ctx, ctx.data_ptr(), ctx.stride(0), ctx.stride(1)
 
 
-def fwd_lanes(hidden: int) -> int:
-    """Lanes per net of a row in the forward kernel (``kFwdLanes`` in
-    ``csrc/coupling.cu``): a row takes twice as many."""
-    return 4 if hidden % 4 == 0 else 2 if hidden % 2 == 0 else 1
-
-
 def fwd_smem_bytes(n_blocks: int, ctx_dim: int, hidden: int, segments: int) -> int:
     """Shared memory of the forward kernel (``FwdLayout`` and
     ``fwd_ctx_floats`` in ``csrc/coupling.cu``): per net its biases
@@ -221,13 +214,14 @@ def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: b
         return (f"the coupling kernels take hidden <= {MAX_HIDDEN} and at most "
                 f"{MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
     max_in = max(1 + ctx_dim, hidden)
-    # the distinct context rows of a block's rows: a run per batch element
-    # when the context is broadcast over the particles, else a row
-    threads = BWD_MIN_THREADS if backward else FWD_MIN_THREADS // (2 * fwd_lanes(hidden))
+    # the distinct context rows of a block's (the backward's smallest block's)
+    # rows: a run per batch element when the context is broadcast over the
+    # particles, else a row
+    rows = BWD_MIN_THREADS if backward else FWD_ROWS_PER_BLOCK
     segments = (1 if not ctx_dim else
-                min(threads, (threads - 1) // n + 2) if broadcast else threads)
+                min(rows, (rows - 1) // n + 2) if broadcast else rows)
     if backward:
-        smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, threads, segments)
+        smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, rows, segments)
     else:
         smem = fwd_smem_bytes(n_blocks, ctx_dim, hidden, segments)
     if smem > MAX_SMEM_BYTES:

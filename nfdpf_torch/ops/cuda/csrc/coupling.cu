@@ -44,7 +44,7 @@
 //     instructions at K = 2) left one or two warps on 50 SMs, each bound by
 //     its own issue and latency.
 //   * 32 rows (256 threads) a block, settled with U by a sweep at the
-//     filter's shapes; fewer rows where shared memory would not hold them.
+//     filter's shapes.
 //   * Only what the rows read is staged (FwdLayout: no zero rows of the
 //     packing), and P once per distinct context row (a thread per entry).
 //   * Layers 1 and 2 sum in the backward's order: a row's outputs do not
@@ -815,27 +815,19 @@ extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* ctx, long l
   if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int G = 2 * kFwdLanes;   // lanes per row
   // a block's distinct context rows are counted as the backward's tiles are
-  auto smem_of = [&](int rows_per_block) {
-    const int max_seg = bwd_max_seg(rows_per_block, n, ctx_dim, ctx_sn);
-    return (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
-            fwd_ctx_floats(max_seg, ctx_dim) + (size_t)max_seg * 4 * n_blocks * kHidden) *
-           sizeof(float);
-  };
-  // fewer rows per block where shared memory would not hold them, down to one warp
-  int rb = kFwdRows;
-  while (rb * G > kWarp && smem_of(rb) > kMaxSmem) rb /= 2;
-  const size_t smem = smem_of(rb);
+  const int max_seg = bwd_max_seg(kFwdRows, n, ctx_dim, ctx_sn);
+  const size_t smem = (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
+                       fwd_ctx_floats(max_seg, ctx_dim) +
+                       (size_t)max_seg * 4 * n_blocks * kHidden) * sizeof(float);
   auto kernel = inverse ? chain_fwd_kernel<kHidden, kFwdLanes, true>
                         : chain_fwd_kernel<kHidden, kFwdLanes, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
-  const int grid = (rows + rb - 1) / rb;
-  kernel<<<grid, rb * G, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (rows + kFwdRows - 1) / kFwdRows;
+  kernel<<<grid, kFwdRows * 2 * kFwdLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
-      reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in,
-      bwd_max_seg(rb, n, ctx_dim, ctx_sn));
+      reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in, max_seg);
   return static_cast<int>(cudaGetLastError());
 }
 

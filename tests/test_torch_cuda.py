@@ -318,11 +318,8 @@ def test_coupling_chain_backward_tiles(cuda, b, n, ctx_dim, n_blocks, hidden, in
 
 
 # the forward kernel alone: the backward's edge shapes, each context broadcast
-# over the particles, and a dense context given as a non-contiguous view, once
-# so wide (C=340, 4 blocks) that a block takes fewer rows to fit its shared
-# memory
-CHAIN_FWD_SHAPES = [shape + (True,) for shape in CHAIN_BWD_SHAPES] + [
-    (3, 70, 36, 2, 8, False), (2, 40, 340, 4, 8, False)]
+# over the particles, and a dense context given as a non-contiguous view
+CHAIN_FWD_SHAPES = [shape + (True,) for shape in CHAIN_BWD_SHAPES] + [(3, 70, 36, 2, 8, False)]
 
 
 @pytest.mark.cuda
