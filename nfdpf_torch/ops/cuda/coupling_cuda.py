@@ -252,10 +252,10 @@ def _check_chain(x, ctx, weights, biases, backward: bool):
 
 
 def _launch_forward(x, ctx, weights, biases, inverse: bool):
+    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
     _check_chain(x, ctx, weights, biases, backward=False)
     b, n, _ = x.shape
     x, weights, biases = kernel_args(x, weights, biases)
-    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
     y = torch.empty((b, n, 2), device=x.device, dtype=torch.float32)
     ld = torch.empty((b, n), device=x.device, dtype=torch.float32)
     rc = _library(weights.shape[-1]).nfdpf_coupling_chain_fwd(
