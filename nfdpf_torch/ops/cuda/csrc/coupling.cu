@@ -42,7 +42,7 @@
 //     swaps the two nets' outputs: every lane holds the row's state, and
 //     one lane writes it.  One thread walking a row through 4K MLPs (~3,800
 //     instructions at K = 2) left one or two warps on 50 SMs, each bound by
-//     its own issue and latency.
+//     its own instruction stream and latency.
 //   * 32 rows (256 threads) a block, settled with U by a sweep at the
 //     filter's shapes.
 //   * Only what the rows read is staged (FwdLayout: no zero rows of the
