@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``nfdpf_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--profile] [--kernels-only]
+    python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, one line of output each, then the device line last:
 
@@ -20,8 +20,11 @@ Phases, one line of output each, then the device line last:
    broadcast over the particles as the filter passes it, and at (B=4,
    N=4097) with a dense 36-wide context and with none, each launched again
    for equal bits; beside them the time of the same call through the
-   ``FlowChain`` module; then the coupling kernels' registers (ptxas) and
-   shared memory per block (``--kernels-only`` stops here);
+   ``FlowChain`` module; at the filter's heaviest call, the registers and
+   shared memory per block of the timed launches as the card's trace
+   records them (torch.profiler), the shared memory held against the
+   wrapper's mirrors of the kernels' layouts; then the coupling kernels'
+   registers and spills as ptxas reports them;
 3. slices, each at full width (B=32, N=100, T=50, 128×128×3 frames, OT
    resampling on the streaming-Sinkhorn kernels, every step resampled):
    3 train steps and 1 eval step, the launch counts of each kernel over
@@ -42,10 +45,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -76,6 +81,10 @@ KERNELS = {
     "coupling_chain": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:100"),
     "coupling_chain_bwd": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
 }
+# each kernel's case in the kernels line: the shape and direction the CNF-DPF
+# slice runs it most heavily
+AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100",
+      "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse"}
 # launch counters that must be non-zero after a slice's train steps / eval step.
 # The bootstrap DPF's particles carry no gradient (noise and teacher-forced
 # velocities), so autograd never asks for the transport's backward there.
@@ -165,7 +174,9 @@ def phase_setup(hidden: int):
 
 def chain_resources(hidden: int) -> dict:
     """Registers and spilled bytes per thread of each coupling kernel
-    (``-Xptxas -v`` of this run's build), by kernel and direction."""
+    (``-Xptxas -v`` of the library this run loaded), by kernel and
+    direction.  Raises where the report names no forward and backward
+    kernel in both directions with their registers."""
     from nfdpf_torch.ops.cuda import build
     from nfdpf_torch.ops.cuda.coupling_cuda import build_defines
 
@@ -188,20 +199,40 @@ def chain_resources(hidden: int) -> dict:
             words = ln.replace(",", "").split()
             out[name]["registers"] = int(words[words.index("registers") - 1])
             name = None
+    for kernel in ("chain_fwd_kernel", "chain_bwd_kernel"):
+        for direction in ("forward", "inverse"):
+            if not any(k.startswith(kernel) and k.endswith(f"{direction}>") and "registers" in r
+                       for k, r in out.items()):
+                raise AssertionError(f"the coupling library's ptxas report names no {kernel} "
+                                     f"({direction}) with its registers: {out}")
     return out
 
 
-def chain_smem(n_blocks: int, hidden: int, n: int = 100, ctx_dim: int = 36) -> dict:
-    """Dynamic shared memory of a block of each coupling kernel at the
-    filter's heaviest call (N=100, the proposal's 36-wide context, one row
-    per batch element), from the wrapper's mirrors of the kernels' layouts."""
-    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+def launch_record(fn, kernel: str) -> dict:
+    """Registers per thread, shared memory per block (static and dynamic),
+    grid and block of the one launch of ``kernel`` that ``fn`` makes, as the
+    card's trace records it (torch.profiler, CUPTI).  Raises where the trace
+    holds no such launch or not these fields."""
+    from torch.profiler import ProfilerActivity, profile
 
-    rf, rb = cc.FWD_ROWS_PER_BLOCK, cc.BWD_ROWS_PER_BLOCK
-    return {"coupling_chain": cc.fwd_smem_bytes(n_blocks, ctx_dim, hidden,
-                                                min(rf, (rf - 1) // n + 2)),
-            "coupling_chain_bwd": cc.bwd_smem_bytes(n_blocks, ctx_dim, max(1 + ctx_dim, hidden),
-                                                    hidden, rb, min(rb, (rb - 1) // n + 2))}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    hits = [ev.get("args", {}) for ev in events
+            if ev.get("cat") == "kernel" and kernel in ev.get("name", "")]
+    if len(hits) != 1 or not {"registers per thread", "shared memory"} <= set(hits[0]):
+        raise AssertionError(f"the trace holds {len(hits)} launches of {kernel}, "
+                             f"fields {sorted(hits[0]) if hits else []}")
+    a = hits[0]
+    return {"registers": int(a["registers per thread"]),
+            "smem_bytes_per_block": int(a["shared memory"]),
+            "grid": a.get("grid"), "block": a.get("block")}
 
 
 def kernel_cases(b: int, n: int, seed: int):
@@ -342,7 +373,10 @@ def chain_ops(rows: int, ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int
 def phase_chain_kernels(n_blocks: int, hidden: int):
     """K4 (forward kernel) and K5 (backward kernel) of the coupling chain,
     through the wrapper the filter calls, against the plain version and its
-    autograd, both directions; each launched again for equal bits."""
+    autograd, both directions; each launched again for equal bits.  At the
+    kernels line's case, each timed launch's registers and shared memory
+    from the card's trace; the shared memory must be what the wrapper's
+    mirror of the kernel's layout says (the limits it refuses by)."""
     from nfdpf_torch.models.nets import flax_init_
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
     from nfdpf_torch.ops.flows import realnvp_chain
@@ -445,6 +479,14 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                         lambda: cc.chain_apply_packed_plain(x, ctx, w, bias, inverse), iters),
                     "module_ms": device_ms(module_fwd, iters),
                     "library_ms": None, "bound_ms": bound, "bound_by": by}
+                if case == AT["coupling_chain"]:
+                    rec = launch_record(lambda: cc._launch_forward(x, ctx, w, bias, inverse),
+                                        "chain_fwd_kernel")
+                    rows_b = cc.FWD_ROWS_PER_BLOCK
+                    segments = 1 if not c else min(rows_b, (rows_b - 1) // n + 2) if broadcast \
+                        else rows_b
+                    rec["mirror_smem_bytes"] = cc.fwd_smem_bytes(n_blocks, c, hidden, segments)
+                    results["coupling_chain"][case].update(rec)
 
             names = ["gx", "gw", "gb"] + (["gctx"] if want_ctx else [])
             errs = {k: check(f"chain_bwd.{k}@{case}", got, ref, ("apply", CHAIN_GRAD_TOL))
@@ -470,14 +512,32 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
                                               max(iters // 4, 3)),
                 "module_fwd_bwd_ms": call_ms(module_fwd_bwd, max(iters // 4, 3)),
                 "library_ms": None, "bound_ms": bound, "bound_by": by}
+            if case == AT["coupling_chain_bwd"]:
+                rec = launch_record(
+                    lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False),
+                    "chain_bwd_kernel")
+                threads = int(rec["block"][0])
+                segments = 1 if not c else min(threads, (threads - 1) // n + 2) if broadcast \
+                    else threads
+                rec["mirror_smem_bytes"] = cc.bwd_smem_bytes(
+                    n_blocks, c, max(1 + c, hidden), hidden, threads, segments)
+                results["coupling_chain_bwd"][case].update(rec)
         del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias
         torch.cuda.empty_cache()
+    for name in ("coupling_chain", "coupling_chain_bwd"):
+        rec = results[name][AT[name]]
+        if rec["smem_bytes_per_block"] != rec["mirror_smem_bytes"]:
+            raise AssertionError(f"{name}@{AT[name]}: the launch took {rec['smem_bytes_per_block']} "
+                                 f"bytes of shared memory, the wrapper's mirror says "
+                                 f"{rec['mirror_smem_bytes']}")
     log({"phase": "chain_kernels", "results": results,
          "note": "checked through fused_coupling_chain and its autograd Function; no single "
                  "PyTorch call computes a coupling chain: library_ms null; module_ms is the "
                  "same call through the FlowChain module; plain_ms, kernels_fwd_bwd_ms and "
                  "module_fwd_bwd_ms of the backward are eager forward + autograd calls (CUDA "
-                 "events), the other times CUDA-graph replays of the kernel's launcher"})
+                 "events), the other times CUDA-graph replays of the kernel's launcher; "
+                 "registers and smem_bytes_per_block (static + dynamic) from the trace "
+                 "(torch.profiler) of one launch, mirror_smem_bytes the wrapper's"})
     return results
 
 
@@ -700,8 +760,6 @@ def main() -> int:
     parser.add_argument("--out", help="also write every phase's numbers to this JSON file")
     parser.add_argument("--profile", action="store_true",
                         help="profile one extra train step by kernel (torch.profiler)")
-    parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after the kernel phases (no slices, no parity, no result lines)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs its kernels on a GPU only",
@@ -716,42 +774,34 @@ def main() -> int:
     card = phase_setup(cnf.flow_hidden_dim)
     kernels = phase_kernels()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
-    resources = chain_resources(cnf.flow_hidden_dim)
-    smem = chain_smem(cnf.n_sequence, cnf.flow_hidden_dim)
-    log({"phase": "chain_resources", "ptxas": resources, "smem_bytes_per_block": smem})
-    if args.kernels_only:
-        return 0
+    log({"phase": "chain_resources", "ptxas": chain_resources(cnf.flow_hidden_dim)})
     boot = phase_slice("slice", SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL, args.profile)
     sl = phase_slice("slice_cnf", CNF_SLICE, CNF_TRAIN, CNF_EVAL, args.profile)
     phase_parity("parity", SLICE)
     phase_parity("parity_cnf", CNF_SLICE, flow_scale=10.0)
 
-    # each kernel's numbers at the shape and direction the CNF-DPF slice runs
-    # it most heavily; its launches over that slice's 3 train steps (the
-    # forward coupling kernel's: both directions together)
-    at = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100",
-          "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse"}
+    # each kernel's numbers at its case in AT; its launches over the CNF-DPF
+    # slice's 3 train steps (the forward coupling kernel's: both directions
+    # together)
     counts = dict(sl["launches_train_3_steps"])
     counts["coupling_chain"] += counts["coupling_chain_inverse"]
-    floor = kernels["sinkhorn_lse"][at["sinkhorn_lse"]]["launch_floor_ms"]
+    floor = kernels["sinkhorn_lse"][AT["sinkhorn_lse"]]["launch_floor_ms"]
     line = []
     for name, (source, replaces) in KERNELS.items():
         # K1's entry covers both of its instantiations (G=2 timed, G=1 checked)
         cases = [kernels[name]] + ([kernels["sinkhorn_lse_g1"]] if name == "sinkhorn_lse" else [])
         worst = max(c[s]["max_abs_err"] for c in cases for s in c)
-        m = kernels[name][at[name]]
+        m = kernels[name][AT[name]]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": counts[name], "max_abs_err": worst,
                  "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                 "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": at[name],
+                 "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": AT[name],
                  "launch_floor_ms": floor}
         if name == "transport_apply":
             entry["launches_backward"] = counts["transport_apply_bwd"]
-        if name in smem:   # the coupling kernels' registers (both directions) and shared memory
-            kernel = "chain_bwd_kernel" if name.endswith("bwd") else "chain_fwd_kernel"
-            entry["registers"] = [r["registers"] for k, r in resources.items()
-                                  if k.startswith(kernel)]
-            entry["smem_bytes_per_block"] = smem[name]
+        if "registers" in m:   # the coupling kernels' timed launch, from the trace
+            entry["registers"] = m["registers"]
+            entry["smem_bytes_per_block"] = m["smem_bytes_per_block"]
         if name in BOOTSTRAP_TRAIN:
             entry["launches_bootstrap_slice"] = boot["launches_train_3_steps"][name]
         line.append(entry)
