@@ -26,8 +26,9 @@ raises.  ``LAUNCHES`` counts the kernel launches.
 
 The kernels take the filter's state dimension (2), float32, a hidden width
 up to 8 (fixed at compile time: one library per width, built at first use;
-8 is the filter's width, 4 and 8 are the widths held against the plain
-version on the card, and at 16 the backward's register arrays spill), at
+8 is the filter's width; 3, 4, 6 and 8, which take each of the forward's
+lane mappings, are the widths held against the plain version on the card;
+at 16 the backward's register arrays spill), at
 most 8 blocks, and parameters that fit the card's shared memory (227 KB;
 ``fwd_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' layouts, the
 backward's twice the parameters' size plus its tiles).  ``chain_refusal``

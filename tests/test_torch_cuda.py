@@ -281,9 +281,12 @@ def test_coupling_chain_backward_repeats_bitwise_and_skips_unasked_ctx(cuda):
 # blocks, hidden), each context one row per batch element broadcast over
 # the particles with stride 0: particle counts that no tile divides (tiles
 # straddle batch rows), one particle per batch row, one batch row over many
-# thread blocks, one and eight coupling blocks, hidden width 4
+# thread blocks, one and eight coupling blocks, hidden widths 4, 6 and 3
+# (the forward's rows take 4, 2 and 1 lanes per net at widths 8 and 4, 6,
+# and 3)
 CHAIN_BWD_SHAPES = [(5, 33, 4, 2, 8), (2, 300, 36, 2, 8), (40, 1, 4, 2, 8), (1, 5000, 4, 2, 8),
-                    (3, 70, 5, 1, 8), (3, 70, 5, 8, 8), (5, 33, 4, 2, 4)]
+                    (3, 70, 5, 1, 8), (3, 70, 5, 8, 8), (5, 33, 4, 2, 4), (5, 33, 36, 2, 6),
+                    (3, 70, 5, 2, 3)]
 
 
 @pytest.mark.cuda
