@@ -25,15 +25,26 @@ Phases, one line of output each, then the device line last:
    records them (torch.profiler), the shared memory held against the
    wrapper's mirrors of the kernels' layouts; then the coupling kernels'
    registers and spills as ptxas reports them;
-3. slices, each at full width (B=32, N=100, T=50, 128×128×3 frames, OT
-   resampling on the streaming-Sinkhorn kernels, every step resampled):
-   3 train steps and 1 eval step, the launch counts of each kernel over
-   them (set to 0 just before, read just after), step time, transitions/s,
-   peak memory, device syncs per step.  First the bootstrap DPF, then the
-   CNF-DPF (RealNVP dynamics and proposal on the fused coupling kernels);
-4. parity, for both slices: one loss + gradient on the kernels (cuda) and
-   on the plain versions (cpu) from the same parameters and noise;
-5. the ``kernels`` JSON line.
+3. slices, each at full width (B=32, N=100, T=50, 128×128×3 frames, every
+   step resampled): 3 train steps and 1 eval step, the launch counts of
+   each kernel over them (set to 0 just before, read just after), step
+   time, transitions/s, peak memory, device syncs per step.  The bootstrap
+   DPF and the CNF-DPF (RealNVP dynamics and proposal on the fused coupling
+   kernels) with OT on the streaming-Sinkhorn kernels; ``dense``, bench.py's
+   own configuration (OT over materialised costs, no kernel: every counter
+   must read 0), with its Sinkhorn iterations per firing and host syncs;
+   ``soft``, the soft resampler (no kernel either); ``nfdpf``, the paper's
+   NF-DPF (both flows on the coupling kernels, the CRNVP measurement, OT on
+   the streaming kernels: all four kernels);
+4. the warm start: the bootstrap slice's eval filter at full width, cold
+   and with ``sinkhorn_warm_start``: the first firing takes the same
+   Sinkhorn iterations both ways, the later ones together at most 1.1× the
+   cold ones;
+5. parity, for every slice and for the dense path with the transport's
+   gradient, the NN and the gaussian measurement: one loss + gradient on
+   the card (cuda) and on the plain versions (cpu) from the same parameters
+   and noise;
+6. the ``kernels`` JSON line.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
 script exits non-zero without printing the last line.  The port has no CPU
@@ -72,6 +83,13 @@ SLICE = dict(num_particles=100, sequence_length=50, batch_size=32, width=128,
 # so the backward runs the coupling backward kernel three times per step and
 # the transport's backward (Tᵀg) once.
 CNF_SLICE = dict(SLICE, nf_dyn=True, nf_cond=True, pallas_coupling=True)
+# bench.py's own configuration (bench.py:92-99: use_pallas left off, so OT
+# over materialised costs), resampling every step as above
+DENSE_SLICE = dict(SLICE, use_pallas=False)
+# the soft resampler (alpha 0.5)
+SOFT_SLICE = dict(SLICE, resampler_type="soft")
+# the paper's NF-DPF: the CNF-DPF with the conditional-RealNVP measurement
+NFDPF_SLICE = dict(CNF_SLICE, measurement="CRNVP")
 # the kernels → source and the TPU kernel each replaces
 SINKHORN_CU = "nfdpf_torch/ops/cuda/csrc/sinkhorn.cu"
 COUPLING_CU = "nfdpf_torch/ops/cuda/csrc/coupling.cu"
@@ -91,6 +109,15 @@ AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100",
 BOOTSTRAP_TRAIN = BOOTSTRAP_EVAL = ("sinkhorn_lse", "transport_apply")
 CNF_EVAL = BOOTSTRAP_EVAL + ("coupling_chain", "coupling_chain_inverse")
 CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd")
+# the slices: (settings, kernels launched in the 3 train steps, in the eval
+# step); none at all on the dense and soft paths
+SLICES = {
+    "slice": (SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL),
+    "slice_cnf": (CNF_SLICE, CNF_TRAIN, CNF_EVAL),
+    "slice_dense": (DENSE_SLICE, (), ()),
+    "slice_soft": (SOFT_SLICE, (), ()),
+    "slice_nfdpf": (NFDPF_SLICE, CNF_TRAIN, CNF_EVAL),
+}
 LSE_TOL = 1e-5     # K1: |err| <= tol + tol·|ref|
 APPLY_TOL = 1e-4   # K2: |err| <= tol·|ref| + tol·max|ref|
 CHAIN_TOL = 1e-5   # K4: |err| <= tol + tol·|ref| (outputs of magnitude ~1-10)
@@ -208,31 +235,38 @@ def chain_resources(hidden: int) -> dict:
     return out
 
 
-def launch_record(fn, kernel: str) -> dict:
+def launch_record(fn, kernel: str, sessions: int = 3) -> dict:
     """Registers per thread, shared memory per block (static and dynamic),
     grid and block of the one launch of ``kernel`` that ``fn`` makes, as the
-    card's trace records it (torch.profiler, CUPTI).  Raises where the trace
-    holds no such launch or not these fields."""
+    card's trace records it (torch.profiler, CUPTI).  A profiling session
+    has been seen to come back with no kernel event at all (once, on the
+    process's first session): a session that records no launch of
+    ``kernel`` is run again, up to ``sessions`` in all.  Raises where none
+    holds exactly one such launch with these fields."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    hits = []
+    for attempt in range(1, sessions + 1):
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh).get("traceEvents", [])
-    hits = [ev.get("args", {}) for ev in events
-            if ev.get("cat") == "kernel" and kernel in ev.get("name", "")]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh).get("traceEvents", [])
+        hits = [ev.get("args", {}) for ev in events
+                if ev.get("cat") == "kernel" and kernel in ev.get("name", "")]
+        if hits:
+            break
     if len(hits) != 1 or not {"registers per thread", "shared memory"} <= set(hits[0]):
-        raise AssertionError(f"the trace holds {len(hits)} launches of {kernel}, "
-                             f"fields {sorted(hits[0]) if hits else []}")
+        raise AssertionError(f"the trace holds {len(hits)} launches of {kernel} after "
+                             f"{attempt} sessions, fields {sorted(hits[0]) if hits else []}")
     a = hits[0]
     return {"registers": int(a["registers per thread"]),
             "smem_bytes_per_block": int(a["shared memory"]),
-            "grid": a.get("grid"), "block": a.get("block")}
+            "grid": a.get("grid"), "block": a.get("block"), "trace_sessions": attempt}
 
 
 def kernel_cases(b: int, n: int, seed: int):
@@ -577,11 +611,20 @@ def reset_launch_counts():
     cc.reset_launches()
 
 
+def dense_loop():
+    from nfdpf_torch.ops import sinkhorn as ts
+
+    return dict(ts.DENSE_LOOP)
+
+
 def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile: bool):
     """3 train steps and 1 eval step of one configuration through
     ``Trainer``; the launch counters are set to 0 just before each part and
-    read just after; every counter named must have moved."""
+    read just after; every counter named must have moved, and where none is
+    named every counter must read 0.  The dense Sinkhorn's loop counts
+    (firings, iterations, host syncs) are read the same way, step by step."""
     from nfdpf_torch import DPFConfig
+    from nfdpf_torch.ops import sinkhorn as ts
     from nfdpf_torch.train import Trainer
 
     cfg = DPFConfig(**settings)
@@ -593,6 +636,7 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
     reset_launch_counts()
     steps = []
     for i in range(3):
+        ts.reset_dense_loop()
         t0 = time.perf_counter()
         if i == 0:
             metrics, syncs = count_syncs(
@@ -600,32 +644,42 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
         else:
             metrics = trainer.train_step(batch, generator=trainer.generator(10 + i))
         torch.cuda.synchronize()
-        steps.append({"s": time.perf_counter() - t0,
+        steps.append({"s": time.perf_counter() - t0, "dense_loop": dense_loop(),
                       **{k: float(v) for k, v in metrics.items()}})
     train_launches = launch_counts()
 
     reset_launch_counts()
+    ts.reset_dense_loop()
     t0 = time.perf_counter()
     ev, aux = trainer.eval_step(batch, generator=trainer.generator(20))
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     eval_launches = launch_counts()
+    eval_dense = dense_loop()
     peak = torch.cuda.max_memory_allocated()
 
     median_s = statistics.median(s["s"] for s in steps)
     transitions = cfg.batch_size * cfg.num_particles * cfg.sequence_length
+    dense_calls = sum(s["dense_loop"]["calls"] for s in steps)
+    step0 = steps[0]
     row = {"phase": name, "config": settings, "step_s": [s["s"] for s in steps],
            "median_step_ms": median_s * 1e3,
            "transitions_per_s": transitions / median_s,
            "losses": [s["loss"] for s in steps], "eval_loss": float(ev["loss"]),
            "eval_s": eval_s, "resample_count": [s["resample_count"] for s in steps],
            "sinkhorn_iters": [s["sinkhorn_iters"] for s in steps],
+           "dense_loop_by_step": [s["dense_loop"] for s in steps],
+           "dense_iters_per_firing": (sum(s["dense_loop"]["iters"] for s in steps)
+                                      / dense_calls if dense_calls else None),
+           "dense_loop_eval": eval_dense,
            "launches_train_3_steps": train_launches, "launches_eval": eval_launches,
-           # the gate read on each step, plus the loop test on each iteration
-           # and the one that ends each firing's loop
+           # the gate read on each step; on the streaming path the loop test
+           # on each iteration and the one that ends each firing's loop; on
+           # the dense path each loop test read on the host
            "device_syncs_step0": syncs,
-           "syncs_by_count_step0": cfg.sequence_length
-           + int(steps[0]["sinkhorn_iters"] + steps[0]["resample_count"]),
+           "syncs_by_count_step0": cfg.sequence_length + step0["dense_loop"]["host_syncs"]
+           + (int(step0["sinkhorn_iters"] + step0["resample_count"])
+              if step0["sinkhorn_iters"] else 0),
            "peak_mem_gib": peak / 2**30}
     if profile:
         prof = profile_step(trainer, batch)
@@ -650,11 +704,54 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
         raise AssertionError(f"{name}: non-finite particles or weights in the eval step")
     if cfg.nf_dyn and float(out.jacobians.abs().max()) == 0.0:
         raise AssertionError(f"{name}: the dynamics flow left no jacobian")
+    dense = not cfg.use_pallas and cfg.resampler_type == "ot"
+    if dense != (dense_calls > 0 and eval_dense["calls"] > 0):
+        raise AssertionError(f"{name}: dense Sinkhorn loops {dense_calls} (train), "
+                             f"{eval_dense['calls']} (eval)")
     for launches, kernels in ((train_launches, train_kernels), (eval_launches, eval_kernels)):
         for kernel in kernels:
             if launches[kernel] <= 0:
                 raise AssertionError(f"{name}: kernel {kernel} was not launched on the path")
+        if not kernels and any(launches.values()):
+            raise AssertionError(f"{name}: a path that runs no kernel launched {launches}")
     return row
+
+
+def phase_warm_start():
+    """The bootstrap slice's eval filter at full width, cold and with the
+    Sinkhorn warm start, from the same parameters and draws: the first
+    firing is cold either way, so it must take the same iterations; the
+    later firings together at most 1.1× the cold ones (the contract of
+    tests/test_filter.py's warm-start test)."""
+    from nfdpf_torch import DPFConfig
+    from nfdpf_torch.train import Trainer
+
+    iters, seconds = {}, {}
+    for warm in (False, True):
+        cfg = DPFConfig(**dict(SLICE, sinkhorn_warm_start=warm))
+        trainer = Trainer(cfg)
+        batch = synthetic_batch(cfg, trainer.device, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, aux = trainer.eval_step(batch, generator=trainer.generator(20))
+        torch.cuda.synchronize()
+        seconds[warm] = time.perf_counter() - t0
+        out = aux["filter_out"]
+        if not bool(out.resampled.all() and torch.isfinite(out.particles).all()):
+            raise AssertionError(f"warm_start={warm}: a step did not fire, or a "
+                                 "particle is not finite")
+        iters[warm] = out.sinkhorn_iters.tolist()
+    cold, warm = iters[False], iters[True]
+    ratio = sum(warm[1:]) / sum(cold[1:])
+    log({"phase": "warm_start", "iters_cold": cold, "iters_warm": warm,
+         "first_firing": [cold[0], warm[0]], "later_firings": [sum(cold[1:]), sum(warm[1:])],
+         "later_ratio": ratio, "eval_s_cold": seconds[False], "eval_s_warm": seconds[True]})
+    if cold[0] != warm[0]:
+        raise AssertionError(f"warm start: the first firing took {warm[0]} iterations, "
+                             f"cold {cold[0]}")
+    if not ratio <= 1.1:
+        raise AssertionError(f"warm start: the later firings took {ratio:.3f}× the cold "
+                             "iterations (limit 1.1)")
 
 
 def profile_step(trainer, batch):
@@ -678,7 +775,9 @@ def profile_step(trainer, batch):
     groups = {**{k: 0.0 for k in ours}, "conv (cudnn)": 0.0, "other": 0.0}
     counts = {k: 0 for k in ours}
     for r in rows:
-        key = next((k for k in ours if k in r["name"]), None)
+        # whole names only: Adam's multi_tensor_apply_kernel is not K2
+        key = next((k for k in ours if re.search(rf"(?<![A-Za-z0-9_]){k}\b", r["name"])),
+                   None)
         if key is not None:
             counts[key] += r["count"]
         if key is None:
@@ -694,11 +793,15 @@ def profile_step(trainer, batch):
 
 
 def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
-    """One loss + backward from the same parameters and noise on the kernels
-    (cuda) and on the plain versions (cpu): B=4, T=10, N=100.  ``flow_scale``
-    multiplies the flows' initial N(0, 0.01²) weights on both sides, so the
-    flows are not near the identity."""
+    """One loss + backward from the same parameters and noise on the card
+    (cuda: the kernels where the path has them) and on the plain versions
+    (cpu): B=4, T=10, N=100.  ``flow_scale`` multiplies every flow's initial
+    N(0, 0.01²) weights (the chains' and the CRNVP measurement's) on both
+    sides, so the flows are not near the identity.  The gate's firings, the
+    streaming loop's and the dense loop's iterations must be equal."""
     from nfdpf_torch import DPFConfig
+    from nfdpf_torch.ops import sinkhorn as ts
+    from nfdpf_torch.ops.flows import FlowChain
     from nfdpf_torch.train import Trainer
 
     cfg = DPFConfig(**dict(settings, batch_size=4, sequence_length=10))
@@ -707,31 +810,37 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
     batch = synthetic_batch(cfg, "cpu", seed=4)
     noise = {"init": torch.rand(b, n, 2, generator=gen) * cfg.width - cfg.width / 2,
              "motion": torch.randn(t, b, n, 2, generator=gen),
-             "vel": torch.randn(b, t, 2, generator=gen)}
+             "vel": torch.randn(b, t, 2, generator=gen),
+             "resample": torch.rand(t, b, 1, generator=gen) * (1.0 / n)}
     runs = {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, device=device)         # same seed: same parameters
         with torch.no_grad():
-            for chain in (trainer.engine.nf_dyn, trainer.engine.cond_model):
-                for p in chain.parameters():
-                    p.mul_(flow_scale)
+            for chain in trainer.engine.modules():
+                if isinstance(chain, FlowChain):
+                    for p in chain.parameters():
+                        p.mul_(flow_scale)
         dev_noise = {k: v.to(device) for k, v in noise.items()}
         reset_launch_counts()
+        ts.reset_dense_loop()
         loss, aux = trainer._loss({k: v.to(device) for k, v in batch.items()}, True,
                                   dev_noise)
         loss.backward()
         runs[device] = {
             "loss": loss.item(), "resampled": aux["filter_out"].resampled.tolist(),
             "iters": aux["filter_out"].sinkhorn_iters.tolist(),
+            "dense_iters": ts.DENSE_LOOP["iters"],
             "launches": launch_counts(),
             "grads": {k: p.grad.detach().cpu() for k, p in trainer.engine.named_parameters()
                       if p.grad is not None}}
     gpu, cpu = runs["cuda"], runs["cpu"]
     if any(cpu["launches"].values()):
         raise AssertionError(f"{name}: the CPU run launched kernels: {cpu['launches']}")
-    if gpu["resampled"] != cpu["resampled"] or gpu["iters"] != cpu["iters"]:
-        raise AssertionError(f"{name}: gate/iterations differ: cuda {gpu['iters']} "
-                             f"cpu {cpu['iters']}")
+    if (gpu["resampled"] != cpu["resampled"] or gpu["iters"] != cpu["iters"]
+            or gpu["dense_iters"] != cpu["dense_iters"]):
+        raise AssertionError(f"{name}: gate/iterations differ: cuda {gpu['iters']}, dense "
+                             f"{gpu['dense_iters']}; cpu {cpu['iters']}, dense "
+                             f"{cpu['dense_iters']}")
     if set(gpu["grads"]) != set(cpu["grads"]):
         raise AssertionError(f"{name}: cuda and cpu give gradients to different parameters")
     for chain, used in (("nf_dyn", cfg.nf_dyn), ("cond_model", cfg.nf_cond)):
@@ -752,7 +861,8 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
     log({"phase": name, "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
          "loss_rel_err": loss_rel, "loss_tol": 1e-4, "grad_rel_err_max": worst,
          "grad_tol": {"decoder": 1e-2, "other": 1e-3}, "flow_scale": flow_scale,
-         "iters": gpu["iters"], "launches_cuda": gpu["launches"]})
+         "iters": gpu["iters"], "dense_iters": gpu["dense_iters"],
+         "launches_cuda": gpu["launches"]})
 
 
 def main() -> int:
@@ -775,16 +885,25 @@ def main() -> int:
     kernels = phase_kernels()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
     log({"phase": "chain_resources", "ptxas": chain_resources(cnf.flow_hidden_dim)})
-    boot = phase_slice("slice", SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL, args.profile)
-    sl = phase_slice("slice_cnf", CNF_SLICE, CNF_TRAIN, CNF_EVAL, args.profile)
+    slices = {name: phase_slice(name, *spec, args.profile) for name, spec in SLICES.items()}
+    phase_warm_start()
     phase_parity("parity", SLICE)
     phase_parity("parity_cnf", CNF_SLICE, flow_scale=10.0)
+    phase_parity("parity_dense", DENSE_SLICE)
+    phase_parity("parity_transport_grad", dict(SLICE, ot_transport_grad=True))
+    phase_parity("parity_soft", SOFT_SLICE)
+    phase_parity("parity_nfdpf", NFDPF_SLICE, flow_scale=10.0)
+    phase_parity("parity_nn", dict(SLICE, measurement="NN"))
+    phase_parity("parity_gaussian", dict(SLICE, measurement="gaussian"))
 
-    # each kernel's numbers at its case in AT; its launches over the CNF-DPF
-    # slice's 3 train steps (the forward coupling kernel's: both directions
-    # together)
-    counts = dict(sl["launches_train_3_steps"])
-    counts["coupling_chain"] += counts["coupling_chain_inverse"]
+    # each kernel's numbers at its case in AT; its launches over the 3 train
+    # steps of the NF-DPF slice, which runs all four, and of every slice (the
+    # forward coupling kernel's: both directions together)
+    by_slice = {}
+    for sname, row in slices.items():
+        counts = dict(row["launches_train_3_steps"])
+        counts["coupling_chain"] += counts["coupling_chain_inverse"]
+        by_slice[sname] = counts
     floor = kernels["sinkhorn_lse"][AT["sinkhorn_lse"]]["launch_floor_ms"]
     line = []
     for name, (source, replaces) in KERNELS.items():
@@ -793,22 +912,21 @@ def main() -> int:
         worst = max(c[s]["max_abs_err"] for c in cases for s in c)
         m = kernels[name][AT[name]]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": counts[name], "max_abs_err": worst,
+                 "launches": by_slice["slice_nfdpf"][name], "max_abs_err": worst,
                  "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                  "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": AT[name],
-                 "launch_floor_ms": floor}
+                 "launch_floor_ms": floor,
+                 "launches_by_slice": {k: v[name] for k, v in by_slice.items()}}
         if name == "transport_apply":
-            entry["launches_backward"] = counts["transport_apply_bwd"]
+            entry["launches_backward_by_slice"] = {k: v["transport_apply_bwd"]
+                                                   for k, v in by_slice.items()}
         if "registers" in m:   # the coupling kernels' timed launch, from the trace
             entry["registers"] = m["registers"]
             entry["smem_bytes_per_block"] = m["smem_bytes_per_block"]
-        if name in BOOTSTRAP_TRAIN:
-            entry["launches_bootstrap_slice"] = boot["launches_train_3_steps"][name]
         line.append(entry)
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "kernels": kernels, "slice": boot, "slice_cnf": sl},
-                      fh, indent=1)
+            json.dump({"card": card, "kernels": kernels, **slices}, fh, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

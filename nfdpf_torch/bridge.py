@@ -18,10 +18,14 @@ Mapping rules:
   spatial axes: (kh, kw, in, out) → flip → (in, out, kh, kw);
 * BatchNorm scale/bias → weight/bias, batch_stats mean/var → running
   mean/var;
-* the RealNVP chains ``nf_dyn`` and ``cond_model``:
+* the RealNVP chains ``nf_dyn``, ``cond_model`` and the CRNVP
+  measurement's ``cnf``:
   ``params/flows_{k}/{t1,s1,t2,s2}/Dense_{i}/{kernel,bias}`` →
   ``{chain}.flows.{k}.{t1,s1,t2,s2}.fc{i+1}.{weight,bias}``, kernels
-  transposed like every Dense.
+  transposed like every Dense;
+* the measurement's ``particle_encoder`` and (``NN``) ``likelihood_net``:
+  ``Dense_{i}`` → ``fc{i+1}``.  A measurement subtree with no mapping
+  (CGLOW's) is refused.
 
 Every map is a permutation of entries, so ``torch_state_from_jax`` also
 carries gradient pytrees (``params`` only) into the port's parameter names.
@@ -102,10 +106,17 @@ def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
     for chain in ("nf_dyn", "cond_model"):
         out.update(flow_chain_state_from_jax(variables[chain], prefix=f"{chain}."))
 
-    pe = variables["measurement"]["params"]["particle_encoder"]
-    for i in range(3):
-        out[f"measurement.particle_encoder.fc{i + 1}.weight"] = _dense_w(pe[f"Dense_{i}"]["kernel"])
-        out[f"measurement.particle_encoder.fc{i + 1}.bias"] = pe[f"Dense_{i}"]["bias"]
+    meas = variables["measurement"]["params"]
+    unknown = sorted(set(meas) - {"particle_encoder", "likelihood_net", "cnf"})
+    if unknown:
+        raise KeyError(f"bridge: no mapping for the measurement's {unknown}")
+    for net in ("particle_encoder", "likelihood_net"):
+        for i in range(3 if net in meas else 0):
+            layer = meas[net][f"Dense_{i}"]
+            out[f"measurement.{net}.fc{i + 1}.weight"] = _dense_w(layer["kernel"])
+            out[f"measurement.{net}.fc{i + 1}.bias"] = layer["bias"]
+    if "cnf" in meas:
+        out.update(flow_chain_state_from_jax({"params": meas["cnf"]}, prefix="measurement.cnf."))
     return {k: _f32(v) for k, v in out.items()}
 
 

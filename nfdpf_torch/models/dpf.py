@@ -2,8 +2,8 @@
 
 Counterpart of ``nfdpf_tpu/models/dpf.py`` for the bootstrap DPF and the
 CNF-DPF (``nf_dyn`` RealNVP dynamics, ``nf_cond`` RealNVP proposal, each
-alone or together): the cosine measurement, OT resampling on the
-streaming-Sinkhorn kernels.  As in the JAX package:
+alone or together), with the cos, NN, gaussian or CRNVP measurement and
+soft or OT resampling.  As in the JAX package:
 
 * the engine owns both flow chains whatever the switches say; an unused
   chain takes no part in the filter and gets no gradient;
@@ -15,14 +15,22 @@ streaming-Sinkhorn kernels.  As in the JAX package:
   statistics over all of them);
 * resampling is gated by the scalar batch-mean ESS — here a Python ``if``
   on the gate, so only the taken branch runs.  Reading the gate costs one
-  device sync per time step.
+  device sync per time step;
+* OT resampling runs on the streaming-Sinkhorn kernels under ``use_pallas``
+  (``ops/cuda/sinkhorn_cuda.py``) and otherwise, or whenever
+  ``ot_transport_grad`` is set, over materialised costs (``ops/sinkhorn.py``);
+* with ``sinkhorn_warm_start`` (streaming path only) the potentials of the
+  last firing ride the time loop, from zeros marked not valid; a step whose
+  gate does not fire passes them on untouched.
 
 Random draws come in through ``noise`` (a dict of tensors) or from a
 ``torch.Generator``:
 
 * ``"init"``: the initial particles, (B, N, 2);
 * ``"motion"``: standard-normal motion draws, (T, B, N, 2), scaled by
-  ``pos_noise`` inside ``motion_update``.
+  ``pos_noise`` inside ``motion_update``;
+* ``"resample"``: the soft resampler's systematic offsets, (T, B, 1), each
+  in [0, 1/N).
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from nfdpf_torch.ops.density import (
     uniform_log_weights,
 )
 from nfdpf_torch.ops.flows import realnvp_chain
+from nfdpf_torch.ops.resampling import soft_systematic_resample
+from nfdpf_torch.ops.sinkhorn import ot_resample
 
 
 class FilterOutput(NamedTuple):
@@ -77,11 +87,6 @@ def check_supported(cfg: DPFConfig) -> None:
     """Raise ``NotImplementedError`` for any setting the port does not run
     yet, naming the ROADMAP (queue 1) item that brings it."""
     todo = [
-        (cfg.resampler_type == "soft", "soft resampling", 10),
-        (cfg.resampler_type == "ot" and not cfg.use_pallas,
-         "dense OT resampling (use_pallas=False)", 3),
-        (cfg.ot_transport_grad, "ot_transport_grad (dense OT path)", 3),
-        (cfg.sinkhorn_warm_start, "Sinkhorn warm start", 9),
         (cfg.train_type == "SDPF", "the SDPF pseudo-likelihood losses", 13),
         (cfg.encode_per_step, "the encode_per_step ablation", 18),
         (cfg.remat_scan_step, "remat_scan_step", 18),
@@ -95,8 +100,16 @@ def check_supported(cfg: DPFConfig) -> None:
                 f"{what} is not ported yet (ROADMAP queue 1, item {item})")
     if cfg.resampler_type not in ("ot", "soft"):
         raise ValueError(f"unknown resampler {cfg.resampler_type!r}")
+    if cfg.sinkhorn_warm_start and not streaming_ot(cfg):
+        raise ValueError("sinkhorn_warm_start requires the streaming OT path "
+                         "(resampler_type='ot', use_pallas=True, ot_transport_grad=False)")
     if cfg.train_type not in ("DPF", "SDPF"):
         raise ValueError("trainType must be DPF (supervised) or SDPF (semi-supervised)")
+
+
+def streaming_ot(cfg: DPFConfig) -> bool:
+    """True when OT resampling runs on the streaming-Sinkhorn kernels."""
+    return cfg.resampler_type == "ot" and cfg.use_pallas and not cfg.ot_transport_grad
 
 
 def check_coupling_kernels(cfg: DPFConfig) -> None:
@@ -179,6 +192,28 @@ class DPF(nn.Module):
         drawn on the CPU)."""
         flax_init_(self, torch.Generator().manual_seed(seed))
 
+    def _resample(self, particles, probs, offset, generator, potentials):
+        """One firing of the configured resampler.  Returns (particles',
+        probs', ancestor indices, Sinkhorn iterations, potentials): the
+        iterations are the streaming loop's (0 on the other paths, as in
+        the JAX package), the potentials the warm start's carry (None
+        without it)."""
+        cfg = self.config
+        if cfg.resampler_type == "soft":
+            return (*soft_systematic_resample(particles, probs, cfg.alpha, offset, generator),
+                    0, None)
+        kw = dict(eps=cfg.epsilon, scaling=cfg.scaling, threshold=cfg.threshold,
+                  max_iter=cfg.max_iter, convergence=cfg.sinkhorn_convergence)
+        if not streaming_ot(cfg):
+            return (*ot_resample(particles, probs, transport_grad=cfg.ot_transport_grad, **kw),
+                    0, None)
+        if not cfg.sinkhorn_warm_start:
+            return (*ot_resample_streaming(particles, probs, **kw), None)
+        # the first firing finds the zeros the carry starts from, not valid
+        return ot_resample_streaming(
+            particles, probs, warm_start=potentials,
+            warm_eps_factor=cfg.sinkhorn_warm_eps_factor, return_potentials=True, **kw)
+
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         """(..., H, W, 3) → (..., h); updates BN running stats in train mode."""
         return self.encoder(images)
@@ -211,6 +246,9 @@ class DPF(nn.Module):
         probs = normalize_log_weights(init_w_log)
         vel = start_state[:, 2:]
         motion = noise.get("motion")
+        offsets = noise.get("resample")
+        warm = (torch.zeros((batch, 2, n), device=dev), False) if cfg.sinkhorn_warm_start \
+            else None
         idx0 = torch.arange(n, dtype=torch.int32, device=dev).expand(batch, n)
         obs_lik = torch.zeros((), device=dev)
 
@@ -230,10 +268,11 @@ class DPF(nn.Module):
             ess = effective_sample_size(probs)
             gate = bool(ess < cfg.ess_threshold * n)      # one device sync
             if gate:
-                particles_r, probs_r, idx, sk_iters = ot_resample_streaming(
-                    particles, probs, eps=cfg.epsilon, scaling=cfg.scaling,
-                    threshold=cfg.threshold, max_iter=cfg.max_iter,
-                    convergence=cfg.sinkhorn_convergence)
+                particles_r, probs_r, idx, sk_iters, pots = self._resample(
+                    particles, probs, None if offsets is None else offsets[t], generator,
+                    warm)
+                if warm is not None:
+                    warm = (pots, True)
             else:
                 particles_r, probs_r, idx, sk_iters = particles, probs, idx0, 0
             log_probs_r = torch.log(probs_r)

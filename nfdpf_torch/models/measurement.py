@@ -1,23 +1,33 @@
 """Measurement models: p(observation | particle) in encoding space.
 
-Counterpart of ``nfdpf_tpu/models/measurement.py``.  The port has the
-cosine model of the bootstrap DPF; the other four wait for their ROADMAP
-items.
+Counterpart of ``nfdpf_tpu/models/measurement.py``.  Each module takes the
+observation encodings (B, h) and particles (B, N, d) and returns
+per-particle log-likelihoods (B, N), and owns its particle encoder.  The
+Gaussian and CRNVP models subtract each row's maximum (``torch.amax``, whose
+gradient splits between ties as ``jnp.max``'s does).  CGLOW waits for its
+ROADMAP item.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from nfdpf_torch.config import DPFConfig
-from nfdpf_torch.models.nets import ParticleEncoder
+from nfdpf_torch.models.nets import LikelihoodNet, ParticleEncoder
 from nfdpf_torch.ops.density import cosine_distance
+from nfdpf_torch.ops.flows import realnvp_chain
+
+
+def _minus_row_max(lik: torch.Tensor) -> torch.Tensor:
+    return lik - torch.amax(lik, dim=-1, keepdim=True)
 
 
 class CosineMeasurement(nn.Module):
     """``log 1/(1e-7 + cos-distance)`` between the observation encoding and
-    each encoded particle: (B, h), (B, N, d) → (B, N)."""
+    each encoded particle."""
 
     def __init__(self, hidden_size: int = 32, state_dim: int = 2):
         super().__init__()
@@ -29,14 +39,73 @@ class CosineMeasurement(nn.Module):
         return torch.log(lik)
 
 
+class NNMeasurement(nn.Module):
+    """``log sigmoid(MLP(e_obs ‖ e_state))``, the log taken of the sigmoid's
+    value as in the JAX package (not ``logsigmoid``: the two differ where
+    the sigmoid saturates in float32)."""
+
+    def __init__(self, hidden_size: int = 32, state_dim: int = 2):
+        super().__init__()
+        self.particle_encoder = ParticleEncoder(hidden_size, state_dim)
+        self.likelihood_net = LikelihoodNet(2 * hidden_size)
+
+    def forward(self, encodings: torch.Tensor, particles: torch.Tensor) -> torch.Tensor:
+        e_state = self.particle_encoder(particles)
+        e_obs = encodings[:, None, :].expand_as(e_state)
+        lik = self.likelihood_net(torch.cat([e_obs, e_state], dim=-1))
+        return torch.log(lik[..., 0])
+
+
+class GaussianMeasurement(nn.Module):
+    """``MVN(mean·𝟙, variance·I).log_prob(e_obs − e_state)`` minus the row
+    maximum."""
+
+    def __init__(self, hidden_size: int = 32, state_dim: int = 2, mean: float = 1.0,
+                 variance: float = 100.0):
+        super().__init__()
+        self.particle_encoder = ParticleEncoder(hidden_size, state_dim)
+        self.mean = mean
+        self.variance = variance
+
+    def forward(self, encodings: torch.Tensor, particles: torch.Tensor) -> torch.Tensor:
+        diff = encodings[:, None, :] - self.particle_encoder(particles)
+        h = diff.shape[-1]
+        lik = (-0.5 * h * math.log(2 * math.pi) - 0.5 * h * math.log(self.variance)
+               - 0.5 * torch.sum((diff - self.mean) ** 2, dim=-1) / self.variance)
+        return _minus_row_max(lik)
+
+
+class CRNVPMeasurement(nn.Module):
+    """Conditional-RealNVP density of e_obs given e_state, minus the row
+    maximum: a chain of ``n_sequence`` blocks over the hidden_size-wide
+    encoding, prior N(0, 2.5²), context e_state."""
+
+    def __init__(self, hidden_size: int = 32, n_sequence: int = 2,
+                 flow_hidden_dim: int = 8, state_dim: int = 2):
+        super().__init__()
+        self.particle_encoder = ParticleEncoder(hidden_size, state_dim)
+        self.cnf = realnvp_chain(n_sequence, hidden_size, flow_hidden_dim, 0.01,
+                                 prior_std=2.5, ctx_dim=hidden_size)
+
+    def forward(self, encodings: torch.Tensor, particles: torch.Tensor) -> torch.Tensor:
+        e_state = self.particle_encoder(particles)
+        e_obs = encodings[:, None, :].expand_as(e_state)
+        _, log_prob_z, log_det = self.cnf(e_obs, e_state)
+        return _minus_row_max(log_prob_z + log_det)
+
+
 def build_measurement_model(config: DPFConfig) -> nn.Module:
     """Dispatch on ``--measurement``."""
     kind = config.measurement
     if kind == "cos":
         return CosineMeasurement(config.hidden_size, config.state_dim)
-    if kind in ("NN", "gaussian", "CRNVP"):
-        raise NotImplementedError(
-            f"measurement {kind!r} is not ported yet (ROADMAP queue 1, item 12)")
+    if kind == "NN":
+        return NNMeasurement(config.hidden_size, config.state_dim)
+    if kind == "gaussian":
+        return GaussianMeasurement(config.hidden_size, config.state_dim)
+    if kind == "CRNVP":
+        return CRNVPMeasurement(config.hidden_size, config.n_sequence,
+                                config.flow_hidden_dim, config.state_dim)
     if kind == "CGLOW":
         raise NotImplementedError(
             "measurement 'CGLOW' is not ported yet (ROADMAP queue 1, item 15)")

@@ -1,6 +1,7 @@
-"""NN building blocks: observation encoder/decoder and particle encoder.
+"""NN building blocks: observation encoder/decoder, particle encoder and the
+likelihood head.
 
-Counterparts of ``nfdpf_tpu/models/nets.py:59-145``.  The public functions
+Counterparts of ``nfdpf_tpu/models/nets.py:59-162``.  The public functions
 keep the JAX package's NHWC image layout; the convolutions run in PyTorch's
 NCHW inside.  Layer order is Conv → ReLU → BatchNorm, with the flax
 BatchNorm's rule for running statistics (``FlaxBatchNorm``).
@@ -110,6 +111,20 @@ class ParticleEncoder(nn.Module):
 
     def forward(self, s: torch.Tensor) -> torch.Tensor:
         return self.fc3(F.relu(self.fc2(F.relu(self.fc1(s)))))
+
+
+class LikelihoodNet(nn.Module):
+    """MLP in→64→64→1 + sigmoid, the ``NN`` measurement's head, applied on
+    (..., in)."""
+
+    def __init__(self, in_features: int = 64):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, 64)
+        self.fc2 = nn.Linear(64, 64)
+        self.fc3 = nn.Linear(64, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.fc3(F.relu(self.fc2(F.relu(self.fc1(x))))))
 
 
 @torch.no_grad()

@@ -20,13 +20,14 @@ a tile staged in shared memory; how many rows, warps and column splits a
 launch takes is chosen in ``csrc/sinkhorn.cu`` from (B, N, M).
 
 ``ot_resample_streaming`` is the driver (``ot_resample_pallas``,
-``sinkhorn_pallas.py:291-454``), cold start only.
+``sinkhorn_pallas.py:291-454``), cold or warm started.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -205,13 +206,24 @@ def ot_resample_streaming(
     threshold: float = 1e-3,
     max_iter: int = 100,
     convergence: str = "all",
+    warm_start: Optional[Tuple[torch.Tensor, bool]] = None,
+    warm_eps_factor: float = 16.0,
+    return_potentials: bool = False,
 ):
-    """ε-annealed OT resampling on the streaming kernels, cold start.
+    """ε-annealed OT resampling on the streaming kernels.
 
     The whole Sinkhorn loop runs on detached inputs; the gradient reaches
     ``particles`` only through the values operand of T @ particles, and
     ``probs`` gets none.  Returns ``(particles', uniform probs, identity
-    indices, iters)`` with ``iters`` the raw loop count (a host int).
+    indices, iters)`` with ``iters`` the raw loop count (a host int), and
+    with ``return_potentials`` the loop's final (a_y, b_x) as a fifth item,
+    (B, 2, N).
+
+    ``warm_start=(potentials, valid)``: with ``valid`` (a host bool) the loop
+    starts from the (B, 2, N) ``potentials`` of the previous firing instead
+    of the cold softmin, and anneals only a short tail, from
+    max(min(ε₀, ``warm_eps_factor``·ε), ε) per row; without it the start is
+    cold.  Only the iteration count can change: the loop is detached.
 
     The loop's stopping test is read on the host once per iteration (eager
     PyTorch has no on-device while loop): one device sync per iteration.
@@ -237,8 +249,17 @@ def ot_resample_streaming(
     # Only (a_y, b_x) are live: the self-transport (a_x, b_y) of the
     # symmetric loop never feed them, the stopping test or the plan.
     eps_run = max_min(scaled_x, scaled_x) ** 2
-    init = sm2(eps_run, torch.stack([logw_sg, uniform_logw], dim=1))
-    a_y, b_x = init[:, 0], init[:, 1]
+    if warm_start is not None and warm_start[1]:
+        # a warm firing skips the cold softmin pass altogether
+        potentials = warm_start[0].detach()
+        if potentials.shape != (b, 2, n):
+            raise ValueError(f"warm-start potentials {tuple(potentials.shape)}, "
+                             f"expected {(b, 2, n)}")
+        a_y, b_x = potentials[:, 0], potentials[:, 1]
+        eps_run = torch.maximum(torch.minimum(eps_run, eps_b * warm_eps_factor), eps_b)
+    else:
+        init = sm2(eps_run, torch.stack([logw_sg, uniform_logw], dim=1))
+        a_y, b_x = init[:, 0], init[:, 1]
 
     running = torch.ones(b, dtype=torch.bool, device=dev)
     agg = torch.all if convergence == "all" else torch.any
@@ -276,4 +297,6 @@ def ot_resample_streaming(
     transported = streaming_transport_apply(particles, eps_b, scaled_x, r, c)
     uniform = torch.full_like(probs, 1.0 / n)
     idx = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
+    if return_potentials:
+        return transported, uniform, idx, i, torch.stack([a_y, b_x], dim=1)
     return transported, uniform, idx, i

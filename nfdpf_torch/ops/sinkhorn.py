@@ -1,14 +1,38 @@
-"""Geometry helpers of the ε-annealed Sinkhorn resampler.
+"""Entropy-regularised OT resampling over materialised (B, N, N) costs: the
+ε-annealed Sinkhorn and its geometry helpers.
 
-Counterparts of ``nfdpf_tpu/ops/sinkhorn.py:37-82``.  ``softmin`` over a
-materialised cost is the plain version of the streaming softmin kernel
-(``nfdpf_torch/ops/cuda/sinkhorn_cuda.py``).  The dense loop
-(``sinkhorn_loop``/``ot_resample``) is not ported yet.
+Counterpart of ``nfdpf_tpu/ops/sinkhorn.py``.  ``softmin`` over a
+materialised cost is also the plain version of the streaming softmin kernel
+(``nfdpf_torch/ops/cuda/sinkhorn_cuda.py``), which takes over under
+``use_pallas``.
+
+Gradient topology, as in the JAX package: the annealing loop runs on
+detached potentials (``torch.no_grad()``, where JAX's ``while_loop`` is off
+the tape) and only the final softmin round at the target ε is
+differentiable.  ``ot_resample(transport_grad=False)`` detaches the whole
+plan: the gradient reaches the particles only through ``T @ particles`` and
+never the weights.  With ``transport_grad=True`` the final round stays on
+the tape and the gradient also flows through T into particles and weights.
+
+The loop stops on data, so each loop test is read on the host: one device
+sync per test in eager PyTorch.  ``DENSE_LOOP`` counts the firings, the
+iterations (as the JAX package counts them, ``i + 2``) and these syncs.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
+
+# dense Sinkhorn loops since the last reset: calls, iterations, host syncs
+DENSE_LOOP = {"calls": 0, "iters": 0, "host_syncs": 0}
+
+
+def reset_dense_loop() -> None:
+    for k in DENSE_LOOP:
+        DENSE_LOOP[k] = 0
 
 
 def squared_distances(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -53,3 +77,133 @@ def softmin(epsilon, cost_matrix: torch.Tensor, f: torch.Tensor) -> torch.Tensor
                           device=cost_matrix.device).expand(cost_matrix.shape[0])
     val = f[:, None, :] - cost_matrix / eps[:, None, None]
     return -eps[:, None] * torch.logsumexp(val, dim=2)
+
+
+def sinkhorn_loop(
+    log_alpha: torch.Tensor,
+    log_beta: torch.Tensor,
+    cost_xy: torch.Tensor,
+    cost_yx: torch.Tensor,
+    epsilon: float,
+    particles_diameter: torch.Tensor,
+    scaling: float,
+    threshold: float,
+    max_iter: int,
+    convergence: str = "all",
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """ε-annealed symmetric Sinkhorn from ε₀ = diameter² down to ``epsilon``,
+    then one differentiable softmin round at the target ε from the loop's
+    detached potentials.  Returns (a_y, b_x, iterations) with iterations the
+    loop count plus 2, as the JAX package reports it.
+
+    Only (a_y, b_x) are live: the self-transport potentials of the symmetric
+    loop never feed them, the stopping test or the plan.
+    """
+    if convergence not in ("all", "any"):
+        raise ValueError(f"convergence must be 'all' or 'any', got {convergence!r}")
+    batch = log_alpha.shape[0]
+    dev = cost_xy.device
+    eps_target = torch.full((batch,), epsilon, dtype=cost_xy.dtype, device=dev)
+    scaling_factor = scaling**2
+    agg = torch.all if convergence == "all" else torch.any
+
+    with torch.no_grad():
+        eps_run = particles_diameter**2
+        a_y = softmin(eps_run, cost_yx, log_alpha)
+        b_x = softmin(eps_run, cost_xy, log_beta)
+        running = torch.ones(batch, dtype=torch.bool, device=dev)
+        i = 0
+        # continue while i < max_iter-1 and every ('all') / some ('any') row
+        # is still running
+        while i < max_iter - 1:
+            DENSE_LOOP["host_syncs"] += 1
+            if not bool(agg(running)):
+                break
+            eps_col = eps_run[:, None]
+            run = running[:, None]
+            at_y = torch.where(run, softmin(eps_run, cost_yx, log_alpha + b_x / eps_col), a_y)
+            bt_x = torch.where(run, softmin(eps_run, cost_xy, log_beta + a_y / eps_col), b_x)
+            a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
+            a_diff = torch.amax(torch.abs(a_y_new - a_y), dim=1)
+            b_diff = torch.amax(torch.abs(b_x_new - b_x), dim=1)
+            local = (a_diff > threshold) | (b_diff > threshold)
+            new_eps = torch.maximum(eps_run * scaling_factor, eps_target)
+            running = (new_eps < eps_run) | local
+            a_y, b_x, eps_run = a_y_new, b_x_new, new_eps
+            i += 1
+    DENSE_LOOP["calls"] += 1
+    DENSE_LOOP["iters"] += i + 2
+
+    eps_col = eps_target[:, None]
+    final_a_y = softmin(eps_target, cost_yx, log_alpha + b_x / eps_col)
+    final_b_x = softmin(eps_target, cost_xy, log_beta + a_y / eps_col)
+    return final_a_y, final_b_x, i + 2
+
+
+def sinkhorn_potentials(log_alpha, x, log_beta, y, epsilon: float, scaling: float,
+                        threshold: float, max_iter: int, convergence: str = "all"):
+    """Cost matrices (each detaching its second operand) and the annealed
+    loop, with the detached ``max_min`` scale as the diameter."""
+    cost_xy = cost(x, y.detach())
+    cost_yx = cost(y, x.detach())
+    scale = max_min(x, y).detach()
+    return sinkhorn_loop(log_alpha, log_beta, cost_xy, cost_yx, epsilon, scale,
+                         scaling, threshold, max_iter, convergence)
+
+
+def transport_from_potentials(x: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+                              eps: float, logw: torch.Tensor, n: int) -> torch.Tensor:
+    """Column-normalised transport matrix T_ij = n·w_j·softmax_i((f_i + g_j −
+    C_ij)/ε): each column j sums to n·w_j, so ``T @ x`` with uniform output
+    weights keeps the weighted empirical measure."""
+    fg = f[:, :, None] + g[:, None, :]
+    temp = (fg - cost(x, x)) / eps
+    temp = temp - torch.logsumexp(temp, dim=1, keepdim=True) + math.log(n)
+    return torch.exp(temp + logw[:, None, :])
+
+
+def sinkhorn_transport(x: torch.Tensor, logw: torch.Tensor, eps: float, scaling: float,
+                       threshold: float, max_iter: int, convergence: str = "all") -> torch.Tensor:
+    """The transport matrix: centre, scale by the detached diameter·√d, run
+    the Sinkhorn against the uniform measure on the same support, assemble T."""
+    n, d = x.shape[1], x.shape[-1]
+    uniform_logw = torch.full_like(logw, -math.log(n))
+    centered = x - torch.mean(x, dim=1, keepdim=True).detach()
+    scale = (diameter(x, x)[:, None, None] * math.sqrt(d)).detach()
+    scaled_x = centered / scale
+    alpha, beta, _ = sinkhorn_potentials(logw, scaled_x, uniform_logw, scaled_x, eps,
+                                         scaling, threshold, max_iter, convergence)
+    return transport_from_potentials(scaled_x, alpha, beta, eps, logw, n)
+
+
+def ot_resample(
+    particles: torch.Tensor,
+    probs: torch.Tensor,
+    eps: float = 0.1,
+    scaling: float = 0.75,
+    threshold: float = 1e-3,
+    max_iter: int = 100,
+    transport_grad: bool = False,
+    convergence: str = "all",
+):
+    """Entropy-regularised OT resampling over a materialised plan.
+
+    particles: (B, N, d); probs: (B, N) linear weights.  Returns
+    (T @ particles, uniform probs, identity ancestor indices): OT has no
+    discrete ancestors.  ``transport_grad=False`` detaches T (the gradient
+    reaches the particles through the product only); True keeps the final
+    Sinkhorn round on the tape.
+    """
+    batch, n, _ = particles.shape
+    logw = torch.log(probs)
+    if transport_grad:
+        t = sinkhorn_transport(particles, logw, eps, scaling, threshold, max_iter,
+                               convergence)
+    else:
+        with torch.no_grad():
+            t = sinkhorn_transport(particles.detach(), logw.detach(), eps, scaling,
+                                   threshold, max_iter, convergence)
+    transported = torch.einsum("bij,bjd->bid", t, particles)
+    uniform = torch.full_like(probs, 1.0 / n)
+    idx = torch.arange(n, dtype=torch.int32, device=particles.device).expand(batch, n)
+    return transported, uniform, idx

@@ -381,3 +381,168 @@ def test_coupling_chain_refuses_what_the_kernels_do_not_take(cuda):
         cc.fused_coupling_chain(x, ctx, w, bias)
     with pytest.raises(ValueError, match="several devices"):
         cc.fused_coupling_chain(x.cpu(), ctx, w, bias)
+
+
+# ---------------------------------------------------------------------------
+# the paths around the kernels: dense OT, the warm start, soft resampling and
+# the measurement models, on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport_grad", [False, True], ids=["detached", "transport_grad"])
+def test_dense_ot_resample_matches_cpu(cuda, transport_grad):
+    """Dense OT over materialised costs at the filter's (32, 100): the same
+    loop iterations, particles within atol 1e-3 (magnitude 60), the
+    gradient against the particles (and, with transport_grad, the weights)
+    within ‖Δ‖/‖g‖ 1e-3, the card's gradient limit against the CPU
+    (``PERF.md`` §2); no kernel launches."""
+    from nfdpf_torch.ops import sinkhorn as ts
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(32, 100, 2, generator=gen) * 20
+    probs = torch.softmax(torch.randn(32, 100, generator=gen), dim=-1)
+    probe = torch.randn(32, 100, 2, generator=gen)
+    runs = {}
+    for dev in ("cpu", cuda):
+        tx, tw = x.to(dev).requires_grad_(), probs.to(dev).requires_grad_()
+        ts.reset_dense_loop()
+        sc.reset_launches()
+        out, _, _ = ts.ot_resample(tx, tw, transport_grad=transport_grad)
+        grads = torch.autograd.grad(torch.sum(out * probe.to(dev)), [tx, tw], allow_unused=True)
+        runs[str(dev)] = (out.detach().cpu(), [g if g is None else g.cpu() for g in grads],
+                          dict(ts.DENSE_LOOP))
+        assert not any(sc.LAUNCHES.values())
+    (p_cpu, g_cpu, loop_cpu), (p_gpu, g_gpu, loop_gpu) = runs["cpu"], runs["cuda"]
+    assert loop_gpu == loop_cpu and loop_cpu["iters"] > 2
+    torch.testing.assert_close(p_gpu, p_cpu, rtol=1e-5, atol=1e-3)
+    for got, ref in zip(g_gpu, g_cpu):
+        if ref is None:
+            assert got is None and not transport_grad
+        else:
+            assert float((got - ref).norm() / ref.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_warm_start_on_kernels_matches_plain(cuda, warm):
+    """The streaming resampler's second firing, warm-started from the first
+    one's potentials or cold, on the kernels against the plain versions:
+    the same iterations, particles within atol 1e-3, potentials within
+    atol 1e-4; the warm firing takes fewer iterations than the cold."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(32, 100, 2, generator=gen) * 20
+    probs = torch.softmax(torch.randn(32, 100, generator=gen), dim=-1)
+    x2 = x + 0.5 * torch.randn(32, 100, 2, generator=gen)
+    probs2 = torch.softmax(torch.log(probs) * 1.1, dim=-1)
+    runs = {}
+    for dev in ("cpu", cuda):
+        *_, pots = sc.ot_resample_streaming(x.to(dev), probs.to(dev), return_potentials=True)
+        start = (pots, True) if warm else None
+        out, _, _, iters, pots2 = sc.ot_resample_streaming(
+            x2.to(dev), probs2.to(dev), warm_start=start, return_potentials=True)
+        runs[str(dev)] = (out.cpu(), iters, pots2.cpu())
+    (p_cpu, it_cpu, pot_cpu), (p_gpu, it_gpu, pot_gpu) = runs["cpu"], runs["cuda"]
+    assert it_gpu == it_cpu > 0
+    torch.testing.assert_close(p_gpu, p_cpu, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(pot_gpu, pot_cpu, rtol=1e-5, atol=1e-4)
+    if warm:
+        _, _, _, cold_iters = sc.ot_resample_streaming(x2, probs2)
+        assert it_cpu < cold_iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["NN", "gaussian", "CRNVP"])
+def test_measurement_models_match_cpu(cuda, kind):
+    """Each measurement model at the filter's (32, 100) on the card against
+    the CPU from the same parameters (the CRNVP flow's scaled ×10 from its
+    init): log-likelihoods within rtol 1e-5 / atol 1e-4, the gradient
+    against the encodings, the particles and every parameter within
+    ‖Δ‖/‖g‖ 1e-4."""
+    from nfdpf_torch.config import DPFConfig
+    from nfdpf_torch.models.measurement import build_measurement_model
+    from nfdpf_torch.models.nets import flax_init_
+
+    model = build_measurement_model(DPFConfig(measurement=kind))
+    flax_init_(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("cnf."):
+                p.mul_(10.0)
+    gen = torch.Generator().manual_seed(3)
+    enc = torch.randn(32, 32, generator=gen)
+    particles = torch.randn(32, 100, 2, generator=gen) * 40
+    probe = torch.randn(32, 100, generator=gen)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model.to(dev)
+        te, tp = enc.to(dev).requires_grad_(), particles.to(dev).requires_grad_()
+        lik = model(te, tp)
+        wanted = [te, tp] + list(model.parameters())
+        grads = torch.autograd.grad(torch.sum(lik * probe.to(dev)), wanted)
+        runs[str(dev)] = (lik.detach().cpu(), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-5, atol=1e-4)
+    for got, ref in zip(g_gpu, g_cpu):
+        assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-4
+
+
+def _tie_free_index_mismatches(idx_a, idx_b, cum, markers, tol=1e-6):
+    """(positions where the indices differ and no marker lies within ``tol``
+    of a cumulative boundary, positions excused as such ties)."""
+    near = ((markers[:, :, None] - cum[:, None, :]).abs() <= tol).any(-1)
+    differ = idx_a != idx_b
+    return int((differ & ~near).sum()), int((differ & near).sum())
+
+
+@pytest.mark.cuda
+def test_soft_indices_match_cpu_away_from_ties(cuda):
+    """The markers' grid has the CPU's bits on the card.  Systematic indices
+    from the same weights and offsets at (32, 100), 50 times: the card and
+    the CPU pick the same ancestor wherever the marker
+    is not within 1e-6 of a cumulative boundary (``torch.cumsum`` may differ
+    in its last bit between devices); the ties excused are printed."""
+    from nfdpf_torch.ops.resampling import systematic_basic, systematic_indices
+
+    for n in (100, 10240):      # the markers' grid: the same bits on both devices
+        assert torch.equal(systematic_basic(n, cuda).cpu(), systematic_basic(n))
+    gen = torch.Generator().manual_seed(4)
+    excused = 0
+    for _ in range(50):
+        q = torch.softmax(torch.randn(32, 100, generator=gen) * 3, dim=-1)
+        offset = torch.rand(32, 1, generator=gen) / 100
+        idx_cpu = systematic_indices(q, offset)
+        idx_gpu = systematic_indices(q.to(cuda), offset.to(cuda)).cpu()
+        cum = torch.cumsum(q, dim=1)
+        bad, ties = _tie_free_index_mismatches(idx_gpu, idx_cpu, cum,
+                                               offset + systematic_basic(100)[None, :])
+        assert bad == 0
+        excused += ties
+    print(f"soft indices: {excused} ties excused")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides", [dict(use_pallas=False), dict(resampler_type="soft")],
+                         ids=["dense_ot", "soft"])
+def test_dense_and_soft_paths_launch_no_streaming_kernel(cuda, overrides):
+    """The filter on the card, resampling every step: dense OT and soft
+    resampling run no streaming kernel (the counters stay at 0), and the
+    dense path runs its own loop on every firing."""
+    from nfdpf_torch.config import DPFConfig
+    from nfdpf_torch.models.dpf import DPF
+    from nfdpf_torch.ops import sinkhorn as ts
+
+    cfg = DPFConfig(**{"num_particles": 100, "sequence_length": 5, "batch_size": 4,
+                       "ess_threshold": 1.01, "use_pallas": True, **overrides})
+    engine = DPF(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    enc = torch.randn(4, 5, 32, device=cuda, generator=gen)
+    start = torch.randn(4, 4, device=cuda, generator=gen) * 10
+    vel = torch.randn(4, 5, 2, device=cuda, generator=gen)
+    sc.reset_launches()
+    ts.reset_dense_loop()
+    with torch.no_grad():
+        out = engine.filter_from_encodings(enc, start, vel, generator=gen)
+    assert bool(out.resampled.all()) and bool(torch.isfinite(out.particles).all())
+    assert not any(sc.LAUNCHES.values())
+    assert ts.DENSE_LOOP["calls"] == (5 if cfg.resampler_type == "ot" else 0)

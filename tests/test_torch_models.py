@@ -1,9 +1,10 @@
 """nfdpf_torch models vs the JAX package: the networks through the parameter
-bridge (train and eval mode, BN running statistics), the bootstrap dynamics
-and measurement, and the filter loop on the streaming-OT path (the flows and
-the CNF-DPF slice are in tests/test_torch_flows.py and test_torch_cnf.py).  Inputs and
-noise come from numpy / the JAX key schedule; the JAX Pallas kernels run in
-interpret mode."""
+bridge (train and eval mode, BN running statistics), the bootstrap dynamics,
+the four measurement models the port runs, and the filter loop on each
+resampling path: streaming OT, dense OT, soft, the warm start, and the NF-DPF
+with the CRNVP measurement (the flows and the CNF-DPF slice are in
+tests/test_torch_flows.py and test_torch_cnf.py).  Inputs and noise come from
+numpy / the JAX key schedule; the JAX Pallas kernels run in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -109,6 +110,60 @@ def test_cosine_measurement_matches_jax(engines):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
+MEASUREMENTS = ("NN", "gaussian", "CRNVP")
+
+
+def _scale_tree(tree, keys, factor):
+    """``tree`` with the subtrees under ``keys`` multiplied by ``factor``."""
+    return {k: (jax.tree_util.tree_map(lambda a: a * factor, v) if k in keys else v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("kind", MEASUREMENTS)
+def test_measurement_model_matches_jax(kind):
+    """NN, gaussian and CRNVP through the bridge (which must cover every
+    parameter): log-likelihoods within rtol/atol 1e-5, their gradient
+    against the encodings and the particles within rtol 1e-4 / atol 1e-5.
+    The CRNVP flow's weights are scaled ×10 from their N(0, 0.01²) init so
+    that it is not near the identity."""
+    cfg = dict(SLICE, measurement=kind)
+    je = JaxDPF(JaxConfig(**cfg))
+    variables = je.init(jax.random.PRNGKey(4))
+    if kind == "CRNVP":
+        variables["measurement"] = {"params": _scale_tree(
+            variables["measurement"]["params"], ("cnf",), 10.0)}
+    pe = DPF(DPFConfig(**cfg), device="cpu")
+    np_vars = _np_tree(variables)
+    assert set(torch_state_from_jax(np_vars)) == set(pe.state_dict())
+    load_jax_variables(pe, np_vars)
+    rng = np.random.default_rng(5)
+    enc = rng.standard_normal((B, 32)).astype(np.float32)
+    particles = (rng.standard_normal((B, N, 2)) * 40).astype(np.float32)
+    probe = rng.standard_normal((B, N)).astype(np.float32)
+
+    def fn(e, p):
+        return je.measurement.apply(variables["measurement"], e, p)
+
+    ref = fn(jnp.asarray(enc), jnp.asarray(particles))
+    g_ref = jax.grad(lambda e, p: jnp.sum(fn(e, p) * probe), argnums=(0, 1))(
+        jnp.asarray(enc), jnp.asarray(particles))
+    te, tp = torch.from_numpy(enc).requires_grad_(), torch.from_numpy(particles).requires_grad_()
+    got = pe.measurement(te, tp)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    grads = torch.autograd.grad(torch.sum(got * torch.from_numpy(probe)), [te, tp])
+    for g, r in zip(grads, g_ref):
+        assert float(np.abs(np.asarray(r)).max()) > 0
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
+
+
+def test_bridge_refuses_a_measurement_it_cannot_map(engines):
+    _, variables, pe = engines
+    tree = _np_tree(variables)
+    tree["measurement"]["params"]["cglow"] = {}
+    with pytest.raises(KeyError, match="cglow"):
+        load_jax_variables(pe, tree)
+
+
 def test_flax_batchnorm_running_variance_is_biased():
     """torch's BatchNorm stores the unbiased variance; the flax rule the port
     follows stores the biased one."""
@@ -162,15 +217,19 @@ def test_particle_initialization_modes():
 
 
 def _jax_filter_noise(key, width=128.0):
-    """Replay the JAX filter's key schedule (dpf.py:325,384; dynamics.py:38)."""
+    """Replay the JAX filter's key schedule (dpf.py:325,384; dynamics.py:38;
+    the soft resampler's offsets, resampling.py:46)."""
     k_init, k_scan = jax.random.split(key)
     init = jax.random.uniform(k_init, (B, N, 2), minval=-width / 2, maxval=width / 2)
-    motion, k = [], k_scan
+    motion, offsets, k = [], [], k_scan
     for _ in range(T):
-        k, _, k_motion = jax.random.split(k, 3)
+        k, k_rs, k_motion = jax.random.split(k, 3)
         motion.append(np.asarray(jax.random.normal(k_motion, (B, N, 2))))
+        offsets.append(np.asarray(jax.random.uniform(k_rs, (B, 1), minval=0.0,
+                                                     maxval=1.0 / N)))
     return {"init": torch.tensor(np.asarray(init)),
-            "motion": torch.from_numpy(np.stack(motion))}
+            "motion": torch.from_numpy(np.stack(motion)),
+            "resample": torch.from_numpy(np.stack(offsets))}
 
 
 def test_filter_from_encodings_matches_jax():
@@ -211,26 +270,128 @@ def test_filter_from_encodings_matches_jax():
                                    rtol=1e-5, atol=atol, err_msg=field)
 
 
+# the resampling paths beside the streaming one, as (overrides, atol on the
+# particles, atol on the log terms): the bootstrap filter's tolerances, and
+# the CNF-DPF's (tests/test_torch_cnf.py) where the flows run
+FILTER_PATHS = {
+    "dense_ot": (dict(use_pallas=False), 2e-4, 1e-5),
+    # the Gaussian measurement weighs the particles unevenly enough that
+    # systematic resampling moves indices
+    "soft": (dict(resampler_type="soft", measurement="gaussian"), 2e-4, 1e-5),
+    "soft_alpha1": (dict(resampler_type="soft", alpha=1.0, measurement="gaussian"), 2e-4,
+                    1e-5),
+    "warm_start": (dict(sinkhorn_warm_start=True), 2e-4, 1e-5),
+    "nfdpf_crnvp": (dict(measurement="CRNVP", nf_dyn=True, nf_cond=True,
+                         pallas_coupling=True), 5e-4, 1e-4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FILTER_PATHS))
+def test_filter_path_matches_jax(case):
+    """B=2, N=16, T=5 with random encodings and the JAX noise (the soft
+    resampler's offsets replayed per step from ``k_rs``), every step
+    resampled; every flow and the CRNVP measurement's scaled ×10 from their
+    init.  Gate steps, ancestor
+    indices and Sinkhorn iteration counts (0 off the streaming path) equal;
+    histories within rtol 1e-5 and the case's atol."""
+    overrides, atol_p, atol_log = FILTER_PATHS[case]
+    cfg = dict(SLICE, ess_threshold=1.01, **overrides)
+    je = JaxDPF(JaxConfig(**cfg))
+    variables = _scale_tree(je.init(jax.random.PRNGKey(0)), ("nf_dyn", "cond_model"), 10.0)
+    variables["measurement"] = {"params": _scale_tree(
+        variables["measurement"]["params"], ("cnf",), 10.0)}
+    rng = np.random.default_rng(0)
+    enc = rng.standard_normal((B, T, 32)).astype(np.float32)
+    start = (rng.standard_normal((B, 4)) * 10).astype(np.float32)
+    vel = (rng.standard_normal((B, T, 2)) * 2).astype(np.float32)
+    key = jax.random.PRNGKey(100)
+    ref = jax.tree_util.tree_map(np.asarray, je.filter_from_encodings(
+        variables, jnp.asarray(enc), jnp.asarray(start), jnp.asarray(vel), key, train=True))
+
+    pe = DPF(DPFConfig(**cfg), device="cpu")
+    load_jax_variables(pe, _np_tree(variables))
+    with torch.no_grad():
+        out = pe.filter_from_encodings(torch.from_numpy(enc), torch.from_numpy(start),
+                                       torch.from_numpy(vel), _jax_filter_noise(key))
+    assert out.resampled.all()
+    np.testing.assert_array_equal(out.resampled.numpy(), ref.resampled)
+    np.testing.assert_array_equal(out.sinkhorn_iters.numpy(), ref.sinkhorn_iters)
+    assert (ref.sinkhorn_iters > 0).any() == (case in ("warm_start", "nfdpf_crnvp"))
+    np.testing.assert_array_equal(out.indices.numpy(), ref.indices)
+    if case.startswith("soft"):
+        assert (ref.indices != np.arange(N)).any()
+    for field, atol in (("particles", atol_p), ("weights", 1e-6), ("noise", 1e-4),
+                        ("likelihoods", atol_log), ("jacobians", atol_log),
+                        ("priors", atol_log), ("init_weights_log", 1e-6),
+                        ("obs_likelihood", atol_log)):
+        np.testing.assert_allclose(getattr(out, field).numpy(), getattr(ref, field),
+                                   rtol=1e-5, atol=atol, err_msg=field)
+
+
+# settings the port does not run yet, with the ROADMAP item each error names
 UNSUPPORTED = {
-    "measurement_NN": dict(measurement="NN"),
-    "measurement_CGLOW": dict(measurement="CGLOW"),
-    "soft_resampler": dict(resampler_type="soft"),
-    "dense_ot": dict(use_pallas=False),
-    "ot_transport_grad": dict(ot_transport_grad=True),
-    "warm_start": dict(sinkhorn_warm_start=True),
-    "encode_per_step": dict(encode_per_step=True),
-    "remat": dict(remat_scan_step=True),
-    "bf16": dict(compute_dtype="bfloat16"),
-    "sdpf": dict(train_type="SDPF"),
-    "torch_init": dict(torch_init=True),
-    "mesh": dict(mesh_data=2),
+    "measurement_CGLOW": (dict(measurement="CGLOW"), 15),
+    "encode_per_step": (dict(encode_per_step=True), 18),
+    "remat": (dict(remat_scan_step=True), 18),
+    "bf16": (dict(compute_dtype="bfloat16"), 18),
+    "sdpf": (dict(train_type="SDPF"), 13),
+    "torch_init": (dict(torch_init=True), 4),
+    "mesh": (dict(mesh_data=2), 19),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unported_settings_raise(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        DPF(DPFConfig(**dict(SLICE, **UNSUPPORTED[case])), device="cpu")
+    overrides, item = UNSUPPORTED[case]
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item {item}\)"):
+        DPF(DPFConfig(**dict(SLICE, **overrides)), device="cpu")
+
+
+def _train_batch(seed):
+    rng = np.random.default_rng(seed)
+    return {"image": rng.random((B, T, 128, 128, 3), dtype=np.float32),
+            "state": (rng.standard_normal((B, T, 4)) * 10).astype(np.float32),
+            "start_state": (rng.standard_normal((B, 4)) * 10).astype(np.float32)}
+
+
+# settings the port refused until it ran them, and the two other
+# measurement models
+PORTED = {
+    "measurement_NN": dict(measurement="NN"),
+    "measurement_gaussian": dict(measurement="gaussian"),
+    "measurement_CRNVP": dict(measurement="CRNVP"),
+    "soft_resampler": dict(resampler_type="soft"),
+    "dense_ot": dict(use_pallas=False),
+    "ot_transport_grad": dict(ot_transport_grad=True),
+    "warm_start": dict(sinkhorn_warm_start=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_settings_take_a_train_step(case):
+    """Each setting builds on the CPU and takes one train step from the
+    generator, resampling every step: finite losses, every firing counted,
+    Sinkhorn iterations only on the streaming path, and a finite gradient
+    for every parameter of the measurement model."""
+    cfg = DPFConfig(**dict(SLICE, ess_threshold=1.01, **PORTED[case]))
+    trainer = Trainer(cfg, device="cpu")
+    metrics = trainer.train_step(_train_batch(8), generator=trainer.generator(0))
+    assert all(np.isfinite(float(metrics[k])) for k in ("loss", "loss_sup", "loss_ae"))
+    assert metrics["resample_count"] == T
+    assert (metrics["sinkhorn_iters"] > 0) == (case in ("measurement_NN", "measurement_gaussian",
+                                                        "measurement_CRNVP", "warm_start"))
+    grads = [p.grad for p in trainer.engine.measurement.parameters()]
+    assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("overrides", [dict(resampler_type="soft"), dict(use_pallas=False),
+                                       dict(ot_transport_grad=True)],
+                         ids=["soft", "dense_ot", "ot_transport_grad"])
+def test_warm_start_off_the_streaming_path_raises(overrides):
+    """The warm start runs on the streaming OT path only: any other
+    resampling path is refused when the filter is built."""
+    with pytest.raises(ValueError, match="sinkhorn_warm_start"):
+        DPF(DPFConfig(**dict(SLICE, sinkhorn_warm_start=True, **overrides)), device="cpu")
 
 
 # chains the CUDA coupling kernels do not take, as (overrides, refused on CUDA)

@@ -1,7 +1,9 @@
 """nfdpf_torch trainer vs the JAX package: one full training step (loss,
 every parameter gradient, the parameters after Adam, the BN running
-statistics), the eval step, and the package's boundaries (no JAX import,
-no silent CPU fallback).  The JAX Pallas kernels run in interpret mode; the
+statistics) of the bootstrap DPF on streaming OT, of bench.py's
+configuration (dense OT) and of the NF-DPF with the CRNVP measurement, the
+eval step, and the package's boundaries (no JAX import, no silent CPU
+fallback).  The JAX Pallas kernels run in interpret mode; the
 port runs on the CPU through the kernels' plain versions."""
 
 import subprocess
@@ -47,17 +49,21 @@ def _batch(seed):
 
 def _jax_loss_noise(key, width=128.0):
     """Replay the JAX key schedule of ``Trainer._loss`` (train.py:90-91) and
-    the filter (dpf.py:325,384; dynamics.py:38) as the port's noise dict."""
+    the filter (dpf.py:325,384; dynamics.py:38; the soft resampler's
+    offsets, resampling.py:46) as the port's noise dict."""
     k_vel, k_filter, _ = jax.random.split(key, 3)
     k_init, k_scan = jax.random.split(k_filter)
     init = jax.random.uniform(k_init, (B, N, 2), minval=-width / 2, maxval=width / 2)
-    motion, k = [], k_scan
+    motion, offsets, k = [], [], k_scan
     for _ in range(T):
-        k, _, k_motion = jax.random.split(k, 3)
+        k, k_rs, k_motion = jax.random.split(k, 3)
         motion.append(np.asarray(jax.random.normal(k_motion, (B, N, 2))))
+        offsets.append(np.asarray(jax.random.uniform(k_rs, (B, 1), minval=0.0,
+                                                     maxval=1.0 / N)))
     return {"vel": torch.tensor(np.asarray(jax.random.normal(k_vel, (B, T, 2)))),
             "init": torch.tensor(np.asarray(init)),
-            "motion": torch.from_numpy(np.stack(motion))}
+            "motion": torch.from_numpy(np.stack(motion)),
+            "resample": torch.from_numpy(np.stack(offsets))}
 
 
 def _variables(params, rest):
@@ -149,6 +155,106 @@ def test_train_step_matches_jax(jax_step):
     after = torch_state_from_jax(_variables(js["new_params"], aux["new_rest"]))
     buffers = dict(trainer.engine.named_buffers())
     for name, buf in buffers.items():
+        np.testing.assert_allclose(buf.numpy(), after[name], rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+
+
+# bench.py's configuration (dense OT: use_pallas off, bench.py:92-99) with the
+# gate firing as in CFG, and the paper's NF-DPF (RealNVP dynamics and
+# proposal on the packed chains, CRNVP measurement) firing every step
+PATHS = {
+    "bench_dense_ot": dict(CFG, use_pallas=False),
+    "nfdpf_crnvp": dict(CFG, ess_threshold=1.01, nf_dyn=True, nf_cond=True,
+                        pallas_coupling=True, measurement="CRNVP"),
+}
+FLOWS = ("nf_dyn.", "cond_model.")
+
+
+@pytest.fixture(scope="module", params=sorted(PATHS))
+def path_step(request):
+    """One JAX value_and_grad + Adam step of a path; every flow's weights
+    (both chains and the CRNVP measurement's) scaled ×10 from their
+    N(0, 0.01²) init, as tests/test_torch_cnf.py does."""
+    cfg = PATHS[request.param]
+    trainer = JaxTrainer(JaxConfig(**cfg))
+    state = trainer.init_state(jax.random.PRNGKey(0))
+    scale = lambda t: jax.tree_util.tree_map(lambda a: a * 10.0, t)  # noqa: E731
+    params = {k: scale(v) if k in ("nf_dyn", "cond_model") else v
+              for k, v in state.params.items()}
+    if "cnf" in params["measurement"]:
+        params["measurement"] = dict(params["measurement"], cnf=scale(params["measurement"]["cnf"]))
+    opt_state = trainer.tx.init(params)
+    batch = _batch(1)
+    key = jax.random.PRNGKey(5)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    @jax.jit
+    def step(params):
+        (loss, aux), grads = jax.value_and_grad(trainer._loss, has_aux=True)(
+            params, state.rest, jbatch, key, True)
+        updates, _ = trainer.tx.update(grads, opt_state, params)
+        return loss, aux, grads, optax.apply_updates(params, updates)
+
+    loss, aux, grads, new_params = step(params)
+    return dict(name=request.param, cfg=cfg, params=params, rest=state.rest, batch=batch,
+                key=key, loss=loss, aux=aux, grads=grads, new_params=new_params)
+
+
+def test_path_train_step_matches_jax(path_step):
+    """One train step of each path against the JAX one, at the tolerances of
+    ``test_train_step_matches_jax`` (the two RealNVP chains at
+    tests/test_torch_cnf.py's 1e-3): loss terms rtol 1e-5; firings exact and
+    Sinkhorn iterations exact (0 on the dense path, as in the JAX package);
+    every gradient as ‖g − g_jax‖/‖g_jax‖ per tensor 1e-4, the decoder's
+    1e-2; a chain the path does not run gets none (JAX: zero); the
+    parameters after the step are Adam on the port's gradient, atol 1e-7;
+    BN running statistics rtol 1e-4 / atol 1e-5."""
+    js = path_step
+    cfg = js["cfg"]
+    trainer = Trainer(DPFConfig(**cfg), device="cpu")
+    load_jax_variables(trainer.engine, _variables(js["params"], js["rest"]))
+    before = {k: v.detach().clone() for k, v in trainer.engine.named_parameters()}
+    metrics = trainer.train_step(js["batch"], noise=_jax_loss_noise(js["key"]))
+
+    aux = js["aux"]
+    assert metrics["resample_count"] == int(aux["resample_count"]) > 0
+    assert metrics["sinkhorn_iters"] == int(aux["sinkhorn_iters"])
+    assert (metrics["sinkhorn_iters"] > 0) == cfg["use_pallas"]
+    for k, ref in (("loss", js["loss"]), ("loss_sup", aux["loss_sup"]),
+                   ("loss_ae", aux["loss_ae"]), ("obs_likelihood", aux["obs_likelihood"])):
+        np.testing.assert_allclose(float(metrics[k]), float(ref), rtol=1e-5, err_msg=k)
+
+    grads = torch_state_from_jax(
+        {k: {"params": v} for k, v in _np_tree(js["grads"]).items()})
+    named = dict(trainer.engine.named_parameters())
+    assert set(grads) == set(named)
+    flows_on = cfg.get("nf_dyn", False)
+    for name, g_ref in grads.items():
+        grad = named[name].grad
+        if name.startswith(FLOWS) and not flows_on:
+            assert grad is None and not g_ref.any(), name
+            continue
+        assert grad is not None, name
+        bound = (1e-3 if name.startswith(FLOWS) else
+                 1e-2 if name.startswith("decoder.") else 1e-4)
+        if float(np.linalg.norm(g_ref)) > 0:
+            assert _rel(grad.numpy(), g_ref) < bound, name
+        else:
+            assert float(grad.abs().sum()) == 0, name
+    if cfg["measurement"] == "CRNVP":
+        assert sum(float(p.grad.abs().sum())
+                   for p in trainer.engine.measurement.cnf.parameters()) > 0
+
+    tx = optax.adam(DPFConfig().lr)
+    port_grads = {k: np.zeros(tuple(p.shape), np.float32) if p.grad is None else p.grad.numpy()
+                  for k, p in named.items()}
+    params0 = {k: v.numpy() for k, v in before.items()}
+    updates, _ = tx.update(port_grads, tx.init(params0), params0)
+    for name, want in optax.apply_updates(params0, updates).items():
+        np.testing.assert_allclose(named[name].detach().numpy(), np.asarray(want),
+                                   rtol=0, atol=1e-7, err_msg=name)
+    after = torch_state_from_jax(_variables(js["new_params"], aux["new_rest"]))
+    for name, buf in trainer.engine.named_buffers():
         np.testing.assert_allclose(buf.numpy(), after[name], rtol=1e-4, atol=1e-5,
                                    err_msg=name)
 
