@@ -35,16 +35,26 @@ Phases, one line of output each, then the device line last:
    must read 0), with its Sinkhorn iterations per firing and host syncs;
    ``soft``, the soft resampler (no kernel either); ``nfdpf``, the paper's
    NF-DPF (both flows on the coupling kernels, the CRNVP measurement, OT on
-   the streaming kernels: all four kernels);
+   the streaming kernels: all four kernels); ``cglow``, BASELINE config 5:
+   the conditional-GLOW measurement over B·N = 3,200 images of 8×8×3 per
+   time step, the NF dynamics on the coupling kernels (the inverse
+   direction only) and SDPF semi-supervised training (labeled ratio 0.5,
+   blocks of 10 steps), with its pseudo-likelihood.  A counter a slice does
+   not name must read 0;
 4. the warm start: the bootstrap slice's eval filter at full width, cold
    and with ``sinkhorn_warm_start``: the first firing takes the same
    Sinkhorn iterations both ways, the later ones together at most 1.1× the
    cold ones;
 5. parity, for every slice and for the dense path with the transport's
-   gradient, the NN and the gaussian measurement: one loss + gradient on
-   the card (cuda) and on the plain versions (cpu) from the same parameters
-   and noise;
-6. the ``kernels`` JSON line.
+   gradient, the NN and the gaussian measurement and the bootstrap SDPF:
+   one loss + gradient on the card (cuda) and on the plain versions (cpu)
+   from the same parameters, noise and semi-supervised mask;
+6. linalg: the CGLOW's batched log|det| and inverse (plain PyTorch ops, no
+   kernel of ours) and their analytic gradients on the card at (3,200, 12,
+   12), on the weights the 1×1 convolution makes, against float64
+   ``torch.linalg`` on the CPU, with their times and ``torch.linalg``'s on
+   the card;
+7. the ``kernels`` JSON line.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
 script exits non-zero without printing the last line.  The port has no CPU
@@ -90,6 +100,11 @@ DENSE_SLICE = dict(SLICE, use_pallas=False)
 SOFT_SLICE = dict(SLICE, resampler_type="soft")
 # the paper's NF-DPF: the CNF-DPF with the conditional-RealNVP measurement
 NFDPF_SLICE = dict(CNF_SLICE, measurement="CRNVP")
+# BASELINE config 5 (BASELINE.json configs[4]) on one card: the
+# conditional-GLOW measurement, the NF dynamics on the packed chain, SDPF
+# semi-supervised training (block_length 10, the default)
+CGLOW_SLICE = dict(SLICE, measurement="CGLOW", nf_dyn=True, pallas_coupling=True,
+                   train_type="SDPF", labeled_ratio=0.5)
 # the kernels → source and the TPU kernel each replaces
 SINKHORN_CU = "nfdpf_torch/ops/cuda/csrc/sinkhorn.cu"
 COUPLING_CU = "nfdpf_torch/ops/cuda/csrc/coupling.cu"
@@ -109,14 +124,20 @@ AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100",
 BOOTSTRAP_TRAIN = BOOTSTRAP_EVAL = ("sinkhorn_lse", "transport_apply")
 CNF_EVAL = BOOTSTRAP_EVAL + ("coupling_chain", "coupling_chain_inverse")
 CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd")
+# without the proposal flow the dynamics chain runs inverse only: the forward
+# direction is the consistency pass of a proposal
+CGLOW_EVAL = BOOTSTRAP_EVAL + ("coupling_chain_inverse",)
+CGLOW_TRAIN = CGLOW_EVAL + ("transport_apply_bwd", "coupling_chain_bwd")
 # the slices: (settings, kernels launched in the 3 train steps, in the eval
-# step); none at all on the dense and soft paths
+# step; every other counter must read 0); none at all on the dense and soft
+# paths
 SLICES = {
     "slice": (SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL),
     "slice_cnf": (CNF_SLICE, CNF_TRAIN, CNF_EVAL),
     "slice_dense": (DENSE_SLICE, (), ()),
     "slice_soft": (SOFT_SLICE, (), ()),
     "slice_nfdpf": (NFDPF_SLICE, CNF_TRAIN, CNF_EVAL),
+    "slice_cglow": (CGLOW_SLICE, CGLOW_TRAIN, CGLOW_EVAL),
 }
 LSE_TOL = 1e-5     # K1: |err| <= tol + tol·|ref|
 APPLY_TOL = 1e-4   # K2: |err| <= tol·|ref| + tol·max|ref|
@@ -620,8 +641,8 @@ def dense_loop():
 def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile: bool):
     """3 train steps and 1 eval step of one configuration through
     ``Trainer``; the launch counters are set to 0 just before each part and
-    read just after; every counter named must have moved, and where none is
-    named every counter must read 0.  The dense Sinkhorn's loop counts
+    read just after; every counter named must have moved, and every other
+    counter must read 0.  The dense Sinkhorn's loop counts
     (firings, iterations, host syncs) are read the same way, step by step."""
     from nfdpf_torch import DPFConfig
     from nfdpf_torch.ops import sinkhorn as ts
@@ -666,6 +687,7 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
            "median_step_ms": median_s * 1e3,
            "transitions_per_s": transitions / median_s,
            "losses": [s["loss"] for s in steps], "eval_loss": float(ev["loss"]),
+           "loss_pseudolik": [s["loss_pseudolik"] for s in steps],
            "eval_s": eval_s, "resample_count": [s["resample_count"] for s in steps],
            "sinkhorn_iters": [s["sinkhorn_iters"] for s in steps],
            "dense_loop_by_step": [s["dense_loop"] for s in steps],
@@ -708,12 +730,16 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
     if dense != (dense_calls > 0 and eval_dense["calls"] > 0):
         raise AssertionError(f"{name}: dense Sinkhorn loops {dense_calls} (train), "
                              f"{eval_dense['calls']} (eval)")
+    if cfg.train_type == "SDPF" and not all(math.isfinite(s["loss_pseudolik"])
+                                            and s["loss_pseudolik"] != 0 for s in steps):
+        raise AssertionError(f"{name}: pseudo-likelihood {[s['loss_pseudolik'] for s in steps]}")
     for launches, kernels in ((train_launches, train_kernels), (eval_launches, eval_kernels)):
-        for kernel in kernels:
-            if launches[kernel] <= 0:
+        for kernel, count in launches.items():
+            if kernel in kernels and count <= 0:
                 raise AssertionError(f"{name}: kernel {kernel} was not launched on the path")
-        if not kernels and any(launches.values()):
-            raise AssertionError(f"{name}: a path that runs no kernel launched {launches}")
+            if kernel not in kernels and count != 0:
+                raise AssertionError(f"{name}: kernel {kernel} launched {count} times on a "
+                                     f"path that does not run it ({launches})")
     return row
 
 
@@ -772,18 +798,22 @@ def profile_step(trainer, batch):
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
     ours = ("lse_kernel", "apply_kernel", "chain_fwd_kernel", "chain_bwd_kernel")
-    groups = {**{k: 0.0 for k in ours}, "conv (cudnn)": 0.0, "other": 0.0}
+    groups = {**{k: 0.0 for k in ours}, "conv (cudnn)": 0.0, "gemm": 0.0, "other": 0.0}
     counts = {k: 0 for k in ours}
+    conv_words = ("cudnn", "xmma", "grad_alg", "dgrad", "wgrad", "implicit_gemm", "fprop",
+                  "nchwToNhwc", "nhwcToNchw")
     for r in rows:
         # whole names only: Adam's multi_tensor_apply_kernel is not K2
         key = next((k for k in ours if re.search(rf"(?<![A-Za-z0-9_]){k}\b", r["name"])),
                    None)
         if key is not None:
             counts[key] += r["count"]
-        if key is None:
-            key = "conv (cudnn)" if any(w in r["name"] for w in
-                                        ("cudnn", "xmma", "grad_alg", "dgrad", "wgrad",
-                                         "implicit_gemm", "nchwToNhwc", "nhwcToNchw")) else "other"
+        elif (any(w in r["name"] for w in ("gemm", "gemv", "splitK"))
+              and not any(w in r["name"] for w in ("cudnn", "implicit_gemm", "fprop", "dgrad",
+                                                    "wgrad"))):
+            key = "gemm"        # dense layers, patch convolutions, batched 12×12 products
+        else:
+            key = "conv (cudnn)" if any(w in r["name"] for w in conv_words) else "other"
         groups[key] += r["device_ms"]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
@@ -792,14 +822,21 @@ def profile_step(trainer, batch):
             "top": rows[:25]}
 
 
-def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
-    """One loss + backward from the same parameters and noise on the card
-    (cuda: the kernels where the path has them) and on the plain versions
-    (cpu): B=4, T=10, N=100.  ``flow_scale`` multiplies every flow's initial
-    N(0, 0.01²) weights (the chains' and the CRNVP measurement's) on both
-    sides, so the flows are not near the identity.  The gate's firings, the
-    streaming loop's and the dense loop's iterations must be equal."""
+def phase_parity(name: str, settings: dict, flow_scale: float = 1.0, cglow_std: float = 0.0):
+    """One loss + backward from the same parameters, noise and
+    semi-supervised mask on the card (cuda: the kernels where the path has
+    them) and on the plain versions (cpu): B=4, T=10, N=100.  ``flow_scale``
+    multiplies every flow's initial N(0, 0.01²) weights (the chains' and the
+    CRNVP measurement's) on both sides, so the flows are not near the
+    identity.  With ``cglow_std`` the CGLOW's parameters are drawn from
+    N(0, cglow_std²), but for the two nets that make its 1×1 convolution's
+    weights: at init the CGLOW's likelihood does not depend on the particle
+    at all (its gradients are rounding residue), and drawn 1×1 weights reach
+    condition numbers at which two float32 runs part (phase 6 checks those
+    weights).  The gate's firings, the streaming loop's and the dense loop's
+    iterations must be equal."""
     from nfdpf_torch import DPFConfig
+    from nfdpf_torch import losses as L
     from nfdpf_torch.ops import sinkhorn as ts
     from nfdpf_torch.ops.flows import FlowChain
     from nfdpf_torch.train import Trainer
@@ -811,7 +848,8 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
     noise = {"init": torch.rand(b, n, 2, generator=gen) * cfg.width - cfg.width / 2,
              "motion": torch.randn(t, b, n, 2, generator=gen),
              "vel": torch.randn(b, t, 2, generator=gen),
-             "resample": torch.rand(t, b, 1, generator=gen) * (1.0 / n)}
+             "resample": torch.rand(t, b, 1, generator=gen) * (1.0 / n),
+             "mask": L.semi_supervised_mask(b, t, cfg.labeled_ratio, gen)}
     runs = {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, device=device)         # same seed: same parameters
@@ -820,6 +858,11 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
                 if isinstance(chain, FlowChain):
                     for p in chain.parameters():
                         p.mul_(flow_scale)
+            if cglow_std:
+                draw = torch.Generator().manual_seed(7)
+                for pname, p in trainer.engine.measurement.cglow.named_parameters():
+                    if ".invconv." not in pname:
+                        p.copy_(torch.randn(p.shape, generator=draw) * cglow_std)
         dev_noise = {k: v.to(device) for k, v in noise.items()}
         reset_launch_counts()
         ts.reset_dense_loop()
@@ -827,7 +870,8 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
                                   dev_noise)
         loss.backward()
         runs[device] = {
-            "loss": loss.item(), "resampled": aux["filter_out"].resampled.tolist(),
+            "loss": loss.item(), "loss_pseudolik": aux["loss_pseudolik"].item(),
+            "resampled": aux["filter_out"].resampled.tolist(),
             "iters": aux["filter_out"].sinkhorn_iters.tolist(),
             "dense_iters": ts.DENSE_LOOP["iters"],
             "launches": launch_counts(),
@@ -855,14 +899,91 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0):
         if not rel <= bound:
             raise AssertionError(f"{name}: gradient {pname}: cuda vs cpu rel err {rel:.2e} "
                                  f"> {bound}")
-        worst[pname.split(".")[0]] = max(worst.get(pname.split(".")[0], 0.0), rel)
+        group = "cglow" if pname.startswith("measurement.cglow.") else pname.split(".")[0]
+        worst[group] = max(worst.get(group, 0.0), rel)
     if not loss_rel <= 1e-4:
         raise AssertionError(f"{name}: loss cuda {gpu['loss']} vs cpu {cpu['loss']}")
+    if cfg.train_type == "SDPF":
+        pl_rel = abs(gpu["loss_pseudolik"] - cpu["loss_pseudolik"]) / abs(cpu["loss_pseudolik"])
+        if not pl_rel <= 1e-4:
+            raise AssertionError(f"{name}: pseudo-likelihood cuda {gpu['loss_pseudolik']} vs "
+                                 f"cpu {cpu['loss_pseudolik']}")
+    if cfg.measurement == "CGLOW" and not any(
+            float(g.abs().sum()) > 0 for k, g in cpu["grads"].items()
+            if k.startswith("measurement.cglow.")):
+        raise AssertionError(f"{name}: no gradient reached the CGLOW")
     log({"phase": name, "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
+         "loss_pseudolik_cuda": gpu["loss_pseudolik"], "loss_pseudolik_cpu": cpu["loss_pseudolik"],
          "loss_rel_err": loss_rel, "loss_tol": 1e-4, "grad_rel_err_max": worst,
          "grad_tol": {"decoder": 1e-2, "other": 1e-3}, "flow_scale": flow_scale,
+         "cglow_std": cglow_std,
          "iters": gpu["iters"], "dense_iters": gpu["dense_iters"],
          "launches_cuda": gpu["launches"]})
+
+
+def phase_linalg():
+    """The CGLOW's batched ``logabsdet`` and ``inv`` (plain PyTorch ops: the
+    JAX package has no kernel there either) and their analytic gradients at
+    the filter's (3,200, 12, 12), on the weights the first 1×1 convolution
+    makes from (32, 100) particles with every CGLOW parameter drawn from
+    N(0, 0.15²), against float64 ``torch.linalg`` on the CPU: per matrix
+    within 1e-5 + 1e-6·cond(W) (log-determinant absolute, the rest
+    ‖Δ‖/‖ref‖), the inverse's gradient, a product of two inverses, within
+    1e-5 + 2e-6·cond(W).  With their device times (CUDA-graph replay) and their
+    eager call times beside those of ``torch.linalg.slogdet`` / ``inv`` on
+    the card (whose error checks cannot be captured in a graph)."""
+    from nfdpf_torch import DPFConfig
+    from nfdpf_torch.models.measurement import build_measurement_model
+    from nfdpf_torch.models.nets import flax_init_
+    from nfdpf_torch.ops import linalg
+
+    model = build_measurement_model(DPFConfig(measurement="CGLOW"))
+    gen = torch.Generator().manual_seed(5)
+    flax_init_(model, gen)
+    with torch.no_grad():
+        for p in model.cglow.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.15)
+        particles = torch.randn(32, 100, 2, generator=gen) * 40
+        e_state = model.particle_encoder(particles).reshape(3200, 8, 8, 3)
+        w = model.cglow.layer_mods[0].invconv.net(e_state).reshape(3200, 12, 12)
+    g_ld = torch.randn(3200, generator=gen)
+    g_inv = torch.randn(3200, 12, 12, generator=gen)
+    w64 = w.double().requires_grad_()
+    ld64, y64 = torch.linalg.slogdet(w64)[1], torch.linalg.inv(w64)
+    (gld64,) = torch.autograd.grad(torch.sum(ld64 * g_ld.double()), [w64])
+    (ginv64,) = torch.autograd.grad(torch.sum(y64 * g_inv.double()), [w64])
+    cond = torch.linalg.cond(w.double())
+    tol = 1e-5 + 1e-6 * cond
+    dev = torch.device("cuda")
+    wc = w.to(dev).requires_grad_()
+    ld, y = linalg.logabsdet(wc), linalg.inv(wc)
+    (gld,) = torch.autograd.grad(torch.sum(ld * g_ld.to(dev)), [wc])
+    (ginv,) = torch.autograd.grad(torch.sum(y * g_inv.to(dev)), [wc])
+    errs = {"logabsdet": (ld.detach().cpu().double() - ld64.detach()).abs()}
+    for key, got, ref in (("inv", y, y64.detach()), ("logabsdet_grad", gld, gld64),
+                          ("inv_grad", ginv, ginv64)):
+        errs[key] = ((got.detach().cpu().double() - ref).norm(dim=(-2, -1))
+                     / ref.norm(dim=(-2, -1)))
+    # the inverse's gradient multiplies two inverses: twice the room
+    ratio = {k: float((e / (tol + (1e-6 * cond if k == "inv_grad" else 0))).max())
+             for k, e in errs.items()}
+    wd = w.to(dev)
+    row = {"phase": "linalg", "shape": list(w.shape), "cond_max": float(cond.max()),
+           "cond_median": float(cond.median()),
+           "max_err": {k: float(e.max()) for k, e in errs.items()},
+           "max_err_over_tol": ratio,
+           "tol": "1e-5 + 1e-6·cond(W) per matrix, inv_grad 1e-5 + 2e-6·cond(W)",
+           "logabsdet_ms": device_ms(lambda: linalg.logabsdet(wd), 50),
+           "inv_ms": device_ms(lambda: linalg.inv(wd), 50),
+           "logabsdet_call_ms": call_ms(lambda: linalg.logabsdet(wd), 50),
+           "inv_call_ms": call_ms(lambda: linalg.inv(wd), 50),
+           "torch_slogdet_call_ms": call_ms(lambda: torch.linalg.slogdet(wd), 50),
+           "torch_inv_call_ms": call_ms(lambda: torch.linalg.inv(wd), 50)}
+    log(row)
+    bad = [k for k, r in ratio.items() if not r <= 1.0]
+    if bad:
+        raise AssertionError(f"linalg: {bad} outside their tolerance: {ratio}")
+    return row
 
 
 def main() -> int:
@@ -895,6 +1016,9 @@ def main() -> int:
     phase_parity("parity_nfdpf", NFDPF_SLICE, flow_scale=10.0)
     phase_parity("parity_nn", dict(SLICE, measurement="NN"))
     phase_parity("parity_gaussian", dict(SLICE, measurement="gaussian"))
+    phase_parity("parity_sdpf", dict(SLICE, train_type="SDPF", labeled_ratio=0.5))
+    phase_parity("parity_cglow", CGLOW_SLICE, flow_scale=10.0, cglow_std=0.15)
+    phase_linalg()
 
     # each kernel's numbers at its case in AT; its launches over the 3 train
     # steps of the NF-DPF slice, which runs all four, and of every slice (the

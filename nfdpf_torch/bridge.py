@@ -24,8 +24,17 @@ Mapping rules:
   ``{chain}.flows.{k}.{t1,s1,t2,s2}.fc{i+1}.{weight,bias}``, kernels
   transposed like every Dense;
 * the measurement's ``particle_encoder`` and (``NN``) ``likelihood_net``:
-  ``Dense_{i}`` → ``fc{i+1}``.  A measurement subtree with no mapping
-  (CGLOW's) is refused.
+  ``Dense_{i}`` → ``fc{i+1}``;
+* the CGLOW measurement's ``cglow`` (``cglow_state_from_jax``):
+  ``layer_mods_{i}`` → ``layer_mods.{i}``; a conditioning net's
+  ``ConvResize_{i}/Conv_0`` → ``resize.{i}.conv`` with the (kh, kw, I, O)
+  kernel flattened to its (kh·kw·I, O) matmul order, and
+  ``DenseZeros_0``, ``DenseZeros_1``, ``DenseZeros_2``/``DenseNorm_0`` →
+  ``dense.{0,1,2}``; the coupling's ``rx1``..``f3`` and the split's
+  ``prior_conv`` keep their names, each ``Conv_0`` → ``conv``,
+  ``ImageActNorm_0`` → ``actnorm``; ``top_mean``/``top_logs`` (with
+  ``learn_top``) as they are.  A measurement subtree with no mapping is
+  refused.
 
 Every map is a permutation of entries, so ``torch_state_from_jax`` also
 carries gradient pytrees (``params`` only) into the port's parameter names.
@@ -78,6 +87,57 @@ def flow_chain_state_from_jax(chain_variables, prefix: str = "") -> Dict[str, np
     return {k: _f32(v) for k, v in out.items()}
 
 
+def _cglow_conv(out, name, conv):
+    out[f"{name}.conv.weight"] = _conv(conv["kernel"])
+    if "bias" in conv:
+        out[f"{name}.conv.bias"] = conv["bias"]
+
+
+def _cglow_resize(out, name, conv):
+    """A ``ConvResize``: its (kh, kw, I, O) kernel flattened to (kh·kw·I, O)."""
+    out[f"{name}.conv.weight"] = np.reshape(conv["kernel"], (-1, conv["kernel"].shape[-1]))
+    out[f"{name}.conv.bias"] = conv["bias"]
+
+
+def _cglow_condnet(out, name, net):
+    for i in range(3):
+        _cglow_resize(out, f"{name}.resize.{i}", net[f"ConvResize_{i}"]["Conv_0"])
+    head = net.get("DenseZeros_2", net.get("DenseNorm_0"))
+    for i, layer in enumerate((net["DenseZeros_0"], net["DenseZeros_1"], head)):
+        out[f"{name}.dense.{i}.weight"] = _dense_w(layer["Dense_0"]["kernel"])
+        out[f"{name}.dense.{i}.bias"] = layer["Dense_0"]["bias"]
+
+
+def cglow_state_from_jax(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Map a ``CondGlowModel``'s params to the port's names, each prefixed
+    with ``prefix``; raises ``KeyError`` for an entry it has no mapping for."""
+    out: Dict[str, np.ndarray] = {}
+    for key, sub in params.items():
+        if key in ("top_mean", "top_logs"):
+            out[prefix + key] = sub
+            continue
+        if not key.startswith("layer_mods_"):
+            raise KeyError(f"bridge: no mapping for the CGLOW entry {key!r}")
+        name = f"{prefix}layer_mods.{key[len('layer_mods_'):]}"
+        if set(sub) == {"prior_conv"}:
+            _cglow_conv(out, f"{name}.prior_conv", sub["prior_conv"]["Conv_0"])
+            continue
+        if set(sub) != {"actnorm", "invconv", "affine"}:
+            raise KeyError(f"bridge: no mapping for the CGLOW layer {key}: {sorted(sub)}")
+        for net in ("actnorm", "invconv"):
+            _cglow_condnet(out, f"{name}.{net}.net", sub[net]["net"])
+        aff = sub["affine"]
+        _cglow_resize(out, f"{name}.affine.rx2", aff["rx2"]["Conv_0"])
+        for conv in ("rx1", "rx3", "f1", "f2", "f3"):
+            _cglow_conv(out, f"{name}.affine.{conv}", aff[conv]["Conv_0"])
+        for conv in ("f1", "f2"):
+            for p in ("bias", "logs"):
+                out[f"{name}.affine.{conv}.actnorm.{p}"] = aff[conv]["ImageActNorm_0"][p]
+        for p in ("logs", "newbias"):
+            out[f"{name}.affine.f3.{p}"] = aff["f3"][p]
+    return {k: _f32(v) for k, v in out.items()}
+
+
 def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
     """Map a JAX ``variables`` (or gradient) pytree to the port's
     ``state_dict`` names and layouts.  Collections that are absent
@@ -107,7 +167,7 @@ def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
         out.update(flow_chain_state_from_jax(variables[chain], prefix=f"{chain}."))
 
     meas = variables["measurement"]["params"]
-    unknown = sorted(set(meas) - {"particle_encoder", "likelihood_net", "cnf"})
+    unknown = sorted(set(meas) - {"particle_encoder", "likelihood_net", "cnf", "cglow"})
     if unknown:
         raise KeyError(f"bridge: no mapping for the measurement's {unknown}")
     for net in ("particle_encoder", "likelihood_net"):
@@ -117,6 +177,8 @@ def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
             out[f"measurement.{net}.fc{i + 1}.bias"] = layer["bias"]
     if "cnf" in meas:
         out.update(flow_chain_state_from_jax({"params": meas["cnf"]}, prefix="measurement.cnf."))
+    if "cglow" in meas:
+        out.update(cglow_state_from_jax(meas["cglow"], prefix="measurement.cglow."))
     return {k: _f32(v) for k, v in out.items()}
 
 

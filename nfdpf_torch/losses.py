@@ -1,11 +1,14 @@
-"""Training objectives: supervised RMSE and autoencoder MSE.
+"""Training objectives: supervised RMSE, autoencoder MSE and the SDPF's
+blockwise pseudo-likelihood.
 
-Counterparts of ``nfdpf_tpu/losses.py:22-70``.  The SDPF pseudo-likelihood
-losses wait for ROADMAP queue 1, item 13.
+Counterparts of ``nfdpf_tpu/losses.py``.  The pseudo-likelihood's ancestor
+walk is two Python loops (blocks ascending, steps within a block
+descending) of per-batch ``torch.gather``s where the JAX package scans.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -53,3 +56,72 @@ def semi_supervised_mask(batch_size: int, seq_len: int, labeled_ratio: float,
                       torch.ones(n1, device=device)])
     perm = torch.randperm(total, generator=generator, device=device)
     return flat[perm].reshape(batch_size, seq_len)
+
+
+def _ancestor_walk(
+    likelihoods: torch.Tensor,   # (B, T, N)
+    indices: torch.Tensor,       # (B, T, N) within-batch ancestor indices
+    prior_terms: torch.Tensor,   # (B, T, N) per-step prior log term
+    weights: torch.Tensor,       # (B, T, N)
+    block_len: int,
+) -> torch.Tensor:
+    """The blockwise backward ancestor walk, Q/b per batch element, (B,).
+
+    Each block of ``block_len`` steps walks from its last step back to its
+    first, following the ancestor indices from the identity and adding the
+    gathered prior and likelihood terms to the accumulator ``logyita``;
+    Q adds the block-end weights times the accumulator.  Kept from the
+    reference, as in the JAX package: ``logyita`` is never reset between
+    blocks (block k's term holds every earlier block's sum), and a trailing
+    partial block is ignored."""
+    batch, seq_len, n = likelihoods.shape
+    nb = seq_len // block_len
+    idx = indices.long()
+    identity = torch.arange(n, device=likelihoods.device).expand(batch, n)
+    q = torch.zeros(batch, dtype=likelihoods.dtype, device=likelihoods.device)
+    ly = torch.zeros(batch, n, dtype=likelihoods.dtype, device=likelihoods.device)
+    for k in range(nb):
+        index_a = identity
+        for j in reversed(range(k * block_len, (k + 1) * block_len)):
+            ly = (ly + torch.gather(prior_terms[:, j], -1, index_a)
+                  + torch.gather(likelihoods[:, j], -1, index_a))
+            index_a = torch.gather(idx[:, j], -1, index_a)
+        q = q + torch.sum(weights[:, (k + 1) * block_len - 1] * ly, dim=-1)
+    return q / nb
+
+
+def pseudolikelihood_loss(
+    weights: torch.Tensor,
+    noise: torch.Tensor,         # (B, T, N, d) motion noise
+    likelihoods: torch.Tensor,
+    indices: torch.Tensor,
+    block_len: int = 10,
+    std_pos: float = 1.0,
+    std_vel: float = 1.0,
+) -> torch.Tensor:
+    """Gaussian-prior pseudo-likelihood.  The per-step prior term prices the
+    stored motion noise, with the reference's constants: the velocity's
+    normalising constant is there even for 2-D noise."""
+    log_c = -0.5 * math.log(2 * math.pi)
+    term_pos = (2 * log_c - 2 * math.log(std_pos)
+                - torch.sum(noise[..., :2] ** 2 / (2 * std_pos ** 2), dim=-1))
+    term_vel = (2 * log_c - 2 * math.log(std_vel)
+                - torch.sum(noise[..., 2:] ** 2 / (2 * std_vel ** 2), dim=-1))
+    q = _ancestor_walk(likelihoods, indices, term_pos + term_vel, weights, block_len)
+    return -torch.mean(q)
+
+
+def pseudolikelihood_loss_nf(
+    weights: torch.Tensor,
+    noise: torch.Tensor,
+    likelihoods: torch.Tensor,
+    indices: torch.Tensor,
+    jacobians: torch.Tensor,     # (B, T, N): not added, as in the reference
+    priors: torch.Tensor,        # (B, T, N)
+    block_len: int = 10,
+) -> torch.Tensor:
+    """NF-prior pseudo-likelihood: the walk over the filter's prior terms.
+    The reference gathers the dynamics Jacobians along the ancestors but
+    never adds them; only prior + likelihood enter, here too."""
+    q = _ancestor_walk(likelihoods, indices, priors, weights, block_len)
+    return -torch.mean(q)

@@ -2,8 +2,12 @@
 
 Counterpart of ``nfdpf_tpu/models/dpf.py`` for the bootstrap DPF and the
 CNF-DPF (``nf_dyn`` RealNVP dynamics, ``nf_cond`` RealNVP proposal, each
-alone or together), with the cos, NN, gaussian or CRNVP measurement and
-soft or OT resampling.  As in the JAX package:
+alone or together), with the cos, NN, gaussian, CRNVP or CGLOW measurement
+and soft or OT resampling.  As in the JAX package:
+
+* the encoder and decoder are ``encoder_width`` wide: ``glow_ctx_features``
+  (192) under CGLOW, ``hidden_size`` otherwise; the proposal flow's
+  context is that width plus the particle mean‖std;
 
 * the engine owns both flow chains whatever the switches say; an unused
   chain takes no part in the filter and gets no gradient;
@@ -87,7 +91,6 @@ def check_supported(cfg: DPFConfig) -> None:
     """Raise ``NotImplementedError`` for any setting the port does not run
     yet, naming the ROADMAP (queue 1) item that brings it."""
     todo = [
-        (cfg.train_type == "SDPF", "the SDPF pseudo-likelihood losses", 13),
         (cfg.encode_per_step, "the encode_per_step ablation", 18),
         (cfg.remat_scan_step, "remat_scan_step", 18),
         (cfg.compute_dtype != "float32", f"compute_dtype={cfg.compute_dtype!r}", 18),
@@ -107,6 +110,12 @@ def check_supported(cfg: DPFConfig) -> None:
         raise ValueError("trainType must be DPF (supervised) or SDPF (semi-supervised)")
 
 
+def encoder_width(cfg: DPFConfig) -> int:
+    """The observation encoding's width: the CGLOW condition's
+    ``glow_ctx_features`` under that measurement, else ``hidden_size``."""
+    return cfg.glow_ctx_features if cfg.measurement == "CGLOW" else cfg.hidden_size
+
+
 def streaming_ot(cfg: DPFConfig) -> bool:
     """True when OT resampling runs on the streaming-Sinkhorn kernels."""
     return cfg.resampler_type == "ot" and cfg.use_pallas and not cfg.ot_transport_grad
@@ -118,12 +127,12 @@ def check_coupling_kernels(cfg: DPFConfig) -> None:
     kernel does not take, with the limits the wrapper applies at launch.  The
     filter's contexts are one row per batch element broadcast over the
     particles: the dynamics flow's 2·state_dim wide, the proposal's
-    2·state_dim + hidden_size."""
+    2·state_dim + ``encoder_width``."""
     if not (cfg.pallas_coupling and cfg.state_dim == 2):
         return
     stats = 2 * cfg.state_dim
     chains = (("dynamics", cfg.nf_dyn, stats),
-              ("proposal", cfg.nf_cond, stats + cfg.hidden_size))
+              ("proposal", cfg.nf_cond, stats + encoder_width(cfg)))
     for name, used, ctx_dim in chains:
         if not used:
             continue
@@ -172,8 +181,9 @@ class DPF(nn.Module):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_coupling_kernels(config)
-        self.encoder = ObservationEncoder(config.hidden_size)
-        self.decoder = ObservationDecoder(config.hidden_size)
+        width = encoder_width(config)
+        self.encoder = ObservationEncoder(width)
+        self.decoder = ObservationDecoder(width)
         self.measurement = build_measurement_model(config)
         # registered last: the other modules' initial draws do not depend on
         # the flows being there
@@ -182,7 +192,7 @@ class DPF(nn.Module):
                                     config.flow_hidden_dim, 0.01, ctx_dim=stats)
         self.cond_model = realnvp_chain(config.n_sequence, config.state_dim,
                                         config.flow_hidden_dim, 0.01,
-                                        ctx_dim=stats + config.hidden_size)
+                                        ctx_dim=stats + width)
         self.init(config.seed)
         self.to(self.device)
 

@@ -3,9 +3,8 @@
 Counterpart of ``nfdpf_tpu/models/measurement.py``.  Each module takes the
 observation encodings (B, h) and particles (B, N, d) and returns
 per-particle log-likelihoods (B, N), and owns its particle encoder.  The
-Gaussian and CRNVP models subtract each row's maximum (``torch.amax``, whose
-gradient splits between ties as ``jnp.max``'s does).  CGLOW waits for its
-ROADMAP item.
+Gaussian, CRNVP and CGLOW models subtract each row's maximum (``torch.amax``,
+whose gradient splits between ties as ``jnp.max``'s does).
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import torch
 from torch import nn
 
 from nfdpf_torch.config import DPFConfig
+from nfdpf_torch.models.cglow import CondGlowModel
 from nfdpf_torch.models.nets import LikelihoodNet, ParticleEncoder
 from nfdpf_torch.ops.density import cosine_distance
 from nfdpf_torch.ops.flows import realnvp_chain
@@ -94,6 +94,32 @@ class CRNVPMeasurement(nn.Module):
         return _minus_row_max(log_prob_z + log_det)
 
 
+class CGlowMeasurement(nn.Module):
+    """Conditional-GLOW bits/dim of e_obs given e_state, negated, minus the
+    row maximum.  Both encodings are ``glow_ctx_features`` (3·8·8 = 192)
+    wide and are reshaped to (b·n, h, w, c), NHWC, as the JAX package does,
+    although ``x_size`` is given as CHW: only the agreement of the two
+    sides matters, and parity needs JAX's layout."""
+
+    def __init__(self, config: DPFConfig):
+        super().__init__()
+        self.x_size = tuple(config.x_size)
+        self.particle_encoder = ParticleEncoder(config.glow_ctx_features, config.state_dim)
+        self.cglow = CondGlowModel(
+            x_size=config.x_size, y_size=config.y_size,
+            x_hidden_channels=config.x_hidden_channels, x_hidden_size=config.x_hidden_size,
+            y_hidden_channels=config.y_hidden_channels, flow_depth=config.flow_depth,
+            num_levels=config.num_levels, learn_top=config.learn_top, y_bins=config.y_bins)
+
+    def forward(self, encodings: torch.Tensor, particles: torch.Tensor) -> torch.Tensor:
+        b, n, _ = particles.shape
+        c, h, w = self.x_size
+        e_state = self.particle_encoder(particles).reshape(b * n, h, w, c)
+        e_obs = encodings[:, None, :].expand(b, n, encodings.shape[-1]).reshape(b * n, h, w, c)
+        _, nll = self.cglow(e_state, e_obs)
+        return _minus_row_max(-nll.reshape(b, n))
+
+
 def build_measurement_model(config: DPFConfig) -> nn.Module:
     """Dispatch on ``--measurement``."""
     kind = config.measurement
@@ -107,6 +133,5 @@ def build_measurement_model(config: DPFConfig) -> nn.Module:
         return CRNVPMeasurement(config.hidden_size, config.n_sequence,
                                 config.flow_hidden_dim, config.state_dim)
     if kind == "CGLOW":
-        raise NotImplementedError(
-            "measurement 'CGLOW' is not ported yet (ROADMAP queue 1, item 15)")
+        return CGlowMeasurement(config)
     raise ValueError(f"unknown measurement model {kind!r}")

@@ -127,22 +127,35 @@ class LikelihoodNet(nn.Module):
         return torch.sigmoid(self.fc3(F.relu(self.fc2(F.relu(self.fc1(x))))))
 
 
+def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """``t`` ← N(0, std²) drawn on the CPU, or zeros (no draw) at std 0."""
+    if std == 0.0:
+        t.zero_()
+    else:
+        t.copy_(torch.empty(t.shape).normal_(0.0, std, generator=generator))
+
+
 @torch.no_grad()
 def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Re-initialise ``module`` with flax's defaults, as the JAX package does:
     lecun-normal kernels (normal with variance 1/fan_in, truncated at two
     standard deviations), zero biases, BatchNorm scale 1 / bias 0 and
-    running statistics 0 / 1.  A ``Linear`` that carries an ``init_std`` (the
-    flows' conditioners) draws N(0, init_std²) instead.  ``generator`` must
-    live on the CPU; the draws are copied to the parameters' device, in the
-    order the modules were registered."""
+    running statistics 0 / 1.  A layer that carries an ``init_std`` (the
+    flows' conditioners, the conditional GLOW's layers) draws its weights
+    from N(0, init_std²) instead (zeros at 0), and its bias from
+    N(0, bias_std²) where it carries a ``bias_std``; a module with a
+    ``param_init_std`` dict draws each of the named parameters so.
+    ``generator`` must live on the CPU; the draws are copied to the
+    parameters' device, in the order the modules were registered."""
     for m in module.modules():
+        for name, std in getattr(m, "param_init_std", {}).items():
+            _normal_(getattr(m, name), std, generator)
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             draw = torch.empty(w.shape)
             init_std = getattr(m, "init_std", None)
             if init_std is not None:
-                draw.normal_(0.0, init_std, generator=generator)
+                _normal_(draw, init_std, generator)
             else:
                 if isinstance(m, nn.Linear):
                     fan_in = w.shape[1]
@@ -154,7 +167,7 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
             w.copy_(draw)
             if m.bias is not None:
-                m.bias.zero_()
+                _normal_(m.bias, getattr(m, "bias_std", None) or 0.0, generator)
         elif isinstance(m, FlaxBatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -1,15 +1,18 @@
-"""Training harness for the DPF train type: loss assembly, train and eval steps.
+"""Training harness: loss assembly, train and eval steps.
 
-Counterpart of ``nfdpf_tpu/train.py:54-217``: total = 1·sup + 2·AE, with the
+Counterpart of ``nfdpf_tpu/train.py:54-217``: total = 1·sup + 2·AE for the
+DPF train type, plus 0.01·pseudo-likelihood for SDPF (the NF-prior variant
+when ``nf_dyn`` is on, else the Gaussian one), with the
 AE loss reusing the filter's encodings; the teacher-forced velocity gets
 N(0, 4²) noise; Adam at a constant rate (torch's Adam defaults equal
 optax's).  The parameters live in ``trainer.engine``, the optimizer state in
 ``trainer.optimizer``.
 
 ``noise`` (optional, for tests that replay another implementation's
-randomness) is the filter's noise dict plus ``"vel"``: the (B, T, 2)
-standard-normal velocity draw.  Without it everything is drawn from
-``generator`` (on the trainer's device).
+randomness) is the filter's noise dict plus ``"vel"``, the (B, T, 2)
+standard-normal velocity draw, and ``"mask"``, the (B, T) semi-supervised
+mask of a train step.  What it leaves out is drawn from ``generator`` (on
+the trainer's device).
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ from nfdpf_torch import losses as L
 from nfdpf_torch.config import DPFConfig
 from nfdpf_torch.models.dpf import DPF
 
-METRIC_KEYS = ("loss", "loss_sup", "loss_ae", "obs_likelihood", "resample_count",
-               "sinkhorn_iters")
+METRIC_KEYS = ("loss", "loss_sup", "loss_ae", "loss_pseudolik", "obs_likelihood",
+               "resample_count", "sinkhorn_iters")
 
 
 class Trainer:
@@ -69,7 +72,9 @@ class Trainer:
 
         out, encodings = engine.filter(images, start_state, vel, noise, generator)
 
-        if train:
+        if train and "mask" in noise:
+            mask = noise["mask"]
+        elif train:
             mask = L.semi_supervised_mask(b, t, cfg.labeled_ratio, generator,
                                           self.device)
         else:
@@ -79,11 +84,24 @@ class Trainer:
 
         recon = engine.decode(encodings.reshape(b * t, -1))
         loss_ae = L.autoencoder_loss(images.reshape((b * t,) + images.shape[2:]), recon)
-        total = 1.0 * loss_sup + 2.0 * loss_ae
+        loss_pl = torch.zeros((), device=self.device)
+        if cfg.train_type == "SDPF":
+            if cfg.nf_dyn:
+                loss_pl = L.pseudolikelihood_loss_nf(
+                    out.weights, out.noise, out.likelihoods, out.indices, out.jacobians,
+                    out.priors, cfg.block_length)
+            else:
+                loss_pl = L.pseudolikelihood_loss(
+                    out.weights, out.noise, out.likelihoods, out.indices, cfg.block_length,
+                    cfg.pos_noise, cfg.vel_noise)
+            total = 1.0 * loss_sup + 0.01 * loss_pl + 2.0 * loss_ae
+        else:
+            total = 1.0 * loss_sup + 2.0 * loss_ae
 
         aux = {
             "loss_sup": loss_sup,
             "loss_ae": loss_ae,
+            "loss_pseudolik": loss_pl,
             "obs_likelihood": out.obs_likelihood,
             "resample_count": out.resampled.sum().item(),
             "sinkhorn_iters": out.sinkhorn_iters.sum().item(),

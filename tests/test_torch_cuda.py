@@ -546,3 +546,79 @@ def test_dense_and_soft_paths_launch_no_streaming_kernel(cuda, overrides):
     assert bool(out.resampled.all()) and bool(torch.isfinite(out.particles).all())
     assert not any(sc.LAUNCHES.values())
     assert ts.DENSE_LOOP["calls"] == (5 if cfg.resampler_type == "ot" else 0)
+
+
+def _cglow_measurement(seed):
+    """The CGLOW measurement at its default sizes with every CGLOW parameter
+    drawn from N(0, 0.15²) (at init the 1×1 convolution's weight does not
+    depend on the particle), and (32, 100) particles spread as the filter's."""
+    from nfdpf_torch.config import DPFConfig
+    from nfdpf_torch.models.measurement import build_measurement_model
+    from nfdpf_torch.models.nets import flax_init_
+
+    model = build_measurement_model(DPFConfig(measurement="CGLOW"))
+    gen = torch.Generator().manual_seed(seed)
+    flax_init_(model, gen)
+    with torch.no_grad():
+        for p in model.cglow.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.15)
+    return model, torch.randn(32, 100, 2, generator=gen) * 40, gen
+
+
+@pytest.mark.cuda
+def test_linalg_on_cond1x1conv_weights_matches_float64(cuda):
+    """``logabsdet`` and ``inv`` and their analytic gradients on the card at
+    the filter's (3,200, 12, 12), on the weights the first 1×1 convolution
+    makes, against float64 ``torch.linalg`` on the CPU: per matrix within
+    1e-5 + 1e-6·cond(W) (log-determinant absolute, the rest ‖Δ‖/‖ref‖),
+    the inverse's gradient (a product of two inverses) within
+    1e-5 + 2e-6·cond(W); the CPU's float32 run stays under half of each."""
+    from nfdpf_torch.ops import linalg
+
+    model, particles, gen = _cglow_measurement(5)
+    with torch.no_grad():
+        e_state = model.particle_encoder(particles).reshape(3200, 8, 8, 3)
+        w = model.cglow.layer_mods[0].invconv.net(e_state).reshape(3200, 12, 12)
+    g_ld = torch.randn(3200, generator=gen)
+    g_inv = torch.randn(3200, 12, 12, generator=gen)
+    w64 = w.double().requires_grad_()
+    ld64, y64 = torch.linalg.slogdet(w64)[1], torch.linalg.inv(w64)
+    (gld64,) = torch.autograd.grad(torch.sum(ld64 * g_ld.double()), [w64])
+    (ginv64,) = torch.autograd.grad(torch.sum(y64 * g_inv.double()), [w64])
+    tol = 1e-5 + 1e-6 * torch.linalg.cond(w.double())
+    wc = w.to(cuda).requires_grad_()
+    ld, y = linalg.logabsdet(wc), linalg.inv(wc)
+    (gld,) = torch.autograd.grad(torch.sum(ld * g_ld.to(cuda)), [wc])
+    (ginv,) = torch.autograd.grad(torch.sum(y * g_inv.to(cuda)), [wc])
+
+    def rel(a, ref):
+        return (a.detach().cpu().double() - ref).norm(dim=(-2, -1)) / ref.norm(dim=(-2, -1))
+
+    assert bool(((ld.detach().cpu().double() - ld64.detach()).abs() <= tol).all())
+    for got, ref, bound in ((y, y64.detach(), tol), (gld, gld64, tol),
+                            (ginv, ginv64, tol + 1e-6 * torch.linalg.cond(w.double()))):
+        assert bool((rel(got, ref) <= bound).all())
+
+
+@pytest.mark.cuda
+def test_cglow_measurement_matches_cpu(cuda):
+    """The CGLOW measurement on the card against the CPU at the filter's
+    (32, 100), from the same parameters: log-likelihoods within atol 1e-4
+    (bits/dim; the drawn weights' condition numbers reach ~6e4), the
+    gradient against the encodings, the particles and every parameter within
+    ‖Δ‖/‖g‖ 1e-3, the card-against-CPU gradient limit."""
+    model, particles, gen = _cglow_measurement(6)
+    enc = torch.randn(32, 192, generator=gen)
+    probe = torch.randn(32, 100, generator=gen)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model.to(dev)
+        te, tp = enc.to(dev).requires_grad_(), particles.to(dev).requires_grad_()
+        lik = model(te, tp)
+        wanted = [te, tp] + list(model.parameters())
+        grads = torch.autograd.grad(torch.sum(lik * probe.to(dev)), wanted)
+        runs[str(dev)] = (lik.detach().cpu(), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=0, atol=1e-4)
+    for got, ref in zip(g_gpu, g_cpu):
+        assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-3

@@ -159,8 +159,8 @@ def test_measurement_model_matches_jax(kind):
 def test_bridge_refuses_a_measurement_it_cannot_map(engines):
     _, variables, pe = engines
     tree = _np_tree(variables)
-    tree["measurement"]["params"]["cglow"] = {}
-    with pytest.raises(KeyError, match="cglow"):
+    tree["measurement"]["params"]["unmapped_net"] = {}
+    with pytest.raises(KeyError, match="unmapped_net"):
         load_jax_variables(pe, tree)
 
 
@@ -330,11 +330,9 @@ def test_filter_path_matches_jax(case):
 
 # settings the port does not run yet, with the ROADMAP item each error names
 UNSUPPORTED = {
-    "measurement_CGLOW": (dict(measurement="CGLOW"), 15),
     "encode_per_step": (dict(encode_per_step=True), 18),
     "remat": (dict(remat_scan_step=True), 18),
     "bf16": (dict(compute_dtype="bfloat16"), 18),
-    "sdpf": (dict(train_type="SDPF"), 13),
     "torch_init": (dict(torch_init=True), 4),
     "mesh": (dict(mesh_data=2), 19),
 }
@@ -360,6 +358,8 @@ PORTED = {
     "measurement_NN": dict(measurement="NN"),
     "measurement_gaussian": dict(measurement="gaussian"),
     "measurement_CRNVP": dict(measurement="CRNVP"),
+    "measurement_CGLOW": dict(measurement="CGLOW"),
+    "sdpf": dict(train_type="SDPF", labeled_ratio=0.5, block_length=2),
     "soft_resampler": dict(resampler_type="soft"),
     "dense_ot": dict(use_pallas=False),
     "ot_transport_grad": dict(ot_transport_grad=True),
@@ -379,7 +379,8 @@ def test_ported_settings_take_a_train_step(case):
     assert all(np.isfinite(float(metrics[k])) for k in ("loss", "loss_sup", "loss_ae"))
     assert metrics["resample_count"] == T
     assert (metrics["sinkhorn_iters"] > 0) == (case in ("measurement_NN", "measurement_gaussian",
-                                                        "measurement_CRNVP", "warm_start"))
+                                                        "measurement_CRNVP", "measurement_CGLOW",
+                                                        "sdpf", "warm_start"))
     grads = [p.grad for p in trainer.engine.measurement.parameters()]
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
 
@@ -399,6 +400,9 @@ COUPLING_LIMITS = {
     "hidden16": (dict(flow_hidden_dim=16), True),
     "blocks9": (dict(n_sequence=9), True),
     "hidden16_module_route": (dict(flow_hidden_dim=16, pallas_coupling=False), False),
+    # the proposal's context is the 192-wide CGLOW encoding + 4
+    "cglow_proposal": (dict(measurement="CGLOW"), True),
+    "cglow_proposal_module_route": (dict(measurement="CGLOW", pallas_coupling=False), False),
 }
 
 
