@@ -54,7 +54,21 @@ Phases, one line of output each, then the device line last:
    12), on the weights the 1×1 convolution makes, against float64
    ``torch.linalg`` on the CPU, with their times and ``torch.linalg``'s on
    the card;
-7. the ``kernels`` JSON line.
+7. simulator: disk-tracking sequences (T=50, 25 distractors, 128 px) made
+   on the card, timed (sequences/s, to host arrays as the dataset writer
+   takes them and on the card alone), and the same draws through the CPU:
+   frames and visible counts equal, states within 1e-4;
+8. main_cli: ``nfdpf_torch.main.main`` as a user runs it, in a temporary
+   directory, with ``--NF-dyn --NF-cond --pallas-coupling --use-pallas`` at
+   B=32, N=100, T=50, 128 px and the default ESS gate (0.5): run 1 makes
+   the data on the card (80 train sequences, 2 steps an epoch) and trains 1
+   epoch through the fused (card-staged) loop, run 2 resumes to epoch 2
+   through the host-batch loop (``--resume --no-fused-epoch``), run 3 tests
+   (``--testing --model-path``).  Per run the launch counts (set to 0 just
+   before, read just after), the gate's firings, step times, peak memory
+   and seconds; every artifact, the epoch after each run and finite losses
+   are checked, and K4 and K5 must have launched;
+9. the ``kernels`` JSON line.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
 script exits non-zero without printing the last line.  The port has no CPU
@@ -75,6 +89,7 @@ import tempfile
 import time
 import warnings
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
@@ -986,6 +1001,171 @@ def phase_linalg():
     return row
 
 
+def phase_simulator():
+    """Sequences of the default simulator (T=50, 25 distractors, 128 px)
+    made on the card, in the dataset writer's chunks of 32: timed to host
+    arrays (``generate_batch``, what ``generate_dataset`` runs) and on the
+    card alone; then 8 sequences from one set of draws on the card and on
+    the CPU: frames, start frames and visible counts equal, states within
+    1e-4 (the CPU tests' bound against JAX)."""
+    from nfdpf_torch.data.simulator import DiskSimulator
+
+    sim = DiskSimulator()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sim.sequence_from_draws(sim.draw_sequence(gen, 32))        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    num, reps = 256, 3
+    to_host_s = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sim.generate_batch(gen, num)
+        to_host_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(num // 32):
+        rec = sim.sequence_from_draws(sim.draw_sequence(gen, 32))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del rec
+
+    draws = sim.draw_sequence(gen, 8)
+    gpu = sim.sequence_from_draws(draws)
+    t0 = time.perf_counter()
+    cpu = sim.sequence_from_draws({k: v.cpu() for k, v in draws.items()})
+    cpu_s = time.perf_counter() - t0
+    pixels_differ = int((gpu["image"].cpu() != cpu["image"]).sum()
+                        + (gpu["start_image"].cpu() != cpu["start_image"]).sum())
+    visible_differ = int((gpu["visible"].cpu() != cpu["visible"]).sum())
+    state_err = float((gpu["state"].cpu() - cpu["state"]).abs().max())
+    median = statistics.median(to_host_s)
+    log({"phase": "simulator", "sequences": num, "chunk": 32,
+         "to_host_s": to_host_s, "sequences_per_s": num / median,
+         "card_only_s": card_s, "card_only_sequences_per_s": num / card_s,
+         "peak_mem_gib": peak / 2**30, "cpu_s_8_sequences": cpu_s,
+         "pixels_differ": pixels_differ, "visible_differ": visible_differ,
+         "state_max_abs_err": state_err, "state_tol": 1e-4})
+    if pixels_differ or visible_differ or not state_err <= 1e-4:
+        raise AssertionError(f"simulator: card vs CPU: {pixels_differ} pixels and "
+                             f"{visible_differ} visible counts differ, states {state_err:.2e}")
+
+
+# the entry point's main path: the CNF-DPF on the coupling kernels and the
+# streaming-Sinkhorn kernels, at the CLI's defaults (B=32, N=100, T=50, 128 px,
+# ESS gate 0.5) on 80 generated train sequences (2 steps an epoch)
+MAIN_CLI_FLAGS = ["--NF-dyn", "--NF-cond", "--pallas-coupling", "--use-pallas",
+                  "--num-examples", "80"]
+MAIN_CLI_ARTIFACTS = ("models/best", "models/final", "data/eval_loss_epoch.npy",
+                      "data/eval_result_best.npz", "data/test_loss_epoch.npy",
+                      "data/test_result.npz")
+
+
+def phase_main_cli():
+    """Three runs of ``nfdpf_torch.main.main`` (no device given: the card)
+    in a temporary directory, each with the launch counters set to 0 just
+    before it and read just after; the steps are timed by wrapping
+    ``Trainer.train_step``/``eval_step`` (host clock, synchronised)."""
+    import shutil
+
+    from nfdpf_torch import main as entry
+    from nfdpf_torch.config import parse_args
+    from nfdpf_torch.train import Trainer
+    from nfdpf_torch.utils.checkpoint import restore_checkpoint
+
+    steps = []
+    wrapped = {}
+    for kind in ("train_step", "eval_step"):
+        wrapped[kind] = getattr(Trainer, kind)
+
+        def timed(self, *args, _kind=kind, **kwargs):
+            if self.device.type != "cuda":
+                raise AssertionError(f"main_cli: a trainer on {self.device}")
+            t0 = time.perf_counter()
+            out = wrapped[_kind](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            m = out if _kind == "train_step" else out[0]
+            steps.append({"kind": _kind, "s": time.perf_counter() - t0,
+                          "loss": float(m["loss"]), "loss_sup": float(m["loss_sup"]),
+                          "resample_count": int(m["resample_count"])})
+            return out
+        setattr(Trainer, kind, timed)
+    gen_s = []
+    generate = entry.generate_dataset
+
+    def timed_generate(*args, **kwargs):
+        t0 = time.perf_counter()
+        generate(*args, **kwargs)
+        gen_s.append(time.perf_counter() - t0)
+    entry.generate_dataset = timed_generate
+
+    home, tmp = os.getcwd(), tempfile.mkdtemp(prefix="nfdpf_main_cli_")
+    base = MAIN_CLI_FLAGS + ["--data-path", os.path.join(tmp, "disks")]
+    run_dir = os.path.join("logs", entry.get_run_id(parse_args(base)))
+    runs = [("train", base + ["--num-epochs", "1"], 1),
+            ("resume", base + ["--num-epochs", "2", "--resume", "--no-fused-epoch"], 2),
+            ("test", base + ["--testing", "--model-path", os.path.join(run_dir, "models")], 2)]
+    rows = {}
+    t_phase = time.perf_counter()
+    try:
+        os.chdir(tmp)
+        for name, argv, epoch in runs:
+            del steps[:]
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            entry.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            train = [s for s in steps if s["kind"] == "train_step"]
+            evals = [s for s in steps if s["kind"] == "eval_step"]
+            missing = [a for a in MAIN_CLI_ARTIFACTS if not os.path.exists(os.path.join(run_dir, a))]
+            saved_epoch = restore_checkpoint(os.path.join(run_dir, "models", "final"))["epoch"]
+            test_losses = np.load(os.path.join(run_dir, "data", "test_loss_epoch.npy"))
+            eval_losses = np.load(os.path.join(run_dir, "data", "eval_loss_epoch.npy"))
+            rows[name] = {
+                "argv": argv, "s": seconds, "launches": counts,
+                "train_steps": len(train), "eval_steps": len(evals),
+                "median_train_step_ms": statistics.median(s["s"] for s in train) * 1e3
+                if train else None,
+                "median_eval_step_ms": statistics.median(s["s"] for s in evals) * 1e3,
+                "ess_firings_train": [s["resample_count"] for s in train],
+                "ess_firings_eval": [s["resample_count"] for s in evals],
+                "train_losses": [s["loss"] for s in train],
+                "eval_loss_epoch": eval_losses.tolist(), "test_losses": test_losses.tolist(),
+                "saved_epoch": saved_epoch, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            bad = []
+            if missing:
+                bad.append(f"missing artifacts {missing}")
+            if saved_epoch != epoch:
+                bad.append(f"models/final holds epoch {saved_epoch}, not {epoch}")
+            if not all(math.isfinite(s["loss"]) for s in steps) or not (
+                    np.isfinite(test_losses).all() and np.isfinite(eval_losses).all()):
+                bad.append("a non-finite loss")
+            if counts["coupling_chain"] + counts["coupling_chain_inverse"] <= 0:
+                bad.append("K4 was not launched")
+            if name != "test" and counts["coupling_chain_bwd"] <= 0:
+                bad.append("K5 was not launched")
+            if name == "test" and (train or counts["coupling_chain_bwd"]):
+                bad.append("the test run trained")
+            if bad:
+                raise AssertionError(f"main_cli run {name}: {'; '.join(bad)}: {rows[name]}")
+    finally:
+        os.chdir(home)
+        shutil.rmtree(tmp, ignore_errors=True)
+        entry.generate_dataset = generate
+        for kind, fn in wrapped.items():
+            setattr(Trainer, kind, fn)
+    if rows["train"]["train_steps"] != 2 or rows["resume"]["train_steps"] != 2:
+        raise AssertionError(f"main_cli: {rows['train']['train_steps']} and "
+                             f"{rows['resume']['train_steps']} train steps, expected 2 and 2")
+    row = {"phase": "main_cli", "generate_s": gen_s, "phase_s": time.perf_counter() - t_phase,
+           "runs": rows}
+    log(row)
+    return row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -1019,13 +1199,18 @@ def main() -> int:
     phase_parity("parity_sdpf", dict(SLICE, train_type="SDPF", labeled_ratio=0.5))
     phase_parity("parity_cglow", CGLOW_SLICE, flow_scale=10.0, cglow_std=0.15)
     phase_linalg()
+    phase_simulator()
+    cli = phase_main_cli()
 
     # each kernel's numbers at its case in AT; its launches over the 3 train
-    # steps of the NF-DPF slice, which runs all four, and of every slice (the
-    # forward coupling kernel's: both directions together)
+    # steps of the NF-DPF slice, which runs all four, of every slice, and
+    # over the three runs of main_cli (the forward coupling kernel's: both
+    # directions together)
+    runs = [row["launches_train_3_steps"] for row in slices.values()]
+    runs.append({k: sum(r["launches"][k] for r in cli["runs"].values()) for k in runs[0]})
     by_slice = {}
-    for sname, row in slices.items():
-        counts = dict(row["launches_train_3_steps"])
+    for sname, launches in zip(list(slices) + ["main_cli"], runs):
+        counts = dict(launches)
         counts["coupling_chain"] += counts["coupling_chain_inverse"]
         by_slice[sname] = counts
     floor = kernels["sinkhorn_lse"][AT["sinkhorn_lse"]]["launch_floor_ms"]
@@ -1050,7 +1235,7 @@ def main() -> int:
         line.append(entry)
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "kernels": kernels, **slices}, fh, indent=1)
+            json.dump({"card": card, "kernels": kernels, **slices, "main_cli": cli}, fh, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -60,19 +60,18 @@ class DPFConfig:
     # and start the next firing's loop from them at the target ε instead of
     # re-annealing from diameter² every call (resamplers.py:117-118).  The
     # annealing loop is fully detached, so this changes iteration count
-    # only, not gradient topology.  Streaming-Pallas single-device OT path
-    # only (the BASELINE config-5 cost lever); default off for reference
-    # schedule parity.
+    # only, not gradient topology.  Streaming OT path only (``use_pallas``:
+    # the streaming-Sinkhorn kernels); default off for reference schedule
+    # parity.
     sinkhorn_warm_start: bool = False
     # warm firings re-anneal from this multiple of the target ε (not from
-    # diameter²); 1.0 = no annealing tail (measured slower — see
-    # ops/pallas/sinkhorn_pallas.py)
+    # diameter²); 1.0 = no annealing tail
     sinkhorn_warm_eps_factor: float = 16.0
     # Reference-parity ablation: run the conv encoder INSIDE the time loop
     # (BN batch statistics over the B frames of each step, running stats
     # updated per step — `DPFs.py:177`) and re-encode all frames for the AE
-    # loss (`losses.py:5-16`) instead of the TPU-first hoisted single conv
-    # pass whose BN statistics span all B·T frames.  Used to attribute the
+    # loss (`losses.py:5-16`) instead of the hoisted single conv pass whose
+    # BN statistics span all B·T frames.  Used to attribute the
     # repo-vs-reference gap on the resampling-active anchors to BN
     # statistics granularity.
     encode_per_step: bool = False
@@ -122,30 +121,25 @@ class DPFConfig:
                                        # `create_dataset.py:283-326`)
 
     # --- accelerator-specific (no reference analog; names kept from the
-    # JAX package, whose notes on TPU measurements below are its own) ---
+    # JAX package so one flag set drives either package) ---
     mesh_data: int = 1                 # mesh size along the batch ('data') axis
     mesh_particle: int = 1             # mesh size along the 'particle' axis
     compute_dtype: str = "float32"     # float32 | bfloat16 for conv/matmul compute
-    use_pallas: bool = False           # route OT resampling through the
-                                       # streaming Pallas Sinkhorn (required
-                                       # for OT at N≥~8k)
-    pallas_coupling: bool = False      # fuse the RealNVP coupling chains
-                                       # into Pallas kernels too.  Off by
-                                       # default: measured on-chip (round
-                                       # 4), XLA's dense path wins in
-                                       # training at hidden_dim=8 (46.2 vs
-                                       # 127 ms/step, CNF N=1000) — the
-                                       # chain's MLPs are too small for
-                                       # kernel fusion to pay
-    remat_scan_step: bool = False      # jax.checkpoint each filter step (BPTT memory)
+    use_pallas: bool = False           # OT resampling on the streaming-Sinkhorn
+                                       # CUDA kernels (K1/K2), which never
+                                       # hold the N×N cost matrix
+    pallas_coupling: bool = False      # the RealNVP coupling chains on the
+                                       # fused CUDA kernels (K4/K5) instead
+                                       # of the FlowChain modules
+    remat_scan_step: bool = False      # recompute each filter step in the backward
     torch_init: bool = False           # torch-default U(±1/√fan_in) init for the
                                        # encoder/decoder/particle-enc Dense+Conv
                                        # layers (head-to-head init parity)
-    fused_epoch: bool = True           # stage the dataset in HBM and run each
-                                       # train epoch as ONE jitted lax.scan
-                                       # (amortises the per-dispatch latency);
-                                       # falls back to per-batch dispatch when
-                                       # the dataset does not fit
+    fused_epoch: bool = True           # stage the train and val data on the
+                                       # card once and gather each step's
+                                       # batch there (Trainer.fit_fused);
+                                       # main falls back to host batches when
+                                       # they do not fit its budget
 
     @property
     def glow_ctx_features(self) -> int:
@@ -236,14 +230,14 @@ def parse_args(argv=None) -> DPFConfig:
     p.add_argument("--warm-start", dest="sinkhorn_warm_start",
                    action="store_true",
                    help="carry Sinkhorn potentials across ESS-gate firings "
-                        "(streaming-Pallas OT path)")
+                        "(streaming OT path, --use-pallas)")
     p.add_argument("--encode-per-step", dest="encode_per_step",
                    action="store_true",
                    help="reference-parity BN ablation: encoder inside the "
                         "time loop + separate AE-loss encode")
     p.add_argument("--no-fused-epoch", dest="fused_epoch", action="store_false",
-                   help="disable the device-staged fused-epoch trainer and "
-                        "dispatch one jitted step per batch instead")
+                   help="do not stage the dataset on the card: feed each "
+                        "step a batch from the host instead")
     ns = p.parse_args(argv)
     return DPFConfig(**{f.name: getattr(ns, f.name)
                         for f in dataclasses.fields(DPFConfig)

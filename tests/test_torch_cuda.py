@@ -622,3 +622,44 @@ def test_cglow_measurement_matches_cpu(cuda):
     torch.testing.assert_close(l_gpu, l_cpu, rtol=0, atol=1e-4)
     for got, ref in zip(g_gpu, g_cpu):
         assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_simulator_matches_cpu(cuda):
+    """Eight 50-step, 25-distractor sequences made on the card from draws
+    made there, against the same draws on the CPU: every frame, start frame
+    and visible count equal, states within atol 1e-4 (the CPU test's bound
+    against JAX)."""
+    from nfdpf_torch.data.simulator import DiskSimulator
+
+    sim = DiskSimulator(sequence_length=50, num_distractors=25)
+    draws = sim.draw_sequence(torch.Generator(device=cuda).manual_seed(0), num=8)
+    gpu = sim.sequence_from_draws(draws)
+    cpu = sim.sequence_from_draws({k: v.cpu() for k, v in draws.items()})
+    assert gpu["image"].is_cuda and gpu["image"].dtype == torch.uint8
+    for key in ("start_image", "image", "visible", "start_state", "q"):
+        assert torch.equal(gpu[key].cpu(), cpu[key]), key
+    torch.testing.assert_close(gpu["state"].cpu(), cpu["state"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_main_one_epoch_on_cuda(cuda, tmp_path, monkeypatch):
+    """``python -m nfdpf_torch.main`` with the CNF-DPF on the kernels at a
+    small size, on the card (no device given): it makes the data there,
+    trains one epoch, checkpoints and tests, and the coupling kernels run."""
+    from nfdpf_torch.main import main
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+    from nfdpf_torch.utils.checkpoint import restore_checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    cc.reset_launches()
+    main(["--num-epochs", "1", "--num-particles", "16", "--batchsize", "2",
+          "--sequence-length", "5", "--num-examples", "8", "--NF-dyn", "--NF-cond",
+          "--pallas-coupling", "--use-pallas", "--data-path", str(tmp_path / "disks")])
+    (run_dir,) = list((tmp_path / "logs").iterdir())
+    assert restore_checkpoint(str(run_dir / "models" / "final"))["epoch"] == 1
+    assert (run_dir / "models" / "best").is_dir()
+    for artifact in ("eval_loss_epoch.npy", "eval_result_best.npz", "test_loss_epoch.npy",
+                     "test_result.npz"):
+        assert (run_dir / "data" / artifact).is_file(), artifact
+    assert cc.LAUNCHES["coupling_chain"] > 0 and cc.LAUNCHES["coupling_chain_bwd"] > 0

@@ -6,6 +6,7 @@ eval step, and the package's boundaries (no JAX import, no silent CPU
 fallback).  The JAX Pallas kernels run in interpret mode; the
 port runs on the CPU through the kernels' plain versions."""
 
+import os
 import subprocess
 import sys
 
@@ -301,17 +302,36 @@ def test_train_steps_draw_from_generator():
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
+    """Every module of the port, the entry point, the data pipeline, the
+    utilities and the plots included, imports neither JAX nor the JAX
+    package; nor does it import matplotlib, which the plots load when they
+    draw."""
     code = ("import sys, nfdpf_torch, nfdpf_torch.train, nfdpf_torch.bridge\n"
+            "import nfdpf_torch.main, nfdpf_torch.data.simulator, nfdpf_torch.data.dataset\n"
+            "import nfdpf_torch.utils.checkpoint, nfdpf_torch.utils.metrics\n"
+            "import nfdpf_torch.utils.freeze, nfdpf_torch.utils.profiling, nfdpf_torch.viz\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'nfdpf_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'nfdpf_tpu', 'matplotlib')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_trainer_needs_a_gpu_unless_told_cpu(monkeypatch):
+def test_trainer_needs_a_gpu_unless_told_cpu(monkeypatch, tmp_path):
+    """Without a GPU the entry points raise unless given ``device="cpu"``:
+    the trainer, ``main`` (before it makes any data or directory) and the
+    simulator's ``generate_dataset``."""
+    from nfdpf_torch.data.simulator import generate_dataset
+    from nfdpf_torch.main import main
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(DPFConfig(**CFG))
     assert Trainer(DPFConfig(**CFG), device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--data-path", str(tmp_path / "disks")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_dataset(str(tmp_path / "disks"), num_examples=8, file_size=10)
+    assert os.listdir(tmp_path) == []
