@@ -13,10 +13,11 @@ Phases, one line of output each, then the device line last:
    computes the same function, and the least time the card could take
    (bound) and the device time of an empty kernel launched the same way
    (``launch_floor_ms``).  The streaming-Sinkhorn kernels at (B=32,
-   N=M=100), (B=4, N=M=4097) and (B=4, N=M=10240), each launched twice for
+   N=M=100), (B=10, N=M=100) (``main_cli``'s eval and test batches),
+   (B=4, N=M=4097) and (B=4, N=M=10240), each launched twice for
    equal bits; the coupling-chain kernels (forward K4, backward K5) in both
-   directions at (B=32, N=100) with the dynamics flow's context (4 wide)
-   and the proposal flow's (36 wide), each one row per batch element
+   directions at (B=32, N=100) and (B=10, N=100) with the dynamics flow's
+   context (4 wide) and the proposal flow's (36 wide), each one row per batch element
    broadcast over the particles as the filter passes it, and at (B=4,
    N=4097) with a dense 36-wide context and with none, each launched again
    for equal bits; beside them the time of the same call through the
@@ -62,8 +63,9 @@ Phases, one line of output each, then the device line last:
    directory, with ``--NF-dyn --NF-cond --pallas-coupling --use-pallas`` at
    B=32, N=100, T=50, 128 px and the default ESS gate (0.5): run 1 makes
    the data on the card (80 train sequences, 2 steps an epoch) and trains 1
-   epoch through the fused (card-staged) loop, run 2 resumes to epoch 2
-   through the host-batch loop (``--resume --no-fused-epoch``), run 3 tests
+   epoch on the data staged on the card (``fit_fused``, as ``main`` runs
+   whenever the data fits), run 2 resumes to epoch 2 on host batches
+   (``--resume``, with ``main``'s staging budget set to 0), run 3 tests
    (``--testing --model-path``).  Per run the launch counts (set to 0 just
    before, read just after), the gate's firings, step times, peak memory
    and seconds; every artifact, the epoch after each run and finite losses
@@ -158,8 +160,10 @@ LSE_TOL = 1e-5     # K1: |err| <= tol + tol·|ref|
 APPLY_TOL = 1e-4   # K2: |err| <= tol·|ref| + tol·max|ref|
 CHAIN_TOL = 1e-5   # K4: |err| <= tol + tol·|ref| (outputs of magnitude ~1-10)
 # (B, N = M) of the streaming-Sinkhorn kernels' checks, with timing iterations:
-# the main path's, a ragged large one, and the largest particle count trained
-SINKHORN_SHAPES = (((32, 100), 200), ((4, 4097), 20), ((4, 10240), 10))
+# the main path's train steps, main_cli's eval and test steps (the 10 val or
+# test sequences of its data), a ragged large one, and the largest particle
+# count trained
+SINKHORN_SHAPES = (((32, 100), 200), ((10, 100), 200), ((4, 4097), 20), ((4, 10240), 10))
 CHAIN_GRAD_TOL = 1e-4   # K5: |err| <= tol·|ref| + tol·max|ref| per gradient; the weight
                         # gradients sum over all rows in another order than autograd
 
@@ -455,6 +459,7 @@ def phase_chain_kernels(n_blocks: int, hidden: int):
     results = {}
     # (B, N, C, context broadcast over the particles as the filter passes it, timing iterations)
     for b, n, c, broadcast, iters in ((32, 100, 4, True, 200), (32, 100, 36, True, 200),
+                                      (10, 100, 4, True, 200), (10, 100, 36, True, 200),
                                       (4, 4097, 36, False, 20), (4, 4097, 0, False, 20)):
         gen = torch.Generator().manual_seed(1000 * b + n + c)
         chain = realnvp_chain(n_blocks, 2, hidden, 0.3, ctx_dim=c)
@@ -1089,6 +1094,13 @@ def phase_main_cli():
                           "resample_count": int(m["resample_count"])})
             return out
         setattr(Trainer, kind, timed)
+    staged_calls = []
+    fit_fused = Trainer.fit_fused
+
+    def counted_fit_fused(self, *args, **kwargs):
+        staged_calls.append(1)
+        return fit_fused(self, *args, **kwargs)
+    Trainer.fit_fused = counted_fit_fused
     gen_s = []
     generate = entry.generate_dataset
 
@@ -1101,15 +1113,19 @@ def phase_main_cli():
     home, tmp = os.getcwd(), tempfile.mkdtemp(prefix="nfdpf_main_cli_")
     base = MAIN_CLI_FLAGS + ["--data-path", os.path.join(tmp, "disks")]
     run_dir = os.path.join("logs", entry.get_run_id(parse_args(base)))
-    runs = [("train", base + ["--num-epochs", "1"], 1),
-            ("resume", base + ["--num-epochs", "2", "--resume", "--no-fused-epoch"], 2),
-            ("test", base + ["--testing", "--model-path", os.path.join(run_dir, "models")], 2)]
+    # (name, argv, epoch saved after it, main's staging budget: 0 feeds host batches)
+    runs = [("train", base + ["--num-epochs", "1"], 1, entry.STAGED_BYTES_LIMIT),
+            ("resume", base + ["--num-epochs", "2", "--resume"], 2, 0),
+            ("test", base + ["--testing", "--model-path", os.path.join(run_dir, "models")], 2,
+             entry.STAGED_BYTES_LIMIT)]
+    limit = entry.STAGED_BYTES_LIMIT
     rows = {}
     t_phase = time.perf_counter()
     try:
         os.chdir(tmp)
-        for name, argv, epoch in runs:
-            del steps[:]
+        for name, argv, epoch, budget in runs:
+            entry.STAGED_BYTES_LIMIT = budget
+            del steps[:], staged_calls[:]
             reset_launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1125,7 +1141,8 @@ def phase_main_cli():
             test_losses = np.load(os.path.join(run_dir, "data", "test_loss_epoch.npy"))
             eval_losses = np.load(os.path.join(run_dir, "data", "eval_loss_epoch.npy"))
             rows[name] = {
-                "argv": argv, "s": seconds, "launches": counts,
+                "argv": argv, "staged_bytes_limit": budget, "staged": bool(staged_calls),
+                "s": seconds, "launches": counts,
                 "train_steps": len(train), "eval_steps": len(evals),
                 "median_train_step_ms": statistics.median(s["s"] for s in train) * 1e3
                 if train else None,
@@ -1149,12 +1166,16 @@ def phase_main_cli():
                 bad.append("K5 was not launched")
             if name == "test" and (train or counts["coupling_chain_bwd"]):
                 bad.append("the test run trained")
+            if bool(staged_calls) != (name == "train"):
+                bad.append(f"{len(staged_calls)} fit_fused calls (staged only in run train)")
             if bad:
                 raise AssertionError(f"main_cli run {name}: {'; '.join(bad)}: {rows[name]}")
     finally:
         os.chdir(home)
         shutil.rmtree(tmp, ignore_errors=True)
         entry.generate_dataset = generate
+        entry.STAGED_BYTES_LIMIT = limit
+        Trainer.fit_fused = fit_fused
         for kind, fn in wrapped.items():
             setattr(Trainer, kind, fn)
     if rows["train"]["train_steps"] != 2 or rows["resume"]["train_steps"] != 2:

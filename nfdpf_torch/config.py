@@ -135,11 +135,11 @@ class DPFConfig:
     torch_init: bool = False           # torch-default U(±1/√fan_in) init for the
                                        # encoder/decoder/particle-enc Dense+Conv
                                        # layers (head-to-head init parity)
-    fused_epoch: bool = True           # stage the train and val data on the
-                                       # card once and gather each step's
-                                       # batch there (Trainer.fit_fused);
-                                       # main falls back to host batches when
-                                       # they do not fit its budget
+    fused_epoch: bool = True           # no effect; parsed for CLI parity with
+                                       # the JAX package: main stages the
+                                       # data on the card (Trainer.fit_fused)
+                                       # whenever it fits main's budget,
+                                       # else feeds host batches
 
     @property
     def glow_ctx_features(self) -> int:
@@ -236,8 +236,8 @@ def parse_args(argv=None) -> DPFConfig:
                    help="reference-parity BN ablation: encoder inside the "
                         "time loop + separate AE-loss encode")
     p.add_argument("--no-fused-epoch", dest="fused_epoch", action="store_false",
-                   help="do not stage the dataset on the card: feed each "
-                        "step a batch from the host instead")
+                   help="no effect (kept for CLI parity): the data is "
+                        "staged on the card whenever it fits")
     ns = p.parse_args(argv)
     return DPFConfig(**{f.name: getattr(ns, f.name)
                         for f in dataclasses.fields(DPFConfig)

@@ -24,8 +24,10 @@ from nfdpf_torch.models.dpf import check_supported, resolve_device
 from nfdpf_torch.train import Trainer
 from nfdpf_torch.utils.metrics import MetricsLogger
 
-# the fused trainer stages the uint8 frames and states of train + val on the
-# card when they take less than this many bytes (the JAX package's budget)
+# the uint8 frames and states of train + val are staged on the card
+# (Trainer.fit_fused) when they take less than this many bytes (the JAX
+# package's budget), else each step gets a batch from the host; staged
+# epochs ran faster in paired runs (tools/batch_source_ab.py)
 STAGED_BYTES_LIMIT = 8e9
 
 
@@ -96,7 +98,7 @@ def main(argv=None, device=None) -> None:
 
     staged_bytes = sum(ds.data["image"].nbytes + ds.data["state"].nbytes
                        for ds in (train_ds, val_ds))
-    use_fused = cfg.fused_epoch and staged_bytes < STAGED_BYTES_LIMIT
+    staged = staged_bytes < STAGED_BYTES_LIMIT
 
     if not cfg.testing:
         if cfg.pretrain_ae:
@@ -119,8 +121,8 @@ def main(argv=None, device=None) -> None:
         if cfg.e2e_train:
             print("end-to-end training ...")
             with contextlib.closing(MetricsLogger(os.path.join(run_dir, "logger"))) as logger:
-                if use_fused:
-                    print(f"fused-epoch trainer (staged {staged_bytes / 1e9:.2f} GB on {device})")
+                if staged:
+                    print(f"data staged on the device ({staged_bytes / 1e9:.2f} GB)")
                     trainer.fit_fused(train_ds, val_ds, run_dir, num_epochs=cfg.num_epochs,
                                       logger=logger, seed=cfg.seed)
                 else:

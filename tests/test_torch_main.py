@@ -156,13 +156,14 @@ def test_fit_matches_jax(fits):
       magnitude (particles, weights, likelihoods, predictions; the state
       exactly; 1.3e-5 seen);
     * ``models/best``: the same epoch; BN running statistics rtol 1e-4 /
-      atol 1e-5 as after one step (tests/test_torch_train.py); every
-      parameter within 2·lr per train step, the most two Adam runs can part
-      by when the sign of a gradient entry is round-off: Adam moves each
-      weight by about lr whatever the gradient's size.  That is the case
-      for most of the decoder (its last BatchNorm's backward cancels most
-      of its gradient, PERF.md §6); elsewhere all but 1e-4 of the entries
-      of each group stay within 1e-5 of JAX.
+      atol 1e-5 as after one step (tests/test_torch_train.py); each
+      parameter's update from the start, Δ = θ_best − θ_0, within
+      ‖Δ − Δ_jax‖ ≤ 5e-2·‖Δ_jax‖ (1.96e-2 the most seen, in the decoder),
+      and zero where JAX's is zero; outside the decoder all but 1e-4 of the
+      entries of each group within 1e-5 of JAX, in the decoder all but 5 %
+      (2.1 % seen: Adam moves a weight by about lr whatever its gradient's
+      size, so an entry whose gradient is near round-off parts by up to
+      2·lr a step).
     """
     root = fits["root"]
     assert fits["trainer"].epoch == fits["jax_epoch"] == 2
@@ -180,22 +181,23 @@ def test_fit_matches_jax(fits):
     ported = restore_checkpoint(str(root / "port" / "models" / "best"))
     assert ported["epoch"] == jb.epoch
     ref = torch_state_from_jax(_variables(jb.params, jb.rest))
+    init = torch_state_from_jax(fits["init_vars"])
     params = dict(fits["trainer"].engine.named_parameters())
-    bound = 2 * LR * fits["train_steps"]
     far = {}
     for name, want_v in ref.items():
         got_v = ported["model"][name].numpy()
         if name not in params:                     # a BN running statistic
             np.testing.assert_allclose(got_v, want_v, rtol=1e-4, atol=1e-5, err_msg=name)
             continue
+        step, want_step = got_v - init[name], want_v - init[name]
+        assert np.linalg.norm(step - want_step) <= 5e-2 * np.linalg.norm(want_step), name
         diff = np.abs(got_v - want_v)
-        assert float(diff.max()) <= bound, name
         group = name.split(".")[0]
         n_far, n_all = far.get(group, (0, 0))
         far[group] = (n_far + int((diff > 1e-5).sum()), n_all + diff.size)
     for group, (n_far, n_all) in far.items():
-        if group != "decoder":
-            assert n_far <= 1e-4 * n_all, (group, n_far, n_all)
+        share = 5e-2 if group == "decoder" else 1e-4
+        assert n_far <= share * n_all, (group, n_far, n_all)
 
 
 def test_test_pass_matches_jax(fits, data_dir, tmp_path):
@@ -295,9 +297,11 @@ def test_ae_step_matches_jax(jax_trainer):
     float32 runs of either package sit up to 1e-2 from float64 (port 5.6e-3,
     JAX 1.01e-2 seen).  The parameters after the step equal Adam on the
     port's own gradient (atol 1e-7 plus one float32 ulp: torch's Adam and
-    optax's round a weight near 1 apart, as in tests/test_torch_sdpf.py) and
-    JAX's new parameters within 2·lr; BN running statistics rtol 1e-4 /
-    atol 1e-5."""
+    optax's round a weight near 1 apart, as in tests/test_torch_sdpf.py);
+    each encoder and decoder parameter's update Δ within ‖Δ − Δ_jax‖ ≤
+    0.2·‖Δ_jax‖ of JAX's (Adam's first step is lr·sign(g): 0.096 seen, where
+    0.26 % of the entries' signs part), every other parameter's zero as
+    JAX's; BN running statistics rtol 1e-4 / atol 1e-5."""
     jt, init_vars = jax_trainer
     state = _jax_state(jt, init_vars)
     images = np.random.default_rng(4).random((B, T, 128, 128, 3), dtype=np.float32)
@@ -344,10 +348,13 @@ def test_ae_step_matches_jax(jax_trainer):
                            params0)
     after = torch_state_from_jax(_variables(new_state.params, new_state.rest))
     for name, want in optax.apply_updates(params0, updates).items():
-        np.testing.assert_allclose(named[name].detach().numpy(), np.asarray(want),
-                                   rtol=1.2e-7, atol=1e-7, err_msg=name)
-        np.testing.assert_allclose(named[name].detach().numpy(), after[name],
-                                   rtol=0, atol=2 * LR, err_msg=name)
+        got = named[name].detach().numpy()
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1.2e-7, atol=1e-7, err_msg=name)
+        step, want_step = got - params0[name], after[name] - params0[name]
+        if name.startswith(("encoder.", "decoder.")):
+            assert np.linalg.norm(step - want_step) <= 0.2 * np.linalg.norm(want_step), name
+        else:
+            assert not step.any() and not want_step.any(), name
     for name, buf in trainer.engine.named_buffers():
         np.testing.assert_allclose(buf.numpy(), after[name], rtol=1e-4, atol=1e-5,
                                    err_msg=name)
@@ -377,10 +384,13 @@ def test_run_id_matches_jax():
 
 def test_cli_main_resume_and_pretrain_load(tmp_path, monkeypatch):
     """``main`` twice on the CPU, as tests/test_train.py drives the JAX
-    one: a train run (1 epoch through ``fit_fused``, then the test pass),
-    then ``--resume --load-pretrainModel`` to epoch 2 through ``fit``, which
-    continues from the saved epoch (the AE checkpoint is missing: fresh
-    weights, as in JAX)."""
+    one: a train run (1 epoch on the staged data, ``fit_fused``, then the
+    test pass), then ``--resume --load-pretrainModel`` to epoch 2 on host
+    batches (``fit``; main's staging budget set to 0), which continues from
+    the saved epoch (the AE checkpoint is missing: fresh weights, as in
+    JAX).  ``--no-fused-epoch`` is still parsed, with no effect."""
+    import nfdpf_torch.main as entry
+
     from nfdpf_torch.data.simulator import generate_dataset
 
     monkeypatch.chdir(tmp_path)
@@ -399,6 +409,7 @@ def test_cli_main_resume_and_pretrain_load(tmp_path, monkeypatch):
         assert (run_dir / "data" / artifact).is_file(), artifact
     assert restore_checkpoint(str(run_dir / "models" / "final"))["epoch"] == 1
 
+    monkeypatch.setattr(entry, "STAGED_BYTES_LIMIT", 0)
     main(args[2:] + ["--num-epochs", "2", "--resume", "--load-pretrainModel",
                      "--no-fused-epoch"], device="cpu")
     final = restore_checkpoint(str(run_dir / "models" / "final"))
