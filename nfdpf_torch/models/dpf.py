@@ -16,7 +16,14 @@ and soft or OT resampling.  As in the JAX package:
   (``ops/cuda/coupling_cuda.py``); otherwise through its ``FlowChain``
   module;
 * the conv encoder runs ONCE over all B·T frames before the time loop (BN
-  statistics over all of them);
+  statistics over all of them), or, with ``encode_per_step`` in training,
+  inside it on each step's B frames (``filter_encoding_per_step``);
+* encoder and decoder compute in ``compute_dtype`` (float32 or bfloat16,
+  parameters float32); ``torch_init`` gives the nets the JAX package passes
+  it to torch's default initialisation;
+* with ``remat_scan_step`` each time step from the resample through the new
+  weights is recomputed in the backward (``torch.utils.checkpoint``); the
+  gate and the step's draws are taken outside that region;
 * resampling is gated by the scalar batch-mean ESS — here a Python ``if``
   on the gate, so only the taken branch runs.  Reading the gate costs one
   device sync per time step;
@@ -43,11 +50,17 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nfdpf_torch.config import DPFConfig
 from nfdpf_torch.models.dynamics import motion_update, nf_dynamic_model, proposal_likelihood
 from nfdpf_torch.models.measurement import build_measurement_model
-from nfdpf_torch.models.nets import ObservationDecoder, ObservationEncoder, flax_init_
+from nfdpf_torch.models.nets import (
+    COMPUTE_DTYPES,
+    ObservationDecoder,
+    ObservationEncoder,
+    flax_init_,
+)
 from nfdpf_torch.ops.cuda.coupling_cuda import chain_refusal, pack_chain_params
 from nfdpf_torch.ops.cuda.sinkhorn_cuda import ot_resample_streaming
 from nfdpf_torch.ops.density import (
@@ -88,19 +101,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(cfg: DPFConfig) -> None:
-    """Raise ``NotImplementedError`` for any setting the port does not run
-    yet, naming the ROADMAP (queue 1) item that brings it."""
-    todo = [
-        (cfg.encode_per_step, "the encode_per_step ablation", 18),
-        (cfg.remat_scan_step, "remat_scan_step", 18),
-        (cfg.compute_dtype != "float32", f"compute_dtype={cfg.compute_dtype!r}", 18),
-        (cfg.torch_init, "torch_init", 4),
-        (cfg.mesh_data > 1 or cfg.mesh_particle > 1, "device meshes", 19),
-    ]
-    for hit, what, item in todo:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+    """Raise ``NotImplementedError`` for device meshes, the one setting the
+    port does not run yet (naming its ROADMAP queue 1 item), and
+    ``ValueError`` for values no package runs."""
+    if cfg.mesh_data > 1 or cfg.mesh_particle > 1:
+        raise NotImplementedError(
+            "device meshes are not ported yet (ROADMAP queue 1, item 19)")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                         f"got {cfg.compute_dtype!r}")
     if cfg.resampler_type not in ("ot", "soft"):
         raise ValueError(f"unknown resampler {cfg.resampler_type!r}")
     if cfg.sinkhorn_warm_start and not streaming_ot(cfg):
@@ -182,8 +191,9 @@ class DPF(nn.Module):
         if self.device.type == "cuda":
             check_coupling_kernels(config)
         width = encoder_width(config)
-        self.encoder = ObservationEncoder(width)
-        self.decoder = ObservationDecoder(width)
+        dtype = COMPUTE_DTYPES[config.compute_dtype]
+        self.encoder = ObservationEncoder(width, dtype, config.torch_init)
+        self.decoder = ObservationDecoder(width, dtype, config.torch_init)
         self.measurement = build_measurement_model(config)
         # registered last: the other modules' initial draws do not depend on
         # the flows being there
@@ -202,7 +212,7 @@ class DPF(nn.Module):
         drawn on the CPU)."""
         flax_init_(self, torch.Generator().manual_seed(seed))
 
-    def _resample(self, particles, probs, offset, generator, potentials):
+    def _resample(self, particles, probs, offset, potentials):
         """One firing of the configured resampler.  Returns (particles',
         probs', ancestor indices, Sinkhorn iterations, potentials): the
         iterations are the streaming loop's (0 on the other paths, as in
@@ -210,8 +220,7 @@ class DPF(nn.Module):
         without it)."""
         cfg = self.config
         if cfg.resampler_type == "soft":
-            return (*soft_systematic_resample(particles, probs, cfg.alpha, offset, generator),
-                    0, None)
+            return (*soft_systematic_resample(particles, probs, cfg.alpha, offset), 0, None)
         kw = dict(eps=cfg.epsilon, scaling=cfg.scaling, threshold=cfg.threshold,
                   max_iter=cfg.max_iter, convergence=cfg.sinkhorn_convergence)
         if not streaming_ot(cfg):
@@ -231,19 +240,43 @@ class DPF(nn.Module):
     def decode(self, encodings: torch.Tensor) -> torch.Tensor:
         return self.decoder(encodings)
 
-    def filter_from_encodings(
-        self,
-        encodings: torch.Tensor,     # (B, T, h)
-        start_state: torch.Tensor,   # (B, 4) pos + vel
-        vel_seq: torch.Tensor,       # (B, T, 2) teacher-forced velocities
-        noise: Optional[dict] = None,
-        generator: Optional[torch.Generator] = None,
-    ) -> FilterOutput:
-        """Run the T-step filter loop."""
+    def _step(self, gate: bool, particles, probs, vel, enc_t, normal, offset, warm,
+              fused_dyn, fused_cond):
+        """One time step, from the resample through the new weights: the
+        region ``remat_scan_step`` recomputes in the backward, as
+        ``jax.checkpoint(step)`` does.  Draws nothing: ``gate`` was read, and
+        the motion draw ``normal`` and the soft resampler's ``offset`` were
+        taken, before it, so a recomputation takes the same branch (and the
+        same Sinkhorn iterations) on the same noise.  Returns (particles',
+        probs', mean log-weight, noise, log-lik, ancestor indices (None
+        without a firing), jacobian, prior, Sinkhorn iterations, warm-start
+        potentials)."""
+        cfg = self.config
+        if gate:
+            particles, probs, idx, sk_iters, pots = self._resample(particles, probs, offset, warm)
+        else:
+            idx, sk_iters, pots = None, 0, None
+        log_probs_r = torch.log(probs)
+        particles_phys, noise_t = motion_update(particles, vel, cfg.pos_noise, normal)
+        particles_dyn, jac = nf_dynamic_model(
+            self.nf_dyn, particles_phys, use_nf=cfg.nf_dyn, fused=fused_dyn)
+        propose, lki_log, prior_log, propose_log = proposal_likelihood(
+            self.cond_model, self.nf_dyn, self.measurement,
+            particles_dyn, particles_phys, enc_t, noise_t, jac,
+            cfg.nf_dyn, cfg.nf_cond, cfg.pos_noise, cfg.vel_noise,
+            fused_dyn=fused_dyn, fused_cond=fused_cond)
+        log_w = log_probs_r + lki_log + prior_log - propose_log
+        new_probs = normalize_log_weights(log_w) + 1e-12
+        return (propose, new_probs, torch.mean(log_w), noise_t, lki_log, idx, jac, prior_log,
+                sk_iters, pots)
+
+    def _filter(self, encode_step, start_state, vel_seq, noise, generator) -> FilterOutput:
+        """The T-step filter loop; ``encode_step(t)`` gives step t's (B, h)
+        encoding."""
         cfg = self.config
         batch, seq_len = vel_seq.shape[:2]
         n = cfg.num_particles
-        dev = encodings.device
+        dev = vel_seq.device
         noise = noise or {}
 
         if "init" in noise:
@@ -261,6 +294,7 @@ class DPF(nn.Module):
             else None
         idx0 = torch.arange(n, dtype=torch.int32, device=dev).expand(batch, n)
         obs_lik = torch.zeros((), device=dev)
+        remat = cfg.remat_scan_step and torch.is_grad_enabled()
 
         # the fused coupling path: pack each used chain once, outside the
         # loop (gradients flow back through the pack)
@@ -275,40 +309,35 @@ class DPF(nn.Module):
                                 "indices", "jacobians", "priors")}
         gates, iters = [], []
         for t in range(seq_len):
+            enc_t = encode_step(t)
             ess = effective_sample_size(probs)
             gate = bool(ess < cfg.ess_threshold * n)      # one device sync
-            if gate:
-                particles_r, probs_r, idx, sk_iters, pots = self._resample(
-                    particles, probs, None if offsets is None else offsets[t], generator,
-                    warm)
-                if warm is not None:
-                    warm = (pots, True)
+            # the draws, in the order the resampler and the motion take them
+            offset = None
+            if gate and cfg.resampler_type == "soft":
+                offset = offsets[t] if offsets is not None else torch.rand(
+                    (batch, 1), generator=generator, device=dev) * (1.0 / n)
+            normal = motion[t] if motion is not None else torch.randn(
+                particles.shape, generator=generator, device=dev)
+            args = (gate, particles, probs, vel, enc_t, normal, offset, warm, fused_dyn,
+                    fused_cond)
+            if remat:
+                # the step draws nothing, so no RNG state is stashed for it
+                step = checkpoint(self._step, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                particles_r, probs_r, idx, sk_iters = particles, probs, idx0, 0
-            log_probs_r = torch.log(probs_r)
-
-            particles_phys, noise_t = motion_update(
-                particles_r, vel, cfg.pos_noise,
-                None if motion is None else motion[t], generator)
-            new_vel = vel_seq[:, t]
-            particles_dyn, jac = nf_dynamic_model(
-                self.nf_dyn, particles_phys, use_nf=cfg.nf_dyn, fused=fused_dyn)
-            propose, lki_log, prior_log, propose_log = proposal_likelihood(
-                self.cond_model, self.nf_dyn, self.measurement,
-                particles_dyn, particles_phys, encodings[:, t], noise_t, jac,
-                cfg.nf_dyn, cfg.nf_cond, cfg.pos_noise, cfg.vel_noise,
-                fused_dyn=fused_dyn, fused_cond=fused_cond)
-
-            log_w = log_probs_r + lki_log + prior_log - propose_log
-            obs_lik = obs_lik + torch.mean(log_w)
-            new_probs = normalize_log_weights(log_w) + 1e-12
-
-            for k, v in zip(hist, (propose, new_probs, noise_t, lki_log, idx, jac,
-                                   prior_log)):
+                step = self._step(*args)
+            propose, new_probs, mean_log_w, noise_t, lki_log, idx, jac, prior_log, sk_iters, \
+                pots = step
+            if gate and warm is not None:
+                warm = (pots, True)
+            obs_lik = obs_lik + mean_log_w
+            for k, v in zip(hist, (propose, new_probs, noise_t, lki_log,
+                                   idx0 if idx is None else idx, jac, prior_log)):
                 hist[k].append(v)
             gates.append(gate)
             iters.append(sk_iters)
-            particles, probs, vel = propose, new_probs, new_vel
+            particles, probs, vel = propose, new_probs, vel_seq[:, t]
 
         stacked = {k: torch.stack(v, dim=1) for k, v in hist.items()}
         return FilterOutput(
@@ -319,11 +348,50 @@ class DPF(nn.Module):
             sinkhorn_iters=torch.tensor(iters, dtype=torch.int32),
         )
 
-    def filter(self, images, start_state, vel_seq, noise=None, generator=None):
-        """Encode all frames once, then run the filter.
+    def filter_from_encodings(
+        self,
+        encodings: torch.Tensor,     # (B, T, h)
+        start_state: torch.Tensor,   # (B, 4) pos + vel
+        vel_seq: torch.Tensor,       # (B, T, 2) teacher-forced velocities
+        noise: Optional[dict] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> FilterOutput:
+        """Run the T-step filter loop on precomputed encodings."""
+        return self._filter(lambda t: encodings[:, t], start_state, vel_seq, noise, generator)
+
+    def filter_encoding_per_step(self, images, start_state, vel_seq, noise=None,
+                                 generator=None):
+        """The ``encode_per_step`` ablation (``nfdpf_tpu/models/dpf.py:366-383``):
+        the encoder runs inside the time loop on step t's B frames, BN batch
+        statistics over those frames and its running statistics updated step
+        by step.  The encoder stays outside the region ``remat_scan_step``
+        recomputes, so a recomputation never updates BN's buffers twice.
+        Train mode only: in eval mode BN uses its running statistics, and
+        ``filter``'s hoisted encode is the same function.
 
         images: (B, T, H, W, 3).  Returns (FilterOutput, encodings (B, T, h)).
         """
+        if not self.training:
+            raise ValueError("the per-step encode runs in train mode only; in eval mode "
+                             "filter() encodes all frames at once, the same function")
+        encodings = []
+
+        def encode_step(t):
+            encodings.append(self.encode(images[:, t]))
+            return encodings[-1]
+
+        out = self._filter(encode_step, start_state, vel_seq, noise, generator)
+        return out, torch.stack(encodings, dim=1)
+
+    def filter(self, images, start_state, vel_seq, noise=None, generator=None):
+        """Encode all frames once, then run the filter; with
+        ``encode_per_step`` in train mode, ``filter_encoding_per_step``.
+
+        images: (B, T, H, W, 3).  Returns (FilterOutput, encodings (B, T, h)).
+        """
+        if self.config.encode_per_step and self.training:
+            return self.filter_encoding_per_step(images, start_state, vel_seq, noise,
+                                                 generator)
         b, t = images.shape[:2]
         encodings = self.encode(images.reshape((b * t,) + images.shape[2:]))
         encodings = encodings.reshape(b, t, -1)

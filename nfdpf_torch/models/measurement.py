@@ -4,7 +4,9 @@ Counterpart of ``nfdpf_tpu/models/measurement.py``.  Each module takes the
 observation encodings (B, h) and particles (B, N, d) and returns
 per-particle log-likelihoods (B, N), and owns its particle encoder.  The
 Gaussian, CRNVP and CGLOW models subtract each row's maximum (``torch.amax``,
-whose gradient splits between ties as ``jnp.max``'s does).
+whose gradient splits between ties as ``jnp.max``'s does).  ``torch_init``
+reaches the particle encoder and the NN head, as in the JAX package; the
+flows' and the CGLOW's own draws do not change with it.
 """
 
 from __future__ import annotations
@@ -29,9 +31,9 @@ class CosineMeasurement(nn.Module):
     """``log 1/(1e-7 + cos-distance)`` between the observation encoding and
     each encoded particle."""
 
-    def __init__(self, hidden_size: int = 32, state_dim: int = 2):
+    def __init__(self, hidden_size: int = 32, state_dim: int = 2, torch_init: bool = False):
         super().__init__()
-        self.particle_encoder = ParticleEncoder(hidden_size, state_dim)
+        self.particle_encoder = ParticleEncoder(hidden_size, state_dim, torch_init)
 
     def forward(self, encodings: torch.Tensor, particles: torch.Tensor) -> torch.Tensor:
         e_state = self.particle_encoder(particles)
@@ -44,10 +46,10 @@ class NNMeasurement(nn.Module):
     value as in the JAX package (not ``logsigmoid``: the two differ where
     the sigmoid saturates in float32)."""
 
-    def __init__(self, hidden_size: int = 32, state_dim: int = 2):
+    def __init__(self, hidden_size: int = 32, state_dim: int = 2, torch_init: bool = False):
         super().__init__()
-        self.particle_encoder = ParticleEncoder(hidden_size, state_dim)
-        self.likelihood_net = LikelihoodNet(2 * hidden_size)
+        self.particle_encoder = ParticleEncoder(hidden_size, state_dim, torch_init)
+        self.likelihood_net = LikelihoodNet(2 * hidden_size, torch_init)
 
     def forward(self, encodings: torch.Tensor, particles: torch.Tensor) -> torch.Tensor:
         e_state = self.particle_encoder(particles)
@@ -61,9 +63,9 @@ class GaussianMeasurement(nn.Module):
     maximum."""
 
     def __init__(self, hidden_size: int = 32, state_dim: int = 2, mean: float = 1.0,
-                 variance: float = 100.0):
+                 variance: float = 100.0, torch_init: bool = False):
         super().__init__()
-        self.particle_encoder = ParticleEncoder(hidden_size, state_dim)
+        self.particle_encoder = ParticleEncoder(hidden_size, state_dim, torch_init)
         self.mean = mean
         self.variance = variance
 
@@ -81,9 +83,9 @@ class CRNVPMeasurement(nn.Module):
     encoding, prior N(0, 2.5²), context e_state."""
 
     def __init__(self, hidden_size: int = 32, n_sequence: int = 2,
-                 flow_hidden_dim: int = 8, state_dim: int = 2):
+                 flow_hidden_dim: int = 8, state_dim: int = 2, torch_init: bool = False):
         super().__init__()
-        self.particle_encoder = ParticleEncoder(hidden_size, state_dim)
+        self.particle_encoder = ParticleEncoder(hidden_size, state_dim, torch_init)
         self.cnf = realnvp_chain(n_sequence, hidden_size, flow_hidden_dim, 0.01,
                                  prior_std=2.5, ctx_dim=hidden_size)
 
@@ -104,7 +106,8 @@ class CGlowMeasurement(nn.Module):
     def __init__(self, config: DPFConfig):
         super().__init__()
         self.x_size = tuple(config.x_size)
-        self.particle_encoder = ParticleEncoder(config.glow_ctx_features, config.state_dim)
+        self.particle_encoder = ParticleEncoder(config.glow_ctx_features, config.state_dim,
+                                                config.torch_init)
         self.cglow = CondGlowModel(
             x_size=config.x_size, y_size=config.y_size,
             x_hidden_channels=config.x_hidden_channels, x_hidden_size=config.x_hidden_size,
@@ -123,15 +126,16 @@ class CGlowMeasurement(nn.Module):
 def build_measurement_model(config: DPFConfig) -> nn.Module:
     """Dispatch on ``--measurement``."""
     kind = config.measurement
+    ti = config.torch_init
     if kind == "cos":
-        return CosineMeasurement(config.hidden_size, config.state_dim)
+        return CosineMeasurement(config.hidden_size, config.state_dim, ti)
     if kind == "NN":
-        return NNMeasurement(config.hidden_size, config.state_dim)
+        return NNMeasurement(config.hidden_size, config.state_dim, ti)
     if kind == "gaussian":
-        return GaussianMeasurement(config.hidden_size, config.state_dim)
+        return GaussianMeasurement(config.hidden_size, config.state_dim, torch_init=ti)
     if kind == "CRNVP":
         return CRNVPMeasurement(config.hidden_size, config.n_sequence,
-                                config.flow_hidden_dim, config.state_dim)
+                                config.flow_hidden_dim, config.state_dim, ti)
     if kind == "CGLOW":
         return CGlowMeasurement(config)
     raise ValueError(f"unknown measurement model {kind!r}")

@@ -5,6 +5,16 @@ Counterparts of ``nfdpf_tpu/models/nets.py:59-162``.  The public functions
 keep the JAX package's NHWC image layout; the convolutions run in PyTorch's
 NCHW inside.  Layer order is Conv → ReLU → BatchNorm, with the flax
 BatchNorm's rule for running statistics (``FlaxBatchNorm``).
+
+The encoder and decoder take a ``compute_dtype`` as flax's ``dtype``: the
+parameters stay float32, the input and each layer's kernel are cast to it
+where the layer runs, BatchNorm computes its statistics and its affine map
+in float32 and returns the compute dtype, dense layers add their bias
+after the product and the decoder's sigmoid is XLA's 1/(1 + exp(−x)), each
+op rounded, and the output is cast back to float32.  The casts are
+explicit (``torch.autocast``'s op lists are not flax's).  With
+``torch_init`` a net's dense and conv layers are marked for torch's default
+initialisation instead of flax's (``flax_init_``).
 """
 
 from __future__ import annotations
@@ -38,11 +48,15 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Statistics, running statistics and the affine map in the
+        parameters' dtype, float32 (as flax promotes a bfloat16 input); the
+        result in ``x``'s dtype."""
         shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.to(self.weight.dtype)
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean = torch.mean(x, dim=dims)
-            var = torch.clamp_min(torch.mean(x * x, dim=dims) - mean * mean, 0.0)
+            mean = torch.mean(xf, dim=dims)
+            var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(m * mean)
@@ -50,36 +64,75 @@ class FlaxBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(x.dtype)
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _mark_torch_init(*layers: nn.Module) -> None:
+    """Mark dense and conv layers for torch's default initialisation."""
+    for layer in layers:
+        for m in layer.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                m.torch_init = True
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` in ``x``'s dtype: below float32, as flax's ``Dense``, the
+    product in it and then the bias added in it (two roundings)."""
+    if x.dtype == layer.weight.dtype:
+        return layer(x)
+    return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic; below float32 as XLA expands it, 1/(1 + exp(−x)) with
+    every op rounded to the compute dtype."""
+    if torch.finfo(x.dtype).bits >= 32:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1.0 + torch.exp(-x))
 
 
 class ObservationEncoder(nn.Module):
     """5× (Conv k4 s2 p1 → ReLU → BN) 3→16→32→64→128→256 over 128²→4²,
-    flatten in NHWC order, Linear → out_features.  (..., H, W, 3) → (..., out)."""
+    flatten in NHWC order, Linear → out_features.  (..., H, W, 3) → (..., out),
+    computed in ``compute_dtype``, returned in float32."""
 
-    def __init__(self, out_features: int = 32):
+    def __init__(self, out_features: int = 32, compute_dtype: torch.dtype = torch.float32,
+                 torch_init: bool = False):
         super().__init__()
+        self.compute_dtype = compute_dtype
         pairs = list(zip(ENC_CHANNELS[:-1], ENC_CHANNELS[1:]))
         self.convs = nn.ModuleList(
             nn.Conv2d(ci, co, 4, stride=2, padding=1, bias=False) for ci, co in pairs)
         self.norms = nn.ModuleList(FlaxBatchNorm(co) for _, co in pairs)
         self.dense = nn.Linear(256 * 4 * 4, out_features)
+        if torch_init:
+            _mark_torch_init(self.convs, self.dense)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         lead = images.shape[:-3]
-        x = images.reshape((-1,) + images.shape[-3:]).permute(0, 3, 1, 2)
+        dt = self.compute_dtype
+        x = images.reshape((-1,) + images.shape[-3:]).permute(0, 3, 1, 2).to(dt)
         for conv, norm in zip(self.convs, self.norms):
-            x = norm(F.relu(conv(x)))
+            x = F.conv2d(x, conv.weight.to(dt), None, conv.stride, conv.padding)
+            x = norm(F.relu(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return self.dense(x).reshape(lead + (-1,))
+        return _linear(self.dense, x).to(self.dense.weight.dtype).reshape(lead + (-1,))
 
 
 class ObservationDecoder(nn.Module):
     """Linear → (4, 4, 256) → 4× (ConvTranspose k4 s2 → ReLU → BN) →
-    ConvTranspose to 3 channels → BN → Sigmoid.  (..., in) → (..., 128, 128, 3)."""
+    ConvTranspose to 3 channels → BN → Sigmoid.  (..., in) → (..., 128, 128, 3),
+    computed in ``compute_dtype``, returned in float32.  With ``torch_init``
+    a ConvTranspose's fan-in is torch's, out_ch·kh·kw."""
 
-    def __init__(self, in_features: int = 32):
+    def __init__(self, in_features: int = 32, compute_dtype: torch.dtype = torch.float32,
+                 torch_init: bool = False):
         super().__init__()
+        self.compute_dtype = compute_dtype
         chans = ENC_CHANNELS[::-1]                      # 256 → 3
         pairs = list(zip(chans[:-1], chans[1:]))
         self.dense = nn.Linear(in_features, 256 * 4 * 4)
@@ -87,27 +140,33 @@ class ObservationDecoder(nn.Module):
             nn.ConvTranspose2d(ci, co, 4, stride=2, padding=1, bias=False)
             for ci, co in pairs)
         self.norms = nn.ModuleList(FlaxBatchNorm(co) for _, co in pairs)
+        if torch_init:
+            _mark_torch_init(self.dense, self.deconvs)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         lead = z.shape[:-1]
-        x = self.dense(z.reshape(-1, z.shape[-1]))
+        dt = self.compute_dtype
+        x = _linear(self.dense, z.reshape(-1, z.shape[-1]).to(dt))
         x = x.reshape(-1, 4, 4, 256).permute(0, 3, 1, 2)
         last = len(self.deconvs) - 1
         for k, (deconv, norm) in enumerate(zip(self.deconvs, self.norms)):
-            x = deconv(x)
+            x = F.conv_transpose2d(x, deconv.weight.to(dt), None, deconv.stride,
+                                   deconv.padding)
             x = norm(x if k == last else F.relu(x))
-        x = torch.sigmoid(x).permute(0, 2, 3, 1)
+        x = _sigmoid(x).to(self.dense.weight.dtype).permute(0, 2, 3, 1)
         return x.reshape(lead + x.shape[1:])
 
 
 class ParticleEncoder(nn.Module):
     """MLP state(d)→16→32→out, applied on (..., d)."""
 
-    def __init__(self, out_features: int = 32, state_dim: int = 2):
+    def __init__(self, out_features: int = 32, state_dim: int = 2, torch_init: bool = False):
         super().__init__()
         self.fc1 = nn.Linear(state_dim, 16)
         self.fc2 = nn.Linear(16, 32)
         self.fc3 = nn.Linear(32, out_features)
+        if torch_init:
+            _mark_torch_init(self)
 
     def forward(self, s: torch.Tensor) -> torch.Tensor:
         return self.fc3(F.relu(self.fc2(F.relu(self.fc1(s)))))
@@ -117,11 +176,13 @@ class LikelihoodNet(nn.Module):
     """MLP in→64→64→1 + sigmoid, the ``NN`` measurement's head, applied on
     (..., in)."""
 
-    def __init__(self, in_features: int = 64):
+    def __init__(self, in_features: int = 64, torch_init: bool = False):
         super().__init__()
         self.fc1 = nn.Linear(in_features, 64)
         self.fc2 = nn.Linear(64, 64)
         self.fc3 = nn.Linear(64, 1)
+        if torch_init:
+            _mark_torch_init(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self.fc3(F.relu(self.fc2(F.relu(self.fc1(x))))))
@@ -146,7 +207,12 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
     N(0, bias_std²) where it carries a ``bias_std``; a module with a
     ``param_init_std`` dict draws each of the named parameters so.
     ``generator`` must live on the CPU; the draws are copied to the
-    parameters' device, in the order the modules were registered."""
+    parameters' device, in the order the modules were registered.  The
+    ``torch_init`` layers are drawn after all of them, and the flax draw
+    each replaces is still taken (and dropped): every other parameter gets
+    the draw it gets without ``torch_init``, as the JAX package's
+    per-module keys give it."""
+    torch_layers = []
     for m in module.modules():
         for name, std in getattr(m, "param_init_std", {}).items():
             _normal_(getattr(m, name), std, generator)
@@ -165,6 +231,9 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
+            if getattr(m, "torch_init", False):
+                torch_layers.append(m)
+                continue
             w.copy_(draw)
             if m.bias is not None:
                 _normal_(m.bias, getattr(m, "bias_std", None) or 0.0, generator)
@@ -173,3 +242,8 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+    for m in torch_layers:
+        bound = m.weight[0].numel() ** -0.5
+        for p in (m.weight, m.bias):
+            if p is not None:
+                p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))

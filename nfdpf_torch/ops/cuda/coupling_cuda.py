@@ -25,10 +25,11 @@ tensors on the CPU and launches the kernels for CUDA tensors; anything else
 raises.  ``LAUNCHES`` counts the kernel launches.
 
 The kernels take the filter's state dimension (2), float32, a hidden width
-up to 8 (fixed at compile time: one library per width, built at first use;
-8 is the filter's width; 3, 4, 6 and 8, which take each of the forward's
-lane mappings, are the widths held against the plain version on the card;
-at 16 the backward's register arrays spill), at
+up to 16 (fixed at compile time: one library per width, built at first use;
+8 is the filter's default; 3, 4, 6 and 8, which take each of the forward's
+lane mappings, and 16 are the widths held against the plain version on the
+card; a chain 9-15 wide runs at 16, zero-padded by ``pad_hidden``, which
+changes no output and whose padding's gradients are sliced away), at
 most 8 blocks, and parameters that fit the card's shared memory (227 KB;
 ``fwd_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' layouts, the
 backward's twice the parameters' size plus its tiles).  ``chain_refusal``
@@ -52,12 +53,14 @@ from nfdpf_torch.ops.flows import FlowChain
 LAUNCHES = {"coupling_chain": 0, "coupling_chain_inverse": 0, "coupling_chain_bwd": 0}
 
 NETS = ("t1", "s1", "t2", "s2")
-MAX_HIDDEN = 8                    # the H-wide activations are register arrays
+MAX_HIDDEN = 16                   # the H-wide activations are register arrays
+PADDED_ABOVE = 8                  # wider chains run at MAX_HIDDEN, zero-padded
 MAX_BLOCKS = 8                    # chain blocks the kernels take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
 FWD_ROWS_PER_BLOCK = 32           # forward rows per block
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
 BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)
+BWD_ROWS_PER_BLOCK_WIDE = 32      # at hidden 16 shared memory holds one or two warps' tiles
 BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
 
 _P = ctypes.c_void_p
@@ -79,6 +82,25 @@ def reset_launches() -> None:
 def build_defines(hidden: int) -> tuple:
     """The compile-time defines of the library for one hidden width."""
     return (f"NFDPF_HIDDEN={hidden}",)
+
+
+def kernel_hidden(hidden: int) -> int:
+    """The hidden width the kernels run a chain of width ``hidden`` at: its
+    own up to 8, MAX_HIDDEN from 9 to 15 (a wider chain is refused)."""
+    return MAX_HIDDEN if PADDED_ABOVE < hidden < MAX_HIDDEN else hidden
+
+
+def pad_hidden(weights: torch.Tensor, biases: torch.Tensor,
+               hidden: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A packed chain zero-padded to hidden width ``hidden`` (and its
+    ``max_in`` to max(1 + C, hidden)).  A padded unit's activation is
+    tanh(0) = 0 and its outgoing weights are 0, so every output gains exact
+    zeros; differentiable, so the padding's gradients are sliced away."""
+    h, max_in = weights.shape[-1], weights.shape[-2]
+    if h == hidden:
+        return weights, biases
+    return (F.pad(weights, (0, hidden - h, 0, max(max_in, hidden) - max_in)),
+            F.pad(biases, (0, hidden - h)))
 
 
 def _library(hidden: int):
@@ -210,10 +232,12 @@ def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: b
     ``hidden`` with a ``ctx_dim``-wide context over ``n`` particles per batch
     element (``broadcast``: one context row per batch element, particle
     stride 0, as the filter passes it); None when it can.  The wrapper raises
-    it at launch, the filter when it is built."""
+    it at launch, the filter when it is built; a chain 9-15 wide is counted
+    at the width it runs at, 16."""
     if hidden > MAX_HIDDEN or n_blocks > MAX_BLOCKS:
         return (f"the coupling kernels take hidden <= {MAX_HIDDEN} and at most "
                 f"{MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
+    hidden = kernel_hidden(hidden)
     max_in = max(1 + ctx_dim, hidden)
     # the distinct context rows of a block's (the backward's smallest block's)
     # rows: a run per batch element when the context is broadcast over the
@@ -276,7 +300,9 @@ def _launch_backward(x, ctx, weights, biases, gy, gld, inverse: bool, want_gctx:
     b, n, _ = x.shape
     x, weights, biases, gy, gld = kernel_args(x, weights, biases, gy, gld)
     dev = x.device
-    grid = min(-(-b * n // BWD_ROWS_PER_BLOCK), BWD_MAX_GRID)
+    per_block = BWD_ROWS_PER_BLOCK if weights.shape[-1] <= PADDED_ABOVE \
+        else BWD_ROWS_PER_BLOCK_WIDE
+    grid = min(-(-b * n // per_block), BWD_MAX_GRID)
     gx = torch.empty((b, n, 2), device=dev, dtype=torch.float32)
     # the kernel adds each MLP's share into its row of gctx
     gctx = torch.zeros(ctx.shape, device=dev, dtype=torch.float32) if want_gctx else None
@@ -321,10 +347,12 @@ def fused_coupling_chain(x: torch.Tensor, ctx: Optional[torch.Tensor],
 
     Returns (y, log_det) equal to ``FlowChain.forward`` (its log_det; the
     prior term is separate) or ``FlowChain.inverse``.  ctx is (B, N, C) or
-    None.  Differentiable in x, ctx, weights and biases.
+    None.  Differentiable in x, ctx, weights and biases.  On CUDA a chain
+    9-15 wide is padded to 16 (``pad_hidden``) for the kernels.
     """
     tensors = [t for t in (x, ctx, weights, biases) if t is not None]
     if on_cpu(*tensors):
         _check_chain(x, ctx, weights, biases, backward=False)
         return chain_apply_packed_plain(x, ctx, weights, biases, inverse)
+    weights, biases = pad_hidden(weights, biases, kernel_hidden(weights.shape[-1]))
     return FusedCouplingChain.apply(x, ctx, weights, biases, bool(inverse))

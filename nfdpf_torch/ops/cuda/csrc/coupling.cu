@@ -80,8 +80,14 @@
 //     thread in flight at once.
 //   * No tensor cores: each product is 8 x (rows) x 8 per net and tile, and
 //     TF32 would break the 1e-4 tolerance of the gradients.
+//   * Hidden widths: the library is built for one H (-DNFDPF_HIDDEN), H <= 8
+//     or H = 16; the wrapper runs a chain 9-15 wide at 16, zero-padded (a
+//     padded unit's activation is tanh(0) = 0 and its outgoing weights are
+//     0, so every sum gains exact zeros).  At 16 the backward's transpose-
+//     reduce runs in three passes (reduce_tile_wide) and a block takes fewer
+//     warps where its tile does not fit; H <= 8 keeps reduce_tile's one pass.
 // ptxas (CUDA 12.8, H = 8): about 150 registers a thread, no spills, no
-// stack (PERF.md has the counts).
+// stack (PERF.md has the counts, and those at H = 16).
 // Precise tanhf/expf (no fast-math).
 
 #include <cuda_runtime.h>
@@ -287,6 +293,77 @@ __device__ __forceinline__ float half_bwd(const float* __restrict__ w, int net_w
   return g_half;
 }
 
+// One net's share of reduce_tile_wide's transpose-reduce, for the lanes of a
+// 16-lane group: rows [I0, I0 + NI) of layer 1's weight gradient (h1 ⊗ g2)
+// and, with VEC, the vector entries (layer 1's bias, layer 0's half row and
+// bias, layer 2's column and bias).  Each lane sums the rows r = sub mod 16,
+// 16 apart, in row order, every entry in registers from one load of each
+// field it needs; then a 4-step butterfly adds the 16 lanes' sums in a fixed
+// order, and the group's first lane adds them into the net's accumulators.
+// Every entry is summed in reduce_tile's order.  The rows past the end
+// carry zero gradients and add exact zeros.
+template <int H, int I0, int NI, bool VEC>
+__device__ __forceinline__ void reduce_net(const float* fac, int fs, int rows, int k, int net,
+                                           bool active, int sub, float* awm, float* abm,
+                                           int max_in) {
+  using F = Fields<H>;
+  constexpr int W = NI * H;                 // the layer-1 entries of this pass
+  constexpr int E = W + (VEC ? 4 * H + 1 : 0);
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  if (active) {
+    const float* f_half = fac + F::half(k, net) * fs;
+    const float* f_out = fac + F::out(k, net) * fs;
+    const float* f_h1 = fac + F::h1(k, net) * fs;
+    for (int r = sub; r < rows; r += 16) {
+      float g2[H];
+#pragma unroll
+      for (int j = 0; j < H; ++j) g2[j] = f_h1[(3 * H + j) * fs + r];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const float h1 = f_h1[(I0 + i) * fs + r];
+#pragma unroll
+        for (int j = 0; j < H; ++j) acc[i * H + j] = fmaf(h1, g2[j], acc[i * H + j]);
+      }
+      if constexpr (VEC) {
+        const float half = f_half[r], g_out = f_out[r];
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+          const float h2 = f_h1[(H + j) * fs + r], g1 = f_h1[(2 * H + j) * fs + r];
+          acc[W + j] += g2[j];
+          acc[W + H + j] = fmaf(half, g1, acc[W + H + j]);
+          acc[W + 2 * H + j] += g1;
+          acc[W + 3 * H + j] = fmaf(h2, g_out, acc[W + 3 * H + j]);
+        }
+        acc[W + 4 * H] += g_out;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  }
+  if (active && sub == 0) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) awm[(max_in + I0 + i) * H + j] += acc[i * H + j];
+    }
+    if constexpr (VEC) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        abm[H + j] += acc[W + j];
+        awm[j] += acc[W + H + j];
+        abm[j] += acc[W + 2 * H + j];
+        awm[(2 * max_in + j) * H] += acc[W + 3 * H + j];
+      }
+      abm[2 * H] += acc[W + 4 * H];
+    }
+  }
+}
+
 // The transpose-reduce of a tile: every weight and bias gradient of every
 // net summed over the tile's rows.  Sixteen lanes take one net (a warp two):
 // each lane sums the rows r = lane mod 16, 16 apart, in row order, all H·H +
@@ -358,6 +435,28 @@ __device__ __forceinline__ void reduce_tile(const float* fac, int fs, int rows, 
       }
       abm[2 * H] += acc[H * H + 4 * H];
     }
+  }
+}
+
+// The transpose-reduce of a tile at H = 16, where reduce_tile's one pass
+// would hold H·H + 4H + 1 = 321 sums a lane: three passes of reduce_net take
+// layer 1's rows 0-7, rows 8-15 and the vectors (128, 128 and 65 sums),
+// reading the tile again each time.  Sixteen lanes take one net, as there.
+template <int H>
+__device__ __forceinline__ void reduce_tile_wide(const float* fac, int fs, int rows, int nets,
+                                                 float* aw, float* ab, int net_w, int net_b,
+                                                 int max_in) {
+  static_assert(H == 16, "the wide reduce runs at H = 16");
+  const int lane = threadIdx.x % kWarp, sub = lane % 16;
+  const int warps = blockDim.x / kWarp;
+  for (int m0 = 2 * (threadIdx.x / kWarp); m0 < nets; m0 += 2 * warps) {   // warp-uniform
+    const int m = m0 + lane / 16, k = m / 4, net = m % 4;
+    const bool active = m < nets;
+    float* awm = aw + m * net_w;
+    float* abm = ab + m * net_b;
+    reduce_net<H, 0, H / 2, false>(fac, fs, rows, k, net, active, sub, awm, abm, max_in);
+    reduce_net<H, H / 2, H / 2, false>(fac, fs, rows, k, net, active, sub, awm, abm, max_in);
+    reduce_net<H, 0, 0, true>(fac, fs, rows, k, net, active, sub, awm, abm, max_in);
   }
 }
 
@@ -526,7 +625,11 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     if (valid) gx[row] = make_float2(g_lo, g_up);
     __syncthreads();
 
-    reduce_tile<H>(fac, fs, T, nets, aw, ab, net_w, net_b, max_in);
+    if constexpr (H <= 8) {
+      reduce_tile<H>(fac, fs, T, nets, aw, ab, net_w, net_b, max_in);
+    } else {
+      reduce_tile_wide<H>(fac, fs, T, nets, aw, ab, net_w, net_b, max_in);
+    }
     if (C) {
       // with a shared context row: per run and net, g1 summed over its rows
       if (share) {

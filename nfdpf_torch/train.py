@@ -4,7 +4,8 @@ loops, testing and checkpoints.
 Counterpart of ``nfdpf_tpu/train.py``: total = 1·sup + 2·AE for the
 DPF train type, plus 0.01·pseudo-likelihood for SDPF (the NF-prior variant
 when ``nf_dyn`` is on, else the Gaussian one), with the
-AE loss reusing the filter's encodings; the teacher-forced velocity gets
+AE loss reusing the filter's encodings (under ``encode_per_step`` in
+training, a second full-frame encode's); the teacher-forced velocity gets
 N(0, 4²) noise; Adam at a constant rate (torch's Adam defaults equal
 optax's).  The parameters live in ``trainer.engine``, the optimizer state in
 ``trainer.optimizer``, the count of finished epochs in ``trainer.epoch``.
@@ -115,8 +116,16 @@ class Trainer:
         loss_sup, predictions = L.supervised_loss(
             out.particles, out.weights, state, mask, train, cfg.labeled_ratio)
 
-        recon = engine.decode(encodings.reshape(b * t, -1))
-        loss_ae = L.autoencoder_loss(images.reshape((b * t,) + images.shape[2:]), recon)
+        frames = images.reshape((b * t,) + images.shape[2:])
+        if cfg.encode_per_step and train:
+            # the ablation's AE path, as the reference computes it: a second
+            # full-frame encode (BN statistics over all B·T frames, its running
+            # update on top of the filter's T per-step ones) feeds the decoder
+            ae_enc = engine.encode(frames)
+        else:
+            ae_enc = encodings.reshape(b * t, -1)
+        recon = engine.decode(ae_enc)
+        loss_ae = L.autoencoder_loss(frames, recon)
         loss_pl = torch.zeros((), device=self.device)
         if cfg.train_type == "SDPF":
             if cfg.nf_dyn:

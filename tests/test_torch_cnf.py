@@ -304,3 +304,98 @@ def test_bridge_needs_the_flow_subtrees(jax_step, missing):
     shallow[missing] = {"params": {"flows_0": variables[missing]["params"]["flows_0"]}}
     with pytest.raises(KeyError, match="bridge mismatch"):
         load_jax_variables(engine, shallow)
+
+
+# ---------------------------------------------------------------------------
+# flow width 16, and the padding of widths 9-15
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_step_h16():
+    """One JAX value_and_grad of the CNF-DPF at ``flow_hidden_dim=16`` on
+    the packed path (``pallas_coupling``)."""
+    cfg = dict(CNF, flow_hidden_dim=16)
+    trainer = JaxTrainer(JaxConfig(**cfg))
+    state = trainer.init_state(jax.random.PRNGKey(0))
+    params = _scale_flows(state.params)
+    batch = _batch(1)
+    key = jax.random.PRNGKey(5)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (loss, aux), grads = jax.jit(lambda p: jax.value_and_grad(trainer._loss, has_aux=True)(
+        p, state.rest, jbatch, key, True))(params)
+    return dict(params=params, rest=state.rest, batch=batch, key=key, loss=loss,
+                aux=aux, grads=grads)
+
+
+def test_cnf_h16_train_step_matches_jax(jax_step_h16):
+    """The CNF-DPF with 16-wide conditioners, both flows on the packed route
+    (here the kernels' plain version), against JAX's packed path: loss terms
+    rtol 1e-5, firings and Sinkhorn iterations exact, gradients as in
+    ``test_cnf_train_step_matches_jax`` (1e-3 for the flows, 1e-2 for the
+    decoder, 1e-4 for the rest), both chains' non-zero."""
+    js = jax_step_h16
+    trainer = _port_trainer(js["params"], js["rest"], flow_hidden_dim=16)
+    assert trainer.engine.nf_dyn.flows[0].t1.fc1.out_features == 16
+    loss, aux = trainer._loss(js["batch"], True, _noise(js["key"], True))
+    loss.backward()
+    ref_aux = js["aux"]
+    assert aux["resample_count"] == int(ref_aux["resample_count"]) == T
+    assert aux["sinkhorn_iters"] == int(ref_aux["sinkhorn_iters"]) > 0
+    for k, got, ref in (("loss", loss, js["loss"]), ("loss_sup", aux["loss_sup"],
+                                                     ref_aux["loss_sup"]),
+                        ("obs_likelihood", aux["obs_likelihood"], ref_aux["obs_likelihood"])):
+        np.testing.assert_allclose(float(got.detach()), float(ref), rtol=1e-5, err_msg=k)
+    grads = torch_state_from_jax(
+        {k: {"params": v} for k, v in _np_tree(js["grads"]).items()})
+    named = dict(trainer.engine.named_parameters())
+    for name, g_ref in grads.items():
+        if name.startswith(("nf_dyn.", "cond_model.")):
+            bound = 1e-3
+        else:
+            bound = 1e-2 if name.startswith("decoder.") else 1e-4
+        if float(np.linalg.norm(g_ref)) > 0:
+            assert _rel(named[name].grad.numpy(), g_ref) < bound, name
+    for chain in ("nf_dyn.", "cond_model."):
+        assert sum(float(p.grad.abs().sum()) for k, p in named.items()
+                   if k.startswith(chain)) > 0, chain
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("ctx_dim", [4, 36])
+def test_padded_chain_equals_the_unpadded_one(ctx_dim, inverse):
+    """A 12-wide packed chain zero-padded to 16 (``pad_hidden``, what the
+    CUDA route runs for widths 9-15) gives the outputs and log-det of the
+    unpadded plain chain within 1e-6 + 1e-6·|ref| (padded units add exact
+    zeros; only the order of float32 products can differ), and gradients of
+    x, ctx and the unpadded weights and biases within 1e-6·max|ref|: the
+    padding's own gradients are sliced away."""
+    from nfdpf_torch.models.nets import flax_init_
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+    from nfdpf_torch.ops.flows import realnvp_chain
+
+    gen = torch.Generator().manual_seed(ctx_dim)
+    chain = realnvp_chain(2, 2, 12, 0.3, ctx_dim=ctx_dim)
+    flax_init_(chain, gen)
+    x = torch.randn(3, 10, 2, generator=gen)
+    ctx = torch.randn(3, 1, ctx_dim, generator=gen).expand(3, 10, ctx_dim)
+    gy, gld = torch.randn(3, 10, 2, generator=gen), torch.randn(3, 10, generator=gen)
+    with torch.no_grad():
+        w, b = cc.pack_chain_params(chain)
+    assert cc.kernel_hidden(12) == 16 and cc.kernel_hidden(8) == 8
+    assert cc.kernel_hidden(17) == 17
+    results = []
+    for pad in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, ctx, w, b)]
+        wp, bp = cc.pad_hidden(leaves[2], leaves[3], 16) if pad else leaves[2:]
+        if pad:
+            assert wp.shape == (2, 4, 3, max(1 + ctx_dim, 16), 16) and bp.shape[-1] == 16
+        y, ld = cc.chain_apply_packed_plain(leaves[0], leaves[1], wp, bp, inverse)
+        grads = torch.autograd.grad([y, ld], leaves, [gy, gld])
+        results.append((y.detach(), ld.detach(), grads))
+    (y0, ld0, g0), (y1, ld1, g1) = results
+    torch.testing.assert_close(y1, y0, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(ld1, ld0, rtol=1e-6, atol=1e-6)
+    for name, a, ref in zip(("x", "ctx", "weights", "biases"), g1, g0):
+        assert a.shape == ref.shape, name
+        assert float((a - ref).abs().max()) <= 1e-6 * float(ref.abs().max()), name

@@ -357,6 +357,106 @@ def test_coupling_chain_forward_kernel(cuda, b, n, ctx_dim, n_blocks, hidden, br
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
 
 
+# hidden widths above 8, as (B, N, C, context broadcast, hidden): 16, the
+# kernels' widest build, at the filter's shapes and a ragged large one, and
+# 12 and 9, which the wrapper pads to 16
+CHAIN_WIDE_SHAPES = [(32, 100, 4, True, 16), (32, 100, 36, True, 16), (4, 4097, 36, False, 16),
+                     (4, 4097, 0, False, 16), (5, 33, 4, True, 12), (3, 70, 36, True, 12),
+                     (2, 40, 5, False, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n,ctx_dim,broadcast,hidden", CHAIN_WIDE_SHAPES)
+def test_coupling_chain_wide_hidden(cuda, b, n, ctx_dim, broadcast, hidden, inverse):
+    """K4 and K5 at hidden widths 9-16 against the plain version of the
+    unpadded chain and its autograd: outputs to rtol/atol 1e-5, gradients
+    of x, the context and the unpadded weights and biases to 1e-4 of each
+    gradient's scale, one launch of each kernel per call and the same bits
+    from a second call."""
+    x, ctx, w, bias, gy, gld = (None if t is None else t.to(cuda) for t in _chain_case(
+        b, n, ctx_dim, 19 * b + n + hidden, broadcast, hidden=hidden))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        c = None if ctx is None else ctx.clone().requires_grad_()
+        c_in = None if c is None else c.expand(b, n, ctx_dim)
+        y, ld = fn(leaves[0], c_in, leaves[1], leaves[2], inverse)
+        wanted = leaves + ([] if c is None else [c])
+        return [y, ld] + list(torch.autograd.grad([y, ld], wanted, [gy, gld]))
+
+    cc.reset_launches()
+    got, again = run(cc.fused_coupling_chain), run(cc.fused_coupling_chain)
+    torch.cuda.synchronize()
+    fwd = "coupling_chain_inverse" if inverse else "coupling_chain"
+    assert cc.LAUNCHES[fwd] == 2 and cc.LAUNCHES["coupling_chain_bwd"] == 2
+    ref = run(cc.chain_apply_packed_plain)
+    for k, (a, a2, r) in enumerate(zip(got, again, ref)):
+        a, a2, r = a.detach(), a2.detach(), r.detach()
+        assert a.shape == r.shape and torch.equal(a, a2)
+        if k < 2:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_bf16_cnf_train_step_matches_cpu(cuda):
+    """One CNF-DPF train step computing its encoder and decoder in bfloat16
+    (B=2, N=16, T=5, flows ×10, every step resampled) on the card against
+    the CPU from the same parameters and noise.  The two devices round the
+    convolutions differently (cuDNN, the CPU), which can move the Sinkhorn
+    loop's stopping test (275 against 276 iterations seen): the firings are
+    equal, the loss within rtol 1e-3, and each group's gradient (encoder,
+    decoder, measurement, each chain, as one vector) within twice the
+    distance bfloat16 itself puts between a float32 and a bfloat16 run on
+    the CPU, at least 1e-2, as ``chip_smoke.py``'s ``parity_bf16`` holds
+    it; the parameters stay float32."""
+    from nfdpf_torch.config import DPFConfig
+    from nfdpf_torch.train import Trainer
+
+    b, n, t = 2, 16, 5
+    settings = dict(num_particles=n, sequence_length=t, batch_size=b, ess_threshold=1.01,
+                    use_pallas=True, nf_dyn=True, nf_cond=True, pallas_coupling=True)
+    gen = torch.Generator().manual_seed(6)
+    batch = {"image": torch.rand(b, t, 128, 128, 3, generator=gen),
+             "state": torch.randn(b, t, 4, generator=gen) * 10,
+             "start_state": torch.randn(b, 4, generator=gen) * 10}
+    noise = {"init": torch.rand(b, n, 2, generator=gen) * 128 - 64,
+             "motion": torch.randn(t, b, n, 2, generator=gen),
+             "vel": torch.randn(b, t, 2, generator=gen),
+             "mask": torch.ones(b, t)}
+    runs = {}
+    for device, dtype in (("cpu", "bfloat16"), ("cuda", "bfloat16"), ("cpu", "float32")):
+        trainer = Trainer(DPFConfig(**settings, compute_dtype=dtype), device=device)
+        with torch.no_grad():
+            for p in list(trainer.engine.nf_dyn.parameters()) + list(
+                    trainer.engine.cond_model.parameters()):
+                p.mul_(10.0)
+        loss, aux = trainer._loss({k: v.to(device) for k, v in batch.items()}, True,
+                                  {k: v.to(device) for k, v in noise.items()})
+        loss.backward()
+        assert all(p.dtype == torch.float32 for p in trainer.engine.parameters())
+        runs[device, dtype] = (float(loss.detach()), aux["resample_count"],
+                               {k: p.grad.cpu() for k, p in trainer.engine.named_parameters()
+                                if p.grad is not None})
+    (l_cpu, r_cpu, g_cpu), (l_gpu, r_gpu, g_gpu) = runs["cpu", "bfloat16"], runs["cuda", "bfloat16"]
+    g_f32 = runs["cpu", "float32"][2]
+    assert r_gpu == r_cpu == t
+    assert abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu)
+    assert set(g_gpu) == set(g_cpu) == set(g_f32)
+
+    def flat(grads, group):
+        return torch.cat([g.ravel() for k, g in sorted(grads.items())
+                          if k.split(".")[0] == group])
+
+    for group in ("encoder", "decoder", "measurement", "nf_dyn", "cond_model"):
+        ref = flat(g_cpu, group)
+        gap = float((flat(g_gpu, group) - ref).norm() / ref.norm())
+        bf16_effect = float((flat(g_f32, group) - ref).norm() / ref.norm())
+        assert gap <= max(2.0 * bf16_effect, 1e-2), (group, gap, bf16_effect)
+
+
 @pytest.mark.cuda
 def test_coupling_chain_backward_refuses_what_its_shared_memory_cannot_hold(cuda):
     """Parameters that fit the forward kernel but not the backward's shared
@@ -373,7 +473,7 @@ def test_coupling_chain_backward_refuses_what_its_shared_memory_cannot_hold(cuda
 @pytest.mark.cuda
 def test_coupling_chain_refuses_what_the_kernels_do_not_take(cuda):
     """On CUDA tensors the wrapper launches or raises: no plain fallback."""
-    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, hidden=40))
+    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, hidden=17))
     with pytest.raises(ValueError, match="hidden"):
         cc.fused_coupling_chain(x, ctx, w, bias)
     x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 400, 1, n_blocks=8))

@@ -328,7 +328,8 @@ def test_filter_path_matches_jax(case):
                                    rtol=1e-5, atol=atol, err_msg=field)
 
 
-# settings the port does not run yet, with the ROADMAP item each error names
+# settings the port refused until the ROADMAP item named beside each brought
+# them (4 and 18), and the one it still refuses (19)
 UNSUPPORTED = {
     "encode_per_step": (dict(encode_per_step=True), 18),
     "remat": (dict(remat_scan_step=True), 18),
@@ -340,8 +341,13 @@ UNSUPPORTED = {
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unported_settings_raise(case):
+    """Device meshes are refused naming item 19; the settings of items 4 and
+    18 now build, and beside a mesh the refusal names item 19, not theirs."""
     overrides, item = UNSUPPORTED[case]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item {item}\)"):
+    if item != 19:
+        DPF(DPFConfig(**dict(SLICE, **overrides)), device="cpu")
+        overrides = dict(overrides, mesh_data=2)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 19\)"):
         DPF(DPFConfig(**dict(SLICE, **overrides)), device="cpu")
 
 
@@ -395,9 +401,12 @@ def test_warm_start_off_the_streaming_path_raises(overrides):
         DPF(DPFConfig(**dict(SLICE, sinkhorn_warm_start=True, **overrides)), device="cpu")
 
 
-# chains the CUDA coupling kernels do not take, as (overrides, refused on CUDA)
+# chains and whether the CUDA coupling kernels refuse them, as (overrides,
+# refused on CUDA): up to 16 wide they take them (9-15 padded to 16)
 COUPLING_LIMITS = {
-    "hidden16": (dict(flow_hidden_dim=16), True),
+    "hidden16": (dict(flow_hidden_dim=16), False),
+    "hidden12": (dict(flow_hidden_dim=12), False),
+    "hidden17": (dict(flow_hidden_dim=17), True),
     "blocks9": (dict(n_sequence=9), True),
     "hidden16_module_route": (dict(flow_hidden_dim=16, pallas_coupling=False), False),
     # the proposal's context is the 192-wide CGLOW encoding + 4
@@ -410,7 +419,7 @@ COUPLING_LIMITS = {
 def test_coupling_kernel_limits_are_refused_when_built(case):
     """A CNF-DPF whose packed chains K4/K5 cannot take is refused when it is
     built for CUDA, before anything reaches the card (so this runs without
-    one); the module route is not refused.  On the CPU the same configuration
+    one); one they take, and the module route, are not refused.  On the CPU the same configuration
     builds and takes a train step on the plain version."""
     overrides, refused = COUPLING_LIMITS[case]
     cfg = DPFConfig(**{**SLICE, "num_particles": 10, "ess_threshold": 1.01, "nf_dyn": True,
