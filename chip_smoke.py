@@ -80,10 +80,30 @@ Phases, one line of output each, then the device line last:
    before, read just after), the gate's firings, step times, peak memory
    and seconds; every artifact, the epoch after each run and finite losses
    are checked, and K4 and K5 must have launched;
-9. the ``kernels`` JSON line.
+9. kernels_rows_ne_cols: K1 (G = 1, 2) and K2 (both directions) on N rows
+   against M columns, as K6 runs them, at (B, N, M) = (32, 50, 100),
+   (10, 50, 100), (4, 5120, 10240) and the ragged (3, 1037, 2053), with the
+   tolerances, second-launch bits and times of phase 2;
+10. mesh: one group of 4 ranks spawned on this card, joined over gloo (which
+   stages CUDA tensors through the host: these are correctness runs, and
+   their times say nothing of NCCL): K6 on 2 ranks at (4, 10240) against K3
+   unsharded (particles rtol 1e-4 / atol 1e-5, value gradient 1e-3, equal
+   iterations, global indices), with both per-call times; one train step
+   at full width (B=32, N=100, T=10, 128 px, every step resampled) on a
+   1×2 mesh (the CNF-DPF), a 2×1 mesh (the bootstrap DPF) and a 2×2 mesh
+   (the NF-DPF), each against the unsharded card run of the same weights
+   and draws: loss rel ≤ 1e-4, each gradient group ‖Δ‖/‖g‖ ≤ 1e-3 (the
+   decoder 1e-2), equal Sinkhorn iterations, the launches of K1, K2, K4,
+   K5 and K6's calls on every rank (set to 0 just before, read just after);
+11. main_cli_mesh: ``python -m nfdpf_torch.main`` as torchrun starts it,
+   2 ranks on this card (``--mesh-data 2``, gloo): one epoch
+   on the data rank 0 makes, then ``--testing``; every rank exits 0 and
+   only rank 0 prints;
+12. the ``kernels`` JSON line, with K1/K2 at rows ≠ columns and K6.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
-script exits non-zero without printing the last line.  The port has no CPU
+script exits non-zero without printing the last line; so does any rank
+that fails, in phases 10 and 11.  The port has no CPU
 fallback: with no CUDA device the script stops before any phase.
 """
 
@@ -1279,6 +1299,369 @@ def phase_main_cli():
     return row
 
 
+# ---------------------------------------------------------------------------
+# device meshes: K1/K2 at rows ≠ columns, K6 on 2 ranks, mesh train
+# steps, the entry point on a data mesh.  The script needs one card: the
+# ranks share it over gloo (which stages CUDA tensors through the host), so
+# these runs check correctness; their times say nothing of NCCL.
+# ---------------------------------------------------------------------------
+
+# (B, rows, columns) of the rows ≠ columns checks, with timing iterations:
+# K6's local rows against all columns on 2 ranks at the slices' (32, 100)
+# and main_cli's eval batch, config 5's N over 2 ranks, and a ragged case
+RECT_SHAPES = (((32, 50, 100), 200), ((10, 50, 100), 200), ((4, 5120, 10240), 10),
+               ((3, 1037, 2053), 20))
+RECT_AT = "B4_N5120_M10240"       # the rows ≠ columns case in the kernels line
+K6_SHAPE, K6_RANKS = (4, 10240), 2
+K6_KW = dict(eps=0.1, scaling=0.75, threshold=1e-3, max_iter=100)
+K6_GRAD_TOL = 1e-3
+# the mesh train steps: (settings, (data, particle)) at full width, T cut to
+# MESH_T for the time limit; each against the unsharded card run of the same
+# draws
+MESH_T = 10
+MESHES = {"mesh_particle": (CNF_SLICE, (1, 2)), "mesh_data": (SLICE, (2, 1)),
+          "mesh_2x2": (NFDPF_SLICE, (2, 2))}
+MESH_WORLD = 4
+GRAD_GROUPS = ("encoder", "decoder", "measurement", "nf_dyn", "cond_model")
+
+
+def rect_cases(b: int, n: int, m: int, seed: int):
+    """K1 and K2 (both directions) on n rows against m columns of
+    resampler-like inputs, with their plain versions and library calls."""
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    raw = torch.rand(b, m, 2, generator=gen) * 128 - 64
+    centered = raw - raw.mean(1, keepdim=True)
+    y = (centered / (centered.std(1, correction=0).amax(-1)[:, None, None]
+                     * math.sqrt(2))).to(dev)
+    x = y[:, :n].contiguous()                 # a rank's rows of the same cloud
+    eps = torch.linspace(0.1, 2.0, b).to(dev)
+    f1 = torch.log_softmax(torch.randn(b, 1, m, generator=gen), -1).to(dev)
+    f2 = torch.log_softmax(torch.randn(b, 2, m, generator=gen), -1).to(dev)
+    r = (torch.randn(b, n, generator=gen) * 0.1).to(dev)
+    c = (torch.randn(b, m, generator=gen) * 0.1 - math.log(m)).to(dev)
+    v = raw.to(dev)
+    g = torch.randn(b, n, 2, generator=gen).to(dev)
+    neg_cost = -sc._pair_cost(x, y) / eps[:, None, None]               # (B, N, M)
+    s1, s2 = (f[:, :, None, :] + neg_cost[:, None] for f in (f1, f2))
+    t_fwd = torch.exp(r[:, :, None] + c[:, None, :] + neg_cost)
+    t_bwd = t_fwd.transpose(1, 2).contiguous()
+    del neg_cost
+    f4, pairs = 4.0, b * n * m
+    lse_bytes = lambda g_: f4 * (b + 2 * b * n + 2 * b * m + b * g_ * m + b * g_ * n)  # noqa: E731
+    fwd_bytes = f4 * (b + 2 * b * n + 2 * b * m + 2 * b * m + b * n + b * m + 2 * b * n)
+    return {
+        "sinkhorn_lse_g1": dict(
+            kernel=lambda: sc.streaming_lse_multi(eps, x, y, f1),
+            plain=lambda: sc.lse_multi_plain(eps, x, y, f1),
+            library=lambda: torch.logsumexp(s1, dim=-1), tol=("lse", LSE_TOL),
+            nbytes=lse_bytes(1), ops=pairs * (7 + 4 * 1)),
+        "sinkhorn_lse": dict(
+            kernel=lambda: sc.streaming_lse_multi(eps, x, y, f2),
+            plain=lambda: sc.lse_multi_plain(eps, x, y, f2),
+            library=lambda: torch.logsumexp(s2, dim=-1), tol=("lse", LSE_TOL),
+            nbytes=lse_bytes(2), ops=pairs * (7 + 4 * 2)),
+        "transport_apply": dict(
+            kernel=lambda: sc._apply(eps, x, y, v, r, c, "transport_apply"),
+            plain=lambda: sc.transport_apply_plain(v, eps, x, y, r, c),
+            library=lambda: torch.bmm(t_fwd, v), tol=("apply", APPLY_TOL),
+            nbytes=fwd_bytes, ops=pairs * 14),
+        "transport_apply_bwd": dict(
+            kernel=lambda: sc._apply(eps, y, x, g, c, r, "transport_apply_bwd"),
+            plain=lambda: sc.transport_apply_plain(g, eps, y, x, c, r),
+            library=lambda: torch.bmm(t_bwd, g), tol=("apply", APPLY_TOL),
+            nbytes=fwd_bytes, ops=pairs * 14),
+    }
+
+
+def phase_rect_kernels():
+    """K1 (G = 1, 2) and K2 (T@v and Tᵀg) on rows ≠ columns, as K6 runs
+    them, against their plain versions, with equal bits on a second launch
+    and their times (the same columns as phase 2)."""
+    results = {}
+    for (b, n, m), iters in RECT_SHAPES:
+        cases = rect_cases(b, n, m, seed=b + n + m)
+        shape = f"B{b}_N{n}_M{m}"
+        for name, cs in cases.items():
+            got, ref = cs["kernel"](), cs["plain"]()
+            torch.cuda.synchronize()
+            max_abs, rel = check(f"{name}@{shape}", got, ref, cs["tol"])
+            if not torch.equal(cs["kernel"](), got):
+                raise AssertionError(f"{name}@{shape}: a second launch gave other bits")
+            del got, ref
+            bound, by = bound_ms(cs["nbytes"], cs["ops"])
+            results.setdefault(name, {})[shape] = {
+                "max_abs_err": max_abs, "max_rel_err": rel, "tol": cs["tol"][1],
+                "ms": device_ms(cs["kernel"], iters), "call_ms": call_ms(cs["kernel"], iters),
+                "plain_ms": device_ms(cs["plain"], iters),
+                "library_ms": device_ms(cs["library"], iters),
+                "bound_ms": bound, "bound_by": by}
+        del cases
+        torch.cuda.empty_cache()
+    log({"phase": "kernels_rows_ne_cols", "results": results,
+         "note": "x is the first N rows of the M-point cloud y, as a rank's rows of the "
+                 "gathered columns; library_ms as in phase 2"})
+    return results
+
+
+def k6_bound_ms(b: int, n: int, shards: int, iters: int):
+    """The least time one rank's K6 call could take on this run's data:
+    its K1 work (G = 2) on N/P rows × N columns for the cold start, each
+    iteration and the final round, the column normaliser (G = 1) and K2's
+    forward, against the coordinates and log-weights it gathers once and
+    the 2·B·N potentials it gathers each iteration."""
+    pairs = b * (n // shards) * n
+    ops = pairs * ((iters + 2) * (7 + 4 * 2) + (7 + 4) + 14)
+    nbytes = 4.0 * (3 * b * n + (iters + 1) * 2 * b * n + 2 * b * n + 2 * b * (n // shards))
+    return bound_ms(nbytes, ops)
+
+
+def _mesh_inputs(cfg, seed: int):
+    """A global uint8 batch and the global draws of one train step, made on
+    the card from ``seed`` and brought to the host for the ranks."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, t, n, w = cfg.batch_size, cfg.sequence_length, cfg.num_particles, cfg.width
+    batch = {"image": (torch.rand(b, t, w, w, 3, generator=gen, device="cuda") * 255
+                       ).to(torch.uint8),
+             "state": torch.randn(b, t, 4, generator=gen, device="cuda") * 10,
+             "start_state": torch.randn(b, 4, generator=gen, device="cuda") * 10}
+    noise = {"vel": torch.randn(b, t, 2, generator=gen, device="cuda"),
+             "init": torch.rand(b, n, 2, generator=gen, device="cuda") * w - w / 2,
+             "motion": torch.randn(t, b, n, 2, generator=gen, device="cuda")}
+    return ({k: v.cpu().numpy() for k, v in batch.items()},
+            {k: v.cpu().numpy() for k, v in noise.items()})
+
+
+def _unsharded_step(settings, batch, noise):
+    """The unsharded card run of one train step from the seed's weights."""
+    from nfdpf_torch import DPFConfig
+    from nfdpf_torch.parallel import ranks as R
+    from nfdpf_torch.train import Trainer
+
+    return R.step_result(Trainer(DPFConfig(**settings)), batch, noise, "cuda")
+
+
+def _group_rel(grads: dict, ref: dict) -> dict:
+    out = {}
+    for group in GRAD_GROUPS:
+        keys = sorted(k for k in ref if k.startswith(group + "."))
+        if not keys:
+            continue
+        a = np.concatenate([grads[k].ravel() for k in keys])
+        r = np.concatenate([ref[k].ravel() for k in keys])
+        out[group] = float(np.linalg.norm(a - r) / max(np.linalg.norm(r), 1e-30))
+    return out
+
+
+def phase_mesh(smi: str):
+    """K6 on 2 ranks at (4, 10,240) against K3 unsharded, and one train
+    step on each mesh of ``MESHES`` against its unsharded card run, every
+    rank on this card over gloo, all in one spawned group of 4 ranks (the
+    smaller meshes on ranks 0-1).  Each rank sets the launch counters to 0
+    just before its step and reads them just after.  cuDNN runs its
+    deterministic algorithms here (the ranks too), so that a difference
+    reads the mesh alone and not cuDNN's choice of summation order: on an
+    H100 the data axis moved the encoder's gradient by a fixed 8.6e-4 to
+    9.6e-4 (its BatchNorm sums split over ranks).  Each unsharded step runs
+    twice, and how far the two parted is logged (``unsharded_repeat_grad_rel``)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_mesh(smi)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _phase_mesh(smi: str):
+    from nfdpf_torch import DPFConfig
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+    from nfdpf_torch.parallel import ranks as R
+
+    # K3 unsharded at K6's shape
+    b, n = K6_SHAPE
+    gen = torch.Generator().manual_seed(11)
+    raw = torch.rand(b, n, 2, generator=gen) * 128 - 64
+    probs = torch.softmax(torch.randn(b, n, generator=gen), -1)
+    x = raw.cuda().requires_grad_()
+    out, _, idx, k3_iters = sc.ot_resample_streaming(x, probs.cuda(), **K6_KW)
+    (k3_grad,) = torch.autograd.grad(torch.sum(out**2), [x])
+    with torch.no_grad():
+        k3_ms = call_ms(lambda: sc.ot_resample_streaming(x, probs.cuda(), **K6_KW), 3, 1)
+    k3 = {"particles": out.detach().cpu().numpy(), "grad": k3_grad.cpu().numpy()}
+    del x, out, k3_grad
+
+    unsharded, inputs, repeat = {}, {}, {}
+    for name, (settings, _) in MESHES.items():
+        settings = dict(settings, sequence_length=MESH_T)
+        inputs[name] = _mesh_inputs(DPFConfig(**settings), seed=31)
+        unsharded[name] = _unsharded_step(settings, *inputs[name])
+        again = _unsharded_step(settings, *inputs[name])
+        repeat[name] = _group_rel(again["grads"], unsharded[name]["grads"])
+        torch.cuda.empty_cache()
+
+    jobs = [(R.resample_job, dict(shape=(1, K6_RANKS), ranks=list(range(K6_RANKS)),
+                                  particles=raw.numpy(), probs=probs.numpy(), kw=K6_KW,
+                                  device="cuda", times=3))]
+    for name, (settings, shape) in MESHES.items():
+        batch, noise = inputs[name]
+        jobs.append((R.train_step_job, dict(
+            settings=dict(settings, sequence_length=MESH_T), shape=shape,
+            ranks=list(range(shape[0] * shape[1])), batch=batch, noise=noise, device="cuda")))
+    t0 = time.perf_counter()
+    results = R.spawn(MESH_WORLD, jobs, backend="gloo", threads=2, timeout=600)
+    spawn_s = time.perf_counter() - t0
+
+    # K6 against K3
+    k6 = results[0][0]
+    iters = [r["iters"] for r in results[0][:K6_RANKS]]
+    k6_err = float(np.abs(k6["particles"] - k3["particles"]).max())
+    bad = []
+    if not np.allclose(k6["particles"], k3["particles"], rtol=1e-4, atol=1e-5):
+        bad.append(f"K6 particles max abs err {k6_err:.3e}")
+    grad_rel = float(np.linalg.norm(k6["grad"] - k3["grad"]) / np.linalg.norm(k3["grad"]))
+    if not grad_rel <= K6_GRAD_TOL:
+        bad.append(f"K6 value gradient rel err {grad_rel:.3e}")
+    if iters != [k3_iters] * K6_RANKS:
+        bad.append(f"K6 iterations {iters}, K3 {k3_iters}")
+    if not np.array_equal(k6["idx"], np.broadcast_to(np.arange(n), (b, n))):
+        bad.append("K6 indices are not the global ones")
+    if k6["launches"]["sharded_resample"] != 1 or k6["launches"]["sinkhorn_lse"] <= 0:
+        bad.append(f"K6 launches {k6['launches']}")
+    bound, by = k6_bound_ms(b, n, K6_RANKS, k3_iters)
+    k6_row = {"phase": "k6", "card": smi, "transport": "gloo-on-one-card",
+              "shape": K6_SHAPE, "ranks": K6_RANKS, "iters": iters, "iters_k3": k3_iters,
+              "max_abs_err": k6_err, "grad_rel_err": grad_rel, "ms_per_call": k6["ms"],
+              "k3_ms_per_call": k3_ms, "bound_ms": bound, "bound_by": by,
+              "k3_bound_ms": k6_bound_ms(b, n, 1, k3_iters)[0],
+              # each iteration: K1 (G=2) on N/P rows × N columns, and the
+              # 2·B·N potentials all-gathered
+              "bound_per_iteration_ms": bound_ms(4.0 * 2 * b * n,
+                                                 b * (n // K6_RANKS) * n * (7 + 4 * 2))[0],
+              "gathered_bytes_per_iteration": 4 * 2 * b * n,
+              "launches_per_call": k6["launches"],
+              "note": "K6's ms are 2 ranks sharing this card over gloo, whose collectives "
+                      "stage through the host: a correctness run, not a time of NCCL"}
+    log(k6_row)
+
+    rows = {}
+    for (name, (settings, shape)), runs in zip(MESHES.items(), results[1:]):
+        ref = unsharded[name]
+        runs = [r for r in runs if r is not None]
+        losses = [r["metrics"]["loss"] for r in runs]
+        loss_rel = max(abs(v - ref["metrics"]["loss"]) / abs(ref["metrics"]["loss"])
+                       for v in losses)
+        grads = [_group_rel(r["grads"], ref["grads"]) for r in runs]
+        worst = {g: max(gr[g] for gr in grads) for g in grads[0]}
+        iters = [r["metrics"]["sinkhorn_iters"] for r in runs]
+        launches = runs[0]["launches"]
+        rows[name] = {"phase": name, "card": smi, "transport": "gloo-on-one-card",
+                      "mesh": {"data": shape[0], "particle": shape[1]},
+                      "config": dict(settings, sequence_length=MESH_T),
+                      "loss": losses, "loss_unsharded": ref["metrics"]["loss"],
+                      "loss_rel_err": loss_rel, "grad_rel_err_by_group": worst,
+                      "unsharded_repeat_grad_rel": repeat[name],
+                      "sinkhorn_iters": iters,
+                      "sinkhorn_iters_unsharded": ref["metrics"]["sinkhorn_iters"],
+                      "resample_count": runs[0]["metrics"]["resample_count"],
+                      "launches_rank0": launches, "launches_unsharded": ref["launches"],
+                      "step_s": [r["s"] for r in runs], "step_s_unsharded": ref["s"]}
+        log(rows[name])
+        if not loss_rel <= 1e-4:
+            bad.append(f"{name}: first-step loss rel err {loss_rel:.2e}")
+        for g, rel in worst.items():
+            if not rel <= (1e-2 if g == "decoder" else 1e-3):
+                bad.append(f"{name}: {g} gradient rel err {rel:.2e}")
+        if iters != [ref["metrics"]["sinkhorn_iters"]] * len(runs):
+            bad.append(f"{name}: Sinkhorn iterations {iters}, unsharded "
+                       f"{ref['metrics']['sinkhorn_iters']}")
+        cfg = DPFConfig(**settings)
+        want = ["sinkhorn_lse", "transport_apply"]
+        want += ["sharded_resample"] if shape[1] > 1 else []
+        want += (["coupling_chain_inverse", "coupling_chain_bwd"] if cfg.pallas_coupling
+                 else [])
+        for r in runs:
+            missing = [k for k in want if r["launches"][k] <= 0]
+            if missing:
+                bad.append(f"{name}: {missing} not launched on a rank ({r['launches']})")
+    log({"phase": "mesh_spawn", "ranks": MESH_WORLD, "seconds": spawn_s})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return k6_row, rows
+
+
+MAIN_CLI_MESH = ["--mesh-data", "2", "--mesh-particle", "1"]
+
+
+def phase_main_cli_mesh():
+    """``python -m nfdpf_torch.main`` as torchrun starts it (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) on 2 ranks, which share this card over gloo (more
+    ranks than cards), with ``--mesh-data 2``: one epoch on
+    the data rank 0 makes, then ``--testing``.  Each rank must exit 0; the
+    artifacts must be there and only rank 0 may print the epoch's line."""
+    import shutil
+
+    from nfdpf_torch.parallel.ranks import free_port
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="nfdpf_main_cli_mesh_")
+    base = MAIN_CLI_FLAGS + MAIN_CLI_MESH + ["--data-path", os.path.join(tmp, "disks")]
+    rows = {}
+    try:
+        from nfdpf_torch.config import parse_args
+        from nfdpf_torch.main import get_run_id
+
+        run_dir = os.path.join(tmp, "logs", get_run_id(parse_args(base)))
+        for name, extra in (("train", ["--num-epochs", "1"]),
+                            ("test", ["--testing", "--model-path",
+                                      os.path.join(run_dir, "models")])):
+            port = free_port()
+            procs, t0 = [], time.perf_counter()
+            for rank in range(2):
+                env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                           LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "nfdpf_torch.main", *base, *extra], cwd=tmp,
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            outs = []
+            try:
+                for p in procs:
+                    outs.append(p.communicate(timeout=400)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            codes = [p.returncode for p in procs]
+            rows[name] = {"exit_codes": codes, "s": time.perf_counter() - t0,
+                          "epoch_lines": [sum(ln.startswith("epoch ") for ln in o.splitlines())
+                                          for o in outs],
+                          "test_lines": [sum(ln.startswith("test loss") for ln in o.splitlines())
+                                         for o in outs]}
+            if codes != [0, 0]:
+                tails = "\n".join(f"--- rank {r} ---\n" + o[-3000:] for r, o in enumerate(outs))
+                raise AssertionError(f"main_cli_mesh {name}: exit codes {codes}\n{tails}")
+        missing = [a for a in MAIN_CLI_ARTIFACTS if not os.path.exists(os.path.join(run_dir, a))]
+        test_losses = np.load(os.path.join(run_dir, "data", "test_loss_epoch.npy"))
+        row = {"phase": "main_cli_mesh", "transport": "gloo-on-one-card", "argv": base,
+               "runs": rows, "missing": missing, "test_losses": test_losses.tolist()}
+        log(row)
+        bad = []
+        if missing:
+            bad.append(f"missing artifacts {missing}")
+        if rows["train"]["epoch_lines"] != [1, 0] or rows["test"]["test_lines"] != [1, 0]:
+            bad.append(f"printing ranks: {rows}")
+        if not np.isfinite(test_losses).all():
+            bad.append("a non-finite test loss")
+        if bad:
+            raise AssertionError(f"main_cli_mesh: {'; '.join(bad)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -1330,6 +1713,9 @@ def main() -> int:
     phase_linalg()
     phase_simulator()
     cli = phase_main_cli()
+    rect = phase_rect_kernels()
+    k6, meshes = phase_mesh(card)
+    phase_main_cli_mesh()
 
     # each kernel's numbers at its case in AT; its launches over the 3 train
     # steps of the NF-DPF slice, which runs all four, of every slice, and
@@ -1371,10 +1757,38 @@ def main() -> int:
                 "ptxas": {k: v for k, v in ptxas[WIDE_HIDDEN].items() if k.startswith(kernel)},
                 "at": AT[name]}
         line.append(entry)
+    # K1/K2 at rows ≠ columns, their launches in the particle mesh's step
+    # (rank 0: K6 runs them on its rows against all columns)
+    mesh_launches = {k: v["launches_rank0"] for k, v in meshes.items()}
+    for name, both in (("sinkhorn_lse", ("sinkhorn_lse", "sinkhorn_lse_g1")),
+                       ("transport_apply", ("transport_apply", "transport_apply_bwd"))):
+        m = rect[name][RECT_AT]
+        line.append({"name": f"{name}_rows_ne_cols", "route": "cuda", "source": SINKHORN_CU,
+                     "replaces": KERNELS[name][1],
+                     "launches": mesh_launches["mesh_particle"][name],
+                     "max_abs_err": max(c["max_abs_err"] for k in both
+                                        for c in rect[k].values()),
+                     "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": RECT_AT,
+                     "launches_by_mesh": {k: v[name] for k, v in mesh_launches.items()}})
+    # K6: its calls in the particle mesh's step; its time on 2 ranks sharing
+    # the card over gloo, and K3's unsharded (its reference) as plain_ms
+    line.append({"name": "ot_resample_streaming_sharded", "route": "cuda",
+                 "source": "nfdpf_torch/ops/cuda/sinkhorn_cuda.py",
+                 "replaces": "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:462",
+                 "launches": mesh_launches["mesh_particle"]["sharded_resample"],
+                 "max_abs_err": k6["max_abs_err"], "ms": k6["ms_per_call"],
+                 "plain_ms": k6["k3_ms_per_call"], "bound_ms": k6["bound_ms"],
+                 "bound_by": k6["bound_by"], "library_ms": None,
+                 "at": f"B{K6_SHAPE[0]}_N{K6_SHAPE[1]}_P{K6_RANKS}",
+                 "transport": "gloo-on-one-card",
+                 "plain": "K3 (ot_resample_streaming) unsharded on the card",
+                 "launches_by_mesh": {k: v["sharded_resample"] for k, v in mesh_launches.items()}})
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, f"kernels_h{WIDE_HIDDEN}": wide,
-                       **slices, "main_cli": cli}, fh, indent=1)
+                       **slices, "main_cli": cli, "kernels_rows_ne_cols": rect, "k6": k6,
+                       **meshes}, fh, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

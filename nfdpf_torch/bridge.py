@@ -47,6 +47,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from nfdpf_torch.parallel.mesh import replicate
+
 
 def _conv(k):
     return np.transpose(k, (3, 2, 0, 1))
@@ -183,9 +185,11 @@ def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def load_jax_variables(engine: torch.nn.Module, variables) -> None:
+def load_jax_variables(engine: torch.nn.Module, variables, mesh=None) -> None:
     """Fill ``engine`` (a port ``DPF``) with the JAX ``variables``: every
-    parameter and BN buffer of the port must be covered."""
+    parameter and BN buffer of the port must be covered.  On a ``mesh``
+    every rank calls this, and afterwards each holds the first rank's
+    bits (``replicate``)."""
     state = torch_state_from_jax(variables)
     own = engine.state_dict()
     missing = sorted(set(own) - set(state))
@@ -197,3 +201,4 @@ def load_jax_variables(engine: torch.nn.Module, variables) -> None:
             raise ValueError(f"{name}: port shape {tuple(own[name].shape)}, "
                              f"JAX shape {value.shape}")
         own[name].copy_(torch.tensor(value))
+    replicate(engine, mesh)

@@ -4,6 +4,10 @@ blockwise pseudo-likelihood.
 Counterparts of ``nfdpf_tpu/losses.py``.  The pseudo-likelihood's ancestor
 walk is two Python loops (blocks ascending, steps within a block
 descending) of per-batch ``torch.gather``s where the JAX package scans.
+
+On a ``mesh`` each rank passes its block (B/D sequences, N/P particles) and
+gets the global loss: the estimate sums over the particle group, the means
+over the global batch sum over the data group.
 """
 
 from __future__ import annotations
@@ -14,6 +18,14 @@ from typing import Optional, Tuple
 import torch
 
 from nfdpf_torch.ops.density import weighted_mean
+from nfdpf_torch.parallel.mesh import DATA_AXIS, axis_size, psum
+
+
+def _batch_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over every element of the global batch."""
+    if axis_size(mesh, DATA_AXIS) == 1:
+        return torch.mean(x)
+    return psum(torch.sum(x), mesh, DATA_AXIS) / (x.numel() * axis_size(mesh, DATA_AXIS))
 
 
 def supervised_loss(
@@ -23,27 +35,29 @@ def supervised_loss(
     mask,                       # (B, T) tensor or scalar 1.0
     train: bool,
     labeled_ratio: float = 1.0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked RMSE of the weighted-mean estimate.
 
     Train: sqrt(mean(mask·err²)/labeled_ratio); eval: plain RMSE.
     Returns (loss, prediction).
     """
-    prediction = weighted_mean(particles, weights)
+    prediction = weighted_mean(particles, weights, mesh)
     err2 = (prediction - true_state[..., :2]) ** 2
     if not train:
-        return torch.sqrt(torch.mean(err2)), prediction
+        return torch.sqrt(_batch_mean(err2, mesh)), prediction
     if labeled_ratio == 0:
         return torch.zeros((), device=err2.device), prediction
     mask = torch.as_tensor(mask, dtype=err2.dtype, device=err2.device)
     if mask.dim() == 2:
         mask = mask[..., None]
-    return torch.sqrt(torch.mean(mask * err2) / labeled_ratio), prediction
+    return torch.sqrt(_batch_mean(mask * err2, mesh) / labeled_ratio), prediction
 
 
-def autoencoder_loss(images: torch.Tensor, reconstruction: torch.Tensor) -> torch.Tensor:
+def autoencoder_loss(images: torch.Tensor, reconstruction: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
     """MSE over all frames."""
-    return torch.mean((reconstruction - images) ** 2)
+    return _batch_mean((reconstruction - images) ** 2, mesh)
 
 
 def semi_supervised_mask(batch_size: int, seq_len: int, labeled_ratio: float,
@@ -98,6 +112,7 @@ def pseudolikelihood_loss(
     block_len: int = 10,
     std_pos: float = 1.0,
     std_vel: float = 1.0,
+    mesh=None,
 ) -> torch.Tensor:
     """Gaussian-prior pseudo-likelihood.  The per-step prior term prices the
     stored motion noise, with the reference's constants: the velocity's
@@ -108,7 +123,7 @@ def pseudolikelihood_loss(
     term_vel = (2 * log_c - 2 * math.log(std_vel)
                 - torch.sum(noise[..., 2:] ** 2 / (2 * std_vel ** 2), dim=-1))
     q = _ancestor_walk(likelihoods, indices, term_pos + term_vel, weights, block_len)
-    return -torch.mean(q)
+    return -_batch_mean(q, mesh)
 
 
 def pseudolikelihood_loss_nf(
@@ -119,9 +134,10 @@ def pseudolikelihood_loss_nf(
     jacobians: torch.Tensor,     # (B, T, N): not added, as in the reference
     priors: torch.Tensor,        # (B, T, N)
     block_len: int = 10,
+    mesh=None,
 ) -> torch.Tensor:
     """NF-prior pseudo-likelihood: the walk over the filter's prior terms.
     The reference gathers the dynamics Jacobians along the ancestors but
     never adds them; only prior + likelihood enter, here too."""
     q = _ancestor_walk(likelihoods, indices, priors, weights, block_len)
-    return -torch.mean(q)
+    return -_batch_mean(q, mesh)

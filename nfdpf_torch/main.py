@@ -7,6 +7,16 @@ holds none.  Runs on ``cuda`` and raises without a GPU; ``main(argv,
 device="cpu")`` runs it on the CPU (the kernels' plain versions), for tests.
 
     python -m nfdpf_torch.main --NF-dyn --NF-cond --pallas-coupling --use-pallas
+
+A device mesh (``--mesh-data D --mesh-particle P``) runs one process per
+rank, D·P of them, each on its card (``cuda:LOCAL_RANK``), over NCCL; with
+more ranks than cards they share them over gloo:
+
+    torchrun --nproc-per-node D·P -m nfdpf_torch.main --mesh-data D --mesh-particle P ...
+
+The primary rank makes the data, writes the artifacts, checkpoints and
+logs; every rank loads.  The staging budget is per data rank, which holds
+1/D of the data.
 """
 
 from __future__ import annotations
@@ -15,12 +25,21 @@ import contextlib
 import os
 
 import numpy as np
+import torch
 
 from nfdpf_torch import viz
 from nfdpf_torch.config import DPFConfig, parse_args
 from nfdpf_torch.data.dataset import DiskDataset, iterate_batches
 from nfdpf_torch.data.simulator import generate_dataset
 from nfdpf_torch.models.dpf import check_supported, resolve_device
+from nfdpf_torch.parallel.distributed import (
+    initialize,
+    is_primary,
+    local_device,
+    say,
+    shutdown,
+)
+from nfdpf_torch.parallel.mesh import make_mesh
 from nfdpf_torch.train import Trainer
 from nfdpf_torch.utils.metrics import MetricsLogger
 
@@ -61,29 +80,59 @@ def ensure_dataset(cfg: DPFConfig, num_examples: int | None = None, device=None)
 
 def main(argv=None, device=None) -> None:
     cfg = parse_args(argv)
-    check_supported(cfg)          # e.g. meshes: refused before any data is made
+    check_supported(cfg)          # refused before any data is made
+    sharded = cfg.mesh_data * cfg.mesh_particle > 1
+    joined = False
+    if sharded:
+        on_cpu = device is not None and torch.device(device).type == "cpu"
+        joined = initialize("gloo" if on_cpu else None)
+    try:
+        # D·P must be the world size: without torchrun a mesh is refused here
+        mesh = make_mesh(cfg.mesh_data, cfg.mesh_particle) if sharded else None
+        _run(cfg, device, mesh)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _run(cfg: DPFConfig, device, mesh) -> None:
     device = resolve_device(device)
+    if mesh is not None and device.type == "cuda":
+        # each rank on its card (NCCL takes the current device)
+        device = local_device() if device.index is None else device
+        torch.cuda.set_device(device)
     np.random.seed(cfg.seed)
     run_id = get_run_id(cfg)
     run_dir = os.path.join("logs", run_id)
     os.makedirs(os.path.join(run_dir, "models"), exist_ok=True)
     os.makedirs(os.path.join(run_dir, "data"), exist_ok=True)
-    print(cfg)
+    say(cfg)
+    if mesh is not None:
+        say(f"mesh: {mesh.shape} over {mesh.size} ranks")
     plots = viz.available()
-    print("plots: on (matplotlib found)" if plots else
-          "plots: off (matplotlib not installed); the data artifacts are written all the same")
+    say("plots: on (matplotlib found)" if plots else
+         "plots: off (matplotlib not installed); the data artifacts are written all the same")
 
+    if is_primary():
+        ensure_dataset(cfg, device=device)
+    if mesh is not None:
+        torch.distributed.barrier(group=mesh.group)
     filename = ensure_dataset(cfg, device=device)
     train_ds = DiskDataset(cfg.data_path, filename, "train_data")
     val_ds = DiskDataset(cfg.data_path, filename, "val_data")
     test_ds = DiskDataset(cfg.data_path, filename, "test_data")
-    val_bs = min(50, len(val_ds))
-    test_bs = min(50, len(test_ds))
+    # eval batches of up to 50 sequences, whole batches only, each a
+    # multiple of the data axis so that it splits over the data ranks
+    val_bs, test_bs = (min(50, len(ds)) // cfg.mesh_data * cfg.mesh_data
+                       for ds in (val_ds, test_ds))
+    if not (val_bs and test_bs):
+        raise ValueError(f"the val and test sets ({len(val_ds)}, {len(test_ds)} sequences) "
+                         f"must hold at least one sequence per data rank ({cfg.mesh_data})")
 
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device, mesh)
     ckpt_best = os.path.join(run_dir, "models", "best")
     if cfg.resume and os.path.isdir(ckpt_best):
-        print("resuming from", ckpt_best)
+        say("resuming from", ckpt_best)
         trainer.load(ckpt_best)
 
     def train_iter(epoch):
@@ -96,13 +145,14 @@ def main(argv=None, device=None) -> None:
     def test_iter():
         return iterate_batches(test_ds, test_bs, shuffle=False, drop_last=True)
 
+    # each data rank stages its 1/D of train + val
     staged_bytes = sum(ds.data["image"].nbytes + ds.data["state"].nbytes
-                       for ds in (train_ds, val_ds))
+                       for ds in (train_ds, val_ds)) // cfg.mesh_data
     staged = staged_bytes < STAGED_BYTES_LIMIT
 
     if not cfg.testing:
         if cfg.pretrain_ae:
-            print("pretraining autoencoder ...")
+            say("pretraining autoencoder ...")
             trainer.pretrain_ae(
                 train_iter, num_epochs=cfg.pretrain_epochs, valid_batches=val_iter,
                 ckpt_path=os.path.join(run_dir, "models", "ae_pretrain"),
@@ -113,16 +163,16 @@ def main(argv=None, device=None) -> None:
             if not os.path.isdir(ae_ckpt):
                 ae_ckpt = os.path.join(cfg.model_path, "ae_pretrain")
             if os.path.isdir(ae_ckpt):
-                print("loading pretrained AE weights from", ae_ckpt)
+                say("loading pretrained AE weights from", ae_ckpt)
                 trainer.load_model(ae_ckpt)
             else:
-                print(f"no AE-pretrain checkpoint found at {ae_ckpt}; "
-                      "continuing with fresh weights")
+                say(f"no AE-pretrain checkpoint found at {ae_ckpt}; "
+                     "continuing with fresh weights")
         if cfg.e2e_train:
-            print("end-to-end training ...")
+            say("end-to-end training ...")
             with contextlib.closing(MetricsLogger(os.path.join(run_dir, "logger"))) as logger:
                 if staged:
-                    print(f"data staged on the device ({staged_bytes / 1e9:.2f} GB)")
+                    say(f"data staged on the device ({staged_bytes / 1e9:.2f} GB a data rank)")
                     trainer.fit_fused(train_ds, val_ds, run_dir, num_epochs=cfg.num_epochs,
                                       logger=logger, seed=cfg.seed)
                 else:
@@ -132,7 +182,7 @@ def main(argv=None, device=None) -> None:
     else:
         ckpt = os.path.join(cfg.model_path, "best")
         if os.path.isdir(ckpt):
-            print("loading trained model from", ckpt)
+            say("loading trained model from", ckpt)
             trainer.load(ckpt)
 
     trainer.test(test_iter, run_dir, seed=cfg.seed, plots=plots)

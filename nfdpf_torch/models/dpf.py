@@ -32,10 +32,19 @@ and soft or OT resampling.  As in the JAX package:
   ``ot_transport_grad`` is set, over materialised costs (``ops/sinkhorn.py``);
 * with ``sinkhorn_warm_start`` (streaming path only) the potentials of the
   last firing ride the time loop, from zeros marked not valid; a step whose
-  gate does not fire passes them on untouched.
+  gate does not fire passes them on untouched;
+* on a ``mesh`` (``parallel/mesh.py``) each rank holds B/D sequences and N/P
+  particles: the weight normalisation, the ESS gate, the measurement's row
+  maximum, the flows' contexts and ``obs_likelihood`` are reduced over the
+  mesh, and resampling runs on the particle-sharded streaming Sinkhorn
+  (``ot_resample_streaming_sharded``, K6) when P > 1 and otherwise with its
+  stop test over the data group.  Under P > 1 soft resampling, OT over
+  materialised costs and SDPF are refused (ROADMAP item 23).
 
 Random draws come in through ``noise`` (a dict of tensors) or from a
-``torch.Generator``:
+``torch.Generator``; on a mesh both are the GLOBAL draws (every rank draws
+all of them from the same generator) and each rank takes its block, so a
+sharded run replays the unsharded one:
 
 * ``"init"``: the initial particles, (B, N, 2);
 * ``"motion"``: standard-normal motion draws, (T, B, N, 2), scaled by
@@ -46,6 +55,7 @@ Random draws come in through ``noise`` (a dict of tensors) or from a
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -62,7 +72,10 @@ from nfdpf_torch.models.nets import (
     flax_init_,
 )
 from nfdpf_torch.ops.cuda.coupling_cuda import chain_refusal, pack_chain_params
-from nfdpf_torch.ops.cuda.sinkhorn_cuda import ot_resample_streaming
+from nfdpf_torch.ops.cuda.sinkhorn_cuda import (
+    ot_resample_streaming,
+    ot_resample_streaming_sharded,
+)
 from nfdpf_torch.ops.density import (
     effective_sample_size,
     normalize_log_weights,
@@ -71,6 +84,14 @@ from nfdpf_torch.ops.density import (
 from nfdpf_torch.ops.flows import realnvp_chain
 from nfdpf_torch.ops.resampling import soft_systematic_resample
 from nfdpf_torch.ops.sinkhorn import ot_resample
+from nfdpf_torch.parallel.mesh import (
+    DATA_AXIS,
+    PARTICLE_AXIS,
+    axis_index,
+    axis_size,
+    local_slice,
+    psum,
+)
 
 
 class FilterOutput(NamedTuple):
@@ -100,13 +121,22 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def check_supported(cfg: DPFConfig) -> None:
-    """Raise ``NotImplementedError`` for device meshes, the one setting the
-    port does not run yet (naming its ROADMAP queue 1 item), and
+def check_supported(cfg: DPFConfig, mesh=None) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet,
+    naming its ROADMAP queue 1 item: under a particle axis (``mesh_particle``
+    or ``mesh``'s) soft resampling, OT over materialised costs and SDPF,
+    whose cross-shard cumsums and ancestor gathers are not ported; and
     ``ValueError`` for values no package runs."""
-    if cfg.mesh_data > 1 or cfg.mesh_particle > 1:
-        raise NotImplementedError(
-            "device meshes are not ported yet (ROADMAP queue 1, item 19)")
+    particle = max(cfg.mesh_particle, axis_size(mesh, PARTICLE_AXIS))
+    if particle > 1:
+        why = ("soft resampling" if cfg.resampler_type == "soft"
+               else "OT over materialised costs (use_pallas off or ot_transport_grad)"
+               if cfg.resampler_type == "ot" and not streaming_ot(cfg)
+               else "trainType SDPF" if cfg.train_type == "SDPF" else None)
+        if why is not None:
+            raise NotImplementedError(
+                f"{why} under a particle axis of {particle} is not ported yet "
+                "(ROADMAP queue 1, item 23)")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                          f"got {cfg.compute_dtype!r}")
@@ -181,20 +211,27 @@ class DPF(nn.Module):
     ``measurement`` and the two RealNVP chains ``nf_dyn`` (context: particle
     mean‖std) and ``cond_model`` (context: encoding‖mean‖std).  BatchNorm
     follows the module's train/eval mode.  Runs on ``cuda`` unless ``device``
-    says otherwise."""
+    says otherwise; on this rank's block of ``mesh`` when one is given (the
+    filter then takes this rank's B/D sequences, as ``shard_batch`` cuts
+    them)."""
 
-    def __init__(self, config: DPFConfig, device=None):
+    def __init__(self, config: DPFConfig, device=None, mesh=None):
         super().__init__()
-        check_supported(config)
+        check_supported(config, mesh)
+        shards = axis_size(mesh, PARTICLE_AXIS)
+        if config.num_particles % shards:
+            raise ValueError(f"particle count {config.num_particles} not divisible by "
+                             f"particle-axis size {shards}")
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_coupling_kernels(config)
         width = encoder_width(config)
         dtype = COMPUTE_DTYPES[config.compute_dtype]
-        self.encoder = ObservationEncoder(width, dtype, config.torch_init)
-        self.decoder = ObservationDecoder(width, dtype, config.torch_init)
-        self.measurement = build_measurement_model(config)
+        self.encoder = ObservationEncoder(width, dtype, config.torch_init, mesh)
+        self.decoder = ObservationDecoder(width, dtype, config.torch_init, mesh)
+        self.measurement = build_measurement_model(config, mesh)
         # registered last: the other modules' initial draws do not depend on
         # the flows being there
         stats = 2 * config.state_dim
@@ -224,14 +261,18 @@ class DPF(nn.Module):
         kw = dict(eps=cfg.epsilon, scaling=cfg.scaling, threshold=cfg.threshold,
                   max_iter=cfg.max_iter, convergence=cfg.sinkhorn_convergence)
         if not streaming_ot(cfg):
-            return (*ot_resample(particles, probs, transport_grad=cfg.ot_transport_grad, **kw),
-                    0, None)
+            return (*ot_resample(particles, probs, transport_grad=cfg.ot_transport_grad,
+                                 mesh=self.mesh, **kw), 0, None)
+        if axis_size(self.mesh, PARTICLE_AXIS) > 1:
+            resample = functools.partial(ot_resample_streaming_sharded, mesh=self.mesh)
+        else:
+            resample = functools.partial(ot_resample_streaming, mesh=self.mesh)
         if not cfg.sinkhorn_warm_start:
-            return (*ot_resample_streaming(particles, probs, **kw), None)
+            return (*resample(particles, probs, **kw), None)
         # the first firing finds the zeros the carry starts from, not valid
-        return ot_resample_streaming(
-            particles, probs, warm_start=potentials,
-            warm_eps_factor=cfg.sinkhorn_warm_eps_factor, return_potentials=True, **kw)
+        return resample(particles, probs, warm_start=potentials,
+                        warm_eps_factor=cfg.sinkhorn_warm_eps_factor, return_potentials=True,
+                        **kw)
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         """(..., H, W, 3) → (..., h); updates BN running stats in train mode."""
@@ -252,6 +293,7 @@ class DPF(nn.Module):
         without a firing), jacobian, prior, Sinkhorn iterations, warm-start
         potentials)."""
         cfg = self.config
+        mesh = self.mesh
         if gate:
             particles, probs, idx, sk_iters, pots = self._resample(particles, probs, offset, warm)
         else:
@@ -259,40 +301,60 @@ class DPF(nn.Module):
         log_probs_r = torch.log(probs)
         particles_phys, noise_t = motion_update(particles, vel, cfg.pos_noise, normal)
         particles_dyn, jac = nf_dynamic_model(
-            self.nf_dyn, particles_phys, use_nf=cfg.nf_dyn, fused=fused_dyn)
+            self.nf_dyn, particles_phys, use_nf=cfg.nf_dyn, fused=fused_dyn, mesh=mesh)
         propose, lki_log, prior_log, propose_log = proposal_likelihood(
             self.cond_model, self.nf_dyn, self.measurement,
             particles_dyn, particles_phys, enc_t, noise_t, jac,
             cfg.nf_dyn, cfg.nf_cond, cfg.pos_noise, cfg.vel_noise,
-            fused_dyn=fused_dyn, fused_cond=fused_cond)
+            fused_dyn=fused_dyn, fused_cond=fused_cond, mesh=mesh)
         log_w = log_probs_r + lki_log + prior_log - propose_log
-        new_probs = normalize_log_weights(log_w) + 1e-12
-        return (propose, new_probs, torch.mean(log_w), noise_t, lki_log, idx, jac, prior_log,
+        new_probs = normalize_log_weights(log_w, mesh=mesh) + 1e-12
+        if mesh is None:
+            mean_log_w = torch.mean(log_w)
+        else:
+            mean_log_w = psum(torch.sum(log_w), mesh, DATA_AXIS, PARTICLE_AXIS) / (
+                log_w.numel() * mesh.size)
+        return (propose, new_probs, mean_log_w, noise_t, lki_log, idx, jac, prior_log,
                 sk_iters, pots)
 
     def _filter(self, encode_step, start_state, vel_seq, noise, generator) -> FilterOutput:
         """The T-step filter loop; ``encode_step(t)`` gives step t's (B, h)
         encoding."""
         cfg = self.config
+        mesh = self.mesh
         batch, seq_len = vel_seq.shape[:2]
-        n = cfg.num_particles
+        n = cfg.num_particles // axis_size(mesh, PARTICLE_AXIS)         # this rank's
+        global_batch = batch * axis_size(mesh, DATA_AXIS)
         dev = vel_seq.device
         noise = noise or {}
 
+        def local(x, data_dim, particle_dim=None):
+            """This rank's block of a global draw."""
+            x = local_slice(x, mesh, DATA_AXIS, data_dim)
+            return x if particle_dim is None else local_slice(x, mesh, PARTICLE_AXIS,
+                                                              particle_dim)
+
+        init_w_log = uniform_log_weights(batch, cfg.num_particles, dev)[:, :n]
         if "init" in noise:
-            particles = noise["init"]
-            init_w_log = uniform_log_weights(batch, n, dev)
+            particles = local(noise["init"], 0, 1)
         else:
-            particles, init_w_log = particle_initialization(
-                start_state[:, :2], cfg.width, n, cfg.state_dim,
+            # on a mesh the global draw around 0, then this block's start states
+            start = start_state[:, :2] if mesh is None else torch.zeros((global_batch, 2),
+                                                                       device=dev)
+            particles, _ = particle_initialization(
+                start, cfg.width, cfg.num_particles, cfg.state_dim,
                 cfg.init_with_true_state, generator)
-        probs = normalize_log_weights(init_w_log)
+            particles = local(particles, 0, 1)
+            if mesh is not None and cfg.init_with_true_state:
+                particles = particles + start_state[:, None, :cfg.state_dim]
+        probs = normalize_log_weights(init_w_log, mesh=mesh)
         vel = start_state[:, 2:]
         motion = noise.get("motion")
         offsets = noise.get("resample")
         warm = (torch.zeros((batch, 2, n), device=dev), False) if cfg.sinkhorn_warm_start \
             else None
-        idx0 = torch.arange(n, dtype=torch.int32, device=dev).expand(batch, n)
+        lo = axis_index(mesh, PARTICLE_AXIS) * n
+        idx0 = (lo + torch.arange(n, dtype=torch.int32, device=dev)).expand(batch, n)
         obs_lik = torch.zeros((), device=dev)
         remat = cfg.remat_scan_step and torch.is_grad_enabled()
 
@@ -310,15 +372,19 @@ class DPF(nn.Module):
         gates, iters = [], []
         for t in range(seq_len):
             enc_t = encode_step(t)
-            ess = effective_sample_size(probs)
-            gate = bool(ess < cfg.ess_threshold * n)      # one device sync
+            ess = effective_sample_size(probs, mesh)
+            # one device sync; on a mesh the ESS is all-reduced, so every rank
+            # reads the same gate
+            gate = bool(ess < cfg.ess_threshold * cfg.num_particles)
             # the draws, in the order the resampler and the motion take them
             offset = None
             if gate and cfg.resampler_type == "soft":
-                offset = offsets[t] if offsets is not None else torch.rand(
-                    (batch, 1), generator=generator, device=dev) * (1.0 / n)
-            normal = motion[t] if motion is not None else torch.randn(
-                particles.shape, generator=generator, device=dev)
+                offset = local(offsets[t] if offsets is not None else torch.rand(
+                    (global_batch, 1), generator=generator, device=dev)
+                    * (1.0 / cfg.num_particles), 0)
+            normal = local(motion[t] if motion is not None else torch.randn(
+                (global_batch, cfg.num_particles, particles.shape[-1]), generator=generator,
+                device=dev), 0, 1)
             args = (gate, particles, probs, vel, enc_t, normal, offset, warm, fused_dyn,
                     fused_cond)
             if remat:

@@ -15,7 +15,9 @@ Stop-gradient topology, as in the JAX package:
 
 The particle std is the unbiased (N−1) estimator (``torch.std``'s default).
 A context is one row per batch element broadcast over the particles; it is
-returned as an expanded view, not a copy.
+returned as an expanded view, not a copy.  Under a ``mesh`` whose particle
+axis is sharded the mean and std are those of all N particles: two-pass
+sums over the particle group.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from nfdpf_torch.ops.cuda.coupling_cuda import fused_coupling_chain
 from nfdpf_torch.ops.density import log_normal_density
 from nfdpf_torch.ops.flows import FlowChain
+from nfdpf_torch.parallel.mesh import PARTICLE_AXIS, axis_size, psum
 
 Packed = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -51,19 +54,24 @@ def motion_update(
     return particles + vel[:, None, :] + noise, noise
 
 
-def _particle_stats(particles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _particle_stats(particles: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Detached per-batch particle mean and unbiased std, (B, 1, d) each."""
     p = particles.detach()
-    return torch.mean(p, dim=1, keepdim=True), torch.std(p, dim=1, keepdim=True)
+    if axis_size(mesh, PARTICLE_AXIS) == 1:
+        return torch.mean(p, dim=1, keepdim=True), torch.std(p, dim=1, keepdim=True)
+    n = p.shape[1] * axis_size(mesh, PARTICLE_AXIS)
+    mean = psum(torch.sum(p, dim=1, keepdim=True), mesh, PARTICLE_AXIS) / n
+    dev2 = psum(torch.sum((p - mean) ** 2, dim=1, keepdim=True), mesh, PARTICLE_AXIS)
+    return mean, torch.sqrt(dev2 / (n - 1))
 
 
 def _stats_context(particles: torch.Tensor, mean=None, std=None,
-                   lead: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   lead: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Detached mean‖std (of ``particles`` unless given), with ``lead``
     (B, 1, h) in front when given, broadcast to a per-particle context
     (B, N, [h +] 2d)."""
     if mean is None:
-        mean, std = _particle_stats(particles)
+        mean, std = _particle_stats(particles, mesh)
     parts = [mean.detach(), std.detach()]
     if lead is not None:
         parts.insert(0, lead)
@@ -79,6 +87,7 @@ def nf_dynamic_model(
     mean: Optional[torch.Tensor] = None,
     std: Optional[torch.Tensor] = None,
     fused: Packed = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Conditional-)flow refinement of physically propagated particles.
 
@@ -90,7 +99,7 @@ def nf_dynamic_model(
     """
     if not use_nf:
         return particles, torch.zeros(particles.shape[:2], device=particles.device)
-    ctx = _stats_context(particles, mean, std)
+    ctx = _stats_context(particles, mean, std, mesh=mesh)
     if fused is not None:
         out, log_det = fused_coupling_chain(particles, ctx, fused[0], fused[1], not forward)
     elif forward:
@@ -105,11 +114,12 @@ def normalising_flow_propose(
     particles_pred: torch.Tensor,
     obs_encoding: torch.Tensor,
     fused: Packed = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Conditional-NF proposal: the inverse of the proposal flow with the
     per-particle context obs encoding ‖ detached particle mean ‖ std.
     Returns (proposed, jac = −log_det)."""
-    ctx = _stats_context(particles_pred, lead=obs_encoding[:, None, :])
+    ctx = _stats_context(particles_pred, lead=obs_encoding[:, None, :], mesh=mesh)
     if fused is not None:
         out, log_det = fused_coupling_chain(particles_pred, ctx, fused[0], fused[1], True)
     else:
@@ -132,6 +142,7 @@ def proposal_likelihood(
     vel_noise: float,
     fused_dyn: Packed = None,
     fused_cond: Packed = None,
+    mesh=None,
 ):
     """Central importance-weight bookkeeping.
 
@@ -145,12 +156,12 @@ def proposal_likelihood(
 
     if use_nf_cond:
         propose, jac_prop = normalising_flow_propose(
-            cond_flow, particles_dynamic, encodings.detach(), fused=fused_cond)
+            cond_flow, particles_dynamic, encodings.detach(), fused=fused_cond, mesh=mesh)
         if use_nf:
-            phys_mean, phys_std = _particle_stats(particles_physical)
+            phys_mean, phys_std = _particle_stats(particles_physical, mesh)
             prop_dyn_inv, jac_prop_dyn_inv = nf_dynamic_model(
                 dyn_flow, propose, use_nf=True, forward=True,
-                mean=phys_mean, std=phys_std, fused=fused_dyn)
+                mean=phys_mean, std=phys_std, fused=fused_dyn, mesh=mesh)
             prior_log = (density(prop_dyn_inv - (particles_physical - noise))
                          - jac_prop_dyn_inv)
         else:

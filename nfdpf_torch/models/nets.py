@@ -25,6 +25,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from nfdpf_torch.parallel.mesh import DATA_AXIS, axis_size, psum
+
 ENC_CHANNELS = (3, 16, 32, 64, 128, 256)
 
 
@@ -35,13 +37,18 @@ class FlaxBatchNorm(nn.Module):
       normalising and for the running variance (torch's own BatchNorm stores
       the unbiased one, which breaks eval-mode parity);
     * running = (1 − momentum)·running + momentum·batch, torch momentum 0.1
-      = flax momentum 0.9; eps 1e-5.
+      = flax momentum 0.9; eps 1e-5;
+    * under a ``mesh`` whose data axis shards the batch, the statistics are
+      the global batch's: the sums of x and x² all-reduced over the data
+      group (differentiably), as GSPMD reduces flax's means.
     """
 
-    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 mesh=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.mesh = mesh
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -55,8 +62,16 @@ class FlaxBatchNorm(nn.Module):
         xf = x.to(self.weight.dtype)
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean = torch.mean(xf, dim=dims)
-            var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean, 0.0)
+            shards = axis_size(self.mesh, DATA_AXIS)
+            if shards == 1:
+                mean = torch.mean(xf, dim=dims)
+                mean2 = torch.mean(xf * xf, dim=dims)
+            else:
+                count = xf.numel() // xf.shape[1] * shards
+                sums = psum(torch.stack([torch.sum(xf, dim=dims), torch.sum(xf * xf, dim=dims)]),
+                            self.mesh, DATA_AXIS)
+                mean, mean2 = sums[0] / count, sums[1] / count
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(m * mean)
@@ -101,13 +116,13 @@ class ObservationEncoder(nn.Module):
     computed in ``compute_dtype``, returned in float32."""
 
     def __init__(self, out_features: int = 32, compute_dtype: torch.dtype = torch.float32,
-                 torch_init: bool = False):
+                 torch_init: bool = False, mesh=None):
         super().__init__()
         self.compute_dtype = compute_dtype
         pairs = list(zip(ENC_CHANNELS[:-1], ENC_CHANNELS[1:]))
         self.convs = nn.ModuleList(
             nn.Conv2d(ci, co, 4, stride=2, padding=1, bias=False) for ci, co in pairs)
-        self.norms = nn.ModuleList(FlaxBatchNorm(co) for _, co in pairs)
+        self.norms = nn.ModuleList(FlaxBatchNorm(co, mesh=mesh) for _, co in pairs)
         self.dense = nn.Linear(256 * 4 * 4, out_features)
         if torch_init:
             _mark_torch_init(self.convs, self.dense)
@@ -130,7 +145,7 @@ class ObservationDecoder(nn.Module):
     a ConvTranspose's fan-in is torch's, out_ch·kh·kw."""
 
     def __init__(self, in_features: int = 32, compute_dtype: torch.dtype = torch.float32,
-                 torch_init: bool = False):
+                 torch_init: bool = False, mesh=None):
         super().__init__()
         self.compute_dtype = compute_dtype
         chans = ENC_CHANNELS[::-1]                      # 256 → 3
@@ -139,7 +154,7 @@ class ObservationDecoder(nn.Module):
         self.deconvs = nn.ModuleList(
             nn.ConvTranspose2d(ci, co, 4, stride=2, padding=1, bias=False)
             for ci, co in pairs)
-        self.norms = nn.ModuleList(FlaxBatchNorm(co) for _, co in pairs)
+        self.norms = nn.ModuleList(FlaxBatchNorm(co, mesh=mesh) for _, co in pairs)
         if torch_init:
             _mark_torch_init(self.dense, self.deconvs)
 

@@ -20,7 +20,11 @@ a tile staged in shared memory; how many rows, warps and column splits a
 launch takes is chosen in ``csrc/sinkhorn.cu`` from (B, N, M).
 
 ``ot_resample_streaming`` is the driver (``ot_resample_pallas``,
-``sinkhorn_pallas.py:291-454``), cold or warm started.
+``sinkhorn_pallas.py:291-454``, "K3"), cold or warm started, its stop test
+taken over the data axis of a mesh.  ``ot_resample_streaming_sharded`` ("K6",
+``ot_resample_pallas_sharded``, ``sinkhorn_pallas.py:462-632``) runs it with
+the particle axis sharded over ranks, on the same two kernels: each rank's
+rows against every rank's columns.
 """
 
 from __future__ import annotations
@@ -33,9 +37,21 @@ import torch
 
 from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu
 from nfdpf_torch.ops.sinkhorn import diameter, max_min
+from nfdpf_torch.parallel.mesh import (
+    DATA_AXIS,
+    PARTICLE_AXIS,
+    Mesh,
+    agree,
+    all_gather,
+    axis_index,
+    axis_size,
+    pmax,
+)
 
-# kernel launches since the last reset, by kernel
-LAUNCHES = {"sinkhorn_lse": 0, "transport_apply": 0, "transport_apply_bwd": 0}
+# kernel launches since the last reset, by kernel; "sharded_resample" counts
+# the calls of the particle-sharded driver (K6), which launches K1 and K2
+LAUNCHES = {"sinkhorn_lse": 0, "transport_apply": 0, "transport_apply_bwd": 0,
+            "sharded_resample": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -209,6 +225,7 @@ def ot_resample_streaming(
     warm_start: Optional[Tuple[torch.Tensor, bool]] = None,
     warm_eps_factor: float = 16.0,
     return_potentials: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """ε-annealed OT resampling on the streaming kernels.
 
@@ -227,6 +244,9 @@ def ot_resample_streaming(
 
     The loop's stopping test is read on the host once per iteration (eager
     PyTorch has no on-device while loop): one device sync per iteration.
+    With a ``mesh`` whose data axis shards the batch, the test is taken over
+    the whole batch (an all-reduce over the data group, JAX's ``axis_name``),
+    so every data rank runs the unsharded batch's iterations.
     """
     if convergence not in ("all", "any"):
         raise ValueError(f"convergence must be 'all' or 'any', got {convergence!r}")
@@ -265,8 +285,8 @@ def ot_resample_streaming(
     agg = torch.all if convergence == "all" else torch.any
     i = 0
     # the loop continues while i < max_iter-1 and every ('all') / some
-    # ('any') row is still running
-    while i < max_iter - 1 and bool(agg(running)):
+    # ('any') row of the batch is still running
+    while i < max_iter - 1 and agree(agg(running), mesh, DATA_AXIS, convergence):
         eps_col = eps_run[:, None]
         run = running[:, None]
         outs = sm2(eps_run, torch.stack([logw_sg + b_x / eps_col,
@@ -297,6 +317,135 @@ def ot_resample_streaming(
     transported = streaming_transport_apply(particles, eps_b, scaled_x, r, c)
     uniform = torch.full_like(probs, 1.0 / n)
     idx = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
+    if return_potentials:
+        return transported, uniform, idx, i, torch.stack([a_y, b_x], dim=1)
+    return transported, uniform, idx, i
+
+
+# ---------------------------------------------------------------------------
+# K6: the resampler with the particle axis sharded over ranks
+# ---------------------------------------------------------------------------
+
+
+def ot_resample_streaming_sharded(
+    particles: torch.Tensor,
+    probs: torch.Tensor,
+    mesh: Mesh,
+    eps: float = 0.1,
+    scaling: float = 0.75,
+    threshold: float = 1e-3,
+    max_iter: int = 100,
+    convergence: str = "all",
+    warm_start: Optional[Tuple[torch.Tensor, bool]] = None,
+    warm_eps_factor: float = 16.0,
+    return_potentials: bool = False,
+):
+    """``ot_resample_streaming`` with the particle axis sharded over the
+    particle group of ``mesh``: ``particles`` (B, N/P, 2) and ``probs``
+    (B, N/P) are this rank's block of the N particles.
+
+    The (B, N, N) cost never exists anywhere; what crosses between ranks is
+    O(N·d) per iteration, in the JAX package's order:
+
+    * the detached coordinates and log-weights are all-gathered once, and
+      the global scaling built from them; each rank then runs K1 on its N/P
+      rows against all N columns;
+    * the two row potentials are all-gathered every iteration (the next
+      iteration's column inputs);
+    * the stop test takes max|Δpotential| over the particle group, then the
+      batch aggregation over the data group, so the iteration count (and
+      the numerics) are the unsharded call's;
+    * the column normaliser comes from the gathered final ``f`` (the cost is
+      symmetric, so rows and columns swap roles);
+    * K2 applies the local rows of the plan to the RAW particles gathered
+      differentiably: its backward is each rank's Tᵀg over its rows, summed
+      over the group and sliced (the all-gather's adjoint).
+
+    Returns ``(particles', uniform probs, global ancestor indices, iters)``
+    and, with ``return_potentials``, this rank's rows of (a_y, b_x),
+    (B, 2, N/P), the warm start's carry.
+    """
+    if convergence not in ("all", "any"):
+        raise ValueError(f"convergence must be 'all' or 'any', got {convergence!r}")
+    b, n_loc, d = particles.shape
+    shards = axis_size(mesh, PARTICLE_AXIS)
+    n = n_loc * shards
+    lo = axis_index(mesh, PARTICLE_AXIS) * n_loc
+    dev = particles.device
+    if not on_cpu(particles, probs):
+        LAUNCHES["sharded_resample"] += 1
+
+    def gather(t, dim):
+        return all_gather(t, mesh, PARTICLE_AXIS, dim)
+
+    # the detached global geometry, gathered once
+    x_all = gather(particles.detach(), 1)                        # (B, N, d)
+    logw_all = torch.log(gather(probs.detach(), 1))              # (B, N)
+    centered = x_all - torch.mean(x_all, dim=1, keepdim=True)
+    diam = diameter(x_all, x_all)
+    scaled_all = centered / (diam[:, None, None] * math.sqrt(d))
+    scaled_loc = scaled_all[:, lo:lo + n_loc]
+    uniform_all = torch.full_like(logw_all, -math.log(n))
+
+    eps_b = torch.full((b,), eps, dtype=torch.float32, device=dev)
+    scaling_factor = scaling**2
+
+    def sm2(e, fs_all):
+        return streaming_softmin_multi(e, scaled_loc, scaled_all, fs_all)
+
+    eps_run = max_min(scaled_all, scaled_all) ** 2
+    if warm_start is not None and warm_start[1]:
+        potentials = warm_start[0].detach()
+        if potentials.shape != (b, 2, n_loc):
+            raise ValueError(f"warm-start potentials {tuple(potentials.shape)}, "
+                             f"expected this rank's rows {(b, 2, n_loc)}")
+        a_y, b_x = potentials[:, 0], potentials[:, 1]
+        eps_run = torch.maximum(torch.minimum(eps_run, eps_b * warm_eps_factor), eps_b)
+    else:
+        init = sm2(eps_run, torch.stack([logw_all, uniform_all], dim=1))
+        a_y, b_x = init[:, 0], init[:, 1]                        # (B, N/P) rows
+
+    running = torch.ones(b, dtype=torch.bool, device=dev)
+    agg = torch.all if convergence == "all" else torch.any
+    i = 0
+    while i < max_iter - 1 and agree(agg(running), mesh, DATA_AXIS, convergence):
+        pots = gather(torch.stack([a_y, b_x], dim=1), 2)        # (B, 2, N)
+        eps_col = eps_run[:, None]
+        run = running[:, None]
+        outs = sm2(eps_run, torch.stack([logw_all + pots[:, 1] / eps_col,
+                                         uniform_all + pots[:, 0] / eps_col], dim=1))
+        at_y = torch.where(run, outs[:, 0], a_y)
+        bt_x = torch.where(run, outs[:, 1], b_x)
+        a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
+        # max|Δ| over the full potential vectors: local, then over the group
+        diffs = pmax(torch.stack([torch.amax(torch.abs(a_y_new - a_y), dim=1),
+                                  torch.amax(torch.abs(b_x_new - b_x), dim=1)]),
+                     mesh, PARTICLE_AXIS)
+        local = (diffs[0] > threshold) | (diffs[1] > threshold)
+        new_eps = torch.maximum(eps_run * scaling_factor, eps_b)
+        running = (new_eps < eps_run) | local
+        a_y, b_x, eps_run = a_y_new, b_x_new, new_eps
+        i += 1
+
+    pots = gather(torch.stack([a_y, b_x], dim=1), 2)
+    finals = sm2(eps_b, torch.stack([logw_all + pots[:, 1] / eps_b[:, None],
+                                     uniform_all + pots[:, 0] / eps_b[:, None]], dim=1))
+    final_f, final_g = finals[:, 0], finals[:, 1]                # (B, N/P) rows
+
+    # colnorm of the local columns needs every row: C is symmetric, so the
+    # streaming lse over the gathered f swaps rows and columns for free
+    f_all = gather(final_f, 1)
+    lse_col = streaming_lse(eps_b, scaled_loc, scaled_all, f_all / eps_b[:, None])
+    colnorm = final_g / eps_b[:, None] + lse_col
+    r_loc = final_f / eps_b[:, None]
+    logw_loc = torch.log(probs.detach())
+    c_all = gather(final_g / eps_b[:, None] - colnorm + math.log(n) + logw_loc, 1)
+
+    # the RAW particles, gathered differentiably
+    values_all = gather(particles, 1)
+    transported = transport_apply_rc(values_all, eps_b, scaled_loc, scaled_all, r_loc, c_all)
+    uniform = torch.full_like(probs, 1.0 / n)
+    idx = (lo + torch.arange(n_loc, dtype=torch.int32, device=dev)).expand(b, n_loc)
     if return_potentials:
         return transported, uniform, idx, i, torch.stack([a_y, b_x], dim=1)
     return transported, uniform, idx, i

@@ -2,6 +2,9 @@
 
 Counterparts of ``nfdpf_tpu/ops/density.py:16-83``, as plain functions on
 tensors with the particle axis last (weights) or second to last (states).
+Those that reduce over particles or the batch take a ``mesh``: with the
+particle axis sharded their sums and maxima run over the particle group,
+with the batch sharded the batch mean over the data group.
 """
 
 from __future__ import annotations
@@ -10,21 +13,32 @@ import math
 
 import torch
 
+from nfdpf_torch.parallel.mesh import DATA_AXIS, PARTICLE_AXIS, axis_size, psum, row_max
 
-def normalize_log_weights(log_w: torch.Tensor, dim: int = -1) -> torch.Tensor:
+
+def normalize_log_weights(log_w: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     """Max-shifted softmax over the particle axis → linear probabilities.
 
     The shift is NOT detached: the original routes gradient through
-    ``.max()`` to the argmax element, and so does this.
+    ``.max()`` to the argmax element, and so does this (across the particle
+    group under a mesh, whose particle axis is the last).
     """
-    shifted = log_w - torch.amax(log_w, dim=dim, keepdim=True)
-    w = torch.exp(shifted)
-    return w / torch.sum(w, dim=dim, keepdim=True)
+    if mesh is None:
+        shifted = log_w - torch.amax(log_w, dim=dim, keepdim=True)
+        w = torch.exp(shifted)
+        return w / torch.sum(w, dim=dim, keepdim=True)
+    w = torch.exp(log_w - row_max(log_w, mesh))
+    return w / psum(torch.sum(w, dim=-1, keepdim=True), mesh, PARTICLE_AXIS)
 
 
-def effective_sample_size(probs: torch.Tensor) -> torch.Tensor:
-    """Mean ESS over the batch: ``mean_b 1/Σ_i w_bi²`` — one scalar."""
-    return torch.mean(1.0 / torch.sum(probs**2, dim=-1))
+def effective_sample_size(probs: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Mean ESS over the batch: ``mean_b 1/Σ_i w_bi²`` — one scalar, the
+    same on every rank of a mesh."""
+    if mesh is None:
+        return torch.mean(1.0 / torch.sum(probs**2, dim=-1))
+    inv = 1.0 / psum(torch.sum(probs**2, dim=-1), mesh, PARTICLE_AXIS)
+    return (psum(torch.sum(inv), mesh, DATA_AXIS)
+            / (inv.shape[0] * axis_size(mesh, DATA_AXIS)))
 
 
 def log_normal_density(noise: torch.Tensor, std_pos: float,
@@ -50,9 +64,9 @@ def cosine_distance(a: torch.Tensor, b: torch.Tensor,
     return 1.0 - torch.sum(a * b, dim=-1)
 
 
-def weighted_mean(particles: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+def weighted_mean(particles: torch.Tensor, probs: torch.Tensor, mesh=None) -> torch.Tensor:
     """Posterior mean ``Σ_i w_i x_i``: (..., N, d), (..., N) → (..., d)."""
-    return torch.sum(particles * probs[..., None], dim=-2)
+    return psum(torch.sum(particles * probs[..., None], dim=-2), mesh, PARTICLE_AXIS)
 
 
 def uniform_log_weights(batch_size: int, num_particles: int,

@@ -17,6 +17,9 @@ the tape and the gradient also flows through T into particles and weights.
 The loop stops on data, so each loop test is read on the host: one device
 sync per test in eager PyTorch.  ``DENSE_LOOP`` counts the firings, the
 iterations (as the JAX package counts them, ``i + 2``) and these syncs.
+With a ``mesh`` whose data axis shards the batch, the loop test is taken
+over the whole batch (an all-reduce over the data group), so every data
+rank runs until the global batch converges, as GSPMD runs JAX's loop.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from nfdpf_torch.parallel.mesh import DATA_AXIS, agree
 
 # dense Sinkhorn loops since the last reset: calls, iterations, host syncs
 DENSE_LOOP = {"calls": 0, "iters": 0, "host_syncs": 0}
@@ -90,6 +95,7 @@ def sinkhorn_loop(
     threshold: float,
     max_iter: int,
     convergence: str = "all",
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """ε-annealed symmetric Sinkhorn from ε₀ = diameter² down to ``epsilon``,
     then one differentiable softmin round at the target ε from the loop's
@@ -117,7 +123,7 @@ def sinkhorn_loop(
         # is still running
         while i < max_iter - 1:
             DENSE_LOOP["host_syncs"] += 1
-            if not bool(agg(running)):
+            if not agree(agg(running), mesh, DATA_AXIS, convergence):
                 break
             eps_col = eps_run[:, None]
             run = running[:, None]
@@ -141,14 +147,14 @@ def sinkhorn_loop(
 
 
 def sinkhorn_potentials(log_alpha, x, log_beta, y, epsilon: float, scaling: float,
-                        threshold: float, max_iter: int, convergence: str = "all"):
+                        threshold: float, max_iter: int, convergence: str = "all", mesh=None):
     """Cost matrices (each detaching its second operand) and the annealed
     loop, with the detached ``max_min`` scale as the diameter."""
     cost_xy = cost(x, y.detach())
     cost_yx = cost(y, x.detach())
     scale = max_min(x, y).detach()
     return sinkhorn_loop(log_alpha, log_beta, cost_xy, cost_yx, epsilon, scale,
-                         scaling, threshold, max_iter, convergence)
+                         scaling, threshold, max_iter, convergence, mesh)
 
 
 def transport_from_potentials(x: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
@@ -163,7 +169,8 @@ def transport_from_potentials(x: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
 
 
 def sinkhorn_transport(x: torch.Tensor, logw: torch.Tensor, eps: float, scaling: float,
-                       threshold: float, max_iter: int, convergence: str = "all") -> torch.Tensor:
+                       threshold: float, max_iter: int, convergence: str = "all",
+                       mesh=None) -> torch.Tensor:
     """The transport matrix: centre, scale by the detached diameter·√d, run
     the Sinkhorn against the uniform measure on the same support, assemble T."""
     n, d = x.shape[1], x.shape[-1]
@@ -172,7 +179,7 @@ def sinkhorn_transport(x: torch.Tensor, logw: torch.Tensor, eps: float, scaling:
     scale = (diameter(x, x)[:, None, None] * math.sqrt(d)).detach()
     scaled_x = centered / scale
     alpha, beta, _ = sinkhorn_potentials(logw, scaled_x, uniform_logw, scaled_x, eps,
-                                         scaling, threshold, max_iter, convergence)
+                                         scaling, threshold, max_iter, convergence, mesh)
     return transport_from_potentials(scaled_x, alpha, beta, eps, logw, n)
 
 
@@ -185,6 +192,7 @@ def ot_resample(
     max_iter: int = 100,
     transport_grad: bool = False,
     convergence: str = "all",
+    mesh=None,
 ):
     """Entropy-regularised OT resampling over a materialised plan.
 
@@ -192,17 +200,18 @@ def ot_resample(
     (T @ particles, uniform probs, identity ancestor indices): OT has no
     discrete ancestors.  ``transport_grad=False`` detaches T (the gradient
     reaches the particles through the product only); True keeps the final
-    Sinkhorn round on the tape.
+    Sinkhorn round on the tape.  ``mesh``: the batch may be sharded over
+    its data axis (the particle axis may not).
     """
     batch, n, _ = particles.shape
     logw = torch.log(probs)
     if transport_grad:
         t = sinkhorn_transport(particles, logw, eps, scaling, threshold, max_iter,
-                               convergence)
+                               convergence, mesh)
     else:
         with torch.no_grad():
             t = sinkhorn_transport(particles.detach(), logw.detach(), eps, scaling,
-                                   threshold, max_iter, convergence)
+                                   threshold, max_iter, convergence, mesh)
     transported = torch.einsum("bij,bjd->bid", t, particles)
     uniform = torch.full_like(probs, 1.0 / n)
     idx = torch.arange(n, dtype=torch.int32, device=particles.device).expand(batch, n)

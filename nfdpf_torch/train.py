@@ -22,6 +22,15 @@ them (per epoch its train steps, then its eval steps).
 Artifacts keep the JAX package's names and keys: ``data/eval_loss_epoch.npy``,
 ``data/eval_result_best.npz``, ``models/best`` (a checkpoint directory),
 ``data/test_loss_epoch.npy``, ``data/test_result.npz`` and the plots.
+
+On a ``mesh`` (``parallel/mesh.py``) every rank runs the same calls with the
+same GLOBAL batches and noise; each takes its block (``shard_batch``, the
+filter's own slicing of the draws), computes the global losses, and
+``train_step`` averages the parameter gradients over the mesh before Adam,
+so parameters and optimizer state stay replicated.  ``fit_fused`` stages
+each data rank's share of the (trimmed) datasets only.  Artifacts, prints
+and checkpoints come from the primary rank, the artifacts gathered from
+every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +45,18 @@ import torch
 from nfdpf_torch import losses as L
 from nfdpf_torch.config import DPFConfig
 from nfdpf_torch.models.dpf import DPF
+from nfdpf_torch.parallel.distributed import is_primary, say
+from nfdpf_torch.parallel.mesh import (
+    DATA_AXIS,
+    PARTICLE_AXIS,
+    all_gather,
+    average_gradients,
+    axis_index,
+    axis_size,
+    local_slice,
+    replicate,
+    shard_batch,
+)
 from nfdpf_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from nfdpf_torch.utils.metrics import MetricsLogger
 
@@ -54,16 +75,18 @@ def _floats(values) -> np.ndarray:
 
 
 class Trainer:
-    def __init__(self, config: DPFConfig, device=None):
+    def __init__(self, config: DPFConfig, device=None, mesh=None):
         self.config = config
-        self.engine = DPF(config, device)
+        self.mesh = mesh
+        self.engine = DPF(config, device, mesh)
         self.device = self.engine.device
         self.init_state(config.seed)
 
     def init_state(self, seed: int) -> None:
-        """Re-initialise the parameters from ``seed``, start a fresh Adam and
-        the epoch count at 0."""
+        """Re-initialise the parameters from ``seed`` (then broadcast from
+        the mesh's first rank), start a fresh Adam and the epoch count at 0."""
         self.engine.init(seed)
+        replicate(self.engine, self.mesh)
         self.optimizer = torch.optim.Adam(self.engine.parameters(), lr=self.config.lr)
         self.epoch = 0
 
@@ -71,13 +94,19 @@ class Trainer:
         """A generator on the trainer's device, for the random draws of a step."""
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _local(self, x, dim: int = 0) -> torch.Tensor:
+        """This data rank's block of a global batch-major array or tensor, on
+        the trainer's device (sliced before it is moved)."""
+        return local_slice(torch.as_tensor(x), self.mesh, DATA_AXIS, dim).to(self.device)
+
     def _batch(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(batch[k], device=self.device) for k in BATCH_KEYS}
+        local = shard_batch({k: torch.as_tensor(batch[k]) for k in BATCH_KEYS}, self.mesh)
+        return {k: v.to(self.device) for k, v in local.items()}
 
     def _frames(self, images) -> torch.Tensor:
-        """(B, T, H, W, 3) frames, uint8 or float, as (B·T, H, W, 3) float32
-        on the trainer's device."""
-        images = torch.as_tensor(images, device=self.device)
+        """(B, T, H, W, 3) frames of a global batch, uint8 or float, as this
+        data rank's (B·T, H, W, 3) float32 on the trainer's device."""
+        images = self._local(images)
         if images.dtype == torch.uint8:
             images = images.to(torch.float32) / 255.0
         return images.reshape((-1,) + images.shape[2:])
@@ -87,9 +116,11 @@ class Trainer:
         """Forward pass and losses.  BN follows ``train``.  Returns (total, aux)."""
         cfg = self.config
         engine = self.engine
+        mesh = self.mesh
         engine.train(train)
         batch = self._batch(batch)
         noise = noise or {}
+        shards = axis_size(mesh, DATA_AXIS)
 
         images = batch["image"]                       # (B, T, H, W, 3)
         if images.dtype == torch.uint8:
@@ -100,21 +131,21 @@ class Trainer:
 
         vel_normal = noise.get("vel")
         if vel_normal is None:
-            vel_normal = torch.randn(state[..., 2:].shape, generator=generator,
+            vel_normal = torch.randn((b * shards, t, 2), generator=generator,
                                      device=self.device)
-        vel = state[..., 2:] + 4.0 * vel_normal
+        vel = state[..., 2:] + 4.0 * self._local(vel_normal)
 
         out, encodings = engine.filter(images, start_state, vel, noise, generator)
 
         if train and "mask" in noise:
-            mask = noise["mask"]
+            mask = self._local(noise["mask"])
         elif train:
-            mask = L.semi_supervised_mask(b, t, cfg.labeled_ratio, generator,
-                                          self.device)
+            mask = self._local(L.semi_supervised_mask(b * shards, t, cfg.labeled_ratio,
+                                                      generator, self.device))
         else:
             mask = 1.0
         loss_sup, predictions = L.supervised_loss(
-            out.particles, out.weights, state, mask, train, cfg.labeled_ratio)
+            out.particles, out.weights, state, mask, train, cfg.labeled_ratio, mesh)
 
         frames = images.reshape((b * t,) + images.shape[2:])
         if cfg.encode_per_step and train:
@@ -125,17 +156,17 @@ class Trainer:
         else:
             ae_enc = encodings.reshape(b * t, -1)
         recon = engine.decode(ae_enc)
-        loss_ae = L.autoencoder_loss(frames, recon)
+        loss_ae = L.autoencoder_loss(frames, recon, mesh)
         loss_pl = torch.zeros((), device=self.device)
         if cfg.train_type == "SDPF":
             if cfg.nf_dyn:
                 loss_pl = L.pseudolikelihood_loss_nf(
                     out.weights, out.noise, out.likelihoods, out.indices, out.jacobians,
-                    out.priors, cfg.block_length)
+                    out.priors, cfg.block_length, mesh)
             else:
                 loss_pl = L.pseudolikelihood_loss(
                     out.weights, out.noise, out.likelihoods, out.indices, cfg.block_length,
-                    cfg.pos_noise, cfg.vel_noise)
+                    cfg.pos_noise, cfg.vel_noise, mesh)
             total = 1.0 * loss_sup + 0.01 * loss_pl + 2.0 * loss_ae
         else:
             total = 1.0 * loss_sup + 2.0 * loss_ae
@@ -159,10 +190,12 @@ class Trainer:
 
     def train_step(self, batch: dict, noise: Optional[dict] = None,
                    generator: Optional[torch.Generator] = None) -> dict:
-        """One optimizer step: forward, backward, Adam.  Returns the metrics."""
+        """One optimizer step: forward, backward, the gradients averaged over
+        the mesh, Adam.  Returns the metrics."""
         loss, aux = self._loss(batch, True, noise, generator)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(self.engine.parameters(), self.mesh)
         self.optimizer.step()
         return self._metrics(loss, aux)
 
@@ -182,12 +215,13 @@ class Trainer:
         engine = self.engine
         engine.train(True)
         frames = self._frames(images)
-        loss = L.autoencoder_loss(frames, engine.decode(engine.encode(frames)))
+        loss = L.autoencoder_loss(frames, engine.decode(engine.encode(frames)), self.mesh)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for p in engine.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        average_gradients(engine.parameters(), self.mesh)
         self.optimizer.step()
         return loss.detach()
 
@@ -198,7 +232,7 @@ class Trainer:
         self.engine.eval()
         frames = self._frames(images)
         recon = self.engine.decode(self.engine.encode(frames))
-        return L.autoencoder_loss(frames, recon), recon
+        return L.autoencoder_loss(frames, recon, self.mesh), recon
 
     # ------------------------------------------------------------------
     # epoch loops
@@ -219,6 +253,20 @@ class Trainer:
             losses.append(m["loss_sup"])
             last = (aux, batch)
         return _floats(losses), last
+
+    @torch.no_grad()
+    def _gathered(self, aux) -> dict:
+        """The eval histories of every rank, whole, on the host: particles,
+        weights, likelihoods and noise (B, T, N, ...), predictions (B, T, 2)."""
+        def whole(x, particle_dim=None):
+            if particle_dim is not None:
+                x = all_gather(x, self.mesh, PARTICLE_AXIS, particle_dim)
+            return _host(all_gather(x, self.mesh, DATA_AXIS, 0))
+
+        out = aux["filter_out"]
+        return {"particles": whole(out.particles, 2), "weights": whole(out.weights, 2),
+                "likelihoods": whole(out.likelihoods, 2), "noise": whole(out.noise, 2),
+                "pred": whole(aux["predictions"])}
 
     def fit(self, train_batches, valid_batches, run_dir: str,
             num_epochs: Optional[int] = None, logger: Optional[MetricsLogger] = None,
@@ -245,23 +293,25 @@ class Trainer:
             mean_eval = float(np.mean(eval_losses))
             logger.scalar("Sup_loss_eval/loss", mean_eval, epoch)
             eval_loss_epoch.append(mean_eval)
-            np.save(os.path.join(run_dir, "data", "eval_loss_epoch.npy"),
-                    np.asarray(eval_loss_epoch))
-            print(f"epoch {epoch}: train_sup={mean_sup:.4f} eval_sup={mean_eval:.4f}")
+            if is_primary():
+                np.save(os.path.join(run_dir, "data", "eval_loss_epoch.npy"),
+                        np.asarray(eval_loss_epoch))
+            say(f"epoch {epoch}: train_sup={mean_sup:.4f} eval_sup={mean_eval:.4f}")
             self.epoch = epoch + 1
             if mean_eval < best_eval and last is not None:
                 best_eval = mean_eval
                 aux, batch = last
-                out = aux["filter_out"]
-                np.savez(
-                    os.path.join(run_dir, "data", "eval_result_best.npz"),
-                    particle_list=_host(out.particles),
-                    particle_weight_list=_host(out.weights),
-                    likelihood_list=_host(out.likelihoods),
-                    pred=_host(aux["predictions"]),
-                    state=_host(batch["state"]),
-                    loss=eval_losses,
-                )
+                hist = self._gathered(aux)
+                if is_primary():
+                    np.savez(
+                        os.path.join(run_dir, "data", "eval_result_best.npz"),
+                        particle_list=hist["particles"],
+                        particle_weight_list=hist["weights"],
+                        likelihood_list=hist["likelihoods"],
+                        pred=hist["pred"],
+                        state=_host(batch["state"]),
+                        loss=eval_losses,
+                    )
                 self.save(os.path.join(run_dir, "models", "best"))
 
     def fit_fused(self, train_ds, val_ds, run_dir: str, num_epochs: Optional[int] = None,
@@ -270,30 +320,66 @@ class Trainer:
         normalised on the device) and each step's batch gathered there, in
         the JAX package's order: each epoch a permutation from one
         ``np.random.default_rng(seed)``, whole batches only; eval batches of
-        min(50, n_val) in order."""
+        min(50, n_val) in order.
+
+        On a mesh with D data ranks the datasets are trimmed to a multiple of
+        D and each data rank stages its contiguous 1/D of them; a step's
+        batch is put together from the rows each rank holds with one
+        all-reduce over the data group (the others add zeros), so each step
+        moves one batch between ranks, as JAX's sharded gather does."""
         bs = self.config.batch_size
-        train_dev, val_dev = ({k: torch.as_tensor(ds.data[k]).to(self.device)
-                               for k in BATCH_KEYS} for ds in (train_ds, val_ds))
-        n_train = train_dev["image"].shape[0]
-        n_val = val_dev["image"].shape[0]
+        shards = axis_size(self.mesh, DATA_AXIS)
+        staged = [self._stage(ds) for ds in (train_ds, val_ds)]
+        (train_dev, n_train), (val_dev, n_val) = staged
         steps = n_train // bs
         if steps < 1:
             raise ValueError(
                 f"dataset ({n_train} sequences) smaller than the batch size "
                 f"({bs}); the fused epoch would run zero steps")
-        eval_bs = min(50, n_val)
+        if n_val < 1:
+            raise ValueError(f"validation set ({val_ds.data['image'].shape[0]} sequences) "
+                             f"smaller than the data axis ({shards})")
+        eval_bs = min(50, n_val) // shards * shards
         rng = np.random.default_rng(seed)
 
         def train_batches(epoch):
             order = rng.permutation(n_train)[: steps * bs]      # drawn once per epoch
             idx = torch.as_tensor(order.reshape(steps, bs), device=self.device)
-            return ({k: v[ids] for k, v in train_dev.items()} for ids in idx)
+            return (self._rows(train_dev, n_train, ids) for ids in idx)
 
         def valid_batches():
-            return ({k: v[lo:lo + eval_bs] for k, v in val_dev.items()}
+            return (self._rows(val_dev, n_val, torch.arange(lo, lo + eval_bs,
+                                                            device=self.device))
                     for lo in range(0, n_val - eval_bs + 1, eval_bs))
 
         self.fit(train_batches, valid_batches, run_dir, num_epochs, logger, seed, noise)
+
+    def _stage(self, ds):
+        """This data rank's block of ``ds``'s sequences (all of them trimmed
+        to a multiple of the data axis) on the device, and the trimmed count."""
+        shards = axis_size(self.mesh, DATA_AXIS)
+        n = ds.data["image"].shape[0] // shards * shards
+        block = n // shards
+        lo = axis_index(self.mesh, DATA_AXIS) * block
+        return {k: torch.as_tensor(ds.data[k][lo:lo + block]).to(self.device)
+                for k in BATCH_KEYS}, n
+
+    def _rows(self, staged: dict, n: int, ids: torch.Tensor) -> dict:
+        """The global batch of the rows ``ids`` (of ``n`` staged over the data
+        ranks) on every rank: each rank fills in the rows it holds, zeros
+        elsewhere, and the data group sums them."""
+        if axis_size(self.mesh, DATA_AXIS) == 1:
+            return {k: v[ids] for k, v in staged.items()}
+        block = n // axis_size(self.mesh, DATA_AXIS)
+        lo = axis_index(self.mesh, DATA_AXIS) * block
+        mine = (ids >= lo) & (ids < lo + block)
+        local = torch.where(mine, ids - lo, 0)
+        out = {}
+        for k, v in staged.items():
+            rows = v[local] * mine.reshape((-1,) + (1,) * (v.dim() - 1)).to(v.dtype)
+            torch.distributed.all_reduce(rows, group=self.mesh.data_group)
+            out[k] = rows
+        return out
 
     def pretrain_ae(self, train_batches, num_epochs: int = 300, valid_batches=None,
                     ckpt_path: Optional[str] = None, logger: Optional[MetricsLogger] = None,
@@ -315,7 +401,7 @@ class Trainer:
                     [self.ae_eval(b["image"])[0] for b in valid_batches()])))
                 if logger is not None:
                     logger.scalar("PretrainAE_loss_eval/loss", val_mean, epoch)
-                if run_dir is not None and plots:
+                if run_dir is not None and plots and is_primary():
                     from nfdpf_torch.viz import plot_obs
 
                     first = next(iter(valid_batches()))
@@ -325,12 +411,12 @@ class Trainer:
                     plot_obs(_host(self._frames(first["image"])).reshape(lead + recon.shape[1:]),
                              _host(recon).reshape(lead + recon.shape[1:]),
                              os.path.join(run_dir, "data", f"ae_recon_epoch{epoch:03d}.png"))
-            print(f"AE pretrain epoch {epoch}: train {train_mean:.5f} val {val_mean:.5f}")
+            say(f"AE pretrain epoch {epoch}: train {train_mean:.5f} val {val_mean:.5f}")
             if val_mean < best_val:
                 best_val = val_mean
                 best = {k: v.detach().clone() for k, v in self.engine.state_dict().items()}
                 if ckpt_path is not None:
-                    save_checkpoint(ckpt_path, {"model": best})
+                    save_checkpoint(ckpt_path, {"model": best}, self._group())
         if best is not None:
             self.engine.load_state_dict(best)
 
@@ -343,51 +429,56 @@ class Trainer:
         draw = self._draws(seed, noise)
         losses, last = self._validate(test_batches(), draw)
         data_dir = os.path.join(run_dir, "data")
+        hist = None if last is None else self._gathered(last[0])
+        mean_loss = float(np.mean(losses))
+        if not is_primary():
+            return mean_loss
         os.makedirs(data_dir, exist_ok=True)
         np.save(os.path.join(data_dir, "test_loss_epoch.npy"), losses)
         if last is not None:
-            aux, batch = last
-            out = aux["filter_out"]
+            batch = last[1]
             np.savez(
                 os.path.join(data_dir, "test_result.npz"),
-                particle_list=_host(out.particles),
-                particle_weight_list=_host(out.weights),
-                likelihood_list=_host(out.likelihoods),
+                particle_list=hist["particles"],
+                particle_weight_list=hist["weights"],
+                likelihood_list=hist["likelihoods"],
                 state=_host(batch["state"]),
-                pred=_host(aux["predictions"]),
+                pred=hist["pred"],
                 images=_host(batch["image"]),
-                noise=_host(out.noise),
+                noise=hist["noise"],
             )
             if plots:
-                self._test_plots(aux, batch, data_dir)
-        mean_loss = float(np.mean(losses))
+                self._test_plots(hist, batch, data_dir)
         print(f"test loss: {mean_loss:.4f}")
         return mean_loss
 
-    def _test_plots(self, aux, batch, data_dir: str) -> None:
+    def _test_plots(self, hist: dict, batch, data_dir: str) -> None:
         from nfdpf_torch import viz
 
-        out = aux["filter_out"]
         images = _host(batch["image"][0])
         if images.dtype == np.uint8:
             images = images.astype(np.float32) / 255.0
         true_state = _host(batch["state"][0])               # (T, 4)
-        pred = _host(aux["predictions"][0])                 # (T, 2)
+        pred = hist["pred"][0]                              # (T, 2)
         width = self.config.width
         viz.plot_state_tracking(true_state, pred, os.path.join(data_dir, "test_trajectory.png"),
                                 width=width)
-        viz.plot_ess_tracking(_host(out.weights), os.path.join(data_dir, "test_ess.png"))
-        viz.plot_obs_tracking(images, _host(out.particles[0])[..., :2], _host(out.weights[0]),
+        viz.plot_ess_tracking(hist["weights"], os.path.join(data_dir, "test_ess.png"))
+        viz.plot_obs_tracking(images, hist["particles"][0][..., :2], hist["weights"][0],
                               true_state, pred, os.path.join(data_dir, "tracking"), width=width)
 
     # ------------------------------------------------------------------
 
     def save(self, path: str) -> None:
         """Checkpoint the parameters and BN statistics, the optimizer state
-        and the epoch count into the directory ``path``."""
+        and the epoch count into the directory ``path`` (the primary rank
+        writes; the mesh's ranks wait for it)."""
         save_checkpoint(path, {"model": self.engine.state_dict(),
                                "optimizer": self.optimizer.state_dict(),
-                               "epoch": self.epoch})
+                               "epoch": self.epoch}, self._group())
+
+    def _group(self):
+        return None if self.mesh is None else self.mesh.group
 
     def load(self, path: str) -> None:
         """Restore what ``save`` wrote: training goes on from its epoch with

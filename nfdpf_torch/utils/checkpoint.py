@@ -4,7 +4,8 @@ Counterpart of ``nfdpf_tpu/utils/checkpoint.py``: a checkpoint is a
 *directory*, as orbax writes one, holding the tree (module and optimizer
 state dicts, the epoch) in one ``torch.save`` file, so callers test for one
 with ``os.path.isdir``.  The file is written beside its final name and
-renamed into place, so a cut run leaves the previous checkpoint whole.
+renamed into place, so a cut run leaves the previous checkpoint whole.  In
+a multi-process run only the primary rank writes, and every rank loads.
 """
 
 from __future__ import annotations
@@ -14,17 +15,24 @@ from typing import Any, Optional
 
 import torch
 
+from nfdpf_torch.parallel.distributed import is_primary
+
 _FILE = "checkpoint.pt"
 
 
-def save_checkpoint(path: str, tree: Any) -> None:
+def save_checkpoint(path: str, tree: Any, group=None) -> None:
     """Save a tree of tensors, numbers, strings, lists and dicts into the
-    directory ``path`` (created; an earlier checkpoint there is replaced)."""
-    os.makedirs(path, exist_ok=True)
-    target = os.path.join(path, _FILE)
-    tmp = target + ".tmp"
-    torch.save(tree, tmp)
-    os.replace(tmp, target)
+    directory ``path`` (created; an earlier checkpoint there is replaced).
+    Only the primary rank writes; with a process ``group`` its ranks wait
+    until the file is in place, so any of them may load it next."""
+    if is_primary():
+        os.makedirs(path, exist_ok=True)
+        target = os.path.join(path, _FILE)
+        tmp = target + ".tmp"
+        torch.save(tree, tmp)
+        os.replace(tmp, target)
+    if group is not None:
+        torch.distributed.barrier(group=group)
 
 
 def restore_checkpoint(path: str, map_location=None) -> Any:

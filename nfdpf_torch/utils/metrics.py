@@ -10,15 +10,7 @@ import json
 import os
 import time
 
-import torch
-
-
-def is_primary() -> bool:
-    """Rank 0 of an initialised ``torch.distributed`` group; True without one."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+from nfdpf_torch.parallel.distributed import is_primary
 
 
 class MetricsLogger:

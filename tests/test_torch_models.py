@@ -329,25 +329,28 @@ def test_filter_path_matches_jax(case):
 
 
 # settings the port refused until the ROADMAP item named beside each brought
-# them (4 and 18), and the one it still refuses (19)
+# them (4, 18 and, for meshes, 19), and what it still refuses under a
+# particle axis (23)
 UNSUPPORTED = {
     "encode_per_step": (dict(encode_per_step=True), 18),
     "remat": (dict(remat_scan_step=True), 18),
     "bf16": (dict(compute_dtype="bfloat16"), 18),
     "torch_init": (dict(torch_init=True), 4),
-    "mesh": (dict(mesh_data=2), 19),
+    "mesh": (dict(mesh_particle=2, resampler_type="soft"), 23),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unported_settings_raise(case):
-    """Device meshes are refused naming item 19; the settings of items 4 and
-    18 now build, and beside a mesh the refusal names item 19, not theirs."""
+    """The settings of items 4 and 18 build, alone and beside a data or
+    particle mesh; under a particle axis soft resampling is refused naming
+    item 23, with any of them beside it."""
     overrides, item = UNSUPPORTED[case]
-    if item != 19:
-        DPF(DPFConfig(**dict(SLICE, **overrides)), device="cpu")
-        overrides = dict(overrides, mesh_data=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 19\)"):
+    if item != 23:
+        for mesh in ({}, dict(mesh_data=2), dict(mesh_particle=2)):
+            DPF(DPFConfig(**dict(SLICE, **overrides, **mesh)), device="cpu")
+        overrides = dict(overrides, mesh_particle=2, resampler_type="soft")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 23\)"):
         DPF(DPFConfig(**dict(SLICE, **overrides)), device="cpu")
 
 

@@ -1,7 +1,7 @@
 """The single-card settings of the JAX CLI in nfdpf_torch against the JAX
 package: bfloat16 compute (``--compute-dtype``), ``--remat``,
 ``--encode-per-step`` and ``--torch-init``, and the settings check, which
-refuses device meshes only.
+refuses, on a particle mesh, soft resampling, dense OT and SDPF only.
 
 As in the other parity tests: B=2, N=16, T=5 (B·T = 10 frames), parameters
 carried by the bridge, noise replayed from the JAX key schedule, the JAX
@@ -528,14 +528,23 @@ def test_torch_init_parameters_cross_the_bridge():
                          ids=["mesh_data", "mesh_particle"])
 def test_only_meshes_are_refused(overrides):
     """Every setting of the JAX CLI builds on the CPU, all four of this
-    slice's together with every measurement; a mesh is refused naming
-    ROADMAP item 19, and an unknown compute dtype is a ValueError."""
+    slice's together with every measurement, alone and on a data or a
+    particle mesh; on a particle mesh only soft resampling, OT over
+    materialised costs and SDPF are refused, naming ROADMAP item 23 (a
+    data mesh runs them); an unknown compute dtype is a ValueError."""
     every = dict(compute_dtype="bfloat16", remat_scan_step=True, encode_per_step=True,
                  torch_init=True)
     for measurement in ("cos", "NN", "gaussian", "CRNVP", "CGLOW"):
         check_supported(DPFConfig(**dict(BASE, measurement=measurement, **every)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 19\)"):
-        check_supported(DPFConfig(**dict(BASE, **every, **overrides)))
+        check_supported(DPFConfig(**dict(BASE, measurement=measurement, **every, **overrides)))
+    for item_23 in (dict(resampler_type="soft"), dict(use_pallas=False),
+                    dict(ot_transport_grad=True), dict(train_type="SDPF")):
+        settings = dict(BASE, **every, **item_23, **overrides)
+        if "mesh_data" in overrides:
+            check_supported(DPFConfig(**settings))
+            continue
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 23\)"):
+            check_supported(DPFConfig(**settings))
     with pytest.raises(ValueError, match="compute_dtype"):
         check_supported(DPFConfig(**dict(BASE, compute_dtype="float16")))
 
