@@ -94,7 +94,13 @@ Phases, one line of output each, then the device line last:
    (the NF-DPF), each against the unsharded card run of the same weights
    and draws: loss rel ≤ 1e-4, each gradient group ‖Δ‖/‖g‖ ≤ 1e-3 (the
    decoder 1e-2), equal Sinkhorn iterations, the launches of K1, K2, K4,
-   K5 and K6's calls on every rank (set to 0 just before, read just after);
+   K5 and K6's calls on every rank (set to 0 just before, read just after).
+   The meshes with a data axis also run their step in float64 on the CPU
+   (2 and 4 ranks) against the unsharded float64 step: loss and every
+   gradient group within 1e-9, the proof that the mesh computes the
+   unsharded step's function, since in float32 the split BatchNorm sums
+   alone move the encoder's gradient by ~1e-3 (how far each card run sits
+   from float64 is logged);
 11. main_cli_mesh: ``python -m nfdpf_torch.main`` as torchrun starts it,
    2 ranks on this card (``--mesh-data 2``, gloo): one epoch
    on the data rank 0 makes, then ``--testing``; every rank exits 0 and
@@ -326,14 +332,15 @@ def chain_resources(hidden: int) -> dict:
     return out
 
 
-def launch_record(fn, kernel: str, sessions: int = 3) -> dict:
+def launch_record(fn, kernel: str, sessions: int = 6) -> dict:
     """Registers per thread, shared memory per block (static and dynamic),
     grid and block of the one launch of ``kernel`` that ``fn`` makes, as the
-    card's trace records it (torch.profiler, CUPTI).  A profiling session
-    has been seen to come back with no kernel event at all (once, on the
-    process's first session): a session that records no launch of
-    ``kernel`` is run again, up to ``sessions`` in all.  Raises where none
-    holds exactly one such launch with these fields."""
+    card's trace records it (torch.profiler, CUPTI).  Profiling sessions
+    have been seen to come back with no kernel event at all (once on a
+    process's first session, and three times running on another call): a
+    session that records no launch of ``kernel`` is run again after a
+    second's pause, up to ``sessions`` in all.  Raises where none holds
+    exactly one such launch with these fields."""
     from torch.profiler import ProfilerActivity, profile
 
     hits = []
@@ -347,13 +354,15 @@ def launch_record(fn, kernel: str, sessions: int = 3) -> dict:
             prof.export_chrome_trace(path)
             with open(path) as fh:
                 events = json.load(fh).get("traceEvents", [])
-        hits = [ev.get("args", {}) for ev in events
-                if ev.get("cat") == "kernel" and kernel in ev.get("name", "")]
+        kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+        hits = [ev.get("args", {}) for ev in kernels if kernel in ev.get("name", "")]
         if hits:
             break
+        time.sleep(1.0)
     if len(hits) != 1 or not {"registers per thread", "shared memory"} <= set(hits[0]):
         raise AssertionError(f"the trace holds {len(hits)} launches of {kernel} after "
-                             f"{attempt} sessions, fields {sorted(hits[0]) if hits else []}")
+                             f"{attempt} sessions (the last held {len(kernels)} kernel "
+                             f"events), fields {sorted(hits[0]) if hits else []}")
     a = hits[0]
     return {"registers": int(a["registers per thread"]),
             "smem_bytes_per_block": int(a["shared memory"]),
@@ -1322,6 +1331,9 @@ MESH_T = 10
 MESHES = {"mesh_particle": (CNF_SLICE, (1, 2)), "mesh_data": (SLICE, (2, 1)),
           "mesh_2x2": (NFDPF_SLICE, (2, 2))}
 MESH_WORLD = 4
+# a float64 mesh step against the unsharded float64 one (loss and gradient
+# groups, relative): rounding there is ~1e-13
+FLOAT64_TOL = 1e-9
 GRAD_GROUPS = ("encoder", "decoder", "measurement", "nf_dyn", "cond_model")
 
 
@@ -1465,7 +1477,10 @@ def phase_mesh(smi: str):
     reads the mesh alone and not cuDNN's choice of summation order: on an
     H100 the data axis moved the encoder's gradient by a fixed 8.6e-4 to
     9.6e-4 (its BatchNorm sums split over ranks).  Each unsharded step runs
-    twice, and how far the two parted is logged (``unsharded_repeat_grad_rel``)."""
+    twice, and how far the two parted is logged (``unsharded_repeat_grad_rel``).
+    A mesh with a data axis also runs its step in float64 on the CPU, held
+    within ``FLOAT64_TOL`` of the unsharded float64 step (how far each card
+    run sits from that step is logged)."""
     torch.backends.cudnn.deterministic = True
     try:
         return _phase_mesh(smi)
@@ -1491,14 +1506,16 @@ def _phase_mesh(smi: str):
     k3 = {"particles": out.detach().cpu().numpy(), "grad": k3_grad.cpu().numpy()}
     del x, out, k3_grad
 
-    unsharded, inputs, repeat = {}, {}, {}
-    for name, (settings, _) in MESHES.items():
+    unsharded, inputs, repeat, exact = {}, {}, {}, {}
+    for name, (settings, shape) in MESHES.items():
         settings = dict(settings, sequence_length=MESH_T)
         inputs[name] = _mesh_inputs(DPFConfig(**settings), seed=31)
         unsharded[name] = _unsharded_step(settings, *inputs[name])
         again = _unsharded_step(settings, *inputs[name])
         repeat[name] = _group_rel(again["grads"], unsharded[name]["grads"])
         torch.cuda.empty_cache()
+        if shape[0] > 1:
+            exact[name] = R.float64_step(settings, *inputs[name])
 
     jobs = [(R.resample_job, dict(shape=(1, K6_RANKS), ranks=list(range(K6_RANKS)),
                                   particles=raw.numpy(), probs=probs.numpy(), kw=K6_KW,
@@ -1508,6 +1525,12 @@ def _phase_mesh(smi: str):
         jobs.append((R.train_step_job, dict(
             settings=dict(settings, sequence_length=MESH_T), shape=shape,
             ranks=list(range(shape[0] * shape[1])), batch=batch, noise=noise, device="cuda")))
+    for name in exact:
+        settings, shape = MESHES[name]
+        jobs.append((R.float64_step_job, dict(
+            settings=dict(settings, sequence_length=MESH_T), shape=shape,
+            ranks=list(range(shape[0] * shape[1])), batch=inputs[name][0],
+            noise=inputs[name][1])))
     t0 = time.perf_counter()
     results = R.spawn(MESH_WORLD, jobs, backend="gloo", threads=2, timeout=600)
     spawn_s = time.perf_counter() - t0
@@ -1545,7 +1568,8 @@ def _phase_mesh(smi: str):
     log(k6_row)
 
     rows = {}
-    for (name, (settings, shape)), runs in zip(MESHES.items(), results[1:]):
+    float64_runs = dict(zip(exact, results[1 + len(MESHES):]))
+    for (name, (settings, shape)), runs in zip(MESHES.items(), results[1:1 + len(MESHES)]):
         ref = unsharded[name]
         runs = [r for r in runs if r is not None]
         losses = [r["metrics"]["loss"] for r in runs]
@@ -1566,7 +1590,22 @@ def _phase_mesh(smi: str):
                       "resample_count": runs[0]["metrics"]["resample_count"],
                       "launches_rank0": launches, "launches_unsharded": ref["launches"],
                       "step_s": [r["s"] for r in runs], "step_s_unsharded": ref["s"]}
+        if name in exact:
+            f64 = exact[name]
+            mesh64 = float64_runs[name][0]
+            rows[name].update(
+                float64_mesh_loss_rel=abs(mesh64["loss"] - f64["loss"]) / abs(f64["loss"]),
+                float64_mesh_grad_rel=_group_rel(mesh64["grads"], f64["grads"]),
+                card_from_float64={"sharded": _group_rel(runs[0]["grads"], f64["grads"]),
+                                   "unsharded": _group_rel(ref["grads"], f64["grads"])})
         log(rows[name])
+        if name in exact:
+            gaps = dict(rows[name]["float64_mesh_grad_rel"],
+                        loss=rows[name]["float64_mesh_loss_rel"])
+            for what, rel in gaps.items():
+                if not rel <= FLOAT64_TOL:
+                    bad.append(f"{name}: float64 mesh step's {what} rel err {rel:.2e} from "
+                               f"the unsharded float64 step")
         if not loss_rel <= 1e-4:
             bad.append(f"{name}: first-step loss rel err {loss_rel:.2e}")
         for g, rel in worst.items():

@@ -17,15 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from nfdpf_torch.ops.density import weighted_mean
-from nfdpf_torch.parallel.mesh import DATA_AXIS, axis_size, psum
-
-
-def _batch_mean(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The mean of ``x`` over every element of the global batch."""
-    if axis_size(mesh, DATA_AXIS) == 1:
-        return torch.mean(x)
-    return psum(torch.sum(x), mesh, DATA_AXIS) / (x.numel() * axis_size(mesh, DATA_AXIS))
+from nfdpf_torch.ops.density import batch_mean, weighted_mean
 
 
 def supervised_loss(
@@ -45,19 +37,19 @@ def supervised_loss(
     prediction = weighted_mean(particles, weights, mesh)
     err2 = (prediction - true_state[..., :2]) ** 2
     if not train:
-        return torch.sqrt(_batch_mean(err2, mesh)), prediction
+        return torch.sqrt(batch_mean(err2, mesh)), prediction
     if labeled_ratio == 0:
         return torch.zeros((), device=err2.device), prediction
     mask = torch.as_tensor(mask, dtype=err2.dtype, device=err2.device)
     if mask.dim() == 2:
         mask = mask[..., None]
-    return torch.sqrt(_batch_mean(mask * err2, mesh) / labeled_ratio), prediction
+    return torch.sqrt(batch_mean(mask * err2, mesh) / labeled_ratio), prediction
 
 
 def autoencoder_loss(images: torch.Tensor, reconstruction: torch.Tensor,
                      mesh=None) -> torch.Tensor:
     """MSE over all frames."""
-    return _batch_mean((reconstruction - images) ** 2, mesh)
+    return batch_mean((reconstruction - images) ** 2, mesh)
 
 
 def semi_supervised_mask(batch_size: int, seq_len: int, labeled_ratio: float,
@@ -123,7 +115,7 @@ def pseudolikelihood_loss(
     term_vel = (2 * log_c - 2 * math.log(std_vel)
                 - torch.sum(noise[..., 2:] ** 2 / (2 * std_vel ** 2), dim=-1))
     q = _ancestor_walk(likelihoods, indices, term_pos + term_vel, weights, block_len)
-    return -_batch_mean(q, mesh)
+    return -batch_mean(q, mesh)
 
 
 def pseudolikelihood_loss_nf(
@@ -140,4 +132,4 @@ def pseudolikelihood_loss_nf(
     The reference gathers the dynamics Jacobians along the ancestors but
     never adds them; only prior + likelihood enter, here too."""
     q = _ancestor_walk(likelihoods, indices, priors, weights, block_len)
-    return -_batch_mean(q, mesh)
+    return -batch_mean(q, mesh)

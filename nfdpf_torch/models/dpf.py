@@ -77,6 +77,7 @@ from nfdpf_torch.ops.cuda.sinkhorn_cuda import (
     ot_resample_streaming_sharded,
 )
 from nfdpf_torch.ops.density import (
+    batch_mean,
     effective_sample_size,
     normalize_log_weights,
     uniform_log_weights,
@@ -309,11 +310,8 @@ class DPF(nn.Module):
             fused_dyn=fused_dyn, fused_cond=fused_cond, mesh=mesh)
         log_w = log_probs_r + lki_log + prior_log - propose_log
         new_probs = normalize_log_weights(log_w, mesh=mesh) + 1e-12
-        if mesh is None:
-            mean_log_w = torch.mean(log_w)
-        else:
-            mean_log_w = psum(torch.sum(log_w), mesh, DATA_AXIS, PARTICLE_AXIS) / (
-                log_w.numel() * mesh.size)
+        mean_log_w = psum(batch_mean(log_w, mesh), mesh, PARTICLE_AXIS) / axis_size(
+            mesh, PARTICLE_AXIS)
         return (propose, new_probs, mean_log_w, noise_t, lki_log, idx, jac, prior_log,
                 sk_iters, pots)
 

@@ -16,8 +16,9 @@ Stop-gradient topology, as in the JAX package:
 The particle std is the unbiased (N−1) estimator (``torch.std``'s default).
 A context is one row per batch element broadcast over the particles; it is
 returned as an expanded view, not a copy.  Under a ``mesh`` whose particle
-axis is sharded the mean and std are those of all N particles: two-pass
-sums over the particle group.
+axis is sharded the mean and std are those of all N particles, gathered
+over the particle group (B·N·d values), so every rank computes them as the
+unsharded run does.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from nfdpf_torch.ops.cuda.coupling_cuda import fused_coupling_chain
 from nfdpf_torch.ops.density import log_normal_density
 from nfdpf_torch.ops.flows import FlowChain
-from nfdpf_torch.parallel.mesh import PARTICLE_AXIS, axis_size, psum
+from nfdpf_torch.parallel.mesh import PARTICLE_AXIS, all_gather
 
 Packed = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -56,13 +57,8 @@ def motion_update(
 
 def _particle_stats(particles: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Detached per-batch particle mean and unbiased std, (B, 1, d) each."""
-    p = particles.detach()
-    if axis_size(mesh, PARTICLE_AXIS) == 1:
-        return torch.mean(p, dim=1, keepdim=True), torch.std(p, dim=1, keepdim=True)
-    n = p.shape[1] * axis_size(mesh, PARTICLE_AXIS)
-    mean = psum(torch.sum(p, dim=1, keepdim=True), mesh, PARTICLE_AXIS) / n
-    dev2 = psum(torch.sum((p - mean) ** 2, dim=1, keepdim=True), mesh, PARTICLE_AXIS)
-    return mean, torch.sqrt(dev2 / (n - 1))
+    p = all_gather(particles.detach(), mesh, PARTICLE_AXIS, 1)
+    return torch.mean(p, dim=1, keepdim=True), torch.std(p, dim=1, keepdim=True)
 
 
 def _stats_context(particles: torch.Tensor, mean=None, std=None,

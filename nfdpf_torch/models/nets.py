@@ -39,8 +39,8 @@ class FlaxBatchNorm(nn.Module):
     * running = (1 − momentum)·running + momentum·batch, torch momentum 0.1
       = flax momentum 0.9; eps 1e-5;
     * under a ``mesh`` whose data axis shards the batch, the statistics are
-      the global batch's: the sums of x and x² all-reduced over the data
-      group (differentiably), as GSPMD reduces flax's means.
+      the global batch's: the data group's mean of each rank's means of x
+      and x² (all-reduced differentiably), as GSPMD reduces flax's means.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
@@ -62,15 +62,9 @@ class FlaxBatchNorm(nn.Module):
         xf = x.to(self.weight.dtype)
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            shards = axis_size(self.mesh, DATA_AXIS)
-            if shards == 1:
-                mean = torch.mean(xf, dim=dims)
-                mean2 = torch.mean(xf * xf, dim=dims)
-            else:
-                count = xf.numel() // xf.shape[1] * shards
-                sums = psum(torch.stack([torch.sum(xf, dim=dims), torch.sum(xf * xf, dim=dims)]),
-                            self.mesh, DATA_AXIS)
-                mean, mean2 = sums[0] / count, sums[1] / count
+            moments = psum(torch.stack([torch.mean(xf, dim=dims), torch.mean(xf * xf, dim=dims)]),
+                           self.mesh, DATA_AXIS) / axis_size(self.mesh, DATA_AXIS)
+            mean, mean2 = moments[0], moments[1]
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum

@@ -16,17 +16,14 @@ import torch
 from nfdpf_torch.parallel.mesh import DATA_AXIS, PARTICLE_AXIS, axis_size, psum, row_max
 
 
-def normalize_log_weights(log_w: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
-    """Max-shifted softmax over the particle axis → linear probabilities.
+def normalize_log_weights(log_w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Max-shifted softmax over the particle axis (the last) → linear
+    probabilities.
 
     The shift is NOT detached: the original routes gradient through
     ``.max()`` to the argmax element, and so does this (across the particle
-    group under a mesh, whose particle axis is the last).
+    group under a mesh).
     """
-    if mesh is None:
-        shifted = log_w - torch.amax(log_w, dim=dim, keepdim=True)
-        w = torch.exp(shifted)
-        return w / torch.sum(w, dim=dim, keepdim=True)
     w = torch.exp(log_w - row_max(log_w, mesh))
     return w / psum(torch.sum(w, dim=-1, keepdim=True), mesh, PARTICLE_AXIS)
 
@@ -34,11 +31,15 @@ def normalize_log_weights(log_w: torch.Tensor, dim: int = -1, mesh=None) -> torc
 def effective_sample_size(probs: torch.Tensor, mesh=None) -> torch.Tensor:
     """Mean ESS over the batch: ``mean_b 1/Σ_i w_bi²`` — one scalar, the
     same on every rank of a mesh."""
-    if mesh is None:
-        return torch.mean(1.0 / torch.sum(probs**2, dim=-1))
     inv = 1.0 / psum(torch.sum(probs**2, dim=-1), mesh, PARTICLE_AXIS)
-    return (psum(torch.sum(inv), mesh, DATA_AXIS)
-            / (inv.shape[0] * axis_size(mesh, DATA_AXIS)))
+    return batch_mean(inv, mesh)
+
+
+def batch_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of ``x`` over the global batch, whose leading axis is
+    sharded over the data axis: the data group's mean of the ranks' equal
+    blocks' means (unsharded: ``torch.mean(x)`` itself, bit for bit)."""
+    return psum(torch.mean(x), mesh, DATA_AXIS) / axis_size(mesh, DATA_AXIS)
 
 
 def log_normal_density(noise: torch.Tensor, std_pos: float,

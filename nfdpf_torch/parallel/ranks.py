@@ -33,8 +33,10 @@ from nfdpf_torch.bridge import load_jax_variables
 from nfdpf_torch.config import DPFConfig
 from nfdpf_torch.models.dpf import DPF
 from nfdpf_torch.models.nets import FlaxBatchNorm
+from nfdpf_torch.ops import sinkhorn as dense
 from nfdpf_torch.ops.cuda import coupling_cuda as cc
 from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+from nfdpf_torch.parallel.distributed import initialize, shutdown
 from nfdpf_torch.parallel.mesh import (
     DATA_AXIS,
     PARTICLE_AXIS,
@@ -67,12 +69,11 @@ def _rank_main(rank: int, world: int, port: int, backend: str, threads: int,
     (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
      torch.backends.cudnn.deterministic) = numerics
     try:
-        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                                rank=rank, world_size=world)
+        initialize(backend, rank, world, f"tcp://127.0.0.1:{port}")
         try:
             out = [fn(**kwargs) for fn, kwargs in jobs]
         finally:
-            dist.destroy_process_group()
+            shutdown()
         results.put((rank, True, out))
     except BaseException:   # reported to the caller, which raises it
         results.put((rank, False, traceback.format_exc()))
@@ -233,9 +234,11 @@ def train_step_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,
 def step_result(trainer, batch: dict, noise: dict, device) -> dict:
     """``trainer.train_step`` of ``batch`` with ``noise`` (numpy, global),
     the launch counters set to 0 just before it and read just after: the
-    metrics, each parameter's gradient, the launches and the seconds."""
+    metrics, each parameter's gradient, the launches, the dense Sinkhorn
+    loop's iterations and the seconds."""
     noise = {k: _tensor(v, device) for k, v in noise.items()}
     _reset_launches()
+    dense.reset_dense_loop()
     _sync(device)
     t0 = time.perf_counter()
     metrics = trainer.train_step(batch, noise=noise)
@@ -244,7 +247,62 @@ def step_result(trainer, batch: dict, noise: dict, device) -> dict:
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {k: p.grad.detach().cpu().numpy()
                       for k, p in trainer.engine.named_parameters() if p.grad is not None},
-            "launches": _launches(), "s": seconds}
+            "launches": _launches(), "dense_iters": dense.DENSE_LOOP["iters"], "s": seconds}
+
+
+def settings_steps_job(cases: dict, shape, batch: dict, noise: dict, ranks=None,
+                       device="cpu"):
+    """``step_result`` of one train step for each of ``cases`` (name →
+    settings, each from the seed's init) on one (data, particle) mesh,
+    built once.  Returns, on the mesh's first rank, the results by name."""
+    mesh = _mesh(shape, ranks)
+    if mesh is None:
+        return None
+    out = {name: step_result(Trainer(DPFConfig(**settings), device, mesh), batch, noise, device)
+           for name, settings in cases.items()}
+    return out if (mesh.data_index, mesh.particle_index) == (0, 0) else None
+
+
+def float64_step(settings: dict, batch: dict, noise: dict,
+                 variables: Optional[dict] = None, mesh=None) -> dict:
+    """The loss and gradients of one train step in float64 on the CPU
+    (parameters, compute and draws), from the seed's init or the JAX
+    package's ``variables``, on the float32 runs' inputs (uint8 frames
+    scaled as the trainer scales them), unsharded or on ``mesh`` (the
+    gradients averaged over it): the exact step that float32 runs are read
+    against, and on a mesh the proof that it computes the unsharded step's
+    function.  Returns the loss and every parameter's gradient."""
+    trainer = Trainer(DPFConfig(**settings), "cpu", mesh)
+    if variables is not None:
+        load_jax_variables(trainer.engine, variables, mesh)
+    images = np.asarray(batch["image"])
+    if images.dtype == np.uint8:
+        images = images.astype(np.float32) / np.float32(255.0)
+    batch = {k: np.asarray(v, dtype=np.float64) for k, v in dict(batch, image=images).items()}
+    torch.set_default_dtype(torch.float64)
+    try:
+        engine = trainer.engine.double()
+        engine.encoder.compute_dtype = engine.decoder.compute_dtype = torch.float64
+        loss, _ = trainer._loss(batch, True, {k: _tensor(v, "cpu").double()
+                                              for k, v in noise.items()})
+        loss.backward()
+        average_gradients(engine.parameters(), mesh)
+    finally:
+        torch.set_default_dtype(torch.float32)
+    return {"loss": loss.item(),
+            "grads": {k: p.grad.numpy() for k, p in engine.named_parameters()
+                      if p.grad is not None}}
+
+
+def float64_step_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,
+                     variables: Optional[dict] = None):
+    """``float64_step`` on a (data, particle) mesh; the result on the
+    mesh's first rank."""
+    mesh = _mesh(shape, ranks)
+    if mesh is None:
+        return None
+    out = float64_step(settings, batch, noise, variables, mesh)
+    return out if (mesh.data_index, mesh.particle_index) == (0, 0) else None
 
 
 def filter_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,

@@ -324,9 +324,11 @@ class Trainer:
 
         On a mesh with D data ranks the datasets are trimmed to a multiple of
         D and each data rank stages its contiguous 1/D of them; a step's
-        batch is put together from the rows each rank holds with one
-        all-reduce over the data group (the others add zeros), so each step
-        moves one batch between ranks, as JAX's sharded gather does."""
+        global batch is put together on every data rank from the rows each
+        holds with one all-reduce over the data group (the others add
+        zeros), and each rank then keeps its 1/D of it.  Each rank so
+        receives D times the rows it uses, where JAX's sharded gather moves
+        each device only its own rows."""
         bs = self.config.batch_size
         shards = axis_size(self.mesh, DATA_AXIS)
         staged = [self._stage(ds) for ds in (train_ds, val_ds)]

@@ -18,7 +18,10 @@ see ``tests/test_torch_train.py``) against the port at world size 1;
 against JAX's sharded step the encoder's bound is 2e-3, because that step
 is itself 1.06e-3 off JAX's unsharded one there, where the port's meshes
 were 1.8e-4 to 5.1e-4 off it (measured at these shapes on the CPU);
-BatchNorm 1e-5.
+the same step in float64 on each mesh against the port's float64 step at
+world size 1 within 1e-9; every single-card setting on a 2×1 mesh (those a
+particle axis takes on 1×2 too) against world size 1 at the train step's
+bounds (bfloat16 at ``tests/test_torch_options.py``'s); BatchNorm 1e-5.
 
 Every reference is a module fixture that the first test takes before it
 waits for the ranks, so that references and ranks run side by side.
@@ -77,6 +80,24 @@ GROUPS = ("encoder", "decoder", "measurement", "nf_dyn", "cond_model")
 
 BN_SHAPE = (8, 6, 3, 3)      # (B, C, H, W), the batch over a 4×1 mesh
 
+# every single-card setting on a 2×1 mesh, and those the particle axis takes
+# on a 1×2 mesh, each against the port at world size 1 (seed init, the
+# cosine measurement; B=2, T=5, N=16, resampling every step)
+OPTION_BASE = dict(num_particles=16, sequence_length=5, batch_size=2, resampler_type="ot",
+                   use_pallas=True, max_iter=5, measurement="cos", ess_threshold=1.01)
+OPTIONS = {
+    "dense_ot": dict(use_pallas=False),
+    "transport_grad": dict(use_pallas=False, ot_transport_grad=True),
+    "soft": dict(resampler_type="soft"),
+    "sdpf": dict(train_type="SDPF", labeled_ratio=0.5, block_length=2),
+    "remat": dict(remat_scan_step=True),
+    "encode_per_step": dict(encode_per_step=True),
+    "bfloat16": dict(compute_dtype="bfloat16"),
+    "warm_start": dict(sinkhorn_warm_start=True),
+}
+PARTICLE_OPTIONS = ("remat", "encode_per_step", "bfloat16", "warm_start")
+OPTION_GROUPS = ("encoder", "decoder", "measurement")
+
 
 @pytest.fixture(autouse=True)
 def _interpret_mode(monkeypatch):
@@ -109,6 +130,17 @@ def _filter_noise(key, b, n, t, width=128.0):
         k, _, k_motion = jax.random.split(k, 3)
         motion.append(np.asarray(jax.random.normal(k_motion, (b, n, 2))))
     return {"init": np.asarray(init), "motion": np.stack(motion)}
+
+
+def _option_noise(seed, b, n, t):
+    """Global draws for every setting: the soft resampler's offsets and the
+    semi-supervised mask too."""
+    rng = np.random.default_rng(seed)
+    return {"vel": rng.standard_normal((b, t, 2)).astype(np.float32),
+            "init": (rng.random((b, n, 2)) * 128 - 64).astype(np.float32),
+            "motion": rng.standard_normal((t, b, n, 2)).astype(np.float32),
+            "resample": (rng.random((t, b, 1)) / n).astype(np.float32),
+            "mask": (rng.random((b, t)) < 0.5).astype(np.float32)}
 
 
 def _step_noise(key, b, n, t):
@@ -158,6 +190,9 @@ def inputs():
         step_params=s_params, step_rest=s_rest, step_vars=s_vars,
         step_batch=_batch(1, b_s, t_s), step_key=jax.random.PRNGKey(5),
         step_noise=_step_noise(jax.random.PRNGKey(5), b_s, n_s, t_s),
+        option_batch=_batch(8, OPTION_BASE["batch_size"], OPTION_BASE["sequence_length"]),
+        option_noise=_option_noise(9, OPTION_BASE["batch_size"], OPTION_BASE["num_particles"],
+                                   OPTION_BASE["sequence_length"]),
         bn_x=np.random.default_rng(3).standard_normal(BN_SHAPE).astype(np.float32) * 2 + 1,
         bn_g=np.random.default_rng(4).standard_normal(BN_SHAPE).astype(np.float32))
 
@@ -194,6 +229,15 @@ def ranks(inputs, cli_dirs):
             settings=STEP_CFG, shape=shape, ranks=rk, batch=i["step_batch"],
             noise=i["step_noise"], variables=i["step_vars"]))
            for name, (shape, rk) in STEP_MESHES.items()},
+        **{f"step64_{name}": (R.float64_step_job, dict(
+            settings=STEP_CFG, shape=shape, ranks=rk, batch=i["step_batch"],
+            noise=i["step_noise"], variables=i["step_vars"]))
+           for name, (shape, rk) in STEP_MESHES.items()},
+        **{f"options_{name}": (R.settings_steps_job, dict(
+            cases={c: dict(OPTION_BASE, **OPTIONS[c]) for c in cases}, shape=shape, ranks=rk,
+            batch=i["option_batch"], noise=i["option_noise"]))
+           for name, shape, rk, cases in (("2x1", (2, 1), [0, 1], OPTIONS),
+                                          ("1x2", (1, 2), [2, 3], PARTICLE_OPTIONS))},
         "cli": (R.main_job, dict(argv=CLI_ARGS + CLI_MESH + data,
                                  workdir=str(cli_dirs / "mesh"))),
         **{f"filter_p{p}": (R.filter_job, dict(
@@ -313,9 +357,28 @@ def single_step(inputs):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
+@pytest.fixture(scope="module")
+def step_float64(inputs):
+    """The port's train step at world size 1 in float64, from the same
+    weights, inputs and draws."""
+    i = inputs
+    return R.float64_step(STEP_CFG, i["step_batch"], i["step_noise"], i["step_vars"])
+
+
+@pytest.fixture(scope="module")
+def option_refs(inputs):
+    """The port's train step at world size 1 for every setting of
+    ``OPTIONS``."""
+    i = inputs
+    return {case: R.step_result(Trainer(DPFConfig(**dict(OPTION_BASE, **OPTIONS[case])), "cpu"),
+                                i["option_batch"], i["option_noise"], "cpu")
+            for case in OPTIONS}
+
+
 @pytest.mark.parametrize("mesh_name", sorted(STEP_MESHES))
 def test_sharded_train_step_matches_jax_mesh_and_world_size_1(ranks, jax_step, single_step,
-                                                              filter_refs, k6_refs, mesh_name):
+                                                              filter_refs, k6_refs, option_refs,
+                                                              step_float64, mesh_name):
     """One train step (OT on the streaming kernels, K6 under the particle
     axis, both RealNVP flows, the CRNVP measurement) on a 2×1, 1×2 or 2×2
     mesh: every rank's loss, Sinkhorn iterations and gradient groups
@@ -340,6 +403,55 @@ def test_sharded_train_step_matches_jax_mesh_and_world_size_1(ranks, jax_step, s
                 bound = (1e-2 if g == "decoder"
                          else 2e-3 if g == "encoder" and ref_name == "jax mesh" else 1e-3)
                 assert _rel(got[g], ref[g]) < bound, (g, ref_name, _rel(got[g], ref[g]))
+
+
+@pytest.mark.parametrize("mesh_name", sorted(STEP_MESHES))
+def test_sharded_step_in_float64_equals_world_size_1(ranks, step_float64, mesh_name):
+    """The train step of ``test_sharded_train_step_matches_jax_mesh_and_world_size_1``
+    in float64 on each mesh against the port's float64 step at world size
+    1: loss and every gradient group within 1e-9 (relative).  In float32
+    the data axis moves the encoder's gradient by up to ~1e-3 (this
+    gradient's own float32 rounding: the float32 step at world size 1 sits
+    4.6e-4 from the float64 one, the 2×1 mesh's 1.1e-3, measured at these
+    shapes); in float64 any fault of the mesh would stand out of the
+    rounding by six orders."""
+    exact = step_float64
+    got = next(r for r in ranks()[f"step64_{mesh_name}"] if r is not None)
+    np.testing.assert_allclose(got["loss"], exact["loss"], rtol=1e-9)
+    assert set(got["grads"]) == set(exact["grads"])
+    mine, want = _groups(got["grads"]), _groups(exact["grads"])
+    for g in GROUPS:
+        assert _rel(mine[g], want[g]) < 1e-9, (g, _rel(mine[g], want[g]))
+
+
+@pytest.mark.parametrize("case", sorted(OPTIONS))
+def test_single_card_settings_run_on_a_mesh(ranks, option_refs, case):
+    """Every setting the port runs on one card runs on a 2×1 mesh, and
+    those a particle axis takes (all but item 23's) on a 1×2 mesh: the
+    loss, the firings, the streaming and dense Sinkhorn iterations and each
+    gradient group against world size 1.  Bounds as the train step's (loss
+    rtol 1e-5, gradients 1e-3, decoder 1e-2); under bfloat16 those of
+    ``tests/test_torch_options.py``'s bfloat16 step (loss 1e-3, gradients
+    1e-1, decoder 2e-1): the split BatchNorm sums move bfloat16 roundings."""
+    ref = option_refs[case]
+    results = ranks()
+    loss_tol, grad_tol, decoder_tol = (1e-3, 1e-1, 2e-1) if case == "bfloat16" else (
+        1e-5, 1e-3, 1e-2)
+    want = {g: np.concatenate([np.ravel(ref["grads"][k]) for k in sorted(ref["grads"])
+                               if k.startswith(g + ".")]) for g in OPTION_GROUPS}
+    for mesh_name in ["2x1"] + (["1x2"] if case in PARTICLE_OPTIONS else []):
+        got = next(r for r in results[f"options_{mesh_name}"] if r is not None)[case]
+        for key in ("resample_count", "sinkhorn_iters"):
+            assert got["metrics"][key] == ref["metrics"][key], (mesh_name, key)
+        assert got["dense_iters"] == ref["dense_iters"], mesh_name
+        np.testing.assert_allclose(got["metrics"]["loss"], ref["metrics"]["loss"], rtol=loss_tol,
+                                   err_msg=mesh_name)
+        assert set(got["grads"]) == set(ref["grads"]), mesh_name
+        for g in OPTION_GROUPS:
+            mine = np.concatenate([np.ravel(got["grads"][k]) for k in sorted(got["grads"])
+                                   if k.startswith(g + ".")])
+            bound = decoder_tol if g == "decoder" else grad_tol
+            assert _rel(mine, want[g]) < bound, (mesh_name, g, _rel(mine, want[g]))
 
 
 @pytest.fixture(scope="module")
