@@ -20,13 +20,23 @@ Phases, one line of output each, then the device line last:
    context (4 wide) and the proposal flow's (36 wide), each one row per batch element
    broadcast over the particles as the filter passes it, and at (B=4,
    N=4097) with a dense 36-wide context and with none, each launched again
-   for equal bits; beside them the time of the same call through the
+   for equal bits, and since the context's share of layer 0 left them, at
+   (B=32, N=100) and (B=10, N=100) with the CGLOW proposal's 196-wide
+   context; the three context kernels (the share, the context-weight and
+   the context-input gradients) alone against their plain versions at each
+   case with a context; beside them the time of the same call through the
    ``FlowChain`` module; at the filter's heaviest call, the registers and
    shared memory per block of the timed launches as the card's trace
    records them (torch.profiler), the shared memory held against the
    wrapper's mirrors of the kernels' layouts; all of it again at hidden
    width 16, the coupling kernels' widest build; then the coupling
    kernels' registers and spills as ptxas reports them at both widths;
+   then K3, the streaming resampler's driver: its update kernel against
+   the plain version bit for bit, and K3 at (32, 100), (10, 100) and
+   (4, 10240), cold and warm, replaying ``LOOP_CHUNK`` iterations a CUDA
+   graph against chunks of one iteration (the same iterations and bits)
+   and against its plain version on the card, with ms a call, host syncs
+   and the chunk sizes' times;
 3. slices, each at full width (B=32, N=100, T=50, 128×128×3 frames, every
    step resampled): 3 train steps and 1 eval step, the launch counts of
    each kernel over them (set to 0 just before, read just after), step
@@ -42,7 +52,9 @@ Phases, one line of output each, then the device line last:
    time step, the NF dynamics on the coupling kernels (the inverse
    direction only) and SDPF semi-supervised training (labeled ratio 0.5,
    blocks of 10 steps), with its pseudo-likelihood; the single-card
-   settings of the JAX CLI: ``cnf_bf16`` (the CNF-DPF with its encoder and
+   settings of the JAX CLI: ``cglow_nfcond`` (config 5 with the proposal
+   flow, whose context is the 196-wide CGLOW encoding); ``cnf_bf16`` (the
+   CNF-DPF with its encoder and
    decoder computing in bfloat16), ``cnf_h16`` (the CNF-DPF with 16-wide
    conditioners on K4/K5), ``cglow_remat`` (config 5 with each time step
    recomputed in the backward: its firings, Sinkhorn iterations and
@@ -57,7 +69,8 @@ Phases, one line of output each, then the device line last:
 5. parity, for every slice and for the dense path with the transport's
    gradient, the NN and the gaussian measurement and the bootstrap SDPF:
    one loss + gradient on the card (cuda) and on the plain versions (cpu)
-   from the same parameters, noise and semi-supervised mask; bf16 against
+   from the same parameters, noise and semi-supervised mask (config 5 with
+   and without the proposal flow); bf16 against
    bfloat16's own effect on the CPU (``BF16_*``, a float32 run beside),
    and remat on the CNF-DPF with the warm start;
 6. linalg: the CGLOW's batched log|det| and inverse (plain PyTorch ops, no
@@ -105,7 +118,7 @@ Phases, one line of output each, then the device line last:
    2 ranks on this card (``--mesh-data 2``, gloo): one epoch
    on the data rank 0 makes, then ``--testing``; every rank exits 0 and
    only rank 0 prints;
-12. the ``kernels`` JSON line, with K1/K2 at rows ≠ columns and K6.
+12. the ``kernels`` JSON line, with K1/K2 at rows ≠ columns, K3 and K6.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
 script exits non-zero without printing the last line; so does any rank
@@ -166,6 +179,10 @@ CGLOW_SLICE = dict(SLICE, measurement="CGLOW", nf_dyn=True, pallas_coupling=True
 BF16_SLICE = dict(CNF_SLICE, compute_dtype="bfloat16")
 H16_SLICE = dict(CNF_SLICE, flow_hidden_dim=16)
 CGLOW_REMAT_SLICE = dict(CGLOW_SLICE, remat_scan_step=True)
+# config 5 with the proposal flow (--measurement CGLOW --NF-cond, the CLI's
+# case): the proposal chain's context is the 192-wide CGLOW encoding + 4,
+# which K4/K5 take since the context's share of layer 0 left them
+CGLOW_NFCOND_SLICE = dict(CGLOW_SLICE, nf_cond=True)
 PER_STEP_SLICE = dict(SLICE, encode_per_step=True, torch_init=True)
 WIDE_HIDDEN = 16   # the coupling kernels' widest build (widths 9-15 run padded to it)
 # the kernels → source and the TPU kernel each replaces
@@ -174,23 +191,38 @@ COUPLING_CU = "nfdpf_torch/ops/cuda/csrc/coupling.cu"
 KERNELS = {
     "sinkhorn_lse": (SINKHORN_CU, "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:78"),
     "transport_apply": (SINKHORN_CU, "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:180"),
+    # the rest of the while_loop body of ot_resample_pallas (K3) after the softmin
+    "sinkhorn_update": (SINKHORN_CU, "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:405"),
     "coupling_chain": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:100"),
     "coupling_chain_bwd": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
+    # layer 0's context share and its gradients, inside those two TPU kernels
+    "coupling_ctx_share": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:100"),
+    "coupling_ctx_weight_grad": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
+    "coupling_ctx_input_grad": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
 }
 # each kernel's case in the kernels line: the shape and direction the CNF-DPF
-# slice runs it most heavily
-AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100",
-      "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse"}
+# slice runs it most heavily; the context kernels at the CGLOW proposal's
+# 196-wide context (slice_cglow_nfcond)
+AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100", "sinkhorn_update": "B32_N100",
+      "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse",
+      "coupling_ctx_share": "B32_N100_C196", "coupling_ctx_weight_grad": "B32_N100_C196",
+      "coupling_ctx_input_grad": "B32_N100_C196"}
 # launch counters that must be non-zero after a slice's train steps / eval step.
 # The bootstrap DPF's particles carry no gradient (noise and teacher-forced
 # velocities), so autograd never asks for the transport's backward there.
-BOOTSTRAP_TRAIN = BOOTSTRAP_EVAL = ("sinkhorn_lse", "transport_apply")
-CNF_EVAL = BOOTSTRAP_EVAL + ("coupling_chain", "coupling_chain_inverse")
-CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd")
+# K3's calls and its update kernel run wherever K1 does; the context share
+# wherever K4 does, and the context-weight gradient wherever K5 does (every
+# chain of the filter has a context); the context-input gradient never (the
+# filter detaches its contexts)
+BOOTSTRAP_TRAIN = BOOTSTRAP_EVAL = ("sinkhorn_lse", "sinkhorn_update", "transport_apply",
+                                    "streaming_resample")
+CNF_EVAL = BOOTSTRAP_EVAL + ("coupling_chain", "coupling_chain_inverse", "coupling_ctx_share")
+CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd", "coupling_ctx_weight_grad")
 # without the proposal flow the dynamics chain runs inverse only: the forward
 # direction is the consistency pass of a proposal
-CGLOW_EVAL = BOOTSTRAP_EVAL + ("coupling_chain_inverse",)
-CGLOW_TRAIN = CGLOW_EVAL + ("transport_apply_bwd", "coupling_chain_bwd")
+CGLOW_EVAL = BOOTSTRAP_EVAL + ("coupling_chain_inverse", "coupling_ctx_share")
+CGLOW_TRAIN = CGLOW_EVAL + ("transport_apply_bwd", "coupling_chain_bwd",
+                            "coupling_ctx_weight_grad")
 # the slices: (settings, kernels launched in the 3 train steps, in the eval
 # step; every other counter must read 0); none at all on the dense and soft
 # paths
@@ -205,6 +237,7 @@ SLICES = {
     "slice_cnf_h16": (H16_SLICE, CNF_TRAIN, CNF_EVAL),
     "slice_cglow_remat": (CGLOW_REMAT_SLICE, CGLOW_TRAIN, CGLOW_EVAL),
     "slice_per_step": (PER_STEP_SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL),
+    "slice_cglow_nfcond": (CGLOW_NFCOND_SLICE, CNF_TRAIN, CNF_EVAL),
 }
 LSE_TOL = 1e-5     # K1: |err| <= tol + tol·|ref|
 APPLY_TOL = 1e-4   # K2: |err| <= tol·|ref| + tol·max|ref|
@@ -488,20 +521,181 @@ def phase_kernels():
     return results
 
 
-def chain_ops(rows: int, ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int) -> float:
-    """fp32 operations one chain pass needs: per row and MLP the products of
+# K3 (the streaming resampler's driver) at the main path's train and eval
+# batches and config 5's N, with its calls timed per shape; the filter's
+# loop constants; chunk sizes timed beside LOOP_CHUNK
+K3_SHAPES = (((32, 100), 20), ((10, 100), 20), ((4, 10240), 3))
+K3_KW = dict(eps=0.1, scaling=0.75, threshold=1e-3, max_iter=100)
+K3_AT = "B32_N100"
+# chunk sizes timed at each shape (calls a timing), in turns, SWEEP_ROUNDS times
+CHUNK_SWEEP = (1, 2, 4, 8, 16)
+SWEEP_SHAPES = (((32, 100), 20), ((10, 100), 20), ((4, 4097), 5), ((4, 10240), 3))
+SWEEP_ROUNDS = 3
+
+
+def k3_bound_ms(b: int, n: int, iters: int):
+    """The least time one K3 call could take on this run's data: the K1
+    work (G = 2) of the cold start, each iteration and the final round, the
+    column normaliser (G = 1) and K2, with the update's ~9 floats per
+    particle and iteration and the inputs read once."""
+    pairs = b * n * n
+    ops = pairs * ((iters + 2) * (7 + 4 * 2) + (7 + 4) + 14)
+    nbytes = 4.0 * (3 * b * n + iters * 9 * b * n + 2 * b * n + 2 * b * n)
+    return bound_ms(nbytes, ops)
+
+
+def phase_k3():
+    """K3 and its update kernel on the card.  The update kernel against its
+    plain version (torch's ops on the card) on one iteration's K1 output:
+    potentials, flags, ε and the next K1 input bit for bit, with device ms.
+    K3 at ``K3_SHAPES``, cold and warm (from the cold call's potentials): at
+    ``loop_chunk(N)`` iterations a graph replay against chunks of one (the
+    chunk forced to ``LOOP_CHUNK`` at every N here), the
+    same iterations and bits; against the driver's plain version on the card
+    (the eager loop on plain K1/K2/update), the same iterations and the
+    particles within K2's tolerance; each call's ms (CUDA events around
+    calls that read the host), host syncs and the bound; and ms a call for
+    each chunk size of ``CHUNK_SWEEP`` at ``SWEEP_SHAPES``, the sizes in
+    turns, median of ``SWEEP_ROUNDS``."""
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+
+    chunk, max_n = sc.LOOP_CHUNK, sc.LOOP_CHUNK_MAX_N
+    dev = torch.device("cuda")
+    update, k3, sweep = {}, {}, {}
+
+    def cloud(b, n):
+        gen = torch.Generator().manual_seed(41 + b + n)
+        x = (torch.rand(b, n, 2, generator=gen) * 128 - 64).to(dev)
+        return x, torch.softmax(torch.randn(b, n, generator=gen), -1).to(dev), gen
+
+    try:
+        for (b, n), calls in K3_SHAPES:
+            shape = f"B{b}_N{n}"
+            x, probs, gen = cloud(b, n)
+            chosen = sc.loop_chunk(n)
+
+            # the update kernel on one iteration of a loop at this shape
+            loop = sc._Loop(b, n, dev, (1e-3, 0.75**2, 100, "all"))
+            scaled = (torch.randn(b, n, 2, generator=gen) * 0.5).to(dev)
+            logw = torch.log_softmax(torch.randn(b, n, generator=gen), -1).to(dev)
+            eps_b = torch.full((b,), 0.1, device=dev)
+            eps_run = torch.linspace(0.05, 3.0, b).to(dev)
+            a_y, b_x = ((torch.randn(b, n, generator=gen) * 0.1).to(dev) for _ in range(2))
+            loop.load(scaled, logw, eps_b, eps_run, a_y, b_x)
+            loop.running[::3] = False
+            running = loop.running.clone()
+            loop.iteration(freeze=True)
+            torch.cuda.synchronize()
+            ref = sc.sinkhorn_update_plain(loop.lse, a_y, b_x, running, eps_run, eps_b, logw,
+                                           loop.uniform, 1e-3, 0.75**2)
+            for what, got, want in zip(("a_y", "b_x", "running", "eps_run", "fs"),
+                                       (loop.a_y, loop.b_x, loop.running, loop.eps_run,
+                                        loop.fs), ref):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sinkhorn_update@{shape}: {what} differs from the "
+                                         "plain version's bits")
+            if loop.state.tolist()[1:] != [1, int(bool(ref[2].all())), 0]:
+                raise AssertionError(f"sinkhorn_update@{shape}: state {loop.state.tolist()}")
+            lse_plain = loop.lse.clone()
+            bound, by = bound_ms(4.0 * (b * n * (2 + 2 + 1 + 2 + 2) + 4 * b), 14.0 * b * n)
+            update[shape] = {
+                "max_abs_err": 0.0, "bits": "equal to the plain version's",
+                "ms": device_ms(lambda: loop.update(freeze=False), 200 if n <= 4097 else 50),
+                "plain_ms": device_ms(lambda: sc.sinkhorn_update_plain(
+                    lse_plain, a_y, b_x, running, eps_run, eps_b, logw, loop.uniform, 1e-3,
+                    0.75**2), 200 if n <= 4097 else 50),
+                "library_ms": None, "bound_ms": bound, "bound_by": by}
+            del loop
+
+            # K3 itself
+            pots = None
+            for warm in (False, True):
+                kw = dict(K3_KW, return_potentials=True)
+                if warm:
+                    kw["warm_start"] = (pots, True)
+                case = f"{shape}_{'warm' if warm else 'cold'}"
+                runs = {}
+                sc.LOOP_CHUNK_MAX_N = 1 << 30          # the chunk as set, at any N
+                for k in sorted({1, chunk}):
+                    sc.LOOP_CHUNK = k
+                    sc.ot_resample_streaming(x, probs, **kw)     # the first call captures
+                    sc.reset_streaming_loop()
+                    out, syncs = count_syncs(lambda: sc.ot_resample_streaming(x, probs, **kw))
+                    loop_counts = dict(sc.STREAMING_LOOP)
+                    with torch.no_grad():
+                        ms = call_ms(lambda: sc.ot_resample_streaming(x, probs, **kw), calls, 1)
+                    runs[k] = (out, syncs, loop_counts, ms)
+                sc.LOOP_CHUNK, sc.LOOP_CHUNK_MAX_N = chunk, max_n
+                (one, syncs1, loop1, ms1), (graph, syncs_k, loop_k, ms_k) = runs[1], runs[chunk]
+                if not (graph[3] == one[3] and torch.equal(graph[4], one[4])
+                        and torch.equal(graph[0], one[0])):
+                    raise AssertionError(f"k3@{case}: chunks of {chunk} gave {graph[3]} "
+                                         f"iterations, chunks of 1 {one[3]}, or other bits")
+                # the call as the filter makes it, at the chunk the rule picks for N
+                with torch.no_grad():
+                    ms_rule = call_ms(lambda: sc.ot_resample_streaming(x, probs, **kw), calls, 1)
+                sc.reset_streaming_loop()
+                plain = sc.ot_resample_streaming_plain(x, probs, **kw)
+                plain_loop = dict(sc.STREAMING_LOOP)
+                if plain[3] != graph[3]:
+                    raise AssertionError(f"k3@{case}: {graph[3]} iterations, the plain "
+                                         f"driver's {plain[3]}")
+                max_abs, _ = check(f"k3@{case}", graph[0], plain[0], ("apply", APPLY_TOL))
+                with torch.no_grad():
+                    plain_ms = call_ms(lambda: sc.ot_resample_streaming_plain(x, probs, **kw),
+                                       max(calls // 4, 1), 1)
+                bound, by = k3_bound_ms(b, n, graph[3])
+                k3[case] = {"iters": graph[3], "chunk": chosen, "max_abs_err": max_abs,
+                            "ms": ms_rule, f"ms_chunk_{chunk}": ms_k, "ms_chunk_1": ms1,
+                            "plain_ms": plain_ms,
+                            "syncs": syncs_k if chosen == chunk else syncs1,
+                            f"syncs_chunk_{chunk}": syncs_k, "syncs_chunk_1": syncs1,
+                            f"host_reads_chunk_{chunk}": loop_k["host_reads"],
+                            "host_reads_chunk_1": loop1["host_reads"],
+                            "host_reads_plain": plain_loop["host_reads"],
+                            "library_ms": None, "bound_ms": bound, "bound_by": by}
+                pots = graph[4]
+                torch.cuda.empty_cache()
+        sc.LOOP_CHUNK_MAX_N = 1 << 30
+        for (b, n), calls in SWEEP_SHAPES:
+            x, probs, _ = cloud(b, n)
+            times = {k: [] for k in CHUNK_SWEEP}
+            for _ in range(SWEEP_ROUNDS):
+                for k in CHUNK_SWEEP:
+                    sc.LOOP_CHUNK = k
+                    sc.ot_resample_streaming(x, probs, **K3_KW)
+                    with torch.no_grad():
+                        times[k].append(call_ms(
+                            lambda: sc.ot_resample_streaming(x, probs, **K3_KW), calls, 1))
+            sweep[f"B{b}_N{n}"] = {k: statistics.median(v) for k, v in times.items()}
+    finally:
+        sc.LOOP_CHUNK, sc.LOOP_CHUNK_MAX_N = chunk, max_n
+    log({"phase": "k3", "chunk": chunk, "chunk_max_n": max_n, "update": update, "k3": k3,
+         "chunk_sweep_ms": sweep,
+         "note": "K3's ms are CUDA events around back-to-back calls, host reads included; "
+                 "plain_ms the driver's plain version (eager loop on plain K1/K2/update, "
+                 "materialised costs) on the card; the update kernel's by CUDA-graph "
+                 "replay, its plain version torch's ops on the card; no single PyTorch "
+                 "call computes either: library_ms null"})
+    return update, k3
+
+
+def chain_ops(rows: int, n_blocks: int, hidden: int) -> float:
+    """fp32 operations one pass of K4 needs: per row and MLP the products of
     layers 0 (the half's column), 1 and 2 (multiply and add counted apart),
-    the bias adds and 2·H tanh (one each); per row and block four MLPs, two
-    exp and six more for the affine updates.  The context's share of layer 0
-    (2·H·C per MLP) is needed once per distinct context row: a context that
-    is one row per batch element broadcast over the particles needs it B
-    times, plus one add per hidden unit and row to bring it in."""
+    the bias adds (layer 0's is P, the context's share) and 2·H tanh (one
+    each); per row and block four MLPs, two exp and six more for the affine
+    updates.  The context's share of layer 0 is the context-share kernel's
+    work (``share_ops``)."""
     h = hidden
     mlp_row = 2 * h + 2 * h * h + 2 * h + 2 * h + 1 + 2 * h
-    if ctx_dim and ctx_rows != rows:
-        mlp_row += h
-    per_row = float(rows) * n_blocks * (4 * mlp_row + 8)
-    return per_row + float(ctx_rows) * n_blocks * 4 * 2 * h * ctx_dim
+    return float(rows) * n_blocks * (4 * mlp_row + 8)
+
+
+def share_ops(ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int) -> float:
+    """fp32 operations of the context share: per distinct context row and
+    each of the 4K·H entries of P, C multiply-adds and the bias."""
+    return float(ctx_rows) * 4 * n_blocks * hidden * (2 * ctx_dim + 1)
 
 
 def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels",
@@ -513,16 +707,25 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
     from the card's trace; the shared memory must be what the wrapper's
     mirror of the kernel's layout says (the limits it refuses by).  Without
     ``trace`` no launch is traced (a later profiling session in one process
-    has come back without kernel events: ptxas gives the registers)."""
+    has come back without kernel events: ptxas gives the registers).  With
+    a context, the three context kernels alone against their plain versions
+    (the share to ``CHAIN_TOL``, the gradients, from K5's g1, to
+    ``CHAIN_GRAD_TOL``), equal bits on a second launch, with their times and
+    one library call's each."""
     from nfdpf_torch.models.nets import flax_init_
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
     from nfdpf_torch.ops.flows import realnvp_chain
 
     dev = torch.device("cuda")
     results = {}
-    # (B, N, C, context broadcast over the particles as the filter passes it, timing iterations)
+    # (B, N, C, context broadcast over the particles as the filter passes it,
+    # timing iterations): the dynamics flow's context (4), the CNF-DPF
+    # proposal's (36) and the CGLOW proposal's (196), each at the train and
+    # the eval batch; a dense context and none at a ragged large N
     for b, n, c, broadcast, iters in ((32, 100, 4, True, 200), (32, 100, 36, True, 200),
+                                      (32, 100, 196, True, 200),
                                       (10, 100, 4, True, 200), (10, 100, 36, True, 200),
+                                      (10, 100, 196, True, 200),
                                       (4, 4097, 36, False, 20), (4, 4097, 0, False, 20)):
         gen = torch.Generator().manual_seed(1000 * b + n + c)
         chain = realnvp_chain(n_blocks, 2, hidden, 0.3, ctx_dim=c)
@@ -544,11 +747,13 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
         gy_strided = gy_wide[..., ::2]
         with torch.no_grad():
             w, bias = (t.contiguous() for t in cc.pack_chain_params(chain))
+            p_rows, mode = cc._launch_ctx_share(ctx, w, bias)
         rows, f4 = b * n, 4.0
         ctx_rows = b if broadcast else rows
+        ps = 4 * n_blocks * hidden
         params_bytes = f4 * (w.numel() + bias.numel())
-        ctx_bytes = f4 * c * ctx_rows
-        ops_fwd = chain_ops(rows, ctx_rows, n_blocks, c, hidden)
+        p_bytes = f4 * p_rows.numel()
+        ops_fwd = chain_ops(rows, n_blocks, hidden)
 
         for inverse in (False, True):
             case = f"B{b}_N{n}_C{c}_{'inverse' if inverse else 'forward'}"
@@ -562,7 +767,7 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                 without ``with_ld``, for y alone (log_det unused)."""
                 leaves = [t.detach().clone().requires_grad_() for t in (x, w, bias)]
                 # the context keeps its layout (a broadcast stays a view): the
-                # backward sums once per distinct context row it reads
+                # kernels read it once per distinct context row
                 c_leaf = ctx_base.detach().clone().requires_grad_() if want_ctx else None
                 c_in = c_leaf.expand(b, n, c) if want_ctx else ctx
                 y, ld = fn(leaves[0], c_in, leaves[1], leaves[2], inverse)
@@ -577,6 +782,12 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                 y, ld = module_fwd()
                 return torch.autograd.grad([y, ld], list(chain.parameters()), [gy, gld])
 
+            def k4():
+                return cc._launch_forward(x, p_rows, mode, w, bias, inverse)
+
+            def k5():
+                return cc._launch_backward(x, p_rows, mode, w, bias, gy, gld, inverse, c > 0)
+
             # ---- K4 and K5 through fused_coupling_chain and its autograd
             # Function: every gradient, the context's too, from a strided
             # cotangent; then as the filter calls it (a detached context asks
@@ -590,9 +801,12 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
             torch.cuda.synchronize()
             counts = dict(cc.LAUNCHES)
             fwd_name = "coupling_chain_inverse" if inverse else "coupling_chain"
-            if counts[fwd_name] != 3 or counts["coupling_chain_bwd"] != 3:
-                raise AssertionError(f"chain@{case}: the wrapper launched {counts}, "
-                                     "expected 3 forward and 3 backward kernels")
+            want = {fwd_name: 3, "coupling_chain_bwd": 3, "coupling_ctx_share": 3,
+                    "coupling_ctx_weight_grad": 3 if c else 0,
+                    "coupling_ctx_input_grad": 2 if c else 0}
+            if {k: v for k, v in counts.items() if v} != {k: v for k, v in want.items() if v}:
+                raise AssertionError(f"chain@{case}: the wrapper launched {counts}, expected "
+                                     f"{want}")
             y_ref, ld_ref, refs = fwd_bwd(cc.chain_apply_packed_plain, want_ctx)
             _, _, refs_y_only = fwd_bwd(cc.chain_apply_packed_plain, want_ctx, with_ld=False)
             with torch.no_grad():
@@ -601,29 +815,26 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
             errs = [check(f"chain_fwd.{k}@{case}", got, ref, ("lse", CHAIN_TOL))
                     for k, got, ref in (("y", y, y_ref), ("ld", ld, ld_ref),
                                         ("y_module", y, y_mod), ("ld_module", ld, ld_mod))]
-            # the eval route (no autograd) launches the same kernel: the same bits
+            # the eval route (no autograd) launches the same kernels: the same bits
             with torch.no_grad():
                 y_again, ld_again = cc.fused_coupling_chain(x, ctx, w, bias, inverse)
             if not (torch.equal(y_again, y) and torch.equal(ld_again, ld)):
                 raise AssertionError(f"chain_fwd@{case}: a second launch gave other bits")
-            bound, by = bound_ms(f4 * rows * (2 + 2 + 1) + ctx_bytes + params_bytes, ops_fwd)
+            bound, by = bound_ms(f4 * rows * (2 + 2 + 1) + p_bytes + params_bytes, ops_fwd)
             with torch.no_grad():
                 results.setdefault("coupling_chain", {})[case] = {
                     "max_abs_err": max(e[0] for e in errs), "tol": CHAIN_TOL,
-                    "ms": device_ms(lambda: cc._launch_forward(x, ctx, w, bias, inverse), iters),
-                    "call_ms": call_ms(lambda: cc._launch_forward(x, ctx, w, bias, inverse),
-                                       iters),
+                    "ms": device_ms(k4, iters), "call_ms": call_ms(k4, iters),
                     "plain_ms": device_ms(
                         lambda: cc.chain_apply_packed_plain(x, ctx, w, bias, inverse), iters),
                     "module_ms": device_ms(module_fwd, iters),
                     "library_ms": None, "bound_ms": bound, "bound_by": by}
                 if trace and case == AT["coupling_chain"]:
-                    rec = launch_record(lambda: cc._launch_forward(x, ctx, w, bias, inverse),
-                                        "chain_fwd_kernel")
+                    rec = launch_record(k4, "chain_fwd_kernel")
                     rows_b = cc.FWD_ROWS_PER_BLOCK
                     segments = 1 if not c else min(rows_b, (rows_b - 1) // n + 2) if broadcast \
                         else rows_b
-                    rec["mirror_smem_bytes"] = cc.fwd_smem_bytes(n_blocks, c, hidden, segments)
+                    rec["mirror_smem_bytes"] = cc.fwd_smem_bytes(n_blocks, hidden, segments)
                     results["coupling_chain"][case].update(rec)
 
             names = ["gx", "gw", "gb"] + (["gctx"] if want_ctx else [])
@@ -634,15 +845,13 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                            for k, got, ref in zip(names, grads_y_only, refs_y_only)]
             if not all(torch.equal(a, g) for a, g in zip(grads_no_ctx, grads)):
                 raise AssertionError(f"chain_bwd@{case}: a second launch gave other bits")
-            bound, by = bound_ms(f4 * rows * (2 + 2 + 1 + 2) + ctx_bytes + 2 * params_bytes,
-                                 3 * ops_fwd)
+            g1_bytes = f4 * rows * ps if c else 0.0
+            bound, by = bound_ms(f4 * rows * (2 + 2 + 1 + 2) + p_bytes + g1_bytes
+                                 + 2 * params_bytes, 3 * ops_fwd)
             results.setdefault("coupling_chain_bwd", {})[case] = {
                 "max_abs_err": max(e[0] for e in list(errs.values()) + errs_y_only),
                 "max_rel_err": {k: e[1] for k, e in errs.items()}, "tol": CHAIN_GRAD_TOL,
-                "ms": device_ms(
-                    lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False), iters),
-                "call_ms": call_ms(
-                    lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False), iters),
+                "ms": device_ms(k5, iters), "call_ms": call_ms(k5, iters),
                 # the plain version's forward and autograd backward, eager calls
                 "plain_ms": call_ms(lambda: fwd_bwd(cc.chain_apply_packed_plain, False),
                                     max(iters // 4, 3)),
@@ -651,16 +860,15 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                 "module_fwd_bwd_ms": call_ms(module_fwd_bwd, max(iters // 4, 3)),
                 "library_ms": None, "bound_ms": bound, "bound_by": by}
             if trace and case == AT["coupling_chain_bwd"]:
-                rec = launch_record(
-                    lambda: cc._launch_backward(x, ctx, w, bias, gy, gld, inverse, False),
-                    "chain_bwd_kernel")
-                threads = int(rec["block"][0])
-                segments = 1 if not c else min(threads, (threads - 1) // n + 2) if broadcast \
-                    else threads
-                rec["mirror_smem_bytes"] = cc.bwd_smem_bytes(
-                    n_blocks, c, max(1 + c, hidden), hidden, threads, segments)
+                rec = launch_record(k5, "chain_bwd_kernel")
+                rec["mirror_smem_bytes"] = cc.bwd_smem_bytes(n_blocks, hidden,
+                                                             int(rec["block"][0]))
                 results["coupling_chain_bwd"][case].update(rec)
-        del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias
+            if c and inverse:
+                results.update({name: {**results.get(name, {}), **row} for name, row in
+                                context_kernel_rows(cc, ctx, w, bias, k5()[1], ctx_rows,
+                                                    f"B{b}_N{n}_C{c}", iters).items()})
+        del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias, p_rows
         torch.cuda.empty_cache()
     for name in ("coupling_chain", "coupling_chain_bwd") if trace else ():
         rec = results[name][AT[name]]
@@ -675,8 +883,57 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                  "module_fwd_bwd_ms of the backward are eager forward + autograd calls (CUDA "
                  "events), the other times CUDA-graph replays of the kernel's launcher; "
                  "registers and smem_bytes_per_block (static + dynamic) from the trace "
-                 "(torch.profiler) of one launch, mirror_smem_bytes the wrapper's"})
+                 "(torch.profiler) of one launch, mirror_smem_bytes the wrapper's; the "
+                 "context kernels' library_ms is one torch.addmm / torch.mm on operands laid "
+                 "out outside the timed call"})
     return results
+
+
+def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: int) -> dict:
+    """The three context kernels alone at one case, from K5's g1: each
+    against its plain version, equal bits on a second launch, device ms
+    (CUDA-graph replay), the plain version's, one library call's that
+    computes the same function, and the bound."""
+    b, n, c = ctx.shape
+    n_blocks, hidden = w.shape[0], w.shape[-1]
+    rows, ps, f4 = b * n, 4 * n_blocks * hidden, 4.0
+    # the library calls' operands, laid out outside the timed calls
+    w_ctx = w[:, :, 0, 1:1 + c].permute(2, 0, 1, 3).reshape(c, ps).contiguous()
+    bias0 = bias[:, :, 0].reshape(1, ps).contiguous()
+    ctx_rows_t = (ctx[:, 0] if ctx.stride(1) == 0 else ctx.reshape(rows, c)).contiguous()
+    ctx_per_row = ctx.reshape(rows, c).contiguous()
+    cases = {
+        "coupling_ctx_share": dict(
+            kernel=lambda: cc.ctx_share(ctx, w, bias),
+            plain=lambda: cc.ctx_share_plain(ctx, w, bias),
+            library=lambda: torch.addmm(bias0, ctx_rows_t, w_ctx), tol=("lse", CHAIN_TOL),
+            nbytes=f4 * (ctx_rows * c + 4 * n_blocks * (c + 1) * hidden + ctx_rows * ps),
+            ops=share_ops(ctx_rows, n_blocks, c, hidden)),
+        "coupling_ctx_weight_grad": dict(
+            kernel=lambda: cc.ctx_weight_grad(g1, ctx, w),
+            plain=lambda: cc.ctx_weight_grad_plain(g1, ctx, w),
+            library=lambda: torch.mm(ctx_per_row.t(), g1), tol=("apply", CHAIN_GRAD_TOL),
+            nbytes=f4 * (rows * ps + ctx_rows * c + c * ps),
+            ops=float(rows - ctx_rows) * ps + 2.0 * ctx_rows * c * ps),
+        "coupling_ctx_input_grad": dict(
+            kernel=lambda: cc.ctx_input_grad(g1, w, c),
+            plain=lambda: cc.ctx_input_grad_plain(g1, w, c),
+            library=lambda: torch.mm(g1, w_ctx.t()), tol=("apply", CHAIN_GRAD_TOL),
+            nbytes=f4 * (rows * ps + c * ps + rows * c), ops=2.0 * rows * c * ps),
+    }
+    out = {}
+    for name, cs in cases.items():
+        got, ref = cs["kernel"](), cs["plain"]()
+        torch.cuda.synchronize()
+        max_abs, rel = check(f"{name}@{case}", got, ref, cs["tol"])
+        if not torch.equal(cs["kernel"](), got):
+            raise AssertionError(f"{name}@{case}: a second launch gave other bits")
+        bound, by = bound_ms(cs["nbytes"], cs["ops"])
+        out[name] = {case: {
+            "max_abs_err": max_abs, "max_rel_err": rel, "tol": cs["tol"][1],
+            "ms": device_ms(cs["kernel"], iters), "plain_ms": device_ms(cs["plain"], iters),
+            "library_ms": device_ms(cs["library"], iters), "bound_ms": bound, "bound_by": by}}
+    return out
 
 
 def synthetic_batch(cfg, device, seed):
@@ -721,14 +978,21 @@ def dense_loop():
     return dict(ts.DENSE_LOOP)
 
 
+def streaming_loop():
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+
+    return dict(sc.STREAMING_LOOP)
+
+
 def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile: bool):
     """3 train steps and 1 eval step of one configuration through
     ``Trainer``; the launch counters are set to 0 just before each part and
     read just after; every counter named must have moved, and every other
-    counter must read 0.  The dense Sinkhorn's loop counts
-    (firings, iterations, host syncs) are read the same way, step by step."""
+    counter must read 0.  The dense and the streaming Sinkhorn's loop counts
+    (firings, iterations, host reads) are read the same way, step by step."""
     from nfdpf_torch import DPFConfig
     from nfdpf_torch.ops import sinkhorn as ts
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
     from nfdpf_torch.train import Trainer
 
     cfg = DPFConfig(**settings)
@@ -741,6 +1005,7 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
     steps = []
     for i in range(3):
         ts.reset_dense_loop()
+        sc.reset_streaming_loop()
         t0 = time.perf_counter()
         if i == 0:
             metrics, syncs = count_syncs(
@@ -749,6 +1014,7 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
             metrics = trainer.train_step(batch, generator=trainer.generator(10 + i))
         torch.cuda.synchronize()
         steps.append({"s": time.perf_counter() - t0, "dense_loop": dense_loop(),
+                      "streaming_loop": streaming_loop(),
                       **{k: float(v) for k, v in metrics.items()}})
     train_launches = launch_counts()
 
@@ -777,14 +1043,15 @@ def phase_slice(name: str, settings: dict, train_kernels, eval_kernels, profile:
            "dense_iters_per_firing": (sum(s["dense_loop"]["iters"] for s in steps)
                                       / dense_calls if dense_calls else None),
            "dense_loop_eval": eval_dense,
+           "streaming_loop_by_step": [s["streaming_loop"] for s in steps],
            "launches_train_3_steps": train_launches, "launches_eval": eval_launches,
-           # the gate read on each step; on the streaming path the loop test
-           # on each iteration and the one that ends each firing's loop; on
-           # the dense path each loop test read on the host
+           # the gate read on each step; on the streaming path one read of the
+           # loop's stop flag per CUDA-graph replay (and, under remat, those
+           # of the backward's recomputed loops); on the dense path each loop
+           # test read on the host
            "device_syncs_step0": syncs,
            "syncs_by_count_step0": cfg.sequence_length + step0["dense_loop"]["host_syncs"]
-           + (int(step0["sinkhorn_iters"] + step0["resample_count"])
-              if step0["sinkhorn_iters"] else 0),
+           + step0["streaming_loop"]["host_reads"],
            "peak_mem_gib": peak / 2**30}
     if profile:
         prof = profile_step(trainer, batch)
@@ -899,7 +1166,9 @@ def profile_step(trainer, batch):
             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    ours = ("lse_kernel", "apply_kernel", "chain_fwd_kernel", "chain_bwd_kernel")
+    ours = ("lse_kernel", "apply_kernel", "sinkhorn_update_kernel", "chain_fwd_kernel",
+            "chain_bwd_kernel", "chain_ctx_share_kernel", "chain_ctx_weight_grad_kernel",
+            "chain_ctx_input_grad_kernel")
     groups = {**{k: 0.0 for k in ours}, "conv (cudnn)": 0.0, "gemm": 0.0, "other": 0.0}
     counts = {k: 0 for k in ours}
     conv_words = ("cudnn", "xmma", "grad_alg", "dgrad", "wgrad", "implicit_gemm", "fprop",
@@ -1719,6 +1988,7 @@ def main() -> int:
     cnf = DPFConfig(**CNF_SLICE)
     card = phase_setup((cnf.flow_hidden_dim, WIDE_HIDDEN))
     kernels = phase_kernels()
+    kernels["sinkhorn_update"], k3 = phase_k3()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
     wide = phase_chain_kernels(cnf.n_sequence, WIDE_HIDDEN, f"chain_kernels_h{WIDE_HIDDEN}",
                                trace=False)
@@ -1738,6 +2008,7 @@ def main() -> int:
     phase_parity("parity_gaussian", dict(SLICE, measurement="gaussian"))
     phase_parity("parity_sdpf", dict(SLICE, train_type="SDPF", labeled_ratio=0.5))
     phase_parity("parity_cglow", CGLOW_SLICE, flow_scale=10.0, cglow_std=0.15)
+    phase_parity("parity_cglow_nfcond", CGLOW_NFCOND_SLICE, flow_scale=10.0, cglow_std=0.15)
     phase_parity("parity_bf16", BF16_SLICE, flow_scale=10.0)
     # at ×10 the 16-wide flows make the step ~100× more sensitive to float32
     # rounding than at width 8 (on the CPU a 1e-6 relative change of the
@@ -1787,7 +2058,8 @@ def main() -> int:
         if "registers" in m:   # the coupling kernels' timed launch, from the trace
             entry["registers"] = m["registers"]
             entry["smem_bytes_per_block"] = m["smem_bytes_per_block"]
-        if name in wide:       # the same case at the widest build, with ptxas's counts
+        if name in ("coupling_chain", "coupling_chain_bwd"):
+            # the same case at the widest build, with ptxas's counts
             w = wide[name][AT[name]]
             kernel = "chain_fwd_kernel" if name == "coupling_chain" else "chain_bwd_kernel"
             entry[f"h{WIDE_HIDDEN}"] = {
@@ -1795,7 +2067,23 @@ def main() -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in wide[name].values()),
                 "ptxas": {k: v for k, v in ptxas[WIDE_HIDDEN].items() if k.startswith(kernel)},
                 "at": AT[name]}
+        if name == "coupling_ctx_input_grad":
+            entry["note"] = ("the filter detaches its contexts: only a context that asks for "
+                             "a gradient launches it (chain_kernels checks it)")
         line.append(entry)
+    # K3, the driver of K1, the update and K2: its calls on the main path;
+    # one call's ms at (32, 100) with its iterations and host syncs; its
+    # plain version (the eager loop on plain K1/K2/update) as plain_ms
+    m = k3[f"{K3_AT}_cold"]
+    line.append({"name": "ot_resample_streaming", "route": "cuda",
+                 "source": "nfdpf_torch/ops/cuda/sinkhorn_cuda.py",
+                 "replaces": "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:291",
+                 "launches": by_slice["slice_nfdpf"]["streaming_resample"],
+                 "max_abs_err": max(c["max_abs_err"] for c in k3.values()), "ms": m["ms"],
+                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                 "library_ms": None, "at": f"{K3_AT}_cold", "iters": m["iters"],
+                 "chunk": m["chunk"], "syncs": m["syncs"], "ms_chunk_1": m["ms_chunk_1"],
+                 "launches_by_slice": {k: v["streaming_resample"] for k, v in by_slice.items()}})
     # K1/K2 at rows ≠ columns, their launches in the particle mesh's step
     # (rank 0: K6 runs them on its rows against all columns)
     mesh_launches = {k: v["launches_rank0"] for k, v in meshes.items()}
@@ -1825,7 +2113,8 @@ def main() -> int:
                  "launches_by_mesh": {k: v["sharded_resample"] for k, v in mesh_launches.items()}})
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "kernels": kernels, f"kernels_h{WIDE_HIDDEN}": wide,
+            json.dump({"card": card, "kernels": kernels, "k3": k3,
+                       f"kernels_h{WIDE_HIDDEN}": wide,
                        **slices, "main_cli": cli, "kernels_rows_ne_cols": rect, "k6": k6,
                        **meshes}, fh, indent=1)
     print(json.dumps({"kernels": line}), flush=True)

@@ -6,23 +6,39 @@ Counterpart of ``nfdpf_tpu/ops/pallas/coupling_pallas.py``.  Two kernels
 (B, N, 2) particle row with the chain's parameters resident in shared
 memory:
 
-* ``chain_fwd_kernel`` (replaces ``_chain_kernel``, ``coupling_pallas.py:100``):
-  outputs and the summed log-det, forward or inverse.  A row takes eight
-  lanes at hidden width 8, four per net of a coupling half, 32 rows a block;
-  the context's share of layer 0 is computed once per distinct context row;
-* ``chain_bwd_kernel`` (replaces ``_chain_bwd_kernel``, ``:262``): recomputes
-  the forward from the inputs and emits the gradients of x, ctx and one
-  weight/bias partial per thread block, summed here.  A block of 1-8 warps
-  (one row per thread) loops over tiles of rows; the forward sweep keeps each
-  row's activations in shared memory, the reverse sweep adds the gradients
-  there, and each weight and bias gradient is then a sum over the tile's
-  rows; the context's share of layer 0 is computed once per distinct
-  context row.
+* ``chain_fwd_kernel`` (K4, replaces ``_chain_kernel``,
+  ``coupling_pallas.py:100``): outputs and the summed log-det, forward or
+  inverse.  A row takes eight lanes at hidden width 8, four per net of a
+  coupling half, 32 rows a block;
+* ``chain_bwd_kernel`` (K5, replaces ``_chain_bwd_kernel``, ``:262``):
+  recomputes the forward from the inputs and emits the gradients of x, one
+  weight/bias partial per thread block, summed here, and with a context each
+  row's layer-0 pre-activation gradients g1.  A block of 1-8 warps (one row
+  per thread) loops over tiles of rows; the forward sweep keeps each row's
+  activations in shared memory, the reverse sweep adds the gradients there,
+  and each weight and bias gradient is then a sum over the tile's rows.
+
+Layer 0's context share is taken out of both: three more kernels compute it
+once per distinct context row (R rows: B when the context is broadcast over
+the particles with particle stride 0, as the filter passes it; B·N when it is
+dense) and the context's gradients from K5's g1:
+
+* ``chain_ctx_share_kernel``: P (R, 4K·H) = layer 0's bias + ctx · w0[1..C],
+  which K4 and K5 read as a per-row bias;
+* ``chain_ctx_weight_grad_kernel``: layer 0's context rows of the weight
+  gradient, Σ_d ctx[d] ⊗ G[d] with G[d] the sum of g1 over context row d;
+* ``chain_ctx_input_grad_kernel``: the context's gradient g1 · w0[1..C]ᵀ
+  per row, only when the context asks for one (the filter detaches its
+  contexts).
+
+So K4's and K5's shared memory holds a chain without context, whatever C.
 
 ``fused_coupling_chain`` takes the plain PyTorch version
 (``chain_apply_packed_plain``, differentiated by ordinary autograd) for
 tensors on the CPU and launches the kernels for CUDA tensors; anything else
-raises.  ``LAUNCHES`` counts the kernel launches.
+raises.  ``chain_apply_split_plain`` is the plain version of the split
+route (P first, then the chain on it).  ``LAUNCHES`` counts the kernel
+launches.
 
 The kernels take the filter's state dimension (2), float32, a hidden width
 up to 16 (fixed at compile time: one library per width, built at first use;
@@ -30,11 +46,14 @@ up to 16 (fixed at compile time: one library per width, built at first use;
 lane mappings, and 16 are the widths held against the plain version on the
 card; a chain 9-15 wide runs at 16, zero-padded by ``pad_hidden``, which
 changes no output and whose padding's gradients are sliced away), at
-most 8 blocks, and parameters that fit the card's shared memory (227 KB;
-``fwd_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' layouts, the
-backward's twice the parameters' size plus its tiles).  ``chain_refusal``
-says what a chain breaks of these, for the wrapper at launch and for the
-filter when it is built.
+most 8 blocks, and, for K5, a factor tile and twice the parameters of a
+chain without context in the card's shared memory (227 KB;
+``fwd_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' layouts).
+``chain_refusal`` says what a chain breaks of these, for the wrapper at
+launch and for the filter when it is built.  What stays refused: hidden
+widths above 16, more than 8 blocks, and at hidden 9-16 four blocks or more
+(K5's factor tile and parameters then pass 227 KB for a single warp, with
+any context or none).
 """
 
 from __future__ import annotations
@@ -48,9 +67,11 @@ from torch.nn import functional as F
 from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu
 from nfdpf_torch.ops.flows import FlowChain
 
-# kernel launches since the last reset: the forward kernel by direction, and
-# the backward kernel
-LAUNCHES = {"coupling_chain": 0, "coupling_chain_inverse": 0, "coupling_chain_bwd": 0}
+# kernel launches since the last reset: the forward kernel by direction, the
+# backward kernel and the three context kernels
+LAUNCHES = {"coupling_chain": 0, "coupling_chain_inverse": 0, "coupling_chain_bwd": 0,
+            "coupling_ctx_share": 0, "coupling_ctx_weight_grad": 0,
+            "coupling_ctx_input_grad": 0}
 
 NETS = ("t1", "s1", "t2", "s2")
 MAX_HIDDEN = 16                   # the H-wide activations are register arrays
@@ -67,11 +88,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "nfdpf_coupling_chain_fwd": [_P, _P, _L, _L, _P, _P, _P, _P,
+    "nfdpf_coupling_chain_fwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "nfdpf_coupling_chain_bwd": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
-    "nfdpf_coupling_chain_bwd": [_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "nfdpf_coupling_ctx_share": [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "nfdpf_coupling_ctx_weight_grad": [_P, _I, _I, _I, _I, _P, _L, _L, _I, _I, _I, _I,
+                                       _P, _P, _P],
+    "nfdpf_coupling_ctx_input_grad": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
+# how K4/K5 find a row's row of P: one row for all (no context), one per
+# batch element (a context broadcast over the particles), one per row
+ONE_ROW, PER_BATCH, PER_ROW = 0, 1, 2
 
 
 def reset_launches() -> None:
@@ -145,40 +172,121 @@ def pack_chain_params(chain: FlowChain) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(w_rows), torch.stack(b_rows)
 
 
-def chain_apply_packed_plain(x: torch.Tensor, ctx: Optional[torch.Tensor],
-                             weights: torch.Tensor, biases: torch.Tensor,
-                             inverse: bool = False):
-    """Plain version of the fused kernels on packed parameters: returns
-    (y (..., 2), log_det (...)).  Ordinary autograd differentiates it in x,
-    ctx, weights and biases; that is the backward kernel's reference."""
+def _chain_plain(x, weights, biases, inverse, layer0):
+    """The chain on packed parameters with layer 0's pre-activation from
+    ``layer0(k, net, half)``; returns (y, log_det)."""
     n_blocks, hidden = weights.shape[0], weights.shape[-1]
-    in_dim = 1 + (0 if ctx is None else ctx.shape[-1])
     lower, upper = x[..., 0:1], x[..., 1:2]
     ld = torch.zeros(x.shape[:-1] + (1,), device=x.device, dtype=x.dtype)
 
-    def cat(half):
-        return half if ctx is None else torch.cat([half, ctx], dim=-1)
-
-    def mlp(k, ni, h_in):
-        h = torch.tanh(h_in @ weights[k, ni, 0, :in_dim, :] + biases[k, ni, 0])
+    def mlp(k, ni, half):
+        h = torch.tanh(layer0(k, ni, half))
         h = torch.tanh(h @ weights[k, ni, 1, :hidden, :] + biases[k, ni, 1])
         return h @ weights[k, ni, 2, :hidden, :1] + biases[k, ni, 2, :1]
 
     order = range(n_blocks - 1, -1, -1) if inverse else range(n_blocks)
     for k in order:
         if not inverse:
-            t1, s1 = mlp(k, 0, cat(lower)), mlp(k, 1, cat(lower))
+            t1, s1 = mlp(k, 0, lower), mlp(k, 1, lower)
             upper = t1 + upper * torch.exp(s1)
-            t2, s2 = mlp(k, 2, cat(upper)), mlp(k, 3, cat(upper))
+            t2, s2 = mlp(k, 2, upper), mlp(k, 3, upper)
             lower = t2 + lower * torch.exp(s2)
             ld = ld + s1 + s2
         else:
-            t2, s2 = mlp(k, 2, cat(upper)), mlp(k, 3, cat(upper))
+            t2, s2 = mlp(k, 2, upper), mlp(k, 3, upper)
             lower = (lower - t2) * torch.exp(-s2)
-            t1, s1 = mlp(k, 0, cat(lower)), mlp(k, 1, cat(lower))
+            t1, s1 = mlp(k, 0, lower), mlp(k, 1, lower)
             upper = (upper - t1) * torch.exp(-s1)
             ld = ld - s1 - s2
     return torch.cat([lower, upper], dim=-1), ld[..., 0]
+
+
+def chain_apply_packed_plain(x: torch.Tensor, ctx: Optional[torch.Tensor],
+                             weights: torch.Tensor, biases: torch.Tensor,
+                             inverse: bool = False):
+    """Plain version of the fused kernels on packed parameters: returns
+    (y (..., 2), log_det (...)).  Ordinary autograd differentiates it in x,
+    ctx, weights and biases; that is the backward kernel's reference."""
+    in_dim = 1 + (0 if ctx is None else ctx.shape[-1])
+
+    def layer0(k, ni, half):
+        h_in = half if ctx is None else torch.cat([half, ctx], dim=-1)
+        return h_in @ weights[k, ni, 0, :in_dim, :] + biases[k, ni, 0]
+
+    return _chain_plain(x, weights, biases, inverse, layer0)
+
+
+def context_layout(ctx: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """(how K4/K5 map a row to its row of P, R = P's rows): ONE_ROW without
+    a context; PER_BATCH for a (B, N, C) context broadcast over the
+    particles (particle stride 0); else PER_ROW, R = B·N."""
+    if ctx is None:
+        return ONE_ROW, 1
+    if ctx.stride(1) == 0:
+        return PER_BATCH, ctx.shape[0]
+    return PER_ROW, ctx.shape[0] * ctx.shape[1]
+
+
+def _context_rows(ctx: torch.Tensor) -> torch.Tensor:
+    """The R distinct context rows (R, C) the kernels read."""
+    mode, _ = context_layout(ctx)
+    return ctx[:, 0] if mode == PER_BATCH else ctx.reshape(-1, ctx.shape[-1])
+
+
+def ctx_share_plain(ctx: Optional[torch.Tensor], weights: torch.Tensor,
+                    biases: torch.Tensor) -> torch.Tensor:
+    """Plain version of the context-share kernel: P (R, 4K·H), per distinct
+    context row d and net m, layer 0's bias + ctx[d] · w[m][0][1..C]; without
+    a context (1, 4K·H), the bias alone."""
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    bias0 = biases[:, :, 0, :].reshape(1, 4 * n_blocks * hidden)
+    if ctx is None:
+        return bias0
+    wc = weights[:, :, 0, 1:1 + ctx.shape[-1], :]                    # (K, 4, C, H)
+    share = torch.einsum("rc,kmch->rkmh", _context_rows(ctx), wc)
+    return bias0 + share.reshape(share.shape[0], -1)
+
+
+def chain_apply_split_plain(x: torch.Tensor, ctx: Optional[torch.Tensor],
+                            weights: torch.Tensor, biases: torch.Tensor,
+                            inverse: bool = False):
+    """Plain version of the split route the kernels take: P from
+    ``ctx_share_plain``, then the chain with each row's row of P as layer 0's
+    bias and context share.  Differentiable in x, ctx, weights and biases;
+    the same function as ``chain_apply_packed_plain``."""
+    b, n, _ = x.shape
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    p = ctx_share_plain(ctx, weights, biases)
+    mode, _ = context_layout(ctx)
+    if mode == PER_ROW:
+        p = p.reshape(b, n, -1)
+    else:
+        p = p[:, None, :].expand(b, n, -1) if mode == PER_BATCH else p.expand(b, n, -1)
+    p = p.reshape(b, n, n_blocks, 4, hidden)
+
+    def layer0(k, ni, half):
+        return half * weights[k, ni, 0, 0, :] + p[:, :, k, ni]
+
+    return _chain_plain(x, weights, biases, inverse, layer0)
+
+
+def ctx_weight_grad_plain(g1: torch.Tensor, ctx: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of the context-weight-gradient kernel: layer 0's
+    context rows of the weight gradient (K, 4, C, H), Σ_d ctx[d] ⊗ G[d] with
+    G[d] the sum of g1 (B·N, 4K·H) over the rows of context row d."""
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    mode, r = context_layout(ctx)
+    g = g1.reshape(r, -1, g1.shape[-1]).sum(1) if mode == PER_BATCH else g1
+    out = _context_rows(ctx).t() @ g                                   # (C, 4K·H)
+    return out.reshape(-1, n_blocks, 4, hidden).permute(1, 2, 0, 3)
+
+
+def ctx_input_grad_plain(g1: torch.Tensor, weights: torch.Tensor, ctx_dim: int) -> torch.Tensor:
+    """Plain version of the context-input-gradient kernel: each row's
+    g1 (4K·H) against layer 0's context rows, (B·N, C)."""
+    wc = weights[:, :, 0, 1:1 + ctx_dim, :].permute(0, 1, 3, 2)      # (K, 4, H, C)
+    return g1 @ wc.reshape(-1, ctx_dim)
 
 
 def _ctx_arg(ctx: Optional[torch.Tensor]):
@@ -195,34 +303,23 @@ def _ctx_arg(ctx: Optional[torch.Tensor]):
     return ctx, ctx.data_ptr(), ctx.stride(0), ctx.stride(1)
 
 
-def fwd_smem_bytes(n_blocks: int, ctx_dim: int, hidden: int, segments: int) -> int:
-    """Shared memory of the forward kernel (``FwdLayout`` and
-    ``fwd_ctx_floats`` in ``csrc/coupling.cu``): per net its biases
-    (3·hidden), layer 0's rows 0..ctx_dim, layer 1 and layer 2's column 0;
-    then per distinct context row of a block (at most ``segments``) its
-    context and its layer-0 shares (4·K·hidden)."""
+def fwd_smem_bytes(n_blocks: int, hidden: int, segments: int) -> int:
+    """Shared memory of the forward kernel (``FwdLayout`` without context
+    and ``max_ctx_rows`` in ``csrc/coupling.cu``): per net its biases
+    (3·hidden), layer 0's row 0, layer 1 and layer 2's column 0; then the
+    block's rows of P (at most ``segments``, 4·K·hidden each)."""
     nets = 4 * n_blocks
-    params = nets * (3 * hidden + (1 + ctx_dim) * hidden + hidden * hidden + hidden)
-    return 4 * (params + (segments * ctx_dim + 3) // 4 * 4 + segments * nets * hidden)
+    return 4 * (nets * (5 * hidden + hidden * hidden) + segments * nets * hidden)
 
 
-def bwd_smem_bytes(n_blocks: int, ctx_dim: int, max_in: int, hidden: int,
-                   threads: int = BWD_MIN_THREADS, segments: int = BWD_MIN_THREADS) -> int:
+def bwd_smem_bytes(n_blocks: int, hidden: int, threads: int = BWD_MIN_THREADS) -> int:
     """Shared memory of the backward kernel for a block of ``threads`` rows
-    (``bwd_smem_floats`` in ``csrc/coupling.cu``): the parameters and their
-    gradient accumulators, the factor tile (K·(7 + 16·hidden) fields of
-    threads + 4 floats) and, per distinct context row of a tile (at most
-    ``segments``), its context, its summed layer-0 gradients (4·K·hidden)
-    and its layer-0 shares (4·K·hidden + 1)."""
-    params = n_blocks * 12 * (max_in * hidden + hidden)
-    nets = 4 * n_blocks
-    if not ctx_dim:
-        segments = 1
-    cs_stride = (segments + 3) // 4 * 4 + 4
-    floats = (2 * params + n_blocks * (7 + 16 * hidden) * (threads + 4)
-              + (ctx_dim * cs_stride + segments * nets * hidden if ctx_dim else 0)
-              + segments * (nets * hidden + 1))
-    return 4 * floats
+    (``bwd_smem_floats`` in ``csrc/coupling.cu``): the parameters of a chain
+    without context (K·12·(hidden² + hidden)) and their gradient
+    accumulators, and the factor tile (K·(7 + 16·hidden) fields of threads +
+    4 floats).  The context adds nothing: its share arrives in P."""
+    return 4 * (2 * n_blocks * 12 * (hidden * hidden + hidden)
+                + n_blocks * (7 + 16 * hidden) * (threads + 4))
 
 
 def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: bool,
@@ -238,17 +335,15 @@ def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: b
         return (f"the coupling kernels take hidden <= {MAX_HIDDEN} and at most "
                 f"{MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
     hidden = kernel_hidden(hidden)
-    max_in = max(1 + ctx_dim, hidden)
-    # the distinct context rows of a block's (the backward's smallest block's)
-    # rows: a run per batch element when the context is broadcast over the
-    # particles, else a row
-    rows = BWD_MIN_THREADS if backward else FWD_ROWS_PER_BLOCK
-    segments = (1 if not ctx_dim else
-                min(rows, (rows - 1) // n + 2) if broadcast else rows)
     if backward:
-        smem = bwd_smem_bytes(n_blocks, ctx_dim, max_in, hidden, rows, segments)
+        smem = bwd_smem_bytes(n_blocks, hidden, BWD_MIN_THREADS)
     else:
-        smem = fwd_smem_bytes(n_blocks, ctx_dim, hidden, segments)
+        # the rows of P a block reads: a run per batch element when the
+        # context is broadcast over the particles, else one per row
+        rows = FWD_ROWS_PER_BLOCK
+        segments = (1 if not ctx_dim else
+                    min(rows, (rows - 1) // n + 2) if broadcast else rows)
+        smem = fwd_smem_bytes(n_blocks, hidden, segments)
     if smem > MAX_SMEM_BYTES:
         return (f"the chain needs {smem} bytes of shared memory in the "
                 f"{'backward' if backward else 'forward'} kernel; a block has {MAX_SMEM_BYTES}")
@@ -276,67 +371,159 @@ def _check_chain(x, ctx, weights, biases, backward: bool):
         raise ValueError(why)
 
 
-def _launch_forward(x, ctx, weights, biases, inverse: bool):
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_ctx_share(ctx, weights, biases):
+    """(P (R, 4K·H), how a row finds its row of P) on the card: the
+    context-share kernel."""
     ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
-    _check_chain(x, ctx, weights, biases, backward=False)
+    mode, r = context_layout(ctx)
+    weights, biases = kernel_args(weights, biases)
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    p = torch.empty((r, 4 * n_blocks * hidden), device=weights.device, dtype=torch.float32)
+    rc = _library(hidden).nfdpf_coupling_ctx_share(
+        ctx_ptr, ctx_sb, ctx_sn, 1 if ctx is None else ctx.shape[1],
+        0 if ctx is None else ctx.shape[-1], mode, weights.data_ptr(), biases.data_ptr(),
+        weights.shape[-2], n_blocks, hidden, r, p.data_ptr(), _stream(weights))
+    check_launch(rc, "coupling_ctx_share")
+    LAUNCHES["coupling_ctx_share"] += 1
+    return p, mode
+
+
+def _launch_forward(x, p, mode: int, weights, biases, inverse: bool):
+    """K4 on rows x with P (``mode``: how a row finds its row of P)."""
     b, n, _ = x.shape
-    x, weights, biases = kernel_args(x, weights, biases)
+    x, p, weights, biases = kernel_args(x, p, weights, biases)
     y = torch.empty((b, n, 2), device=x.device, dtype=torch.float32)
     ld = torch.empty((b, n), device=x.device, dtype=torch.float32)
     rc = _library(weights.shape[-1]).nfdpf_coupling_chain_fwd(
-        x.data_ptr(), ctx_ptr, ctx_sb, ctx_sn, weights.data_ptr(), biases.data_ptr(),
-        y.data_ptr(), ld.data_ptr(), b * n, n, weights.shape[0],
-        0 if ctx is None else ctx.shape[-1], weights.shape[-2], weights.shape[-1],
-        int(inverse), torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), p.data_ptr(), mode, weights.data_ptr(), biases.data_ptr(),
+        y.data_ptr(), ld.data_ptr(), b * n, n, weights.shape[0], weights.shape[-2],
+        weights.shape[-1], int(inverse), _stream(x))
     counter = "coupling_chain_inverse" if inverse else "coupling_chain"
     check_launch(rc, counter)
     LAUNCHES[counter] += 1
     return y, ld
 
 
-def _launch_backward(x, ctx, weights, biases, gy, gld, inverse: bool, want_gctx: bool):
-    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
-    _check_chain(x, ctx, weights, biases, backward=True)
+def _launch_backward(x, p, mode: int, weights, biases, gy, gld, inverse: bool,
+                     with_g1: bool):
+    """K5: (gx, each row's g1 (B·N, 4K·H) or None, the weight gradient of a
+    chain without context (K, 4, 3, H, H), the bias gradient)."""
     b, n, _ = x.shape
-    x, weights, biases, gy, gld = kernel_args(x, weights, biases, gy, gld)
+    x, p, weights, biases, gy, gld = kernel_args(x, p, weights, biases, gy, gld)
     dev = x.device
-    per_block = BWD_ROWS_PER_BLOCK if weights.shape[-1] <= PADDED_ABOVE \
-        else BWD_ROWS_PER_BLOCK_WIDE
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    per_block = BWD_ROWS_PER_BLOCK if hidden <= PADDED_ABOVE else BWD_ROWS_PER_BLOCK_WIDE
     grid = min(-(-b * n // per_block), BWD_MAX_GRID)
     gx = torch.empty((b, n, 2), device=dev, dtype=torch.float32)
-    # the kernel adds each MLP's share into its row of gctx
-    gctx = torch.zeros(ctx.shape, device=dev, dtype=torch.float32) if want_gctx else None
-    gw_part = torch.empty((grid,) + weights.shape, device=dev, dtype=torch.float32)
+    g1 = (torch.empty((b * n, 4 * n_blocks * hidden), device=dev, dtype=torch.float32)
+          if with_g1 else None)
+    gw_part = torch.empty((grid, n_blocks, 4, 3, hidden, hidden), device=dev,
+                          dtype=torch.float32)
     gb_part = torch.empty((grid,) + biases.shape, device=dev, dtype=torch.float32)
-    rc = _library(weights.shape[-1]).nfdpf_coupling_chain_bwd(
-        x.data_ptr(), ctx_ptr, ctx_sb, ctx_sn, weights.data_ptr(), biases.data_ptr(),
-        gy.data_ptr(), gld.data_ptr(), gx.data_ptr(),
-        0 if gctx is None else gctx.data_ptr(), gw_part.data_ptr(), gb_part.data_ptr(),
-        b * n, n, weights.shape[0], 0 if ctx is None else ctx.shape[-1],
-        weights.shape[-2], weights.shape[-1], int(inverse), grid,
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _library(hidden).nfdpf_coupling_chain_bwd(
+        x.data_ptr(), p.data_ptr(), mode, weights.data_ptr(), biases.data_ptr(),
+        gy.data_ptr(), gld.data_ptr(), gx.data_ptr(), 0 if g1 is None else g1.data_ptr(),
+        gw_part.data_ptr(), gb_part.data_ptr(), b * n, n, n_blocks, weights.shape[-2],
+        hidden, int(inverse), grid, _stream(x))
     check_launch(rc, "coupling_chain_bwd")
     LAUNCHES["coupling_chain_bwd"] += 1
-    return gx, gctx, torch.sum(gw_part, dim=0), torch.sum(gb_part, dim=0)
+    return gx, g1, torch.sum(gw_part, dim=0), torch.sum(gb_part, dim=0)
+
+
+def _launch_ctx_weight_grad(g1, ctx, gw):
+    """Write layer 0's context rows of the packed weight gradient ``gw``
+    (K, 4, 3, max_in, H) from K5's g1: the context-weight-gradient kernel."""
+    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
+    mode, r = context_layout(ctx)
+    (g1,) = kernel_args(g1)
+    n_blocks, max_in, hidden = gw.shape[0], gw.shape[-2], gw.shape[-1]
+    scratch = torch.empty((r, g1.shape[1]), device=g1.device, dtype=torch.float32)
+    rc = _library(hidden).nfdpf_coupling_ctx_weight_grad(
+        g1.data_ptr(), g1.shape[0], ctx.shape[1], mode, r, ctx_ptr, ctx_sb, ctx_sn,
+        ctx.shape[-1], n_blocks, max_in, hidden, scratch.data_ptr(), gw.data_ptr(),
+        _stream(g1))
+    check_launch(rc, "coupling_ctx_weight_grad")
+    LAUNCHES["coupling_ctx_weight_grad"] += 1
+
+
+def _launch_ctx_input_grad(g1, weights, ctx_dim: int):
+    """The context's gradient (B·N, C) from K5's g1: the
+    context-input-gradient kernel."""
+    g1, weights = kernel_args(g1, weights)
+    gctx = torch.empty((g1.shape[0], ctx_dim), device=g1.device, dtype=torch.float32)
+    rc = _library(weights.shape[-1]).nfdpf_coupling_ctx_input_grad(
+        g1.data_ptr(), g1.shape[0], ctx_dim, weights.shape[0], weights.shape[-2],
+        weights.shape[-1], weights.data_ptr(), gctx.data_ptr(), _stream(g1))
+    check_launch(rc, "coupling_ctx_input_grad")
+    LAUNCHES["coupling_ctx_input_grad"] += 1
+    return gctx
+
+
+def ctx_share(ctx: Optional[torch.Tensor], weights: torch.Tensor,
+              biases: torch.Tensor) -> torch.Tensor:
+    """P (R, 4K·H), layer 0's bias and context share per distinct context
+    row: the context-share kernel on CUDA tensors, its plain version on the
+    CPU."""
+    tensors = [t for t in (ctx, weights, biases) if t is not None]
+    if on_cpu(*tensors):
+        return ctx_share_plain(ctx, weights, biases)
+    return _launch_ctx_share(ctx, weights, biases)[0]
+
+
+def ctx_weight_grad(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Layer 0's context rows of the weight gradient (K, 4, C, H) from the
+    rows' g1: the context-weight-gradient kernel on CUDA tensors, its plain
+    version on the CPU."""
+    if on_cpu(g1, ctx, weights):
+        return ctx_weight_grad_plain(g1, ctx, weights)
+    gw = torch.zeros(weights.shape, device=weights.device, dtype=torch.float32)
+    _launch_ctx_weight_grad(g1, ctx, gw)
+    return gw[:, :, 0, 1:1 + ctx.shape[-1]]
+
+
+def ctx_input_grad(g1: torch.Tensor, weights: torch.Tensor, ctx_dim: int) -> torch.Tensor:
+    """The context's gradient (B·N, C) from the rows' g1: the
+    context-input-gradient kernel on CUDA tensors, its plain version on the
+    CPU."""
+    if on_cpu(g1, weights):
+        return ctx_input_grad_plain(g1, weights, ctx_dim)
+    return _launch_ctx_input_grad(g1, weights, ctx_dim)
 
 
 class FusedCouplingChain(torch.autograd.Function):
-    """(y, log_det) of a packed chain on CUDA tensors: the forward kernel,
-    and the backward kernel for the gradients of x, ctx (only when it asks
-    for one), weights and biases."""
+    """(y, log_det) of a packed chain on CUDA tensors: the context-share
+    kernel and the forward kernel; in the backward the backward kernel and,
+    with a context, the context-weight-gradient kernel and (only when the
+    context asks for one) the context-input-gradient kernel."""
 
     @staticmethod
     def forward(fn, x, ctx, weights, biases, inverse):
-        fn.save_for_backward(x, ctx, weights, biases)
-        fn.inverse = inverse
-        return _launch_forward(x, ctx, weights, biases, inverse)
+        _check_chain(x, ctx, weights, biases, backward=False)
+        p, mode = _launch_ctx_share(ctx, weights, biases)
+        fn.save_for_backward(x, ctx, weights, biases, p)
+        fn.inverse, fn.mode = inverse, mode
+        return _launch_forward(x, p, mode, weights, biases, inverse)
 
     @staticmethod
     def backward(fn, gy, gld):
-        x, ctx, weights, biases = fn.saved_tensors
-        want_gctx = ctx is not None and fn.needs_input_grad[1]
-        gx, gctx, gw, gb = _launch_backward(x, ctx, weights, biases, gy, gld,
-                                            fn.inverse, want_gctx)
+        x, ctx, weights, biases, p = fn.saved_tensors
+        _check_chain(x, ctx, weights, biases, backward=True)
+        ctx_dim, hidden = 0 if ctx is None else ctx.shape[-1], weights.shape[-1]
+        gx, g1, gw_plain, gb = _launch_backward(x, p, fn.mode, weights, biases, gy, gld,
+                                                fn.inverse, ctx_dim > 0)
+        # the packed weight gradient: the rows of a chain without context,
+        # then layer 0's context rows (max_in >= hidden rows a layer)
+        gw = torch.zeros(weights.shape, device=weights.device, dtype=torch.float32)
+        gw[:, :, :, :hidden] = gw_plain
+        gctx = None
+        if ctx_dim:
+            _launch_ctx_weight_grad(g1, ctx, gw)
+            if fn.needs_input_grad[1]:
+                gctx = _launch_ctx_input_grad(g1, weights, ctx_dim).reshape(ctx.shape)
         return gx, gctx, gw, gb, None
 
 

@@ -14,25 +14,30 @@
 // chain_fwd_kernel  replaces nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_kernel
 //   y, log_det for every row in one pass.
 // chain_bwd_kernel  replaces nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_bwd_kernel
-//   runs the chain forward from x, then walks the blocks backwards: g_x,
-//   g_ctx (optional) per row, and the weight/bias gradients as one partial
-//   per thread block, summed by the caller.
+//   runs the chain forward from x, then walks the blocks backwards: g_x per
+//   row, the weight/bias gradients as one partial per thread block, summed by
+//   the caller, and (with a context) every row's layer-0 pre-activation
+//   gradients g1 for the context kernels.
+// Layer 0's context share P = b + ctx . w[1..C] depends only on a row's
+// context row, so it is a kernel of its own (chain_ctx_share_kernel, below),
+// computed once per distinct context row (a batch element's row when the
+// context is broadcast over the particles, particle stride 0, as the filter
+// passes it; else a row each); K4 and K5 read P as layer 0's bias through
+// the row -> context-row map, and the context's gradients come from K5's g1
+// in two more kernels (chain_ctx_weight_grad_kernel, chain_ctx_input_grad_
+// kernel).  So K4's and K5's shared memory holds a chain without context,
+// whatever the context's width (the proposal flow's is 196 wide under the
+// CGLOW measurement, whose parameters and gradient accumulators alone would
+// take 304 KB at K = 2, H = 8).
 //
-// What bounds them on an H100: a row moves 20 + 4C bytes (forward) against
-// about K * 4 * 2H(1 + H + 1) fp32 operations, plus the context's 2HC per
-// MLP once per distinct context row, so at H = 8 the operation bound
-// (67 TFLOP/s) is the larger one, and at the filter's sizes (3,200 rows)
-// both bounds are far below a launch's latency: the time is latency, of
-// staging the parameters and of 4K dependent MLPs per row (times against
+// What bounds them on an H100: a row moves 20 bytes (forward) against
+// about K * 4 * 2H(1 + H + 1) fp32 operations, so at H = 8 the operation
+// bound (67 TFLOP/s) is the larger one, and at the filter's sizes (3,200
+// rows) both bounds are far below a launch's latency: the time is latency,
+// of staging the parameters and of 4K dependent MLPs per row (times against
 // bounds in PERF.md).  Both keep everything but inputs and outputs on chip:
 // the chain's parameters staged in (dynamic) shared memory once per block
-// with cp.async, all copies of a thread in flight at once; ctx read through
-// its own batch/row strides, so a context that is one row per batch
-// broadcast over the particles is never materialised; rows that read the
-// same context row (a run of rows of one batch element when ctx's particle
-// stride is 0, else one row each) share layer 0's context term
-// P = b + ctx . w[1..C], computed once per block in one order in both
-// kernels.
+// with cp.async, all copies of a thread in flight at once.
 //
 // The forward's design:
 //   * A row takes 2U lanes of a warp (U = 4 at H = 8): U lanes per net of a
@@ -46,7 +51,7 @@
 //   * 32 rows (256 threads) a block, settled with U by a sweep at the
 //     filter's shapes.
 //   * Only what the rows read is staged (FwdLayout: no zero rows of the
-//     packing), and P once per distinct context row (a thread per entry).
+//     packing), and the block's rows of P, one run of it.
 //   * Layers 1 and 2 sum in the backward's order: a row's outputs do not
 //     depend on U or on the block shape, and the same launch gives the same
 //     bits.
@@ -69,15 +74,12 @@
 //     one lane adds the result into the block's accumulators in shared
 //     memory, written out once as the block's partial.  Fixed orders and no
 //     float atomics: the same launch gives the same bits.
-//   * Rows that read the same context row (a run of rows of one batch
-//     element when ctx's particle stride is 0, else one row each) share
-//     layer 0's context term: per distinct context row P = b + ctx . w[1..C]
-//     is computed once per tile, and the context-weight gradient is
-//     Σ_d ctx[d] ⊗ G[d], G[d] the sum of g1 over the rows of context row d.
-//     The context gradient (asked by the tests only; the filter detaches its
-//     contexts) stays per row and changes no other gradient's bits.
-//   * Parameters and context rows are staged with cp.async, all copies of a
-//     thread in flight at once.
+//   * Layer 0's bias and context share come from P in global memory (read
+//     once per row and MLP); K5 stages the parameters of a chain without
+//     context (rows of H) and writes each row's g1, from which the context
+//     kernels make the context's gradients.
+//   * Parameters are staged with cp.async, all copies of a thread in flight
+//     at once.
 //   * No tensor cores: each product is 8 x (rows) x 8 per net and tile, and
 //     TF32 would break the 1e-4 tolerance of the gradients.
 //   * Hidden widths: the library is built for one H (-DNFDPF_HIDDEN), H <= 8
@@ -231,12 +233,10 @@ __device__ __forceinline__ float2 half_fwd(const float* __restrict__ w,
 // Backward of the two nets of a coupling half for this thread's row, from
 // their h1, h2 (fields at f0 and f1) and output gradients ga, gb: every load
 // before any store, so the two nets interleave; writes g1 and g2 back next
-// to h1, h2, adds the row's context gradient into grow (when not null), and
-// returns the gradient with respect to `half`.
+// to h1, h2 and returns the gradient with respect to `half`.
 template <int H>
 __device__ __forceinline__ float half_bwd(const float* __restrict__ w, int net_w, int max_in,
-                                          int C, float* f0, float* f1, int fs, float ga,
-                                          float gb, float* __restrict__ grow) {
+                                          float* f0, float* f1, int fs, float ga, float gb) {
   float* const f[2] = {f0, f1};
   const float g_out[2] = {ga, gb};
   float h1[2][H], h2[2][H], g1[2][H], g2[2][H], wr[H];
@@ -275,19 +275,6 @@ __device__ __forceinline__ float half_bwd(const float* __restrict__ w, int net_w
     for (int j = 0; j < H; ++j) {
       f[x][(2 * H + j) * fs] = g1[x][j];
       f[x][(3 * H + j) * fs] = g2[x][j];
-    }
-  }
-  if (grow != nullptr) {
-    for (int c = 0; c < C; ++c) {
-      float acc[2];
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        load_row<H>(w + x * net_w + (1 + c) * H, wr);
-        acc[x] = 0.f;
-#pragma unroll
-        for (int j = 0; j < H; ++j) acc[x] = fmaf(g1[x][j], wr[j], acc[x]);
-      }
-      grow[c] += acc[0] + acc[1];
     }
   }
   return g_half;
@@ -460,35 +447,55 @@ __device__ __forceinline__ void reduce_tile_wide(const float* fac, int fs, int r
   }
 }
 
+// The context-row index of row r of the chain's B·N rows, by the context's
+// layout (PMode): one row for all (no context), one per batch element (a
+// context broadcast over the particles, particle stride 0), one per row.
+enum PMode { kOneRow = 0, kPerBatch = 1, kPerRow = 2 };
+__host__ __device__ __forceinline__ int ctx_row_of(int r, int n, int p_mode) {
+  return p_mode == kPerRow ? r : p_mode == kPerBatch ? r / n : 0;
+}
+
+// Stage a packed chain's parameters as a chain without context: per net its
+// three layers' rows 0..H-1 (H x H each; layer 0's row 0 is the half's
+// weights, its other rows are not read), from the packing's rows of max_in.
+template <int H>
+__device__ __forceinline__ void stage_compact(float* sw, const float* __restrict__ w, int nets,
+                                              int max_in) {
+  const bool v4 = H % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const int step = v4 ? 4 : 1, per = 3 * H * H / step;
+  for (int i = threadIdx.x; i < nets * per; i += blockDim.x) {
+    const int m = i / per, q = i % per * step, l = q / (H * H), o = q % (H * H);
+    const float* src = w + (size_t)m * 3 * max_in * H + (size_t)l * max_in * H + o;
+    if (v4) {
+      copy_async16(sw + m * 3 * H * H + q, src);
+    } else {
+      copy_async4(sw + m * 3 * H * H + q, src);
+    }
+  }
+}
+
 template <int H, bool INV>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
-chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
-                 long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
-                 const float* __restrict__ bias, const float2* __restrict__ gy,
-                 const float* __restrict__ gld, float2* __restrict__ gx,
-                 float* __restrict__ gctx, float* __restrict__ gw_part,
-                 float* __restrict__ gb_part, int rows, int n, int K, int C, int max_in,
-                 int max_seg) {
+chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ p, int p_mode,
+                 const float* __restrict__ w, const float* __restrict__ bias,
+                 const float2* __restrict__ gy, const float* __restrict__ gld,
+                 float2* __restrict__ gx, float* __restrict__ g1_out,
+                 float* __restrict__ gw_part, float* __restrict__ gb_part, int rows, int n,
+                 int K, int max_in) {
   using F = Fields<H>;
   extern __shared__ float smem[];
   const int T = blockDim.x, t = threadIdx.x, fs = T + 4;
-  const int net_w = 3 * max_in * H, net_b = 3 * H, nets = 4 * K;
-  const int nw = nets * net_w, nb = nets * net_b, p_stride = nets * H + 1;
-  const int cs_stride = (max_seg + 3) / 4 * 4 + 4;
+  // the staged parameters are a chain without context: rows of H
+  const int net_w = 3 * H * H, net_b = 3 * H, nets = 4 * K, ps = nets * H;
+  const int nw = nets * net_w, nb = nets * net_b;
   // shared memory, in floats: parameters (nw + nb), their gradient
-  // accumulators (nw + nb), the factor tile (Fields::count(K) fields of fs),
-  // then per distinct context row of a tile (at most max_seg) its context
-  // (C fields of cs_stride), the g1 sums of its rows (4K·H) and its layer-0
-  // shares P (p_stride)
+  // accumulators (nw + nb), the factor tile (Fields::count(K) fields of fs)
   float* sw = smem;
   float* sb = sw + nw;
   float* aw = sb + nb;
   float* ab = aw + nw;
   float* fac = ab + nb;
-  float* cs = fac + F::count(K) * fs;
-  float* gsum = cs + (C ? C * cs_stride : 0);
-  float* p = gsum + (C ? max_seg * nets * H : 0);
-  stage_async(sw, w, nw);
+  stage_compact<H>(sw, w, nets, max_in);
   stage_async(sb, bias, nb);
   for (int i = 4 * t; i < nw + nb; i += 4 * T) {   // nw and nb are multiples of 4
     *reinterpret_cast<float4*>(aw + i) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -500,52 +507,11 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     const bool valid = row < rows;
     // a thread past the end walks the last row with zero incoming gradients
     const int r = valid ? row : rows - 1;
-    const int last = min(rows, r0 + T) - 1;
-    // the tile's distinct context rows: a run of rows of one batch element
-    // when the context is broadcast over the particles, else every row
-    const bool share = C > 0 && ctx_sn == 0;
-    int seg, nseg, seg0 = 0;
-    if (C == 0) {
-      seg = 0;
-      nseg = 1;
-    } else if (share) {
-      seg = r / n - r0 / n;
-      nseg = last / n - r0 / n + 1;
-      seg0 = (r0 / n) * n - r0;
-    } else {
-      seg = r - r0;
-      nseg = last - r0 + 1;
-    }
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = t; i < nseg * C; i += T) {
-      const int d = i / C, c = i % C;
-      const long long at = share ? (long long)(r0 / n + d) * ctx_sb
-                                 : (long long)((r0 + d) / n) * ctx_sb +
-                                       (long long)((r0 + d) % n) * ctx_sn;
-      copy_async4(cs + c * cs_stride + d, ctx + at + c);
-    }
-    copy_async_wait();   // the context rows and, on the first tile, the parameters
-    __syncthreads();
-    // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
-    // distinct context row
-    for (int i = t; i < nseg * nets; i += T) {
-      const int m = i % nets, d = i / nets;
-      float acc[H], wr[H];
-#pragma unroll
-      for (int j = 0; j < H; ++j) acc[j] = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float cv = cs[c * cs_stride + d];
-        load_row<H>(sw + m * net_w + (1 + c) * H, wr);
-#pragma unroll
-        for (int j = 0; j < H; ++j) acc[j] = fmaf(cv, wr[j], acc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < H; ++j) p[d * p_stride + m * H + j] = sb[m * net_b + j] + acc[j];
-    }
-    __syncthreads();
-
-    const float* prow = p + seg * p_stride;
-    float* grow = (gctx != nullptr && valid) ? gctx + (size_t)row * C : nullptr;
+    copy_async_wait();   // on the first tile, the parameters
+    __syncthreads();     // and the previous tile's readers are done
+    // layer 0's bias and context share of this row's context row (P, from
+    // the context-share kernel), read from global memory
+    const float* prow = p + (size_t)ctx_row_of(r, n, p_mode) * ps;
     float* ft = fac + t;   // this row's fields, fs apart
     const float2 xv = x[r];
     float lo = xv.x, up = xv.y;
@@ -560,20 +526,20 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       if (!INV) {
         ft[F::upper(k) * fs] = up;
         ft[F::half(k, 0) * fs] = lo;
-        o1 = half_fwd<H>(wk, bk, net_w, net_b, max_in, lo, pk, ft + F::h1(k, 0) * fs,
+        o1 = half_fwd<H>(wk, bk, net_w, net_b, H, lo, pk, ft + F::h1(k, 0) * fs,
                          ft + F::h1(k, 1) * fs, fs);
         up = o1.x + up * expf(o1.y);
         ft[F::half(k, 2) * fs] = up;
-        o2 = half_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, net_w, net_b, max_in, up, pk + 2 * H,
+        o2 = half_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, net_w, net_b, H, up, pk + 2 * H,
                          ft + F::h1(k, 2) * fs, ft + F::h1(k, 3) * fs, fs);
         lo = o2.x + lo * expf(o2.y);
       } else {
         ft[F::half(k, 2) * fs] = up;
-        o2 = half_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, net_w, net_b, max_in, up, pk + 2 * H,
+        o2 = half_fwd<H>(wk + 2 * net_w, bk + 2 * net_b, net_w, net_b, H, up, pk + 2 * H,
                          ft + F::h1(k, 2) * fs, ft + F::h1(k, 3) * fs, fs);
         lo = (lo - o2.x) * expf(-o2.y);
         ft[F::half(k, 0) * fs] = lo;
-        o1 = half_fwd<H>(wk, bk, net_w, net_b, max_in, lo, pk, ft + F::h1(k, 0) * fs,
+        o1 = half_fwd<H>(wk, bk, net_w, net_b, H, lo, pk, ft + F::h1(k, 0) * fs,
                          ft + F::h1(k, 1) * fs, fs);
         up = (up - o1.x) * expf(-o1.y);
       }
@@ -594,8 +560,8 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
       auto nets_bwd = [&](int net0, float ga, float gb) {
         ft[F::out(k, net0) * fs] = ga;
         ft[F::out(k, net0 + 1) * fs] = gb;
-        return half_bwd<H>(wk + net0 * net_w, net_w, max_in, C, ft + F::h1(k, net0) * fs,
-                           ft + F::h1(k, net0 + 1) * fs, fs, ga, gb, grow);
+        return half_bwd<H>(wk + net0 * net_w, net_w, H, ft + F::h1(k, net0) * fs,
+                           ft + F::h1(k, net0 + 1) * fs, fs, ga, gb);
       };
       if (!INV) {
         const float lo_in = ft[F::half(k, 0) * fs], up_in = ft[F::upper(k) * fs];
@@ -626,51 +592,17 @@ chain_bwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
     __syncthreads();
 
     if constexpr (H <= 8) {
-      reduce_tile<H>(fac, fs, T, nets, aw, ab, net_w, net_b, max_in);
+      reduce_tile<H>(fac, fs, T, nets, aw, ab, net_w, net_b, H);
     } else {
-      reduce_tile_wide<H>(fac, fs, T, nets, aw, ab, net_w, net_b, max_in);
+      reduce_tile_wide<H>(fac, fs, T, nets, aw, ab, net_w, net_b, H);
     }
-    if (C) {
-      // with a shared context row: per run and net, g1 summed over its rows
-      if (share) {
-        for (int i = t; i < nseg * nets * H; i += T) {
-          const int d = i / (nets * H), m = i / H % nets, j = i % H;
-          const float* col = fac + (F::g1(m / 4, m % 4) + j) * fs;
-          const int end = min(T, seg0 + (d + 1) * n);
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-          int rr = max(0, seg0 + d * n);
-          for (; rr + 4 <= end; rr += 4) {
-#pragma unroll
-            for (int u = 0; u < 4; ++u) acc[u] += col[rr + u];
-          }
-          for (; rr < end; ++rr) acc[0] += col[rr];
-          gsum[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-        }
-      }
-      __syncthreads();
-      // context-weight entries gw[m][0][1 + c][j] = Σ_d ctx[d][c]·G[d][m][j],
-      // G the run sums or, one row per context row, g1 itself
-      for (int e = t; e < nets * C * H; e += T) {
-        const int m = e / (C * H), c = e / H % C, j = e % H;
-        const float* cc = cs + c * cs_stride;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        int d = 0;
-        if (share) {
-          const float* gs = gsum + m * H + j;
-          for (; d < nseg; ++d) acc[0] = fmaf(cc[d], gs[d * nets * H], acc[0]);
-        } else {
-          const float* gs = fac + (F::g1(m / 4, m % 4) + j) * fs;
-          for (; d + 4 <= nseg; d += 4) {
-            const float4 vc = *reinterpret_cast<const float4*>(cc + d);
-            const float4 vg = *reinterpret_cast<const float4*>(gs + d);
-            acc[0] = fmaf(vc.x, vg.x, acc[0]);
-            acc[1] = fmaf(vc.y, vg.y, acc[1]);
-            acc[2] = fmaf(vc.z, vg.z, acc[2]);
-            acc[3] = fmaf(vc.w, vg.w, acc[3]);
-          }
-          for (; d < nseg; ++d) acc[0] = fmaf(cc[d], gs[d], acc[0]);
-        }
-        aw[m * net_w + (1 + c) * H + j] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    if (g1_out != nullptr) {
+      // every valid row's layer-0 pre-activation gradients g1 (4K x H), for
+      // the context kernels: global writes consecutive across the block
+      const int count = min(T, rows - r0) * ps;
+      for (int i = t; i < count; i += T) {
+        const int rl = i / ps, e = i % ps, m = e / H;
+        g1_out[(size_t)r0 * ps + i] = fac[(F::g1(m / 4, m % 4) + e % H) * fs + rl];
       }
     }
   }
@@ -783,61 +715,39 @@ __device__ __forceinline__ float2 half_lanes(const float* __restrict__ s, const 
   return xn == 0 ? make_float2(out, other) : make_float2(other, out);
 }
 
-// Shared memory of the forward kernel past its parameters, in floats: the
-// block's distinct context rows (C each, rounded up to a multiple of 4), then
-// per distinct context row layer 0's shares P (4K x H).
-__host__ __device__ inline int fwd_ctx_floats(int max_seg, int C) {
-  return (max_seg * C + 3) / 4 * 4;
+// The distinct context rows a block of `rows_per_block` rows can read (each
+// a row of P): one without a context, one per batch element touched when the
+// context is broadcast over the particles, else one per row.
+__host__ __device__ inline int max_ctx_rows(int rows_per_block, int n, int p_mode) {
+  if (p_mode == kOneRow) return 1;
+  const int runs = (rows_per_block - 1) / n + 2;
+  return p_mode == kPerBatch && runs < rows_per_block ? runs : rows_per_block;
 }
 
 template <int H, int U, bool INV>
 __global__ void __launch_bounds__(kFwdRows * 2 * U)
-chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
-                 long long ctx_sb, long long ctx_sn, const float* __restrict__ w,
-                 const float* __restrict__ bias, float2* __restrict__ y,
-                 float* __restrict__ ld_out, int rows, int n, int K, int C, int max_in,
-                 int max_seg) {
+chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ pg, int p_mode,
+                 const float* __restrict__ w, const float* __restrict__ bias,
+                 float2* __restrict__ y, float* __restrict__ ld_out, int rows, int n, int K,
+                 int max_in) {
   extern __shared__ float smem[];
   constexpr int G = 2 * U;   // lanes per row
   const int T = blockDim.x, t = threadIdx.x, RB = T / G, nets = 4 * K, ps = nets * H;
-  const FwdLayout<H> L{nets, C};
-  float* cs = smem + L.floats();
-  float* p = cs + fwd_ctx_floats(max_seg, C);
-  stage_fwd<H>(smem, w, bias, nets, C, max_in);
+  // the staged parameters are those of a chain without context (layer 0's
+  // row 0): the context's share arrives in P
+  const FwdLayout<H> L{nets, 0};
+  float* p = smem + L.floats();
+  stage_fwd<H>(smem, w, bias, nets, 0, max_in);
 
   // the block's distinct context rows: a run of rows of one batch element
-  // when the context is broadcast over the particles, else every row
+  // when the context is broadcast over the particles, else every row; their
+  // rows of P (layer 0's bias and context share) are one run of P
   const int r0 = blockIdx.x * RB, row = r0 + t / G, last = min(rows, r0 + RB) - 1;
   const int r = min(row, last);
-  const bool share = C > 0 && ctx_sn == 0;
-  int seg = 0, nseg = 1;
-  if (share) {
-    seg = r / n - r0 / n;
-    nseg = last / n - r0 / n + 1;
-  } else if (C) {
-    seg = r - r0;
-    nseg = last - r0 + 1;
-  }
-  for (int i = t; i < nseg * C; i += T) {
-    const int d = i / C, c = i % C;
-    const long long at = share ? (long long)(r0 / n + d) * ctx_sb
-                               : (long long)((r0 + d) / n) * ctx_sb +
-                                     (long long)((r0 + d) % n) * ctx_sn;
-    copy_async4(cs + i, ctx + at + c);
-  }
+  const int d0 = ctx_row_of(r0, n, p_mode);
+  const int seg = ctx_row_of(r, n, p_mode) - d0;
+  stage_async(p, pg + (size_t)d0 * ps, (ctx_row_of(last, n, p_mode) - d0 + 1) * ps);
   copy_async_wait();
-  __syncthreads();
-  // P[d][m][j] = b[m][0][j] + Σ_c ctx[d][c]·w[m][0][1 + c][j], once per
-  // distinct context row, summed in the backward kernel's order; a thread
-  // per entry, so a broadcast context's few rows still spread over the block
-  for (int i = t; i < nseg * ps; i += T) {
-    const int d = i / ps, m = i / H % nets, j = i % H;
-    const float* wc = smem + L.w0() + m * L.l0() + H + j;
-    const float* cd = cs + d * C;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * H], acc);
-    p[i] = smem[m * 3 * H + j] + acc;
-  }
   __syncthreads();
 
   // lanes past the last row walk it too (the shuffles need whole warps)
@@ -867,6 +777,110 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ ctx,
   }
 }
 
+// ---- the context kernels ----------------------------------------------------
+//
+// Layer 0 of every conditioner MLP reads [half | ctx]: its context share
+// ctx . w[1..C] does not depend on the row's state, only on its context
+// row.  These three kernels take it out of K4/K5, so that the shared memory
+// of those no longer grows with the context's width C (the proposal flow's
+// context is 196 wide under the CGLOW measurement):
+//   chain_ctx_share_kernel      P[d] = b0 + ctx[d] . w0[1..C], per distinct context row d;
+//   chain_ctx_weight_grad_kernel gw0[1 + c][j] = sum_d ctx[d][c] * G[d][j], G[d] the
+//                               sum of K5's g1 over the rows of context row d;
+//   chain_ctx_input_grad_kernel gctx[r] = g1[r] . w0[1..C]^T, per row.
+// They replace the context's share of layer 0 inside
+// nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_kernel and ::_chain_bwd_kernel.
+// What bounds them: each is a small product (R x C x 4K·H operations, R the
+// distinct context rows); at the filter's sizes a launch's latency.  Each
+// output is summed by one thread or one warp in a fixed order (no atomics),
+// so a second launch gives the same bits; the share sums in the order the
+// forward kernel did before the split (fmaf over c, then the bias added), so
+// the chain's outputs keep their bits.
+
+// Offset of context row d in a context read through its batch and particle strides.
+__device__ __forceinline__ long long ctx_offset(int d, int n, int p_mode, long long sb,
+                                                long long sn) {
+  return p_mode == kPerBatch ? (long long)d * sb
+                             : (long long)(d / n) * sb + (long long)(d % n) * sn;
+}
+
+// One thread per entry of P (R x 4K·H).
+__global__ void chain_ctx_share_kernel(const float* __restrict__ ctx, long long sb, long long sn,
+                                       int n, int C, int p_mode, const float* __restrict__ w,
+                                       const float* __restrict__ bias, int max_in, int nets,
+                                       int R, float* __restrict__ p) {
+  const int ps = nets * kHidden;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)R * ps) return;
+  const int d = static_cast<int>(i / ps), e = static_cast<int>(i % ps);
+  const int m = e / kHidden, j = e % kHidden;
+  const float* wc = w + (size_t)m * 3 * max_in * kHidden + kHidden + j;   // row 1 + c at c·H
+  float acc = 0.f;
+  if (C > 0) {
+    const float* cd = ctx + ctx_offset(d, n, p_mode, sb, sn);
+    for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * kHidden], acc);
+  }
+  p[i] = bias[m * 3 * kHidden + j] + acc;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A block per column e = (net m, unit j) of g1.  With a context broadcast over
+// the particles it first sums g1 over each context row's n rows into G
+// (a warp per context row, lanes over its rows, one butterfly), kept in
+// gseg; then a warp per context entry c sums ctx[d][c]·G[d][e] over the
+// context rows d (lanes over d, one butterfly) into the packed gradient's
+// layer-0 row 1 + c.
+__global__ void chain_ctx_weight_grad_kernel(const float* __restrict__ g1, int rows, int n,
+                                             int p_mode, int R, const float* __restrict__ ctx,
+                                             long long sb, long long sn, int C, int nets,
+                                             int max_in, float* gseg, float* __restrict__ gw) {
+  const int ps = nets * kHidden, e = blockIdx.x, m = e / kHidden, j = e % kHidden;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp, warps = blockDim.x / kWarp;
+  const float* G = g1;
+  if (p_mode == kPerBatch) {
+    for (int d = warp; d < R; d += warps) {
+      float s = 0.f;
+      const int end = min(rows, (d + 1) * n);
+      for (int r = d * n + lane; r < end; r += kWarp) s += g1[(size_t)r * ps + e];
+      s = warp_sum(s);
+      if (lane == 0) gseg[(size_t)d * ps + e] = s;
+    }
+    __syncthreads();   // this block's column of G, written above, is read below
+    G = gseg;
+  }
+  for (int c = warp; c < C; c += warps) {
+    float s = 0.f;
+    for (int d = lane; d < R; d += kWarp) {
+      s = fmaf(ctx[ctx_offset(d, n, p_mode, sb, sn) + c], G[(size_t)d * ps + e], s);
+    }
+    s = warp_sum(s);
+    if (lane == 0) gw[(size_t)m * 3 * max_in * kHidden + (size_t)(1 + c) * kHidden + j] = s;
+  }
+}
+
+// One thread per entry of gctx (rows x C): the row's g1 against layer 0's
+// context rows, net by net.
+__global__ void chain_ctx_input_grad_kernel(const float* __restrict__ g1, int rows, int C,
+                                            int nets, int max_in, const float* __restrict__ w,
+                                            float* __restrict__ gctx) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * C) return;
+  const int r = static_cast<int>(i / C), c = static_cast<int>(i % C), ps = nets * kHidden;
+  const float* g = g1 + (size_t)r * ps;
+  float acc = 0.f;
+  for (int m = 0; m < nets; ++m) {
+    const float* wc = w + (size_t)m * 3 * max_in * kHidden + (size_t)(1 + c) * kHidden;
+#pragma unroll
+    for (int j = 0; j < kHidden; ++j) acc = fmaf(g[m * kHidden + j], wc[j], acc);
+  }
+  gctx[i] = acc;
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
 template <typename Kernel>
 int reserve_smem(Kernel kernel, size_t bytes) {
@@ -878,26 +892,12 @@ int reserve_smem(Kernel kernel, size_t bytes) {
   return 0;
 }
 
-size_t param_floats(int n_blocks, int max_in) {
-  return (size_t)n_blocks * 12 * ((size_t)max_in * kHidden + kHidden);
-}
-
-// Distinct context rows a tile of `threads` rows can read: one without a
-// context, one per batch element touched when the context is broadcast over
-// the particles (particle stride 0), else one per row.
-int bwd_max_seg(int threads, int n, int ctx_dim, long long ctx_sn) {
-  if (ctx_dim == 0) return 1;
-  return ctx_sn == 0 ? std::min(threads, (threads - 1) / n + 2) : threads;
-}
-
 // The backward's shared memory in floats for a block of `threads` rows (the
-// layout at the top of chain_bwd_kernel).
-size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int max_seg) {
-  const size_t nets = 4 * (size_t)n_blocks, cs_stride = (max_seg + 3) / 4 * 4 + 4;
-  return 2 * param_floats(n_blocks, max_in) +
-         (size_t)Fields<kHidden>::count(n_blocks) * (threads + 4) +
-         (ctx_dim ? ctx_dim * cs_stride + (size_t)max_seg * nets * kHidden : 0) +
-         (size_t)max_seg * (nets * kHidden + 1);
+// layout at the top of chain_bwd_kernel): the parameters of a chain without
+// context and their gradient accumulators, and the factor tile.
+size_t bwd_smem_floats(int n_blocks, int threads) {
+  return 2 * (size_t)n_blocks * 12 * ((size_t)kHidden * kHidden + kHidden) +
+         (size_t)Fields<kHidden>::count(n_blocks) * (threads + 4);
 }
 
 }  // namespace
@@ -910,38 +910,37 @@ size_t bwd_smem_floats(int n_blocks, int ctx_dim, int max_in, int threads, int m
 // builds one library per width at first use), so the H-wide activations are
 // register arrays with every loop over them unrolled.
 
-extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* ctx, long long ctx_sb,
-                                        long long ctx_sn, const float* w, const float* b,
-                                        float* y, float* ld, int rows, int n, int n_blocks,
-                                        int ctx_dim, int max_in, int hidden, int inverse,
-                                        void* stream) {
-  if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden) {
+extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* p, int p_mode,
+                                        const float* w, const float* b, float* y, float* ld,
+                                        int rows, int n, int n_blocks, int max_in, int hidden,
+                                        int inverse, void* stream) {
+  if (rows <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden || p_mode < kOneRow ||
+      p_mode > kPerRow) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // a block's distinct context rows are counted as the backward's tiles are
-  const int max_seg = bwd_max_seg(kFwdRows, n, ctx_dim, ctx_sn);
-  const size_t smem = (FwdLayout<kHidden>{4 * n_blocks, ctx_dim}.floats() +
-                       fwd_ctx_floats(max_seg, ctx_dim) +
-                       (size_t)max_seg * 4 * n_blocks * kHidden) * sizeof(float);
+  const int nets = 4 * n_blocks;
+  const size_t smem = (FwdLayout<kHidden>{nets, 0}.floats() +
+                       (size_t)max_ctx_rows(kFwdRows, n, p_mode) * nets * kHidden) *
+                      sizeof(float);
   auto kernel = inverse ? chain_fwd_kernel<kHidden, kFwdLanes, true>
                         : chain_fwd_kernel<kHidden, kFwdLanes, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
   const int grid = (rows + kFwdRows - 1) / kFwdRows;
   kernel<<<grid, kFwdRows * 2 * kFwdLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
-      reinterpret_cast<float2*>(y), ld, rows, n, n_blocks, ctx_dim, max_in, max_seg);
+      reinterpret_cast<const float2*>(x), p, p_mode, w, b, reinterpret_cast<float2*>(y), ld,
+      rows, n, n_blocks, max_in);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* ctx, long long ctx_sb,
-                                        long long ctx_sn, const float* w, const float* b,
-                                        const float* gy, const float* gld, float* gx,
-                                        float* gctx, float* gw_part, float* gb_part, int rows,
-                                        int n, int n_blocks, int ctx_dim, int max_in,
-                                        int hidden, int inverse, int grid, void* stream) {
+extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* p, int p_mode,
+                                        const float* w, const float* b, const float* gy,
+                                        const float* gld, float* gx, float* g1, float* gw_part,
+                                        float* gb_part, int rows, int n, int n_blocks,
+                                        int max_in, int hidden, int inverse, int grid,
+                                        void* stream) {
   if (rows <= 0 || n <= 0 || n_blocks <= 0 || n_blocks > kMaxBlocks || grid <= 0 ||
-      hidden != kHidden) {
+      hidden != kHidden || p_mode < kOneRow || p_mode > kPerRow) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // warps per block: enough for `grid` blocks to cover the rows in one tile
@@ -949,19 +948,65 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* ctx, long l
   int warps = std::min<long long>(kMaxWarps, (rows + (long long)kWarp * grid - 1) /
                                                  ((long long)kWarp * grid));
   auto smem_of = [&](int warps_per_block) {
-    const int threads = warps_per_block * kWarp;
-    return bwd_smem_floats(n_blocks, ctx_dim, max_in, threads,
-                           bwd_max_seg(threads, n, ctx_dim, ctx_sn)) * sizeof(float);
+    return bwd_smem_floats(n_blocks, warps_per_block * kWarp) * sizeof(float);
   };
   while (warps > 1 && smem_of(warps) > kMaxSmem) --warps;
   const size_t smem = smem_of(warps);
-  const int max_seg = bwd_max_seg(warps * kWarp, n, ctx_dim, ctx_sn);
   auto kernel = inverse ? chain_bwd_kernel<kHidden, true> : chain_bwd_kernel<kHidden, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
   kernel<<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(x), ctx, ctx_sb, ctx_sn, w, b,
-      reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), gctx, gw_part,
-      gb_part, rows, n, n_blocks, ctx_dim, max_in, max_seg);
+      reinterpret_cast<const float2*>(x), p, p_mode, w, b,
+      reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), g1, gw_part,
+      gb_part, rows, n, n_blocks, max_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P (R x 4K·H) from a context of `ctx_dim` entries read through its batch and
+// particle strides (none when ctx_dim is 0: P is then layer 0's bias, R = 1).
+extern "C" int nfdpf_coupling_ctx_share(const float* ctx, long long sb, long long sn, int n,
+                                        int ctx_dim, int p_mode, const float* w, const float* b,
+                                        int max_in, int n_blocks, int hidden, int R, float* p,
+                                        void* stream) {
+  if (R <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden || ctx_dim < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long count = (long long)R * 4 * n_blocks * kHidden;
+  const int threads = 256;
+  chain_ctx_share_kernel<<<(unsigned)((count + threads - 1) / threads), threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      ctx, sb, sn, n, ctx_dim, p_mode, w, b, max_in, 4 * n_blocks, R, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The context rows of layer 0's weight gradient, written into the packed
+// gradient `gw` (K x 4 x 3 x max_in x H); gseg is R x 4K·H floats of scratch
+// (read only with a context broadcast over the particles).
+extern "C" int nfdpf_coupling_ctx_weight_grad(const float* g1, int rows, int n, int p_mode, int R,
+                                              const float* ctx, long long sb, long long sn,
+                                              int ctx_dim, int n_blocks, int max_in, int hidden,
+                                              float* gseg, float* gw, void* stream) {
+  if (rows <= 0 || R <= 0 || n <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
+      (p_mode != kPerBatch && p_mode != kPerRow)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  chain_ctx_weight_grad_kernel<<<4 * n_blocks * kHidden, 256, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      g1, rows, n, p_mode, R, ctx, sb, sn, ctx_dim, 4 * n_blocks, max_in, gseg, gw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gctx (rows x C), a row per row of the chain.
+extern "C" int nfdpf_coupling_ctx_input_grad(const float* g1, int rows, int ctx_dim, int n_blocks,
+                                             int max_in, int hidden, const float* w, float* gctx,
+                                             void* stream) {
+  if (rows <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long count = (long long)rows * ctx_dim;
+  const int threads = 256;
+  chain_ctx_input_grad_kernel<<<(unsigned)((count + threads - 1) / threads), threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      g1, rows, ctx_dim, 4 * n_blocks, max_in, w, gctx);
   return static_cast<int>(cudaGetLastError());
 }

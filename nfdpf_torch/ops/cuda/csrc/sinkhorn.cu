@@ -12,6 +12,9 @@
 //   out[b,i,:] = sum_j exp( r_i + c_j - 0.5*||x_i - y_j||^2 / eps_b ) * v[b,j,:]
 //   (T @ v with T implicit; its VJP is the same kernel with rows and columns
 //   swapped, launched from the torch.autograd.Function in sinkhorn_cuda.py).
+// sinkhorn_update_kernel (below) is the rest of one iteration of the loop
+// that drives K1 (ot_resample_pallas's while_loop body after the softmin),
+// so that k iterations of (K1, update) can be replayed in a CUDA graph.
 //
 // What bounds them on an H100.  The work is N*M*(7 + 4*G) (lse) or N*M*14
 // (apply) fp32 operations and one expf per group per pair, against
@@ -421,6 +424,109 @@ apply_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fused update: everything of a Sinkhorn iteration after K1
+// ---------------------------------------------------------------------------
+//
+// Replaces the rest of the body of the while_loop in
+// nfdpf_tpu/ops/pallas/sinkhorn_pallas.py::ot_resample_pallas (body_fn and
+// cond_fn): from K1's logsumexps it makes the softmins -eps*lse, the
+// damped potentials where(run, ., old) halved with the old ones, the
+// per-row max |delta| of both (NaN propagated, as torch.amax does), the
+// new eps = max(eps*scaling^2, eps_target), the new running flags, the loop
+// counter and the done flag !(i + 1 < max_iter - 1 && agg(running)), agg
+// all or any over the batch, and the next iteration's K1 input
+// fs = [logw + b_x/eps, -log n + a_y/eps] in place.  With `freeze` set it
+// returns at once once the flag is set, so a CUDA graph of k iterations
+// stops on the loop's own iteration and the state stays what it was.
+// The arithmetic is torch's, operation for operation (__fmul_rn,
+// __fadd_rn, __fdiv_rn: no contraction into fma), so the potentials and
+// the iteration count are the eager loop's bit for bit.
+// A block per batch row (threads over its N columns); the batch-wide
+// aggregate is taken by the last block to arrive (an atomic counter; the
+// AND or OR is order-free, so the bits do not depend on the order).  What
+// bounds it: ~9 floats moved per (row, column), O(B·N) bytes; at the
+// filter's sizes a launch's latency.
+
+struct LoopState {
+  int done, iters, agg;
+  unsigned arrived;
+};
+
+// max with NaN propagated (torch.amax / torch.maximum)
+__device__ __forceinline__ float nan_max(float m, float v) {
+  return (v > m || v != v) ? v : m;
+}
+
+__global__ void __launch_bounds__(1024)
+sinkhorn_update_kernel(const float* __restrict__ lse, float* __restrict__ a_y,
+                       float* __restrict__ b_x, unsigned char* running, float* eps_run,
+                       const float* __restrict__ eps_target, const float* __restrict__ logw,
+                       float* __restrict__ fs, LoopState* state, int n, float neg_log_n,
+                       float threshold, float scaling_factor, int max_iter, int any,
+                       int freeze) {
+  __shared__ float red[2][32];
+  if (freeze && state->done) return;
+  const int row = blockIdx.x, t = threadIdx.x;
+  const float e = eps_run[row];
+  const bool run = running[row] != 0;
+  const float target = eps_target[row];
+  const float scaled = __fmul_rn(e, scaling_factor);
+  const float new_eps = scaled != scaled ? scaled : target != target ? target
+                        : (scaled > target ? scaled : target);
+  const float neg_e = -e;
+  const size_t base = (size_t)row * n;
+  const float* lse_a = lse + 2 * base;   // group 0: the softmin that updates a_y
+  const float* lse_b = lse_a + n;        // group 1: b_x
+  float* fs_a = fs + 2 * base;
+  float* fs_b = fs_a + n;
+  float da = 0.f, db = 0.f;
+  for (int i = t; i < n; i += blockDim.x) {
+    const float a = a_y[base + i], b = b_x[base + i];
+    const float at = run ? __fmul_rn(neg_e, lse_a[i]) : a;
+    const float bt = run ? __fmul_rn(neg_e, lse_b[i]) : b;
+    const float an = __fmul_rn(__fadd_rn(a, at), 0.5f);
+    const float bn = __fmul_rn(__fadd_rn(b, bt), 0.5f);
+    da = nan_max(da, fabsf(__fsub_rn(an, a)));
+    db = nan_max(db, fabsf(__fsub_rn(bn, b)));
+    a_y[base + i] = an;
+    b_x[base + i] = bn;
+    fs_a[i] = __fadd_rn(logw[base + i], __fdiv_rn(bn, new_eps));
+    fs_b[i] = __fadd_rn(neg_log_n, __fdiv_rn(an, new_eps));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    da = nan_max(da, __shfl_xor_sync(kFullMask, da, o));
+    db = nan_max(db, __shfl_xor_sync(kFullMask, db, o));
+  }
+  const int warps = blockDim.x / 32;
+  if (t % 32 == 0) {
+    red[0][t / 32] = da;
+    red[1][t / 32] = db;
+  }
+  __syncthreads();
+  if (t != 0) return;
+  for (int w = 1; w < warps; ++w) {
+    da = nan_max(da, red[0][w]);
+    db = nan_max(db, red[1][w]);
+  }
+  const bool local = da > threshold || db > threshold;
+  running[row] = (new_eps < e || local) ? 1 : 0;
+  eps_run[row] = new_eps;
+  __threadfence();
+  if (atomicAdd(&state->arrived, 1u) != gridDim.x - 1) return;
+  // the last block to arrive: every row's flag is written
+  __threadfence();
+  const volatile unsigned char* flags = running;
+  bool agg = !any;
+  for (int r = 0; r < (int)gridDim.x; ++r) agg = any ? (agg || flags[r]) : (agg && flags[r]);
+  const int it = state->iters + 1;
+  state->iters = it;
+  state->agg = agg ? 1 : 0;
+  state->done = (it < max_iter - 1 && agg) ? 0 : 1;
+  state->arrived = 0u;
+}
+
 // Returns at once: its device time is the floor under any launch.
 __global__ void empty_kernel() {}
 
@@ -532,6 +638,23 @@ extern "C" int nfdpf_transport_apply(const float* eps, const float* x, const flo
       default: launch_apply_large<4>(s, eps, x2, y2, v2, r, c, out2, b, n, m); break;
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One Sinkhorn iteration's update after K1 (sinkhorn_update_kernel) on a
+// batch of `b` rows of `n` particles; `state` holds the LoopState (4 ints).
+extern "C" int nfdpf_sinkhorn_update(const float* lse, float* a_y, float* b_x,
+                                     unsigned char* running, float* eps_run,
+                                     const float* eps_target, const float* logw, float* fs,
+                                     int* state, int b, int n, float neg_log_n, float threshold,
+                                     float scaling_factor, int max_iter, int any, int freeze,
+                                     void* stream) {
+  if (b <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = n >= 1024 ? 1024 : (n + 31) / 32 * 32;
+  sinkhorn_update_kernel<<<b, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      lse, a_y, b_x, running, eps_run, eps_target, logw, fs,
+      reinterpret_cast<LoopState*>(state), n, neg_log_n, threshold, scaling_factor, max_iter,
+      any, freeze);
   return static_cast<int>(cudaGetLastError());
 }
 

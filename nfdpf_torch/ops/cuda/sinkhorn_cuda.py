@@ -21,7 +21,14 @@ launch takes is chosen in ``csrc/sinkhorn.cu`` from (B, N, M).
 
 ``ot_resample_streaming`` is the driver (``ot_resample_pallas``,
 ``sinkhorn_pallas.py:291-454``, "K3"), cold or warm started, its stop test
-taken over the data axis of a mesh.  ``ot_resample_streaming_sharded`` ("K6",
+taken over the data axis of a mesh.  Each Sinkhorn iteration is K1 and one
+more kernel, ``sinkhorn_update`` (``csrc/sinkhorn.cu``: the rest of the
+iteration, the loop counter and a done flag that freezes the state on the
+loop's own last iteration); on the card ``loop_chunk(N)`` iterations of the
+two are captured once in a CUDA graph and replayed, with one host read of
+the flag per replay.  ``ot_resample_streaming_plain`` is the driver's plain
+version: the eager loop on every kernel's plain version, one host read per
+iteration.  ``ot_resample_streaming_sharded`` ("K6",
 ``ot_resample_pallas_sharded``, ``sinkhorn_pallas.py:462-632``) runs it with
 the particle axis sharded over ranks, on the same two kernels: each rank's
 rows against every rank's columns.
@@ -48,16 +55,34 @@ from nfdpf_torch.parallel.mesh import (
     pmax,
 )
 
-# kernel launches since the last reset, by kernel; "sharded_resample" counts
-# the calls of the particle-sharded driver (K6), which launches K1 and K2
-LAUNCHES = {"sinkhorn_lse": 0, "transport_apply": 0, "transport_apply_bwd": 0,
-            "sharded_resample": 0}
+# kernel launches since the last reset, by kernel; "streaming_resample" and
+# "sharded_resample" count the calls on the card of the drivers K3 and K6,
+# which launch K1, the update and K2
+LAUNCHES = {"sinkhorn_lse": 0, "sinkhorn_update": 0, "transport_apply": 0,
+            "transport_apply_bwd": 0, "streaming_resample": 0, "sharded_resample": 0}
+
+# Sinkhorn iterations between two host reads of the loop's stop flag: on the
+# card LOOP_CHUNK × (K1, update) are one CUDA-graph replay.  A replay after
+# the loop has stopped runs its iterations frozen (K1 launches, the update
+# writes nothing), and above LOOP_CHUNK_MAX_N particles a frozen K1 costs
+# more than the host read it saves (0.53 ms at B=4, N=10,240 on an H100), so
+# there a replay holds one iteration.  From timing chunks of 1-16 at (32,
+# 100), (10, 100), (4, 4,097) and (4, 10,240) on an H100 (PERF.md §6).
+LOOP_CHUNK = 8
+LOOP_CHUNK_MAX_N = 1024
+
+# the streaming loop (K3's, card or CPU) since the last reset: firings,
+# iterations (the raw count) and host reads of its stop test
+STREAMING_LOOP = {"calls": 0, "iters": 0, "host_reads": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "nfdpf_sinkhorn_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "nfdpf_transport_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nfdpf_sinkhorn_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                              _I, _I, _I, _P],
     "nfdpf_empty_launch": [_I, _I, _P],
 }
 
@@ -65,6 +90,11 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_streaming_loop() -> None:
+    for k in STREAMING_LOOP:
+        STREAMING_LOOP[k] = 0
 
 
 def _library():
@@ -119,12 +149,19 @@ def streaming_lse_multi(eps: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"K1 takes G in (1, 2) and B <= 65535, got G={g}, B={b}")
     eps, x, y, fs = kernel_args(eps, x, y, fs)
     out = torch.empty((b, g, n), device=x.device, dtype=torch.float32)
-    rc = _library().nfdpf_sinkhorn_lse(
-        eps.data_ptr(), x.data_ptr(), y.data_ptr(), fs.data_ptr(),
-        out.data_ptr(), b, n, m, g, torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(rc, "sinkhorn_lse")
+    _launch_lse(eps, x, y, fs, out)
     LAUNCHES["sinkhorn_lse"] += 1
     return out
+
+
+def _launch_lse(eps, x, y, fs, out) -> None:
+    """K1 on float32 CUDA tensors that are contiguous and checked, into
+    ``out``; the callers count the launch."""
+    b, n, _ = x.shape
+    rc = _library().nfdpf_sinkhorn_lse(
+        eps.data_ptr(), x.data_ptr(), y.data_ptr(), fs.data_ptr(), out.data_ptr(),
+        b, n, y.shape[1], fs.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(rc, "sinkhorn_lse")
 
 
 def streaming_lse(eps, x, y, f) -> torch.Tensor:
@@ -214,6 +251,218 @@ def streaming_transport_apply(values, eps, scaled_x, r, c) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def loop_chunk(n: int) -> int:
+    """Iterations per host read of the stop flag for N = ``n`` particles."""
+    return LOOP_CHUNK if n <= LOOP_CHUNK_MAX_N else 1
+
+
+def _k1_input(logw, uniform_logw, a_y, b_x, eps_run) -> torch.Tensor:
+    """K1's input for the loop's next iteration, (B, 2, N)."""
+    eps_col = eps_run[:, None]
+    return torch.stack([logw + b_x / eps_col, uniform_logw + a_y / eps_col], dim=1)
+
+
+def sinkhorn_update_plain(lse, a_y, b_x, running, eps_run, eps_target, logw, uniform_logw,
+                          threshold: float, scaling_factor: float):
+    """Plain version of the update kernel: the rest of one Sinkhorn iteration
+    after K1, whose logsumexps ``lse`` (B, 2, N) were taken of
+    ``_k1_input(...)`` at ``eps_run``.  Returns the new (a_y, b_x, running,
+    eps_run) and the next iteration's K1 input (B, 2, N)."""
+    outs = -eps_run[:, None, None] * lse
+    run = running[:, None]
+    at_y = torch.where(run, outs[:, 0], a_y)
+    bt_x = torch.where(run, outs[:, 1], b_x)
+    a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
+    a_diff = torch.amax(torch.abs(a_y_new - a_y), dim=1)
+    b_diff = torch.amax(torch.abs(b_x_new - b_x), dim=1)
+    local = (a_diff > threshold) | (b_diff > threshold)
+    new_eps = torch.maximum(eps_run * scaling_factor, eps_target)
+    running = (new_eps < eps_run) | local
+    return (a_y_new, b_x_new, running, new_eps,
+            _k1_input(logw, uniform_logw, a_y_new, b_x_new, new_eps))
+
+
+class _Loop:
+    """The Sinkhorn loop's state in buffers of fixed address, (B, N) on one
+    device, in the inputs' dtype (float32 on the card): the scaled particles, log-weights, ε target and running ε, the
+    potentials (a_y, b_x), the running flags, K1's input ``fs`` and output
+    ``lse`` (B, 2, N) and ``state`` (done, iterations, the batch's
+    aggregate of the running flags, the update's arrival count).  On the
+    card a chunk of iterations is a CUDA graph over these buffers, captured
+    at the first chunk and replayed after; on the CPU the same chunk runs
+    on the plain versions."""
+
+    def __init__(self, b: int, n: int, device, params, dtype=torch.float32):
+        like = dict(dtype=dtype, device=device)
+        self.x = torch.zeros(b, n, 2, **like)
+        self.logw = torch.zeros(b, n, **like)
+        self.uniform = torch.full((b, n), -math.log(n), **like)
+        self.eps_target = torch.zeros(b, **like)
+        self.eps_run = torch.zeros(b, **like)
+        self.a_y = torch.zeros(b, n, **like)
+        self.b_x = torch.zeros(b, n, **like)
+        self.running = torch.ones(b, dtype=torch.bool, device=device)
+        self.fs = torch.zeros(b, 2, n, **like)
+        self.lse = torch.zeros(b, 2, n, **like)
+        self.state = torch.zeros(4, dtype=torch.int32, device=device)
+        # (threshold, scaling², max_iter, convergence): kernel arguments a
+        # graph keeps
+        self.params = params
+        self.graph = None
+
+    def load(self, x, logw, eps_target, eps_run, a_y, b_x) -> None:
+        """A firing's inputs into the buffers; the loop state reset."""
+        for dst, src in ((self.x, x), (self.logw, logw), (self.eps_target, eps_target),
+                         (self.eps_run, eps_run), (self.a_y, a_y), (self.b_x, b_x)):
+            dst.copy_(src)
+        self.running.fill_(True)
+        self.state.zero_()
+        self.fs.copy_(_k1_input(logw, self.uniform, a_y, b_x, eps_run))
+
+    def iteration(self, freeze: bool) -> None:
+        """K1, then the update (neither counted here)."""
+        if self.x.is_cuda:
+            _launch_lse(self.eps_run, self.x, self.x, self.fs, self.lse)
+        else:
+            self.lse.copy_(lse_multi_plain(self.eps_run, self.x, self.x, self.fs))
+        self.update(freeze)
+
+    def update(self, freeze: bool) -> None:
+        """The rest of the iteration from K1's output in ``lse``: the update
+        kernel on the card, its plain version on the CPU.  With ``freeze`` it
+        leaves the state as it is once the done flag is set."""
+        threshold, scaling_factor, max_iter, convergence = self.params
+        if self.x.is_cuda:
+            b, n = self.logw.shape
+            rc = _library().nfdpf_sinkhorn_update(
+                self.lse.data_ptr(), self.a_y.data_ptr(), self.b_x.data_ptr(),
+                self.running.data_ptr(), self.eps_run.data_ptr(), self.eps_target.data_ptr(),
+                self.logw.data_ptr(), self.fs.data_ptr(), self.state.data_ptr(), b, n,
+                -math.log(n), threshold, scaling_factor, max_iter, int(convergence == "any"),
+                int(freeze), torch.cuda.current_stream(self.x.device).cuda_stream)
+            check_launch(rc, "sinkhorn_update")
+            return
+        if freeze and bool(self.state[0]):
+            return
+        new = sinkhorn_update_plain(self.lse, self.a_y, self.b_x, self.running, self.eps_run,
+                                    self.eps_target, self.logw, self.uniform, threshold,
+                                    scaling_factor)
+        for dst, src in zip((self.a_y, self.b_x, self.running, self.eps_run, self.fs), new):
+            dst.copy_(src)
+        agg = bool(torch.all(new[2]) if convergence == "all" else torch.any(new[2]))
+        it = int(self.state[1]) + 1
+        self.state[:3] = torch.tensor([int(not (it < max_iter - 1 and agg)), it, int(agg)])
+
+    def chunk(self, k: int) -> None:
+        """k iterations, frozen once done: one graph replay on the card."""
+        if not self.x.is_cuda:
+            for _ in range(k):
+                self.iteration(freeze=True)
+            return
+        if self.graph is None:
+            self._capture(k)
+        self.graph.replay()
+        LAUNCHES["sinkhorn_lse"] += k
+        LAUNCHES["sinkhorn_update"] += k
+
+    def _capture(self, k: int) -> None:
+        """Capture k iterations in a CUDA graph, after one warm-up chunk on
+        a side stream (which loads the kernels; the caller loads the firing
+        again).  Under no_grad, never inside a replay."""
+        dev = self.x.device
+        with torch.no_grad():
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(k):
+                    self.iteration(freeze=True)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            LAUNCHES["sinkhorn_lse"] += k
+            LAUNCHES["sinkhorn_update"] += k
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for _ in range(k):
+                    self.iteration(freeze=True)
+        self.graph = graph
+
+
+# one loop (and its graph) per (device, B, N, chunk, loop constants)
+_LOOPS: dict = {}
+
+
+def _run_loop(scaled_x, logw, eps_target, eps_run, a_y, b_x, threshold, scaling_factor,
+              max_iter, convergence, mesh):
+    """The annealed loop from (a_y, b_x) at ``eps_run``: (a_y, b_x, the raw
+    iteration count).  With a data axis of several ranks the stop test is
+    taken on the host over the data group after every iteration (a
+    collective a graph cannot hold); the update then never freezes, so each
+    rank's state follows the group's decision."""
+    b, n = logw.shape
+    dev = scaled_x.device
+    params = (float(threshold), float(scaling_factor), int(max_iter), convergence)
+    STREAMING_LOOP["calls"] += 1
+    if max_iter <= 1:
+        return a_y, b_x, 0
+    inputs = (scaled_x, logw, eps_target, eps_run, a_y, b_x)
+    if axis_size(mesh, DATA_AXIS) > 1:
+        loop = _Loop(b, n, dev, params, logw.dtype)
+        loop.load(*inputs)
+        i = 0
+        while True:
+            loop.iteration(freeze=False)
+            if dev.type == "cuda":
+                LAUNCHES["sinkhorn_lse"] += 1
+                LAUNCHES["sinkhorn_update"] += 1
+            i += 1
+            if not i < max_iter - 1:
+                break
+            STREAMING_LOOP["host_reads"] += 1
+            if not agree(loop.state[2] != 0, mesh, DATA_AXIS, convergence):
+                break
+    else:
+        k = loop_chunk(n)
+        key = (dev, b, n, k, params)
+        loop = _LOOPS.get(key) if dev.type == "cuda" else None
+        if loop is None:
+            loop = _Loop(b, n, dev, params, logw.dtype)
+            if dev.type == "cuda":
+                _LOOPS[key] = loop
+        loop.load(*inputs)
+        if dev.type == "cuda" and loop.graph is None:
+            loop._capture(k)
+            loop.load(*inputs)
+        while True:
+            loop.chunk(k)
+            done, i = loop.state[:2].tolist()        # the one host read of a chunk
+            STREAMING_LOOP["host_reads"] += 1
+            if done:
+                break
+    STREAMING_LOOP["iters"] += i
+    return loop.a_y.clone(), loop.b_x.clone(), i
+
+
+def _eager_loop(scaled_x, logw, uniform_logw, eps_target, eps_run, a_y, b_x, threshold,
+                scaling_factor, max_iter, convergence, mesh):
+    """The loop of the driver's plain version: one iteration at a time on the
+    plain K1 and update, the stop test read on the host before each."""
+    running = torch.ones(logw.shape[0], dtype=torch.bool, device=logw.device)
+    agg = torch.all if convergence == "all" else torch.any
+    STREAMING_LOOP["calls"] += 1
+    i = 0
+    while i < max_iter - 1:
+        STREAMING_LOOP["host_reads"] += 1
+        if not agree(agg(running), mesh, DATA_AXIS, convergence):
+            break
+        lse = lse_multi_plain(eps_run, scaled_x, scaled_x,
+                              _k1_input(logw, uniform_logw, a_y, b_x, eps_run))
+        a_y, b_x, running, eps_run, _ = sinkhorn_update_plain(
+            lse, a_y, b_x, running, eps_run, eps_target, logw, uniform_logw, threshold,
+            scaling_factor)
+        i += 1
+    STREAMING_LOOP["iters"] += i
+    return a_y, b_x, i
+
+
 def ot_resample_streaming(
     particles: torch.Tensor,
     probs: torch.Tensor,
@@ -242,12 +491,45 @@ def ot_resample_streaming(
     max(min(ε₀, ``warm_eps_factor``·ε), ε) per row; without it the start is
     cold.  Only the iteration count can change: the loop is detached.
 
-    The loop's stopping test is read on the host once per iteration (eager
-    PyTorch has no on-device while loop): one device sync per iteration.
-    With a ``mesh`` whose data axis shards the batch, the test is taken over
-    the whole batch (an all-reduce over the data group, JAX's ``axis_name``),
-    so every data rank runs the unsharded batch's iterations.
+    The loop runs ``loop_chunk(N)`` iterations between two host reads of its
+    stop flag: on the card one replay of a CUDA graph of (K1, update) pairs
+    (captured at the first call of a shape), on the CPU the same chunk on
+    the plain versions.  The update freezes the state on the loop's own last
+    iteration, so the potentials and ``iters`` are those of a loop that
+    tests after every iteration.  With a ``mesh`` whose data axis shards the
+    batch, the test is taken over the whole batch (an all-reduce over the
+    data group, JAX's ``axis_name``) after every iteration, so every data
+    rank runs the unsharded batch's iterations.
     """
+    if not on_cpu(particles, probs):
+        LAUNCHES["streaming_resample"] += 1
+    return _ot_resample(particles, probs, eps, scaling, threshold, max_iter, convergence,
+                        warm_start, warm_eps_factor, return_potentials, mesh, plain=False)
+
+
+def ot_resample_streaming_plain(
+    particles: torch.Tensor,
+    probs: torch.Tensor,
+    eps: float = 0.1,
+    scaling: float = 0.75,
+    threshold: float = 1e-3,
+    max_iter: int = 100,
+    convergence: str = "all",
+    warm_start: Optional[Tuple[torch.Tensor, bool]] = None,
+    warm_eps_factor: float = 16.0,
+    return_potentials: bool = False,
+    mesh: Optional[Mesh] = None,
+):
+    """Plain version of ``ot_resample_streaming``: the same function on
+    every kernel's plain version (K1, K2, the update), one iteration at a
+    time with the stop test read on the host before each, on any device.
+    On the CPU it is ``ot_resample_streaming`` bit for bit."""
+    return _ot_resample(particles, probs, eps, scaling, threshold, max_iter, convergence,
+                        warm_start, warm_eps_factor, return_potentials, mesh, plain=True)
+
+
+def _ot_resample(particles, probs, eps, scaling, threshold, max_iter, convergence,
+                 warm_start, warm_eps_factor, return_potentials, mesh, plain: bool):
     if convergence not in ("all", "any"):
         raise ValueError(f"convergence must be 'all' or 'any', got {convergence!r}")
     b, n, d = particles.shape
@@ -262,9 +544,10 @@ def ot_resample_streaming(
     # a device fill, not a host→device copy (which would sync each firing)
     eps_b = torch.full((b,), eps, dtype=torch.float32, device=dev)
     scaling_factor = scaling**2
+    lse = lse_multi_plain if plain else streaming_lse_multi
 
     def sm2(e, fvecs):
-        return streaming_softmin_multi(e, scaled_x, scaled_x, fvecs)
+        return -e[:, None, None] * lse(e, scaled_x, scaled_x, fvecs)
 
     # Only (a_y, b_x) are live: the self-transport (a_x, b_y) of the
     # symmetric loop never feed them, the stopping test or the plan.
@@ -281,26 +564,12 @@ def ot_resample_streaming(
         init = sm2(eps_run, torch.stack([logw_sg, uniform_logw], dim=1))
         a_y, b_x = init[:, 0], init[:, 1]
 
-    running = torch.ones(b, dtype=torch.bool, device=dev)
-    agg = torch.all if convergence == "all" else torch.any
-    i = 0
-    # the loop continues while i < max_iter-1 and every ('all') / some
-    # ('any') row of the batch is still running
-    while i < max_iter - 1 and agree(agg(running), mesh, DATA_AXIS, convergence):
-        eps_col = eps_run[:, None]
-        run = running[:, None]
-        outs = sm2(eps_run, torch.stack([logw_sg + b_x / eps_col,
-                                         uniform_logw + a_y / eps_col], dim=1))
-        at_y = torch.where(run, outs[:, 0], a_y)
-        bt_x = torch.where(run, outs[:, 1], b_x)
-        a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
-        a_diff = torch.amax(torch.abs(a_y_new - a_y), dim=1)
-        b_diff = torch.amax(torch.abs(b_x_new - b_x), dim=1)
-        local = (a_diff > threshold) | (b_diff > threshold)
-        new_eps = torch.maximum(eps_run * scaling_factor, eps_b)
-        running = (new_eps < eps_run) | local
-        a_y, b_x, eps_run = a_y_new, b_x_new, new_eps
-        i += 1
+    if plain:
+        a_y, b_x, i = _eager_loop(scaled_x, logw_sg, uniform_logw, eps_b, eps_run, a_y, b_x,
+                                  threshold, scaling_factor, max_iter, convergence, mesh)
+    else:
+        a_y, b_x, i = _run_loop(scaled_x, logw_sg, eps_b, eps_run, a_y, b_x, threshold,
+                                scaling_factor, max_iter, convergence, mesh)
 
     finals = sm2(eps_b, torch.stack([logw_sg + b_x / eps_b[:, None],
                                      uniform_logw + a_y / eps_b[:, None]], dim=1))
@@ -308,13 +577,16 @@ def ot_resample_streaming(
 
     # T_ij = exp((f_i + g_j − C_ij)/ε − colnorm_j + log n + logw_j), with
     # colnorm_j = g_j/ε + logsumexp_i(f_i/ε − C_ij/ε) since C is symmetric
-    lse_col = streaming_lse(eps_b, scaled_x, scaled_x, final_f / eps_b[:, None])
+    lse_col = lse(eps_b, scaled_x, scaled_x, (final_f / eps_b[:, None])[:, None])[:, 0]
     colnorm = final_g / eps_b[:, None] + lse_col
     r = final_f / eps_b[:, None]
     c = final_g / eps_b[:, None] - colnorm + math.log(n) + logw_sg
 
     # T is applied to the RAW particles; the geometry stays scaled
-    transported = streaming_transport_apply(particles, eps_b, scaled_x, r, c)
+    if plain:
+        transported = transport_apply_plain(particles, eps_b, scaled_x, scaled_x, r, c)
+    else:
+        transported = streaming_transport_apply(particles, eps_b, scaled_x, r, c)
     uniform = torch.full_like(probs, 1.0 / n)
     idx = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
     if return_potentials:

@@ -185,6 +185,76 @@ def test_ot_resample_on_kernels_matches_cpu(cuda):
     torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-5, atol=1e-3)
 
 
+def _loop_inputs(b, n, seed, device):
+    """A firing's loop inputs as the driver makes them, on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, n, 2, generator=gen) * 20
+    probs = torch.softmax(torch.randn(b, n, generator=gen), dim=-1)
+    return x.to(device), probs.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(32, 100), (4, 4097)])
+def test_sinkhorn_update_kernel_matches_plain(cuda, b, n):
+    """The fused update against its plain version (torch's own ops on the
+    card) on the same K1 output: potentials, flags, ε and the next K1 input
+    bit for bit, and the loop counter and done flag set."""
+    gen = torch.Generator().manual_seed(b + n)
+    loop = sc._Loop(b, n, cuda, (1e-3, 0.75**2, 100, "all"))
+    x = (torch.randn(b, n, 2, generator=gen) * 0.5).to(cuda)
+    logw = torch.log_softmax(torch.randn(b, n, generator=gen), -1).to(cuda)
+    eps_b = torch.full((b,), 0.1, device=cuda)
+    eps_run = torch.linspace(0.05, 3.0, b).to(cuda)
+    a_y, b_x = ((torch.randn(b, n, generator=gen) * 0.1).to(cuda) for _ in range(2))
+    loop.load(x, logw, eps_b, eps_run, a_y, b_x)
+    loop.running[::3] = False
+    running = loop.running.clone()
+    loop.iteration(freeze=True)
+    torch.cuda.synchronize()
+    ref = sc.sinkhorn_update_plain(loop.lse, a_y, b_x, running, eps_run, eps_b, logw,
+                                   loop.uniform, 1e-3, 0.75**2)
+    for got, want in zip((loop.a_y, loop.b_x, loop.running, loop.eps_run, loop.fs), ref):
+        assert torch.equal(got, want)
+    done, iters, agg, arrived = loop.state.tolist()
+    assert (iters, agg, arrived) == (1, int(bool(ref[2].all())), 0) and done == 1 - agg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("convergence", ["all", "any"])
+@pytest.mark.parametrize("b,n,max_iter", [(32, 100, 100), (10, 100, 100), (4, 4097, 100),
+                                          (32, 100, 9), (32, 100, 2), (32, 100, 1)])
+def test_ot_resample_graph_matches_one_iteration_chunks(cuda, monkeypatch, b, n, max_iter,
+                                                        convergence, warm):
+    """K3 on the card replays ``LOOP_CHUNK`` iterations a graph (here at
+    every N); against chunks of one iteration: the same iterations and the
+    same bits
+    (potentials, particles), with one host read per replay, and the same
+    iterations as the driver's plain version on the CPU, particles within
+    rtol 1e-4 / atol 1e-3 (magnitude 60; at max_iter 1 the plan is the
+    unconverged start's, where the card's and the CPU's rounding of K1 part
+    by 2.7e-5 relative)."""
+    x, probs = _loop_inputs(b, n, b + n + max_iter, cuda)
+    kw = dict(max_iter=max_iter, convergence=convergence, return_potentials=True)
+    if warm:
+        kw["warm_start"] = (sc.ot_resample_streaming(x, probs, **kw)[4], True)
+    runs = {}
+    monkeypatch.setattr(sc, "LOOP_CHUNK_MAX_N", 1 << 30)
+    for k in (1, sc.LOOP_CHUNK):
+        monkeypatch.setattr(sc, "LOOP_CHUNK", k)
+        sc.reset_streaming_loop()
+        runs[k] = sc.ot_resample_streaming(x, probs, **kw), dict(sc.STREAMING_LOOP)
+    (one, loop1), (graph, loop_k) = runs[1], runs[sc.LOOP_CHUNK]
+    assert graph[3] == one[3] == loop_k["iters"] == loop1["iters"]
+    # the done flag is set in the loop's last iteration: ⌈iters / k⌉ replays
+    assert loop_k["host_reads"] == -(-one[3] // sc.LOOP_CHUNK)
+    assert torch.equal(graph[4], one[4]) and torch.equal(graph[0], one[0])
+    cpu_kw = dict(kw, warm_start=(kw["warm_start"][0].cpu(), True)) if warm else kw
+    plain = sc.ot_resample_streaming_plain(x.cpu(), probs.cpu(), **cpu_kw)
+    assert plain[3] == one[3]
+    torch.testing.assert_close(one[0].cpu(), plain[0], rtol=1e-4, atol=1e-3)
+
+
 def _chain_case(b, n, ctx_dim, seed, broadcast_ctx=False, n_blocks=2, hidden=8):
     """Packed chain parameters at std 0.3 (layout of ``pack_chain_params``:
     only the rows and columns the chain reads are filled) and inputs."""
@@ -332,8 +402,9 @@ def test_coupling_chain_forward_kernel(cuda, b, n, ctx_dim, n_blocks, hidden, br
                                        inverse):
     """K4 as the eval route calls it (no autograd), where its blocks, lanes
     and runs of rows that share a context row meet awkward shapes: outputs
-    to rtol/atol 1e-5 against the plain version, one launch per call, and a
-    second launch gives the same bits."""
+    to rtol/atol 1e-5 against the plain version, one launch of K4 and one of
+    the context-share kernel per call, and a second launch gives the same
+    bits."""
     x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(
         b, n, ctx_dim, 17 * b + n + n_blocks, broadcast, n_blocks, hidden))
     if broadcast:
@@ -350,7 +421,8 @@ def test_coupling_chain_forward_kernel(cuda, b, n, ctx_dim, n_blocks, hidden, br
         again = cc.fused_coupling_chain(x, ctx, w, bias, inverse)
     torch.cuda.synchronize()
     fwd = "coupling_chain_inverse" if inverse else "coupling_chain"
-    assert cc.LAUNCHES[fwd] == 2 and sum(cc.LAUNCHES.values()) == 2
+    assert cc.LAUNCHES[fwd] == 2 and cc.LAUNCHES["coupling_ctx_share"] == 2
+    assert sum(cc.LAUNCHES.values()) == 4
     ref = cc.chain_apply_packed_plain(x, ctx, w, bias, inverse)
     for a, a2, r in zip(got, again, ref):
         assert torch.equal(a, a2)
@@ -459,11 +531,13 @@ def test_bf16_cnf_train_step_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_coupling_chain_backward_refuses_what_its_shared_memory_cannot_hold(cuda):
-    """Parameters that fit the forward kernel but not the backward's shared
-    memory (twice the parameters plus its tiles): the forward launches, the
+    """A chain the forward kernel takes but whose backward's shared memory
+    (twice the parameters of a chain without context plus its factor tile)
+    passes a block's: four blocks at hidden 16.  The forward launches, the
     backward raises before a launch the card would refuse."""
-    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(2, 10, 250, 3))
-    assert cc.bwd_smem_bytes(2, 250, 251, 8) > cc.MAX_SMEM_BYTES >= 4 * (w.numel() + bias.numel())
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(2, 10, 4, 3, n_blocks=4,
+                                                                hidden=16))
+    assert cc.bwd_smem_bytes(4, 16) > cc.MAX_SMEM_BYTES >= cc.fwd_smem_bytes(4, 16, 2)
     w.requires_grad_()
     y, ld = cc.fused_coupling_chain(x, ctx, w, bias)
     with pytest.raises(ValueError, match="shared memory in the backward"):
@@ -476,11 +550,85 @@ def test_coupling_chain_refuses_what_the_kernels_do_not_take(cuda):
     x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, hidden=17))
     with pytest.raises(ValueError, match="hidden"):
         cc.fused_coupling_chain(x, ctx, w, bias)
-    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 400, 1, n_blocks=8))
-    with pytest.raises(ValueError, match="shared memory"):
+    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, n_blocks=9))
+    with pytest.raises(ValueError, match="blocks"):
         cc.fused_coupling_chain(x, ctx, w, bias)
     with pytest.raises(ValueError, match="several devices"):
         cc.fused_coupling_chain(x.cpu(), ctx, w, bias)
+
+
+# contexts wider than the kernels' shared memory held before the context's
+# share left them, as (B, N, C, context broadcast, blocks): the CGLOW
+# proposal's 196 at the filter's (32, 100) and main_cli's eval batch, dense
+# at a ragged large shape, and wider still at more blocks
+CHAIN_WIDE_CONTEXTS = [(32, 100, 196, True, 2), (10, 100, 196, True, 2),
+                       (4, 4097, 196, False, 2), (2, 300, 250, True, 2), (3, 70, 400, False, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n,ctx_dim,broadcast,n_blocks", CHAIN_WIDE_CONTEXTS)
+def test_coupling_chain_takes_wide_contexts(cuda, b, n, ctx_dim, broadcast, n_blocks, inverse):
+    """K4/K5 with the context kernels at context widths up to 400: outputs
+    to rtol/atol 1e-5 and every gradient (x, the context, weights, biases)
+    to 1e-4 of its scale against the plain version's autograd, the same
+    bits from a second call, and each kernel launched once a call (the
+    context's gradient kernel only where the context asks for one)."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(
+        b, n, ctx_dim, 29 * b + n + ctx_dim, broadcast, n_blocks))
+
+    def run(fn, ctx_grad=True):
+        leaves = [t.clone().requires_grad_() for t in (x, ctx, w, bias)]
+        leaves[1].requires_grad_(ctx_grad)
+        y, ld = fn(leaves[0], leaves[1].expand(b, n, ctx_dim), leaves[2], leaves[3], inverse)
+        wanted = [t for t in leaves if t.requires_grad]
+        return [y, ld] + list(torch.autograd.grad([y, ld], wanted, [gy, gld]))
+
+    cc.reset_launches()
+    got, again = run(cc.fused_coupling_chain), run(cc.fused_coupling_chain)
+    torch.cuda.synchronize()
+    fwd = "coupling_chain_inverse" if inverse else "coupling_chain"
+    assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
+        fwd: 2, "coupling_chain_bwd": 2, "coupling_ctx_share": 2,
+        "coupling_ctx_weight_grad": 2, "coupling_ctx_input_grad": 2}
+    no_ctx = run(cc.fused_coupling_chain, ctx_grad=False)
+    assert cc.LAUNCHES["coupling_ctx_input_grad"] == 2
+    ref = run(cc.chain_apply_packed_plain)
+    for k, (a, a2, r) in enumerate(zip(got, again, ref)):
+        a, a2, r = a.detach(), a2.detach(), r.detach()
+        assert torch.equal(a, a2)
+        if k < 2:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+    for a, c in zip(got[:3] + got[4:], no_ctx):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,ctx_dim,broadcast", [(32, 100, 196, True), (4, 4097, 36, False),
+                                                   (3, 33, 5, True)])
+def test_context_kernels_match_plain(cuda, b, n, ctx_dim, broadcast):
+    """The three context kernels alone against their plain versions: the
+    share to rtol/atol 1e-5, the two gradients to 1e-4 of their scale;
+    second launches give the same bits."""
+    _, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(b, n, ctx_dim, 31 * b + n,
+                                                              broadcast))
+    ctx = ctx.expand(b, n, ctx_dim)
+    g1 = torch.randn(b * n, 4 * 2 * 8, generator=torch.Generator().manual_seed(b)).to(cuda)
+    got = [cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w),
+           cc.ctx_input_grad(g1, w, ctx_dim)]
+    again = [cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w),
+             cc.ctx_input_grad(g1, w, ctx_dim)]
+    ref = [cc.ctx_share_plain(ctx, w, bias), cc.ctx_weight_grad_plain(g1, ctx, w),
+           cc.ctx_input_grad_plain(g1, w, ctx_dim)]
+    torch.cuda.synchronize()
+    for k, (a, a2, r) in enumerate(zip(got, again, ref)):
+        assert torch.equal(a, a2)
+        if k == 0:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
 
 
 # ---------------------------------------------------------------------------

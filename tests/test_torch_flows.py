@@ -196,6 +196,113 @@ def test_packed_chain_gradients_match_jax_fused_backward(ctx_dim, inverse):
     assert torch.count_nonzero(tw.grad[:, :, 2, :, 1:]) == 0
 
 
+@pytest.mark.parametrize("broadcast,inverse", [(True, True), (False, False)],
+                         ids=["broadcast-inverse", "dense-forward"])
+def test_split_route_matches_packed_plain_and_jax(broadcast, inverse):
+    """The route the CUDA kernels take with the context's share of layer 0
+    split out (``chain_apply_split_plain``: P per distinct context row, then
+    the chain on it) at the CGLOW proposal's 196-wide context, K = 2, H = 8,
+    the context broadcast over the particles (as the filter passes it) or
+    dense: outputs, log-det and the gradients of Σ sin(y) + Σ ld² with
+    respect to x, the context, weights and biases against
+    ``chain_apply_packed_plain`` in both directions (rtol/atol 1e-5), and in
+    the case's direction against the JAX fused kernel and its fused backward
+    (interpret mode; outputs rtol/atol 1e-5, gradients rtol 2e-5 and atol
+    2e-5 as above, or 2e-6 of the gradient's largest magnitude where that is
+    more: at C = 196 the weight gradients reach ~100 and summation order
+    alone moves them by ~1e-6 of that; ``chain_apply_packed_plain`` itself
+    sits 5.3e-5 from JAX on an entry of a gradient that peaks at 79).  The
+    two cases take each layout and each direction to JAX once."""
+    ctx_dim, b, n = 196, 2, 40
+    _, variables, _ = _chains(ctx_dim, seed=8)
+    x, ctx = _inputs(9, b, n, ctx_dim)
+    if broadcast:
+        ctx = np.ascontiguousarray(np.broadcast_to(ctx[:, :1], ctx.shape))
+    w_ref, b_ref = cp.pack_chain_params(variables, 2, ctx_dim)
+
+    def loss_fused(x_, c_, w_, b_):
+        y, ld = cp.fused_coupling_chain(x_, c_, w_, b_, inverse)
+        return jnp.sum(jnp.sin(y)) + jnp.sum(ld * ld), (y, ld)
+
+    (_, (y_ref, ld_ref)), grads_ref = jax.value_and_grad(
+        loss_fused, argnums=(0, 1, 2, 3), has_aux=True)(jnp.asarray(x), jnp.asarray(ctx),
+                                                         w_ref, b_ref)
+
+    def run(fn, direction):
+        tx, tw, tb = (_t(a).requires_grad_() for a in (x, w_ref, b_ref))
+        tc = _t(ctx[:, :1] if broadcast else ctx).requires_grad_()
+        y, ld = fn(tx, tc.expand(b, n, ctx_dim), tw, tb, direction)
+        grads = torch.autograd.grad(torch.sum(torch.sin(y)) + torch.sum(ld * ld),
+                                    [tx, tc, tw, tb])
+        return [y.detach(), ld.detach(), *grads]
+
+    for direction in (False, True):
+        split = run(cc.chain_apply_split_plain, direction)
+        for got, ref in zip(split, run(cc.chain_apply_packed_plain, direction)):
+            assert float(got.abs().sum()) > 0
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    split = run(cc.chain_apply_split_plain, inverse)
+    jax_out = [y_ref, ld_ref, grads_ref[0],
+               jnp.sum(grads_ref[1], axis=1, keepdims=True) if broadcast else grads_ref[1],
+               grads_ref[2], grads_ref[3]]
+    for k, (got, ref_jax) in enumerate(zip(split, jax_out)):
+        ref_jax = np.asarray(ref_jax)
+        if k < 2:
+            np.testing.assert_allclose(got.numpy(), ref_jax, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_allclose(got.numpy(), ref_jax, rtol=2e-5,
+                                       atol=max(2e-5, 2e-6 * float(np.abs(ref_jax).max())))
+
+
+@pytest.mark.parametrize("broadcast", [True, False], ids=["broadcast", "dense"])
+def test_context_kernels_plain_versions(broadcast):
+    """The plain versions of the three context kernels make the context's
+    share and gradients of the packed chain: P (``ctx_share_plain``) is
+    layer 0's bias plus ctx · w0[1..C] per distinct context row (one per
+    batch element when broadcast); from each row's g1 = ∂L/∂P (what K5
+    writes) ``ctx_weight_grad_plain`` and ``ctx_input_grad_plain`` give the
+    context rows of the weight gradient and the context's gradient of
+    ``chain_apply_packed_plain``'s autograd (rtol/atol 1e-5); on CPU tensors
+    the wrappers are the plain versions."""
+    ctx_dim, b, n = 36, 3, 30
+    _, variables, _ = _chains(ctx_dim, seed=10)
+    x, ctx = _inputs(11, b, n, ctx_dim)
+    w, bias = (_t(a) for a in cp.pack_chain_params(variables, 2, ctx_dim))
+    c = _t(ctx[:, :1] if broadcast else ctx)
+    c_in = c.expand(b, n, ctx_dim)
+    p = cc.ctx_share_plain(c_in, w, bias)
+    assert p.shape == ((b if broadcast else b * n), 2 * 4 * 8)
+    assert torch.equal(cc.ctx_share(c_in, w, bias), p)
+    rows = c_in.reshape(b * n, ctx_dim)
+    direct = bias[:, :, 0].reshape(1, -1) + (rows @ w[:, :, 0, 1:1 + ctx_dim].permute(
+        2, 0, 1, 3).reshape(ctx_dim, -1))
+    np.testing.assert_allclose(
+        (p[:, None].expand(b, n, -1).reshape(b * n, -1) if broadcast else p).numpy(),
+        direct.numpy(), rtol=1e-5, atol=1e-5)
+
+    # g1 = ∂L/∂P of each row, through the split route's layer 0
+    p_rows = p.reshape(b, 1 if broadcast else n, 2, 4, 8).expand(b, n, 2, 4, 8)
+    p_rows = p_rows.detach().clone().requires_grad_()
+    xt = _t(x)
+
+    def loss(y, ld):
+        return torch.sum(torch.sin(y)) + torch.sum(ld * ld)
+
+    y, ld = cc._chain_plain(xt, w, bias, True,
+                            lambda k, ni, half: half * w[k, ni, 0, 0, :] + p_rows[:, :, k, ni])
+    (g1,) = torch.autograd.grad(loss(y, ld), [p_rows])
+    g1 = g1.reshape(b * n, -1)
+    wl, cl = w.clone().requires_grad_(), c.clone().requires_grad_()
+    y, ld = cc.chain_apply_packed_plain(xt, cl.expand(b, n, ctx_dim), wl, bias, True)
+    gw, gc = torch.autograd.grad(loss(y, ld), [wl, cl])
+    got_w = cc.ctx_weight_grad(g1, c_in, w)
+    np.testing.assert_allclose(got_w.numpy(), gw[:, :, 0, 1:1 + ctx_dim].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    got_c = cc.ctx_input_grad(g1, w, ctx_dim).reshape(b, n, ctx_dim)
+    np.testing.assert_allclose((got_c.sum(1, keepdim=True) if broadcast else got_c).numpy(),
+                               gc.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_pack_carries_gradients_back_to_the_chain():
     """The pack is made of differentiable ops: a loss on the packed path
     gives the chain's parameters the gradients the module path gives them

@@ -405,7 +405,9 @@ def test_warm_start_off_the_streaming_path_raises(overrides):
 
 
 # chains and whether the CUDA coupling kernels refuse them, as (overrides,
-# refused on CUDA): up to 16 wide they take them (9-15 padded to 16)
+# refused on CUDA): up to 16 wide they take them (9-15 padded to 16), with a
+# context of any width (its share of layer 0 is a kernel of its own); four
+# blocks at width 9-16 pass the backward's shared memory with any context
 COUPLING_LIMITS = {
     "hidden16": (dict(flow_hidden_dim=16), False),
     "hidden12": (dict(flow_hidden_dim=12), False),
@@ -413,8 +415,11 @@ COUPLING_LIMITS = {
     "blocks9": (dict(n_sequence=9), True),
     "hidden16_module_route": (dict(flow_hidden_dim=16, pallas_coupling=False), False),
     # the proposal's context is the 192-wide CGLOW encoding + 4
-    "cglow_proposal": (dict(measurement="CGLOW"), True),
+    "cglow_proposal": (dict(measurement="CGLOW"), False),
     "cglow_proposal_module_route": (dict(measurement="CGLOW", pallas_coupling=False), False),
+    # --hiddensize 117 makes the proposal's context 121 wide
+    "hiddensize117": (dict(hidden_size=117), False),
+    "blocks4_hidden16": (dict(n_sequence=4, flow_hidden_dim=16), True),
 }
 
 

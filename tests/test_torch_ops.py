@@ -215,6 +215,118 @@ def test_ot_resample_streaming_respects_max_iter():
     assert iters == int(extras["iters"]) == 3
 
 
+# the chunked loop: LOOP_CHUNK iterations between two host reads, the state
+# frozen on the loop's own last iteration (one CUDA-graph replay on the card;
+# the same chunks on the plain versions here).  max_iter 1, 2, k and k + 1
+# for each k below, and a bound the loop never meets
+CHUNK_MAX_ITERS = (1, 2, 3, 4, 8, 9, 100)
+
+
+def _chunk_cases(conv, pots, k=None):
+    """(max_iter, warm_start, JAX reference key) of the chunked-loop test:
+    cold at 1, 2, k, k + 1 and 100 (every such max_iter for k ∈ {1, 3, 8}
+    when k is None), warm valid and invalid at 2 and 100."""
+    cold = CHUNK_MAX_ITERS if k is None else sorted({1, 2, k, k + 1, 100})
+    return ([(mi, None, "cold") for mi in cold]
+            + [(mi, (pots, valid), "warm" if valid else "cold")
+               for mi in (2, 100) for valid in (True, False)])
+
+
+@pytest.fixture(scope="module")
+def chunk_refs():
+    """JAX's ``ot_resample_pallas`` (interpret mode) on one cloud: cold for
+    each max_iter and convergence mode, and warm (valid) from its own
+    unbounded cold potentials at max_iter 2 and 100; and the port's eager
+    loop (``ot_resample_streaming_plain``) at each case, which no chunk size
+    changes.  Torch runs on one thread here: the tensors are tiny."""
+    saved, sp._INTERPRET = sp._INTERPRET, True
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        x, probs = _cloud(21, b=3, n=24, scale=20.0)
+        refs, eager = {}, {}
+        for conv in ("all", "any"):
+            for mi in CHUNK_MAX_ITERS:
+                out = sp.ot_resample_pallas(_j(x), _j(probs), max_iter=mi, convergence=conv,
+                                            return_extras=True)
+                refs[conv, mi, "cold"] = (np.array(out[0]), int(out[3]["iters"]),
+                                          np.array(out[3]["potentials"]))
+            pots = _j(refs[conv, 100, "cold"][2])
+            for mi in (2, 100):
+                out = sp.ot_resample_pallas(_j(x), _j(probs), max_iter=mi, convergence=conv,
+                                            warm_start=(pots, jnp.asarray(True)),
+                                            return_extras=True)
+                refs[conv, mi, "warm"] = (np.array(out[0]), int(out[3]["iters"]),
+                                          np.array(out[3]["potentials"]))
+            for mi, warm, _ in _chunk_cases(conv, _t(refs[conv, 100, "cold"][2])):
+                eager[conv, mi, None if warm is None else warm[1]] = \
+                    sc.ot_resample_streaming_plain(_t(x), _t(probs), max_iter=mi,
+                                                   convergence=conv, warm_start=warm,
+                                                   return_potentials=True)
+    finally:
+        sp._INTERPRET = saved
+        torch.set_num_threads(threads)
+    return x, probs, refs, eager
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_chunked_loop_matches_eager_loop_and_jax(monkeypatch, chunk_refs, k):
+    """Chunks of k iterations against the eager loop that tests after every
+    iteration (``ot_resample_streaming_plain``, the parent's loop): the same
+    iterations, potentials and particles bit for bit.  Against JAX: the same
+    iterations, potentials within rtol/atol 1e-5 (the dense loop's bound in
+    tests/test_torch_resampling.py), particles rtol 1e-5 / atol 1e-4.  Cold
+    at max_iter 1, 2, k, k + 1 and 100, both convergence modes; warm valid
+    (from JAX's potentials) and invalid (the cold start) at 2 and 100."""
+    monkeypatch.setattr(sc, "LOOP_CHUNK", k)
+    x, probs, refs, eager = chunk_refs
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for conv in ("all", "any"):
+            for mi, warm, ref_key in _chunk_cases(conv, _t(refs[conv, 100, "cold"][2]), k):
+                got = sc.ot_resample_streaming(_t(x), _t(probs), max_iter=mi, convergence=conv,
+                                               warm_start=warm, return_potentials=True)
+                want = eager[conv, mi, None if warm is None else warm[1]]
+                case = (conv, mi, ref_key, warm is not None)
+                assert got[3] == want[3], case
+                assert torch.equal(got[4], want[4]) and torch.equal(got[0], want[0]), case
+                p_ref, it_ref, pot_ref = refs[conv, mi, ref_key]
+                assert got[3] == it_ref, case
+                np.testing.assert_allclose(got[4].numpy(), pot_ref, rtol=1e-5, atol=1e-5)
+                np.testing.assert_allclose(got[0].numpy(), p_ref, rtol=1e-5, atol=1e-4)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_chunked_loop_reads_the_host_once_a_chunk(monkeypatch):
+    """One host read per chunk of ``LOOP_CHUNK`` iterations (⌈iters / k⌉),
+    where the eager loop reads once per loop test (iters + 1); none when
+    max_iter leaves no iteration."""
+    x, probs = _cloud(3, b=2, n=20, scale=20.0)
+    monkeypatch.setattr(sc, "LOOP_CHUNK", 4)
+    for mi in (1, 100):
+        sc.reset_streaming_loop()
+        iters = sc.ot_resample_streaming(_t(x), _t(probs), max_iter=mi)[3]
+        assert sc.STREAMING_LOOP == {"calls": 1, "iters": iters, "host_reads": -(-iters // 4)}
+        sc.reset_streaming_loop()
+        assert sc.ot_resample_streaming_plain(_t(x), _t(probs), max_iter=mi)[3] == iters
+        assert sc.STREAMING_LOOP == {"calls": 1, "iters": iters,
+                                     "host_reads": iters + 1 if mi > 1 else 0}
+    assert iters > 4
+
+
+def test_chunked_loop_keeps_the_inputs_dtype():
+    """In float64 (the CPU ranks' witness of the mesh steps) the chunked loop
+    keeps float64 state: the eager loop's iterations and bits."""
+    x, probs = _cloud(4, b=2, n=20, scale=20.0)
+    x64, p64 = _t(x).double(), _t(probs).double()
+    got = sc.ot_resample_streaming(x64, p64, return_potentials=True)
+    eager = sc.ot_resample_streaming_plain(x64, p64, return_potentials=True)
+    assert got[4].dtype == torch.float64 and got[3] == eager[3] > 0
+    assert torch.equal(got[4], eager[4]) and torch.equal(got[0], eager[0])
+
+
 def test_ot_resample_streaming_gradient_topology():
     """Gradient reaches the particles only through T @ particles (matching
     JAX, rtol 1e-4) and never the weights (mirrors
