@@ -22,13 +22,17 @@ Phases, one line of output each, then the device line last:
    N=4097) with a dense 36-wide context and with none, each launched again
    for equal bits, and since the context's share of layer 0 left them, at
    (B=32, N=100) and (B=10, N=100) with the CGLOW proposal's 196-wide
-   context; the three context kernels (the share, the context-weight and
-   the context-input gradients) alone against their plain versions at each
-   case with a context; beside them the time of the same call through the
-   ``FlowChain`` module; at the filter's heaviest call, the registers and
-   shared memory per block of the timed launches as the card's trace
+   context; the context kernels (the share, the context-weight gradient,
+   its first kernel alone, and the context-input gradient) alone against
+   their plain versions at each case with a context and at edge cases
+   (ragged rows, C = 1 and 197, 4K·H = 256 and 192, a broadcast over 5
+   particles, a strided dense view), all of which are then launched back
+   to back for equal bits; beside them the time of the same call through
+   the ``FlowChain`` module; at the filter's heaviest call, the registers
+   and shared memory per block of the timed launches as the card's trace
    records them (torch.profiler), the shared memory held against the
-   wrapper's mirrors of the kernels' layouts; all of it again at hidden
+   wrapper's mirrors of the kernels' layouts (K4, K5, the share and both
+   kernels of the weight gradient); all of it again at hidden
    width 16, the coupling kernels' widest build; then the coupling
    kernels' registers and spills as ptxas reports them at both widths;
    then K3, the streaming resampler's driver: its update kernel against
@@ -197,6 +201,7 @@ KERNELS = {
     "coupling_chain_bwd": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
     # layer 0's context share and its gradients, inside those two TPU kernels
     "coupling_ctx_share": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:100"),
+    "coupling_ctx_grad_rows": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
     "coupling_ctx_weight_grad": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
     "coupling_ctx_input_grad": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
 }
@@ -205,7 +210,8 @@ KERNELS = {
 # 196-wide context (slice_cglow_nfcond)
 AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100", "sinkhorn_update": "B32_N100",
       "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse",
-      "coupling_ctx_share": "B32_N100_C196", "coupling_ctx_weight_grad": "B32_N100_C196",
+      "coupling_ctx_share": "B32_N100_C196", "coupling_ctx_grad_rows": "B32_N100_C196",
+      "coupling_ctx_weight_grad": "B32_N100_C196",
       "coupling_ctx_input_grad": "B32_N100_C196"}
 # launch counters that must be non-zero after a slice's train steps / eval step.
 # The bootstrap DPF's particles carry no gradient (noise and teacher-forced
@@ -217,12 +223,13 @@ AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100", "sinkhorn_updat
 BOOTSTRAP_TRAIN = BOOTSTRAP_EVAL = ("sinkhorn_lse", "sinkhorn_update", "transport_apply",
                                     "streaming_resample")
 CNF_EVAL = BOOTSTRAP_EVAL + ("coupling_chain", "coupling_chain_inverse", "coupling_ctx_share")
-CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd", "coupling_ctx_weight_grad")
+CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd", "coupling_ctx_grad_rows",
+                        "coupling_ctx_weight_grad")
 # without the proposal flow the dynamics chain runs inverse only: the forward
 # direction is the consistency pass of a proposal
 CGLOW_EVAL = BOOTSTRAP_EVAL + ("coupling_chain_inverse", "coupling_ctx_share")
 CGLOW_TRAIN = CGLOW_EVAL + ("transport_apply_bwd", "coupling_chain_bwd",
-                            "coupling_ctx_weight_grad")
+                            "coupling_ctx_grad_rows", "coupling_ctx_weight_grad")
 # the slices: (settings, kernels launched in the 3 train steps, in the eval
 # step; every other counter must read 0); none at all on the dense and soft
 # paths
@@ -343,10 +350,17 @@ def chain_resources(hidden: int) -> dict:
         if "Compiling entry function" in ln:
             # e.g. _ZN12_GLOBAL__N_116chain_fwd_kernelILi8ELi8ELb1EEEv...: <H, U, inverse>
             hit = re.search(r"(chain_(?:fwd|bwd)_kernel)I((?:Li\d+E)+)Lb([01])E", ln)
+            # e.g. ...22chain_ctx_share_kernelILi16EEEv...: <rows a thread>
+            ctx_hit = re.search(r"chain_ctx_(?:share|grad_rows|weight_grad|input_grad)_kernel"
+                                r"(?:ILi(\d+)EE)?", ln)
             name = None
             if hit is not None:
                 args = re.findall(r"\d+", hit.group(2)) + [("forward", "inverse")[int(hit.group(3))]]
                 name = f"{hit.group(1)}<{', '.join(args)}>"
+                out[name] = {}
+            elif ctx_hit is not None:
+                name = ctx_hit.group(0).split("I")[0] + (
+                    f"<{ctx_hit.group(1)}>" if ctx_hit.group(1) else "")
                 out[name] = {}
         elif name is not None and "spill stores" in ln:
             words = ln.replace(",", "").split()
@@ -362,6 +376,11 @@ def chain_resources(hidden: int) -> dict:
                        for k, r in out.items()):
                 raise AssertionError(f"the coupling library's ptxas report names no {kernel} "
                                      f"({direction}) with its registers: {out}")
+    for kernel in ("chain_ctx_share_kernel<1>", "chain_ctx_share_kernel<16>",
+                   "chain_ctx_grad_rows_kernel", "chain_ctx_weight_grad_kernel"):
+        if "registers" not in out.get(kernel, {}):
+            raise AssertionError(f"the coupling library's ptxas report names no {kernel} with "
+                                 f"its registers: {out}")
     return out
 
 
@@ -708,10 +727,13 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
     mirror of the kernel's layout says (the limits it refuses by).  Without
     ``trace`` no launch is traced (a later profiling session in one process
     has come back without kernel events: ptxas gives the registers).  With
-    a context, the three context kernels alone against their plain versions
+    a context, the context kernels alone against their plain versions
     (the share to ``CHAIN_TOL``, the gradients, from K5's g1, to
     ``CHAIN_GRAD_TOL``), equal bits on a second launch, with their times and
-    one library call's each."""
+    one library call's each; with ``trace`` also the context kernels' edge
+    cases (``CTX_EDGES``) and their launches back to back, and the share's
+    and the weight gradient's shared memory at the kernels line's case
+    against the wrapper's mirror."""
     from nfdpf_torch.models.nets import flax_init_
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
     from nfdpf_torch.ops.flows import realnvp_chain
@@ -802,6 +824,7 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
             counts = dict(cc.LAUNCHES)
             fwd_name = "coupling_chain_inverse" if inverse else "coupling_chain"
             want = {fwd_name: 3, "coupling_chain_bwd": 3, "coupling_ctx_share": 3,
+                    "coupling_ctx_grad_rows": 3 if c else 0,
                     "coupling_ctx_weight_grad": 3 if c else 0,
                     "coupling_ctx_input_grad": 2 if c else 0}
             if {k: v for k, v in counts.items() if v} != {k: v for k, v in want.items() if v}:
@@ -867,10 +890,14 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
             if c and inverse:
                 results.update({name: {**results.get(name, {}), **row} for name, row in
                                 context_kernel_rows(cc, ctx, w, bias, k5()[1], ctx_rows,
-                                                    f"B{b}_N{n}_C{c}", iters).items()})
+                                                    f"B{b}_N{n}_C{c}", iters, trace).items()})
         del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias, p_rows
         torch.cuda.empty_cache()
-    for name in ("coupling_chain", "coupling_chain_bwd") if trace else ():
+    if trace:
+        for name, rows in context_kernel_edges(cc).items():
+            results[name].update(rows)
+    for name in ("coupling_chain", "coupling_chain_bwd", "coupling_ctx_share",
+                 "coupling_ctx_grad_rows", "coupling_ctx_weight_grad") if trace else ():
         rec = results[name][AT[name]]
         if rec["smem_bytes_per_block"] != rec["mirror_smem_bytes"]:
             raise AssertionError(f"{name}@{AT[name]}: the launch took {rec['smem_bytes_per_block']} "
@@ -885,15 +912,43 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                  "registers and smem_bytes_per_block (static + dynamic) from the trace "
                  "(torch.profiler) of one launch, mirror_smem_bytes the wrapper's; the "
                  "context kernels' library_ms is one torch.addmm / torch.mm on operands laid "
-                 "out outside the timed call"})
+                 "out outside the timed call; their edge cases (CTX_EDGES) are timed over "
+                 f"{CTX_EDGE_ITERS} replays on random g1, plan is the wrapper's launch plan"})
     return results
 
 
-def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: int) -> dict:
-    """The three context kernels alone at one case, from K5's g1: each
+# the two context kernels' traced launch at the kernels line's case: the
+# kernel's name in the trace, and the wrapper's launch plan for it
+CTX_TRACED = {"coupling_ctx_share": "chain_ctx_share_kernel",
+              "coupling_ctx_grad_rows": "chain_ctx_grad_rows_kernel",
+              "coupling_ctx_weight_grad": "chain_ctx_weight_grad_kernel"}
+
+
+def context_plans(cc, ctx, w) -> dict:
+    """The wrapper's launch plans of the redesigned context kernels for this
+    context and packed chain, each with its shared memory per block as the
+    wrapper's mirror gives it: the share, and the weight gradient's two
+    kernels (one plan)."""
+    b, n, c = ctx.shape
+    n_blocks, hidden = w.shape[0], w.shape[-1]
+    mode, r = cc.context_layout(ctx)
+    share = cc.ctx_share_plan(r, n_blocks, hidden, c)
+    grad = cc.ctx_weight_grad_plan(b * n, n, mode, c, 4 * n_blocks * hidden)
+    return {"coupling_ctx_share": (share, share["smem_bytes"]),
+            "coupling_ctx_grad_rows": (grad, grad["smem_bytes1"]),
+            "coupling_ctx_weight_grad": (grad, grad["smem_bytes2"])}
+
+
+def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: int,
+                        trace: bool = False) -> dict:
+    """The context kernels alone at one case, from K5's g1 (the share, the
+    weight gradient's first kernel and both together, the input gradient): each
     against its plain version, equal bits on a second launch, device ms
     (CUDA-graph replay), the plain version's, one library call's that
-    computes the same function, and the bound."""
+    computes the same function, and the bound; the two redesigned ones with
+    their launch plan and, with ``trace`` at the kernels line's case, their
+    launch's registers and shared memory from the card's trace beside the
+    wrapper's mirror."""
     b, n, c = ctx.shape
     n_blocks, hidden = w.shape[0], w.shape[-1]
     rows, ps, f4 = b * n, 4 * n_blocks * hidden, 4.0
@@ -902,6 +957,25 @@ def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: i
     bias0 = bias[:, :, 0].reshape(1, ps).contiguous()
     ctx_rows_t = (ctx[:, 0] if ctx.stride(1) == 0 else ctx.reshape(rows, c)).contiguous()
     ctx_per_row = ctx.reshape(rows, c).contiguous()
+    # the weight gradient's first kernel folds g1 into parts: one torch.sum
+    # over the pieces of each context row, or one torch.bmm of each chunk's
+    # context rows against its rows of g1 (operands padded outside the call)
+    grad = cc.ctx_weight_grad_plan(rows, n, cc.context_layout(ctx)[0], c, ps)
+    rpb, parts = grad["rows_per_block"], grad["parts"]
+    if grad["segments"]:
+        g_pad = torch.nn.functional.pad(g1.reshape(b, n, ps), (0, 0, 0, grad["pieces"] * rpb - n))
+        g_pad = g_pad.reshape(parts, rpb, ps)
+
+        def fold_library():
+            return torch.sum(g_pad, 1)
+    else:
+        pad = parts * rpb - rows
+        g_pad = torch.nn.functional.pad(g1, (0, 0, 0, pad)).reshape(parts, rpb, ps)
+        c_pad = torch.nn.functional.pad(ctx_per_row, (0, 0, 0, pad)).reshape(parts, rpb, c)
+        c_pad_t = c_pad.transpose(1, 2).contiguous()
+
+        def fold_library():
+            return torch.bmm(c_pad_t, g_pad)
     cases = {
         "coupling_ctx_share": dict(
             kernel=lambda: cc.ctx_share(ctx, w, bias),
@@ -909,6 +983,13 @@ def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: i
             library=lambda: torch.addmm(bias0, ctx_rows_t, w_ctx), tol=("lse", CHAIN_TOL),
             nbytes=f4 * (ctx_rows * c + 4 * n_blocks * (c + 1) * hidden + ctx_rows * ps),
             ops=share_ops(ctx_rows, n_blocks, c, hidden)),
+        "coupling_ctx_grad_rows": dict(
+            kernel=lambda: cc.ctx_grad_rows(g1, ctx, w),
+            plain=lambda: cc.ctx_grad_rows_plain(g1, ctx, w),
+            library=fold_library, tol=("apply", CHAIN_GRAD_TOL),
+            nbytes=f4 * (rows * ps + (0 if grad["segments"] else rows * c)
+                         + grad["part_floats"]),
+            ops=float(rows) * ps if grad["segments"] else 2.0 * rows * c * ps),
         "coupling_ctx_weight_grad": dict(
             kernel=lambda: cc.ctx_weight_grad(g1, ctx, w),
             plain=lambda: cc.ctx_weight_grad_plain(g1, ctx, w),
@@ -921,6 +1002,7 @@ def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: i
             library=lambda: torch.mm(g1, w_ctx.t()), tol=("apply", CHAIN_GRAD_TOL),
             nbytes=f4 * (rows * ps + c * ps + rows * c), ops=2.0 * rows * c * ps),
     }
+    plans = context_plans(cc, ctx, w)
     out = {}
     for name, cs in cases.items():
         got, ref = cs["kernel"](), cs["plain"]()
@@ -929,11 +1011,92 @@ def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: i
         if not torch.equal(cs["kernel"](), got):
             raise AssertionError(f"{name}@{case}: a second launch gave other bits")
         bound, by = bound_ms(cs["nbytes"], cs["ops"])
-        out[name] = {case: {
-            "max_abs_err": max_abs, "max_rel_err": rel, "tol": cs["tol"][1],
-            "ms": device_ms(cs["kernel"], iters), "plain_ms": device_ms(cs["plain"], iters),
-            "library_ms": device_ms(cs["library"], iters), "bound_ms": bound, "bound_by": by}}
+        row = {"max_abs_err": max_abs, "max_rel_err": rel, "tol": cs["tol"][1],
+               "ms": device_ms(cs["kernel"], iters), "plain_ms": device_ms(cs["plain"], iters),
+               "library_ms": device_ms(cs["library"], iters), "bound_ms": bound, "bound_by": by}
+        if name in plans:
+            plan, mirror = plans[name]
+            row["plan"] = plan
+            if trace and case == AT[name]:
+                row.update(launch_record(cs["kernel"], CTX_TRACED[name]))
+                row["mirror_smem_bytes"] = mirror
+        out[name] = {case: row}
     return out
+
+
+# edge cases of the two redesigned context kernels, as (B, N, C, context
+# broadcast over the particles, chain blocks K, hidden H, the context a
+# non-contiguous view): ragged row counts (dense and broadcast), C = 1 and
+# 197 on both routes of the weight gradient, the widest rows of g1 (4K·H =
+# 256 at K = 8, H = 8; 192 at K = 3, H = 16), a broadcast over too few
+# particles for the segment sums, and a dense context read through strides
+CTX_EDGES = (("B3_N1037_C36_dense", 3, 1037, 36, False, 2, 8, False),
+             ("B3_N33_C36", 3, 33, 36, True, 2, 8, False),
+             ("B32_N100_C1", 32, 100, 1, True, 2, 8, False),
+             ("B32_N100_C197", 32, 100, 197, True, 2, 8, False),
+             ("B3_N1037_C1_dense", 3, 1037, 1, False, 2, 8, False),
+             ("B3_N1037_C197_dense", 3, 1037, 197, False, 2, 8, False),
+             ("B32_N100_C36_K8", 32, 100, 36, True, 8, 8, False),
+             ("B3_N1037_C36_dense_K8", 3, 1037, 36, False, 8, 8, False),
+             ("B32_N100_C196_K3_H16", 32, 100, 196, True, 3, 16, False),
+             ("B3_N1037_C36_dense_K3_H16", 3, 1037, 36, False, 3, 16, False),
+             ("B64_N5_C36", 64, 5, 36, True, 2, 8, False),
+             ("B3_N1037_C36_dense_view", 3, 1037, 36, False, 2, 8, True))
+CTX_EDGE_ITERS = 50
+
+
+def context_case(b, n, c, broadcast, n_blocks, hidden, view, seed):
+    """A packed chain's parameters (``pack_chain_params``' layout, N(0, 0.3²)
+    where the chain reads, biases N(0, 0.1²)), a (B, N, C) context (one row
+    per batch element broadcast over the particles, or dense; with ``view``
+    the context entries 5..5+C of a (N, B, C+9) tensor, transposed) and
+    rows of g1 (B·N, 4K·H), on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    max_in = max(1 + c, hidden)
+    w = torch.zeros(n_blocks, 4, 3, max_in, hidden)
+    w[:, :, 0, :1 + c] = torch.randn(n_blocks, 4, 1 + c, hidden, generator=gen) * 0.3
+    w[:, :, 1, :hidden] = torch.randn(n_blocks, 4, hidden, hidden, generator=gen) * 0.3
+    w[:, :, 2, :hidden, 0] = torch.randn(n_blocks, 4, hidden, generator=gen) * 0.3
+    bias = torch.randn(n_blocks, 4, 3, hidden, generator=gen) * 0.1
+    if view:
+        ctx = torch.randn(n, b, c + 9, generator=gen).cuda().permute(1, 0, 2)[..., 5:5 + c]
+    else:
+        ctx = torch.randn(b, 1 if broadcast else n, c, generator=gen).cuda().expand(b, n, c)
+    g1 = torch.randn(b * n, 4 * n_blocks * hidden, generator=gen).cuda()
+    return ctx, w.cuda(), bias.cuda(), g1
+
+
+def context_kernel_edges(cc) -> dict:
+    """Every case of ``CTX_EDGES`` through ``context_kernel_rows`` (against
+    the plain versions, bit-equal repeats, times and bounds); then stale
+    state: every case's share and weight gradient launched back to back
+    with no synchronisation between, which must give each case's bits of
+    its own launch (stale scratch would show)."""
+    results, inputs = {}, {}
+    for k, (case, b, n, c, broadcast, n_blocks, hidden, view) in enumerate(CTX_EDGES):
+        ctx, w, bias, g1 = context_case(b, n, c, broadcast, n_blocks, hidden, view, 7000 + k)
+        if view and (ctx.is_contiguous() or ctx.stride(1) == 0):
+            raise AssertionError(f"{case}: the context is not a strided dense view")
+        rows = context_kernel_rows(cc, ctx, w, bias, g1, b if broadcast else b * n, case,
+                                   CTX_EDGE_ITERS)
+        for name, row in rows.items():
+            results.setdefault(name, {}).update(row)
+        with torch.no_grad():
+            inputs[case] = (ctx, w, bias, g1, cc.ctx_share(ctx, w, bias),
+                            cc.ctx_weight_grad(g1, ctx, w))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        again = {case: (cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w))
+                 for case, (ctx, w, bias, g1, _, _) in inputs.items()}
+    torch.cuda.synchronize()
+    for case, (_, _, _, _, share, grad) in inputs.items():
+        if not (torch.equal(again[case][0], share) and torch.equal(again[case][1], grad)):
+            raise AssertionError(f"context kernels@{case}: launched back to back with the other "
+                                 f"edge cases they gave other bits")
+    for name in results:
+        for case in inputs:
+            results[name][case]["back_to_back_bits_equal"] = True
+    return results
 
 
 def synthetic_batch(cfg, device, seed):
@@ -1167,8 +1330,8 @@ def profile_step(trainer, batch):
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
     ours = ("lse_kernel", "apply_kernel", "sinkhorn_update_kernel", "chain_fwd_kernel",
-            "chain_bwd_kernel", "chain_ctx_share_kernel", "chain_ctx_weight_grad_kernel",
-            "chain_ctx_input_grad_kernel")
+            "chain_bwd_kernel", "chain_ctx_share_kernel", "chain_ctx_grad_rows_kernel",
+            "chain_ctx_weight_grad_kernel", "chain_ctx_input_grad_kernel")
     groups = {**{k: 0.0 for k in ours}, "conv (cudnn)": 0.0, "gemm": 0.0, "other": 0.0}
     counts = {k: 0 for k in ours}
     conv_words = ("cudnn", "xmma", "grad_alg", "dgrad", "wgrad", "implicit_gemm", "fprop",
@@ -2067,6 +2230,13 @@ def main() -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in wide[name].values()),
                 "ptxas": {k: v for k, v in ptxas[WIDE_HIDDEN].items() if k.startswith(kernel)},
                 "at": AT[name]}
+        if name in CTX_TRACED:   # the redesigned context kernels: ptxas's counts, the plan
+            entry["ptxas"] = {k: v for k, v in ptxas[cnf.flow_hidden_dim].items()
+                              if k.startswith(CTX_TRACED[name])}
+            entry["plan"] = m["plan"]
+        if name == "coupling_ctx_weight_grad":
+            entry["note"] = ("ms, plain_ms and library_ms are of the whole gradient: both "
+                             "kernels (coupling_ctx_grad_rows folds the rows of g1 first)")
         if name == "coupling_ctx_input_grad":
             entry["note"] = ("the filter detaches its contexts: only a context that asks for "
                              "a gradient launches it (chain_kernels checks it)")

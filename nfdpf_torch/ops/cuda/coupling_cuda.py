@@ -18,15 +18,19 @@ memory:
   activations in shared memory, the reverse sweep adds the gradients there,
   and each weight and bias gradient is then a sum over the tile's rows.
 
-Layer 0's context share is taken out of both: three more kernels compute it
+Layer 0's context share is taken out of both: more kernels compute it
 once per distinct context row (R rows: B when the context is broadcast over
 the particles with particle stride 0, as the filter passes it; B·N when it is
 dense) and the context's gradients from K5's g1:
 
 * ``chain_ctx_share_kernel``: P (R, 4K·H) = layer 0's bias + ctx · w0[1..C],
-  which K4 and K5 read as a per-row bias;
-* ``chain_ctx_weight_grad_kernel``: layer 0's context rows of the weight
-  gradient, Σ_d ctx[d] ⊗ G[d] with G[d] the sum of g1 over context row d;
+  which K4 and K5 read as a per-row bias (``ctx_share_plan`` lays out its
+  blocks);
+* ``chain_ctx_grad_rows_kernel`` then ``chain_ctx_weight_grad_kernel``:
+  layer 0's context rows of the weight gradient, Σ_d ctx[d] ⊗ G[d] with G[d]
+  the sum of g1 over context row d; the first folds the rows of g1 into
+  parts (G's rows, or ctxᵀ · g1 over chunks of rows of a dense context), the
+  second weighs and adds them (``ctx_weight_grad_plan``);
 * ``chain_ctx_input_grad_kernel``: the context's gradient g1 · w0[1..C]ᵀ
   per row, only when the context asks for one (the filter detaches its
   contexts).
@@ -48,7 +52,9 @@ card; a chain 9-15 wide runs at 16, zero-padded by ``pad_hidden``, which
 changes no output and whose padding's gradients are sliced away), at
 most 8 blocks, and, for K5, a factor tile and twice the parameters of a
 chain without context in the card's shared memory (227 KB;
-``fwd_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' layouts).
+``fwd_smem_bytes``, ``bwd_smem_bytes``, ``ctx_share_smem_bytes``,
+``ctx_grad_rows_smem_bytes`` and ``ctx_weight_grad_smem_bytes`` mirror the
+kernels' layouts).
 ``chain_refusal`` says what a chain breaks of these, for the wrapper at
 launch and for the filter when it is built.  What stays refused: hidden
 widths above 16, more than 8 blocks, and at hidden 9-16 four blocks or more
@@ -59,6 +65,7 @@ any context or none).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -68,9 +75,9 @@ from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu
 from nfdpf_torch.ops.flows import FlowChain
 
 # kernel launches since the last reset: the forward kernel by direction, the
-# backward kernel and the three context kernels
+# backward kernel and the context kernels (the weight gradient's two)
 LAUNCHES = {"coupling_chain": 0, "coupling_chain_inverse": 0, "coupling_chain_bwd": 0,
-            "coupling_ctx_share": 0, "coupling_ctx_weight_grad": 0,
+            "coupling_ctx_share": 0, "coupling_ctx_grad_rows": 0, "coupling_ctx_weight_grad": 0,
             "coupling_ctx_input_grad": 0}
 
 NETS = ("t1", "s1", "t2", "s2")
@@ -83,6 +90,17 @@ BWD_MAX_GRID = 132                # backward blocks: at most one per SM
 BWD_ROWS_PER_BLOCK = 128          # backward rows per block (the entry point may take fewer)
 BWD_ROWS_PER_BLOCK_WIDE = 32      # at hidden 16 shared memory holds one or two warps' tiles
 BWD_MIN_THREADS = 32              # the smallest backward block (one warp)
+# the context kernels' launch plans (``ctx_share_plan``, ``ctx_weight_grad_plan``)
+CTX_GRID_TARGET = 132             # blocks that fill the H100's SMs
+CTX_SHARE_SMEM_BYTES = 48 * 1024  # what a share block stages at once (no opt-in needed)
+CTX_SHARE_DIRECT = 8              # contexts this wide: the share reads global memory directly
+CTX_SHARE_WIDE_ROWS = 16          # context rows a thread of a wide share block takes
+CTX_THREADS = 256                 # threads of a context-weight-gradient block (kCtxThreads)
+CTX_PIECE_ROWS = 64               # rows of one context row a first-kernel block sums
+CTX_COLUMN_LANES = 16             # float4 columns of g1 a segment-sum block takes
+CTX_MAX_C_TILE = 128              # context entries a first-kernel block takes (dense)
+CTX_GRAD_SMEM_BYTES = 100 * 1024  # what a first-kernel block stages (dense): two fit an SM
+CTX_SEGMENT_MIN_N = 8             # particles a broadcast context row needs for the segment sums
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,9 +109,11 @@ _SIGNATURES = {
     "nfdpf_coupling_chain_fwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_chain_bwd": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
-    "nfdpf_coupling_ctx_share": [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-    "nfdpf_coupling_ctx_weight_grad": [_P, _I, _I, _I, _I, _P, _L, _L, _I, _I, _I, _I,
-                                       _P, _P, _P],
+    "nfdpf_coupling_ctx_share": [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P, _P],
+    "nfdpf_coupling_ctx_grad_rows": [_P, _I, _I, _I, _P, _L, _L, _I, _I, _I, _I, _I, _I,
+                                     _P, _P],
+    "nfdpf_coupling_ctx_weight_grad": [_P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P],
     "nfdpf_coupling_ctx_input_grad": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 # how K4/K5 find a row's row of P: one row for all (no context), one per
@@ -322,6 +342,135 @@ def bwd_smem_bytes(n_blocks: int, hidden: int, threads: int = BWD_MIN_THREADS) -
                 + n_blocks * (7 + 16 * hidden) * (threads + 4))
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def ctx_share_smem_bytes(rows_a_block: int, nets_a_block: int, hidden: int,
+                         c_chunk: int) -> int:
+    """Shared memory of the context-share kernel: a chunk of ``c_chunk``
+    context entries (rounded up to 4 floats) of the block's ``rows_a_block``
+    context rows, and its nets' context rows of layer 0 for that chunk
+    (``c_chunk`` x nets_a_block·hidden); none where it reads global memory
+    (``c_chunk`` 0)."""
+    return 4 * (rows_a_block * _cdiv(c_chunk, 4) * 4 + c_chunk * nets_a_block * hidden)
+
+
+def ctx_share_plan(ctx_rows: int, n_blocks: int, hidden: int, ctx_dim: int) -> dict:
+    """How the context-share kernel covers P (``ctx_rows`` x 4K·H).  Wide,
+    where it still makes ``CTX_GRID_TARGET`` blocks: a block takes every net,
+    1-4 row lanes of ``CTX_SHARE_WIDE_ROWS`` context rows a thread (the
+    weights staged once for many rows).  Else narrow: a block per (tile of context rows,
+    net), a thread per (row, unit), whole warps of about 128 threads, and
+    up to 256 while the target still fills.  C is staged ``c_chunk`` entries at a
+    time, as many as ``CTX_SHARE_SMEM_BYTES`` holds; a context at most
+    ``CTX_SHARE_DIRECT`` wide (or none) is read from global memory
+    (``c_chunk`` 0)."""
+    nets = 4 * n_blocks
+    # wide: the most row lanes of every entry (at most 4, 128-512 threads)
+    # that still make the target
+    lanes = next((k for k in (4, 2, 1) if 128 <= k * nets * hidden <= 512
+                  and _cdiv(ctx_rows, k * CTX_SHARE_WIDE_ROWS) >= CTX_GRID_TARGET), 0)
+    if ctx_dim and lanes:
+        rows, nets_a_block, rows_a_thread = lanes * CTX_SHARE_WIDE_ROWS, nets, CTX_SHARE_WIDE_ROWS
+    else:
+        # whole warps, about 128 threads (the plan sweep's best at the filter's
+        # shapes), more while the target still fills
+        unit = 32 // math.gcd(32, hidden)
+        rows = unit * max(1, 128 // hidden // unit)
+        while 2 * rows * hidden <= 256 and _cdiv(ctx_rows, 2 * rows) * nets >= CTX_GRID_TARGET:
+            rows *= 2
+        nets_a_block, rows_a_thread = 1, 1
+    chunk = 0
+    if ctx_dim > CTX_SHARE_DIRECT:
+        chunk = min(ctx_dim, (CTX_SHARE_SMEM_BYTES // 4 - 4 * rows) // (rows + nets_a_block * hidden))
+    return {"rows_a_block": rows, "nets_a_block": nets_a_block, "rows_a_thread": rows_a_thread,
+            "c_chunk": chunk, "grid": (_cdiv(ctx_rows, rows), nets // nets_a_block),
+            "threads": rows // rows_a_thread * nets_a_block * hidden,
+            "smem_bytes": ctx_share_smem_bytes(rows, nets_a_block, hidden, chunk)}
+
+
+def ctx_grad_rows_smem_bytes(rows_per_block: int, ps: int, c_tile: int, segments: bool) -> int:
+    """Shared memory of the context-weight gradient's first kernel
+    (``ctx_grad_rows_smem_floats`` in ``csrc/coupling.cu``) for g1 rows
+    ``ps`` = 4K·H wide: with ``segments`` a float4 sum a thread; else the
+    chunk's ``rows_per_block`` rows of g1 and
+    their context entries (``c_tile`` rounded up to 4), or, where larger,
+    the lane groups' products laid over them."""
+    ps4 = ps // 4
+    if segments:
+        return 16 * CTX_THREADS
+    ldc = _cdiv(c_tile, 4) * 4
+    return 4 * max(rows_per_block * (ps + ldc), CTX_THREADS // (ldc // 4 * ps4) * ldc * ps)
+
+
+def ctx_weight_grad_smem_bytes() -> int:
+    """Shared memory of the context-weight gradient's second kernel: one
+    float4 sum a thread."""
+    return 16 * CTX_THREADS
+
+
+def ctx_weight_grad_plan(rows: int, n: int, mode: int, ctx_dim: int, ps: int) -> dict:
+    """How the two kernels of the context-weight gradient cover ``rows`` rows
+    of g1 (``ps`` = 4K·H wide) and ``ctx_dim`` context entries.
+
+    The first folds the rows into ``parts``: with a context broadcast over
+    n >= ``CTX_SEGMENT_MIN_N`` particles (``segments``) a block sums one
+    piece of at most ``CTX_PIECE_ROWS`` rows of a context row over
+    ``CTX_COLUMN_LANES`` x 4 columns (J = context rows x pieces parts of ps
+    floats); else a block takes a chunk of
+    ``rows_per_block`` rows against a tile of ``c_tile1`` context entries
+    (J = chunks parts of ctx_dim x ps floats), tiles as wide as 4 entries x 4
+    columns a thread keep two lane groups, chunks as many as fill
+    ``CTX_GRID_TARGET`` blocks and fit ``CTX_GRAD_SMEM_BYTES``.  The second
+    weighs and adds the J parts, a block per context entry (the plan
+    sweep's best: ``tools/ctx_plan_sweep.py``)."""
+    ps4 = ps // 4
+    segments = mode == PER_BATCH and n >= CTX_SEGMENT_MIN_N
+    if segments:
+        rows_per_block, c_tile1 = min(n, CTX_PIECE_ROWS), 1
+        pieces = _cdiv(n, rows_per_block)
+        parts = rows // n * pieces
+        grid1 = (parts, _cdiv(ps4, CTX_COLUMN_LANES))
+        part_floats = parts * ps
+    else:
+        tile_most = max(1, min(CTX_MAX_C_TILE, 4 * (CTX_THREADS // 2 // ps4)))
+        q1 = _cdiv(ctx_dim, tile_most)
+        c_tile1 = _cdiv(ctx_dim, q1)
+        q1 = _cdiv(ctx_dim, c_tile1)
+        ldc = _cdiv(c_tile1, 4) * 4
+        rows_per_block = min(_cdiv(rows, max(1, CTX_GRID_TARGET // q1)),
+                             CTX_GRAD_SMEM_BYTES // 4 // (ps + ldc))
+        pieces, parts = 1, _cdiv(rows, rows_per_block)
+        grid1 = (parts, q1)
+        part_floats = parts * ctx_dim * ps
+    return {"segments": segments, "rows_per_block": rows_per_block, "c_tile1": c_tile1,
+            "pieces": pieces, "parts": parts, "grid1": grid1, "part_floats": part_floats,
+            "smem_bytes1": ctx_grad_rows_smem_bytes(rows_per_block, ps, c_tile1, segments),
+            "grid2": ctx_dim, "smem_bytes2": ctx_weight_grad_smem_bytes(),
+            "threads": CTX_THREADS}
+
+
+def ctx_grad_rows_plain(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of the context-weight gradient's first kernel, on the
+    same plan: the parts, (J, ps) sums of g1 over each piece of each
+    context row (``segments``) or (J, C, ps) products ctx^T · g1 over each
+    chunk of rows."""
+    rows, ps = g1.shape
+    b, n, ctx_dim = ctx.shape
+    mode, _ = context_layout(ctx)
+    plan = ctx_weight_grad_plan(rows, n, mode, ctx_dim, ps)
+    rpb, parts = plan["rows_per_block"], plan["parts"]
+    if plan["segments"]:
+        pad = plan["pieces"] * rpb - n
+        g = F.pad(g1.reshape(b, n, ps), (0, 0, 0, pad))
+        return g.reshape(parts, rpb, ps).sum(1)
+    pad = parts * rpb - rows
+    g = F.pad(g1, (0, 0, 0, pad)).reshape(parts, rpb, ps)
+    c = F.pad(ctx.reshape(rows, ctx_dim), (0, 0, 0, pad)).reshape(parts, rpb, ctx_dim)
+    return torch.einsum("jrc,jre->jce", c, g)
+
+
 def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: bool,
                   backward: bool) -> Optional[str]:
     """Why the forward kernel (K4) or, with ``backward``, the backward kernel
@@ -382,11 +531,14 @@ def _launch_ctx_share(ctx, weights, biases):
     mode, r = context_layout(ctx)
     weights, biases = kernel_args(weights, biases)
     n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    ctx_dim = 0 if ctx is None else ctx.shape[-1]
+    plan = ctx_share_plan(r, n_blocks, hidden, ctx_dim)
     p = torch.empty((r, 4 * n_blocks * hidden), device=weights.device, dtype=torch.float32)
     rc = _library(hidden).nfdpf_coupling_ctx_share(
-        ctx_ptr, ctx_sb, ctx_sn, 1 if ctx is None else ctx.shape[1],
-        0 if ctx is None else ctx.shape[-1], mode, weights.data_ptr(), biases.data_ptr(),
-        weights.shape[-2], n_blocks, hidden, r, p.data_ptr(), _stream(weights))
+        ctx_ptr, ctx_sb, ctx_sn, 1 if ctx is None else ctx.shape[1], ctx_dim, mode,
+        weights.data_ptr(), biases.data_ptr(), weights.shape[-2], n_blocks, hidden, r,
+        plan["rows_a_block"], plan["nets_a_block"], plan["rows_a_thread"], plan["c_chunk"],
+        p.data_ptr(), _stream(weights))
     check_launch(rc, "coupling_ctx_share")
     LAUNCHES["coupling_ctx_share"] += 1
     return p, mode
@@ -434,18 +586,36 @@ def _launch_backward(x, p, mode: int, weights, biases, gy, gld, inverse: bool,
     return gx, g1, torch.sum(gw_part, dim=0), torch.sum(gb_part, dim=0)
 
 
+def _launch_ctx_grad_rows(g1, ctx, n_blocks: int, hidden: int):
+    """(the parts, the plan) of K5's g1: the context-weight gradient's first
+    kernel."""
+    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
+    mode, _ = context_layout(ctx)
+    (g1,) = kernel_args(g1)
+    if g1.data_ptr() % 16:        # the kernel reads g1 16 bytes at a time
+        g1 = g1.clone()
+    rows, ps = g1.shape
+    plan = ctx_weight_grad_plan(rows, ctx.shape[1], mode, ctx.shape[-1], ps)
+    parts = torch.empty(plan["part_floats"], device=g1.device, dtype=torch.float32)
+    rc = _library(hidden).nfdpf_coupling_ctx_grad_rows(
+        g1.data_ptr(), rows, ctx.shape[1], mode, ctx_ptr, ctx_sb, ctx_sn, ctx.shape[-1],
+        n_blocks, hidden, plan["rows_per_block"], plan["c_tile1"], int(plan["segments"]),
+        parts.data_ptr(), _stream(g1))
+    check_launch(rc, "coupling_ctx_grad_rows")
+    LAUNCHES["coupling_ctx_grad_rows"] += 1
+    return parts, plan
+
+
 def _launch_ctx_weight_grad(g1, ctx, gw):
     """Write layer 0's context rows of the packed weight gradient ``gw``
-    (K, 4, 3, max_in, H) from K5's g1: the context-weight-gradient kernel."""
-    ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
-    mode, r = context_layout(ctx)
-    (g1,) = kernel_args(g1)
+    (K, 4, 3, max_in, H) from K5's g1: the two kernels of the
+    context-weight gradient."""
     n_blocks, max_in, hidden = gw.shape[0], gw.shape[-2], gw.shape[-1]
-    scratch = torch.empty((r, g1.shape[1]), device=g1.device, dtype=torch.float32)
+    parts, plan = _launch_ctx_grad_rows(g1, ctx, n_blocks, hidden)
+    ctx, ctx_ptr, ctx_sb, _ = _ctx_arg(ctx)
     rc = _library(hidden).nfdpf_coupling_ctx_weight_grad(
-        g1.data_ptr(), g1.shape[0], ctx.shape[1], mode, r, ctx_ptr, ctx_sb, ctx_sn,
-        ctx.shape[-1], n_blocks, max_in, hidden, scratch.data_ptr(), gw.data_ptr(),
-        _stream(g1))
+        parts.data_ptr(), plan["parts"], plan["pieces"], ctx_ptr, ctx_sb, ctx.shape[-1],
+        n_blocks, max_in, hidden, int(plan["segments"]), gw.data_ptr(), _stream(gw))
     check_launch(rc, "coupling_ctx_weight_grad")
     LAUNCHES["coupling_ctx_weight_grad"] += 1
 
@@ -480,9 +650,21 @@ def ctx_weight_grad(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tensor) 
     version on the CPU."""
     if on_cpu(g1, ctx, weights):
         return ctx_weight_grad_plain(g1, ctx, weights)
-    gw = torch.zeros(weights.shape, device=weights.device, dtype=torch.float32)
+    # the kernel writes every entry returned (layer 0's context rows)
+    gw = torch.empty(weights.shape, device=weights.device, dtype=torch.float32)
     _launch_ctx_weight_grad(g1, ctx, gw)
     return gw[:, :, 0, 1:1 + ctx.shape[-1]]
+
+
+def ctx_grad_rows(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The context-weight gradient's parts (see ``ctx_grad_rows_plain``): its
+    first kernel on CUDA tensors, the plain version on the CPU."""
+    if on_cpu(g1, ctx, weights):
+        return ctx_grad_rows_plain(g1, ctx, weights)
+    parts, plan = _launch_ctx_grad_rows(g1, ctx, weights.shape[0], weights.shape[-1])
+    ps = g1.shape[1]
+    return parts.reshape((plan["parts"], ps) if plan["segments"]
+                         else (plan["parts"], ctx.shape[-1], ps))
 
 
 def ctx_input_grad(g1: torch.Tensor, weights: torch.Tensor, ctx_dim: int) -> torch.Tensor:

@@ -781,21 +781,53 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ pg, int
 //
 // Layer 0 of every conditioner MLP reads [half | ctx]: its context share
 // ctx . w[1..C] does not depend on the row's state, only on its context
-// row.  These three kernels take it out of K4/K5, so that the shared memory
-// of those no longer grows with the context's width C (the proposal flow's
+// row.  These kernels take it out of K4/K5, so that the shared memory of
+// those no longer grows with the context's width C (the proposal flow's
 // context is 196 wide under the CGLOW measurement):
-//   chain_ctx_share_kernel      P[d] = b0 + ctx[d] . w0[1..C], per distinct context row d;
-//   chain_ctx_weight_grad_kernel gw0[1 + c][j] = sum_d ctx[d][c] * G[d][j], G[d] the
-//                               sum of K5's g1 over the rows of context row d;
-//   chain_ctx_input_grad_kernel gctx[r] = g1[r] . w0[1..C]^T, per row.
+//   chain_ctx_share_kernel       P[d] = b0 + ctx[d] . w0[1..C], per distinct context row d;
+//   chain_ctx_grad_rows_kernel   then chain_ctx_weight_grad_kernel: gw0[1 + c][e] =
+//                                sum_d ctx[d][c] * G[d][e], G[d] the sum of K5's g1 over
+//                                the rows of context row d;
+//   chain_ctx_input_grad_kernel  gctx[r] = g1[r] . w0[1..C]^T, per row.
 // They replace the context's share of layer 0 inside
 // nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_kernel and ::_chain_bwd_kernel.
-// What bounds them: each is a small product (R x C x 4K·H operations, R the
-// distinct context rows); at the filter's sizes a launch's latency.  Each
-// output is summed by one thread or one warp in a fixed order (no atomics),
-// so a second launch gives the same bits; the share sums in the order the
-// forward kernel did before the split (fmaf over c, then the bias added), so
-// the chain's outputs keep their bits.
+//
+// What bounds them on an H100: each is a small product (R x C x 4K·H
+// multiply-adds, R the distinct context rows: 32 for the filter's (32, 100)
+// with the context broadcast over the particles, 16,388 for a dense (4,
+// 4,097)), and the weight gradient first reads all of g1 (rows x 4K·H); the
+// bytes and operations bound them at 2e-3 ms or less, so at the filter's
+// sizes the time is latency: of the loads, of a dependent chain of C fmaf,
+// of filling the card, and of any step that waits for all blocks.  The
+// first designs gave the share a thread an entry (R = 32: 8 blocks, each
+// thread C dependent fmaf fed from global memory) and the weight gradient
+// a block per column of g1 (64 blocks, each reading all of g1 with lanes 64
+// floats apart, a warp walking every context row for each entry): both lost
+// to one torch.addmm / torch.mm, the weight gradient 41x with a dense
+// context.  A one-launch weight gradient whose last block to arrive adds
+// the blocks' partials lost as well: timed phase by phase, that serial sum
+// (and the reads of g1 that every tile of c repeated) took most of its
+// time.  Now:
+//   * the share: a block per (tile of context rows, net) (a dense context:
+//     per tile of 16 rows a thread x every net, so the weights are staged
+//     once for many rows).  It stages the tile's context rows and its nets'
+//     C x H context rows of w0 in shared memory with cp.async, C in chunks
+//     that fit (a context at most 8 wide is read from global memory), and a
+//     thread walks its entries' chains from shared memory, four entries of
+//     a row a load.  Each entry keeps K4's former order (fmaf over c
+//     ascending, then the bias added), so P, and the chain's outputs, keep
+//     their bits.
+//   * the weight gradient, two launches that wait for nothing but each
+//     other: the first folds the rows of g1 into parts (a context broadcast
+//     over the particles: each context row's sum, a block per (context row
+//     or piece of one, 64 columns), 16-byte loads, row lanes added in
+//     order; a dense one: ctx^T · g1 over chunks of rows staged with
+//     cp.async, a thread 4 entries x 4 columns); the second weighs the
+//     parts with the context and adds them, a block per context entry,
+//     each output's sum split over lanes that are then added in order.
+//     Fixed orders and no atomics: a second launch gives the same bits.
+// Tensor cores would not help: the products are at most ~0.8 MFLOP at the
+// filter's sizes, and TF32 breaks the gradients' 1e-4 tolerance.
 
 // Offset of context row d in a context read through its batch and particle strides.
 __device__ __forceinline__ long long ctx_offset(int d, int n, int p_mode, long long sb,
@@ -804,62 +836,296 @@ __device__ __forceinline__ long long ctx_offset(int d, int n, int p_mode, long l
                              : (long long)(d / n) * sb + (long long)(d % n) * sn;
 }
 
-// One thread per entry of P (R x 4K·H).
+// Stage entries c0 .. c0 + count - 1 of `rows` context rows into dst rows
+// `ld` floats apart.  Row r is batch element first + r (`by_batch`: a
+// context broadcast over the particles, offset (first + r)·sb) or row
+// first + r of the (batch, particle) rows (offset b·sb + i·sn).  16-byte
+// copies where the pointer, strides, c0, count and ld allow them.  Rows of
+// more than 32 entries: a warp a row, its lanes the entries, the (batch,
+// particle) pair carried from row to row so that no lane divides; shorter
+// rows (or a block that is not whole warps): a thread a row.
+__device__ __forceinline__ void stage_ctx_rows(float* dst, int ld, const float* __restrict__ ctx,
+                                               long long sb, long long sn, int n, bool by_batch,
+                                               int first, int rows, int c0, int count) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(ctx) & 15) | (sb & 3) | (sn & 3) | (c0 & 3) |
+                    (count & 3) | (ld & 3)) == 0;
+  if (count <= kWarp || blockDim.x % kWarp != 0) {
+    // a thread a row: short rows (a warp's lanes would mostly idle)
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      const int d = first + r;
+      const float* src = ctx + c0 + (by_batch ? (long long)d * sb
+                                              : (long long)(d / n) * sb + (long long)(d % n) * sn);
+      float* row = dst + (size_t)r * ld;
+      if (vec) {
+        for (int u = 0; u < count; u += 4) copy_async16(row + u, src + u);
+      } else {
+        for (int u = 0; u < count; ++u) copy_async4(row + u, src + u);
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp, warps = blockDim.x / kWarp;
+  int bi = (first + warp) / n, pi = (first + warp) % n;
+  for (int r = warp; r < rows; r += warps) {
+    const float* src = ctx + c0 + (by_batch ? (long long)(first + r) * sb
+                                            : (long long)bi * sb + (long long)pi * sn);
+    float* row = dst + (size_t)r * ld;
+    if (vec) {
+      for (int u = 4 * lane; u < count; u += 4 * kWarp) copy_async16(row + u, src + u);
+    } else {
+      for (int u = lane; u < count; u += kWarp) copy_async4(row + u, src + u);
+    }
+    pi += warps;
+    while (pi >= n) {
+      pi -= n;
+      ++bi;
+    }
+  }
+}
+
+// A block per (tile of `rows_a_block` context rows, `nets_a_block` nets); a
+// thread per (row lane l, entry u of the block's nets_a_block x H entries)
+// takes RPT rows of the tile, l·RPT .. l·RPT + RPT - 1.  Shared memory, in
+// floats: the tile's context entries (rows_a_block rows of c_chunk rounded
+// up to 4), then the block's nets' context rows of w0 (c_chunk x
+// nets_a_block·H), C taken c_chunk entries at a time; a thread reads four
+// entries of a row at once.  With c_chunk 0 a thread reads its operands
+// from global memory (a context a few entries wide).
+template <int RPT>
 __global__ void chain_ctx_share_kernel(const float* __restrict__ ctx, long long sb, long long sn,
                                        int n, int C, int p_mode, const float* __restrict__ w,
                                        const float* __restrict__ bias, int max_in, int nets,
-                                       int R, float* __restrict__ p) {
-  const int ps = nets * kHidden;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)R * ps) return;
-  const int d = static_cast<int>(i / ps), e = static_cast<int>(i % ps);
-  const int m = e / kHidden, j = e % kHidden;
-  const float* wc = w + (size_t)m * 3 * max_in * kHidden + kHidden + j;   // row 1 + c at c·H
-  float acc = 0.f;
-  if (C > 0) {
-    const float* cd = ctx + ctx_offset(d, n, p_mode, sb, sn);
-    for (int c = 0; c < C; ++c) acc = fmaf(cd[c], wc[c * kHidden], acc);
-  }
-  p[i] = bias[m * 3 * kHidden + j] + acc;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+                                       int R, int rows_a_block, int nets_a_block, int c_chunk,
+                                       float* __restrict__ p) {
+  extern __shared__ __align__(16) float smem[];
+  const int et = nets_a_block * kHidden, t = threadIdx.x;
+  const int u = t % et, first = (t / et) * RPT;
+  const int m0 = blockIdx.y * nets_a_block, m = m0 + u / kHidden, j = u % kHidden;
+  const int d0 = blockIdx.x * rows_a_block, dn = min(rows_a_block, R - d0);
+  // layer 0's rows 1..C of net m, H floats each, column j
+  const float* wm = w + (size_t)m * 3 * max_in * kHidden + kHidden + j;
+  float acc[RPT];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  if (c_chunk == 0) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      if (first + i >= dn) break;
+      const float* cd = ctx + ctx_offset(d0 + first + i, n, p_mode, sb, sn);
+      for (int c = 0; c < C; ++c) acc[i] = fmaf(__ldg(cd + c), __ldg(wm + c * kHidden), acc[i]);
+    }
+  } else {
+    const int ldc = (c_chunk + 3) / 4 * 4;
+    float* cs = smem;
+    float* ws = smem + (size_t)rows_a_block * ldc;
+    // each net's cn x H context rows are one run in the packing; 16-byte
+    // copies where H is a multiple of 4 and the packing starts on 16 bytes
+    const int unit = (kHidden % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) ? 4 : 1;
+    for (int cb = 0; cb < C; cb += c_chunk) {
+      const int cn = min(c_chunk, C - cb);
+      stage_ctx_rows(cs, ldc, ctx, sb, sn, n, p_mode == kPerBatch, d0, dn, cb, cn);
+      for (int i = t * unit; i < nets_a_block * cn * kHidden; i += blockDim.x * unit) {
+        const int mm = i / (cn * kHidden), rest = i % (cn * kHidden);
+        const int c = rest / kHidden, jj = rest % kHidden;
+        float* dst = ws + c * et + mm * kHidden + jj;
+        const float* src = w + (size_t)(m0 + mm) * 3 * max_in * kHidden + kHidden +
+                           (size_t)(cb + c) * kHidden + jj;
+        if (unit == 4) {
+          copy_async16(dst, src);
+        } else {
+          copy_async4(dst, src);
+        }
+      }
+      copy_async_wait();
+      __syncthreads();
+      const float* a = cs + (size_t)first * ldc;
+      int c = 0;
+      for (; c + 4 <= cn; c += 4) {
+        const float w0 = ws[c * et + u], w1 = ws[(c + 1) * et + u];
+        const float w2 = ws[(c + 2) * et + u], w3 = ws[(c + 3) * et + u];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(a + (size_t)i * ldc + c);
+          acc[i] = fmaf(v.x, w0, acc[i]);
+          acc[i] = fmaf(v.y, w1, acc[i]);
+          acc[i] = fmaf(v.z, w2, acc[i]);
+          acc[i] = fmaf(v.w, w3, acc[i]);
+        }
+      }
+      for (; c < cn; ++c) {
+        const float wv = ws[c * et + u];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) acc[i] = fmaf(a[(size_t)i * ldc + c], wv, acc[i]);
+      }
+      __syncthreads();   // before the next chunk is staged over this one
+    }
+  }
+  const float b0 = bias[m * 3 * kHidden + j];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    if (first + i < dn) p[(size_t)(d0 + first + i) * nets * kHidden + m * kHidden + j] = b0 + acc[i];
+  }
 }
 
-// A block per column e = (net m, unit j) of g1.  With a context broadcast over
-// the particles it first sums g1 over each context row's n rows into G
-// (a warp per context row, lanes over its rows, one butterfly), kept in
-// gseg; then a warp per context entry c sums ctx[d][c]·G[d][e] over the
-// context rows d (lanes over d, one butterfly) into the packed gradient's
-// layer-0 row 1 + c.
-__global__ void chain_ctx_weight_grad_kernel(const float* __restrict__ g1, int rows, int n,
-                                             int p_mode, int R, const float* __restrict__ ctx,
-                                             long long sb, long long sn, int C, int nets,
-                                             int max_in, float* gseg, float* __restrict__ gw) {
-  const int ps = nets * kHidden, e = blockIdx.x, m = e / kHidden, j = e % kHidden;
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp, warps = blockDim.x / kWarp;
-  const float* G = g1;
-  if (p_mode == kPerBatch) {
-    for (int d = warp; d < R; d += warps) {
-      float s = 0.f;
-      const int end = min(rows, (d + 1) * n);
-      for (int r = d * n + lane; r < end; r += kWarp) s += g1[(size_t)r * ps + e];
-      s = warp_sum(s);
-      if (lane == 0) gseg[(size_t)d * ps + e] = s;
+constexpr int kCtxThreads = 256;    // threads of a context-weight-gradient block
+constexpr int kCtxColumnLanes = 16; // float4 columns a segment-sum block takes (64 floats)
+
+// A row of staged context entries: c_tile rounded up to 4 floats.
+__host__ __device__ __forceinline__ int ctx_ldc(int c_tile) { return (c_tile + 3) / 4 * 4; }
+
+// The first kernel's shared memory in floats (the layouts above it).
+__host__ __device__ __forceinline__ size_t ctx_grad_rows_smem_floats(int rows_per_block, int ps,
+                                                                   int c_tile, int segments) {
+  const int ps4 = ps / 4;
+  if (segments) return (size_t)4 * kCtxThreads;   // a float4 a thread
+  const int ldc = ctx_ldc(c_tile);
+  const size_t stage = (size_t)rows_per_block * (ps + ldc);
+  const size_t red = (size_t)(kCtxThreads / (ldc / 4 * ps4)) * ldc * ps;
+  return stage > red ? stage : red;
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4 v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// The context-weight gradient's first kernel: the rows of g1 folded into J
+// rows of `parts` that the second kernel weighs with the context.
+//   segments (a context broadcast over n >= the plan's minimum particles):
+//     part j = d·pieces + k is the sum of g1 over rows k·rows_per_block ..
+//     of context row d's n rows; a block per (part, slice of at most 64
+//     columns).  Row lane l (L = 256 / column lanes, 4 columns a lane) sums
+//     rows l, l + L, ... straight from global memory; the lanes are then
+//     added in order.  Shared memory: a float4 sum a thread.
+//   rows (a dense context, or few particles): part p (C x ps) is
+//     ctx[rows of chunk p]^T · g1[chunk p], chunks of rows_per_block rows; a
+//     block per (chunk, tile of c_tile entries).  The chunk's rows of g1 and
+//     their context entries are staged with cp.async (rows_per_block x ps,
+//     then rows_per_block x ldc); a lane takes 4 entries x 4 columns (16
+//     accumulators), ldc/4 x ps/4 lanes make a group, and group g takes rows
+//     g, g + groups, ...; the groups are then added in order (red, groups x
+//     ldc x ps, over the staged rows).
+__global__ void __launch_bounds__(kCtxThreads)
+chain_ctx_grad_rows_kernel(const float* __restrict__ g1, int rows, int n,
+                           const float* __restrict__ ctx, long long sb, long long sn, int C,
+                           int ps, int rows_per_block, int c_tile, int segments,
+                           float* __restrict__ parts) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, ps4 = ps / 4, e4 = t % ps4;
+  const float4* g1v = reinterpret_cast<const float4*>(g1);
+  if (segments) {
+    // block (j, y): part j, columns 4·(y·cw) .. of 4·cw; cw column lanes x
+    // L row lanes
+    const int pieces = (n + rows_per_block - 1) / rows_per_block;
+    const int d = blockIdx.x / pieces, k = blockIdx.x % pieces;
+    const int a = d * n + k * rows_per_block, z = min(min(rows, (d + 1) * n), a + rows_per_block);
+    const int cw = min(kCtxColumnLanes, ps4), L = kCtxThreads / cw;
+    const int l = t / cw, col = blockIdx.y * cw + t % cw;
+    float4* lane_sums = reinterpret_cast<float4*>(smem);
+    if (l < L && col < ps4) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int r = a + l; r < z; r += L) add4(sum, __ldg(g1v + (size_t)r * ps4 + col));
+      lane_sums[t] = sum;
     }
-    __syncthreads();   // this block's column of G, written above, is read below
-    G = gseg;
+    __syncthreads();
+    if (t < cw && col < ps4) {
+      float4 sum = lane_sums[t];
+      for (int i = 1; i < L; ++i) add4(sum, lane_sums[i * cw + t]);
+      reinterpret_cast<float4*>(parts)[(size_t)blockIdx.x * ps4 + col] = sum;
+    }
+    return;
   }
-  for (int c = warp; c < C; c += warps) {
-    float s = 0.f;
-    for (int d = lane; d < R; d += kWarp) {
-      s = fmaf(ctx[ctx_offset(d, n, p_mode, sb, sn) + c], G[(size_t)d * ps + e], s);
+  const int p = blockIdx.x, ldc = ctx_ldc(c_tile);
+  const int c0 = blockIdx.y * c_tile, ct = min(c_tile, C - c0);
+  const int r0 = p * rows_per_block, nr = min(rows - r0, rows_per_block);
+  float* gr = smem;
+  float* cs = gr + (size_t)rows_per_block * ps;
+  stage_async(gr, g1 + (size_t)r0 * ps, nr * ps);
+  stage_ctx_rows(cs, ldc, ctx, sb, sn, n, false, r0, nr, c0, ct);
+  copy_async_wait();
+  __syncthreads();
+  const float4* gs = reinterpret_cast<const float4*>(gr);
+  const int lanes = ldc / 4 * ps4, groups = kCtxThreads / lanes;
+  const int g = t / lanes, cq = (t % lanes) / ps4;
+  float4 acc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (g < groups) {
+    for (int s = g; s < nr; s += groups) {
+      const float4 v = gs[(size_t)s * ps4 + e4];
+      const float4 av = *reinterpret_cast<const float4*>(cs + (size_t)s * ldc + 4 * cq);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i].x = fmaf(a4[i], v.x, acc[i].x);
+        acc[i].y = fmaf(a4[i], v.y, acc[i].y);
+        acc[i].z = fmaf(a4[i], v.z, acc[i].z);
+        acc[i].w = fmaf(a4[i], v.w, acc[i].w);
+      }
     }
-    s = warp_sum(s);
-    if (lane == 0) gw[(size_t)m * 3 * max_in * kHidden + (size_t)(1 + c) * kHidden + j] = s;
+  }
+  __syncthreads();   // every reader of the staged rows is done: red goes over them
+  float4* red = reinterpret_cast<float4*>(smem);
+  if (g < groups) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[((size_t)g * ldc + 4 * cq + i) * ps4 + e4] = acc[i];
+  }
+  __syncthreads();
+  float4* mine = reinterpret_cast<float4*>(parts) + ((size_t)p * C + c0) * ps4;
+  for (int i = t; i < ct * ps4; i += kCtxThreads) {
+    const int c = i / ps4, e = i % ps4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < groups; ++k) add4(sum, red[((size_t)k * ldc + c) * ps4 + e]);
+    mine[(size_t)c * ps4 + e] = sum;
+  }
+}
+
+// The context-weight gradient's second kernel: gw0[1 + c][e] = sum over the
+// J parts in order, weighted by the context (segments: part j of context
+// row j / pieces times ctx[j / pieces][c]; rows: part j's own entry c).  A
+// block per entry c; thread t takes 4 columns (lane t % (ps/4)) and the
+// parts j = k, k + ways, ... (k = t / (ps/4), ways = min(J, 256 / (ps/4)));
+// the ways are then added in order (shared memory: a float4 a thread).
+__global__ void __launch_bounds__(kCtxThreads)
+chain_ctx_weight_grad_kernel(const float* __restrict__ parts, int J, int pieces,
+                             const float* __restrict__ ctx, long long sb, int C, int ps,
+                             int max_in, int segments, float* __restrict__ gw) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, ps4 = ps / 4, c = blockIdx.x;
+  const int ways = min(J, kCtxThreads / ps4), k = t / ps4, e4 = t % ps4;
+  const float4* pv = reinterpret_cast<const float4*>(parts);
+  float4* sums = reinterpret_cast<float4*>(smem);
+  if (k < ways) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (segments) {
+#pragma unroll 8
+      for (int j = k; j < J; j += ways) {
+        const float a = __ldg(ctx + (long long)(j / pieces) * sb + c);
+        const float4 v = __ldg(pv + (size_t)j * ps4 + e4);
+        sum.x = fmaf(a, v.x, sum.x);
+        sum.y = fmaf(a, v.y, sum.y);
+        sum.z = fmaf(a, v.z, sum.z);
+        sum.w = fmaf(a, v.w, sum.w);
+      }
+    } else {
+#pragma unroll 8
+      for (int j = k; j < J; j += ways) add4(sum, __ldg(pv + ((size_t)j * C + c) * ps4 + e4));
+    }
+    sums[t] = sum;
+  }
+  __syncthreads();
+  if (k == 0) {
+    float4 sum = sums[e4];
+    for (int i = 1; i < ways; ++i) add4(sum, sums[i * ps4 + e4]);
+    const float out[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 4 * e4 + i, m = col / kHidden, j = col % kHidden;
+      gw[(size_t)m * 3 * max_in * kHidden + (size_t)(1 + c) * kHidden + j] = out[i];
+    }
   }
 }
 
@@ -963,36 +1229,81 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* p, int p_mo
 }
 
 // P (R x 4K·H) from a context of `ctx_dim` entries read through its batch and
-// particle strides (none when ctx_dim is 0: P is then layer 0's bias, R = 1).
+// particle strides (none when ctx_dim is 0: P is then layer 0's bias, R = 1),
+// on the wrapper's plan (ctx_share_plan): blocks of `rows_a_block` context
+// rows x `nets_a_block` nets, `rows_a_thread` (1 or 16) rows a thread, C
+// staged `c_chunk` entries at a time (0: read from global memory).
 extern "C" int nfdpf_coupling_ctx_share(const float* ctx, long long sb, long long sn, int n,
                                         int ctx_dim, int p_mode, const float* w, const float* b,
-                                        int max_in, int n_blocks, int hidden, int R, float* p,
-                                        void* stream) {
-  if (R <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden || ctx_dim < 0) {
+                                        int max_in, int n_blocks, int hidden, int R,
+                                        int rows_a_block, int nets_a_block, int rows_a_thread,
+                                        int c_chunk, float* p, void* stream) {
+  const int nets = 4 * n_blocks;
+  if (R <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden || ctx_dim < 0 || c_chunk < 0 ||
+      rows_a_block <= 0 || nets_a_block <= 0 || nets % nets_a_block != 0 ||
+      (rows_a_thread != 1 && rows_a_thread != 16) ||
+      rows_a_block % rows_a_thread != 0 ||
+      rows_a_block / rows_a_thread * nets_a_block * kHidden > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long count = (long long)R * 4 * n_blocks * kHidden;
-  const int threads = 256;
-  chain_ctx_share_kernel<<<(unsigned)((count + threads - 1) / threads), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      ctx, sb, sn, n, ctx_dim, p_mode, w, b, max_in, 4 * n_blocks, R, p);
+  const int chunk = ctx_dim > 0 ? c_chunk : 0;
+  const size_t smem = ((size_t)rows_a_block * ((chunk + 3) / 4 * 4) +
+                       (size_t)chunk * nets_a_block * kHidden) * sizeof(float);
+  auto kernel = rows_a_thread == 16 ? chain_ctx_share_kernel<16> : chain_ctx_share_kernel<1>;
+  const int rc = reserve_smem(kernel, smem);
+  if (rc != 0) return rc;
+  const dim3 grid((R + rows_a_block - 1) / rows_a_block, nets / nets_a_block);
+  kernel<<<grid, rows_a_block / rows_a_thread * nets_a_block * kHidden, smem,
+           static_cast<cudaStream_t>(stream)>>>(ctx, sb, sn, n, ctx_dim, p_mode, w, b, max_in,
+                                                nets, R, rows_a_block, nets_a_block, chunk, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The context-weight gradient's first kernel, on the wrapper's plan
+// (ctx_weight_grad_plan): the rows of g1 folded into J parts, `parts` (J x
+// ps floats with `segments`: sums over pieces of rows_per_block rows of
+// each context row; else J x C x ps: ctx^T · g1 over chunks of
+// rows_per_block rows, in tiles of c_tile entries).
+extern "C" int nfdpf_coupling_ctx_grad_rows(const float* g1, int rows, int n, int p_mode,
+                                            const float* ctx, long long sb, long long sn,
+                                            int ctx_dim, int n_blocks, int hidden,
+                                            int rows_per_block, int c_tile, int segments,
+                                            float* parts, void* stream) {
+  const int ps = 4 * n_blocks * kHidden;
+  if (rows <= 0 || n <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
+      (p_mode != kPerBatch && p_mode != kPerRow) || rows_per_block <= 0 || c_tile <= 0 ||
+      ps / 4 > kCtxThreads || (!segments && ctx_ldc(c_tile) / 4 * (ps / 4) > kCtxThreads) ||
+      (segments && (p_mode != kPerBatch || rows % n != 0)) ||
+      ((reinterpret_cast<uintptr_t>(g1) | reinterpret_cast<uintptr_t>(parts)) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = ctx_grad_rows_smem_floats(rows_per_block, ps, c_tile, segments) * sizeof(float);
+  const int rc = reserve_smem(chain_ctx_grad_rows_kernel, smem);
+  if (rc != 0) return rc;
+  const int J = segments ? rows / n * ((n + rows_per_block - 1) / rows_per_block)
+                         : (rows + rows_per_block - 1) / rows_per_block;
+  const dim3 grid(J, segments ? (ps / 4 + kCtxColumnLanes - 1) / kCtxColumnLanes
+                              : (ctx_dim + c_tile - 1) / c_tile);
+  chain_ctx_grad_rows_kernel<<<grid, kCtxThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      g1, rows, n, ctx, sb, sn, ctx_dim, ps, rows_per_block, c_tile, segments, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The context rows of layer 0's weight gradient, written into the packed
-// gradient `gw` (K x 4 x 3 x max_in x H); gseg is R x 4K·H floats of scratch
-// (read only with a context broadcast over the particles).
-extern "C" int nfdpf_coupling_ctx_weight_grad(const float* g1, int rows, int n, int p_mode, int R,
-                                              const float* ctx, long long sb, long long sn,
-                                              int ctx_dim, int n_blocks, int max_in, int hidden,
-                                              float* gseg, float* gw, void* stream) {
-  if (rows <= 0 || R <= 0 || n <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
-      (p_mode != kPerBatch && p_mode != kPerRow)) {
+// gradient `gw` (K x 4 x 3 x max_in x H) from the first kernel's J parts
+// (`pieces` a context row with `segments`), a block per context entry.
+extern "C" int nfdpf_coupling_ctx_weight_grad(const float* parts, int J, int pieces,
+                                              const float* ctx, long long sb, int ctx_dim,
+                                              int n_blocks, int max_in, int hidden, int segments,
+                                              float* gw, void* stream) {
+  const int ps = 4 * n_blocks * kHidden;
+  if (J <= 0 || pieces <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
+      ps / 4 > kCtxThreads || (reinterpret_cast<uintptr_t>(parts) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  chain_ctx_weight_grad_kernel<<<4 * n_blocks * kHidden, 256, 0,
+  chain_ctx_weight_grad_kernel<<<ctx_dim, kCtxThreads, kCtxThreads * sizeof(float4),
                                  static_cast<cudaStream_t>(stream)>>>(
-      g1, rows, n, p_mode, R, ctx, sb, sn, ctx_dim, 4 * n_blocks, max_in, gseg, gw);
+      parts, J, pieces, ctx, sb, ctx_dim, ps, max_in, segments, gw);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -589,7 +589,7 @@ def test_coupling_chain_takes_wide_contexts(cuda, b, n, ctx_dim, broadcast, n_bl
     torch.cuda.synchronize()
     fwd = "coupling_chain_inverse" if inverse else "coupling_chain"
     assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
-        fwd: 2, "coupling_chain_bwd": 2, "coupling_ctx_share": 2,
+        fwd: 2, "coupling_chain_bwd": 2, "coupling_ctx_share": 2, "coupling_ctx_grad_rows": 2,
         "coupling_ctx_weight_grad": 2, "coupling_ctx_input_grad": 2}
     no_ctx = run(cc.fused_coupling_chain, ctx_grad=False)
     assert cc.LAUNCHES["coupling_ctx_input_grad"] == 2
@@ -605,23 +605,51 @@ def test_coupling_chain_takes_wide_contexts(cuda, b, n, ctx_dim, broadcast, n_bl
         assert torch.equal(a, c)
 
 
+# the context kernels' cases as (B, N, C, context broadcast, blocks, hidden,
+# dense context read through a strided view): the filter's heaviest, a
+# dense large one, ragged row counts, C = 1 and 197 on both routes of the
+# weight gradient, the widest rows of g1 (4K·H = 256 and 192), a broadcast
+# over too few particles for the segment sums, a strided dense view
+CONTEXT_CASES = [(32, 100, 196, True, 2, 8, False), (4, 4097, 36, False, 2, 8, False),
+                 (3, 33, 5, True, 2, 8, False), (3, 1037, 36, False, 2, 8, False),
+                 (32, 100, 1, True, 2, 8, False), (32, 100, 197, True, 2, 8, False),
+                 (3, 1037, 1, False, 2, 8, False), (3, 1037, 197, False, 2, 8, False),
+                 (32, 100, 36, True, 8, 8, False), (3, 1037, 36, False, 8, 8, False),
+                 (32, 100, 196, True, 3, 16, False), (3, 1037, 36, False, 3, 16, False),
+                 (64, 5, 36, True, 2, 8, False), (3, 1037, 36, False, 2, 8, True)]
+
+
+def _context_case(cuda, b, n, ctx_dim, broadcast, n_blocks, hidden, view):
+    """(ctx (B, N, C) on the card, weights, biases, g1 (B·N, 4K·H)); with
+    ``view`` the context is entries 5..5+C of a transposed (N, B, C + 9)
+    tensor."""
+    _, ctx, w, bias, _, _ = (t.to(cuda) if t is not None else None for t in _chain_case(
+        b, n, ctx_dim, 31 * b + n + ctx_dim, broadcast, n_blocks, hidden))
+    gen = torch.Generator().manual_seed(b + ctx_dim)
+    if view:
+        ctx = torch.randn(n, b, ctx_dim + 9, generator=gen).to(cuda).permute(1, 0, 2)
+        ctx = ctx[..., 5:5 + ctx_dim]
+    g1 = torch.randn(b * n, 4 * n_blocks * hidden, generator=gen).to(cuda)
+    return ctx.expand(b, n, ctx_dim), w, bias, g1
+
+
+def _context_kernels(ctx, w, bias, g1):
+    return [cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w),
+            cc.ctx_input_grad(g1, w, ctx.shape[-1]), cc.ctx_grad_rows(g1, ctx, w)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,ctx_dim,broadcast", [(32, 100, 196, True), (4, 4097, 36, False),
-                                                   (3, 33, 5, True)])
-def test_context_kernels_match_plain(cuda, b, n, ctx_dim, broadcast):
-    """The three context kernels alone against their plain versions: the
-    share to rtol/atol 1e-5, the two gradients to 1e-4 of their scale;
-    second launches give the same bits."""
-    _, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(b, n, ctx_dim, 31 * b + n,
-                                                              broadcast))
-    ctx = ctx.expand(b, n, ctx_dim)
-    g1 = torch.randn(b * n, 4 * 2 * 8, generator=torch.Generator().manual_seed(b)).to(cuda)
-    got = [cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w),
-           cc.ctx_input_grad(g1, w, ctx_dim)]
-    again = [cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w),
-             cc.ctx_input_grad(g1, w, ctx_dim)]
+@pytest.mark.parametrize("b,n,ctx_dim,broadcast,n_blocks,hidden,view", CONTEXT_CASES)
+def test_context_kernels_match_plain(cuda, b, n, ctx_dim, broadcast, n_blocks, hidden, view):
+    """The context kernels alone against their plain versions: the share to
+    rtol/atol 1e-5, the two gradients and the weight gradient's first
+    kernel (its parts) to 1e-4 of their scale; second launches give the
+    same bits."""
+    ctx, w, bias, g1 = _context_case(cuda, b, n, ctx_dim, broadcast, n_blocks, hidden, view)
+    assert view == (not ctx.is_contiguous() and ctx.stride(1) != 0)
+    got, again = _context_kernels(ctx, w, bias, g1), _context_kernels(ctx, w, bias, g1)
     ref = [cc.ctx_share_plain(ctx, w, bias), cc.ctx_weight_grad_plain(g1, ctx, w),
-           cc.ctx_input_grad_plain(g1, w, ctx_dim)]
+           cc.ctx_input_grad_plain(g1, w, ctx_dim), cc.ctx_grad_rows_plain(g1, ctx, w)]
     torch.cuda.synchronize()
     for k, (a, a2, r) in enumerate(zip(got, again, ref)):
         assert torch.equal(a, a2)
@@ -629,6 +657,23 @@ def test_context_kernels_match_plain(cuda, b, n, ctx_dim, broadcast):
             torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
         else:
             torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_context_kernels_back_to_back(cuda):
+    """Every case of the context kernels launched back to back, with no
+    synchronisation between, gives the bits of its own launch: the weight
+    gradient's arrival counters and partials carry nothing from one shape
+    to the next."""
+    cases = [_context_case(cuda, *case) for case in CONTEXT_CASES]
+    alone = []
+    for case in cases:
+        alone.append(_context_kernels(*case))
+        torch.cuda.synchronize()
+    together = [_context_kernels(*case) for case in cases]
+    torch.cuda.synchronize()
+    for a, t in zip(alone, together):
+        assert all(torch.equal(x, y) for x, y in zip(a, t))
 
 
 # ---------------------------------------------------------------------------

@@ -254,8 +254,12 @@ def test_split_route_matches_packed_plain_and_jax(broadcast, inverse):
                                        atol=max(2e-5, 2e-6 * float(np.abs(ref_jax).max())))
 
 
-@pytest.mark.parametrize("broadcast", [True, False], ids=["broadcast", "dense"])
-def test_context_kernels_plain_versions(broadcast):
+@pytest.mark.parametrize("broadcast,ctx_dim,b,n", [
+    pytest.param(True, 36, 3, 30, id="broadcast"), pytest.param(False, 36, 3, 30, id="dense"),
+    pytest.param(True, 1, 3, 30, id="broadcast-C1"), pytest.param(False, 197, 3, 30, id="dense-C197"),
+    pytest.param(True, 36, 5, 37, id="broadcast-ragged"),
+    pytest.param(False, 36, 5, 37, id="dense-ragged")])
+def test_context_kernels_plain_versions(broadcast, ctx_dim, b, n):
     """The plain versions of the three context kernels make the context's
     share and gradients of the packed chain: P (``ctx_share_plain``) is
     layer 0's bias plus ctx · w0[1..C] per distinct context row (one per
@@ -263,8 +267,8 @@ def test_context_kernels_plain_versions(broadcast):
     writes) ``ctx_weight_grad_plain`` and ``ctx_input_grad_plain`` give the
     context rows of the weight gradient and the context's gradient of
     ``chain_apply_packed_plain``'s autograd (rtol/atol 1e-5); on CPU tensors
-    the wrappers are the plain versions."""
-    ctx_dim, b, n = 36, 3, 30
+    the wrappers are the plain versions.  At C = 36, 1 and 197, and at a
+    ragged (B, N)."""
     _, variables, _ = _chains(ctx_dim, seed=10)
     x, ctx = _inputs(11, b, n, ctx_dim)
     w, bias = (_t(a) for a in cp.pack_chain_params(variables, 2, ctx_dim))
