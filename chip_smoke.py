@@ -25,18 +25,22 @@ Phases, one line of output each, then the device line last:
    context; the context kernels (the share, the context-weight gradient,
    its first kernel alone, and the context-input gradient) alone against
    their plain versions at each case with a context and at edge cases
-   (ragged rows, C = 1 and 197, 4K·H = 256 and 192, a broadcast over 5
-   particles, a strided dense view), all of which are then launched back
-   to back for equal bits; beside them the time of the same call through
-   the ``FlowChain`` module; at the filter's heaviest call, the registers
-   and shared memory per block of the timed launches as the card's trace
-   records them (torch.profiler), the shared memory held against the
-   wrapper's mirrors of the kernels' layouts (K4, K5, the share and both
-   kernels of the weight gradient); all of it again at hidden
-   width 16, the coupling kernels' widest build; then the coupling
-   kernels' registers and spills as ptxas reports them at both widths;
+   (ragged rows, C = 1, 63-65 and 197, 4K·H = 256 and 192, a broadcast
+   over 5 particles, a strided dense view), all of which are then launched
+   back to back for equal bits; beside them the time of the same call
+   through the ``FlowChain`` module; at the filter's heaviest call, the
+   registers and shared memory per block of the timed launches as the
+   card's trace records them (torch.profiler), the shared memory held
+   against the wrapper's mirrors of the kernels' layouts (K4, K5, the share,
+   both kernels of the weight gradient and the input gradient); all of it
+   again at hidden width 16, the coupling kernels' widest build; then the
+   coupling kernels' and the update kernels' registers and spills as ptxas
+   reports them, the input gradient's and the update's traced launches
+   held to them;
    then K3, the streaming resampler's driver: its update kernel against
-   the plain version bit for bit, and K3 at (32, 100), (10, 100) and
+   the plain version bit for bit (some rows stopped, every row running, a
+   NaN in K1's output; all and any), timed stopping and with every row
+   running, and K3 at (32, 100), (10, 100) and
    (4, 10240), cold and warm, replaying ``LOOP_CHUNK`` iterations a CUDA
    graph against chunks of one iteration (the same iterations and bits)
    and against its plain version on the card, with ms a call, host syncs
@@ -336,31 +340,22 @@ def phase_setup(hiddens):
     return smi
 
 
-def chain_resources(hidden: int) -> dict:
-    """Registers and spilled bytes per thread of each coupling kernel
-    (``-Xptxas -v`` of the library this run loaded), by kernel and
-    direction.  Raises where the report names no forward and backward
-    kernel in both directions with their registers."""
-    from nfdpf_torch.ops.cuda import build
-    from nfdpf_torch.ops.cuda.coupling_cuda import build_defines
-
+def ptxas_counts(text: str, pattern: str) -> dict:
+    """Registers, spilled bytes and static shared memory per thread / block
+    of each kernel whose mangled name matches ``pattern`` in a ``-Xptxas -v``
+    report, named ``kernel<template arguments>`` (a bool as ``forward`` or
+    ``inverse``)."""
     out, name = {}, None
-    text = build.build_log[" ".join(("coupling",) + build_defines(hidden))]["ptxas"]
     for ln in text.splitlines():
         if "Compiling entry function" in ln:
-            # e.g. _ZN12_GLOBAL__N_116chain_fwd_kernelILi8ELi8ELb1EEEv...: <H, U, inverse>
-            hit = re.search(r"(chain_(?:fwd|bwd)_kernel)I((?:Li\d+E)+)Lb([01])E", ln)
-            # e.g. ...22chain_ctx_share_kernelILi16EEEv...: <rows a thread>
-            ctx_hit = re.search(r"chain_ctx_(?:share|grad_rows|weight_grad|input_grad)_kernel"
-                                r"(?:ILi(\d+)EE)?", ln)
+            # e.g. _ZN12_GLOBAL__N_116chain_fwd_kernelILi8ELi8ELb1EEEv...: <H, U, inverse>;
+            # ...27chain_ctx_input_grad_kernelILi16ELi4ELi4EEEv...: <TY, TM, NJ>
+            hit = re.search(rf"({pattern})(?:I((?:L[ib]\d+E)+)E)?", ln)
             name = None
             if hit is not None:
-                args = re.findall(r"\d+", hit.group(2)) + [("forward", "inverse")[int(hit.group(3))]]
-                name = f"{hit.group(1)}<{', '.join(args)}>"
-                out[name] = {}
-            elif ctx_hit is not None:
-                name = ctx_hit.group(0).split("I")[0] + (
-                    f"<{ctx_hit.group(1)}>" if ctx_hit.group(1) else "")
+                args = [("forward", "inverse")[int(v)] if k == "b" else v
+                        for k, v in re.findall(r"L([ib])(\d+)E", hit.group(2) or "")]
+                name = hit.group(1) + (f"<{', '.join(args)}>" if args else "")
                 out[name] = {}
         elif name is not None and "spill stores" in ln:
             words = ln.replace(",", "").split()
@@ -369,15 +364,47 @@ def chain_resources(hidden: int) -> dict:
         elif name is not None and "Used" in ln and "registers" in ln:
             words = ln.replace(",", "").split()
             out[name]["registers"] = int(words[words.index("registers") - 1])
+            out[name]["smem_bytes"] = (int(words[words.index("smem") - 2])
+                                       if "smem" in words else 0)
             name = None
+    return out
+
+
+def update_resources() -> dict:
+    """ptxas's counts of K3's update kernels (``ptxas_counts``) in the
+    sinkhorn library this run loaded."""
+    from nfdpf_torch.ops.cuda import build
+
+    out = ptxas_counts(build.build_log["sinkhorn"]["ptxas"],
+                       r"sinkhorn_update(?:_batch)?_kernel")
+    for kernel in ["sinkhorn_update_kernel"] + [f"sinkhorn_update_batch_kernel<{k}>"
+                                                for k in (1, 2, 4, 8)]:
+        if "registers" not in out.get(kernel, {}):
+            raise AssertionError(f"the sinkhorn library's ptxas report names no {kernel} "
+                                 f"with its registers: {out}")
+    return out
+
+
+def chain_resources(hidden: int) -> dict:
+    """Registers, spilled bytes and static shared memory of each coupling
+    kernel (``-Xptxas -v`` of the library this run loaded), by kernel and
+    instantiation.  Raises where the report names no forward and backward
+    kernel in both directions, or a context kernel, with its registers."""
+    from nfdpf_torch.ops.cuda import build
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+
+    text = build.build_log[" ".join(("coupling",) + cc.build_defines(hidden))]["ptxas"]
+    out = ptxas_counts(text, r"chain_(?:fwd|bwd|ctx_share|ctx_grad_rows|ctx_weight_grad|"
+                             r"ctx_input_grad)_kernel")
     for kernel in ("chain_fwd_kernel", "chain_bwd_kernel"):
         for direction in ("forward", "inverse"):
             if not any(k.startswith(kernel) and k.endswith(f"{direction}>") and "registers" in r
                        for k, r in out.items()):
                 raise AssertionError(f"the coupling library's ptxas report names no {kernel} "
                                      f"({direction}) with its registers: {out}")
-    for kernel in ("chain_ctx_share_kernel<1>", "chain_ctx_share_kernel<16>",
-                   "chain_ctx_grad_rows_kernel", "chain_ctx_weight_grad_kernel"):
+    tiles = ["chain_ctx_input_grad_kernel<{}, {}, {}>".format(*tile) for tile in cc.CTX_IN_TILES]
+    for kernel in ["chain_ctx_share_kernel<1>", "chain_ctx_share_kernel<16>",
+                   "chain_ctx_grad_rows_kernel", "chain_ctx_weight_grad_kernel"] + tiles:
         if "registers" not in out.get(kernel, {}):
             raise AssertionError(f"the coupling library's ptxas report names no {kernel} with "
                                  f"its registers: {out}")
@@ -563,10 +590,101 @@ def k3_bound_ms(b: int, n: int, iters: int):
     return bound_ms(nbytes, ops)
 
 
+# the update kernel's checks: some rows stopped (every third flag down, ε
+# from 0.05 to 3), every row running and annealing (the filter's usual
+# state), and that with a NaN in one row's K1 output
+UPDATE_STATES = ("stopped", "running", "nan")
+
+
+def update_case(sc, b, n, convergence, state, gen, threshold=1e-3):
+    """A K3 loop at (b, n) loaded as a firing would be, in ``state``, with
+    K1 run on its input: the loop and the update's inputs (K1's output,
+    potentials, flags, ε, target ε, log-weights)."""
+    dev = torch.device("cuda")
+    loop = sc._Loop(b, n, dev, (threshold, 0.75**2, 100, convergence))
+    scaled = (torch.randn(b, n, 2, generator=gen) * 0.5).to(dev)
+    logw = torch.log_softmax(torch.randn(b, n, generator=gen), -1).to(dev)
+    eps_b = torch.full((b,), 0.1, device=dev)
+    eps_run = torch.linspace(0.05 if state == "stopped" else 0.2, 3.0, b).to(dev)
+    a_y, b_x = ((torch.randn(b, n, generator=gen) * 0.1).to(dev) for _ in range(2))
+    loop.load(scaled, logw, eps_b, eps_run, a_y, b_x)
+    if state == "stopped":
+        loop.running[::3] = False
+    sc._launch_lse(loop.eps_run, loop.x, loop.x, loop.fs, loop.lse)
+    if state == "nan":
+        loop.lse[min(1, b - 1), 0, n // 2] = float("nan")
+    return loop, (loop.lse.clone(), a_y, b_x, loop.running.clone(), eps_run, eps_b, logw)
+
+
+def check_update(sc, loop, inputs, where: str) -> None:
+    """One launch of the update kernel against its plain version: the
+    potentials, flags, ε and next K1 input bit for bit (NaN where the plain
+    version has one), the loop counter, the batch's all or any, the done
+    flag, and the arrival count and per-row maxima back at 0."""
+    lse, a_y, b_x, running, eps_run, eps_b, logw = inputs
+    threshold, scaling, max_iter, convergence = loop.params
+    loop.update(freeze=True)
+    torch.cuda.synchronize()
+    ref = sc.sinkhorn_update_plain(lse, a_y, b_x, running, eps_run, eps_b, logw, loop.uniform,
+                                   threshold, scaling)
+    for what, got, want in zip(("a_y", "b_x", "running", "eps_run", "fs"),
+                               (loop.a_y, loop.b_x, loop.running, loop.eps_run, loop.fs), ref):
+        if got.is_floating_point():
+            same = torch.equal(got.isnan(), want.isnan()) and torch.equal(
+                torch.nan_to_num(got), torch.nan_to_num(want))
+        else:
+            same = torch.equal(got, want)
+        if not same:
+            raise AssertionError(f"sinkhorn_update@{where}: {what} differs from the plain "
+                                 "version's bits")
+    agg = int(bool(ref[2].all() if convergence == "all" else ref[2].any()))
+    want_state = [int(not (1 < max_iter - 1 and agg)), 1, agg, 0]
+    if loop.state.tolist() != want_state or bool(loop.row_max.any()):
+        raise AssertionError(f"sinkhorn_update@{where}: state {loop.state.tolist()} (expected "
+                             f"{want_state}), row maxima left {loop.row_max.count_nonzero()}")
+
+
+def trace_update() -> dict:
+    """Registers and shared memory of the update kernel's launch at the
+    kernels line's case, every row running, from the card's trace, taken
+    in a process of its own: in one process the trace sessions record the
+    kernels of one library only, the first one traced (a trace of the
+    update left the coupling kernels' later traces without kernel events,
+    and the other way round; the hidden-16 coupling library is not traced
+    for the same reason)."""
+    code = ("import json, sys; sys.path.insert(0, '.'); import chip_smoke as s; "
+            "print('TRACE ' + json.dumps(s.trace_update_here()))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("TRACE ")), None)
+    if proc.returncode or line is None:
+        raise AssertionError(f"the update's trace process failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return json.loads(line[len("TRACE "):])
+
+
+def trace_update_here() -> dict:
+    """``trace_update``'s record, in this process."""
+    from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+
+    b, n = (int(v) for v in AT["sinkhorn_update"][1:].split("_N"))
+    loop, _ = update_case(sc, b, n, "all", "running", torch.Generator().manual_seed(3),
+                          threshold=-1.0)
+    loop.update(freeze=False)
+    rec = launch_record(lambda: loop.update(freeze=False), "sinkhorn_update")
+    rec["kernel"] = ("sinkhorn_update_batch_kernel<{}>".format(loop.plan["cols_per_lane"])
+                     if loop.plan["batch"] else "sinkhorn_update_kernel")
+    return rec
+
+
 def phase_k3():
     """K3 and its update kernel on the card.  The update kernel against its
-    plain version (torch's ops on the card) on one iteration's K1 output:
-    potentials, flags, ε and the next K1 input bit for bit, with device ms.
+    plain version (torch's ops on the card) on one iteration's K1 output,
+    in each of ``UPDATE_STATES`` with all and any (``check_update``):
+    potentials, flags, ε and the next K1 input bit for bit; its device ms
+    on repeated launches from the "stopped" state (rows stop as the
+    potentials settle) and with every row running at every launch, and its
+    plan (its traced launch: ``trace_update``).
     K3 at ``K3_SHAPES``, cold and warm (from the cold call's potentials): at
     ``loop_chunk(N)`` iterations a graph replay against chunks of one (the
     chunk forced to ``LOOP_CHUNK`` at every N here), the
@@ -593,38 +711,35 @@ def phase_k3():
             x, probs, gen = cloud(b, n)
             chosen = sc.loop_chunk(n)
 
-            # the update kernel on one iteration of a loop at this shape
-            loop = sc._Loop(b, n, dev, (1e-3, 0.75**2, 100, "all"))
-            scaled = (torch.randn(b, n, 2, generator=gen) * 0.5).to(dev)
-            logw = torch.log_softmax(torch.randn(b, n, generator=gen), -1).to(dev)
-            eps_b = torch.full((b,), 0.1, device=dev)
-            eps_run = torch.linspace(0.05, 3.0, b).to(dev)
-            a_y, b_x = ((torch.randn(b, n, generator=gen) * 0.1).to(dev) for _ in range(2))
-            loop.load(scaled, logw, eps_b, eps_run, a_y, b_x)
-            loop.running[::3] = False
-            running = loop.running.clone()
-            loop.iteration(freeze=True)
-            torch.cuda.synchronize()
-            ref = sc.sinkhorn_update_plain(loop.lse, a_y, b_x, running, eps_run, eps_b, logw,
-                                           loop.uniform, 1e-3, 0.75**2)
-            for what, got, want in zip(("a_y", "b_x", "running", "eps_run", "fs"),
-                                       (loop.a_y, loop.b_x, loop.running, loop.eps_run,
-                                        loop.fs), ref):
-                if not torch.equal(got, want):
-                    raise AssertionError(f"sinkhorn_update@{shape}: {what} differs from the "
-                                         "plain version's bits")
-            if loop.state.tolist()[1:] != [1, int(bool(ref[2].all())), 0]:
-                raise AssertionError(f"sinkhorn_update@{shape}: state {loop.state.tolist()}")
-            lse_plain = loop.lse.clone()
+            # the update kernel on one iteration of a loop at this shape, in
+            # each state and with all and any: the plain version's bits
+            for convergence in ("all", "any"):
+                for state in UPDATE_STATES:
+                    check_update(sc, *update_case(sc, b, n, convergence, state, gen),
+                                 f"{shape}_{state}_{convergence}")
+            loop, inputs = update_case(sc, b, n, "all", "stopped", gen)
+            check_update(sc, loop, inputs, f"{shape}_stopped_all")
+            lse_plain, a_y, b_x, running, eps_run, eps_b, logw = inputs
             bound, by = bound_ms(4.0 * (b * n * (2 + 2 + 1 + 2 + 2) + 4 * b), 14.0 * b * n)
+            reps = 200 if n <= 4097 else 50
+            # every row running at every launch (the filter's usual state): a
+            # negative threshold keeps each row's flag up
+            busy, _ = update_case(sc, b, n, "all", "running", gen, threshold=-1.0)
+            busy.update(freeze=False)
             update[shape] = {
                 "max_abs_err": 0.0, "bits": "equal to the plain version's",
-                "ms": device_ms(lambda: loop.update(freeze=False), 200 if n <= 4097 else 50),
+                "checked": [f"{st}_{cv}" for cv in ("all", "any") for st in UPDATE_STATES],
+                "plan": loop.plan,
+                "ms": device_ms(lambda: loop.update(freeze=False), reps),
+                "ms_all_running": device_ms(lambda: busy.update(freeze=False), reps),
                 "plain_ms": device_ms(lambda: sc.sinkhorn_update_plain(
                     lse_plain, a_y, b_x, running, eps_run, eps_b, logw, loop.uniform, 1e-3,
-                    0.75**2), 200 if n <= 4097 else 50),
+                    0.75**2), reps),
                 "library_ms": None, "bound_ms": bound, "bound_by": by}
-            del loop
+            if not bool(busy.running.all()):
+                raise AssertionError(f"sinkhorn_update@{shape}: a row stopped in the "
+                                     "every-row-running timing")
+            del loop, busy
 
             # K3 itself
             pots = None
@@ -731,9 +846,9 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
     (the share to ``CHAIN_TOL``, the gradients, from K5's g1, to
     ``CHAIN_GRAD_TOL``), equal bits on a second launch, with their times and
     one library call's each; with ``trace`` also the context kernels' edge
-    cases (``CTX_EDGES``) and their launches back to back, and the share's
-    and the weight gradient's shared memory at the kernels line's case
-    against the wrapper's mirror."""
+    cases (``CTX_EDGES``) and their launches back to back, and the share's,
+    the weight gradients' and the input gradient's shared memory at the
+    kernels line's case against the wrapper's mirror."""
     from nfdpf_torch.models.nets import flax_init_
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
     from nfdpf_torch.ops.flows import realnvp_chain
@@ -897,7 +1012,8 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
         for name, rows in context_kernel_edges(cc).items():
             results[name].update(rows)
     for name in ("coupling_chain", "coupling_chain_bwd", "coupling_ctx_share",
-                 "coupling_ctx_grad_rows", "coupling_ctx_weight_grad") if trace else ():
+                 "coupling_ctx_grad_rows", "coupling_ctx_weight_grad",
+                 "coupling_ctx_input_grad") if trace else ():
         rec = results[name][AT[name]]
         if rec["smem_bytes_per_block"] != rec["mirror_smem_bytes"]:
             raise AssertionError(f"{name}@{AT[name]}: the launch took {rec['smem_bytes_per_block']} "
@@ -921,22 +1037,25 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
 # kernel's name in the trace, and the wrapper's launch plan for it
 CTX_TRACED = {"coupling_ctx_share": "chain_ctx_share_kernel",
               "coupling_ctx_grad_rows": "chain_ctx_grad_rows_kernel",
-              "coupling_ctx_weight_grad": "chain_ctx_weight_grad_kernel"}
+              "coupling_ctx_weight_grad": "chain_ctx_weight_grad_kernel",
+              "coupling_ctx_input_grad": "chain_ctx_input_grad_kernel"}
 
 
 def context_plans(cc, ctx, w) -> dict:
     """The wrapper's launch plans of the redesigned context kernels for this
     context and packed chain, each with its shared memory per block as the
-    wrapper's mirror gives it: the share, and the weight gradient's two
-    kernels (one plan)."""
+    wrapper's mirror gives it: the share, the weight gradient's two
+    kernels (one plan) and the input gradient."""
     b, n, c = ctx.shape
     n_blocks, hidden = w.shape[0], w.shape[-1]
     mode, r = cc.context_layout(ctx)
     share = cc.ctx_share_plan(r, n_blocks, hidden, c)
     grad = cc.ctx_weight_grad_plan(b * n, n, mode, c, 4 * n_blocks * hidden)
+    gctx = cc.ctx_input_grad_plan(b * n, c, 4 * n_blocks * hidden)
     return {"coupling_ctx_share": (share, share["smem_bytes"]),
             "coupling_ctx_grad_rows": (grad, grad["smem_bytes1"]),
-            "coupling_ctx_weight_grad": (grad, grad["smem_bytes2"])}
+            "coupling_ctx_weight_grad": (grad, grad["smem_bytes2"]),
+            "coupling_ctx_input_grad": (gctx, gctx["smem_bytes"])}
 
 
 def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: int,
@@ -1024,12 +1143,13 @@ def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: i
     return out
 
 
-# edge cases of the two redesigned context kernels, as (B, N, C, context
+# edge cases of the redesigned context kernels, as (B, N, C, context
 # broadcast over the particles, chain blocks K, hidden H, the context a
 # non-contiguous view): ragged row counts (dense and broadcast), C = 1 and
 # 197 on both routes of the weight gradient, the widest rows of g1 (4K·H =
 # 256 at K = 8, H = 8; 192 at K = 3, H = 16), a broadcast over too few
-# particles for the segment sums, and a dense context read through strides
+# particles for the segment sums, a dense context read through strides, and
+# C around the input gradient's 64-entry tile
 CTX_EDGES = (("B3_N1037_C36_dense", 3, 1037, 36, False, 2, 8, False),
              ("B3_N33_C36", 3, 33, 36, True, 2, 8, False),
              ("B32_N100_C1", 32, 100, 1, True, 2, 8, False),
@@ -1041,7 +1161,10 @@ CTX_EDGES = (("B3_N1037_C36_dense", 3, 1037, 36, False, 2, 8, False),
              ("B32_N100_C196_K3_H16", 32, 100, 196, True, 3, 16, False),
              ("B3_N1037_C36_dense_K3_H16", 3, 1037, 36, False, 3, 16, False),
              ("B64_N5_C36", 64, 5, 36, True, 2, 8, False),
-             ("B3_N1037_C36_dense_view", 3, 1037, 36, False, 2, 8, True))
+             ("B3_N1037_C36_dense_view", 3, 1037, 36, False, 2, 8, True),
+             ("B32_N100_C63", 32, 100, 63, True, 2, 8, False),
+             ("B3_N1037_C64_dense", 3, 1037, 64, False, 2, 8, False),
+             ("B3_N33_C65_K8", 3, 33, 65, True, 8, 8, False))
 CTX_EDGE_ITERS = 50
 
 
@@ -1066,12 +1189,19 @@ def context_case(b, n, c, broadcast, n_blocks, hidden, view, seed):
     return ctx, w.cuda(), bias.cuda(), g1
 
 
+def context_outputs(cc, ctx, w, bias, g1):
+    """The context kernels' outputs at one case: the share, the weight
+    gradient and the input gradient."""
+    return (cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w),
+            cc.ctx_input_grad(g1, w, ctx.shape[-1]))
+
+
 def context_kernel_edges(cc) -> dict:
     """Every case of ``CTX_EDGES`` through ``context_kernel_rows`` (against
     the plain versions, bit-equal repeats, times and bounds); then stale
-    state: every case's share and weight gradient launched back to back
-    with no synchronisation between, which must give each case's bits of
-    its own launch (stale scratch would show)."""
+    state: every case's share, weight gradient and input gradient launched
+    back to back with no synchronisation between, which must give each
+    case's bits of its own launch (stale scratch would show)."""
     results, inputs = {}, {}
     for k, (case, b, n, c, broadcast, n_blocks, hidden, view) in enumerate(CTX_EDGES):
         ctx, w, bias, g1 = context_case(b, n, c, broadcast, n_blocks, hidden, view, 7000 + k)
@@ -1082,15 +1212,14 @@ def context_kernel_edges(cc) -> dict:
         for name, row in rows.items():
             results.setdefault(name, {}).update(row)
         with torch.no_grad():
-            inputs[case] = (ctx, w, bias, g1, cc.ctx_share(ctx, w, bias),
-                            cc.ctx_weight_grad(g1, ctx, w))
+            inputs[case] = (ctx, w, bias, g1, context_outputs(cc, ctx, w, bias, g1))
     torch.cuda.synchronize()
     with torch.no_grad():
-        again = {case: (cc.ctx_share(ctx, w, bias), cc.ctx_weight_grad(g1, ctx, w))
-                 for case, (ctx, w, bias, g1, _, _) in inputs.items()}
+        again = {case: context_outputs(cc, ctx, w, bias, g1)
+                 for case, (ctx, w, bias, g1, _) in inputs.items()}
     torch.cuda.synchronize()
-    for case, (_, _, _, _, share, grad) in inputs.items():
-        if not (torch.equal(again[case][0], share) and torch.equal(again[case][1], grad)):
+    for case, (_, _, _, _, alone) in inputs.items():
+        if not all(torch.equal(a, b) for a, b in zip(again[case], alone)):
             raise AssertionError(f"context kernels@{case}: launched back to back with the other "
                                  f"edge cases they gave other bits")
     for name in results:
@@ -1329,9 +1458,10 @@ def profile_step(trainer, batch):
             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    ours = ("lse_kernel", "apply_kernel", "sinkhorn_update_kernel", "chain_fwd_kernel",
-            "chain_bwd_kernel", "chain_ctx_share_kernel", "chain_ctx_grad_rows_kernel",
-            "chain_ctx_weight_grad_kernel", "chain_ctx_input_grad_kernel")
+    ours = ("lse_kernel", "apply_kernel", "sinkhorn_update_batch_kernel", "sinkhorn_update_kernel",
+            "chain_fwd_kernel", "chain_bwd_kernel", "chain_ctx_share_kernel",
+            "chain_ctx_grad_rows_kernel", "chain_ctx_weight_grad_kernel",
+            "chain_ctx_input_grad_kernel")
     groups = {**{k: 0.0 for k in ours}, "conv (cudnn)": 0.0, "gemm": 0.0, "other": 0.0}
     counts = {k: 0 for k in ours}
     conv_words = ("cudnn", "xmma", "grad_alg", "dgrad", "wgrad", "implicit_gemm", "fprop",
@@ -2147,17 +2277,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from nfdpf_torch import DPFConfig
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
 
     cnf = DPFConfig(**CNF_SLICE)
     card = phase_setup((cnf.flow_hidden_dim, WIDE_HIDDEN))
     kernels = phase_kernels()
     kernels["sinkhorn_update"], k3 = phase_k3()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
+    kernels["sinkhorn_update"][AT["sinkhorn_update"]].update(trace_update())
     wide = phase_chain_kernels(cnf.n_sequence, WIDE_HIDDEN, f"chain_kernels_h{WIDE_HIDDEN}",
                                trace=False)
     ptxas = {h: chain_resources(h) for h in (cnf.flow_hidden_dim, WIDE_HIDDEN)}
+    ptxas_update = update_resources()
     log({"phase": "chain_resources", "ptxas": ptxas[cnf.flow_hidden_dim],
-         f"ptxas_h{WIDE_HIDDEN}": ptxas[WIDE_HIDDEN]})
+         f"ptxas_h{WIDE_HIDDEN}": ptxas[WIDE_HIDDEN], "ptxas_update": ptxas_update})
+    # the redesigned kernels' traced launches against ptxas's counts
+    update_at = kernels["sinkhorn_update"][AT["sinkhorn_update"]]
+    traced = [("sinkhorn_update", ptxas_update[update_at["kernel"]])]
+    plan = kernels["coupling_ctx_input_grad"][AT["coupling_ctx_input_grad"]]["plan"]
+    traced.append(("coupling_ctx_input_grad", ptxas[cnf.flow_hidden_dim][
+        "chain_ctx_input_grad_kernel<{}, {}, {}>".format(
+            plan["tile_rows"] // plan["rows_a_thread"], plan["rows_a_thread"],
+            plan["tile_cols"] // cc.CTX_IN_LANES)]))
+    for name, counts in traced:
+        rec = kernels[name][AT[name]]
+        if ((rec["registers"], rec["smem_bytes_per_block"], 0)
+                != (counts["registers"], counts["smem_bytes"], counts.get("spill_bytes", 0))):
+            raise AssertionError(f"{name}@{AT[name]}: the traced launch took {rec['registers']} "
+                                 f"registers and {rec['smem_bytes_per_block']} bytes of shared "
+                                 f"memory; ptxas says {counts} (spills must be 0)")
+        rec["ptxas_spill_bytes"] = counts.get("spill_bytes", 0)
     slices = {name: phase_slice(name, *spec, args.profile) for name, spec in SLICES.items()}
     phase_remat(slices["slice_cglow"], slices["slice_cglow_remat"])
     phase_warm_start()
@@ -2234,6 +2383,9 @@ def main() -> int:
             entry["ptxas"] = {k: v for k, v in ptxas[cnf.flow_hidden_dim].items()
                               if k.startswith(CTX_TRACED[name])}
             entry["plan"] = m["plan"]
+        if name == "sinkhorn_update":
+            entry.update(ptxas=ptxas_update, plan=m["plan"], ms_all_running=m["ms_all_running"],
+                         at_all_running={k: v["ms_all_running"] for k, v in kernels[name].items()})
         if name == "coupling_ctx_weight_grad":
             entry["note"] = ("ms, plain_ms and library_ms are of the whole gradient: both "
                              "kernels (coupling_ctx_grad_rows folds the rows of g1 first)")

@@ -32,8 +32,8 @@ dense) and the context's gradients from K5's g1:
   parts (G's rows, or ctxᵀ · g1 over chunks of rows of a dense context), the
   second weighs and adds them (``ctx_weight_grad_plan``);
 * ``chain_ctx_input_grad_kernel``: the context's gradient g1 · w0[1..C]ᵀ
-  per row, only when the context asks for one (the filter detaches its
-  contexts).
+  per row, a tiled GEMM (``ctx_input_grad_plan``), only when the context
+  asks for one (the filter detaches its contexts).
 
 So K4's and K5's shared memory holds a chain without context, whatever C.
 
@@ -53,8 +53,8 @@ changes no output and whose padding's gradients are sliced away), at
 most 8 blocks, and, for K5, a factor tile and twice the parameters of a
 chain without context in the card's shared memory (227 KB;
 ``fwd_smem_bytes``, ``bwd_smem_bytes``, ``ctx_share_smem_bytes``,
-``ctx_grad_rows_smem_bytes`` and ``ctx_weight_grad_smem_bytes`` mirror the
-kernels' layouts).
+``ctx_grad_rows_smem_bytes``, ``ctx_weight_grad_smem_bytes`` and
+``ctx_input_grad_smem_bytes`` mirror the kernels' layouts).
 ``chain_refusal`` says what a chain breaks of these, for the wrapper at
 launch and for the filter when it is built.  What stays refused: hidden
 widths above 16, more than 8 blocks, and at hidden 9-16 four blocks or more
@@ -101,6 +101,18 @@ CTX_COLUMN_LANES = 16             # float4 columns of g1 a segment-sum block tak
 CTX_MAX_C_TILE = 128              # context entries a first-kernel block takes (dense)
 CTX_GRAD_SMEM_BYTES = 100 * 1024  # what a first-kernel block stages (dense): two fit an SM
 CTX_SEGMENT_MIN_N = 8             # particles a broadcast context row needs for the segment sums
+CTX_IN_CHUNK = 32                 # k entries an input-gradient stage holds (kInChunk)
+# the input gradient's tile shapes as (row lanes TY, rows a thread TM,
+# entries a thread NJ): TM·TY rows x CTX_IN_LANES·NJ entries,
+# TY·CTX_IN_LANES threads, as NFDPF_IN_TILES in csrc/coupling.cu
+# instantiates them
+CTX_IN_TILES = ((16, 4, 4), (16, 4, 1), (16, 8, 2), (16, 1, 1))
+CTX_IN_LANES = 8                  # threads across a tile's entries (kInLanes)
+CTX_IN_RING_BYTES = 36 * 1024     # shared memory a tile's ring may take (NFDPF_IN_RING)
+CTX_IN_NARROW = 8                 # contexts this wide: tiles of one entry a thread
+CTX_IN_ONE_ENTRY = 40             # contexts this wide: the same below CTX_IN_MANY_ROWS rows
+CTX_IN_FEW_ROWS = 512             # rows of g1 below which tiles take 16 rows
+CTX_IN_MANY_ROWS = 8192           # rows of g1 from which tiles take 128 rows
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -114,7 +126,7 @@ _SIGNATURES = {
     "nfdpf_coupling_ctx_grad_rows": [_P, _I, _I, _I, _P, _L, _L, _I, _I, _I, _I, _I, _I,
                                      _P, _P],
     "nfdpf_coupling_ctx_weight_grad": [_P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P],
-    "nfdpf_coupling_ctx_input_grad": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "nfdpf_coupling_ctx_input_grad": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 # how K4/K5 find a row's row of P: one row for all (no context), one per
 # batch element (a context broadcast over the particles), one per row
@@ -451,6 +463,61 @@ def ctx_weight_grad_plan(rows: int, n: int, mode: int, ctx_dim: int, ps: int) ->
             "threads": CTX_THREADS}
 
 
+def ctx_input_grad_stages(tile_rows: int, tile_cols: int) -> int:
+    """Buffers of the input gradient's ring (``in_grad_stages`` in
+    ``csrc/coupling.cu``): as many stages as ``CTX_IN_RING_BYTES`` hold, 2
+    to 4."""
+    stage = 4 * (tile_rows + tile_cols) * (CTX_IN_CHUNK + 4)
+    return min(4, max(2, CTX_IN_RING_BYTES // stage))
+
+
+def ctx_input_grad_smem_bytes(tile_rows: int, tile_cols: int) -> int:
+    """Shared memory of the context-input-gradient kernel
+    (``in_grad_smem_floats`` in ``csrc/coupling.cu``) for a tile of
+    ``tile_rows`` rows x ``tile_cols`` context entries: the ring's stages
+    of the block's rows of g1 and of its context rows of layer 0,
+    ``CTX_IN_CHUNK`` k entries each, rows padded by 4 floats."""
+    return (4 * ctx_input_grad_stages(tile_rows, tile_cols) * (tile_rows + tile_cols)
+            * (CTX_IN_CHUNK + 4))
+
+
+def in_tile_plan(rows: int, ctx_dim: int, ps: int, tile) -> dict:
+    """The input gradient's launch on the shape ``tile`` (TY, TM, NJ)."""
+    ty, tm, nj = tile
+    tile_rows, tile_cols = tm * ty, CTX_IN_LANES * nj
+    return {"tile_rows": tile_rows, "tile_cols": tile_cols, "rows_a_thread": tm,
+            "threads": ty * CTX_IN_LANES,
+            "grid": (_cdiv(rows, tile_rows), _cdiv(ctx_dim, tile_cols)),
+            "chunks": _cdiv(ps, CTX_IN_CHUNK),
+            "smem_bytes": ctx_input_grad_smem_bytes(tile_rows, tile_cols)}
+
+
+def ctx_input_grad_plan(rows: int, ctx_dim: int, ps: int) -> dict:
+    """How the context-input-gradient kernel covers gctx (``rows`` x
+    ``ctx_dim``) from g1 (``rows`` x ``ps`` = 4K·H): a block per tile of
+    ``tile_rows`` x ``tile_cols`` (a shape of ``CTX_IN_TILES``),
+    ``CTX_IN_LANES`` threads across the entries and tile_rows /
+    ``rows_a_thread`` across the rows, a thread rows_a_thread rows x
+    tile_cols / CTX_IN_LANES entries; k staged ``CTX_IN_CHUNK`` at a time
+    in ``chunks`` stages.  Fewer than ``CTX_IN_FEW_ROWS`` rows take 16 x 8
+    tiles (an entry a thread: enough blocks for the card); a context at
+    most ``CTX_IN_NARROW`` wide, or ``CTX_IN_ONE_ENTRY`` below
+    ``CTX_IN_MANY_ROWS`` rows, 64 x 8 (an entry a thread); a wider one 64 x
+    32 (4 x 4 a thread), or 128 x 16 (8 x 2) from ``CTX_IN_MANY_ROWS`` rows
+    on: the fastest of the plan sweep's shapes at the filter's, the dense
+    and the edge shapes (``tools/ctx_plan_sweep.py``; ``PERF.md`` §6)."""
+    if rows < CTX_IN_FEW_ROWS:
+        tile = CTX_IN_TILES[3]
+    elif ctx_dim <= CTX_IN_NARROW or (ctx_dim <= CTX_IN_ONE_ENTRY
+                                      and rows < CTX_IN_MANY_ROWS):
+        tile = CTX_IN_TILES[1]
+    elif rows >= CTX_IN_MANY_ROWS:
+        tile = CTX_IN_TILES[2]
+    else:
+        tile = CTX_IN_TILES[0]
+    return in_tile_plan(rows, ctx_dim, ps, tile)
+
+
 def ctx_grad_rows_plain(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Plain version of the context-weight gradient's first kernel, on the
     same plan: the parts, (J, ps) sums of g1 over each piece of each
@@ -624,10 +691,17 @@ def _launch_ctx_input_grad(g1, weights, ctx_dim: int):
     """The context's gradient (B·N, C) from K5's g1: the
     context-input-gradient kernel."""
     g1, weights = kernel_args(g1, weights)
+    if g1.data_ptr() % 16:        # the kernel stages g1 16 bytes at a time
+        g1 = g1.clone()
+    if g1.dim() != 2 or g1.shape[1] != 4 * weights.shape[0] * weights.shape[-1]:
+        raise ValueError(f"g1{tuple(g1.shape)} does not match the chain's weights"
+                         f"{tuple(weights.shape)}")
+    plan = ctx_input_grad_plan(g1.shape[0], ctx_dim, g1.shape[1])
     gctx = torch.empty((g1.shape[0], ctx_dim), device=g1.device, dtype=torch.float32)
     rc = _library(weights.shape[-1]).nfdpf_coupling_ctx_input_grad(
         g1.data_ptr(), g1.shape[0], ctx_dim, weights.shape[0], weights.shape[-2],
-        weights.shape[-1], weights.data_ptr(), gctx.data_ptr(), _stream(g1))
+        weights.shape[-1], weights.data_ptr(), plan["tile_rows"], plan["tile_cols"],
+        plan["rows_a_thread"], gctx.data_ptr(), _stream(g1))
     check_launch(rc, "coupling_ctx_input_grad")
     LAUNCHES["coupling_ctx_input_grad"] += 1
     return gctx

@@ -826,6 +826,11 @@ chain_fwd_kernel(const float2* __restrict__ x, const float* __restrict__ pg, int
 //     parts with the context and adds them, a block per context entry,
 //     each output's sum split over lanes that are then added in order.
 //     Fixed orders and no atomics: a second launch gives the same bits.
+//   * the input gradient: a tiled GEMM, g1 and W0's context rows staged
+//     with cp.async in double-buffered chunks of k, a thread 4 rows x 4
+//     entries (its design above the kernel).  A thread per output, walking
+//     its row of g1 with lanes H floats apart in the weights and nothing
+//     staged, lost 6.7x to torch.mm at (32, 100, C = 196).
 // Tensor cores would not help: the products are at most ~0.8 MFLOP at the
 // filter's sizes, and TF32 breaks the gradients' 1e-4 tolerance.
 
@@ -1129,22 +1134,180 @@ chain_ctx_weight_grad_kernel(const float* __restrict__ parts, int J, int pieces,
   }
 }
 
-// One thread per entry of gctx (rows x C): the row's g1 against layer 0's
-// context rows, net by net.
-__global__ void chain_ctx_input_grad_kernel(const float* __restrict__ g1, int rows, int C,
-                                            int nets, int max_in, const float* __restrict__ w,
-                                            float* __restrict__ gctx) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)rows * C) return;
-  const int r = static_cast<int>(i / C), c = static_cast<int>(i % C), ps = nets * kHidden;
-  const float* g = g1 + (size_t)r * ps;
-  float acc = 0.f;
-  for (int m = 0; m < nets; ++m) {
-    const float* wc = w + (size_t)m * 3 * max_in * kHidden + (size_t)(1 + c) * kHidden;
+// The context-input gradient, gctx (rows x C) = g1 (rows x 4K·H) · W0c, with
+// W0c[m·H + j][c] = w[m][layer 0][1 + c][j]: a small fp32 GEMM (at the
+// filter's (32, 100) and C = 196, 3,200 x 64 x 196).  What bounds it on an
+// H100: 2·rows·C·4K·H operations against (rows·4K·H + 4K·H·C + rows·C)
+// floats, so the operation bound is the larger one at C = 196 and the bytes'
+// at C <= ~16; at the filter's sizes both lie near a microsecond and the time
+// is the latency of staging the operands.  The design:
+//   * a block per tile of TM·TY rows x kInLanes·NJ context entries, TY x
+//     kInLanes threads; a thread holds TM rows x NJ entries in registers,
+//     rows ty + TY·i and entries tx + kInLanes·jj (strided, so that the
+//     staged rows a warp reads fall in distinct banks and its stores of one
+//     (i, jj) are kInLanes consecutive floats of a row);
+//   * k = m·H + j in chunks of kInChunk, staged in a ring of 2 to 4 buffers
+//     in shared memory by cp.async: the block's rows of g1 (16-byte copies),
+//     and W0c's entries as they lie in the packing, a run of H floats for
+//     each (entry, net) (16-byte copies where H is a multiple of 4, 4-byte
+//     otherwise), both k-contiguous rows padded to kInLd floats; the next
+//     stages' copies are in flight while a chunk is summed, and a whole
+//     chunk's steps are unrolled so that a step's shared loads overlap the
+//     previous step's fmaf;
+//   * a thread reads 4 consecutive k of a staged row at once (float4) and
+//     each output's sum is one fmaf chain in ascending k, from 0: the bits
+//     of one thread per output walking the row, whatever the tile;
+//   * the tile is the wrapper's choice (coupling_cuda.ctx_input_grad_plan,
+//     from a sweep of shapes on the card): one of NFDPF_IN_TILES.  The
+//     lanes, the ring's budget and whether the chunks are summed at all are
+//     fixed when the library is built (NFDPF_IN_LANES, NFDPF_IN_RING,
+//     NFDPF_IN_SUMS: the sweep's variant builds, tools/ctx_plan_sweep.py).
+// No tensor cores: TF32 would round g1 and the weights (the gradients are
+// held to 1e-4 of their scale against float32 products).
+#ifndef NFDPF_IN_LANES
+#define NFDPF_IN_LANES 8        // threads across a tile's entries
+#endif
+#ifndef NFDPF_IN_RING
+#define NFDPF_IN_RING 36864     // bytes of shared memory a tile's ring may take
+#endif
+#ifndef NFDPF_IN_SUMS
+#define NFDPF_IN_SUMS 1         // 0: stage every chunk and sum none (a timing variant)
+#endif
+constexpr int kInLanes = NFDPF_IN_LANES;
+constexpr int kInChunk = 32;                // k entries a stage holds
+constexpr int kInLd = kInChunk + 4;         // floats a staged row takes (16-byte rows)
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void copy_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Stages of a tile's ring: as many as NFDPF_IN_RING bytes hold, 2 to 4.
+__host__ __device__ constexpr int in_grad_stages(int tile_rows, int tile_cols) {
+  const int fit = NFDPF_IN_RING / (4 * (tile_rows + tile_cols) * kInLd);
+  return fit < 2 ? 2 : fit > 4 ? 4 : fit;
+}
+
+// Shared memory of a block in floats: the ring's stages of its rows and entries.
+__host__ __device__ constexpr int in_grad_smem_floats(int tile_rows, int tile_cols) {
+  return in_grad_stages(tile_rows, tile_cols) * (tile_rows + tile_cols) * kInLd;
+}
+
+// The shapes the wrapper may choose, as X(TY, TM, NJ): TM·TY rows x
+// kInLanes·NJ entries, TY x kInLanes threads, a thread TM rows x NJ entries
+// (coupling_cuda.CTX_IN_TILES, in this order).
+#define NFDPF_IN_TILES(X) X(16, 4, 4) X(16, 4, 1) X(16, 8, 2) X(16, 1, 1)
+
+template <int TY, int TM, int NJ>
+__device__ __forceinline__ void in_grad_step(const float* as, const float* bs, int ty, int tx,
+                                             int k, float (&acc)[TM][NJ]) {
+  float4 a[TM], b[NJ];
 #pragma unroll
-    for (int j = 0; j < kHidden; ++j) acc = fmaf(g[m * kHidden + j], wc[j], acc);
+  for (int i = 0; i < TM; ++i)
+    a[i] = *reinterpret_cast<const float4*>(as + (ty + TY * i) * kInLd + k);
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+    b[jj] = *reinterpret_cast<const float4*>(bs + (tx + kInLanes * jj) * kInLd + k);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(a[i].x, b[jj].x, acc[i][jj]);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(a[i].y, b[jj].y, acc[i][jj]);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(a[i].z, b[jj].z, acc[i][jj]);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(a[i].w, b[jj].w, acc[i][jj]);
+}
+
+template <int TY, int TM, int NJ>
+__global__ void __launch_bounds__(TY * kInLanes)
+chain_ctx_input_grad_kernel(const float* __restrict__ g1, int rows, int C, int ps, int max_in,
+                            const float* __restrict__ w, float* __restrict__ gctx) {
+  constexpr int BM = TM * TY, BN = kInLanes * NJ, threads = TY * kInLanes;
+  constexpr int kq_full = kInChunk / 4, S = in_grad_stages(BM, BN);
+  __shared__ __align__(16) float smem[in_grad_smem_floats(BM, BN)];
+  const int t = threadIdx.x, tx = t % kInLanes, ty = t / kInLanes;
+  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
+  const int nr = min(BM, rows - r0), nc = min(BN, C - c0);
+  const bool vec_w = kHidden % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const size_t net_w = (size_t)3 * max_in * kHidden;
+  const int chunks = (ps + kInChunk - 1) / kInChunk;
+  // stage chunk q into buffer q % S; past the last chunk an empty group, so
+  // that group q is always the (q + 1)-th committed
+  auto stage = [&](int q) {
+    float* as = smem + (q % S) * (BM + BN) * kInLd;
+    float* bs = as + BM * kInLd;
+    const int k0 = q * kInChunk, kq = q < chunks ? min(kInChunk, ps - k0) / 4 : 0;
+    if (kq == kq_full) {   // a whole chunk: no division by a runtime count
+      for (int i = t; i < nr * kq_full; i += threads) {
+        const int r = i / kq_full, k = 4 * (i % kq_full);
+        copy_async16(as + r * kInLd + k, g1 + (size_t)(r0 + r) * ps + k0 + k);
+      }
+    } else {
+      for (int i = t; i < nr * kq; i += threads) {
+        const int r = i / kq, k = 4 * (i % kq);
+        copy_async16(as + r * kInLd + k, g1 + (size_t)(r0 + r) * ps + k0 + k);
+      }
+    }
+    if (vec_w) {
+      for (int i = t; i < nc * kq; i += threads) {
+        const int c = i / kq, k = 4 * (i % kq), m = (k0 + k) / kHidden, j = (k0 + k) % kHidden;
+        copy_async16(bs + c * kInLd + k, w + m * net_w + (size_t)(1 + c0 + c) * kHidden + j);
+      }
+    } else {
+      for (int i = t; i < nc * 4 * kq; i += threads) {
+        const int c = i / (4 * kq), k = i % (4 * kq), m = (k0 + k) / kHidden,
+                  j = (k0 + k) % kHidden;
+        copy_async4(bs + c * kInLd + k, w + m * net_w + (size_t)(1 + c0 + c) * kHidden + j);
+      }
+    }
+    copy_async_commit();
+  };
+  float acc[TM][NJ];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+#pragma unroll
+  for (int q = 0; q < S - 1; ++q) stage(q);
+  for (int q = 0; q < chunks; ++q) {
+    stage(q + S - 1);
+    copy_async_wait_group<S - 1>();   // chunk q has landed
+    __syncthreads();
+    const float* as = smem + (q % S) * (BM + BN) * kInLd;
+    const float* bs = as + BM * kInLd;
+    const int kn = NFDPF_IN_SUMS ? min(kInChunk, ps - q * kInChunk) : 0;
+    if (kn == kInChunk) {
+      // a whole chunk, unrolled: the next step's shared loads are issued
+      // while this step's fmaf run
+#pragma unroll
+      for (int k = 0; k < kInChunk; k += 4) {
+        in_grad_step<TY, TM, NJ>(as, bs, ty, tx, k, acc);
+      }
+    } else {
+      for (int k = 0; k < kn; k += 4) in_grad_step<TY, TM, NJ>(as, bs, ty, tx, k, acc);
+    }
+    __syncthreads();   // every reader of this stage is done before it is staged over
   }
-  gctx[i] = acc;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + TY * i;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int c = tx + kInLanes * jj;
+      if (r < nr && c < nc) gctx[(size_t)(r0 + r) * C + c0 + c] = acc[i][jj];
+    }
+  }
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
@@ -1307,17 +1470,28 @@ extern "C" int nfdpf_coupling_ctx_weight_grad(const float* parts, int J, int pie
   return static_cast<int>(cudaGetLastError());
 }
 
-// gctx (rows x C), a row per row of the chain.
+// gctx (rows x C), a row per row of the chain, on the wrapper's plan
+// (ctx_input_grad_plan): tiles of `tile_rows` rows x `tile_cols` context
+// entries, `rows_a_thread` rows a thread (one of NFDPF_IN_TILES).  g1 must
+// be 16-byte aligned.
 extern "C" int nfdpf_coupling_ctx_input_grad(const float* g1, int rows, int ctx_dim, int n_blocks,
-                                             int max_in, int hidden, const float* w, float* gctx,
-                                             void* stream) {
-  if (rows <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden) {
+                                             int max_in, int hidden, const float* w,
+                                             int tile_rows, int tile_cols, int rows_a_thread,
+                                             float* gctx, void* stream) {
+  if (rows <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
+      (reinterpret_cast<uintptr_t>(g1) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long count = (long long)rows * ctx_dim;
-  const int threads = 256;
-  chain_ctx_input_grad_kernel<<<(unsigned)((count + threads - 1) / threads), threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      g1, rows, ctx_dim, 4 * n_blocks, max_in, w, gctx);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((rows + tile_rows - 1) / tile_rows, (ctx_dim + tile_cols - 1) / tile_cols);
+  const int ps = 4 * n_blocks * kHidden;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NFDPF_IN_LAUNCH(TY, TM, NJ)                                                          \
+  if (tile_rows == (TM) * (TY) && tile_cols == kInLanes * (NJ) && rows_a_thread == (TM)) {    \
+    chain_ctx_input_grad_kernel<TY, TM, NJ>                                                  \
+        <<<grid, (TY) * kInLanes, 0, s>>>(g1, rows, ctx_dim, ps, max_in, w, gctx);           \
+    return static_cast<int>(cudaGetLastError());                                             \
+  }
+  NFDPF_IN_TILES(NFDPF_IN_LAUNCH)
+#undef NFDPF_IN_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

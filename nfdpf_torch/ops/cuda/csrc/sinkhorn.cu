@@ -12,9 +12,10 @@
 //   out[b,i,:] = sum_j exp( r_i + c_j - 0.5*||x_i - y_j||^2 / eps_b ) * v[b,j,:]
 //   (T @ v with T implicit; its VJP is the same kernel with rows and columns
 //   swapped, launched from the torch.autograd.Function in sinkhorn_cuda.py).
-// sinkhorn_update_kernel (below) is the rest of one iteration of the loop
-// that drives K1 (ot_resample_pallas's while_loop body after the softmin),
-// so that k iterations of (K1, update) can be replayed in a CUDA graph.
+// sinkhorn_update_batch_kernel / sinkhorn_update_kernel (below) are the rest
+// of one iteration of the loop that drives K1 (ot_resample_pallas's
+// while_loop body after the softmin), so that k iterations of (K1, update)
+// can be replayed in a CUDA graph.
 //
 // What bounds them on an H100.  The work is N*M*(7 + 4*G) (lse) or N*M*14
 // (apply) fp32 operations and one expf per group per pair, against
@@ -71,6 +72,7 @@
 // PERF.md (rows per warp 1-8, columns per lane 2-8, the division per pair,
 // the single tile read straight from global memory instead of staged).
 
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -442,11 +444,42 @@ apply_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
 // The arithmetic is torch's, operation for operation (__fmul_rn,
 // __fadd_rn, __fdiv_rn: no contraction into fma), so the potentials and
 // the iteration count are the eager loop's bit for bit.
-// A block per batch row (threads over its N columns); the batch-wide
-// aggregate is taken by the last block to arrive (an atomic counter; the
-// AND or OR is order-free, so the bits do not depend on the order).  What
-// bounds it: ~9 floats moved per (row, column), O(B·N) bytes; at the
-// filter's sizes a launch's latency.
+// What bounds it: ~9 floats moved per (row, column), O(B·N) bytes; at the
+// filter's sizes a launch's latency and the dependent round trips to memory
+// inside it.  Two kernels, chosen by the wrapper (sinkhorn_cuda.
+// update_plan):
+//   * sinkhorn_update_batch_kernel, up to 64 rows of up to 256 columns (the
+//     filter's (32, 100) and (10, 100)): one block (up to 16 rows) or one
+//     thread-block cluster of up to 8 blocks for the whole batch, a warp a
+//     row, its lanes over the columns, CPL columns a lane loaded at once
+//     together with the loop state, so that the freeze test, the row's
+//     scalars and its columns cost one round trip.  A row's max |delta| is
+//     a butterfly of the warp; each block's all or any a __syncthreads_and
+//     / __syncthreads_or, and a cluster's taken by its first block from
+//     parts the others write into its shared memory (distributed shared
+//     memory; a cluster barrier before the writes, so that every block is
+//     running, and one after): no atomics, no fences through L2.  The
+//     former kernel (a block a row, the last block to arrive walking the B
+//     flags one by one, B dependent L2 round trips) took twice as long with
+//     every row running; one block took 3.6 us at (32, 100), its one SM
+//     bound by the rows' divisions and bytes;
+//   * sinkhorn_update_kernel, the rest (large N, many rows): a row's N
+//     columns split over `splits` blocks (one block a row up to 256
+//     columns, else 256-column pieces, as many as bring the grid to about
+//     two blocks per SM), a thread a column per pass.  Each block's max
+//     |delta| of both potentials (NaN propagated) joins its row's by
+//     atomicMax on the float's bits: |delta| >= 0, so the bits order as the
+//     values do, and a NaN (positive after fabsf) is above +inf's bits, so
+//     NaN still wins.  The last block of the grid to arrive (an atomic
+//     counter) finishes every row at once, a thread a row: it takes the
+//     row's maxima (and resets them for the next launch with the same
+//     atomicExch), writes the flag and the new eps (every block of the
+//     launch has read the old ones by then), and takes the batch's all or
+//     any with __syncthreads_and / __syncthreads_or.  `row_max` (2 per
+//     row) and `arrived` are back at 0 after every launch that ran, so
+//     graph replays and repeated launches start alike.
+// Max, AND and OR are order-free: the bits do not depend on the order the
+// blocks, warps or lanes run in.
 
 struct LoopState {
   int done, iters, agg;
@@ -458,73 +491,215 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v > m || v != v) ? v : m;
 }
 
-__global__ void __launch_bounds__(1024)
-sinkhorn_update_kernel(const float* __restrict__ lse, float* __restrict__ a_y,
-                       float* __restrict__ b_x, unsigned char* running, float* eps_run,
-                       const float* __restrict__ eps_target, const float* __restrict__ logw,
-                       float* __restrict__ fs, LoopState* state, int n, float neg_log_n,
-                       float threshold, float scaling_factor, int max_iter, int any,
-                       int freeze) {
-  __shared__ float red[2][32];
-  if (freeze && state->done) return;
-  const int row = blockIdx.x, t = threadIdx.x;
-  const float e = eps_run[row];
-  const bool run = running[row] != 0;
-  const float target = eps_target[row];
+// max(eps·scaling, target) with NaN propagated (torch.maximum)
+__device__ __forceinline__ float next_eps(float e, float target, float scaling_factor) {
   const float scaled = __fmul_rn(e, scaling_factor);
-  const float new_eps = scaled != scaled ? scaled : target != target ? target
-                        : (scaled > target ? scaled : target);
-  const float neg_e = -e;
+  return scaled != scaled ? scaled : target != target ? target
+                          : (scaled > target ? scaled : target);
+}
+
+constexpr int kUpdateThreads = 256;   // most threads of an update block
+constexpr int kBatchRows = 16;       // most rows (warps) of a block of the batch update
+constexpr int kBatchBlocks = 8;      // most blocks of its cluster (the portable cluster size)
+
+template <int CPL>
+__global__ void __launch_bounds__(32 * kBatchRows)
+sinkhorn_update_batch_kernel(const float* __restrict__ lse, float* __restrict__ a_y,
+                             float* __restrict__ b_x, unsigned char* running, float* eps_run,
+                             const float* __restrict__ eps_target,
+                             const float* __restrict__ logw, float* __restrict__ fs,
+                             LoopState* state, int b, int n, int rows_a_block, float neg_log_n,
+                             float threshold, float scaling_factor, int max_iter, int any,
+                             int freeze) {
+  namespace cg = cooperative_groups;
+  __shared__ int parts[kBatchBlocks];   // the first block's: each block's all or any
+  // a block writes into the first block's shared memory only once every
+  // block of the cluster is known to be running: each arrives here and
+  // waits just before that store, so the wait overlaps the row's loads
+  const bool clustered = gridDim.x > 1;
+  if (clustered) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int lane = threadIdx.x % 32, row = blockIdx.x * rows_a_block + threadIdx.x / 32;
+  const bool has_row = row < b;
+  const int done = state->done, iters = state->iters;
+  float e = 0.f, target = 0.f, va[CPL], vb[CPL], la[CPL], lb[CPL], lw[CPL];
+  bool run = false;
   const size_t base = (size_t)row * n;
   const float* lse_a = lse + 2 * base;   // group 0: the softmin that updates a_y
   const float* lse_b = lse_a + n;        // group 1: b_x
+  if (has_row) {
+    e = eps_run[row];
+    run = running[row] != 0;
+    target = eps_target[row];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int i = lane + 32 * k;
+      if (i < n) {
+        va[k] = a_y[base + i];
+        vb[k] = b_x[base + i];
+        la[k] = lse_a[i];
+        lb[k] = lse_b[i];
+        lw[k] = logw[base + i];
+      }
+    }
+  }
+  if (freeze && done) return;   // the same for every block of the cluster
+  int flag_all = 1, flag_any = 0;
+  if (has_row) {
+    const float new_eps = next_eps(e, target, scaling_factor);
+    const float neg_e = -e;
+    float* fs_a = fs + 2 * base;
+    float* fs_b = fs_a + n;
+    float da = 0.f, db = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int i = lane + 32 * k;
+      if (i < n) {
+        const float at = run ? __fmul_rn(neg_e, la[k]) : va[k];
+        const float bt = run ? __fmul_rn(neg_e, lb[k]) : vb[k];
+        const float an = __fmul_rn(__fadd_rn(va[k], at), 0.5f);
+        const float bn = __fmul_rn(__fadd_rn(vb[k], bt), 0.5f);
+        da = nan_max(da, fabsf(__fsub_rn(an, va[k])));
+        db = nan_max(db, fabsf(__fsub_rn(bn, vb[k])));
+        a_y[base + i] = an;
+        b_x[base + i] = bn;
+        fs_a[i] = __fadd_rn(lw[k], __fdiv_rn(bn, new_eps));
+        fs_b[i] = __fadd_rn(neg_log_n, __fdiv_rn(an, new_eps));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      da = nan_max(da, __shfl_xor_sync(kFullMask, da, o));
+      db = nan_max(db, __shfl_xor_sync(kFullMask, db, o));
+    }
+    const int flag = (new_eps < e || da > threshold || db > threshold) ? 1 : 0;
+    if (lane == 0) {
+      running[row] = static_cast<unsigned char>(flag);
+      eps_run[row] = new_eps;
+    }
+    flag_all = flag_any = flag;
+  }
+  int agg = any ? __syncthreads_or(flag_any) : __syncthreads_and(flag_all);
+  if (clustered) {
+    // each block writes its part into the first block's shared memory and
+    // arrives at the cluster barrier; the first block waits there (release
+    // / acquire: the parts are visible) and takes the batch's all or any,
+    // a thread a block (blockDim >= 32 >= blocks); the others are done
+    cg::cluster_group cluster = cg::this_cluster();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // every block runs
+    if (threadIdx.x == 0) *cluster.map_shared_rank(&parts[blockIdx.x], 0) = agg;
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    if (blockIdx.x != 0) return;
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    const int v = threadIdx.x < gridDim.x ? parts[threadIdx.x] : (any ? 0 : 1);
+    agg = any ? __syncthreads_or(v) : __syncthreads_and(v);
+  }
+  if (threadIdx.x == 0) {
+    const int it = iters + 1;
+    state->iters = it;
+    state->agg = agg ? 1 : 0;
+    state->done = (it < max_iter - 1 && agg) ? 0 : 1;
+  }
+}
+
+__global__ void __launch_bounds__(kUpdateThreads)
+sinkhorn_update_kernel(const float* __restrict__ lse, float* __restrict__ a_y,
+                       float* __restrict__ b_x, unsigned char* running, float* eps_run,
+                       const float* __restrict__ eps_target, const float* __restrict__ logw,
+                       float* __restrict__ fs, LoopState* state, unsigned* row_max, int b,
+                       int n, int splits, int cols, float neg_log_n, float threshold,
+                       float scaling_factor, int max_iter, int any, int freeze) {
+  __shared__ float red[2][kUpdateThreads / 32];
+  __shared__ bool last;
+  const int row = blockIdx.x / splits, t = threadIdx.x;
+  const int lo = (blockIdx.x % splits) * cols, hi = min(n, lo + cols);
+  // the loop state, the row's scalars and the thread's first column in one
+  // round trip, before the freeze test
+  const int done = state->done, iters = state->iters;
+  const float e = eps_run[row];
+  const bool run = running[row] != 0;
+  const float target = eps_target[row];
+  const size_t base = (size_t)row * n;
+  const float* lse_a = lse + 2 * base;   // group 0: the softmin that updates a_y
+  const float* lse_b = lse_a + n;        // group 1: b_x
+  int i = lo + t;
+  float a = 0.f, bv = 0.f, la = 0.f, lb = 0.f, lw = 0.f;
+  if (i < hi) {
+    a = a_y[base + i];
+    bv = b_x[base + i];
+    la = lse_a[i];
+    lb = lse_b[i];
+    lw = logw[base + i];
+  }
+  if (freeze && done) return;
+  const float new_eps = next_eps(e, target, scaling_factor);
+  const float neg_e = -e;
   float* fs_a = fs + 2 * base;
   float* fs_b = fs_a + n;
   float da = 0.f, db = 0.f;
-  for (int i = t; i < n; i += blockDim.x) {
-    const float a = a_y[base + i], b = b_x[base + i];
-    const float at = run ? __fmul_rn(neg_e, lse_a[i]) : a;
-    const float bt = run ? __fmul_rn(neg_e, lse_b[i]) : b;
+  while (i < hi) {
+    const float at = run ? __fmul_rn(neg_e, la) : a;
+    const float bt = run ? __fmul_rn(neg_e, lb) : bv;
     const float an = __fmul_rn(__fadd_rn(a, at), 0.5f);
-    const float bn = __fmul_rn(__fadd_rn(b, bt), 0.5f);
+    const float bn = __fmul_rn(__fadd_rn(bv, bt), 0.5f);
     da = nan_max(da, fabsf(__fsub_rn(an, a)));
-    db = nan_max(db, fabsf(__fsub_rn(bn, b)));
+    db = nan_max(db, fabsf(__fsub_rn(bn, bv)));
     a_y[base + i] = an;
     b_x[base + i] = bn;
-    fs_a[i] = __fadd_rn(logw[base + i], __fdiv_rn(bn, new_eps));
+    fs_a[i] = __fadd_rn(lw, __fdiv_rn(bn, new_eps));
     fs_b[i] = __fadd_rn(neg_log_n, __fdiv_rn(an, new_eps));
+    i += blockDim.x;
+    if (i < hi) {
+      a = a_y[base + i];
+      bv = b_x[base + i];
+      la = lse_a[i];
+      lb = lse_b[i];
+      lw = logw[base + i];
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     da = nan_max(da, __shfl_xor_sync(kFullMask, da, o));
     db = nan_max(db, __shfl_xor_sync(kFullMask, db, o));
   }
-  const int warps = blockDim.x / 32;
   if (t % 32 == 0) {
     red[0][t / 32] = da;
     red[1][t / 32] = db;
   }
   __syncthreads();
-  if (t != 0) return;
-  for (int w = 1; w < warps; ++w) {
-    da = nan_max(da, red[0][w]);
-    db = nan_max(db, red[1][w]);
+  if (t == 0) {
+    for (int w = 1; w < (int)blockDim.x / 32; ++w) {
+      da = nan_max(da, red[0][w]);
+      db = nan_max(db, red[1][w]);
+    }
+    atomicMax(row_max + 2 * row, __float_as_uint(da));
+    atomicMax(row_max + 2 * row + 1, __float_as_uint(db));
+    __threadfence();
+    last = atomicAdd(&state->arrived, 1u) == gridDim.x - 1;
   }
-  const bool local = da > threshold || db > threshold;
-  running[row] = (new_eps < e || local) ? 1 : 0;
-  eps_run[row] = new_eps;
+  __syncthreads();
+  if (!last) return;
+  // the last block: every block's maxima are in row_max
   __threadfence();
-  if (atomicAdd(&state->arrived, 1u) != gridDim.x - 1) return;
-  // the last block to arrive: every row's flag is written
-  __threadfence();
-  const volatile unsigned char* flags = running;
-  bool agg = !any;
-  for (int r = 0; r < (int)gridDim.x; ++r) agg = any ? (agg || flags[r]) : (agg && flags[r]);
-  const int it = state->iters + 1;
-  state->iters = it;
-  state->agg = agg ? 1 : 0;
-  state->done = (it < max_iter - 1 && agg) ? 0 : 1;
-  state->arrived = 0u;
+  int all_run = 1, any_run = 0;
+  for (int r = t; r < b; r += blockDim.x) {
+    const float er = eps_run[r];
+    const float ne = next_eps(er, eps_target[r], scaling_factor);
+    const float ma = __uint_as_float(atomicExch(row_max + 2 * r, 0u));
+    const float mb = __uint_as_float(atomicExch(row_max + 2 * r + 1, 0u));
+    const int flag = (ne < er || ma > threshold || mb > threshold) ? 1 : 0;
+    running[r] = static_cast<unsigned char>(flag);
+    eps_run[r] = ne;
+    all_run &= flag;
+    any_run |= flag;
+  }
+  const bool agg = any ? __syncthreads_or(any_run) != 0 : __syncthreads_and(all_run) != 0;
+  if (t == 0) {
+    const int it = iters + 1;
+    state->iters = it;
+    state->agg = agg ? 1 : 0;
+    state->done = (it < max_iter - 1 && agg) ? 0 : 1;
+    state->arrived = 0u;
+  }
 }
 
 // Returns at once: its device time is the floor under any launch.
@@ -641,20 +816,65 @@ extern "C" int nfdpf_transport_apply(const float* eps, const float* x, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
-// One Sinkhorn iteration's update after K1 (sinkhorn_update_kernel) on a
-// batch of `b` rows of `n` particles; `state` holds the LoopState (4 ints).
+// One Sinkhorn iteration's update after K1 on a batch of `b` rows of `n`
+// particles, on the wrapper's plan (update_plan): with `batch`, one block or
+// one cluster of `splits` blocks of `cols` rows, `threads` = 32·cols threads
+// (a warp a row, sinkhorn_update_batch_kernel); else `splits` blocks a row
+// of `threads` threads, `cols` columns each (sinkhorn_update_kernel).
+// `state` holds the LoopState (4 ints), `row_max` 2·b zeros.
 extern "C" int nfdpf_sinkhorn_update(const float* lse, float* a_y, float* b_x,
                                      unsigned char* running, float* eps_run,
                                      const float* eps_target, const float* logw, float* fs,
-                                     int* state, int b, int n, float neg_log_n, float threshold,
-                                     float scaling_factor, int max_iter, int any, int freeze,
-                                     void* stream) {
+                                     int* state, unsigned* row_max, int b, int n, int batch,
+                                     int splits, int cols, int threads, float neg_log_n,
+                                     float threshold, float scaling_factor, int max_iter, int any,
+                                     int freeze, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  LoopState* st = reinterpret_cast<LoopState*>(state);
   if (b <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = n >= 1024 ? 1024 : (n + 31) / 32 * 32;
-  sinkhorn_update_kernel<<<b, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lse, a_y, b_x, running, eps_run, eps_target, logw, fs,
-      reinterpret_cast<LoopState*>(state), n, neg_log_n, threshold, scaling_factor, max_iter,
-      any, freeze);
+  if (batch) {
+    // `splits` blocks (one cluster when more than one) of `cols` rows
+    const int cpl = (n + 31) / 32, blocks = splits, rows_a_block = cols;
+    if (n > 8 * 32 || blocks < 1 || blocks > kBatchBlocks || rows_a_block < 1 ||
+        rows_a_block > kBatchRows || threads != 32 * rows_a_block ||
+        (long long)blocks * rows_a_block < b) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto kernel = cpl <= 1 ? sinkhorn_update_batch_kernel<1>
+                  : cpl <= 2 ? sinkhorn_update_batch_kernel<2>
+                  : cpl <= 4 ? sinkhorn_update_batch_kernel<4>
+                             : sinkhorn_update_batch_kernel<8>;
+    if (blocks == 1) {   // one block: no cluster
+      kernel<<<1, threads, 0, s>>>(lse, a_y, b_x, running, eps_run, eps_target, logw, fs, st, b,
+                                   n, rows_a_block, neg_log_n, threshold, scaling_factor,
+                                   max_iter, any, freeze);
+      return static_cast<int>(cudaGetLastError());
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, lse, a_y, b_x, running, eps_run,
+                                              eps_target, logw, fs, st, b, n, rows_a_block,
+                                              neg_log_n, threshold, scaling_factor, max_iter,
+                                              any, freeze);
+    return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
+  }
+  if (splits <= 0 || cols <= 0 || threads < 32 || threads % 32 != 0 ||
+      threads > kUpdateThreads || (long long)splits * cols < n ||
+      (long long)(splits - 1) * cols >= n || (long long)b * splits > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sinkhorn_update_kernel<<<b * splits, threads, 0, s>>>(
+      lse, a_y, b_x, running, eps_run, eps_target, logw, fs, st, row_max, b, n, splits, cols,
+      neg_log_n, threshold, scaling_factor, max_iter, any, freeze);
   return static_cast<int>(cudaGetLastError());
 }
 

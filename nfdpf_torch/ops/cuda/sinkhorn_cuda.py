@@ -71,6 +71,22 @@ LAUNCHES = {"sinkhorn_lse": 0, "sinkhorn_update": 0, "transport_apply": 0,
 LOOP_CHUNK = 8
 LOOP_CHUNK_MAX_N = 1024
 
+# the update kernels' plan: up to UPDATE_BATCH_ROWS rows of up to
+# UPDATE_BATCH_COLS columns in one block (up to UPDATE_ONE_BLOCK_ROWS rows)
+# or one cluster of up to UPDATE_CLUSTER blocks of about
+# UPDATE_CLUSTER_ROWS rows, a warp a row; else blocks of at
+# most UPDATE_THREADS threads, a thread a column per pass, a row of more
+# columns split into pieces of UPDATE_THREADS until the grid holds
+# UPDATE_BLOCKS_PER_SM blocks per SM
+UPDATE_BATCH_ROWS = 64
+UPDATE_BATCH_COLS = 256
+UPDATE_ONE_BLOCK_ROWS = 16
+UPDATE_CLUSTER = 8
+UPDATE_CLUSTER_ROWS = 4
+UPDATE_THREADS = 256
+UPDATE_BLOCKS_PER_SM = 2
+H100_SMS = 132
+
 # the streaming loop (K3's, card or CPU) since the last reset: firings,
 # iterations (the raw count) and host reads of its stop test
 STREAMING_LOOP = {"calls": 0, "iters": 0, "host_reads": 0}
@@ -81,8 +97,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "nfdpf_sinkhorn_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "nfdpf_transport_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "nfdpf_sinkhorn_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
-                              _I, _I, _I, _P],
+    "nfdpf_sinkhorn_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _F, _F, _F, _I, _I, _I, _P],
     "nfdpf_empty_launch": [_I, _I, _P],
 }
 
@@ -262,6 +278,43 @@ def _k1_input(logw, uniform_logw, a_y, b_x, eps_run) -> torch.Tensor:
     return torch.stack([logw + b_x / eps_col, uniform_logw + a_y / eps_col], dim=1)
 
 
+def update_plan(b: int, n: int, sms: int = H100_SMS) -> dict:
+    """How the update kernels cover a (``b``, ``n``) batch on a card of
+    ``sms`` SMs.  With ``batch`` (at most ``UPDATE_BATCH_ROWS`` rows of at
+    most ``UPDATE_BATCH_COLS`` columns): one block of a warp a row (up to
+    ``UPDATE_ONE_BLOCK_ROWS`` rows), else one cluster of ``blocks`` blocks
+    (a power of two, at most ``UPDATE_CLUSTER``, about
+    ``UPDATE_CLUSTER_ROWS`` rows a block) of ``rows_a_block`` warps, warp w
+    of block k taking row k·rows_a_block + w, lane l its columns l + 32·j
+    for j < ``cols_per_lane``.  Else ``splits`` blocks a row (grid
+    b·splits, block row·splits + piece), each of ``threads`` threads over
+    ``cols`` consecutive columns: a row of at most ``UPDATE_THREADS``
+    columns is one block of whole warps; a longer one is cut into pieces of
+    ``UPDATE_THREADS`` columns, as many as the grid needs to reach
+    ``UPDATE_BLOCKS_PER_SM`` blocks per SM (more columns a piece beyond
+    that)."""
+    if b <= UPDATE_BATCH_ROWS and n <= UPDATE_BATCH_COLS:
+        lanes = -(-n // 32)
+        blocks = (1 if b <= UPDATE_ONE_BLOCK_ROWS else
+                  min(UPDATE_CLUSTER, 1 << (-(-b // UPDATE_CLUSTER_ROWS) - 1).bit_length()))
+        rows = -(-b // blocks)
+        return {"batch": True, "blocks": blocks, "rows_a_block": rows, "threads": 32 * rows,
+                "grid": blocks, "cols_per_lane": next(k for k in (1, 2, 4, 8) if k >= lanes)}
+    if n <= UPDATE_THREADS:
+        return {"batch": False, "splits": 1, "cols": n, "threads": -(-n // 32) * 32, "grid": b}
+    want = max(1, -(-UPDATE_BLOCKS_PER_SM * sms // b))
+    splits = min(-(-n // UPDATE_THREADS), want)
+    cols = -(-n // splits)
+    cols = -(-cols // 32) * 32
+    splits = -(-n // cols)
+    return {"batch": False, "splits": splits, "cols": cols, "threads": UPDATE_THREADS,
+            "grid": b * splits}
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def sinkhorn_update_plain(lse, a_y, b_x, running, eps_run, eps_target, logw, uniform_logw,
                           threshold: float, scaling_factor: float):
     """Plain version of the update kernel: the rest of one Sinkhorn iteration
@@ -286,9 +339,11 @@ class _Loop:
     """The Sinkhorn loop's state in buffers of fixed address, (B, N) on one
     device, in the inputs' dtype (float32 on the card): the scaled particles, log-weights, ε target and running ε, the
     potentials (a_y, b_x), the running flags, K1's input ``fs`` and output
-    ``lse`` (B, 2, N) and ``state`` (done, iterations, the batch's
-    aggregate of the running flags, the update's arrival count).  On the
-    card a chunk of iterations is a CUDA graph over these buffers, captured
+    ``lse`` (B, 2, N), ``state`` (done, iterations, the batch's
+    aggregate of the running flags, the update's arrival count) and
+    ``row_max`` (the update kernel's per-row maxima, 2 a row, 0 between
+    launches).  On the card a chunk of iterations is a CUDA graph over these
+    buffers, captured
     at the first chunk and replayed after; on the CPU the same chunk runs
     on the plain versions."""
 
@@ -305,6 +360,8 @@ class _Loop:
         self.fs = torch.zeros(b, 2, n, **like)
         self.lse = torch.zeros(b, 2, n, **like)
         self.state = torch.zeros(4, dtype=torch.int32, device=device)
+        self.row_max = torch.zeros(2 * b, dtype=torch.int32, device=device)
+        self.plan = update_plan(b, n, _sm_count(device) if self.x.is_cuda else H100_SMS)
         # (threshold, scaling², max_iter, convergence): kernel arguments a
         # graph keeps
         self.params = params
@@ -334,10 +391,16 @@ class _Loop:
         threshold, scaling_factor, max_iter, convergence = self.params
         if self.x.is_cuda:
             b, n = self.logw.shape
+            plan = self.plan
+            # the batch kernel takes its cluster's blocks and rows a block
+            # where the other takes its pieces and columns a piece
+            pieces, width = ((plan["blocks"], plan["rows_a_block"]) if plan["batch"]
+                             else (plan["splits"], plan["cols"]))
             rc = _library().nfdpf_sinkhorn_update(
                 self.lse.data_ptr(), self.a_y.data_ptr(), self.b_x.data_ptr(),
                 self.running.data_ptr(), self.eps_run.data_ptr(), self.eps_target.data_ptr(),
-                self.logw.data_ptr(), self.fs.data_ptr(), self.state.data_ptr(), b, n,
+                self.logw.data_ptr(), self.fs.data_ptr(), self.state.data_ptr(),
+                self.row_max.data_ptr(), b, n, int(plan["batch"]), pieces, width, plan["threads"],
                 -math.log(n), threshold, scaling_factor, max_iter, int(convergence == "any"),
                 int(freeze), torch.cuda.current_stream(self.x.device).cuda_stream)
             check_launch(rc, "sinkhorn_update")

@@ -1,9 +1,10 @@
-"""The launch plans of the context kernels (``coupling_cuda.ctx_share_plan``
-and ``ctx_weight_grad_plan``), which the wrapper computes on the host: for
-every chain that ``chain_refusal`` accepts, at the row counts the filter
-and the smoke run, each context row and each row of g1 falls in exactly
-one block, each context entry in exactly one tile, and the shared memory
-and threads fit an H100 block.  The weight gradient's parts (its first
+"""The launch plans of the context kernels (``coupling_cuda.ctx_share_plan``,
+``ctx_weight_grad_plan`` and ``ctx_input_grad_plan``), which the wrapper
+computes on the host: for every chain that ``chain_refusal`` accepts, at the
+row counts the filter and the smoke run, each context row and each row of
+g1 falls in exactly one block, each context entry in exactly one tile, each
+entry of the context's gradient in exactly one thread, and the shared
+memory and threads fit an H100 block.  The weight gradient's parts (its first
 kernel's plain version on the plan), weighed and added in part order as
 its second kernel does, give the plain version of the whole gradient."""
 
@@ -62,6 +63,42 @@ def test_ctx_weight_grad_plan_covers_every_row_once(b, n):
                     assert plan["part_floats"] == parts * ctx_dim * ps, where
                 assert plan["grid2"] == ctx_dim and ps // 4 <= cc.CTX_THREADS, where
                 assert max(plan["smem_bytes1"], plan["smem_bytes2"]) <= cc.MAX_SMEM_BYTES, where
+
+
+@pytest.mark.parametrize("b,n", ROW_SHAPES)
+def test_ctx_input_grad_plan_covers_every_entry_once(b, n):
+    """gctx (B·N x C) in tiles of ``tile_rows`` x ``tile_cols`` (one of
+    ``CTX_IN_TILES``, which the kernel library instantiates): a thread
+    stores rows ty + (tile_rows / TM)·i (i < TM, its ``rows_a_thread``) and
+    entries tx + ``CTX_IN_LANES``·jj of its tile, so every (row, entry) is one
+    thread's, and the k of g1's rows come in ``chunks`` stages; at most
+    1,024 threads and 48 KB of static shared memory a block (within an
+    H100 block's 227 KB)."""
+    rows = b * n
+    for n_blocks, hidden in _accepted_chains():
+        ps = 4 * n_blocks * cc.kernel_hidden(hidden)
+        for ctx_dim in CTX_DIMS + (16, 17, 63, 64, 65):
+            plan = cc.ctx_input_grad_plan(rows, ctx_dim, ps)
+            tr, tc, tm = (plan[k] for k in ("tile_rows", "tile_cols", "rows_a_thread"))
+            lanes = cc.CTX_IN_LANES
+            where = (n_blocks, hidden, ctx_dim, plan)
+            ty, gx, gy = tr // tm, *plan["grid"]
+            local_rows = (np.arange(ty)[:, None] + ty * np.arange(tm)).ravel()
+            local_cols = (np.arange(lanes)[:, None] + lanes * np.arange(tc // lanes)).ravel()
+            r = (np.arange(gx)[:, None] * tr + local_rows).ravel()
+            c = (np.arange(gy)[:, None] * tc + local_cols).ravel()
+            assert np.array_equal(np.sort(r[r < rows]), np.arange(rows)), where
+            assert np.array_equal(np.sort(c[c < ctx_dim]), np.arange(ctx_dim)), where
+            assert (ty, tm, tc // lanes) in cc.CTX_IN_TILES, where
+            assert tc % lanes == 0, where
+            assert plan["threads"] == ty * lanes <= 1024, where
+            assert plan["smem_bytes"] == cc.ctx_input_grad_smem_bytes(tr, tc), where
+            # a context at most CTX_IN_NARROW wide in one tile
+            assert ctx_dim > cc.CTX_IN_NARROW or gy == 1, where
+            chunk = cc.CTX_IN_CHUNK
+            assert (plan["chunks"] - 1) * chunk < ps <= plan["chunks"] * chunk, where
+            assert ps % 4 == 0 and chunk % 4 == 0, where    # 16-byte stages of g1's rows
+            assert plan["smem_bytes"] <= min(48 * 1024, cc.MAX_SMEM_BYTES), where
 
 
 @pytest.mark.parametrize("b,n", ROW_SHAPES)

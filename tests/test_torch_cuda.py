@@ -193,30 +193,87 @@ def _loop_inputs(b, n, seed, device):
     return x.to(device), probs.to(device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(32, 100), (4, 4097)])
-def test_sinkhorn_update_kernel_matches_plain(cuda, b, n):
-    """The fused update against its plain version (torch's own ops on the
-    card) on the same K1 output: potentials, flags, ε and the next K1 input
-    bit for bit, and the loop counter and done flag set."""
-    gen = torch.Generator().manual_seed(b + n)
-    loop = sc._Loop(b, n, cuda, (1e-3, 0.75**2, 100, "all"))
+UPDATE_SHAPES = [(32, 100), (4, 4097), (4, 10240), (65, 100)]
+
+
+def _update_loop(cuda, b, n, convergence, state, seed):
+    """A loop at (b, n) loaded as a firing would be, with K1 run on its
+    input: ``state`` "stopped" (every third row's flag down, ε from 0.05 to
+    3: some rows anneal, some do not), "running" (every row running and
+    annealing, the filter's usual state) or "nan" (as "running", with a NaN
+    in row 1's K1 output).  Returns the loop and the update's inputs."""
+    gen = torch.Generator().manual_seed(seed)
+    loop = sc._Loop(b, n, cuda, (1e-3, 0.75**2, 100, convergence))
     x = (torch.randn(b, n, 2, generator=gen) * 0.5).to(cuda)
     logw = torch.log_softmax(torch.randn(b, n, generator=gen), -1).to(cuda)
     eps_b = torch.full((b,), 0.1, device=cuda)
-    eps_run = torch.linspace(0.05, 3.0, b).to(cuda)
+    eps_run = torch.linspace(0.05 if state == "stopped" else 0.2, 3.0, b).to(cuda)
     a_y, b_x = ((torch.randn(b, n, generator=gen) * 0.1).to(cuda) for _ in range(2))
     loop.load(x, logw, eps_b, eps_run, a_y, b_x)
-    loop.running[::3] = False
-    running = loop.running.clone()
-    loop.iteration(freeze=True)
+    if state == "stopped":
+        loop.running[::3] = False
+    sc._launch_lse(loop.eps_run, loop.x, loop.x, loop.fs, loop.lse)
+    if state == "nan":
+        loop.lse[1, 0, n // 2] = float("nan")
+    return loop, (loop.lse.clone(), a_y, b_x, loop.running.clone(), eps_run, eps_b, logw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["stopped", "running", "nan"])
+@pytest.mark.parametrize("convergence", ["all", "any"])
+@pytest.mark.parametrize("b,n", UPDATE_SHAPES)
+def test_sinkhorn_update_kernel_matches_plain(cuda, b, n, convergence, state):
+    """The fused update against its plain version (torch's own ops on the
+    card) on the same K1 output: potentials, flags, ε and the next K1 input
+    bit for bit (a NaN in K1's output too), the loop counter, the batch's
+    all or any and the done flag set, and the arrival count and the
+    per-row maxima back at 0."""
+    loop, (lse, a_y, b_x, running, eps_run, eps_b, logw) = _update_loop(
+        cuda, b, n, convergence, state, b + n)
+    loop.update(freeze=True)
     torch.cuda.synchronize()
-    ref = sc.sinkhorn_update_plain(loop.lse, a_y, b_x, running, eps_run, eps_b, logw,
+    ref = sc.sinkhorn_update_plain(lse, a_y, b_x, running, eps_run, eps_b, logw,
                                    loop.uniform, 1e-3, 0.75**2)
     for got, want in zip((loop.a_y, loop.b_x, loop.running, loop.eps_run, loop.fs), ref):
+        if got.is_floating_point():     # a NaN where the plain version has one
+            assert torch.equal(got.isnan(), want.isnan())
+            got, want = torch.nan_to_num(got), torch.nan_to_num(want)
         assert torch.equal(got, want)
-    done, iters, agg, arrived = loop.state.tolist()
-    assert (iters, agg, arrived) == (1, int(bool(ref[2].all())), 0) and done == 1 - agg
+    if state == "nan":
+        assert bool(loop.a_y[1].isnan().any())
+    agg = int(bool(ref[2].all() if convergence == "all" else ref[2].any()))
+    done, iters, agg_got, arrived = loop.state.tolist()
+    assert (iters, agg_got, arrived) == (1, agg, 0) and done == 1 - agg
+    assert not bool(loop.row_max.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", UPDATE_SHAPES)
+def test_sinkhorn_update_kernel_freezes_and_repeats(cuda, b, n):
+    """With ``freeze`` and the done flag set the update writes nothing; two
+    launches on the same inputs, back to back with no synchronisation
+    between, give the same bits and leave the arrival count and the
+    per-row maxima at 0."""
+    loop, (_, a_y, b_x, _, eps_run, eps_b, logw) = _update_loop(cuda, b, n, "all", "running",
+                                                                3 * b + n)
+    x = loop.x.clone()
+    loop.state[0] = 1
+    buffers = lambda: (loop.a_y, loop.b_x, loop.running, loop.eps_run, loop.fs,  # noqa: E731
+                       loop.state, loop.row_max)
+    before = [t.clone() for t in buffers()]
+    loop.update(freeze=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, want) for got, want in zip(buffers(), before))
+    runs = []
+    for _ in range(2):
+        loop.load(x, logw, eps_b, eps_run, a_y, b_x)
+        sc._launch_lse(loop.eps_run, loop.x, loop.x, loop.fs, loop.lse)
+        loop.update(freeze=False)
+        runs.append([t.clone() for t in buffers()])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    assert runs[0][5].tolist()[1:] == [1, 1, 0]
+    assert not bool(runs[0][6].any())
 
 
 @pytest.mark.cuda
@@ -616,7 +673,14 @@ CONTEXT_CASES = [(32, 100, 196, True, 2, 8, False), (4, 4097, 36, False, 2, 8, F
                  (3, 1037, 1, False, 2, 8, False), (3, 1037, 197, False, 2, 8, False),
                  (32, 100, 36, True, 8, 8, False), (3, 1037, 36, False, 8, 8, False),
                  (32, 100, 196, True, 3, 16, False), (3, 1037, 36, False, 3, 16, False),
-                 (64, 5, 36, True, 2, 8, False), (3, 1037, 36, False, 2, 8, True)]
+                 (64, 5, 36, True, 2, 8, False), (3, 1037, 36, False, 2, 8, True),
+                 # the input gradient's tile edges: C at 4 / 16 / 64 and one past,
+                 # rows ragged against its 64-row tiles, a hidden width that is
+                 # no multiple of 4 (the weights staged 4 bytes at a time)
+                 (32, 100, 4, True, 2, 8, False), (3, 33, 16, True, 2, 8, False),
+                 (3, 1037, 17, False, 2, 8, False), (32, 100, 63, True, 2, 8, False),
+                 (3, 1037, 64, False, 2, 8, False), (3, 33, 65, True, 8, 8, False),
+                 (3, 1037, 65, False, 2, 6, False), (1, 7, 197, True, 3, 16, False)]
 
 
 def _context_case(cuda, b, n, ctx_dim, broadcast, n_blocks, hidden, view):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the context kernels of two trees of the port on one GPU.
+"""Same-call A/B of the context kernels and K3's update kernel of two trees
+of the port on one GPU.
 
     git archive <commit> nfdpf_torch | tar -x -C _archive/parent
     python3 tools/ctx_kernels_ab.py --other _archive/parent [--rounds 1] [--out ab.json]
@@ -12,11 +13,19 @@ calls) at every case where ``chip_smoke.py`` runs them: the main cases of its
 blocks at hidden 8 and 16) and its edge cases (``CTX_EDGES``).  Inputs come
 from this tree's ``chip_smoke.context_case`` (random g1, seeded), times from
 its ``device_ms`` (CUDA-graph replay, ms a call); each result is first held
-to the tree's own plain version at the smoke's tolerances.  Each turn is a
-fresh process from that tree's root, in the order other, this, this, other
-(``--rounds`` times); a turn builds its tree's coupling libraries first.
-Prints the card's name and power limit, then one JSON line: per kernel and
-case each tree's median ms over its turns, and every turn's times.
+to the tree's own plain version at the smoke's tolerances, and a hash of its
+bits is kept.  Then each tree's update kernel (``sinkhorn_cuda._Loop.update``)
+at (B, N) = (32, 100), (10, 100), (4, 4097) and (4, 10240) on one K1 output
+(``chip_smoke.update_case``), first held to its plain version bit for bit,
+timed on repeated launches in two states: "stopped" (every third row's flag
+down, the rows stopping as the potentials settle: the smoke's ``ms``) and
+"running" (a negative threshold keeps every row's flag up at every launch,
+the filter's usual state).  Each turn is a fresh process from that tree's
+root, in the order other, this, this, other (``--rounds`` times); a turn
+builds its tree's libraries first.  Prints the card's name and power limit,
+then one JSON line: per kernel and case each tree's median ms over its
+turns, whether every turn of both trees gave the same bits, and every
+turn's times.
 """
 
 import argparse
@@ -28,7 +37,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURN = r"""
-import importlib.util, json, sys, torch
+import hashlib, importlib.util, json, sys, torch
 sys.path.insert(0, ".")
 spec = importlib.util.spec_from_file_location("ab_smoke", sys.argv[1])
 s = importlib.util.module_from_spec(spec)
@@ -36,7 +45,9 @@ spec.loader.exec_module(s)
 from nfdpf_torch.ops.cuda import build
 from nfdpf_torch.ops.cuda import coupling_cuda as cc
 torch.backends.cuda.matmul.allow_tf32 = False
-build.build_all([("coupling", cc.build_defines(8)), ("coupling", cc.build_defines(16))])
+from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+build.build_all([("coupling", cc.build_defines(8)), ("coupling", cc.build_defines(16)),
+                 ("sinkhorn", ())])
 cases = []
 for h in (8, 16):
     for b, n, c, broadcast in ((32, 100, 4, True), (32, 100, 36, True), (32, 100, 196, True),
@@ -45,7 +56,7 @@ for h in (8, 16):
         name = f"B{b}_N{n}_C{c}" + ("" if h == 8 else f"_h{h}")
         cases.append((name, b, n, c, broadcast, 2, h, False, 200 if broadcast else 20))
 cases += [case + (s.CTX_EDGE_ITERS,) for case in s.CTX_EDGES]
-out = {}
+out, bits = {}, {}
 for k, (case, b, n, c, broadcast, n_blocks, hidden, view, iters) in enumerate(cases):
     ctx, w, bias, g1 = s.context_case(b, n, c, broadcast, n_blocks, hidden, view, 9000 + k)
     with torch.no_grad():
@@ -59,9 +70,30 @@ for k, (case, b, n, c, broadcast, n_blocks, hidden, view, iters) in enumerate(ca
                                         lambda: cc.ctx_input_grad_plain(g1, w, c),
                                         ("apply", s.CHAIN_GRAD_TOL))}
         for name, (kernel, plain, tol) in kernels.items():
-            s.check(f"{name}@{case}", kernel(), plain(), tol)
+            got = kernel()
+            s.check(f"{name}@{case}", got, plain(), tol)
+            digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+            bits.setdefault(name, {})[case] = digest
             out.setdefault(name, {})[case] = s.device_ms(kernel, iters)
-print("TURN " + json.dumps(out))
+for b, n in ((32, 100), (10, 100), (4, 4097), (4, 10240)):
+    gen = torch.Generator().manual_seed(b + n)
+    for state, threshold in (("stopped", 1e-3), ("running", -1.0)):
+        loop, (lse, a_y, b_x, running, eps_run, eps_b, logw) = s.update_case(
+            sc, b, n, "all", state, gen, threshold=threshold)
+        loop.update(freeze=True)
+        ref = sc.sinkhorn_update_plain(lse, a_y, b_x, running, eps_run, eps_b, logw,
+                                       loop.uniform, threshold, 0.75**2)
+        got = (loop.a_y, loop.b_x, loop.running, loop.eps_run, loop.fs)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"sinkhorn_update@B{b}_N{n}_{state}: other bits than the "
+                                 "plain version's")
+        case = f"B{b}_N{n}_{state}"
+        bits.setdefault("sinkhorn_update", {})[case] = hashlib.sha256(
+            b"".join(t.cpu().numpy().tobytes() for t in got)).hexdigest()
+        out.setdefault("sinkhorn_update", {})[case] = s.device_ms(
+            lambda: loop.update(freeze=False), 200 if n <= 4097 else 50)
+        del loop
+print("TURN " + json.dumps({"ms": out, "bits": bits}))
 """
 
 
@@ -88,10 +120,11 @@ def main() -> int:
     print(card, flush=True)
     other = os.path.abspath(args.other)
     order = ["other", "this", "this", "other"] * args.rounds
-    turns = [{"tree": tree, "ms": turn(other if tree == "other" else HERE)} for tree in order]
-    summary = {name: {case: {tree: statistics.median(t["ms"][name][case] for t in turns
-                                                     if t["tree"] == tree)
-                             for tree in ("other", "this")}
+    turns = [{"tree": tree, **turn(other if tree == "other" else HERE)} for tree in order]
+    summary = {name: {case: {**{tree: statistics.median(t["ms"][name][case] for t in turns
+                                                        if t["tree"] == tree)
+                                for tree in ("other", "this")},
+                             "bits_equal": len({t["bits"][name][case] for t in turns}) == 1}
                       for case in turns[0]["ms"][name]}
                for name in turns[0]["ms"]}
     row = {"card": card, "other": other, "order": order, "summary": summary, "turns": turns}
