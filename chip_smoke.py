@@ -108,8 +108,11 @@ Phases, one line of output each, then the device line last:
 10. mesh: one group of 4 ranks spawned on this card, joined over gloo (which
    stages CUDA tensors through the host: these are correctness runs, and
    their times say nothing of NCCL): K6 on 2 ranks at (4, 10240) against K3
-   unsharded (particles rtol 1e-4 / atol 1e-5, value gradient 1e-3, equal
-   iterations, global indices), with both per-call times; one train step
+   unsharded and against its plain version (particles rtol 1e-4 / atol
+   1e-5, value gradient 1e-3, equal iterations, global indices), K6 and its
+   plain version timed in turns, with K3's per-call time; K6's collectives
+   a call (one all-gather an iteration and no all-reduce; its plain version
+   one of each an iteration), host reads and launches; one train step
    at full width (B=32, N=100, T=10, 128 px, every step resampled) on a
    1×2 mesh (the CNF-DPF), a 2×1 mesh (the bootstrap DPF) and a 2×2 mesh
    (the NF-DPF), each against the unsharded card run of the same weights
@@ -1886,6 +1889,10 @@ RECT_AT = "B4_N5120_M10240"       # the rows ≠ columns case in the kernels lin
 K6_SHAPE, K6_RANKS = (4, 10240), 2
 K6_KW = dict(eps=0.1, scaling=0.75, threshold=1e-3, max_iter=100)
 K6_GRAD_TOL = 1e-3
+K6_TIMES = 5          # timed calls of K6 and of its plain version each, in turns
+# K6's all-gathers outside its loop: the coordinates and log-weights, the
+# start's potentials, the final f, the column term and the raw particles
+K6_GATHERS = 6
 # the mesh train steps: (settings, (data, particle)) at full width, T cut to
 # MESH_T for the time limit; each against the unsharded card run of the same
 # draws
@@ -1984,8 +1991,9 @@ def k6_bound_ms(b: int, n: int, shards: int, iters: int):
     """The least time one rank's K6 call could take on this run's data:
     its K1 work (G = 2) on N/P rows × N columns for the cold start, each
     iteration and the final round, the column normaliser (G = 1) and K2's
-    forward, against the coordinates and log-weights it gathers once and
-    the 2·B·N potentials it gathers each iteration."""
+    forward, against the coordinates and log-weights it gathers once, the
+    2·B·N potentials it gathers at the start and the 2·B·N logsumexps it
+    gathers each iteration."""
     pairs = b * (n // shards) * n
     ops = pairs * ((iters + 2) * (7 + 4 * 2) + (7 + 4) + 14)
     nbytes = 4.0 * (3 * b * n + (iters + 1) * 2 * b * n + 2 * b * n + 2 * b * (n // shards))
@@ -2030,7 +2038,9 @@ def _group_rel(grads: dict, ref: dict) -> dict:
 
 
 def phase_mesh(smi: str):
-    """K6 on 2 ranks at (4, 10,240) against K3 unsharded, and one train
+    """K6 on 2 ranks at (4, 10,240) against K3 unsharded and against its
+    plain version (timed in turns with it; collectives, host reads and
+    launches a call counted), and one train
     step on each mesh of ``MESHES`` against its unsharded card run, every
     rank on this card over gloo, all in one spawned group of 4 ranks (the
     smaller meshes on ranks 0-1).  Each rank sets the launch counters to 0
@@ -2079,9 +2089,12 @@ def _phase_mesh(smi: str):
         if shape[0] > 1:
             exact[name] = R.float64_step(settings, *inputs[name])
 
+    # K6 (timed in turns with its plain version), then its plain version's
+    # outputs and counts
     jobs = [(R.resample_job, dict(shape=(1, K6_RANKS), ranks=list(range(K6_RANKS)),
                                   particles=raw.numpy(), probs=probs.numpy(), kw=K6_KW,
-                                  device="cuda", times=3))]
+                                  device="cuda", times=0 if plain else K6_TIMES, plain=plain))
+            for plain in (False, True)]
     for name, (settings, shape) in MESHES.items():
         batch, noise = inputs[name]
         jobs.append((R.train_step_job, dict(
@@ -2097,41 +2110,74 @@ def _phase_mesh(smi: str):
     results = R.spawn(MESH_WORLD, jobs, backend="gloo", threads=2, timeout=600)
     spawn_s = time.perf_counter() - t0
 
-    # K6 against K3
-    k6 = results[0][0]
+    # K6 against K3 and its plain version
+    k6, k6_plain = results[0][0], results[1][0]
     iters = [r["iters"] for r in results[0][:K6_RANKS]]
+    plain_iters = [r["iters"] for r in results[1][:K6_RANKS]]
     k6_err = float(np.abs(k6["particles"] - k3["particles"]).max())
+    plain_err = float(np.abs(k6["particles"] - k6_plain["particles"]).max())
     bad = []
     if not np.allclose(k6["particles"], k3["particles"], rtol=1e-4, atol=1e-5):
-        bad.append(f"K6 particles max abs err {k6_err:.3e}")
+        bad.append(f"K6 particles max abs err {k6_err:.3e} from K3's")
+    if not np.allclose(k6["particles"], k6_plain["particles"], rtol=1e-4, atol=1e-5):
+        bad.append(f"K6 particles max abs err {plain_err:.3e} from its plain version's")
     grad_rel = float(np.linalg.norm(k6["grad"] - k3["grad"]) / np.linalg.norm(k3["grad"]))
-    if not grad_rel <= K6_GRAD_TOL:
-        bad.append(f"K6 value gradient rel err {grad_rel:.3e}")
-    if iters != [k3_iters] * K6_RANKS:
-        bad.append(f"K6 iterations {iters}, K3 {k3_iters}")
+    plain_grad_rel = float(np.linalg.norm(k6["grad"] - k6_plain["grad"])
+                           / np.linalg.norm(k6_plain["grad"]))
+    if not max(grad_rel, plain_grad_rel) <= K6_GRAD_TOL:
+        bad.append(f"K6 value gradient rel err {grad_rel:.3e} from K3's, {plain_grad_rel:.3e} "
+                   f"from its plain version's")
+    if iters != [k3_iters] * K6_RANKS or plain_iters != iters:
+        bad.append(f"K6 iterations {iters}, its plain version's {plain_iters}, K3 {k3_iters}")
     if not np.array_equal(k6["idx"], np.broadcast_to(np.arange(n), (b, n))):
         bad.append("K6 indices are not the global ones")
-    if k6["launches"]["sharded_resample"] != 1 or k6["launches"]["sinkhorn_lse"] <= 0:
-        bad.append(f"K6 launches {k6['launches']}")
+    launched = k6["launches"]
+    if (launched["sharded_resample"] != 1 or launched["sinkhorn_lse"] <= 0
+            or launched["sinkhorn_update"] <= 0 or launched["transport_apply"] <= 0):
+        bad.append(f"K6 launches {launched}")
+    if any(k6_plain["launches"].values()):
+        bad.append(f"K6's plain version launched kernels: {k6_plain['launches']}")
+    # one all-gather an iteration (a replay holds one at N > LOOP_CHUNK_MAX_N)
+    # and none outside the 6 of the geometry, the start, f, the column
+    # term and the raw particles; the plain version one of each an iteration
+    k3_it = k3_iters
+    want = {"new": {"all_gather": K6_GATHERS + k3_it, "all_reduce": 0, "broadcast": 0},
+            "plain": {"all_gather": K6_GATHERS + k3_it, "all_reduce": k3_it, "broadcast": 0}}
+    for what, run in (("new", k6), ("plain", k6_plain)):
+        if run["collectives"] != want[what]:
+            bad.append(f"K6 {what}: collectives {run['collectives']}, expected {want[what]}")
     bound, by = k6_bound_ms(b, n, K6_RANKS, k3_iters)
     k6_row = {"phase": "k6", "card": smi, "transport": "gloo-on-one-card",
-              "shape": K6_SHAPE, "ranks": K6_RANKS, "iters": iters, "iters_k3": k3_iters,
-              "max_abs_err": k6_err, "grad_rel_err": grad_rel, "ms_per_call": k6["ms"],
-              "k3_ms_per_call": k3_ms, "bound_ms": bound, "bound_by": by,
+              "shape": K6_SHAPE, "ranks": K6_RANKS, "iters": iters, "iters_plain": plain_iters,
+              "iters_k3": k3_iters, "max_abs_err": k6_err, "max_abs_err_plain": plain_err,
+              "grad_rel_err": grad_rel, "grad_rel_err_plain": plain_grad_rel,
+              "ms_per_call": k6["ms"], "plain_ms_per_call": k6["plain_ms"],
+              "calls_ms": k6["calls_ms"], "k3_ms_per_call": k3_ms,
+              "bound_ms": bound, "bound_by": by,
               "k3_bound_ms": k6_bound_ms(b, n, 1, k3_iters)[0],
               # each iteration: K1 (G=2) on N/P rows × N columns, and the
-              # 2·B·N potentials all-gathered
+              # 2·B·N logsumexps all-gathered
               "bound_per_iteration_ms": bound_ms(4.0 * 2 * b * n,
                                                  b * (n // K6_RANKS) * n * (7 + 4 * 2))[0],
               "gathered_bytes_per_iteration": 4 * 2 * b * n,
-              "launches_per_call": k6["launches"],
-              "note": "K6's ms are 2 ranks sharing this card over gloo, whose collectives "
-                      "stage through the host: a correctness run, not a time of NCCL"}
+              "collectives_per_call": k6["collectives"],
+              "collectives_per_call_plain": k6_plain["collectives"],
+              "collectives_per_iteration": {k: (v - (K6_GATHERS if k == "all_gather" else 0))
+                                            / k3_iters for k, v in k6["collectives"].items()},
+              "collectives_per_iteration_plain": {
+                  k: (v - (K6_GATHERS if k == "all_gather" else 0)) / k3_iters
+                  for k, v in k6_plain["collectives"].items()},
+              "host_reads_per_call": k6["loop"]["host_reads"],
+              "host_reads_per_call_plain": k6_plain["loop"]["host_reads"],
+              "launches_per_call": launched,
+              "note": "ms are 2 ranks sharing this card over gloo, whose collectives stage "
+                      "through the host: not a time of NCCL; the driver and its plain "
+                      "version timed in turns in one job, medians of calls_ms"}
     log(k6_row)
 
     rows = {}
-    float64_runs = dict(zip(exact, results[1 + len(MESHES):]))
-    for (name, (settings, shape)), runs in zip(MESHES.items(), results[1:1 + len(MESHES)]):
+    float64_runs = dict(zip(exact, results[2 + len(MESHES):]))
+    for (name, (settings, shape)), runs in zip(MESHES.items(), results[2:2 + len(MESHES)]):
         ref = unsharded[name]
         runs = [r for r in runs if r is not None]
         losses = [r["metrics"]["loss"] for r in runs]
@@ -2151,6 +2197,7 @@ def _phase_mesh(smi: str):
                       "sinkhorn_iters_unsharded": ref["metrics"]["sinkhorn_iters"],
                       "resample_count": runs[0]["metrics"]["resample_count"],
                       "launches_rank0": launches, "launches_unsharded": ref["launches"],
+                      "collectives_rank0": runs[0]["collectives"],
                       "step_s": [r["s"] for r in runs], "step_s_unsharded": ref["s"]}
         if name in exact:
             f64 = exact[name]
@@ -2177,7 +2224,7 @@ def _phase_mesh(smi: str):
             bad.append(f"{name}: Sinkhorn iterations {iters}, unsharded "
                        f"{ref['metrics']['sinkhorn_iters']}")
         cfg = DPFConfig(**settings)
-        want = ["sinkhorn_lse", "transport_apply"]
+        want = ["sinkhorn_lse", "sinkhorn_update", "transport_apply"]
         want += ["sharded_resample"] if shape[1] > 1 else []
         want += (["coupling_chain_inverse", "coupling_chain_bwd"] if cfg.pallas_coupling
                  else [])
@@ -2420,18 +2467,22 @@ def main() -> int:
                      "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": RECT_AT,
                      "launches_by_mesh": {k: v[name] for k, v in mesh_launches.items()}})
-    # K6: its calls in the particle mesh's step; its time on 2 ranks sharing
-    # the card over gloo, and K3's unsharded (its reference) as plain_ms
+    # K6: its calls in the particle mesh's step; its time and its plain
+    # version's on 2 ranks sharing the card over gloo, in turns; K3's
+    # unsharded (the reference it is held to) beside them
     line.append({"name": "ot_resample_streaming_sharded", "route": "cuda",
                  "source": "nfdpf_torch/ops/cuda/sinkhorn_cuda.py",
                  "replaces": "nfdpf_tpu/ops/pallas/sinkhorn_pallas.py:462",
                  "launches": mesh_launches["mesh_particle"]["sharded_resample"],
                  "max_abs_err": k6["max_abs_err"], "ms": k6["ms_per_call"],
-                 "plain_ms": k6["k3_ms_per_call"], "bound_ms": k6["bound_ms"],
+                 "plain_ms": k6["plain_ms_per_call"], "bound_ms": k6["bound_ms"],
                  "bound_by": k6["bound_by"], "library_ms": None,
                  "at": f"B{K6_SHAPE[0]}_N{K6_SHAPE[1]}_P{K6_RANKS}",
                  "transport": "gloo-on-one-card",
-                 "plain": "K3 (ot_resample_streaming) unsharded on the card",
+                 "plain": "ot_resample_streaming_sharded_plain on the card",
+                 "k3_ms": k6["k3_ms_per_call"], "iters": k6["iters"][0],
+                 "collectives_per_call": k6["collectives_per_call"],
+                 "host_reads_per_call": k6["host_reads_per_call"],
                  "launches_by_mesh": {k: v["sharded_resample"] for k, v in mesh_launches.items()}})
     if args.out:
         with open(args.out, "w") as fh:

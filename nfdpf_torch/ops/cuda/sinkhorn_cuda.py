@@ -30,8 +30,11 @@ the flag per replay.  ``ot_resample_streaming_plain`` is the driver's plain
 version: the eager loop on every kernel's plain version, one host read per
 iteration.  ``ot_resample_streaming_sharded`` ("K6",
 ``ot_resample_pallas_sharded``, ``sinkhorn_pallas.py:462-632``) runs it with
-the particle axis sharded over ranks, on the same two kernels: each rank's
-rows against every rank's columns.
+the particle axis sharded over ranks, on the same kernels: an iteration is
+K1 on the rank's rows against every rank's columns, one all-gather of its
+output, and the update over all N on every rank;
+``ot_resample_streaming_sharded_plain`` is its plain version, the JAX body's
+eager loop.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from nfdpf_torch.parallel.mesh import (
     all_gather,
     axis_index,
     axis_size,
+    gather_into,
     pmax,
 )
 
@@ -449,17 +453,90 @@ class _Loop:
         self.graph = graph
 
 
+class _ShardedLoop(_Loop):
+    """K6's loop: ``_Loop``'s buffers over all N particles, the same bits on
+    every rank of the particle group, and this rank's N/P rows ``rows``
+    (B, N/P, 2).  An iteration is K1 on those rows against all N columns
+    into ``lse_rows`` (B, 2, N/P), one all-gather of that block into
+    ``lse_ranks`` (P, B, 2, N/P), one copy into ``lse`` (B, 2, N), and the
+    update over all N.  Every rank then holds the potentials, maxima, ε,
+    flags and done flag that K3's update makes from the same ``lse``, so
+    the stop test needs no collective.  Never captured in a CUDA graph (the
+    all-gather is a host call under gloo)."""
+
+    def __init__(self, b: int, n: int, device, params, dtype, mesh: Mesh):
+        super().__init__(b, n, device, params, dtype)
+        shards = axis_size(mesh, PARTICLE_AXIS)
+        rows = n // shards
+        like = dict(dtype=dtype, device=device)
+        self.mesh = mesh
+        self.lo = axis_index(mesh, PARTICLE_AXIS) * rows
+        self.rows = torch.zeros(b, rows, 2, **like)
+        self.lse_rows = torch.zeros(b, 2, rows, **like)
+        self.lse_ranks = torch.zeros(shards, b, 2, rows, **like)
+
+    def load(self, x, logw, eps_target, eps_run, a_y, b_x) -> None:
+        super().load(x, logw, eps_target, eps_run, a_y, b_x)
+        self.rows.copy_(x[:, self.lo:self.lo + self.rows.shape[1]])
+
+    def iteration(self, freeze: bool) -> None:
+        """K1 on this rank's rows, the all-gather, then the update (no
+        launch counted here)."""
+        if self.x.is_cuda:
+            _launch_lse(self.eps_run, self.rows, self.x, self.fs, self.lse_rows)
+        else:
+            self.lse_rows.copy_(lse_multi_plain(self.eps_run, self.rows, self.x, self.fs))
+        gather_into(self.lse_ranks, self.lse_rows, self.mesh, PARTICLE_AXIS)
+        shards, b, _, rows = self.lse_ranks.shape
+        self.lse.view(b, 2, shards, rows).copy_(self.lse_ranks.permute(1, 2, 0, 3))
+        self.update(freeze)
+
+    def chunk(self, k: int) -> None:
+        """k iterations, frozen once done, launched one by one."""
+        for _ in range(k):
+            self.iteration(freeze=True)
+        if self.x.is_cuda:
+            LAUNCHES["sinkhorn_lse"] += k
+            LAUNCHES["sinkhorn_update"] += k
+
+
 # one loop (and its graph) per (device, B, N, chunk, loop constants)
 _LOOPS: dict = {}
+
+
+def _iterate(loop: _Loop, k: int, max_iter: int, convergence: str, mesh) -> int:
+    """Run a loaded ``loop`` until it stops; returns the raw iteration
+    count.  ``k`` iterations (``chunk``) between two host reads of the done
+    flag.  With a data axis of several ranks the stop test is taken on the
+    host over the data group after every iteration (a collective a graph
+    cannot hold); the update then never freezes, so each rank's state
+    follows the group's decision."""
+    if axis_size(mesh, DATA_AXIS) == 1:
+        while True:
+            loop.chunk(k)
+            done, i = loop.state[:2].tolist()        # the one host read of a chunk
+            STREAMING_LOOP["host_reads"] += 1
+            if done:
+                return i
+    i = 0
+    while True:
+        loop.iteration(freeze=False)
+        if loop.x.is_cuda:
+            LAUNCHES["sinkhorn_lse"] += 1
+            LAUNCHES["sinkhorn_update"] += 1
+        i += 1
+        if not i < max_iter - 1:
+            return i
+        STREAMING_LOOP["host_reads"] += 1
+        if not agree(loop.state[2] != 0, mesh, DATA_AXIS, convergence):
+            return i
 
 
 def _run_loop(scaled_x, logw, eps_target, eps_run, a_y, b_x, threshold, scaling_factor,
               max_iter, convergence, mesh):
     """The annealed loop from (a_y, b_x) at ``eps_run``: (a_y, b_x, the raw
-    iteration count).  With a data axis of several ranks the stop test is
-    taken on the host over the data group after every iteration (a
-    collective a graph cannot hold); the update then never freezes, so each
-    rank's state follows the group's decision."""
+    iteration count).  Without a data axis the loop of a shape is kept,
+    with its CUDA graph of ``loop_chunk(N)`` iterations on the card."""
     b, n = logw.shape
     dev = scaled_x.device
     params = (float(threshold), float(scaling_factor), int(max_iter), convergence)
@@ -467,39 +544,19 @@ def _run_loop(scaled_x, logw, eps_target, eps_run, a_y, b_x, threshold, scaling_
     if max_iter <= 1:
         return a_y, b_x, 0
     inputs = (scaled_x, logw, eps_target, eps_run, a_y, b_x)
-    if axis_size(mesh, DATA_AXIS) > 1:
+    k = loop_chunk(n)
+    cached = dev.type == "cuda" and axis_size(mesh, DATA_AXIS) == 1
+    key = (dev, b, n, k, params)
+    loop = _LOOPS.get(key) if cached else None
+    if loop is None:
         loop = _Loop(b, n, dev, params, logw.dtype)
+        if cached:
+            _LOOPS[key] = loop
+    loop.load(*inputs)
+    if cached and loop.graph is None:
+        loop._capture(k)
         loop.load(*inputs)
-        i = 0
-        while True:
-            loop.iteration(freeze=False)
-            if dev.type == "cuda":
-                LAUNCHES["sinkhorn_lse"] += 1
-                LAUNCHES["sinkhorn_update"] += 1
-            i += 1
-            if not i < max_iter - 1:
-                break
-            STREAMING_LOOP["host_reads"] += 1
-            if not agree(loop.state[2] != 0, mesh, DATA_AXIS, convergence):
-                break
-    else:
-        k = loop_chunk(n)
-        key = (dev, b, n, k, params)
-        loop = _LOOPS.get(key) if dev.type == "cuda" else None
-        if loop is None:
-            loop = _Loop(b, n, dev, params, logw.dtype)
-            if dev.type == "cuda":
-                _LOOPS[key] = loop
-        loop.load(*inputs)
-        if dev.type == "cuda" and loop.graph is None:
-            loop._capture(k)
-            loop.load(*inputs)
-        while True:
-            loop.chunk(k)
-            done, i = loop.state[:2].tolist()        # the one host read of a chunk
-            STREAMING_LOOP["host_reads"] += 1
-            if done:
-                break
+    i = _iterate(loop, k, max_iter, convergence, mesh)
     STREAMING_LOOP["iters"] += i
     return loop.a_y.clone(), loop.b_x.clone(), i
 
@@ -680,16 +737,22 @@ def ot_resample_streaming_sharded(
     (B, N/P) are this rank's block of the N particles.
 
     The (B, N, N) cost never exists anywhere; what crosses between ranks is
-    O(N·d) per iteration, in the JAX package's order:
+    O(N·d) per iteration:
 
     * the detached coordinates and log-weights are all-gathered once, and
-      the global scaling built from them; each rank then runs K1 on its N/P
-      rows against all N columns;
-    * the two row potentials are all-gathered every iteration (the next
-      iteration's column inputs);
-    * the stop test takes max|Δpotential| over the particle group, then the
-      batch aggregation over the data group, so the iteration count (and
-      the numerics) are the unsharded call's;
+      the global scaling built from them; each rank runs K1 on its N/P rows
+      against all N columns;
+    * the start's row potentials (the cold softmin's or the warm carry) are
+      all-gathered once into (B, N) potentials that every rank holds;
+    * each iteration all-gathers K1's (B, 2, N/P) logsumexps into the
+      (B, 2, N) that K3's K1 makes, and every rank runs K3's update kernel
+      over all N: the same potentials, max|Δ| over all N, ε and stop flag
+      on every rank, so the iteration count (and the numerics) are the
+      unsharded call's, with no other collective; with a data axis the
+      stop test is also taken over the data group (one all-reduce an
+      iteration, as K3);
+    * the loop reads its done flag on the host every ``loop_chunk(N)``
+      iterations, as K3 does (no CUDA graph: the gather is a host call);
     * the column normaliser comes from the gathered final ``f`` (the cost is
       symmetric, so rows and columns swap roles);
     * K2 applies the local rows of the plan to the RAW particles gathered
@@ -700,15 +763,105 @@ def ot_resample_streaming_sharded(
     and, with ``return_potentials``, this rank's rows of (a_y, b_x),
     (B, 2, N/P), the warm start's carry.
     """
+    if not on_cpu(particles, probs):
+        LAUNCHES["sharded_resample"] += 1
+    return _ot_resample_sharded(particles, probs, mesh, eps, scaling, threshold, max_iter,
+                                convergence, warm_start, warm_eps_factor, return_potentials,
+                                plain=False)
+
+
+def ot_resample_streaming_sharded_plain(
+    particles: torch.Tensor,
+    probs: torch.Tensor,
+    mesh: Mesh,
+    eps: float = 0.1,
+    scaling: float = 0.75,
+    threshold: float = 1e-3,
+    max_iter: int = 100,
+    convergence: str = "all",
+    warm_start: Optional[Tuple[torch.Tensor, bool]] = None,
+    warm_eps_factor: float = 16.0,
+    return_potentials: bool = False,
+):
+    """Plain version of ``ot_resample_streaming_sharded``, the JAX body's
+    order on every kernel's plain version (K1, K2, the update), on any
+    device: each iteration all-gathers the row potentials, runs the plain
+    K1 on the local rows and the eager update on them, and takes max|Δ|
+    over the particle group (an all-reduce), with the stop test read on the
+    host before each iteration; the potentials are gathered once more after
+    the loop.  On the CPU it is ``ot_resample_streaming_sharded`` bit for
+    bit."""
+    return _ot_resample_sharded(particles, probs, mesh, eps, scaling, threshold, max_iter,
+                                convergence, warm_start, warm_eps_factor, return_potentials,
+                                plain=True)
+
+
+def _eager_sharded_loop(scaled_loc, scaled_all, logw_all, uniform_all, eps_target, eps_run,
+                        a_y, b_x, threshold, scaling_factor, max_iter, convergence, mesh):
+    """The loop of K6's plain version from this rank's row potentials:
+    the gathered (a_y, b_x) over all N and the raw iteration count."""
+    def gather(t):
+        return all_gather(t, mesh, PARTICLE_AXIS, 2)
+
+    running = torch.ones(logw_all.shape[0], dtype=torch.bool, device=logw_all.device)
+    agg = torch.all if convergence == "all" else torch.any
+    STREAMING_LOOP["calls"] += 1
+    i = 0
+    while i < max_iter - 1:
+        STREAMING_LOOP["host_reads"] += 1
+        if not agree(agg(running), mesh, DATA_AXIS, convergence):
+            break
+        pots = gather(torch.stack([a_y, b_x], dim=1))         # (B, 2, N)
+        eps_col = eps_run[:, None]
+        run = running[:, None]
+        outs = -eps_run[:, None, None] * lse_multi_plain(
+            eps_run, scaled_loc, scaled_all,
+            torch.stack([logw_all + pots[:, 1] / eps_col, uniform_all + pots[:, 0] / eps_col],
+                        dim=1))
+        at_y = torch.where(run, outs[:, 0], a_y)
+        bt_x = torch.where(run, outs[:, 1], b_x)
+        a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
+        # max|Δ| over the full potential vectors: local, then over the group
+        diffs = pmax(torch.stack([torch.amax(torch.abs(a_y_new - a_y), dim=1),
+                                  torch.amax(torch.abs(b_x_new - b_x), dim=1)]),
+                     mesh, PARTICLE_AXIS)
+        local = (diffs[0] > threshold) | (diffs[1] > threshold)
+        new_eps = torch.maximum(eps_run * scaling_factor, eps_target)
+        running = (new_eps < eps_run) | local
+        a_y, b_x, eps_run = a_y_new, b_x_new, new_eps
+        i += 1
+    STREAMING_LOOP["iters"] += i
+    pots = gather(torch.stack([a_y, b_x], dim=1))
+    return pots[:, 0], pots[:, 1], i
+
+
+def _sharded_loop(scaled_all, logw_all, eps_target, eps_run, a_y, b_x, threshold,
+                  scaling_factor, max_iter, convergence, mesh):
+    """K6's loop from this rank's row potentials (B, N/P): gathered once,
+    then ``_ShardedLoop``'s iterations.  Returns (a_y, b_x) over all N and
+    the raw iteration count."""
+    b, n = logw_all.shape
+    STREAMING_LOOP["calls"] += 1
+    pots = all_gather(torch.stack([a_y, b_x], dim=1), mesh, PARTICLE_AXIS, 2)
+    if max_iter <= 1:
+        return pots[:, 0], pots[:, 1], 0
+    params = (float(threshold), float(scaling_factor), int(max_iter), convergence)
+    loop = _ShardedLoop(b, n, scaled_all.device, params, logw_all.dtype, mesh)
+    loop.load(scaled_all, logw_all, eps_target, eps_run, pots[:, 0], pots[:, 1])
+    i = _iterate(loop, loop_chunk(n), max_iter, convergence, mesh)
+    STREAMING_LOOP["iters"] += i
+    return loop.a_y, loop.b_x, i
+
+
+def _ot_resample_sharded(particles, probs, mesh, eps, scaling, threshold, max_iter,
+                         convergence, warm_start, warm_eps_factor, return_potentials,
+                         plain: bool):
     if convergence not in ("all", "any"):
         raise ValueError(f"convergence must be 'all' or 'any', got {convergence!r}")
     b, n_loc, d = particles.shape
-    shards = axis_size(mesh, PARTICLE_AXIS)
-    n = n_loc * shards
+    n = n_loc * axis_size(mesh, PARTICLE_AXIS)
     lo = axis_index(mesh, PARTICLE_AXIS) * n_loc
     dev = particles.device
-    if not on_cpu(particles, probs):
-        LAUNCHES["sharded_resample"] += 1
 
     def gather(t, dim):
         return all_gather(t, mesh, PARTICLE_AXIS, dim)
@@ -724,9 +877,10 @@ def ot_resample_streaming_sharded(
 
     eps_b = torch.full((b,), eps, dtype=torch.float32, device=dev)
     scaling_factor = scaling**2
+    lse = lse_multi_plain if plain else streaming_lse_multi
 
     def sm2(e, fs_all):
-        return streaming_softmin_multi(e, scaled_loc, scaled_all, fs_all)
+        return -e[:, None, None] * lse(e, scaled_loc, scaled_all, fs_all)
 
     eps_run = max_min(scaled_all, scaled_all) ** 2
     if warm_start is not None and warm_start[1]:
@@ -740,37 +894,23 @@ def ot_resample_streaming_sharded(
         init = sm2(eps_run, torch.stack([logw_all, uniform_all], dim=1))
         a_y, b_x = init[:, 0], init[:, 1]                        # (B, N/P) rows
 
-    running = torch.ones(b, dtype=torch.bool, device=dev)
-    agg = torch.all if convergence == "all" else torch.any
-    i = 0
-    while i < max_iter - 1 and agree(agg(running), mesh, DATA_AXIS, convergence):
-        pots = gather(torch.stack([a_y, b_x], dim=1), 2)        # (B, 2, N)
-        eps_col = eps_run[:, None]
-        run = running[:, None]
-        outs = sm2(eps_run, torch.stack([logw_all + pots[:, 1] / eps_col,
-                                         uniform_all + pots[:, 0] / eps_col], dim=1))
-        at_y = torch.where(run, outs[:, 0], a_y)
-        bt_x = torch.where(run, outs[:, 1], b_x)
-        a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
-        # max|Δ| over the full potential vectors: local, then over the group
-        diffs = pmax(torch.stack([torch.amax(torch.abs(a_y_new - a_y), dim=1),
-                                  torch.amax(torch.abs(b_x_new - b_x), dim=1)]),
-                     mesh, PARTICLE_AXIS)
-        local = (diffs[0] > threshold) | (diffs[1] > threshold)
-        new_eps = torch.maximum(eps_run * scaling_factor, eps_b)
-        running = (new_eps < eps_run) | local
-        a_y, b_x, eps_run = a_y_new, b_x_new, new_eps
-        i += 1
+    if plain:
+        a_y, b_x, i = _eager_sharded_loop(scaled_loc, scaled_all, logw_all, uniform_all, eps_b,
+                                          eps_run, a_y, b_x, threshold, scaling_factor,
+                                          max_iter, convergence, mesh)
+    else:
+        a_y, b_x, i = _sharded_loop(scaled_all, logw_all, eps_b, eps_run, a_y, b_x, threshold,
+                                    scaling_factor, max_iter, convergence, mesh)
 
-    pots = gather(torch.stack([a_y, b_x], dim=1), 2)
-    finals = sm2(eps_b, torch.stack([logw_all + pots[:, 1] / eps_b[:, None],
-                                     uniform_all + pots[:, 0] / eps_b[:, None]], dim=1))
+    # every rank holds (a_y, b_x) over all N
+    finals = sm2(eps_b, torch.stack([logw_all + b_x / eps_b[:, None],
+                                     uniform_all + a_y / eps_b[:, None]], dim=1))
     final_f, final_g = finals[:, 0], finals[:, 1]                # (B, N/P) rows
 
     # colnorm of the local columns needs every row: C is symmetric, so the
     # streaming lse over the gathered f swaps rows and columns for free
     f_all = gather(final_f, 1)
-    lse_col = streaming_lse(eps_b, scaled_loc, scaled_all, f_all / eps_b[:, None])
+    lse_col = lse(eps_b, scaled_loc, scaled_all, (f_all / eps_b[:, None])[:, None])[:, 0]
     colnorm = final_g / eps_b[:, None] + lse_col
     r_loc = final_f / eps_b[:, None]
     logw_loc = torch.log(probs.detach())
@@ -778,9 +918,11 @@ def ot_resample_streaming_sharded(
 
     # the RAW particles, gathered differentiably
     values_all = gather(particles, 1)
-    transported = transport_apply_rc(values_all, eps_b, scaled_loc, scaled_all, r_loc, c_all)
+    apply = transport_apply_plain if plain else transport_apply_rc
+    transported = apply(values_all, eps_b, scaled_loc, scaled_all, r_loc, c_all)
     uniform = torch.full_like(probs, 1.0 / n)
     idx = (lo + torch.arange(n_loc, dtype=torch.int32, device=dev)).expand(b, n_loc)
     if return_potentials:
-        return transported, uniform, idx, i, torch.stack([a_y, b_x], dim=1)
+        return (transported, uniform, idx, i,
+                torch.stack([a_y[:, lo:lo + n_loc], b_x[:, lo:lo + n_loc]], dim=1))
     return transported, uniform, idx, i

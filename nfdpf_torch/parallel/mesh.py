@@ -40,6 +40,15 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 PARTICLE_AXIS = "particle"
 
+# collectives issued since the last reset, by operation (forward and
+# backward alike), so a run can count what crosses between ranks
+COLLECTIVES = {"all_gather": 0, "all_reduce": 0, "broadcast": 0}
+
+
+def reset_collectives() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -164,6 +173,7 @@ def replicate(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
         return
     for t in list(module.parameters()) + list(module.buffers()):
         dist.broadcast(t.data, src=mesh.ranks[0], group=mesh.group)
+        COLLECTIVES["broadcast"] += 1
 
 
 def average_gradients(params, mesh: Optional[Mesh]) -> None:
@@ -178,6 +188,7 @@ def average_gradients(params, mesh: Optional[Mesh]) -> None:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=mesh.group)
+    COLLECTIVES["all_reduce"] += 1
     flat /= mesh.size
     offset = 0
     for g in grads:
@@ -196,12 +207,14 @@ class _AllReduceSum(torch.autograd.Function):
         ctx.group = group
         y = x.contiguous().clone()
         dist.all_reduce(y, group=group)
+        COLLECTIVES["all_reduce"] += 1
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
+        COLLECTIVES["all_reduce"] += 1
         return g, None
 
 
@@ -214,6 +227,7 @@ class _RowMax(torch.autograd.Function):
     def forward(ctx, x, group):
         m = torch.amax(x, dim=-1, keepdim=True).contiguous()
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        COLLECTIVES["all_reduce"] += 1
         ctx.group = group
         ctx.save_for_backward(x, m)
         return m
@@ -224,6 +238,7 @@ class _RowMax(torch.autograd.Function):
         hit = (x == m).to(x.dtype)
         both = torch.cat([g, torch.sum(hit, dim=-1, keepdim=True)], dim=-1).contiguous()
         dist.all_reduce(both, group=ctx.group)
+        COLLECTIVES["all_reduce"] += 1
         g_sum, count = both[..., :1], both[..., 1:]
         return hit * (g_sum / count), None
 
@@ -236,12 +251,14 @@ class _AllGather(torch.autograd.Function):
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
                  for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x.contiguous(), group=group)
+        COLLECTIVES["all_gather"] += 1
         return torch.cat(parts, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
+        COLLECTIVES["all_reduce"] += 1
         return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block), None, None
 
 
@@ -281,7 +298,22 @@ def pmax(x: torch.Tensor, mesh: Optional[Mesh], axis: str) -> torch.Tensor:
         return x
     y = x.detach().contiguous().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    COLLECTIVES["all_reduce"] += 1
     return y
+
+
+def gather_into(out: torch.Tensor, x: torch.Tensor, mesh: Optional[Mesh], axis: str) -> None:
+    """Every rank's contiguous block ``x`` of ``axis`` written into ``out``,
+    (ranks, *x.shape) in rank order, contiguous and allocated once by the
+    caller: one all-gather, no concatenation (not differentiable)."""
+    group = _group(mesh, axis)
+    if group is None:
+        out.view_as(x).copy_(x)
+        return
+    # torch ≥ 2.12 names it all_gather_single
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out.flatten(0, 1), x, group=group)
+    COLLECTIVES["all_gather"] += 1
 
 
 def agree(flag: torch.Tensor, mesh: Optional[Mesh], axis: str, how: str = "all") -> bool:
@@ -293,4 +325,5 @@ def agree(flag: torch.Tensor, mesh: Optional[Mesh], axis: str, how: str = "all")
     v = flag.reshape(1).to(torch.int32)
     op = dist.ReduceOp.MIN if how == "all" else dist.ReduceOp.MAX
     dist.all_reduce(v, op=op, group=group)
+    COLLECTIVES["all_reduce"] += 1
     return bool(v)

@@ -20,6 +20,7 @@ import multiprocessing
 import os
 import queue
 import socket
+import statistics
 import time
 import traceback
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -38,12 +39,14 @@ from nfdpf_torch.ops.cuda import coupling_cuda as cc
 from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
 from nfdpf_torch.parallel.distributed import initialize, shutdown
 from nfdpf_torch.parallel.mesh import (
+    COLLECTIVES,
     DATA_AXIS,
     PARTICLE_AXIS,
     all_gather,
     average_gradients,
     local_slice,
     make_mesh,
+    reset_collectives,
 )
 from nfdpf_torch.train import Trainer
 
@@ -155,8 +158,11 @@ def _launches() -> dict:
 
 
 def _reset_launches() -> None:
+    """The launch, collective and streaming-loop counters set to 0."""
     sc.reset_launches()
     cc.reset_launches()
+    sc.reset_streaming_loop()
+    reset_collectives()
 
 
 def _sync(device) -> None:
@@ -165,14 +171,19 @@ def _sync(device) -> None:
 
 
 def resample_job(shape, particles, probs, kw: dict, ranks=None, warm=None,
-                 device="cpu", times: int = 0):
+                 device="cpu", times: int = 0, plain: bool = False):
     """OT resampling of the global (B, N, 2) ``particles`` on a (data,
     particle) mesh: the particle-sharded driver (K6) when the particle axis
-    is over 1, else the streaming one.  ``warm``: (global potentials, valid).
-    Returns, on the mesh's first rank, the transported particles, the
-    potentials, the indices (global), the iterations, and the gradient of
-    Σ transported² to the particles; with ``times`` the mean ms of that many
-    calls (synchronised)."""
+    is over 1, else the streaming one (K3); with ``plain`` the driver's
+    plain version.  ``warm``: (global potentials, valid).  Returns, on the
+    mesh's first rank, the transported particles, the potentials, the
+    indices (global), the iterations, the gradient of Σ transported² to the
+    particles, and the forward call's launches, collectives and streaming
+    loop counts (set to 0 just before it, read just after); with ``times``
+    the median ms a call of the driver (``ms``) and of its plain version
+    (``plain_ms``) over that many calls each, in turns (driver, plain,
+    plain, driver, ...; each call synchronised), and every call's ms
+    (``calls_ms``)."""
     mesh = _mesh(shape, ranks)
     if mesh is None:
         return None
@@ -185,28 +196,36 @@ def resample_job(shape, particles, probs, kw: dict, ranks=None, warm=None,
 
     x = block(particles, (0, 1)).requires_grad_()
     w = block(probs, (0, 1))
-    fn = sc.ot_resample_streaming_sharded if shape[1] > 1 else sc.ot_resample_streaming
+    sharded = shape[1] > 1
+    fns = {"ms": sc.ot_resample_streaming_sharded if sharded else sc.ot_resample_streaming,
+           "plain_ms": (sc.ot_resample_streaming_sharded_plain if sharded
+                        else sc.ot_resample_streaming_plain)}
+    fn = fns["plain_ms" if plain else "ms"]
     kwargs = dict(kw, mesh=mesh, return_potentials=True)
     if warm is not None:
         kwargs["warm_start"] = (block(warm[0], (0, 2)), bool(warm[1]))
     _reset_launches()
     out, _, idx, iters, pots = fn(x, w, **kwargs)
-    launches = _launches()
+    counts = {"launches": _launches(), "collectives": dict(COLLECTIVES),
+              "loop": dict(sc.STREAMING_LOOP)}
     # each rank's share of Σ transported²: their sum is the global loss
     (grad,) = torch.autograd.grad(torch.sum(out**2), [x])
-    ms = None
+    calls = {}
     if times:
         with torch.no_grad():
-            fn(x, w, **kwargs)
-            _sync(device)
-            t0 = time.perf_counter()
-            for _ in range(times):
-                fn(x, w, **kwargs)
-            _sync(device)
-            ms = (time.perf_counter() - t0) / times * 1e3
+            for name in fns:
+                fns[name](x, w, **kwargs)
+            for turn in range(times):
+                for name in (("ms", "plain_ms") if turn % 2 == 0 else ("plain_ms", "ms")):
+                    _sync(device)
+                    t0 = time.perf_counter()
+                    fns[name](x, w, **kwargs)
+                    _sync(device)
+                    calls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
     res = {"particles": _whole(out, mesh, 0, 1), "potentials": _whole(pots, mesh, 0, 2),
-           "idx": _whole(idx, mesh, 0, 1), "iters": iters, "launches": launches,
-           "grad": _whole(grad, mesh, 0, 1), "ms": ms}
+           "idx": _whole(idx, mesh, 0, 1), "iters": iters, "grad": _whole(grad, mesh, 0, 1),
+           **counts, **{k: statistics.median(calls[k]) if calls else None for k in fns},
+           "calls_ms": calls}
     return res if (mesh.data_index, mesh.particle_index) == (0, 0) else {"iters": iters}
 
 
@@ -233,9 +252,9 @@ def train_step_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,
 
 def step_result(trainer, batch: dict, noise: dict, device) -> dict:
     """``trainer.train_step`` of ``batch`` with ``noise`` (numpy, global),
-    the launch counters set to 0 just before it and read just after: the
-    metrics, each parameter's gradient, the launches, the dense Sinkhorn
-    loop's iterations and the seconds."""
+    the launch and collective counters set to 0 just before it and read
+    just after: the metrics, each parameter's gradient, the launches, the
+    collectives, the dense Sinkhorn loop's iterations and the seconds."""
     noise = {k: _tensor(v, device) for k, v in noise.items()}
     _reset_launches()
     dense.reset_dense_loop()
@@ -247,7 +266,8 @@ def step_result(trainer, batch: dict, noise: dict, device) -> dict:
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {k: p.grad.detach().cpu().numpy()
                       for k, p in trainer.engine.named_parameters() if p.grad is not None},
-            "launches": _launches(), "dense_iters": dense.DENSE_LOOP["iters"], "s": seconds}
+            "launches": _launches(), "collectives": dict(COLLECTIVES),
+            "dense_iters": dense.DENSE_LOOP["iters"], "s": seconds}
 
 
 def settings_steps_job(cases: dict, shape, batch: dict, noise: dict, ranks=None,

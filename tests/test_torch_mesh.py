@@ -62,6 +62,10 @@ WORLD = 4
 # K6: tests/test_pallas.py:126-162 (cold) and :246-296 (warm), B=2, N=64, P=4
 K6_COLD = dict(eps=0.1, scaling=0.9, threshold=1e-4, max_iter=200, convergence="any")
 K6_WARM = dict(eps=0.1, scaling=0.75, threshold=1e-3, max_iter=100)
+K6_CASES = ("cold", "warm_start")
+# K6's all-gathers outside its loop: the coordinates and log-weights, the
+# start's potentials, the final f, the column term and the raw particles
+K6_GATHERS = 6
 
 # the filter: test_sharding.py's particle-sharded streaming case (B=8, N=16,
 # T=4, resampling every step); the port's 4 ranks at (4/P)×P
@@ -249,6 +253,12 @@ def ranks(inputs, cli_dirs):
                                          kw=K6_WARM, warm=(np.zeros((2, 2, 64)), False))),
         "k6_warm": (R.resample_job, dict(shape=(1, 4), particles=i["xw2"], probs=i["probs_w"],
                                          kw=K6_WARM, warm=(i["pots_cold"], True))),
+        **{f"{name}_plain": (R.resample_job, dict(
+            shape=(1, 4), particles=x, probs=probs, kw=kw, plain=True,
+            warm=None if pots is None else (pots, valid)))
+           for case in K6_CASES for name, x, probs, kw, pots, valid in _k6_runs(i, case)},
+        "k6_2x2": (R.resample_job, dict(shape=(2, 2), particles=i["x"], probs=i["probs"],
+                                        kw=K6_COLD)),
         "bn": (R.batchnorm_job, dict(shape=(4, 1), x=i["bn_x"], g=i["bn_g"])),
         "replicate": (R.replicate_job, dict(settings=STEP_CFG, variables=i["step_vars"])),
         "shapes": (R.mesh_shapes_job, dict(cases=[dict(particle=2),
@@ -510,7 +520,7 @@ def k6_refs(inputs):
     """Per K6 job: JAX's K6 on 4 devices, and the port's unsharded driver
     with the gradient of Σ transported²."""
     refs = {}
-    for case in ("cold", "warm_start"):
+    for case in K6_CASES:
         for name, x, probs, kw, pots, valid in _k6_runs(inputs, case):
             warm = None if pots is None else (pots, valid)
             xt = torch.tensor(x, requires_grad=True)
@@ -524,7 +534,7 @@ def k6_refs(inputs):
     return refs
 
 
-@pytest.mark.parametrize("case", ["cold", "warm_start"])
+@pytest.mark.parametrize("case", K6_CASES)
 def test_k6_matches_jax_mesh_and_world_size_1(ranks, k6_refs, inputs, case):
     """K6 on 4 particle ranks against ``ot_resample_pallas_sharded`` on 4
     devices and against the unsharded driver: particles, potentials,
@@ -549,6 +559,64 @@ def test_k6_matches_jax_mesh_and_world_size_1(ranks, k6_refs, inputs, case):
         for ref in ([jx["grad"]] if "grad" in jx else []) + [grad]:
             np.testing.assert_allclose(got["grad"], ref, rtol=1e-3, atol=1e-5, err_msg=name)
         assert got["launches"]["sharded_resample"] == 0      # counted on CUDA launches only
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_equals_its_plain_version_with_one_gather_an_iteration(ranks, k6_refs, inputs, case):
+    """K6 (K1 on the local rows, one all-gather of its output, the update
+    over all N) against its plain version (the JAX body's order: the
+    potentials gathered and max|Δ| all-reduced every iteration) on 4
+    particle ranks: potentials and iterations bit for bit, particles and
+    the value gradient within the K6 tolerances, the plain version against
+    JAX's K6 as well.  Collectives of the forward call: K6 one all-gather an
+    iteration it launches (``loop_chunk(64)`` = 8 between two host reads of
+    its done flag, frozen ones included) and no all-reduce; the plain
+    version one all-gather and one all-reduce an iteration."""
+    results = ranks()
+    chunk = sc.loop_chunk(64)
+    for name, *_ in _k6_runs(inputs, case):
+        new, plain = results[name][0], results[f"{name}_plain"][0]
+        assert [r["iters"] for r in results[f"{name}_plain"]] == [plain["iters"]] * WORLD
+        iters = new["iters"]
+        assert plain["iters"] == iters == k6_refs[name][0]["iters"], name
+        assert np.array_equal(new["potentials"], plain["potentials"]), name
+        assert np.array_equal(new["idx"], plain["idx"]), name
+        np.testing.assert_allclose(new["particles"], plain["particles"], rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(new["grad"], plain["grad"], rtol=1e-3, atol=1e-5,
+                                   err_msg=name)
+        jx = k6_refs[name][0]
+        np.testing.assert_allclose(plain["particles"], jx["particles"], rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+        reads = new["loop"]["host_reads"]
+        assert new["loop"] == {"calls": 1, "iters": iters, "host_reads": -(-iters // chunk)}
+        assert new["collectives"] == {"all_gather": K6_GATHERS + chunk * reads,
+                                      "all_reduce": 0, "broadcast": 0}, name
+        assert plain["collectives"] == {"all_gather": K6_GATHERS + iters, "all_reduce": iters,
+                                        "broadcast": 0}, name
+
+
+def test_k6_on_a_data_and_particle_mesh(ranks, k6_refs):
+    """K6 on a 2×2 mesh (the batch over 2 data ranks, the particles over 2):
+    the update never freezes and the stop test is one all-reduce over the
+    data group an iteration, beside the iteration's one all-gather.
+    Particles, potentials, iterations and the value gradient against JAX's
+    K6 on 4 particle devices and the port's unsharded driver (the K6
+    tolerances), on every rank the same iterations."""
+    results = ranks()
+    got = results["k6_2x2"][0]
+    jx, own = k6_refs["k6"]
+    iters = got["iters"]
+    assert [r["iters"] for r in results["k6_2x2"]] == [iters] * WORLD
+    assert iters == jx["iters"] == own["iters"] < K6_COLD["max_iter"] - 1
+    assert np.array_equal(got["idx"], np.broadcast_to(np.arange(64), (2, 64)))
+    for ref in (jx, own):
+        for key in ("particles", "potentials"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-4, atol=1e-5, err_msg=key)
+        np.testing.assert_allclose(got["grad"], ref["grad"], rtol=1e-3, atol=1e-5)
+    assert got["loop"] == {"calls": 1, "iters": iters, "host_reads": iters}
+    assert got["collectives"] == {"all_gather": K6_GATHERS + iters, "all_reduce": iters,
+                                  "broadcast": 0}
 
 
 def test_batchnorm_statistics_are_global(ranks, inputs):
