@@ -29,13 +29,13 @@ Phases, one line of output each, then the device line last:
    over 5 particles, a strided dense view), all of which are then launched
    back to back for equal bits; beside them the time of the same call
    through the ``FlowChain`` module; at the filter's heaviest call, the
-   registers and shared memory per block of the timed launches as the
-   card's trace records them (torch.profiler), the shared memory held
+   registers and shared memory per block of the timed launches as their
+   library notes them (``launch_record``), the shared memory held
    against the wrapper's mirrors of the kernels' layouts (K4, K5, the share,
    both kernels of the weight gradient and the input gradient); all of it
    again at hidden width 16, the coupling kernels' widest build; then the
    coupling kernels' and the update kernels' registers and spills as ptxas
-   reports them, the input gradient's and the update's traced launches
+   reports them, the input gradient's and the update's noted launches
    held to them;
    then K3, the streaming resampler's driver: its update kernel against
    the plain version bit for bit (some rows stopped, every row running, a
@@ -114,11 +114,16 @@ Phases, one line of output each, then the device line last:
    a call (one all-gather an iteration and no all-reduce; its plain version
    one of each an iteration), host reads and launches; one train step
    at full width (B=32, N=100, T=10, 128 px, every step resampled) on a
-   1×2 mesh (the CNF-DPF), a 2×1 mesh (the bootstrap DPF) and a 2×2 mesh
-   (the NF-DPF), each against the unsharded card run of the same weights
-   and draws: loss rel ≤ 1e-4, each gradient group ‖Δ‖/‖g‖ ≤ 1e-3 (the
-   decoder 1e-2), equal Sinkhorn iterations, the launches of K1, K2, K4,
-   K5 and K6's calls on every rank (set to 0 just before, read just after).
+   1×2 mesh (the CNF-DPF), a 2×1 mesh (the bootstrap DPF), a 2×2 mesh
+   (the NF-DPF) and two more 1×2 meshes: the CNF-DPF with OT over
+   materialised costs (bench.py's) and config 5 with the soft resampler
+   (CGLOW with its parameters drawn, NF dynamics, SDPF), each against the
+   unsharded card run of the same weights and draws: loss rel ≤ 1e-4, each
+   gradient group ‖Δ‖/‖g‖ ≤ 1e-3 (the decoder 1e-2), equal firings and
+   streaming and dense Sinkhorn iterations, the launches of K1, K2, K4, K5
+   and K6's calls where the path runs them on every rank (set to 0 just
+   before, read just after), with each rank's collectives, coupling
+   launches, seconds and peak memory logged.
    The meshes with a data axis also run their step in float64 on the CPU
    (2 and 4 ranks) against the unsharded float64 step: loss and every
    gradient group within 1e-9, the proof that the mesh computes the
@@ -126,9 +131,11 @@ Phases, one line of output each, then the device line last:
    alone move the encoder's gradient by ~1e-3 (how far each card run sits
    from float64 is logged);
 11. main_cli_mesh: ``python -m nfdpf_torch.main`` as torchrun starts it,
-   2 ranks on this card (``--mesh-data 2``, gloo): one epoch
-   on the data rank 0 makes, then ``--testing``; every rank exits 0 and
-   only rank 0 prints;
+   2 ranks on this card (gloo), with ``--mesh-data 2`` and main_cli's
+   flags, then with ``--mesh-particle 2`` at the CLI's default OT (over
+   materialised costs): one epoch on the 80 sequences the first run makes,
+   then ``--testing``; every rank exits 0, only rank 0 prints, the eval
+   and test losses are finite;
 12. the ``kernels`` JSON line, with K1/K2 at rows ≠ columns, K3 and K6.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
@@ -414,41 +421,27 @@ def chain_resources(hidden: int) -> dict:
     return out
 
 
-def launch_record(fn, kernel: str, sessions: int = 6) -> dict:
+def launch_record(fn, note) -> dict:
     """Registers per thread, shared memory per block (static and dynamic),
-    grid and block of the one launch of ``kernel`` that ``fn`` makes, as the
-    card's trace records it (torch.profiler, CUPTI).  Profiling sessions
-    have been seen to come back with no kernel event at all (once on a
-    process's first session, and three times running on another call): a
-    session that records no launch of ``kernel`` is run again after a
-    second's pause, up to ``sessions`` in all.  Raises where none holds
-    exactly one such launch with these fields."""
-    from torch.profiler import ProfilerActivity, profile
-
-    hits = []
-    for attempt in range(1, sessions + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as fh:
-                events = json.load(fh).get("traceEvents", [])
-        kernels = [ev for ev in events if ev.get("cat") == "kernel"]
-        hits = [ev.get("args", {}) for ev in kernels if kernel in ev.get("name", "")]
-        if hits:
-            break
-        time.sleep(1.0)
-    if len(hits) != 1 or not {"registers per thread", "shared memory"} <= set(hits[0]):
-        raise AssertionError(f"the trace holds {len(hits)} launches of {kernel} after "
-                             f"{attempt} sessions (the last held {len(kernels)} kernel "
-                             f"events), fields {sorted(hits[0]) if hits else []}")
-    a = hits[0]
-    return {"registers": int(a["registers per thread"]),
-            "smem_bytes_per_block": int(a["shared memory"]),
-            "grid": a.get("grid"), "block": a.get("block"), "trace_sessions": attempt}
+    grid and block of the one launch of a kernel that ``fn`` makes, as the
+    kernel's library noted the launch (``note``: its ``launch_note``
+    reader): the registers and static shared memory of the launched
+    kernel as the runtime loaded it (cudaFuncGetAttributes), the rest from
+    the launch's own arguments.  No profiler: torch.profiler's sessions
+    have come back without kernel events, on a process's first session, on
+    every session after another library's kernels were traced, and six
+    sessions running in a whole run.  Raises unless the library noted
+    exactly one launch of the kernel during ``fn``."""
+    before = note()["launches"]
+    fn()
+    torch.cuda.synchronize()
+    rec = note()
+    if rec["launches"] - before != 1:
+        raise AssertionError(f"{rec['kernel'] or 'the kernel'}: the library noted "
+                             f"{rec['launches'] - before} launches during one call, not 1")
+    return {"kernel": rec["kernel"], "registers": rec["registers"],
+            "smem_bytes_per_block": rec["smem_static_bytes"] + rec["smem_dynamic_bytes"],
+            "grid": rec["grid"], "block": rec["block"]}
 
 
 def kernel_cases(b: int, n: int, seed: int):
@@ -647,36 +640,22 @@ def check_update(sc, loop, inputs, where: str) -> None:
                              f"{want_state}), row maxima left {loop.row_max.count_nonzero()}")
 
 
-def trace_update() -> dict:
+def update_launch() -> dict:
     """Registers and shared memory of the update kernel's launch at the
-    kernels line's case, every row running, from the card's trace, taken
-    in a process of its own: in one process the trace sessions record the
-    kernels of one library only, the first one traced (a trace of the
-    update left the coupling kernels' later traces without kernel events,
-    and the other way round; the hidden-16 coupling library is not traced
-    for the same reason)."""
-    code = ("import json, sys; sys.path.insert(0, '.'); import chip_smoke as s; "
-            "print('TRACE ' + json.dumps(s.trace_update_here()))")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
-    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("TRACE ")), None)
-    if proc.returncode or line is None:
-        raise AssertionError(f"the update's trace process failed ({proc.returncode}):\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    return json.loads(line[len("TRACE "):])
-
-
-def trace_update_here() -> dict:
-    """``trace_update``'s record, in this process."""
+    kernels line's case, every row running (``launch_record``); raises
+    unless the launched kernel is the one the wrapper's plan names."""
     from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
 
     b, n = (int(v) for v in AT["sinkhorn_update"][1:].split("_N"))
     loop, _ = update_case(sc, b, n, "all", "running", torch.Generator().manual_seed(3),
                           threshold=-1.0)
     loop.update(freeze=False)
-    rec = launch_record(lambda: loop.update(freeze=False), "sinkhorn_update")
-    rec["kernel"] = ("sinkhorn_update_batch_kernel<{}>".format(loop.plan["cols_per_lane"])
-                     if loop.plan["batch"] else "sinkhorn_update_kernel")
+    rec = launch_record(lambda: loop.update(freeze=False), sc.update_launch_note)
+    planned = ("sinkhorn_update_batch_kernel<{}>".format(loop.plan["cols_per_lane"])
+               if loop.plan["batch"] else "sinkhorn_update_kernel")
+    if rec["kernel"] != planned:
+        raise AssertionError(f"sinkhorn_update@{AT['sinkhorn_update']}: the launch ran "
+                             f"{rec['kernel']}, the plan names {planned}")
     return rec
 
 
@@ -687,7 +666,7 @@ def phase_k3():
     potentials, flags, ε and the next K1 input bit for bit; its device ms
     on repeated launches from the "stopped" state (rows stop as the
     potentials settle) and with every row running at every launch, and its
-    plan (its traced launch: ``trace_update``).
+    plan (its launch's registers and shared memory: ``update_launch``).
     K3 at ``K3_SHAPES``, cold and warm (from the cold call's potentials): at
     ``loop_chunk(N)`` iterations a graph replay against chunks of one (the
     chunk forced to ``LOOP_CHUNK`` at every N here), the
@@ -836,19 +815,18 @@ def share_ops(ctx_rows: int, n_blocks: int, ctx_dim: int, hidden: int) -> float:
 
 
 def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels",
-                        trace: bool = True):
+                        record: bool = True):
     """K4 (forward kernel) and K5 (backward kernel) of the coupling chain,
     through the wrapper the filter calls, against the plain version and its
     autograd, both directions; each launched again for equal bits.  At the
     kernels line's case, each timed launch's registers and shared memory
-    from the card's trace; the shared memory must be what the wrapper's
+    (``launch_record``); the shared memory must be what the wrapper's
     mirror of the kernel's layout says (the limits it refuses by).  Without
-    ``trace`` no launch is traced (a later profiling session in one process
-    has come back without kernel events: ptxas gives the registers).  With
+    ``record`` no launch is recorded (ptxas gives the registers).  With
     a context, the context kernels alone against their plain versions
     (the share to ``CHAIN_TOL``, the gradients, from K5's g1, to
     ``CHAIN_GRAD_TOL``), equal bits on a second launch, with their times and
-    one library call's each; with ``trace`` also the context kernels' edge
+    one library call's each; with ``record`` also the context kernels' edge
     cases (``CTX_EDGES``) and their launches back to back, and the share's,
     the weight gradients' and the input gradient's shared memory at the
     kernels line's case against the wrapper's mirror."""
@@ -970,8 +948,9 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                         lambda: cc.chain_apply_packed_plain(x, ctx, w, bias, inverse), iters),
                     "module_ms": device_ms(module_fwd, iters),
                     "library_ms": None, "bound_ms": bound, "bound_by": by}
-                if trace and case == AT["coupling_chain"]:
-                    rec = launch_record(k4, "chain_fwd_kernel")
+                if record and case == AT["coupling_chain"]:
+                    rec = launch_record(k4, lambda: cc.launch_note(w.shape[-1],
+                                                                   "coupling_chain"))
                     rows_b = cc.FWD_ROWS_PER_BLOCK
                     segments = 1 if not c else min(rows_b, (rows_b - 1) // n + 2) if broadcast \
                         else rows_b
@@ -1000,23 +979,24 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                                               max(iters // 4, 3)),
                 "module_fwd_bwd_ms": call_ms(module_fwd_bwd, max(iters // 4, 3)),
                 "library_ms": None, "bound_ms": bound, "bound_by": by}
-            if trace and case == AT["coupling_chain_bwd"]:
-                rec = launch_record(k5, "chain_bwd_kernel")
+            if record and case == AT["coupling_chain_bwd"]:
+                rec = launch_record(k5, lambda: cc.launch_note(w.shape[-1],
+                                                               "coupling_chain_bwd"))
                 rec["mirror_smem_bytes"] = cc.bwd_smem_bytes(n_blocks, hidden,
                                                              int(rec["block"][0]))
                 results["coupling_chain_bwd"][case].update(rec)
             if c and inverse:
                 results.update({name: {**results.get(name, {}), **row} for name, row in
                                 context_kernel_rows(cc, ctx, w, bias, k5()[1], ctx_rows,
-                                                    f"B{b}_N{n}_C{c}", iters, trace).items()})
+                                                    f"B{b}_N{n}_C{c}", iters, record).items()})
         del chain, x, ctx, ctx_base, gy, gld, gy_wide, gy_strided, w, bias, p_rows
         torch.cuda.empty_cache()
-    if trace:
+    if record:
         for name, rows in context_kernel_edges(cc).items():
             results[name].update(rows)
     for name in ("coupling_chain", "coupling_chain_bwd", "coupling_ctx_share",
                  "coupling_ctx_grad_rows", "coupling_ctx_weight_grad",
-                 "coupling_ctx_input_grad") if trace else ():
+                 "coupling_ctx_input_grad") if record else ():
         rec = results[name][AT[name]]
         if rec["smem_bytes_per_block"] != rec["mirror_smem_bytes"]:
             raise AssertionError(f"{name}@{AT[name]}: the launch took {rec['smem_bytes_per_block']} "
@@ -1028,17 +1008,17 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
                  "same call through the FlowChain module; plain_ms, kernels_fwd_bwd_ms and "
                  "module_fwd_bwd_ms of the backward are eager forward + autograd calls (CUDA "
                  "events), the other times CUDA-graph replays of the kernel's launcher; "
-                 "registers and smem_bytes_per_block (static + dynamic) from the trace "
-                 "(torch.profiler) of one launch, mirror_smem_bytes the wrapper's; the "
+                 "registers and smem_bytes_per_block (static + dynamic) of one launch as "
+                 "its library noted it, mirror_smem_bytes the wrapper's; the "
                  "context kernels' library_ms is one torch.addmm / torch.mm on operands laid "
                  "out outside the timed call; their edge cases (CTX_EDGES) are timed over "
                  f"{CTX_EDGE_ITERS} replays on random g1, plan is the wrapper's launch plan"})
     return results
 
 
-# the two context kernels' traced launch at the kernels line's case: the
-# kernel's name in the trace, and the wrapper's launch plan for it
-CTX_TRACED = {"coupling_ctx_share": "chain_ctx_share_kernel",
+# the context kernels whose launch is recorded at the kernels line's case,
+# with the name ptxas gives their kernel
+CTX_RECORDED = {"coupling_ctx_share": "chain_ctx_share_kernel",
               "coupling_ctx_grad_rows": "chain_ctx_grad_rows_kernel",
               "coupling_ctx_weight_grad": "chain_ctx_weight_grad_kernel",
               "coupling_ctx_input_grad": "chain_ctx_input_grad_kernel"}
@@ -1062,14 +1042,14 @@ def context_plans(cc, ctx, w) -> dict:
 
 
 def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: int,
-                        trace: bool = False) -> dict:
+                        record: bool = False) -> dict:
     """The context kernels alone at one case, from K5's g1 (the share, the
     weight gradient's first kernel and both together, the input gradient): each
     against its plain version, equal bits on a second launch, device ms
     (CUDA-graph replay), the plain version's, one library call's that
     computes the same function, and the bound; the two redesigned ones with
-    their launch plan and, with ``trace`` at the kernels line's case, their
-    launch's registers and shared memory from the card's trace beside the
+    their launch plan and, with ``record`` at the kernels line's case, their
+    launch's registers and shared memory (``launch_record``) beside the
     wrapper's mirror."""
     b, n, c = ctx.shape
     n_blocks, hidden = w.shape[0], w.shape[-1]
@@ -1139,8 +1119,9 @@ def context_kernel_rows(cc, ctx, w, bias, g1, ctx_rows: int, case: str, iters: i
         if name in plans:
             plan, mirror = plans[name]
             row["plan"] = plan
-            if trace and case == AT[name]:
-                row.update(launch_record(cs["kernel"], CTX_TRACED[name]))
+            if record and case == AT[name]:
+                row.update(launch_record(cs["kernel"],
+                                         lambda: cc.launch_note(hidden, name)))
                 row["mirror_smem_bytes"] = mirror
         out[name] = {case: row}
     return out
@@ -1516,6 +1497,7 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0, cglow_std: 
     from nfdpf_torch import losses as L
     from nfdpf_torch.ops import sinkhorn as ts
     from nfdpf_torch.ops.flows import FlowChain
+    from nfdpf_torch.parallel import ranks as R
     from nfdpf_torch.train import Trainer
 
     cfg = DPFConfig(**dict(settings, batch_size=4, sequence_length=10))
@@ -1541,10 +1523,7 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0, cglow_std: 
                     for p in chain.parameters():
                         p.mul_(flow_scale)
             if cglow_std:
-                draw = torch.Generator().manual_seed(7)
-                for pname, p in trainer.engine.measurement.cglow.named_parameters():
-                    if ".invconv." not in pname:
-                        p.copy_(torch.randn(p.shape, generator=draw) * cglow_std)
+                R.draw_cglow(trainer.engine, cglow_std)
         dev_noise = {k: v.to(device) for k, v in noise.items()}
         reset_launch_counts()
         ts.reset_dense_loop()
@@ -1898,7 +1877,15 @@ K6_GATHERS = 6
 # draws
 MESH_T = 10
 MESHES = {"mesh_particle": (CNF_SLICE, (1, 2)), "mesh_data": (SLICE, (2, 1)),
-          "mesh_2x2": (NFDPF_SLICE, (2, 2))}
+          "mesh_2x2": (NFDPF_SLICE, (2, 2)),
+          # OT over materialised costs (bench.py's) with both flows on K4/K5,
+          # and config 5 with the soft resampler (JAX's own sharded config-5
+          # test): CGLOW, NF dynamics on K4/K5, SDPF
+          "mesh_particle_dense": (dict(CNF_SLICE, use_pallas=False), (1, 2)),
+          "mesh_particle_config5": (dict(CGLOW_SLICE, resampler_type="soft"), (1, 2))}
+# the meshes whose CGLOW parameters are drawn from N(0, σ²) (``ranks.draw_cglow``,
+# phase 5's rule), so that its gradients are not rounding residue
+MESH_CGLOW_STD = {"mesh_particle_config5": 0.15}
 MESH_WORLD = 4
 # a float64 mesh step against the unsharded float64 one (loss and gradient
 # groups, relative): rounding there is ~1e-13
@@ -2011,18 +1998,26 @@ def _mesh_inputs(cfg, seed: int):
              "start_state": torch.randn(b, 4, generator=gen, device="cuda") * 10}
     noise = {"vel": torch.randn(b, t, 2, generator=gen, device="cuda"),
              "init": torch.rand(b, n, 2, generator=gen, device="cuda") * w - w / 2,
-             "motion": torch.randn(t, b, n, 2, generator=gen, device="cuda")}
+             "motion": torch.randn(t, b, n, 2, generator=gen, device="cuda"),
+             "resample": torch.rand(t, b, 1, generator=gen, device="cuda") / n}
+    if cfg.train_type == "SDPF":
+        noise["mask"] = (torch.rand(b, t, generator=gen, device="cuda")
+                         < cfg.labeled_ratio).to(torch.float32)
     return ({k: v.cpu().numpy() for k, v in batch.items()},
             {k: v.cpu().numpy() for k, v in noise.items()})
 
 
-def _unsharded_step(settings, batch, noise):
-    """The unsharded card run of one train step from the seed's weights."""
+def _unsharded_step(settings, batch, noise, cglow_std: float = 0.0):
+    """The unsharded card run of one train step from the seed's weights
+    (with ``cglow_std`` the CGLOW's drawn)."""
     from nfdpf_torch import DPFConfig
     from nfdpf_torch.parallel import ranks as R
     from nfdpf_torch.train import Trainer
 
-    return R.step_result(Trainer(DPFConfig(**settings)), batch, noise, "cuda")
+    trainer = Trainer(DPFConfig(**settings))
+    if cglow_std:
+        R.draw_cglow(trainer.engine, cglow_std)
+    return R.step_result(trainer, batch, noise, "cuda")
 
 
 def _group_rel(grads: dict, ref: dict) -> dict:
@@ -2062,9 +2057,11 @@ def phase_mesh(smi: str):
 
 def _phase_mesh(smi: str):
     from nfdpf_torch import DPFConfig
+    from nfdpf_torch.models.dpf import streaming_ot
     from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
     from nfdpf_torch.parallel import ranks as R
 
+    phase_t0 = time.perf_counter()
     # K3 unsharded at K6's shape
     b, n = K6_SHAPE
     gen = torch.Generator().manual_seed(11)
@@ -2082,8 +2079,8 @@ def _phase_mesh(smi: str):
     for name, (settings, shape) in MESHES.items():
         settings = dict(settings, sequence_length=MESH_T)
         inputs[name] = _mesh_inputs(DPFConfig(**settings), seed=31)
-        unsharded[name] = _unsharded_step(settings, *inputs[name])
-        again = _unsharded_step(settings, *inputs[name])
+        unsharded[name] = _unsharded_step(settings, *inputs[name], MESH_CGLOW_STD.get(name, 0.0))
+        again = _unsharded_step(settings, *inputs[name], MESH_CGLOW_STD.get(name, 0.0))
         repeat[name] = _group_rel(again["grads"], unsharded[name]["grads"])
         torch.cuda.empty_cache()
         if shape[0] > 1:
@@ -2099,11 +2096,12 @@ def _phase_mesh(smi: str):
         batch, noise = inputs[name]
         jobs.append((R.train_step_job, dict(
             settings=dict(settings, sequence_length=MESH_T), shape=shape,
-            ranks=list(range(shape[0] * shape[1])), batch=batch, noise=noise, device="cuda")))
+            ranks=list(range(shape[0] * shape[1])), batch=batch, noise=noise, device="cuda",
+            cglow_std=MESH_CGLOW_STD.get(name, 0.0))))
     for name in exact:
         settings, shape = MESHES[name]
         jobs.append((R.float64_step_job, dict(
-            settings=dict(settings, sequence_length=MESH_T), shape=shape,
+            cases={name: dict(settings, sequence_length=MESH_T)}, shape=shape,
             ranks=list(range(shape[0] * shape[1])), batch=inputs[name][0],
             noise=inputs[name][1])))
     t0 = time.perf_counter()
@@ -2186,22 +2184,33 @@ def _phase_mesh(smi: str):
         grads = [_group_rel(r["grads"], ref["grads"]) for r in runs]
         worst = {g: max(gr[g] for gr in grads) for g in grads[0]}
         iters = [r["metrics"]["sinkhorn_iters"] for r in runs]
+        firings = [r["metrics"]["resample_count"] for r in runs]
+        dense_iters = [r["dense_iters"] for r in runs]
         launches = runs[0]["launches"]
         rows[name] = {"phase": name, "card": smi, "transport": "gloo-on-one-card",
                       "mesh": {"data": shape[0], "particle": shape[1]},
                       "config": dict(settings, sequence_length=MESH_T),
+                      "cglow_std": MESH_CGLOW_STD.get(name, 0.0),
                       "loss": losses, "loss_unsharded": ref["metrics"]["loss"],
                       "loss_rel_err": loss_rel, "grad_rel_err_by_group": worst,
                       "unsharded_repeat_grad_rel": repeat[name],
                       "sinkhorn_iters": iters,
                       "sinkhorn_iters_unsharded": ref["metrics"]["sinkhorn_iters"],
-                      "resample_count": runs[0]["metrics"]["resample_count"],
+                      "dense_iters": dense_iters, "dense_iters_unsharded": ref["dense_iters"],
+                      "resample_count": firings[0],
+                      "resample_count_unsharded": ref["metrics"]["resample_count"],
                       "launches_rank0": launches, "launches_unsharded": ref["launches"],
+                      "coupling_launches_by_rank": [
+                          {k: r["launches"][k] for k in r["launches"] if k.startswith("coupling")}
+                          for r in runs],
                       "collectives_rank0": runs[0]["collectives"],
-                      "step_s": [r["s"] for r in runs], "step_s_unsharded": ref["s"]}
+                      "collectives_by_rank": [r["collectives"] for r in runs],
+                      "step_s": [r["s"] for r in runs], "step_s_unsharded": ref["s"],
+                      "peak_gib": [r["peak_gib"] for r in runs],
+                      "peak_gib_unsharded": ref["peak_gib"]}
         if name in exact:
             f64 = exact[name]
-            mesh64 = float64_runs[name][0]
+            mesh64 = float64_runs[name][0][name]
             rows[name].update(
                 float64_mesh_loss_rel=abs(mesh64["loss"] - f64["loss"]) / abs(f64["loss"]),
                 float64_mesh_grad_rel=_group_rel(mesh64["grads"], f64["grads"]),
@@ -2223,86 +2232,117 @@ def _phase_mesh(smi: str):
         if iters != [ref["metrics"]["sinkhorn_iters"]] * len(runs):
             bad.append(f"{name}: Sinkhorn iterations {iters}, unsharded "
                        f"{ref['metrics']['sinkhorn_iters']}")
+        if dense_iters != [ref["dense_iters"]] * len(runs):
+            bad.append(f"{name}: dense Sinkhorn iterations {dense_iters}, unsharded "
+                       f"{ref['dense_iters']}")
+        if firings != [ref["metrics"]["resample_count"]] * len(runs):
+            bad.append(f"{name}: firings {firings}, unsharded "
+                       f"{ref['metrics']['resample_count']}")
         cfg = DPFConfig(**settings)
-        want = ["sinkhorn_lse", "sinkhorn_update", "transport_apply"]
-        want += ["sharded_resample"] if shape[1] > 1 else []
+        want = []
+        if streaming_ot(cfg):
+            want += ["sinkhorn_lse", "sinkhorn_update", "transport_apply"]
+            want += ["sharded_resample"] if shape[1] > 1 else []
         want += (["coupling_chain_inverse", "coupling_chain_bwd"] if cfg.pallas_coupling
                  else [])
         for r in runs:
             missing = [k for k in want if r["launches"][k] <= 0]
             if missing:
                 bad.append(f"{name}: {missing} not launched on a rank ({r['launches']})")
-    log({"phase": "mesh_spawn", "ranks": MESH_WORLD, "seconds": spawn_s})
+    log({"phase": "mesh_spawn", "ranks": MESH_WORLD, "seconds": spawn_s,
+         "phase_seconds": time.perf_counter() - phase_t0})
     if bad:
         raise AssertionError("; ".join(bad))
     return k6_row, rows
 
 
-MAIN_CLI_MESH = ["--mesh-data", "2", "--mesh-particle", "1"]
+# the entry point on 2 ranks: a data mesh with main_cli's flags, and a
+# particle mesh at the CLI's default OT (over materialised costs)
+MAIN_CLI_MESHES = {
+    "data": MAIN_CLI_FLAGS + ["--mesh-data", "2", "--mesh-particle", "1"],
+    "particle": [f for f in MAIN_CLI_FLAGS if f != "--use-pallas"]
+    + ["--mesh-data", "1", "--mesh-particle", "2"],
+}
+
+
+def _torchrun_pair(argv, cwd: str, repo: str) -> tuple:
+    """``python -m nfdpf_torch.main *argv`` on 2 ranks from ``cwd``, with the
+    variables torchrun sets.  Returns (exit codes, outputs, seconds)."""
+    from nfdpf_torch.parallel.ranks import free_port
+
+    port = free_port()
+    procs, t0 = [], time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "nfdpf_torch.main", *argv], cwd=cwd,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
 
 
 def phase_main_cli_mesh():
     """``python -m nfdpf_torch.main`` as torchrun starts it (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
     ``MASTER_PORT``) on 2 ranks, which share this card over gloo (more
-    ranks than cards), with ``--mesh-data 2``: one epoch on
-    the data rank 0 makes, then ``--testing``.  Each rank must exit 0; the
-    artifacts must be there and only rank 0 may print the epoch's line."""
+    ranks than cards), on each mesh of ``MAIN_CLI_MESHES``: one epoch (the
+    first run makes the data, the second reads the same 80 sequences),
+    then ``--testing``, each mesh in a working directory of its own.  Each
+    rank must exit 0; the artifacts must be there, the eval and test losses
+    finite, and only rank 0 may print the epoch's line."""
     import shutil
-
-    from nfdpf_torch.parallel.ranks import free_port
 
     repo = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="nfdpf_main_cli_mesh_")
-    base = MAIN_CLI_FLAGS + MAIN_CLI_MESH + ["--data-path", os.path.join(tmp, "disks")]
-    rows = {}
+    out, bad = {}, []
     try:
         from nfdpf_torch.config import parse_args
         from nfdpf_torch.main import get_run_id
 
-        run_dir = os.path.join(tmp, "logs", get_run_id(parse_args(base)))
-        for name, extra in (("train", ["--num-epochs", "1"]),
-                            ("test", ["--testing", "--model-path",
-                                      os.path.join(run_dir, "models")])):
-            port = free_port()
-            procs, t0 = [], time.perf_counter()
-            for rank in range(2):
-                env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
-                           LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                           PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "nfdpf_torch.main", *base, *extra], cwd=tmp,
-                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            outs = []
-            try:
-                for p in procs:
-                    outs.append(p.communicate(timeout=400)[0])
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            codes = [p.returncode for p in procs]
-            rows[name] = {"exit_codes": codes, "s": time.perf_counter() - t0,
-                          "epoch_lines": [sum(ln.startswith("epoch ") for ln in o.splitlines())
-                                          for o in outs],
-                          "test_lines": [sum(ln.startswith("test loss") for ln in o.splitlines())
-                                         for o in outs]}
-            if codes != [0, 0]:
-                tails = "\n".join(f"--- rank {r} ---\n" + o[-3000:] for r, o in enumerate(outs))
-                raise AssertionError(f"main_cli_mesh {name}: exit codes {codes}\n{tails}")
-        missing = [a for a in MAIN_CLI_ARTIFACTS if not os.path.exists(os.path.join(run_dir, a))]
-        test_losses = np.load(os.path.join(run_dir, "data", "test_loss_epoch.npy"))
-        row = {"phase": "main_cli_mesh", "transport": "gloo-on-one-card", "argv": base,
-               "runs": rows, "missing": missing, "test_losses": test_losses.tolist()}
+        for mesh, flags in MAIN_CLI_MESHES.items():
+            base = flags + ["--data-path", os.path.join(tmp, "disks")]
+            cwd = os.path.join(tmp, mesh)
+            os.makedirs(cwd)
+            run_dir = os.path.join(cwd, "logs", get_run_id(parse_args(base)))
+            rows = {}
+            for name, extra in (("train", ["--num-epochs", "1"]),
+                                ("test", ["--testing", "--model-path",
+                                          os.path.join(run_dir, "models")])):
+                codes, outs, seconds = _torchrun_pair(base + extra, cwd, repo)
+                rows[name] = {"exit_codes": codes, "s": seconds,
+                              "epoch_lines": [sum(ln.startswith("epoch ") for ln in o.splitlines())
+                                              for o in outs],
+                              "test_lines": [sum(ln.startswith("test loss")
+                                                 for ln in o.splitlines()) for o in outs]}
+                if codes != [0, 0]:
+                    tails = "\n".join(f"--- rank {r} ---\n" + o[-3000:]
+                                      for r, o in enumerate(outs))
+                    raise AssertionError(f"main_cli_mesh {mesh} {name}: exit codes {codes}\n"
+                                         f"{tails}")
+            missing = [a for a in MAIN_CLI_ARTIFACTS
+                       if not os.path.exists(os.path.join(run_dir, a))]
+            losses = {k: np.load(os.path.join(run_dir, "data", f"{k}_loss_epoch.npy"))
+                      for k in ("eval", "test") if f"data/{k}_loss_epoch.npy" not in missing}
+            out[mesh] = {"argv": base, "runs": rows, "missing": missing,
+                         **{f"{k}_losses": v.tolist() for k, v in losses.items()}}
+            if missing:
+                bad.append(f"{mesh}: missing artifacts {missing}")
+            if rows["train"]["epoch_lines"] != [1, 0] or rows["test"]["test_lines"] != [1, 0]:
+                bad.append(f"{mesh}: printing ranks: {rows}")
+            if not all(np.isfinite(v).all() for v in losses.values()):
+                bad.append(f"{mesh}: non-finite eval or test losses {losses}")
+        row = {"phase": "main_cli_mesh", "transport": "gloo-on-one-card", "meshes": out}
         log(row)
-        bad = []
-        if missing:
-            bad.append(f"missing artifacts {missing}")
-        if rows["train"]["epoch_lines"] != [1, 0] or rows["test"]["test_lines"] != [1, 0]:
-            bad.append(f"printing ranks: {rows}")
-        if not np.isfinite(test_losses).all():
-            bad.append("a non-finite test loss")
         if bad:
             raise AssertionError(f"main_cli_mesh: {'; '.join(bad)}")
     finally:
@@ -2331,26 +2371,30 @@ def main() -> int:
     kernels = phase_kernels()
     kernels["sinkhorn_update"], k3 = phase_k3()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
-    kernels["sinkhorn_update"][AT["sinkhorn_update"]].update(trace_update())
+    kernels["sinkhorn_update"][AT["sinkhorn_update"]].update(update_launch())
     wide = phase_chain_kernels(cnf.n_sequence, WIDE_HIDDEN, f"chain_kernels_h{WIDE_HIDDEN}",
-                               trace=False)
+                               record=False)
     ptxas = {h: chain_resources(h) for h in (cnf.flow_hidden_dim, WIDE_HIDDEN)}
     ptxas_update = update_resources()
     log({"phase": "chain_resources", "ptxas": ptxas[cnf.flow_hidden_dim],
          f"ptxas_h{WIDE_HIDDEN}": ptxas[WIDE_HIDDEN], "ptxas_update": ptxas_update})
-    # the redesigned kernels' traced launches against ptxas's counts
+    # the redesigned kernels' recorded launches against ptxas's counts, the
+    # launched kernel the one the wrapper's plan names
     update_at = kernels["sinkhorn_update"][AT["sinkhorn_update"]]
-    traced = [("sinkhorn_update", ptxas_update[update_at["kernel"]])]
     plan = kernels["coupling_ctx_input_grad"][AT["coupling_ctx_input_grad"]]["plan"]
-    traced.append(("coupling_ctx_input_grad", ptxas[cnf.flow_hidden_dim][
-        "chain_ctx_input_grad_kernel<{}, {}, {}>".format(
-            plan["tile_rows"] // plan["rows_a_thread"], plan["rows_a_thread"],
-            plan["tile_cols"] // cc.CTX_IN_LANES)]))
-    for name, counts in traced:
-        rec = kernels[name][AT[name]]
+    in_grad = "chain_ctx_input_grad_kernel<{}, {}, {}>".format(
+        plan["tile_rows"] // plan["rows_a_thread"], plan["rows_a_thread"],
+        plan["tile_cols"] // cc.CTX_IN_LANES)
+    recorded = [("sinkhorn_update", update_at["kernel"], ptxas_update),
+                ("coupling_ctx_input_grad", in_grad, ptxas[cnf.flow_hidden_dim])]
+    for name, kernel, report in recorded:
+        rec, counts = kernels[name][AT[name]], report[kernel]
+        if rec["kernel"] != kernel:
+            raise AssertionError(f"{name}@{AT[name]}: the launch ran {rec['kernel']}, the "
+                                 f"plan names {kernel}")
         if ((rec["registers"], rec["smem_bytes_per_block"], 0)
                 != (counts["registers"], counts["smem_bytes"], counts.get("spill_bytes", 0))):
-            raise AssertionError(f"{name}@{AT[name]}: the traced launch took {rec['registers']} "
+            raise AssertionError(f"{name}@{AT[name]}: the launch took {rec['registers']} "
                                  f"registers and {rec['smem_bytes_per_block']} bytes of shared "
                                  f"memory; ptxas says {counts} (spills must be 0)")
         rec["ptxas_spill_bytes"] = counts.get("spill_bytes", 0)
@@ -2414,7 +2458,7 @@ def main() -> int:
         if name == "transport_apply":
             entry["launches_backward_by_slice"] = {k: v["transport_apply_bwd"]
                                                    for k, v in by_slice.items()}
-        if "registers" in m:   # the coupling kernels' timed launch, from the trace
+        if "registers" in m:   # the coupling kernels' timed launch (launch_record)
             entry["registers"] = m["registers"]
             entry["smem_bytes_per_block"] = m["smem_bytes_per_block"]
         if name in ("coupling_chain", "coupling_chain_bwd"):
@@ -2426,9 +2470,9 @@ def main() -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in wide[name].values()),
                 "ptxas": {k: v for k, v in ptxas[WIDE_HIDDEN].items() if k.startswith(kernel)},
                 "at": AT[name]}
-        if name in CTX_TRACED:   # the redesigned context kernels: ptxas's counts, the plan
+        if name in CTX_RECORDED:   # the redesigned context kernels: ptxas's counts, the plan
             entry["ptxas"] = {k: v for k, v in ptxas[cnf.flow_hidden_dim].items()
-                              if k.startswith(CTX_TRACED[name])}
+                              if k.startswith(CTX_RECORDED[name])}
             entry["plan"] = m["plan"]
         if name == "sinkhorn_update":
             entry.update(ptxas=ptxas_update, plan=m["plan"], ms_all_running=m["ms_all_running"],

@@ -3,8 +3,8 @@
 The port's own copy of ``nfdpf_tpu/config.py``: the same fields, defaults
 and CLI flags, so one flag set drives either package.  Fields that name TPU
 machinery keep their names (``use_pallas`` selects the streaming-Sinkhorn
-kernels, here the CUDA ones; ``mesh_*`` the device mesh).  Values the port
-does not run yet are rejected by ``nfdpf_torch.models.dpf.check_supported``.
+kernels, here the CUDA ones; ``mesh_*`` the device mesh).  Values no
+package runs are rejected by ``nfdpf_torch.models.dpf.check_supported``.
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ descending) of per-batch ``torch.gather``s where the JAX package scans.
 
 On a ``mesh`` each rank passes its block (B/D sequences, N/P particles) and
 gets the global loss: the estimate sums over the particle group, the means
-over the global batch sum over the data group.
+over the global batch sum over the data group.  The pseudo-likelihood's
+walk follows global ancestor indices across ranks: its (B, T, N/P) inputs
+are all-gathered over the particle group once a loss (differentiably) and
+every rank walks all N.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from nfdpf_torch.ops.density import batch_mean, weighted_mean
+from nfdpf_torch.parallel.mesh import PARTICLE_AXIS, all_gather
 
 
 def supervised_loss(
@@ -70,8 +74,11 @@ def _ancestor_walk(
     prior_terms: torch.Tensor,   # (B, T, N) per-step prior log term
     weights: torch.Tensor,       # (B, T, N)
     block_len: int,
+    mesh=None,
 ) -> torch.Tensor:
     """The blockwise backward ancestor walk, Q/b per batch element, (B,).
+    On a ``mesh`` the inputs are this rank's (B, T, N/P) blocks, with
+    global indices, gathered here over the particle group.
 
     Each block of ``block_len`` steps walks from its last step back to its
     first, following the ancestor indices from the identity and adding the
@@ -80,6 +87,9 @@ def _ancestor_walk(
     reference, as in the JAX package: ``logyita`` is never reset between
     blocks (block k's term holds every earlier block's sum), and a trailing
     partial block is ignored."""
+    likelihoods, indices, prior_terms, weights = (
+        all_gather(t, mesh, PARTICLE_AXIS, 2)
+        for t in (likelihoods, indices, prior_terms, weights))
     batch, seq_len, n = likelihoods.shape
     nb = seq_len // block_len
     idx = indices.long()
@@ -114,7 +124,7 @@ def pseudolikelihood_loss(
                 - torch.sum(noise[..., :2] ** 2 / (2 * std_pos ** 2), dim=-1))
     term_vel = (2 * log_c - 2 * math.log(std_vel)
                 - torch.sum(noise[..., 2:] ** 2 / (2 * std_vel ** 2), dim=-1))
-    q = _ancestor_walk(likelihoods, indices, term_pos + term_vel, weights, block_len)
+    q = _ancestor_walk(likelihoods, indices, term_pos + term_vel, weights, block_len, mesh)
     return -batch_mean(q, mesh)
 
 
@@ -131,5 +141,5 @@ def pseudolikelihood_loss_nf(
     """NF-prior pseudo-likelihood: the walk over the filter's prior terms.
     The reference gathers the dynamics Jacobians along the ancestors but
     never adds them; only prior + likelihood enter, here too."""
-    q = _ancestor_walk(likelihoods, indices, priors, weights, block_len)
+    q = _ancestor_walk(likelihoods, indices, priors, weights, block_len, mesh)
     return -batch_mean(q, mesh)

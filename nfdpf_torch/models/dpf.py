@@ -36,10 +36,11 @@ and soft or OT resampling.  As in the JAX package:
 * on a ``mesh`` (``parallel/mesh.py``) each rank holds B/D sequences and N/P
   particles: the weight normalisation, the ESS gate, the measurement's row
   maximum, the flows' contexts and ``obs_likelihood`` are reduced over the
-  mesh, and resampling runs on the particle-sharded streaming Sinkhorn
-  (``ot_resample_streaming_sharded``, K6) when P > 1 and otherwise with its
-  stop test over the data group.  Under P > 1 soft resampling, OT over
-  materialised costs and SDPF are refused (ROADMAP item 23).
+  mesh; when P > 1 the streaming OT runs on the particle-sharded Sinkhorn
+  (``ot_resample_streaming_sharded``, K6), OT over materialised costs on
+  its row blocks (``ops/sinkhorn.py``) and the soft resampler on the
+  gathered weights (``ops/resampling.py``), each with global ancestor
+  indices; the Sinkhorn stop tests run over the data group.
 
 Random draws come in through ``noise`` (a dict of tensors) or from a
 ``torch.Generator``; on a mesh both are the GLOBAL draws (every rank draws
@@ -122,22 +123,8 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def check_supported(cfg: DPFConfig, mesh=None) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet,
-    naming its ROADMAP queue 1 item: under a particle axis (``mesh_particle``
-    or ``mesh``'s) soft resampling, OT over materialised costs and SDPF,
-    whose cross-shard cumsums and ancestor gathers are not ported; and
-    ``ValueError`` for values no package runs."""
-    particle = max(cfg.mesh_particle, axis_size(mesh, PARTICLE_AXIS))
-    if particle > 1:
-        why = ("soft resampling" if cfg.resampler_type == "soft"
-               else "OT over materialised costs (use_pallas off or ot_transport_grad)"
-               if cfg.resampler_type == "ot" and not streaming_ot(cfg)
-               else "trainType SDPF" if cfg.train_type == "SDPF" else None)
-        if why is not None:
-            raise NotImplementedError(
-                f"{why} under a particle axis of {particle} is not ported yet "
-                "(ROADMAP queue 1, item 23)")
+def check_supported(cfg: DPFConfig) -> None:
+    """Raise ``ValueError`` for values no package runs."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                          f"got {cfg.compute_dtype!r}")
@@ -218,7 +205,7 @@ class DPF(nn.Module):
 
     def __init__(self, config: DPFConfig, device=None, mesh=None):
         super().__init__()
-        check_supported(config, mesh)
+        check_supported(config)
         shards = axis_size(mesh, PARTICLE_AXIS)
         if config.num_particles % shards:
             raise ValueError(f"particle count {config.num_particles} not divisible by "
@@ -258,7 +245,8 @@ class DPF(nn.Module):
         without it)."""
         cfg = self.config
         if cfg.resampler_type == "soft":
-            return (*soft_systematic_resample(particles, probs, cfg.alpha, offset), 0, None)
+            return (*soft_systematic_resample(particles, probs, cfg.alpha, offset,
+                                              mesh=self.mesh), 0, None)
         kw = dict(eps=cfg.epsilon, scaling=cfg.scaling, threshold=cfg.threshold,
                   max_iter=cfg.max_iter, convergence=cfg.sinkhorn_convergence)
         if not streaming_ot(cfg):

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 
@@ -35,3 +37,18 @@ def kernel_args(*tensors: torch.Tensor):
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
+
+
+def read_launch_note(entry, *slot: int) -> dict:
+    """A kernel's last launch as its library noted it (``csrc/launch_note.cuh``),
+    through the C entry point ``entry`` (with ``slot`` where the library notes
+    several kernels): the launched kernel's name, its registers a thread and
+    static shared memory a block as the runtime loaded it, the launch's
+    dynamic shared memory, grid and block, and the launches noted so far."""
+    out, name = (ctypes.c_longlong * 10)(), ctypes.create_string_buffer(96)
+    rc = entry(*slot, out, name, len(name))
+    if rc != 0:
+        raise RuntimeError(f"reading a launch note failed: cudaError_t {rc}")
+    return {"kernel": name.value.decode(), "registers": out[0], "smem_static_bytes": out[1],
+            "smem_dynamic_bytes": out[2], "grid": list(out[3:6]), "block": list(out[6:9]),
+            "launches": out[9]}

@@ -2,10 +2,10 @@
 
 Each source under ``csrc/`` is compiled at first use into a shared library
 with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
--O3 -shared -Xcompiler -fPIC``), named by a hash of its text and flags so an
-edited source is rebuilt.  A source may be built several times with
-different ``-D`` defines (a kernel's compile-time width); each build is a
-library of its own.  The libraries live in ``_build/`` beside this file
+-O3 -shared -Xcompiler -fPIC``), named by a hash of its text, the headers
+under ``csrc/`` and the flags, so an edited source or header is rebuilt.
+A source may be built several times with different ``-D`` defines (a
+kernel's compile-time width); each build is a library of its own.  The libraries live in ``_build/`` beside this file
 (listed in ``.gitignore``), each with the compiler's ``-v`` report beside it.
 A missing ``nvcc`` or a failed build raises.
 """
@@ -51,7 +51,8 @@ def build(name: str, defines: tuple = ()) -> Path:
     (if not built yet) and return the library path.  The build is logged
     under ``name`` followed by its defines."""
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
+    # the shared headers count as part of every source
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     label = " ".join((name,) + tuple(defines))
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]

@@ -71,7 +71,7 @@ from typing import Optional, Tuple
 import torch
 from torch.nn import functional as F
 
-from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu
+from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu, read_launch_note
 from nfdpf_torch.ops.flows import FlowChain
 
 # kernel launches since the last reset: the forward kernel by direction, the
@@ -127,7 +127,11 @@ _SIGNATURES = {
                                      _P, _P],
     "nfdpf_coupling_ctx_weight_grad": [_P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P],
     "nfdpf_coupling_ctx_input_grad": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    "nfdpf_coupling_launch_note": [_I, _P, _P, _I],
 }
+# the kernels whose last launch the library notes, in its slots' order
+NOTED = ("coupling_chain", "coupling_chain_bwd", "coupling_ctx_share", "coupling_ctx_grad_rows",
+         "coupling_ctx_weight_grad", "coupling_ctx_input_grad")
 # how K4/K5 find a row's row of P: one row for all (no context), one per
 # batch element (a context broadcast over the particles), one per row
 ONE_ROW, PER_BATCH, PER_ROW = 0, 1, 2
@@ -166,6 +170,13 @@ def _library(hidden: int):
     from nfdpf_torch.ops.cuda.build import load
 
     return load("coupling", _SIGNATURES, build_defines(hidden))
+
+
+def launch_note(hidden: int, kernel: str) -> dict:
+    """The last launch of ``kernel`` (one of ``NOTED``; the forward kernel in
+    either direction) from the library of kernel width ``hidden``:
+    ``read_launch_note``'s record."""
+    return read_launch_note(_library(hidden).nfdpf_coupling_launch_note, NOTED.index(kernel))
 
 
 def pack_chain_params(chain: FlowChain) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -98,6 +98,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "launch_note.cuh"
+
 #ifndef NFDPF_HIDDEN
 #define NFDPF_HIDDEN 8
 #endif
@@ -1329,6 +1331,11 @@ size_t bwd_smem_floats(int n_blocks, int threads) {
          (size_t)Fields<kHidden>::count(n_blocks) * (threads + 4);
 }
 
+// The last launch of each kernel (nfdpf_coupling_launch_note reads them).
+enum NoteSlot { kNoteFwd, kNoteBwd, kNoteShare, kNoteGradRows, kNoteWeightGrad, kNoteInputGrad,
+                kNoteSlots };
+LaunchNote notes[kNoteSlots] = {};
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches on the caller's
@@ -1356,6 +1363,7 @@ extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* p, int p_mo
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
   const int grid = (rows + kFwdRows - 1) / kFwdRows;
+  note_launch(notes[kNoteFwd], kernel, "chain_fwd_kernel", grid, kFwdRows * 2 * kFwdLanes, smem);
   kernel<<<grid, kFwdRows * 2 * kFwdLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), p, p_mode, w, b, reinterpret_cast<float2*>(y), ld,
       rows, n, n_blocks, max_in);
@@ -1384,6 +1392,7 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* p, int p_mo
   auto kernel = inverse ? chain_bwd_kernel<kHidden, true> : chain_bwd_kernel<kHidden, false>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
+  note_launch(notes[kNoteBwd], kernel, "chain_bwd_kernel", grid, warps * kWarp, smem);
   kernel<<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), p, p_mode, w, b,
       reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), g1, gw_part,
@@ -1416,9 +1425,13 @@ extern "C" int nfdpf_coupling_ctx_share(const float* ctx, long long sb, long lon
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
   const dim3 grid((R + rows_a_block - 1) / rows_a_block, nets / nets_a_block);
-  kernel<<<grid, rows_a_block / rows_a_thread * nets_a_block * kHidden, smem,
-           static_cast<cudaStream_t>(stream)>>>(ctx, sb, sn, n, ctx_dim, p_mode, w, b, max_in,
-                                                nets, R, rows_a_block, nets_a_block, chunk, p);
+  const int threads = rows_a_block / rows_a_thread * nets_a_block * kHidden;
+  note_launch(notes[kNoteShare], kernel,
+              rows_a_thread == 16 ? "chain_ctx_share_kernel<16>" : "chain_ctx_share_kernel<1>",
+              grid, threads, smem);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ctx, sb, sn, n, ctx_dim, p_mode, w, b, max_in, nets, R, rows_a_block, nets_a_block, chunk,
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1447,6 +1460,8 @@ extern "C" int nfdpf_coupling_ctx_grad_rows(const float* g1, int rows, int n, in
                          : (rows + rows_per_block - 1) / rows_per_block;
   const dim3 grid(J, segments ? (ps / 4 + kCtxColumnLanes - 1) / kCtxColumnLanes
                               : (ctx_dim + c_tile - 1) / c_tile);
+  note_launch(notes[kNoteGradRows], chain_ctx_grad_rows_kernel, "chain_ctx_grad_rows_kernel",
+              grid, kCtxThreads, smem);
   chain_ctx_grad_rows_kernel<<<grid, kCtxThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       g1, rows, n, ctx, sb, sn, ctx_dim, ps, rows_per_block, c_tile, segments, parts);
   return static_cast<int>(cudaGetLastError());
@@ -1464,6 +1479,8 @@ extern "C" int nfdpf_coupling_ctx_weight_grad(const float* parts, int J, int pie
       ps / 4 > kCtxThreads || (reinterpret_cast<uintptr_t>(parts) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  note_launch(notes[kNoteWeightGrad], chain_ctx_weight_grad_kernel,
+              "chain_ctx_weight_grad_kernel", ctx_dim, kCtxThreads, kCtxThreads * sizeof(float4));
   chain_ctx_weight_grad_kernel<<<ctx_dim, kCtxThreads, kCtxThreads * sizeof(float4),
                                  static_cast<cudaStream_t>(stream)>>>(
       parts, J, pieces, ctx, sb, ctx_dim, ps, max_in, segments, gw);
@@ -1487,6 +1504,9 @@ extern "C" int nfdpf_coupling_ctx_input_grad(const float* g1, int rows, int ctx_
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NFDPF_IN_LAUNCH(TY, TM, NJ)                                                          \
   if (tile_rows == (TM) * (TY) && tile_cols == kInLanes * (NJ) && rows_a_thread == (TM)) {    \
+    note_launch(notes[kNoteInputGrad], chain_ctx_input_grad_kernel<TY, TM, NJ>,              \
+                "chain_ctx_input_grad_kernel<" #TY ", " #TM ", " #NJ ">", grid,               \
+                (TY) * kInLanes, 0);                                                         \
     chain_ctx_input_grad_kernel<TY, TM, NJ>                                                  \
         <<<grid, (TY) * kInLanes, 0, s>>>(g1, rows, ctx_dim, ps, max_in, w, gctx);           \
     return static_cast<int>(cudaGetLastError());                                             \
@@ -1494,4 +1514,11 @@ extern "C" int nfdpf_coupling_ctx_input_grad(const float* g1, int rows, int ctx_
   NFDPF_IN_TILES(NFDPF_IN_LAUNCH)
 #undef NFDPF_IN_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The last launch noted in `slot` (fwd, bwd, share, the weight gradient's
+// first and second kernel, input gradient): read_launch_note's record.
+extern "C" int nfdpf_coupling_launch_note(int slot, long long* out, char* name, int len) {
+  if (slot < 0 || slot >= kNoteSlots) return static_cast<int>(cudaErrorInvalidValue);
+  return read_launch_note(notes[slot], out, name, len);
 }

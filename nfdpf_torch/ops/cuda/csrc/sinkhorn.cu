@@ -77,6 +77,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_note.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -772,6 +774,9 @@ void launch_apply_large(cudaStream_t s, const float* eps, const float2* x, const
       <<<grid_for<R, RG>(b, n), 32 * kLargeWarps, 0, s>>>(eps, x, y, v, r, c, out, n, m);
 }
 
+// The update kernel's last launch (nfdpf_sinkhorn_launch_note reads it).
+LaunchNote update_note = {};
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches on the caller's
@@ -844,6 +849,12 @@ extern "C" int nfdpf_sinkhorn_update(const float* lse, float* a_y, float* b_x,
                   : cpl <= 2 ? sinkhorn_update_batch_kernel<2>
                   : cpl <= 4 ? sinkhorn_update_batch_kernel<4>
                              : sinkhorn_update_batch_kernel<8>;
+    note_launch(update_note, kernel,
+                cpl <= 1   ? "sinkhorn_update_batch_kernel<1>"
+                : cpl <= 2 ? "sinkhorn_update_batch_kernel<2>"
+                : cpl <= 4 ? "sinkhorn_update_batch_kernel<4>"
+                           : "sinkhorn_update_batch_kernel<8>",
+                blocks, threads, 0);
     if (blocks == 1) {   // one block: no cluster
       kernel<<<1, threads, 0, s>>>(lse, a_y, b_x, running, eps_run, eps_target, logw, fs, st, b,
                                    n, rows_a_block, neg_log_n, threshold, scaling_factor,
@@ -872,10 +883,17 @@ extern "C" int nfdpf_sinkhorn_update(const float* lse, float* a_y, float* b_x,
       (long long)(splits - 1) * cols >= n || (long long)b * splits > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  note_launch(update_note, sinkhorn_update_kernel, "sinkhorn_update_kernel", b * splits, threads,
+              0);
   sinkhorn_update_kernel<<<b * splits, threads, 0, s>>>(
       lse, a_y, b_x, running, eps_run, eps_target, logw, fs, st, row_max, b, n, splits, cols,
       neg_log_n, threshold, scaling_factor, max_iter, any, freeze);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The update kernel's last launch: read_launch_note's record.
+extern "C" int nfdpf_sinkhorn_launch_note(long long* out, char* name, int len) {
+  return read_launch_note(update_note, out, name, len);
 }
 
 // An empty kernel on `blocks` x `threads`, launched like the two above.

@@ -45,7 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu
+from nfdpf_torch.ops.cuda._common import check_launch, kernel_args, on_cpu, read_launch_note
 from nfdpf_torch.ops.sinkhorn import diameter, max_min
 from nfdpf_torch.parallel.mesh import (
     DATA_AXIS,
@@ -104,6 +104,7 @@ _SIGNATURES = {
     "nfdpf_sinkhorn_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _F, _F, _I, _I, _I, _P],
     "nfdpf_empty_launch": [_I, _I, _P],
+    "nfdpf_sinkhorn_launch_note": [_P, _P, _I],
 }
 
 
@@ -121,6 +122,11 @@ def _library():
     from nfdpf_torch.ops.cuda.build import load
 
     return load("sinkhorn", _SIGNATURES)
+
+
+def update_launch_note() -> dict:
+    """The update kernel's last launch: ``read_launch_note``'s record."""
+    return read_launch_note(_library().nfdpf_sinkhorn_launch_note)
 
 
 def empty_launch(blocks: int = 1, threads: int = 32) -> None:

@@ -14,6 +14,13 @@ Counterpart of ``nfdpf_tpu/ops/resampling.py``:
 Indices carry no gradient; it flows through the gathered particle values
 and the importance-corrected weights.  The random draws come in as tensors
 (``offset``, ``uniform``) or from a ``torch.Generator``.
+
+With the particle axis sharded over P ranks, the soft resampler all-gathers
+the weights and the particles (two differentiable all-gathers a firing),
+draws the ancestors of all N slots on every rank from the same offsets, as
+one rank does, and keeps its own N/P slots: their global ancestor indices,
+the particles at them and the weights renormalised over all N, with one
+rank's bits.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from nfdpf_torch.parallel.mesh import PARTICLE_AXIS, all_gather, local_slice
 
 
 def systematic_basic(n: int, device=None) -> torch.Tensor:
@@ -65,15 +74,20 @@ def soft_systematic_resample(
     alpha: float,
     offset: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ):
     """Soft resampling (Karkus et al.) with systematic sampling.
 
     particles: (B, N, d); probs: (B, N) linear weights; alpha in (0, 1];
     offset: (B, 1) in [0, 1/N), drawn from ``generator`` when absent.
     Returns (particles', probs' linear and renormalised, ancestor indices).
+    On a ``mesh`` particles and probs are this rank's (B, N/P) block, the
+    offset its data rank's, and so are the results, with the indices global.
     """
     if not 0.0 < alpha <= 1.0:
         raise ValueError(f"alpha must lie in (0, 1], got {alpha}")
+    particles = all_gather(particles, mesh, PARTICLE_AXIS, 1)
+    probs = all_gather(probs, mesh, PARTICLE_AXIS, 1)
     batch, n = probs.shape
     uniform = torch.full_like(probs, 1.0 / n)
     if alpha < 1.0:
@@ -86,7 +100,8 @@ def soft_systematic_resample(
         offset = torch.rand((batch, 1), generator=generator, device=probs.device) * (1.0 / n)
     idx = systematic_indices(q, offset)
     new_particles, new_probs = _gather(particles, corrected, idx)
-    return new_particles, new_probs / torch.sum(new_probs, dim=-1, keepdim=True), idx
+    new_probs = new_probs / torch.sum(new_probs, dim=-1, keepdim=True)
+    return tuple(local_slice(t, mesh, PARTICLE_AXIS, 1) for t in (new_particles, new_probs, idx))
 
 
 def multinomial_resample(

@@ -20,6 +20,23 @@ iterations (as the JAX package counts them, ``i + 2``) and these syncs.
 With a ``mesh`` whose data axis shards the batch, the loop test is taken
 over the whole batch (an all-reduce over the data group), so every data
 rank runs until the global batch converges, as GSPMD runs JAX's loop.
+
+With the particle axis sharded over P ranks (each holding N/P particles),
+the rows are sharded the way K6 shards them, and no rank holds an (N, N)
+matrix:
+
+* the particles and log-weights are all-gathered once a firing
+  (differentiably), and the centring, the diameter and ``max_min`` are
+  built from the whole cloud alike on every rank;
+* each rank holds its (B, N/P, N) rows of both costs; a softmin round is
+  the two softmins on those rows and one all-gather of their (B, 2, N/P)
+  result, after which every rank runs the average, max|Δ|, the ε step and
+  the stop test over all N: the same bits as one rank (the cost's cross
+  term is summed per coordinate, so a row block has the whole matrix's bits),
+  so the same iterations, with no all-reduce in the loop;
+* the plan's column normaliser is each rank's column logsumexp,
+  all-gathered and reduced over the P ranks; each rank applies its rows to
+  the gathered particles and returns its own N/P outputs.
 """
 
 from __future__ import annotations
@@ -29,7 +46,15 @@ from typing import Tuple
 
 import torch
 
-from nfdpf_torch.parallel.mesh import DATA_AXIS, agree
+from nfdpf_torch.parallel.mesh import (
+    DATA_AXIS,
+    PARTICLE_AXIS,
+    agree,
+    all_gather,
+    axis_index,
+    axis_size,
+    local_slice,
+)
 
 # dense Sinkhorn loops since the last reset: calls, iterations, host syncs
 DENSE_LOOP = {"calls": 0, "iters": 0, "host_syncs": 0}
@@ -41,10 +66,17 @@ def reset_dense_loop() -> None:
 
 
 def squared_distances(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Pairwise ‖x_i − y_j‖² over the particle axis: (B,N,d),(B,M,d) → (B,N,M)."""
+    """Pairwise ‖x_i − y_j‖² over the particle axis: (B,N,d),(B,M,d) → (B,N,M).
+
+    The cross term is summed coordinate by coordinate, not by a matrix
+    product: a GEMM library picks its kernel (and whether it fuses the
+    multiply-add) by shape, so a block of rows would not keep the whole
+    matrix's bits, and the sharded loop's iterations hang on them."""
     x2 = torch.sum(x**2, dim=-1)
     y2 = torch.sum(y**2, dim=-1)
-    xy = torch.einsum("bnd,bmd->bnm", x, y)
+    xy = x[..., :, None, 0] * y[..., None, :, 0]
+    for k in range(1, x.shape[-1]):
+        xy = xy + x[..., :, None, k] * y[..., None, :, k]
     return torch.clamp_min(x2[..., :, None] + y2[..., None, :] - 2.0 * xy, 0.0)
 
 
@@ -84,6 +116,15 @@ def softmin(epsilon, cost_matrix: torch.Tensor, f: torch.Tensor) -> torch.Tensor
     return -eps[:, None] * torch.logsumexp(val, dim=2)
 
 
+def _softmin_pair(eps, cost_xy, cost_yx, f_a, f_b, mesh):
+    """``softmin(eps, cost_yx, f_a)`` and ``softmin(eps, cost_xy, f_b)`` over
+    all N rows, (B, N) each: this rank's rows, then one all-gather of both
+    over the particle group (differentiable; the identity on one rank)."""
+    both = torch.stack([softmin(eps, cost_yx, f_a), softmin(eps, cost_xy, f_b)], dim=1)
+    both = all_gather(both, mesh, PARTICLE_AXIS, 2)
+    return both[:, 0], both[:, 1]
+
+
 def sinkhorn_loop(
     log_alpha: torch.Tensor,
     log_beta: torch.Tensor,
@@ -104,6 +145,10 @@ def sinkhorn_loop(
 
     Only (a_y, b_x) are live: the self-transport potentials of the symmetric
     loop never feed them, the stopping test or the plan.
+
+    ``log_alpha``/``log_beta`` are (B, N); the costs are this rank's rows of
+    the particle axis, (B, N/P, N) (all of them on one rank).  The
+    potentials returned are over all N on every rank.
     """
     if convergence not in ("all", "any"):
         raise ValueError(f"convergence must be 'all' or 'any', got {convergence!r}")
@@ -115,8 +160,7 @@ def sinkhorn_loop(
 
     with torch.no_grad():
         eps_run = particles_diameter**2
-        a_y = softmin(eps_run, cost_yx, log_alpha)
-        b_x = softmin(eps_run, cost_xy, log_beta)
+        a_y, b_x = _softmin_pair(eps_run, cost_xy, cost_yx, log_alpha, log_beta, mesh)
         running = torch.ones(batch, dtype=torch.bool, device=dev)
         i = 0
         # continue while i < max_iter-1 and every ('all') / some ('any') row
@@ -127,8 +171,10 @@ def sinkhorn_loop(
                 break
             eps_col = eps_run[:, None]
             run = running[:, None]
-            at_y = torch.where(run, softmin(eps_run, cost_yx, log_alpha + b_x / eps_col), a_y)
-            bt_x = torch.where(run, softmin(eps_run, cost_xy, log_beta + a_y / eps_col), b_x)
+            at_y, bt_x = _softmin_pair(eps_run, cost_xy, cost_yx, log_alpha + b_x / eps_col,
+                                       log_beta + a_y / eps_col, mesh)
+            at_y = torch.where(run, at_y, a_y)
+            bt_x = torch.where(run, bt_x, b_x)
             a_y_new, b_x_new = (a_y + at_y) / 2, (b_x + bt_x) / 2
             a_diff = torch.amax(torch.abs(a_y_new - a_y), dim=1)
             b_diff = torch.amax(torch.abs(b_x_new - b_x), dim=1)
@@ -141,38 +187,51 @@ def sinkhorn_loop(
     DENSE_LOOP["iters"] += i + 2
 
     eps_col = eps_target[:, None]
-    final_a_y = softmin(eps_target, cost_yx, log_alpha + b_x / eps_col)
-    final_b_x = softmin(eps_target, cost_xy, log_beta + a_y / eps_col)
+    final_a_y, final_b_x = _softmin_pair(eps_target, cost_xy, cost_yx,
+                                         log_alpha + b_x / eps_col, log_beta + a_y / eps_col,
+                                         mesh)
     return final_a_y, final_b_x, i + 2
 
 
 def sinkhorn_potentials(log_alpha, x, log_beta, y, epsilon: float, scaling: float,
                         threshold: float, max_iter: int, convergence: str = "all", mesh=None):
-    """Cost matrices (each detaching its second operand) and the annealed
-    loop, with the detached ``max_min`` scale as the diameter."""
-    cost_xy = cost(x, y.detach())
-    cost_yx = cost(y, x.detach())
+    """Cost matrices (each detaching its second operand; this rank's rows of
+    the particle axis) and the annealed loop, with the detached ``max_min``
+    scale of the whole clouds as the diameter."""
+    cost_xy = cost(local_slice(x, mesh, PARTICLE_AXIS, 1), y.detach())
+    cost_yx = cost(local_slice(y, mesh, PARTICLE_AXIS, 1), x.detach())
     scale = max_min(x, y).detach()
     return sinkhorn_loop(log_alpha, log_beta, cost_xy, cost_yx, epsilon, scale,
                          scaling, threshold, max_iter, convergence, mesh)
 
 
 def transport_from_potentials(x: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
-                              eps: float, logw: torch.Tensor, n: int) -> torch.Tensor:
+                              eps: float, logw: torch.Tensor, n: int,
+                              mesh=None) -> torch.Tensor:
     """Column-normalised transport matrix T_ij = n·w_j·softmax_i((f_i + g_j −
     C_ij)/ε): each column j sums to n·w_j, so ``T @ x`` with uniform output
-    weights keeps the weighted empirical measure."""
-    fg = f[:, :, None] + g[:, None, :]
-    temp = (fg - cost(x, x)) / eps
-    temp = temp - torch.logsumexp(temp, dim=1, keepdim=True) + math.log(n)
+    weights keeps the weighted empirical measure.
+
+    Under a particle axis (``x``, ``f``, ``g``, ``logw`` over all N) this
+    rank's rows i, (B, N/P, N): the softmax over i takes each rank's column
+    logsumexp, all-gathered (differentiable) and reduced over the ranks."""
+    fg = local_slice(f, mesh, PARTICLE_AXIS, 1)[:, :, None] + g[:, None, :]
+    temp = (fg - cost(local_slice(x, mesh, PARTICLE_AXIS, 1), x)) / eps
+    colnorm = torch.logsumexp(temp, dim=1, keepdim=True)
+    if axis_size(mesh, PARTICLE_AXIS) > 1:
+        colnorm = torch.logsumexp(all_gather(colnorm, mesh, PARTICLE_AXIS, 1), dim=1,
+                                  keepdim=True)
+    temp = temp - colnorm + math.log(n)
     return torch.exp(temp + logw[:, None, :])
 
 
 def sinkhorn_transport(x: torch.Tensor, logw: torch.Tensor, eps: float, scaling: float,
                        threshold: float, max_iter: int, convergence: str = "all",
                        mesh=None) -> torch.Tensor:
-    """The transport matrix: centre, scale by the detached diameter·√d, run
-    the Sinkhorn against the uniform measure on the same support, assemble T."""
+    """The transport matrix (this rank's rows of it under a particle axis;
+    ``x``/``logw`` are the whole cloud): centre, scale by the detached
+    diameter·√d, run the Sinkhorn against the uniform measure on the same
+    support, assemble T."""
     n, d = x.shape[1], x.shape[-1]
     uniform_logw = torch.full_like(logw, -math.log(n))
     centered = x - torch.mean(x, dim=1, keepdim=True).detach()
@@ -180,7 +239,7 @@ def sinkhorn_transport(x: torch.Tensor, logw: torch.Tensor, eps: float, scaling:
     scaled_x = centered / scale
     alpha, beta, _ = sinkhorn_potentials(logw, scaled_x, uniform_logw, scaled_x, eps,
                                          scaling, threshold, max_iter, convergence, mesh)
-    return transport_from_potentials(scaled_x, alpha, beta, eps, logw, n)
+    return transport_from_potentials(scaled_x, alpha, beta, eps, logw, n, mesh)
 
 
 def ot_resample(
@@ -200,19 +259,24 @@ def ot_resample(
     (T @ particles, uniform probs, identity ancestor indices): OT has no
     discrete ancestors.  ``transport_grad=False`` detaches T (the gradient
     reaches the particles through the product only); True keeps the final
-    Sinkhorn round on the tape.  ``mesh``: the batch may be sharded over
-    its data axis (the particle axis may not).
+    Sinkhorn round on the tape.  On a ``mesh`` both come as this rank's
+    block, (B/D, N/P, ...), and so do the results, with the indices global.
     """
-    batch, n, _ = particles.shape
-    logw = torch.log(probs)
+    batch, block, _ = particles.shape
+    # the whole cloud on every rank of the particle group
+    x_all = all_gather(particles, mesh, PARTICLE_AXIS, 1)
+    logw = all_gather(torch.log(probs), mesh, PARTICLE_AXIS, 1)
+    n = x_all.shape[1]
     if transport_grad:
-        t = sinkhorn_transport(particles, logw, eps, scaling, threshold, max_iter,
+        t = sinkhorn_transport(x_all, logw, eps, scaling, threshold, max_iter,
                                convergence, mesh)
     else:
         with torch.no_grad():
-            t = sinkhorn_transport(particles.detach(), logw.detach(), eps, scaling,
+            t = sinkhorn_transport(x_all.detach(), logw.detach(), eps, scaling,
                                    threshold, max_iter, convergence, mesh)
-    transported = torch.einsum("bij,bjd->bid", t, particles)
+    transported = torch.einsum("bij,bjd->bid", t, x_all)
     uniform = torch.full_like(probs, 1.0 / n)
-    idx = torch.arange(n, dtype=torch.int32, device=particles.device).expand(batch, n)
+    lo = axis_index(mesh, PARTICLE_AXIS) * block
+    idx = (lo + torch.arange(block, dtype=torch.int32, device=particles.device)).expand(
+        batch, block)
     return transported, uniform, idx

@@ -10,8 +10,10 @@ collectives from sharding annotations; here they are explicit:
 * the particle axis is sharded over ``particle``: each particle rank holds
   N/P particles, and the reductions over particles (weight normalisation,
   the ESS, the estimates, the measurement's row maximum, the flows'
-  contexts) are all-reduced over the particle group; resampling gathers
-  (``ot_resample_streaming_sharded``) are all-gathers;
+  contexts) are all-reduced over the particle group; what resampling and
+  the pseudo-likelihood's ancestor walk read across ranks is all-gathered
+  (K6 ``ot_resample_streaming_sharded``, the dense Sinkhorn's row blocks,
+  the soft resampler's weights and particles, the walk's inputs);
 * parameters and the optimizer state are replicated.
 
 Rank r sits at (r // P, r % P), as JAX lays the devices out

@@ -28,6 +28,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from nfdpf_torch import main as entry
 from nfdpf_torch.bridge import load_jax_variables
@@ -37,6 +39,7 @@ from nfdpf_torch.models.nets import FlaxBatchNorm
 from nfdpf_torch.ops import sinkhorn as dense
 from nfdpf_torch.ops.cuda import coupling_cuda as cc
 from nfdpf_torch.ops.cuda import sinkhorn_cuda as sc
+from nfdpf_torch.ops.resampling import soft_systematic_resample
 from nfdpf_torch.parallel.distributed import initialize, shutdown
 from nfdpf_torch.parallel.mesh import (
     COLLECTIVES,
@@ -229,6 +232,75 @@ def resample_job(shape, particles, probs, kw: dict, ranks=None, warm=None,
     return res if (mesh.data_index, mesh.particle_index) == (0, 0) else {"iters": iters}
 
 
+class LargestTensor(TorchDispatchMode):
+    """While active, the most elements of any tensor an operation returned."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.numel = max(self.numel, t.numel())
+        return out
+
+
+def firing(particles: torch.Tensor, probs: torch.Tensor, resampler: str, kw: dict,
+           offset: Optional[torch.Tensor] = None, mesh=None) -> dict:
+    """One firing of the dense OT (``resampler="dense"``, ``kw`` its
+    settings) or the soft resampler (``"soft"``, ``kw`` holds ``alpha``) on
+    this rank's blocks, and the gradient of Σ resampled² + Σ w'·c (c the
+    weights' global position, so that the weights' gradient is not zero) to
+    the particles and the weights.  Returns the outputs, the gradients, the
+    forward call's collectives and dense loop counts (set to 0 just before,
+    read just after) and the most elements of any tensor the forward and
+    the backward made."""
+    x = particles.detach().clone().requires_grad_()
+    w = probs.detach().clone().requires_grad_()
+    reset_collectives()
+    dense.reset_dense_loop()
+    with LargestTensor() as largest:
+        if resampler == "dense":
+            out, new_w, idx = dense.ot_resample(x, w, mesh=mesh, **kw)
+        else:
+            out, new_w, idx = soft_systematic_resample(x, w, offset=offset, mesh=mesh, **kw)
+        counts = {"collectives": dict(COLLECTIVES), "loop": dict(dense.DENSE_LOOP)}
+        where = idx.to(new_w.dtype) + 1.0
+        loss = torch.sum(out**2) + torch.sum(new_w * where)
+        x_grad, w_grad = torch.autograd.grad(loss, [x, w], allow_unused=True)
+    return {"particles": out.detach(), "weights": new_w.detach(), "idx": idx,
+            "x_grad": x_grad, "w_grad": w_grad, "largest": largest.numel, **counts}
+
+
+def firing_job(shape, particles, probs, resampler: str, kw: dict, offset=None, ranks=None):
+    """``firing`` of the global (B, N, 2) ``particles`` and (B, N)
+    ``probs`` (and the global (B, 1) ``offset``) on a (data, particle)
+    mesh on the CPU.  Returns, on the mesh's first rank, the outputs and
+    the gradients gathered (each rank's loss is its share of the global
+    one, so its gradient is its block of the global gradient), the counts
+    and every rank's largest tensor."""
+    mesh = _mesh(shape, ranks)
+    if mesh is None:
+        return None
+
+    def block(a, dims):
+        t = _tensor(a, "cpu")
+        for axis, dim in zip((DATA_AXIS, PARTICLE_AXIS), dims):
+            t = local_slice(t, mesh, axis, dim)
+        return t
+
+    res = firing(block(particles, (0, 1)), block(probs, (0, 1)), resampler, kw,
+                 None if offset is None else block(offset, (0,)), mesh)
+    largest = _whole(torch.tensor([res["largest"]]), mesh, 0, 0)
+    out = {k: _whole(res[k], mesh, 0, 1) for k in ("particles", "weights", "idx")}
+    for k in ("x_grad", "w_grad"):
+        out[k] = None if res[k] is None else _whole(res[k], mesh, 0, 1)
+    out.update(collectives=res["collectives"], loop=res["loop"], largest=largest.tolist())
+    return out if (mesh.data_index, mesh.particle_index) == (0, 0) else None
+
+
 def _trainer(settings: dict, shape, ranks, variables, device):
     mesh = _mesh(shape, ranks)
     if mesh is None:
@@ -239,26 +311,47 @@ def _trainer(settings: dict, shape, ranks, variables, device):
     return trainer
 
 
+@torch.no_grad()
+def draw_cglow(engine: DPF, std: float, seed: int = 7) -> None:
+    """Draw the CGLOW measurement's parameters from N(0, std²) (on the CPU,
+    from ``seed``), but for the nets that make its 1×1 convolution's
+    weights: at init its likelihood does not depend on the particle, and
+    its gradients are rounding residue."""
+    draw = torch.Generator().manual_seed(seed)
+    for name, p in engine.measurement.cglow.named_parameters():
+        if ".invconv." not in name:
+            p.copy_(torch.randn(p.shape, generator=draw) * std)
+
+
 def train_step_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,
-                   variables: Optional[dict] = None, device="cpu"):
+                   variables: Optional[dict] = None, device="cpu", cglow_std: float = 0.0):
     """One ``Trainer.train_step`` of a global ``batch`` with the global
     ``noise`` on a (data, particle) mesh, from the JAX package's
-    ``variables`` (through the bridge; the seed's init when None).  Returns,
+    ``variables`` (through the bridge; the seed's init when None), with
+    ``cglow_std`` the CGLOW's parameters drawn (``draw_cglow``).  Returns,
     on every rank of the mesh, the metrics, every parameter's (averaged)
     gradient, the launches and the step's seconds."""
     trainer = _trainer(settings, shape, ranks, variables, device)
-    return None if trainer is None else step_result(trainer, batch, noise, device)
+    if trainer is None:
+        return None
+    if cglow_std:
+        draw_cglow(trainer.engine, cglow_std)
+    return step_result(trainer, batch, noise, device)
 
 
 def step_result(trainer, batch: dict, noise: dict, device) -> dict:
     """``trainer.train_step`` of ``batch`` with ``noise`` (numpy, global),
     the launch and collective counters set to 0 just before it and read
     just after: the metrics, each parameter's gradient, the launches, the
-    collectives, the dense Sinkhorn loop's iterations and the seconds."""
+    collectives, the dense Sinkhorn loop's iterations, the seconds and, on
+    a card, the step's peak memory in GiB."""
     noise = {k: _tensor(v, device) for k, v in noise.items()}
+    cuda = torch.device(device).type == "cuda"
     _reset_launches()
     dense.reset_dense_loop()
     _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     metrics = trainer.train_step(batch, noise=noise)
     _sync(device)
@@ -267,7 +360,8 @@ def step_result(trainer, batch: dict, noise: dict, device) -> dict:
             "grads": {k: p.grad.detach().cpu().numpy()
                       for k, p in trainer.engine.named_parameters() if p.grad is not None},
             "launches": _launches(), "collectives": dict(COLLECTIVES),
-            "dense_iters": dense.DENSE_LOOP["iters"], "s": seconds}
+            "dense_iters": dense.DENSE_LOOP["iters"], "s": seconds,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
 
 
 def settings_steps_job(cases: dict, shape, batch: dict, noise: dict, ranks=None,
@@ -314,14 +408,17 @@ def float64_step(settings: dict, batch: dict, noise: dict,
                       if p.grad is not None}}
 
 
-def float64_step_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,
+def float64_step_job(cases: dict, shape, batch: dict, noise: dict, ranks=None,
                      variables: Optional[dict] = None):
-    """``float64_step`` on a (data, particle) mesh; the result on the
-    mesh's first rank."""
+    """``float64_step`` for each of ``cases`` (name → settings, each from
+    the seed's init or the JAX package's ``variables``) on one (data,
+    particle) mesh, built once.  Returns, on the mesh's first rank, the
+    results by name."""
     mesh = _mesh(shape, ranks)
     if mesh is None:
         return None
-    out = float64_step(settings, batch, noise, variables, mesh)
+    out = {name: float64_step(settings, batch, noise, variables, mesh)
+           for name, settings in cases.items()}
     return out if (mesh.data_index, mesh.particle_index) == (0, 0) else None
 
 
@@ -329,8 +426,8 @@ def filter_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,
                variables: Optional[dict] = None, device="cpu"):
     """The eval-mode filter (``DPF.filter``) of a global ``batch`` with the
     global ``noise`` on a mesh.  Returns, on the mesh's first rank, the
-    gathered particles and weights, (B, T, N, ...), and the per-step
-    Sinkhorn iterations."""
+    gathered particles, weights and ancestor indices, (B, T, N, ...), and
+    the per-step Sinkhorn iterations."""
     trainer = _trainer(settings, shape, ranks, variables, device)
     if trainer is None:
         return None
@@ -342,6 +439,7 @@ def filter_job(settings: dict, shape, batch: dict, noise: dict, ranks=None,
                                {k: _tensor(v, device) for k, v in noise.items()})
     res = {"particles": _whole(out.particles, mesh, 0, 2),
            "weights": _whole(out.weights, mesh, 0, 2),
+           "indices": _whole(out.indices, mesh, 0, 2),
            "sinkhorn_iters": out.sinkhorn_iters.numpy()}
     return res if (mesh.data_index, mesh.particle_index) == (0, 0) else None
 

@@ -424,14 +424,13 @@ def test_cli_main_resume_and_pretrain_load(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", ["--mesh-data", "--mesh-particle"])
 def test_cli_mesh_flags_are_refused(tmp_path, monkeypatch, flag):
     """What ``main`` refuses of a mesh, before any data is made: in one
-    process (no torchrun) a 2-rank mesh, whose size is not the world's;
-    and under a particle axis the CLI's default OT over materialised
-    costs, which waits for ROADMAP item 23."""
+    process (no torchrun) a 2-rank mesh, whose size is not the world's
+    (``make_mesh``'s errors, as JAX's: the particle axis is tested first).
+    Under a particle axis that holds at the CLI's defaults too (OT over
+    materialised costs), which the port runs there."""
     monkeypatch.chdir(tmp_path)
-    if flag == "--mesh-data":
-        with pytest.raises(ValueError, match=r"mesh 2x1 != 1 ranks"):
-            main([flag, "2", "--data-path", str(tmp_path / "disks")], device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="item 23"):
-            main([flag, "2", "--data-path", str(tmp_path / "disks")], device="cpu")
+    why = ("mesh 2x1 != 1 ranks" if flag == "--mesh-data"
+           else "1 ranks not divisible by particle=2")
+    with pytest.raises(ValueError, match=why):
+        main([flag, "2", "--data-path", str(tmp_path / "disks")], device="cpu")
     assert not (tmp_path / "disks").exists()

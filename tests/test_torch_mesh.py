@@ -19,9 +19,12 @@ against JAX's sharded step the encoder's bound is 2e-3, because that step
 is itself 1.06e-3 off JAX's unsharded one there, where the port's meshes
 were 1.8e-4 to 5.1e-4 off it (measured at these shapes on the CPU);
 the same step in float64 on each mesh against the port's float64 step at
-world size 1 within 1e-9; every single-card setting on a 2×1 mesh (those a
-particle axis takes on 1×2 too) against world size 1 at the train step's
-bounds (bfloat16 at ``tests/test_torch_options.py``'s); BatchNorm 1e-5.
+world size 1 within 1e-9, and so soft resampling, OT over materialised
+costs (with and without the transport's gradient) and SDPF on 1×2 (one of
+them on 2×2 too); every single-card setting on a 2×1 and a 1×2 mesh
+against world size 1 at the train step's bounds (bfloat16 at
+``tests/test_torch_options.py``'s); a dense or soft firing on 1×2 against
+world size 1 at K6's bounds (the soft one bit for bit); BatchNorm 1e-5.
 
 Every reference is a module fixture that the first test takes before it
 waits for the ranks, so that references and ranks run side by side.
@@ -68,14 +71,17 @@ K6_CASES = ("cold", "warm_start")
 K6_GATHERS = 6
 
 # the filter: test_sharding.py's particle-sharded streaming case (B=8, N=16,
-# T=4, resampling every step); the port's 4 ranks at (4/P)×P
+# T=4, resampling every step); the port's 4 ranks at (4/P)×P.  Its soft
+# case (test_sharding.py:47-75) at the particle axes over 1
 FILTER_CFG = dict(num_particles=16, sequence_length=4, batch_size=8, resampler_type="ot",
                   measurement="cos", use_pallas=True, max_iter=8, ess_threshold=2.0)
 FILTER_AXES = (1, 2, 4)
+SOFT_FILTER_CFG = dict(FILTER_CFG, resampler_type="soft")
+SOFT_FILTER_AXES = (2, 4)
 
 # the train step: test_sharded_train_step_ot_flows's configuration on the
-# streaming kernels (the particle axis takes no other OT), B·T = 10 frames,
-# resampling every step
+# streaming kernels (K6 under the particle axis; dense OT there is among
+# OPTIONS), B·T = 10 frames, resampling every step
 STEP_CFG = dict(num_particles=16, sequence_length=5, batch_size=2, resampler_type="ot",
                 use_pallas=True, max_iter=5, nf_dyn=True, nf_cond=True, measurement="CRNVP",
                 ess_threshold=1.01)
@@ -84,9 +90,9 @@ GROUPS = ("encoder", "decoder", "measurement", "nf_dyn", "cond_model")
 
 BN_SHAPE = (8, 6, 3, 3)      # (B, C, H, W), the batch over a 4×1 mesh
 
-# every single-card setting on a 2×1 mesh, and those the particle axis takes
-# on a 1×2 mesh, each against the port at world size 1 (seed init, the
-# cosine measurement; B=2, T=5, N=16, resampling every step)
+# every single-card setting on a 2×1 and on a 1×2 mesh, each against the
+# port at world size 1 (seed init, the cosine measurement; B=2, T=5, N=16,
+# resampling every step)
 OPTION_BASE = dict(num_particles=16, sequence_length=5, batch_size=2, resampler_type="ot",
                    use_pallas=True, max_iter=5, measurement="cos", ess_threshold=1.01)
 OPTIONS = {
@@ -99,8 +105,26 @@ OPTIONS = {
     "bfloat16": dict(compute_dtype="bfloat16"),
     "warm_start": dict(sinkhorn_warm_start=True),
 }
-PARTICLE_OPTIONS = ("remat", "encode_per_step", "bfloat16", "warm_start")
 OPTION_GROUPS = ("encoder", "decoder", "measurement")
+# the settings whose firings or loss read across the particle axis, in
+# float64 on 1×2 against world size 1 (SDPF on the soft resampler, so that
+# its ancestor walk crosses ranks); the one also on 2×2
+FLOAT64_OPTIONS = {
+    "soft": OPTIONS["soft"],
+    "dense_ot": OPTIONS["dense_ot"],
+    "transport_grad": OPTIONS["transport_grad"],
+    "sdpf_soft": dict(OPTIONS["sdpf"], resampler_type="soft"),
+}
+FLOAT64_2X2 = "sdpf_soft"
+
+# one firing of the dense OT (with and without the transport's gradient) and
+# of the soft resampler on a 1×2 mesh (B=2, N=64: K6's cold cloud)
+DENSE_KW = dict(eps=0.1, scaling=0.75, threshold=1e-3, max_iter=100)
+FIRINGS = {"dense_ot": ("dense", DENSE_KW), "transport_grad": ("dense", dict(
+    DENSE_KW, transport_grad=True)), "soft": ("soft", dict(alpha=0.5))}
+# the dense firing's all-gathers outside its loop: the particles, the
+# log-weights, the start's softmins, the final round and the column normaliser
+DENSE_GATHERS = 5
 
 
 @pytest.fixture(autouse=True)
@@ -126,14 +150,17 @@ def _batch(seed, b, t):
 
 
 def _filter_noise(key, b, n, t, width=128.0):
-    """The JAX filter's draws (dpf.py:325,384) as the port's global noise."""
+    """The JAX filter's draws (dpf.py:325,384; the soft resampler's offsets,
+    resampling.py:46) as the port's global noise."""
     k_init, k = jax.random.split(key)
     init = jax.random.uniform(k_init, (b, n, 2), minval=-width / 2, maxval=width / 2)
-    motion = []
+    motion, offsets = [], []
     for _ in range(t):
-        k, _, k_motion = jax.random.split(k, 3)
+        k, k_rs, k_motion = jax.random.split(k, 3)
         motion.append(np.asarray(jax.random.normal(k_motion, (b, n, 2))))
-    return {"init": np.asarray(init), "motion": np.stack(motion)}
+        offsets.append(np.asarray(jax.random.uniform(k_rs, (b, 1), minval=0.0, maxval=1.0 / n)))
+    return {"init": np.asarray(init), "motion": np.stack(motion),
+            "resample": np.stack(offsets)}
 
 
 def _option_noise(seed, b, n, t):
@@ -187,8 +214,10 @@ def inputs():
     b_f, b_s = FILTER_CFG["batch_size"], STEP_CFG["batch_size"]
     n_f, n_s = FILTER_CFG["num_particles"], STEP_CFG["num_particles"]
     t_f, t_s = FILTER_CFG["sequence_length"], STEP_CFG["sequence_length"]
+    offset = np.asarray(jax.random.uniform(jax.random.PRNGKey(13), (2, 1), maxval=1.0 / 64))
     return dict(
-        x=x, probs=probs, xw=xw, probs_w=probs_w, xw2=xw2, pots_cold=pots.numpy(),
+        x=x, probs=probs, offset=offset, xw=xw, probs_w=probs_w, xw2=xw2,
+        pots_cold=pots.numpy(),
         filter_vars=f_vars, filter_batch=_batch(0, b_f, t_f),
         filter_noise=_filter_noise(jax.random.PRNGKey(7), b_f, n_f, t_f),
         step_params=s_params, step_rest=s_rest, step_vars=s_vars,
@@ -234,19 +263,29 @@ def ranks(inputs, cli_dirs):
             noise=i["step_noise"], variables=i["step_vars"]))
            for name, (shape, rk) in STEP_MESHES.items()},
         **{f"step64_{name}": (R.float64_step_job, dict(
-            settings=STEP_CFG, shape=shape, ranks=rk, batch=i["step_batch"],
+            cases={"step": STEP_CFG}, shape=shape, ranks=rk, batch=i["step_batch"],
             noise=i["step_noise"], variables=i["step_vars"]))
            for name, (shape, rk) in STEP_MESHES.items()},
         **{f"options_{name}": (R.settings_steps_job, dict(
-            cases={c: dict(OPTION_BASE, **OPTIONS[c]) for c in cases}, shape=shape, ranks=rk,
+            cases={c: dict(OPTION_BASE, **OPTIONS[c]) for c in OPTIONS}, shape=shape, ranks=rk,
             batch=i["option_batch"], noise=i["option_noise"]))
-           for name, shape, rk, cases in (("2x1", (2, 1), [0, 1], OPTIONS),
-                                          ("1x2", (1, 2), [2, 3], PARTICLE_OPTIONS))},
+           for name, shape, rk in (("2x1", (2, 1), [0, 1]), ("1x2", (1, 2), [2, 3]))},
+        **{f"options64_{name}": (R.float64_step_job, dict(
+            cases={c: dict(OPTION_BASE, **FLOAT64_OPTIONS[c]) for c in cases}, shape=shape,
+            ranks=rk, batch=i["option_batch"], noise=i["option_noise"]))
+           for name, shape, rk, cases in (("1x2", (1, 2), [0, 1], FLOAT64_OPTIONS),
+                                          ("2x2", (2, 2), None, [FLOAT64_2X2]))},
         "cli": (R.main_job, dict(argv=CLI_ARGS + CLI_MESH + data,
                                  workdir=str(cli_dirs / "mesh"))),
         **{f"filter_p{p}": (R.filter_job, dict(
             settings=FILTER_CFG, shape=(WORLD // p, p), batch=i["filter_batch"],
             noise=i["filter_noise"], variables=i["filter_vars"])) for p in FILTER_AXES},
+        **{f"soft_filter_p{p}": (R.filter_job, dict(
+            settings=SOFT_FILTER_CFG, shape=(WORLD // p, p), batch=i["filter_batch"],
+            noise=i["filter_noise"], variables=i["filter_vars"])) for p in SOFT_FILTER_AXES},
+        **{f"firing_{name}": (R.firing_job, dict(
+            shape=(1, 2), ranks=[2, 3], particles=i["x"], probs=i["probs"], resampler=resampler,
+            kw=kw, offset=i["offset"])) for name, (resampler, kw) in FIRINGS.items()},
         "k6": (R.resample_job, dict(shape=(1, 4), particles=i["x"], probs=i["probs"],
                                     kw=K6_COLD)),
         "k6_cold": (R.resample_job, dict(shape=(1, 4), particles=i["xw"], probs=i["probs_w"],
@@ -385,9 +424,30 @@ def option_refs(inputs):
             for case in OPTIONS}
 
 
+@pytest.fixture(scope="module")
+def option_float64(inputs):
+    """The port's train step at world size 1 in float64 for every setting of
+    ``FLOAT64_OPTIONS``."""
+    i = inputs
+    return {case: R.float64_step(dict(OPTION_BASE, **FLOAT64_OPTIONS[case]), i["option_batch"],
+                                 i["option_noise"])
+            for case in FLOAT64_OPTIONS}
+
+
+@pytest.fixture(scope="module")
+def firing_refs(inputs):
+    """Each firing of ``FIRINGS`` at world size 1."""
+    i = inputs
+    return {name: R.firing(torch.tensor(i["x"]), torch.tensor(i["probs"]), resampler, kw,
+                           torch.tensor(i["offset"]))
+            for name, (resampler, kw) in FIRINGS.items()}
+
+
 @pytest.mark.parametrize("mesh_name", sorted(STEP_MESHES))
 def test_sharded_train_step_matches_jax_mesh_and_world_size_1(ranks, jax_step, single_step,
-                                                              filter_refs, k6_refs, option_refs,
+                                                              filter_refs, soft_filter_refs,
+                                                              k6_refs, option_refs,
+                                                              option_float64, firing_refs,
                                                               step_float64, mesh_name):
     """One train step (OT on the streaming kernels, K6 under the particle
     axis, both RealNVP flows, the CRNVP measurement) on a 2×1, 1×2 or 2×2
@@ -426,7 +486,7 @@ def test_sharded_step_in_float64_equals_world_size_1(ranks, step_float64, mesh_n
     shapes); in float64 any fault of the mesh would stand out of the
     rounding by six orders."""
     exact = step_float64
-    got = next(r for r in ranks()[f"step64_{mesh_name}"] if r is not None)
+    got = next(r for r in ranks()[f"step64_{mesh_name}"] if r is not None)["step"]
     np.testing.assert_allclose(got["loss"], exact["loss"], rtol=1e-9)
     assert set(got["grads"]) == set(exact["grads"])
     mine, want = _groups(got["grads"]), _groups(exact["grads"])
@@ -436,20 +496,20 @@ def test_sharded_step_in_float64_equals_world_size_1(ranks, step_float64, mesh_n
 
 @pytest.mark.parametrize("case", sorted(OPTIONS))
 def test_single_card_settings_run_on_a_mesh(ranks, option_refs, case):
-    """Every setting the port runs on one card runs on a 2×1 mesh, and
-    those a particle axis takes (all but item 23's) on a 1×2 mesh: the
-    loss, the firings, the streaming and dense Sinkhorn iterations and each
-    gradient group against world size 1.  Bounds as the train step's (loss
-    rtol 1e-5, gradients 1e-3, decoder 1e-2); under bfloat16 those of
-    ``tests/test_torch_options.py``'s bfloat16 step (loss 1e-3, gradients
-    1e-1, decoder 2e-1): the split BatchNorm sums move bfloat16 roundings."""
+    """Every setting the port runs on one card runs on a 2×1 and on a 1×2
+    mesh: the loss, the firings, the streaming and dense Sinkhorn
+    iterations and each gradient group against world size 1.  Bounds as
+    the train step's (loss rtol 1e-5, gradients 1e-3, decoder 1e-2); under
+    bfloat16 those of ``tests/test_torch_options.py``'s bfloat16 step (loss
+    1e-3, gradients 1e-1, decoder 2e-1): the split BatchNorm sums move
+    bfloat16 roundings."""
     ref = option_refs[case]
     results = ranks()
     loss_tol, grad_tol, decoder_tol = (1e-3, 1e-1, 2e-1) if case == "bfloat16" else (
         1e-5, 1e-3, 1e-2)
     want = {g: np.concatenate([np.ravel(ref["grads"][k]) for k in sorted(ref["grads"])
                                if k.startswith(g + ".")]) for g in OPTION_GROUPS}
-    for mesh_name in ["2x1"] + (["1x2"] if case in PARTICLE_OPTIONS else []):
+    for mesh_name in ("2x1", "1x2"):
         got = next(r for r in results[f"options_{mesh_name}"] if r is not None)[case]
         for key in ("resample_count", "sinkhorn_iters"):
             assert got["metrics"][key] == ref["metrics"][key], (mesh_name, key)
@@ -462,6 +522,27 @@ def test_single_card_settings_run_on_a_mesh(ranks, option_refs, case):
                                    if k.startswith(g + ".")])
             bound = decoder_tol if g == "decoder" else grad_tol
             assert _rel(mine, want[g]) < bound, (mesh_name, g, _rel(mine, want[g]))
+
+
+@pytest.mark.parametrize("case", sorted(FLOAT64_OPTIONS))
+def test_particle_axis_settings_in_float64_equal_world_size_1(ranks, option_float64, case):
+    """Soft resampling, OT over materialised costs (with and without the
+    transport's gradient) and SDPF on the soft resampler, whose ancestor
+    walk crosses ranks, in float64 on a 1×2 mesh (and ``FLOAT64_2X2`` on a
+    2×2 mesh) against the port's float64 step at world size 1: loss and
+    every gradient group within 1e-9 (relative), as the train step's
+    float64 meshes are held."""
+    exact = option_float64[case]
+    results = ranks()
+    for mesh_name in ["1x2"] + (["2x2"] if case == FLOAT64_2X2 else []):
+        got = next(r for r in results[f"options64_{mesh_name}"] if r is not None)[case]
+        np.testing.assert_allclose(got["loss"], exact["loss"], rtol=1e-9, err_msg=mesh_name)
+        assert set(got["grads"]) == set(exact["grads"]), mesh_name
+        for g in OPTION_GROUPS:
+            mine, want = (np.concatenate([np.ravel(grads[k]) for k in sorted(grads)
+                                          if k.startswith(g + ".")])
+                          for grads in (got["grads"], exact["grads"]))
+            assert _rel(mine, want) < 1e-9, (mesh_name, g, _rel(mine, want))
 
 
 @pytest.fixture(scope="module")
@@ -504,6 +585,90 @@ def test_sharded_filter_matches_jax_mesh_and_world_size_1(ranks, filter_refs, pa
         np.testing.assert_allclose(got["particles"], want, rtol=1e-4, atol=1e-4)
     for want in (np.asarray(ref.weights), own.weights.numpy()):
         np.testing.assert_allclose(got["weights"], want, rtol=1e-3, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def soft_filter_refs(inputs):
+    """JAX's mesh filter with the soft resampler for each particle axis of
+    ``SOFT_FILTER_AXES`` (over 8 devices; the offsets from the same keys the
+    port's noise replays) and the port's at world size 1."""
+    i = inputs
+    batch = {k: jnp.asarray(v) for k, v in i["filter_batch"].items()}
+    refs = {}
+    for particle_axis in SOFT_FILTER_AXES:
+        mesh = jax_make_mesh(particle=particle_axis)
+        engine = JaxDPF(JaxConfig(**SOFT_FILTER_CFG), mesh=mesh)
+        refs[particle_axis], _, _ = jax.jit(lambda v, b: engine.filter(  # noqa: B023
+            v, b["image"], b["start_state"], b["state"][..., 2:], jax.random.PRNGKey(7), False)
+        )(jax_replicate(i["filter_vars"], mesh), jax_shard_batch(batch, mesh))
+    single = DPF(DPFConfig(**SOFT_FILTER_CFG), device="cpu")
+    load_jax_variables(single, i["filter_vars"])
+    single.eval()
+    with torch.no_grad():
+        own, _ = single.filter(*(torch.tensor(i["filter_batch"][k]) for k in ("image",
+                                                                              "start_state")),
+                               torch.tensor(i["filter_batch"]["state"][..., 2:]),
+                               {k: torch.tensor(v) for k, v in i["filter_noise"].items()})
+    return refs, own
+
+
+@pytest.mark.parametrize("particle_axis", SOFT_FILTER_AXES)
+def test_sharded_soft_filter_matches_jax_mesh_and_world_size_1(ranks, soft_filter_refs,
+                                                               particle_axis):
+    """As ``test_sharding.py::test_sharded_filter_matches_single_device``
+    with its soft resampler: the eval filter (every step resampled) with
+    the particle axis over 2 or 4 ranks against JAX's mesh filter
+    (particles rtol/atol 1e-4, weights 1e-3 / 1e-6) and against the port at
+    world size 1, whose ancestor indices it draws (global, every step
+    resampling from other ranks' particles)."""
+    refs, own = soft_filter_refs
+    ref = refs[particle_axis]
+    got = ranks()[f"soft_filter_p{particle_axis}"][0]
+    assert np.array_equal(got["indices"], own.indices.numpy())
+    assert np.array_equal(got["indices"], np.asarray(ref.indices))
+    n = SOFT_FILTER_CFG["num_particles"]
+    block = n // particle_axis
+    assert (got["indices"] // block != np.arange(n) // block).any()
+    for want in (np.asarray(ref.particles), own.particles.numpy()):
+        np.testing.assert_allclose(got["particles"], want, rtol=1e-4, atol=1e-4)
+    for want in (np.asarray(ref.weights), own.weights.numpy()):
+        np.testing.assert_allclose(got["weights"], want, rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(FIRINGS))
+def test_dense_and_soft_firings_on_a_particle_mesh(ranks, firing_refs, name):
+    """One firing on a 1×2 mesh against world size 1.  The dense OT: the
+    loop's iterations and host syncs equal, particles rtol 1e-4 / atol
+    1e-5, gradients to the particles (and with the transport's gradient
+    to the weights) rtol 1e-3 / atol 1e-5 (K6's bounds), global indices;
+    its collectives ``DENSE_GATHERS`` all-gathers and one an iteration of
+    the loop, no all-reduce; no rank makes a tensor of B·N² elements (one
+    rank makes the (B, N, N) cost).  The soft resampler: particles,
+    weights and indices bit for bit, two all-gathers, no all-reduce."""
+    got = next(r for r in ranks()[f"firing_{name}"] if r is not None)
+    ref = firing_refs[name]
+    b, n = got["weights"].shape
+    assert np.array_equal(got["idx"], ref["idx"].numpy())
+    assert np.array_equal(got["weights"], ref["weights"].numpy())
+    if name == "soft":
+        assert np.array_equal(got["particles"], ref["particles"].numpy())
+        assert got["collectives"] == {"all_gather": 2, "all_reduce": 0, "broadcast": 0}
+    else:
+        np.testing.assert_array_equal(got["idx"], np.broadcast_to(np.arange(n), (b, n)))
+        np.testing.assert_allclose(got["particles"], ref["particles"].numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        assert got["loop"] == ref["loop"] and ref["loop"]["calls"] == 1
+        loop_iters = got["loop"]["iters"] - 2
+        assert got["collectives"] == {"all_gather": DENSE_GATHERS + loop_iters,
+                                      "all_reduce": 0, "broadcast": 0}
+        assert ref["largest"] == b * n * n
+        assert max(got["largest"]) < b * n * n, got["largest"]
+    for key in ("x_grad", "w_grad"):
+        want = ref[key]
+        if want is None:
+            assert got[key] is None and name == "dense_ot", key
+            continue
+        np.testing.assert_allclose(got[key], want.numpy(), rtol=1e-3, atol=1e-5, err_msg=key)
 
 
 def _k6_runs(inputs, case):
@@ -704,14 +869,14 @@ def test_cli_on_a_mesh_matches_one_process(ranks, cli_dirs):
 
 
 class _FakeParticleMesh:
-    """A mesh whose particle axis has 2 ranks, for the refusals DPF makes
-    before it touches a collective."""
+    """A mesh whose particle axis has 2 ranks, for building DPF without a
+    process group (building touches no collective)."""
 
     def axis_size(self, axis):
         return 2 if axis == "particle" else 1
 
 
-ITEM_23 = {
+PARTICLE_AXIS_SETTINGS = {
     "soft": dict(resampler_type="soft"),
     "dense_ot": dict(use_pallas=False),
     "transport_grad": dict(ot_transport_grad=True),
@@ -719,16 +884,16 @@ ITEM_23 = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(ITEM_23))
+@pytest.mark.parametrize("case", sorted(PARTICLE_AXIS_SETTINGS))
 def test_particle_axis_refuses_item_23(case):
-    """Under a particle axis soft resampling, OT over materialised costs
-    and SDPF are refused naming ROADMAP item 23; the data axis runs them,
-    and the streaming OT runs under both."""
-    settings = dict(STEP_CFG, **ITEM_23[case])
-    check_supported(DPFConfig(**dict(settings, mesh_data=2)))
-    check_supported(DPFConfig(**dict(STEP_CFG, mesh_particle=2)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 23\)"):
-        check_supported(DPFConfig(**dict(settings, mesh_particle=2)))
+    """Soft resampling, OT over materialised costs and SDPF, refused under
+    a particle axis until this slice, build on a data and on a particle
+    axis (``test_single_card_settings_run_on_a_mesh`` runs them); what a
+    particle axis still refuses is a particle count it does not divide."""
+    settings = dict(STEP_CFG, **PARTICLE_AXIS_SETTINGS[case])
+    for mesh in (dict(mesh_data=2), dict(mesh_particle=2)):
+        check_supported(DPFConfig(**dict(settings, **mesh)))
+    DPF(DPFConfig(**settings), device="cpu", mesh=_FakeParticleMesh())
     with pytest.raises(ValueError, match="not divisible"):
-        DPF(DPFConfig(**dict(STEP_CFG, num_particles=15)), device="cpu",
+        DPF(DPFConfig(**dict(settings, num_particles=15)), device="cpu",
             mesh=_FakeParticleMesh())

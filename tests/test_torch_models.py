@@ -329,8 +329,7 @@ def test_filter_path_matches_jax(case):
 
 
 # settings the port refused until the ROADMAP item named beside each brought
-# them (4, 18 and, for meshes, 19), and what it still refuses under a
-# particle axis (23)
+# them (4, 18, and 23 for soft resampling under a particle axis)
 UNSUPPORTED = {
     "encode_per_step": (dict(encode_per_step=True), 18),
     "remat": (dict(remat_scan_step=True), 18),
@@ -342,16 +341,15 @@ UNSUPPORTED = {
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unported_settings_raise(case):
-    """The settings of items 4 and 18 build, alone and beside a data or
-    particle mesh; under a particle axis soft resampling is refused naming
-    item 23, with any of them beside it."""
-    overrides, item = UNSUPPORTED[case]
-    if item != 23:
-        for mesh in ({}, dict(mesh_data=2), dict(mesh_particle=2)):
-            DPF(DPFConfig(**dict(SLICE, **overrides, **mesh)), device="cpu")
-        overrides = dict(overrides, mesh_particle=2, resampler_type="soft")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 23\)"):
-        DPF(DPFConfig(**dict(SLICE, **overrides)), device="cpu")
+    """Each setting the port once refused builds, alone and beside a data
+    or particle mesh (soft resampling beside each on a particle mesh); what
+    still raises beside it is a value no package runs (``ValueError``)."""
+    overrides, _ = UNSUPPORTED[case]
+    for mesh in ({}, dict(mesh_data=2), dict(mesh_particle=2),
+                 dict(mesh_particle=2, resampler_type="soft")):
+        DPF(DPFConfig(**{**SLICE, **overrides, **mesh}), device="cpu")
+    with pytest.raises(ValueError, match="unknown resampler"):
+        DPF(DPFConfig(**{**SLICE, **overrides, "resampler_type": "multinomial"}), device="cpu")
 
 
 def _train_batch(seed):

@@ -379,6 +379,25 @@ def test_wrappers_check_shapes():
                               torch.zeros(2, 4, 2), torch.zeros(2, 5), torch.zeros(2, 3))
 
 
+def test_read_launch_note_decodes_the_library_record():
+    """A library's launch note (csrc/launch_note.cuh) as the Python side
+    reads it: the ten numbers and the kernel's name, or the cudaError_t."""
+    from nfdpf_torch.ops.cuda._common import read_launch_note
+
+    def entry(slot, out, name, size):
+        assert slot == 2 and size > len("chain_ctx_share_kernel<16>")
+        for i, v in enumerate((40, 1024, 2048, 3, 2, 1, 256, 1, 1, 7)):
+            out[i] = v
+        name.value = b"chain_ctx_share_kernel<16>"
+        return 0
+
+    assert read_launch_note(entry, 2) == {
+        "kernel": "chain_ctx_share_kernel<16>", "registers": 40, "smem_static_bytes": 1024,
+        "smem_dynamic_bytes": 2048, "grid": [3, 2, 1], "block": [256, 1, 1], "launches": 7}
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        read_launch_note(lambda out, name, size: 1)
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))

@@ -529,24 +529,20 @@ def test_torch_init_parameters_cross_the_bridge():
 def test_only_meshes_are_refused(overrides):
     """Every setting of the JAX CLI builds on the CPU, all four of this
     slice's together with every measurement, alone and on a data or a
-    particle mesh; on a particle mesh only soft resampling, OT over
-    materialised costs and SDPF are refused, naming ROADMAP item 23 (a
-    data mesh runs them); an unknown compute dtype is a ValueError."""
+    particle mesh, and so do soft resampling, OT over materialised costs
+    and SDPF beside them; only values no package runs are refused: an
+    unknown compute dtype is a ValueError, on a mesh too."""
     every = dict(compute_dtype="bfloat16", remat_scan_step=True, encode_per_step=True,
                  torch_init=True)
     for measurement in ("cos", "NN", "gaussian", "CRNVP", "CGLOW"):
         check_supported(DPFConfig(**dict(BASE, measurement=measurement, **every)))
         check_supported(DPFConfig(**dict(BASE, measurement=measurement, **every, **overrides)))
-    for item_23 in (dict(resampler_type="soft"), dict(use_pallas=False),
-                    dict(ot_transport_grad=True), dict(train_type="SDPF")):
-        settings = dict(BASE, **every, **item_23, **overrides)
-        if "mesh_data" in overrides:
-            check_supported(DPFConfig(**settings))
-            continue
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 23\)"):
-            check_supported(DPFConfig(**settings))
-    with pytest.raises(ValueError, match="compute_dtype"):
-        check_supported(DPFConfig(**dict(BASE, compute_dtype="float16")))
+    for resampling in (dict(resampler_type="soft"), dict(use_pallas=False),
+                       dict(ot_transport_grad=True), dict(train_type="SDPF")):
+        check_supported(DPFConfig(**dict(BASE, **every, **resampling, **overrides)))
+    for mesh in ({}, overrides):
+        with pytest.raises(ValueError, match="compute_dtype"):
+            check_supported(DPFConfig(**dict(BASE, compute_dtype="float16", **mesh)))
 
 
 @pytest.mark.parametrize("case", ["soft_cglow", "dense_nn", "transport_grad_crnvp",
