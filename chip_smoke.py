@@ -33,10 +33,18 @@ Phases, one line of output each, then the device line last:
    library notes them (``launch_record``), the shared memory held
    against the wrapper's mirrors of the kernels' layouts (K4, K5, the share,
    both kernels of the weight gradient and the input gradient); all of it
-   again at hidden width 16, the coupling kernels' widest build; then the
-   coupling kernels' and the update kernels' registers and spills as ptxas
-   reports them, the input gradient's and the update's noted launches
-   held to them;
+   again at hidden width 16, the narrow pair's widest build; then the wide
+   pair (``chain_kernels_wide``: the chains the narrow pair does not take,
+   hidden 12 at four blocks, 17, 32 at four and nine blocks, 64 at twelve
+   and 256, at (B=32, N=100) with contexts 4, 36 and 196 wide broadcast
+   over the particles, and a dense 36-wide context and none at (B=4,
+   N=4097)) through the wrapper against the plain version, bit-equal
+   repeats, each case timed beside its bound, the plain version and the
+   module route, its launches' registers and shared memory held to the
+   wrapper's mirrors and to ptxas, and at hidden 8 against the narrow
+   pair's launchers; then the coupling kernels' and the update kernels'
+   registers and spills as ptxas reports them, the input gradient's and
+   the update's noted launches held to them;
    then K3, the streaming resampler's driver: its update kernel against
    the plain version bit for bit (some rows stopped, every row running, a
    NaN in K1's output; all and any), timed stopping and with every row
@@ -67,9 +75,10 @@ Phases, one line of output each, then the device line last:
    conditioners on K4/K5), ``cglow_remat`` (config 5 with each time step
    recomputed in the backward: its firings, Sinkhorn iterations and
    first-step loss must equal ``cglow``'s, its peak memory and step times
-   beside them) and ``per_step`` (the bootstrap DPF with the per-step
-   encode and torch's default initialisation).  A counter a slice does
-   not name must read 0;
+   beside them), ``per_step`` (the bootstrap DPF with the per-step
+   encode and torch's default initialisation) and ``cnf_wide`` (the
+   CNF-DPF with four 32-wide coupling blocks: both flows on the wide
+   pair).  A counter a slice does not name must read 0;
 4. the warm start: the bootstrap slice's eval filter at full width, cold
    and with ``sinkhorn_warm_start``: the first firing takes the same
    Sinkhorn iterations both ways, the later ones together at most 1.1× the
@@ -80,7 +89,8 @@ Phases, one line of output each, then the device line last:
    from the same parameters, noise and semi-supervised mask (config 5 with
    and without the proposal flow); bf16 against
    bfloat16's own effect on the CPU (``BF16_*``, a float32 run beside),
-   and remat on the CNF-DPF with the warm start;
+   remat on the CNF-DPF with the warm start, and the CNF-DPF on the wide
+   pair at the flows' init scale (its card run must launch the wide pair);
 6. linalg: the CGLOW's batched log|det| and inverse (plain PyTorch ops, no
    kernel of ours) and their analytic gradients on the card at (3,200, 12,
    12), on the weights the 1×1 convolution makes, against float64
@@ -136,7 +146,8 @@ Phases, one line of output each, then the device line last:
    materialised costs): one epoch on the 80 sequences the first run makes,
    then ``--testing``; every rank exits 0, only rank 0 prints, the eval
    and test losses are finite;
-12. the ``kernels`` JSON line, with K1/K2 at rows ≠ columns, K3 and K6.
+12. the ``kernels`` JSON line, with K1/K2 at rows ≠ columns, K3 and K6,
+   and the wide pair with its launches in ``slice_cnf_wide``'s train steps.
 
 Every comparison runs with TF32 off.  Any failed check raises, so the
 script exits non-zero without printing the last line; so does any rank
@@ -191,7 +202,7 @@ CGLOW_SLICE = dict(SLICE, measurement="CGLOW", nf_dyn=True, pallas_coupling=True
                    train_type="SDPF", labeled_ratio=0.5)
 # the single-card settings of the JAX CLI (bench.py's headline runs bf16):
 # the CNF-DPF computing its encoder and decoder in bfloat16; the CNF-DPF with
-# 16-wide conditioners on K4/K5 (the kernels' widest build); config 5 with
+# 16-wide conditioners on K4/K5 (the narrow pair's widest build); config 5 with
 # each time step recomputed in the backward; the bootstrap DPF with the
 # reference's per-step encode and torch's default initialisation
 BF16_SLICE = dict(CNF_SLICE, compute_dtype="bfloat16")
@@ -202,7 +213,10 @@ CGLOW_REMAT_SLICE = dict(CGLOW_SLICE, remat_scan_step=True)
 # which K4/K5 take since the context's share of layer 0 left them
 CGLOW_NFCOND_SLICE = dict(CGLOW_SLICE, nf_cond=True)
 PER_STEP_SLICE = dict(SLICE, encode_per_step=True, torch_init=True)
-WIDE_HIDDEN = 16   # the coupling kernels' widest build (widths 9-15 run padded to it)
+# the CNF-DPF with four 32-wide coupling blocks: both flows on the wide pair
+# (the narrow pair takes hidden <= 16)
+CNF_WIDE_SLICE = dict(CNF_SLICE, flow_hidden_dim=32, n_sequence=4)
+H16 = 16   # the narrow pair's widest build (widths 9-15 run padded to it)
 # the kernels → source and the TPU kernel each replaces
 SINKHORN_CU = "nfdpf_torch/ops/cuda/csrc/sinkhorn.cu"
 COUPLING_CU = "nfdpf_torch/ops/cuda/csrc/coupling.cu"
@@ -218,6 +232,9 @@ KERNELS = {
     "coupling_ctx_grad_rows": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
     "coupling_ctx_weight_grad": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
     "coupling_ctx_input_grad": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
+    # the same two TPU kernels for the chains the narrow pair does not take
+    "coupling_chain_wide": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:100"),
+    "coupling_chain_bwd_wide": (COUPLING_CU, "nfdpf_tpu/ops/pallas/coupling_pallas.py:262"),
 }
 # each kernel's case in the kernels line: the shape and direction the CNF-DPF
 # slice runs it most heavily; the context kernels at the CGLOW proposal's
@@ -226,7 +243,13 @@ AT = {"sinkhorn_lse": "B32_N100", "transport_apply": "B32_N100", "sinkhorn_updat
       "coupling_chain": "B32_N100_C36_inverse", "coupling_chain_bwd": "B32_N100_C36_inverse",
       "coupling_ctx_share": "B32_N100_C196", "coupling_ctx_grad_rows": "B32_N100_C196",
       "coupling_ctx_weight_grad": "B32_N100_C196",
-      "coupling_ctx_input_grad": "B32_N100_C196"}
+      "coupling_ctx_input_grad": "B32_N100_C196",
+      # the wide pair at slice_cnf_wide's proposal chain
+      "coupling_chain_wide": "H32_K4_B32_N100_C36_inverse",
+      "coupling_chain_bwd_wide": "H32_K4_B32_N100_C36_inverse"}
+# the kernels whose launches in the kernels line are those of slice_cnf_wide
+# (every other kernel's: slice_nfdpf's)
+WIDE_LINE = ("coupling_chain_wide", "coupling_chain_bwd_wide")
 # launch counters that must be non-zero after a slice's train steps / eval step.
 # The bootstrap DPF's particles carry no gradient (noise and teacher-forced
 # velocities), so autograd never asks for the transport's backward there.
@@ -244,6 +267,11 @@ CNF_TRAIN = CNF_EVAL + ("transport_apply_bwd", "coupling_chain_bwd", "coupling_c
 CGLOW_EVAL = BOOTSTRAP_EVAL + ("coupling_chain_inverse", "coupling_ctx_share")
 CGLOW_TRAIN = CGLOW_EVAL + ("transport_apply_bwd", "coupling_chain_bwd",
                             "coupling_ctx_grad_rows", "coupling_ctx_weight_grad")
+# the CNF-DPF on the wide pair
+CNF_WIDE_EVAL = BOOTSTRAP_EVAL + ("coupling_chain_wide", "coupling_chain_wide_inverse",
+                                  "coupling_ctx_share")
+CNF_WIDE_TRAIN = CNF_WIDE_EVAL + ("transport_apply_bwd", "coupling_chain_bwd_wide",
+                                  "coupling_ctx_grad_rows", "coupling_ctx_weight_grad")
 # the slices: (settings, kernels launched in the 3 train steps, in the eval
 # step; every other counter must read 0); none at all on the dense and soft
 # paths
@@ -259,6 +287,7 @@ SLICES = {
     "slice_cglow_remat": (CGLOW_REMAT_SLICE, CGLOW_TRAIN, CGLOW_EVAL),
     "slice_per_step": (PER_STEP_SLICE, BOOTSTRAP_TRAIN, BOOTSTRAP_EVAL),
     "slice_cglow_nfcond": (CGLOW_NFCOND_SLICE, CNF_TRAIN, CNF_EVAL),
+    "slice_cnf_wide": (CNF_WIDE_SLICE, CNF_WIDE_TRAIN, CNF_WIDE_EVAL),
 }
 LSE_TOL = 1e-5     # K1: |err| <= tol + tol·|ref|
 APPLY_TOL = 1e-4   # K2: |err| <= tol·|ref| + tol·max|ref|
@@ -418,6 +447,27 @@ def chain_resources(hidden: int) -> dict:
         if "registers" not in out.get(kernel, {}):
             raise AssertionError(f"the coupling library's ptxas report names no {kernel} with "
                                  f"its registers: {out}")
+    return out
+
+
+def wide_resources() -> dict:
+    """ptxas's counts (``ptxas_counts``) of the wide library's kernels: the
+    wide pair's instantiations and its context kernels.  Raises where the
+    report names a wide kernel of some units a lane or direction without
+    its registers."""
+    from nfdpf_torch.ops.cuda import build
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+
+    text = build.build_log[" ".join(("coupling",) + cc.build_defines(cc.WIDE_BUILD))]["ptxas"]
+    out = ptxas_counts(text, r"chain_(?:fwd_wide|bwd_wide|ctx_share|ctx_grad_rows|"
+                             r"ctx_weight_grad|ctx_input_grad)_kernel")
+    for kernel in ("chain_fwd_wide_kernel", "chain_bwd_wide_kernel"):
+        for units in (1, 2, 4, 8, 16, 32):
+            for direction in ("forward", "inverse"):
+                if "registers" not in out.get(f"{kernel}<{units}, {direction}>", {}):
+                    raise AssertionError(f"the wide library's ptxas report names no "
+                                         f"{kernel}<{units}, {direction}> with its registers: "
+                                         f"{out}")
     return out
 
 
@@ -865,7 +915,7 @@ def phase_chain_kernels(n_blocks: int, hidden: int, phase: str = "chain_kernels"
         gy_strided = gy_wide[..., ::2]
         with torch.no_grad():
             w, bias = (t.contiguous() for t in cc.pack_chain_params(chain))
-            p_rows, mode = cc._launch_ctx_share(ctx, w, bias)
+            p_rows, mode = cc._launch_ctx_share(cc._chain_library(n_blocks, hidden), ctx, w, bias)
         rows, f4 = b * n, 4.0
         ctx_rows = b if broadcast else rows
         ps = 4 * n_blocks * hidden
@@ -1210,6 +1260,246 @@ def context_kernel_edges(cc) -> dict:
         for case in inputs:
             results[name][case]["back_to_back_bits_equal"] = True
     return results
+
+
+# the wide pair's cases as (hidden, blocks): four blocks at 12 (the narrow
+# backward's factor tile), 17, 32 at four and nine blocks, 64 at twelve and
+# 256 (layer 1 read from global memory), each at the filter's (32, 100) with
+# the dynamics flow's, the proposal's and the CGLOW proposal's context
+# broadcast over the particles; at two of them a dense 36-wide context and
+# none at a ragged large N
+WIDE_CHAINS = ((12, 4), (17, 2), (32, 4), (32, 9), (64, 12), (256, 2))
+WIDE_CONTEXTS = (4, 36, 196)
+WIDE_DENSE = ((32, 4), (64, 12))
+WIDE_ITERS = 20     # CUDA-graph replays a timed kernel call; eager plain/module calls: 3
+
+
+def wide_chain(n_blocks: int, hidden: int, ctx_dim: int, gen):
+    """A ``FlowChain`` whose weights are N(0, 0.3²·8/fan-in) where the fan-in
+    passes 8 (0.3 at hidden 8, as ``chain_kernels`` draws them; at 0.3 a
+    256-wide chain saturates every tanh and float32 rounding alone moves its
+    outputs by 1e-3 of their size) and biases N(0, 0.1²), on the card."""
+    from nfdpf_torch.ops.flows import realnvp_chain
+
+    chain = realnvp_chain(n_blocks, 2, hidden, 0.3, ctx_dim=ctx_dim)
+    with torch.no_grad():
+        for layer in chain.modules():
+            if isinstance(layer, torch.nn.Linear):
+                fan_in = layer.in_features
+                layer.weight.normal_(0.0, 0.3 * math.sqrt(8 / max(8, fan_in)), generator=gen)
+                layer.bias.normal_(0.0, 0.1, generator=gen)
+    return chain.cuda()
+
+
+def phase_chain_kernels_wide():
+    """The wide pair (``chain_fwd_wide_kernel``, ``chain_bwd_wide_kernel``)
+    through ``fused_coupling_chain`` and its autograd Function, both
+    directions, against the plain version and its autograd at every case of
+    ``WIDE_CHAINS`` x ``WIDE_CONTEXTS`` and ``WIDE_DENSE``: outputs to
+    ``CHAIN_TOL``, every gradient (x, the context, weights, biases) to
+    ``CHAIN_GRAD_TOL``, each of the case's scale (|err| <= tol·|ref| +
+    tol·max|ref|), and the outputs at most twice as far from a float64 run
+    of the plain version as the plain version is; a second call gives the
+    same bits; each wide kernel
+    launched once a call, the narrow pair never, the context-weight
+    gradient's kernels once a column group of g1.  Timed at each case: the
+    forward and backward launchers alone (CUDA-graph replays), the plain
+    version's, the same call through the ``FlowChain`` module, the bound
+    (``chain_ops``; the backward three times the forward's operations);
+    each case's launches' registers and shared memory as the library noted
+    them, held to the wrapper's mirror (``wide_smem_bytes``).  At hidden 8,
+    two blocks (a chain both pairs take) the wide launchers against the
+    narrow ones on the same P."""
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+
+    dev, f4 = torch.device("cuda"), 4.0
+    results, records = {}, {}
+    cases = [(h, k, 32, 100, c, True) for h, k in WIDE_CHAINS for c in WIDE_CONTEXTS]
+    cases += [(h, k, 4, 4097, c, False) for h, k in WIDE_DENSE for c in (36, 0)]
+    wide_lib = cc._library(cc.WIDE_BUILD)
+    for hidden, n_blocks, b, n, c, broadcast in cases:
+        gen = torch.Generator().manual_seed(7 * hidden + n_blocks + c + n)
+        chain = wide_chain(n_blocks, hidden, c, gen)
+        x = torch.randn(b, n, 2, generator=gen).to(dev)
+        ctx_base = (torch.randn(b, 1 if broadcast else n, c, generator=gen).to(dev)
+                    if c else None)
+        ctx = None if ctx_base is None else ctx_base.expand(b, n, c)
+        gy = torch.randn(b, n, 2, generator=gen).to(dev)
+        gld = torch.randn(b, n, generator=gen).to(dev)
+        with torch.no_grad():
+            w, bias = (t.contiguous() for t in cc.pack_chain_params(chain))
+            p_rows, mode = cc._launch_ctx_share(wide_lib, ctx, w, bias)
+        if cc.narrow_pair_takes(n_blocks, hidden):
+            raise AssertionError(f"({hidden}, {n_blocks}) is a chain the narrow pair takes")
+        rows = b * n
+        groups = len(cc.ctx_grad_groups(4 * n_blocks * hidden)) if c else 0
+        params_bytes = f4 * (w.numel() + bias.numel())
+        ops_fwd = chain_ops(rows, n_blocks, hidden)
+        for inverse in (False, True):
+            case = (f"H{hidden}_K{n_blocks}_B{b}_N{n}_C{c}{'' if broadcast or not c else '_dense'}"
+                    f"_{'inverse' if inverse else 'forward'}")
+
+            def fwd_bwd(fn, cot_y=gy):
+                leaves = [t.detach().clone().requires_grad_() for t in (x, w, bias)]
+                c_leaf = None if ctx_base is None else ctx_base.detach().clone().requires_grad_()
+                c_in = None if c_leaf is None else c_leaf.expand(b, n, c)
+                y, ld = fn(leaves[0], c_in, leaves[1], leaves[2], inverse)
+                wanted = leaves + ([] if c_leaf is None else [c_leaf])
+                return y.detach(), ld.detach(), torch.autograd.grad([y, ld], wanted,
+                                                                    [cot_y, gld])
+
+            def module_fwd():
+                return chain.inverse(x, ctx) if inverse else chain(x, ctx)[::2]
+
+            def module_fwd_bwd():
+                y, ld = module_fwd()
+                return torch.autograd.grad([y, ld], list(chain.parameters()), [gy, gld])
+
+            def k4():
+                return cc._launch_forward_wide(x, p_rows, mode, w, bias, inverse)
+
+            def k5():
+                return cc._launch_backward_wide(x, p_rows, mode, w, bias, gy, gld, inverse, c > 0)
+
+            cc.reset_launches()
+            y, ld, grads = fwd_bwd(cc.fused_coupling_chain)
+            y2, ld2, grads2 = fwd_bwd(cc.fused_coupling_chain)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cc.LAUNCHES.items() if v}
+            fwd_name = "coupling_chain_wide_inverse" if inverse else "coupling_chain_wide"
+            want = {fwd_name: 2, "coupling_chain_bwd_wide": 2, "coupling_ctx_share": 2}
+            if c:
+                want.update(coupling_ctx_grad_rows=2 * groups,
+                            coupling_ctx_weight_grad=2 * groups, coupling_ctx_input_grad=2)
+            if counts != want:
+                raise AssertionError(f"chain_wide@{case}: the wrapper launched {counts}, "
+                                     f"expected {want}")
+            if not (torch.equal(y, y2) and torch.equal(ld, ld2)
+                    and all(torch.equal(a, a2) for a, a2 in zip(grads, grads2))):
+                raise AssertionError(f"chain_wide@{case}: a second call gave other bits")
+            y_ref, ld_ref, refs = fwd_bwd(cc.chain_apply_packed_plain)
+            # a deep chain's outputs span three decades within a case (to
+            # ~700 at 12 blocks over a dense context), and where t + u·exp(s)
+            # crosses zero float32 rounding leaves the plain version itself
+            # percents off in relative terms: the outputs are held to
+            # CHAIN_TOL of the case's scale as the gradients are, and both the
+            # kernel and the plain version to a float64 run of the plain
+            # version, the kernel at most twice as far from it
+            errs_fwd = [check(f"chain_fwd_wide.{k}@{case}", got, ref, ("apply", CHAIN_TOL))
+                        for k, got, ref in (("y", y, y_ref), ("ld", ld, ld_ref))]
+            with torch.no_grad():
+                y64, ld64 = cc.chain_apply_packed_plain(
+                    x.double(), None if ctx is None else ctx.double(), w.double(),
+                    bias.double(), inverse)
+            f64 = {who: max(float((a.double() - r).abs().max()) for a, r in zip(got, (y64, ld64)))
+                   for who, got in (("kernel", (y, ld)), ("plain", (y_ref, ld_ref)))}
+            if not f64["kernel"] <= 2 * f64["plain"] + 1e-6 * float(y64.abs().max()):
+                raise AssertionError(f"chain_fwd_wide@{case}: {f64['kernel']:.3e} from a float64 "
+                                     f"run, the plain version {f64['plain']:.3e}")
+            names = ["gx", "gw", "gb"] + (["gctx"] if c else [])
+            errs_bwd = {k: check(f"chain_bwd_wide.{k}@{case}", got, ref,
+                                 ("apply", CHAIN_GRAD_TOL))
+                        for k, got, ref in zip(names, grads, refs)}
+            with torch.no_grad():
+                fwd_plan = cc.wide_fwd_plan(rows, hidden)
+                rec_fwd = launch_record(k4, lambda: cc.launch_note(cc.WIDE_BUILD,
+                                                                   "coupling_chain_wide"))
+                rec_fwd["mirror_smem_bytes"] = fwd_plan["smem_bytes"]
+                bound, by = bound_ms(f4 * rows * (2 + 2 + 1) + f4 * p_rows.numel()
+                                     + params_bytes, ops_fwd)
+                results.setdefault("coupling_chain_wide", {})[case] = {
+                    "max_abs_err": max(e[0] for e in errs_fwd), "tol": CHAIN_TOL,
+                    "float64_err": f64,
+                    "ms": device_ms(k4, WIDE_ITERS),
+                    "plain_ms": device_ms(
+                        lambda: cc.chain_apply_packed_plain(x, ctx, w, bias, inverse), 3),
+                    "module_ms": device_ms(module_fwd, 3), "library_ms": None,
+                    "bound_ms": bound, "bound_by": by, "plan": fwd_plan, **rec_fwd}
+            bwd_plan = cc.wide_bwd_plan(rows, n_blocks, hidden)
+            rec_bwd = launch_record(k5, lambda: cc.launch_note(cc.WIDE_BUILD,
+                                                               "coupling_chain_bwd_wide"))
+            rec_bwd["mirror_smem_bytes"] = bwd_plan["smem_bytes"]
+            g1_bytes = f4 * rows * 4 * n_blocks * hidden if c else 0.0
+            bound, by = bound_ms(f4 * rows * (2 + 2 + 1 + 2) + f4 * p_rows.numel() + g1_bytes
+                                 + 2 * params_bytes, 3 * ops_fwd)
+            results.setdefault("coupling_chain_bwd_wide", {})[case] = {
+                "max_abs_err": max(e[0] for e in errs_bwd.values()),
+                "max_rel_err": {k: e[1] for k, e in errs_bwd.items()}, "tol": CHAIN_GRAD_TOL,
+                "ms": device_ms(k5, WIDE_ITERS),
+                # the plain version's and the module's forward + autograd backward, eager
+                "plain_ms": call_ms(lambda: fwd_bwd(cc.chain_apply_packed_plain), 3),
+                "kernels_fwd_bwd_ms": call_ms(lambda: fwd_bwd(cc.fused_coupling_chain), 3),
+                "module_fwd_bwd_ms": call_ms(module_fwd_bwd, 3), "library_ms": None,
+                "bound_ms": bound, "bound_by": by, "plan": bwd_plan,
+                "ctx_grad_groups": groups, **rec_bwd}
+            for name in ("coupling_chain_wide", "coupling_chain_bwd_wide"):
+                rec = results[name][case]
+                if rec["smem_bytes_per_block"] != rec["mirror_smem_bytes"]:
+                    raise AssertionError(f"{name}@{case}: the launch took "
+                                         f"{rec['smem_bytes_per_block']} bytes of shared "
+                                         f"memory, the wrapper's mirror says "
+                                         f"{rec['mirror_smem_bytes']}")
+                records.setdefault(name, set()).add(rec["kernel"])
+        del chain, x, ctx, ctx_base, gy, gld, w, bias, p_rows
+        torch.cuda.empty_cache()
+    log({"phase": "chain_kernels_wide", "results": results,
+         "launched": {k: sorted(v) for k, v in records.items()},
+         "cross_check_h8": wide_against_narrow(),
+         "note": "checked through fused_coupling_chain and its autograd Function at "
+                 "CHAIN_TOL / CHAIN_GRAD_TOL of each case's scale, second calls bit-equal; "
+                 "float64_err: the kernel's and the plain version's largest distance to a "
+                 "float64 run of the plain version (the kernel at most twice the plain "
+                 "one's); weights N(0, "
+                 "0.3^2·8/fan-in), biases N(0, 0.1^2); ms: CUDA-graph replays of the "
+                 "launcher (the backward's: the kernel, the sum of its partials and their "
+                 "unpacking), plain_ms and module_ms of the forward the same, the "
+                 "backward's plain_ms, kernels_fwd_bwd_ms and module_fwd_bwd_ms eager "
+                 "forward + autograd calls (CUDA events); no single PyTorch call computes "
+                 "a chain: library_ms null; registers and smem_bytes_per_block of each "
+                 "case's launch as the library noted it, mirror_smem_bytes the wrapper's"})
+    return results, records
+
+
+def wide_against_narrow() -> dict:
+    """At hidden 8, two blocks, (32, 100) with a 36-wide context broadcast
+    over the particles: the wide pair's launchers against the narrow pair's
+    on the same P (the wide library's share gives the narrow one's bits),
+    both directions: outputs to ``CHAIN_TOL``, gx, g1 and the weight and
+    bias gradients to ``CHAIN_GRAD_TOL``."""
+    from nfdpf_torch.ops.cuda import coupling_cuda as cc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(88)
+    chain = wide_chain(2, 8, 36, gen)
+    x = torch.randn(32, 100, 2, generator=gen).to(dev)
+    ctx = torch.randn(32, 1, 36, generator=gen).to(dev).expand(32, 100, 36)
+    gy = torch.randn(32, 100, 2, generator=gen).to(dev)
+    gld = torch.randn(32, 100, generator=gen).to(dev)
+    out = {}
+    with torch.no_grad():
+        w, bias = (t.contiguous() for t in cc.pack_chain_params(chain))
+        p, mode = cc._launch_ctx_share(cc._library(8), ctx, w, bias)
+        p_wide, _ = cc._launch_ctx_share(cc._library(cc.WIDE_BUILD), ctx, w, bias)
+        if not torch.equal(p_wide, p):
+            raise AssertionError("the wide library's context share gave other bits than the "
+                                 "narrow one's")
+        for inverse in (False, True):
+            case = f"H8_K2_B32_N100_C36_{'inverse' if inverse else 'forward'}"
+            errs = [check(f"wide_vs_narrow.{k}@{case}", a, r, ("lse", CHAIN_TOL))
+                    for k, a, r in zip(("y", "ld"),
+                                       cc._launch_forward_wide(x, p, mode, w, bias, inverse),
+                                       cc._launch_forward(x, p, mode, w, bias, inverse))]
+            gx, g1, gw_plain, gb = cc._launch_backward(x, p, mode, w, bias, gy, gld, inverse,
+                                                       True)
+            gw = torch.zeros_like(w)
+            gw[:, :, :, :8] = gw_plain
+            errs += [check(f"wide_vs_narrow.{k}@{case}", a, r, ("apply", CHAIN_GRAD_TOL))
+                     for k, a, r in zip(("gx", "g1", "gw", "gb"),
+                                        cc._launch_backward_wide(x, p, mode, w, bias, gy, gld,
+                                                                 inverse, True),
+                                        (gx, g1, gw, gb))]
+            out[case] = {"max_abs_err": max(e[0] for e in errs)}
+    return out
 
 
 def synthetic_batch(cfg, device, seed):
@@ -1604,6 +1894,7 @@ def phase_parity(name: str, settings: dict, flow_scale: float = 1.0, cglow_std: 
     log(row)
     if bad:
         raise AssertionError(f"{name}: {'; '.join(bad)}")
+    return row
 
 
 def phase_linalg():
@@ -2367,17 +2658,29 @@ def main() -> int:
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
 
     cnf = DPFConfig(**CNF_SLICE)
-    card = phase_setup((cnf.flow_hidden_dim, WIDE_HIDDEN))
+    card = phase_setup((cnf.flow_hidden_dim, H16, cc.WIDE_BUILD))
     kernels = phase_kernels()
     kernels["sinkhorn_update"], k3 = phase_k3()
     kernels.update(phase_chain_kernels(cnf.n_sequence, cnf.flow_hidden_dim))
     kernels["sinkhorn_update"][AT["sinkhorn_update"]].update(update_launch())
-    wide = phase_chain_kernels(cnf.n_sequence, WIDE_HIDDEN, f"chain_kernels_h{WIDE_HIDDEN}",
-                               record=False)
-    ptxas = {h: chain_resources(h) for h in (cnf.flow_hidden_dim, WIDE_HIDDEN)}
+    h16 = phase_chain_kernels(cnf.n_sequence, H16, f"chain_kernels_h{H16}", record=False)
+    wide, wide_launched = phase_chain_kernels_wide()
+    kernels.update(wide)
+    ptxas = {h: chain_resources(h) for h in (cnf.flow_hidden_dim, H16)}
     ptxas_update = update_resources()
+    ptxas_wide = wide_resources()
     log({"phase": "chain_resources", "ptxas": ptxas[cnf.flow_hidden_dim],
-         f"ptxas_h{WIDE_HIDDEN}": ptxas[WIDE_HIDDEN], "ptxas_update": ptxas_update})
+         f"ptxas_h{H16}": ptxas[H16], "ptxas_update": ptxas_update, "ptxas_wide": ptxas_wide})
+    # every wide launch's registers are ptxas's for the instantiation it ran,
+    # which spills nothing
+    for name in WIDE_LINE:
+        for case, rec in wide[name].items():
+            counts = ptxas_wide[rec["kernel"]]
+            if (rec["registers"], counts.get("spill_bytes", 0)) != (counts["registers"], 0):
+                raise AssertionError(f"{name}@{case}: the launch of {rec['kernel']} took "
+                                     f"{rec['registers']} registers; ptxas says {counts} "
+                                     f"(spills must be 0)")
+            rec["ptxas_spill_bytes"] = counts.get("spill_bytes", 0)
     # the redesigned kernels' recorded launches against ptxas's counts, the
     # launched kernel the one the wrapper's plan names
     update_at = kernels["sinkhorn_update"][AT["sinkhorn_update"]]
@@ -2423,6 +2726,13 @@ def main() -> int:
     phase_parity("parity_remat", dict(CNF_SLICE, remat_scan_step=True, sinkhorn_warm_start=True),
                  flow_scale=10.0)
     phase_parity("parity_per_step", PER_STEP_SLICE)
+    # the wide pair at init scale, as parity_h16 (at x10 the 32-wide flows
+    # are more sensitive still to float32 rounding than the 16-wide ones)
+    launched = phase_parity("parity_cnf_wide", CNF_WIDE_SLICE)["launches_cuda"]
+    missing = [k for k in CNF_WIDE_TRAIN if k.startswith("coupling") and not launched[k]]
+    if missing:
+        raise AssertionError(f"parity_cnf_wide: the card run did not launch {missing}: "
+                             f"{launched}")
     phase_linalg()
     phase_simulator()
     cli = phase_main_cli()
@@ -2440,17 +2750,19 @@ def main() -> int:
     for sname, launches in zip(list(slices) + ["main_cli"], runs):
         counts = dict(launches)
         counts["coupling_chain"] += counts["coupling_chain_inverse"]
+        counts["coupling_chain_wide"] += counts["coupling_chain_wide_inverse"]
         by_slice[sname] = counts
     floor = kernels["sinkhorn_lse"][AT["sinkhorn_lse"]]["launch_floor_ms"]
     line = []
     for name, (source, replaces) in KERNELS.items():
         # K1's entry covers both of its instantiations (G=2 timed, G=1 checked)
         cases = [kernels[name]] + ([kernels["sinkhorn_lse_g1"]] if name == "sinkhorn_lse" else [])
-        cases += [wide[name]] if name in wide else []
+        cases += [h16[name]] if name in h16 else []
         worst = max(c[s]["max_abs_err"] for c in cases for s in c)
         m = kernels[name][AT[name]]
+        main_path = "slice_cnf_wide" if name in WIDE_LINE else "slice_nfdpf"
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": by_slice["slice_nfdpf"][name], "max_abs_err": worst,
+                 "launches": by_slice[main_path][name], "max_abs_err": worst,
                  "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                  "bound_by": m["bound_by"], "library_ms": m["library_ms"], "at": AT[name],
                  "launch_floor_ms": floor,
@@ -2463,13 +2775,17 @@ def main() -> int:
             entry["smem_bytes_per_block"] = m["smem_bytes_per_block"]
         if name in ("coupling_chain", "coupling_chain_bwd"):
             # the same case at the widest build, with ptxas's counts
-            w = wide[name][AT[name]]
+            w = h16[name][AT[name]]
             kernel = "chain_fwd_kernel" if name == "coupling_chain" else "chain_bwd_kernel"
-            entry[f"h{WIDE_HIDDEN}"] = {
+            entry[f"h{H16}"] = {
                 **{k: w[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-                "max_abs_err": max(c["max_abs_err"] for c in wide[name].values()),
-                "ptxas": {k: v for k, v in ptxas[WIDE_HIDDEN].items() if k.startswith(kernel)},
+                "max_abs_err": max(c["max_abs_err"] for c in h16[name].values()),
+                "ptxas": {k: v for k, v in ptxas[H16].items() if k.startswith(kernel)},
                 "at": AT[name]}
+        if name in WIDE_LINE:   # the module route's time, every launched instantiation
+            entry["module_ms"] = m.get("module_ms", m.get("module_fwd_bwd_ms"))
+            entry["launched"] = sorted(wide_launched[name])
+            entry["main_path"] = main_path
         if name in CTX_RECORDED:   # the redesigned context kernels: ptxas's counts, the plan
             entry["ptxas"] = {k: v for k, v in ptxas[cnf.flow_hidden_dim].items()
                               if k.startswith(CTX_RECORDED[name])}
@@ -2531,7 +2847,7 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "k3": k3,
-                       f"kernels_h{WIDE_HIDDEN}": wide,
+                       f"kernels_h{H16}": h16,
                        **slices, "main_cli": cli, "kernels_rows_ne_cols": rect, "k6": k6,
                        **meshes}, fh, indent=1)
     print(json.dumps({"kernels": line}), flush=True)

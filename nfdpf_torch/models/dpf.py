@@ -149,27 +149,19 @@ def streaming_ot(cfg: DPFConfig) -> bool:
 
 
 def check_coupling_kernels(cfg: DPFConfig) -> None:
-    """On CUDA the packed chains run on the coupling kernels K4 (forward) and
-    K5 (backward): raise ``NotImplementedError`` for a chain that either
-    kernel does not take, with the limits the wrapper applies at launch.  The
-    filter's contexts are one row per batch element broadcast over the
-    particles: the dynamics flow's 2·state_dim wide, the proposal's
-    2·state_dim + ``encoder_width``."""
+    """On CUDA the packed chains run on the coupling kernels: the narrow pair
+    K4/K5 where it takes a chain, the wide pair every other one, with any
+    number of blocks and any context (``coupling_cuda``).  Raise
+    ``NotImplementedError`` for a chain neither takes (``chain_refusal``: a
+    hidden width above ``WIDE_MAX_HIDDEN``), with the limit the wrapper
+    applies at launch."""
     if not (cfg.pallas_coupling and cfg.state_dim == 2):
         return
-    stats = 2 * cfg.state_dim
-    chains = (("dynamics", cfg.nf_dyn, stats),
-              ("proposal", cfg.nf_cond, stats + encoder_width(cfg)))
-    for name, used, ctx_dim in chains:
-        if not used:
-            continue
-        for backward in (False, True):
-            why = chain_refusal(cfg.n_sequence, cfg.flow_hidden_dim, ctx_dim,
-                                cfg.num_particles, True, backward)
-            if why is not None:
-                raise NotImplementedError(
-                    f"the {name} flow's packed chain does not run on the CUDA coupling "
-                    f"kernels K4/K5 yet: {why} (ROADMAP queue 2, item 20)")
+    why = chain_refusal(cfg.flow_hidden_dim)
+    for name, used in (("dynamics", cfg.nf_dyn), ("proposal", cfg.nf_cond)):
+        if used and why is not None:
+            raise NotImplementedError(
+                f"the {name} flow's packed chain does not run on the CUDA coupling kernels: {why}")
 
 
 def particle_initialization(

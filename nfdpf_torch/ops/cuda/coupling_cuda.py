@@ -44,22 +44,36 @@ raises.  ``chain_apply_split_plain`` is the plain version of the split
 route (P first, then the chain on it).  ``LAUNCHES`` counts the kernel
 launches.
 
-The kernels take the filter's state dimension (2), float32, a hidden width
-up to 16 (fixed at compile time: one library per width, built at first use;
-8 is the filter's default; 3, 4, 6 and 8, which take each of the forward's
-lane mappings, and 16 are the widths held against the plain version on the
-card; a chain 9-15 wide runs at 16, zero-padded by ``pad_hidden``, which
-changes no output and whose padding's gradients are sliced away), at
-most 8 blocks, and, for K5, a factor tile and twice the parameters of a
-chain without context in the card's shared memory (227 KB;
+The narrow pair takes the filter's state dimension (2), float32, a hidden
+width up to 16 (fixed at compile time: one library per width, built at first
+use; 8 is the filter's default; 3, 4, 6 and 8, which take each of the
+forward's lane mappings, and 16 are the widths held against the plain
+version on the card; a chain 9-15 wide runs at 16, zero-padded by
+``pad_hidden``, which changes no output and whose padding's gradients are
+sliced away), at most 8 blocks, and, for K5, a factor tile and twice the
+parameters of a chain without context in the card's shared memory (227 KB;
 ``fwd_smem_bytes``, ``bwd_smem_bytes``, ``ctx_share_smem_bytes``,
 ``ctx_grad_rows_smem_bytes``, ``ctx_weight_grad_smem_bytes`` and
-``ctx_input_grad_smem_bytes`` mirror the kernels' layouts).
-``chain_refusal`` says what a chain breaks of these, for the wrapper at
-launch and for the filter when it is built.  What stays refused: hidden
-widths above 16, more than 8 blocks, and at hidden 9-16 four blocks or more
-(K5's factor tile and parameters then pass 227 KB for a single warp, with
-any context or none).
+``ctx_input_grad_smem_bytes`` mirror the kernels' layouts):
+``narrow_pair_takes`` says which chains.  Every other chain runs on the
+wide pair, one library (``WIDE_BUILD``) whose kernels take the hidden width
+and the number of blocks at run time, the context kernels included:
+
+* ``chain_fwd_wide_kernel`` (K4 for the wide chains): a row a warp, each lane
+  ⌈H/32⌉ hidden units of a net, the parameters staged per coupling block or
+  per net, or read from global memory (``wide_fwd_plan``);
+* ``chain_bwd_wide_kernel`` (K5 for them): the chain forward keeping each
+  row's state after every half step, then the nets backwards, each
+  recomputed from the state it read; the weight and bias gradients as
+  sums over tiles of rows into one partial per thread block
+  (``wide_bwd_plan``), summed here; g1 in K5's layout.
+
+The context-weight gradient's kernels take rows of g1 at most
+``CTX_GRAD_COLUMNS`` wide; a wider chain's g1 goes through them in column
+groups.  ``chain_refusal`` says why a chain runs on neither pair: a hidden
+width above ``WIDE_MAX_HIDDEN`` (the context-share kernel takes a thread a
+hidden unit of a net, at most 1,024 a block, and a wide lane holds at most
+32 units).
 """
 
 from __future__ import annotations
@@ -77,13 +91,20 @@ from nfdpf_torch.ops.flows import FlowChain
 # kernel launches since the last reset: the forward kernel by direction, the
 # backward kernel and the context kernels (the weight gradient's two)
 LAUNCHES = {"coupling_chain": 0, "coupling_chain_inverse": 0, "coupling_chain_bwd": 0,
-            "coupling_ctx_share": 0, "coupling_ctx_grad_rows": 0, "coupling_ctx_weight_grad": 0,
-            "coupling_ctx_input_grad": 0}
+            "coupling_chain_wide": 0, "coupling_chain_wide_inverse": 0,
+            "coupling_chain_bwd_wide": 0, "coupling_ctx_share": 0, "coupling_ctx_grad_rows": 0,
+            "coupling_ctx_weight_grad": 0, "coupling_ctx_input_grad": 0}
 
 NETS = ("t1", "s1", "t2", "s2")
-MAX_HIDDEN = 16                   # the H-wide activations are register arrays
+MAX_HIDDEN = 16                   # the narrow pair's H-wide activations are register arrays
 PADDED_ABOVE = 8                  # wider chains run at MAX_HIDDEN, zero-padded
-MAX_BLOCKS = 8                    # chain blocks the kernels take
+MAX_BLOCKS = 8                    # chain blocks the narrow pair takes
+WIDE_BUILD = 0                    # the library whose kernels take H at run time
+WIDE_MAX_HIDDEN = 1024            # the widest chain (kWideMaxHidden)
+WIDE_WARPS = 8                    # warps of a wide block, a row each at a time (kWideWarps)
+WIDE_TILE_TARGET = 2 * 132        # tiles of rows that give every SM a wide block or more
+WIDE_BWD_MAX_GRID = 2 * 132       # wide backward blocks, each with a partial
+WIDE_PART_BYTES = 256 << 20       # what the wide backward's partials may take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
 FWD_ROWS_PER_BLOCK = 32           # forward rows per block
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
@@ -113,6 +134,8 @@ CTX_IN_NARROW = 8                 # contexts this wide: tiles of one entry a thr
 CTX_IN_ONE_ENTRY = 40             # contexts this wide: the same below CTX_IN_MANY_ROWS rows
 CTX_IN_FEW_ROWS = 512             # rows of g1 below which tiles take 16 rows
 CTX_IN_MANY_ROWS = 8192           # rows of g1 from which tiles take 128 rows
+CTX_GRAD_COLUMNS = 4 * CTX_THREADS  # widest rows of g1 the weight gradient's kernels take
+CTX_SHARE_MAX_THREADS = 512       # a share block's whole warps, most threads
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -121,6 +144,10 @@ _SIGNATURES = {
     "nfdpf_coupling_chain_fwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_chain_bwd": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "nfdpf_coupling_chain_fwd_wide": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _P],
+    "nfdpf_coupling_chain_bwd_wide": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_ctx_share": [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _P, _P],
     "nfdpf_coupling_ctx_grad_rows": [_P, _I, _I, _I, _P, _L, _L, _I, _I, _I, _I, _I, _I,
@@ -131,7 +158,8 @@ _SIGNATURES = {
 }
 # the kernels whose last launch the library notes, in its slots' order
 NOTED = ("coupling_chain", "coupling_chain_bwd", "coupling_ctx_share", "coupling_ctx_grad_rows",
-         "coupling_ctx_weight_grad", "coupling_ctx_input_grad")
+         "coupling_ctx_weight_grad", "coupling_ctx_input_grad", "coupling_chain_wide",
+         "coupling_chain_bwd_wide")
 # how K4/K5 find a row's row of P: one row for all (no context), one per
 # batch element (a context broadcast over the particles), one per row
 ONE_ROW, PER_BATCH, PER_ROW = 0, 1, 2
@@ -143,7 +171,8 @@ def reset_launches() -> None:
 
 
 def build_defines(hidden: int) -> tuple:
-    """The compile-time defines of the library for one hidden width."""
+    """The compile-time defines of the library for one hidden width
+    (``WIDE_BUILD``: the wide library)."""
     return (f"NFDPF_HIDDEN={hidden}",)
 
 
@@ -172,10 +201,29 @@ def _library(hidden: int):
     return load("coupling", _SIGNATURES, build_defines(hidden))
 
 
+def narrow_pair_takes(n_blocks: int, hidden: int) -> bool:
+    """Whether the narrow pair (K4/K5 of one width, ``kernel_hidden``) takes
+    a chain of ``n_blocks`` blocks at hidden width ``hidden``: at most 16
+    wide, at most 8 blocks, and its backward's factor tile and parameters
+    (and the forward's parameters with a block's most rows of P) within a
+    block's shared memory for a single warp."""
+    if hidden > MAX_HIDDEN or n_blocks > MAX_BLOCKS:
+        return False
+    h = kernel_hidden(hidden)
+    return (bwd_smem_bytes(n_blocks, h, BWD_MIN_THREADS) <= MAX_SMEM_BYTES
+            and fwd_smem_bytes(n_blocks, h, FWD_ROWS_PER_BLOCK) <= MAX_SMEM_BYTES)
+
+
+def _chain_library(n_blocks: int, hidden: int):
+    """The library that runs a chain of ``n_blocks`` at (kernel) width
+    ``hidden``: the narrow one of that width, else the wide one."""
+    return _library(hidden if narrow_pair_takes(n_blocks, hidden) else WIDE_BUILD)
+
+
 def launch_note(hidden: int, kernel: str) -> dict:
-    """The last launch of ``kernel`` (one of ``NOTED``; the forward kernel in
-    either direction) from the library of kernel width ``hidden``:
-    ``read_launch_note``'s record."""
+    """The last launch of ``kernel`` (one of ``NOTED``; the forward kernels in
+    either direction) from the library of kernel width ``hidden``
+    (``WIDE_BUILD``: the wide library): ``read_launch_note``'s record."""
     return read_launch_note(_library(hidden).nfdpf_coupling_launch_note, NOTED.index(kernel))
 
 
@@ -369,6 +417,65 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def wide_net_floats(hidden: int) -> int:
+    """A net's floats staged by the wide pair (``wide_net_floats`` in
+    ``csrc/coupling.cu``): layer 1 in rows of hidden | 1 floats, layer 0's
+    row 0, layer 1's bias, layer 2's column 0 and its bias."""
+    return hidden * (hidden | 1) + 3 * hidden + 1
+
+
+def wide_part_floats(hidden: int) -> int:
+    """A net's entries in the wide backward's partials: layer 1 (H x H),
+    layer 0's row 0, layer 2's column 0, layer 0's and 1's biases, layer
+    2's bias."""
+    return hidden * hidden + 4 * hidden + 1
+
+
+def wide_smem_bytes(hidden: int, tile_rows: int, nets_a_stage: int, backward: bool) -> int:
+    """Shared memory of a wide block (``wide_smem_floats`` in
+    ``csrc/coupling.cu``): ``nets_a_stage`` staged nets, then the forward's
+    row slice (H floats) a warp, or the backward's tile of h1, h2, g1, g2
+    (``tile_rows`` x H each) and its rows' half inputs and output
+    gradients."""
+    rest = tile_rows * (4 * hidden + 2) if backward else WIDE_WARPS * hidden
+    return 4 * (nets_a_stage * wide_net_floats(hidden) + rest)
+
+
+def _wide_plan(rows: int, hidden: int, backward: bool) -> dict:
+    """Tiles of 8·rpw rows (rpw rows a warp: 4, 2 or 1, the most that still
+    make ``WIDE_TILE_TARGET`` tiles, fewer where the backward's tile does
+    not fit), the nets staged a coupling block (4), a net (1) or none (0)
+    at a time, the most that fit a block's shared memory beside the tile."""
+    want = next((r for r in (4, 2, 1) if _cdiv(rows, WIDE_WARPS * r) >= WIDE_TILE_TARGET), 1)
+    rpw, stage = next((r, s) for r in (4, 2, 1) for s in (4, 1, 0) if r <= want and
+                      wide_smem_bytes(hidden, WIDE_WARPS * r, s, backward) <= MAX_SMEM_BYTES)
+    tile = WIDE_WARPS * rpw
+    return {"tile_rows": tile, "nets_a_stage": stage, "tiles": _cdiv(rows, tile),
+            "grid": _cdiv(rows, tile), "threads": 32 * WIDE_WARPS,
+            "smem_bytes": wide_smem_bytes(hidden, tile, stage, backward)}
+
+
+def wide_fwd_plan(rows: int, hidden: int) -> dict:
+    """How the wide forward covers ``rows`` rows of a chain at hidden width
+    ``hidden``: ``_wide_plan``, a block a tile."""
+    return _wide_plan(rows, hidden, False)
+
+
+def wide_bwd_plan(rows: int, n_blocks: int, hidden: int) -> dict:
+    """How the wide backward covers ``rows`` rows: ``_wide_plan``'s tiles
+    over at most ``WIDE_BWD_MAX_GRID`` blocks, fewer where their partials
+    (4K·``wide_part_floats`` floats each, ``part_floats`` in all) would
+    pass ``WIDE_PART_BYTES``; ``state_floats``, the rows' states after each
+    half step (2K + 1 pairs a row)."""
+    plan = _wide_plan(rows, hidden, True)
+    per_block = 4 * n_blocks * wide_part_floats(hidden)
+    plan["grid"] = max(1, min(plan["tiles"], WIDE_BWD_MAX_GRID,
+                              WIDE_PART_BYTES // (4 * per_block)))
+    plan["part_floats"] = plan["grid"] * per_block
+    plan["state_floats"] = rows * 2 * (2 * n_blocks + 1)
+    return plan
+
+
 def ctx_share_smem_bytes(rows_a_block: int, nets_a_block: int, hidden: int,
                          c_chunk: int) -> int:
     """Shared memory of the context-share kernel: a chunk of ``c_chunk``
@@ -398,8 +505,11 @@ def ctx_share_plan(ctx_rows: int, n_blocks: int, hidden: int, ctx_dim: int) -> d
         rows, nets_a_block, rows_a_thread = lanes * CTX_SHARE_WIDE_ROWS, nets, CTX_SHARE_WIDE_ROWS
     else:
         # whole warps, about 128 threads (the plan sweep's best at the filter's
-        # shapes), more while the target still fills
+        # shapes), more while the target still fills; a wide odd width whose
+        # whole warps would pass CTX_SHARE_MAX_THREADS takes any row count
         unit = 32 // math.gcd(32, hidden)
+        if unit * hidden > CTX_SHARE_MAX_THREADS:
+            unit = 1
         rows = unit * max(1, 128 // hidden // unit)
         while 2 * rows * hidden <= 256 and _cdiv(ctx_rows, 2 * rows) * nets >= CTX_GRID_TARGET:
             rows *= 2
@@ -549,35 +659,20 @@ def ctx_grad_rows_plain(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tens
     return torch.einsum("jrc,jre->jce", c, g)
 
 
-def chain_refusal(n_blocks: int, hidden: int, ctx_dim: int, n: int, broadcast: bool,
-                  backward: bool) -> Optional[str]:
-    """Why the forward kernel (K4) or, with ``backward``, the backward kernel
-    (K5) cannot take a chain of ``n_blocks`` blocks at hidden width
-    ``hidden`` with a ``ctx_dim``-wide context over ``n`` particles per batch
-    element (``broadcast``: one context row per batch element, particle
-    stride 0, as the filter passes it); None when it can.  The wrapper raises
-    it at launch, the filter when it is built; a chain 9-15 wide is counted
-    at the width it runs at, 16."""
-    if hidden > MAX_HIDDEN or n_blocks > MAX_BLOCKS:
-        return (f"the coupling kernels take hidden <= {MAX_HIDDEN} and at most "
-                f"{MAX_BLOCKS} blocks, got hidden={hidden}, blocks={n_blocks}")
-    hidden = kernel_hidden(hidden)
-    if backward:
-        smem = bwd_smem_bytes(n_blocks, hidden, BWD_MIN_THREADS)
-    else:
-        # the rows of P a block reads: a run per batch element when the
-        # context is broadcast over the particles, else one per row
-        rows = FWD_ROWS_PER_BLOCK
-        segments = (1 if not ctx_dim else
-                    min(rows, (rows - 1) // n + 2) if broadcast else rows)
-        smem = fwd_smem_bytes(n_blocks, hidden, segments)
-    if smem > MAX_SMEM_BYTES:
-        return (f"the chain needs {smem} bytes of shared memory in the "
-                f"{'backward' if backward else 'forward'} kernel; a block has {MAX_SMEM_BYTES}")
+def chain_refusal(hidden: int) -> Optional[str]:
+    """Why neither pair of coupling kernels takes a chain of hidden width
+    ``hidden`` (of the filter's state dimension 2, in float32: the wrapper
+    checks both), None when one does: the narrow pair where
+    ``narrow_pair_takes``, the wide pair any other chain up to
+    ``WIDE_MAX_HIDDEN`` wide with any number of blocks and any context.
+    The wrapper raises it at launch, the filter when it is built."""
+    if hidden > WIDE_MAX_HIDDEN:
+        return (f"the coupling kernels take hidden <= {WIDE_MAX_HIDDEN} (the context share "
+                f"takes a thread a hidden unit of a net, 1,024 a block), got hidden={hidden}")
     return None
 
 
-def _check_chain(x, ctx, weights, biases, backward: bool):
+def _check_chain(x, ctx, weights, biases):
     """Shapes the packed chain must have; on CUDA also what the kernels take."""
     b, n, d = x.shape
     n_blocks, hidden, max_in = weights.shape[0], weights.shape[-1], weights.shape[-2]
@@ -592,8 +687,7 @@ def _check_chain(x, ctx, weights, biases, backward: bool):
             f"weights{tuple(weights.shape)} biases{tuple(biases.shape)}")
     if not x.is_cuda:
         return
-    why = chain_refusal(n_blocks, hidden, ctx_dim, n,
-                        ctx is not None and ctx.stride(1) == 0, backward)
+    why = chain_refusal(hidden)
     if why is not None:
         raise ValueError(why)
 
@@ -602,9 +696,9 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_ctx_share(ctx, weights, biases):
+def _launch_ctx_share(lib, ctx, weights, biases):
     """(P (R, 4K·H), how a row finds its row of P) on the card: the
-    context-share kernel."""
+    context-share kernel of ``lib``."""
     ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
     mode, r = context_layout(ctx)
     weights, biases = kernel_args(weights, biases)
@@ -612,7 +706,7 @@ def _launch_ctx_share(ctx, weights, biases):
     ctx_dim = 0 if ctx is None else ctx.shape[-1]
     plan = ctx_share_plan(r, n_blocks, hidden, ctx_dim)
     p = torch.empty((r, 4 * n_blocks * hidden), device=weights.device, dtype=torch.float32)
-    rc = _library(hidden).nfdpf_coupling_ctx_share(
+    rc = lib.nfdpf_coupling_ctx_share(
         ctx_ptr, ctx_sb, ctx_sn, 1 if ctx is None else ctx.shape[1], ctx_dim, mode,
         weights.data_ptr(), biases.data_ptr(), weights.shape[-2], n_blocks, hidden, r,
         plan["rows_a_block"], plan["nets_a_block"], plan["rows_a_thread"], plan["c_chunk"],
@@ -633,6 +727,24 @@ def _launch_forward(x, p, mode: int, weights, biases, inverse: bool):
         y.data_ptr(), ld.data_ptr(), b * n, n, weights.shape[0], weights.shape[-2],
         weights.shape[-1], int(inverse), _stream(x))
     counter = "coupling_chain_inverse" if inverse else "coupling_chain"
+    check_launch(rc, counter)
+    LAUNCHES[counter] += 1
+    return y, ld
+
+
+def _launch_forward_wide(x, p, mode: int, weights, biases, inverse: bool):
+    """The wide forward on rows x with P, on ``wide_fwd_plan``."""
+    b, n, _ = x.shape
+    x, p, weights, biases = kernel_args(x, p, weights, biases)
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    plan = wide_fwd_plan(b * n, hidden)
+    y = torch.empty((b, n, 2), device=x.device, dtype=torch.float32)
+    ld = torch.empty((b, n), device=x.device, dtype=torch.float32)
+    rc = _library(WIDE_BUILD).nfdpf_coupling_chain_fwd_wide(
+        x.data_ptr(), p.data_ptr(), mode, weights.data_ptr(), biases.data_ptr(),
+        y.data_ptr(), ld.data_ptr(), b * n, n, n_blocks, weights.shape[-2], hidden,
+        int(inverse), plan["tile_rows"], plan["nets_a_stage"], plan["grid"], _stream(x))
+    counter = "coupling_chain_wide_inverse" if inverse else "coupling_chain_wide"
     check_launch(rc, counter)
     LAUNCHES[counter] += 1
     return y, ld
@@ -664,9 +776,54 @@ def _launch_backward(x, p, mode: int, weights, biases, gy, gld, inverse: bool,
     return gx, g1, torch.sum(gw_part, dim=0), torch.sum(gb_part, dim=0)
 
 
-def _launch_ctx_grad_rows(g1, ctx, n_blocks: int, hidden: int):
+def wide_grads(parts: torch.Tensor, hidden: int,
+               max_in: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed weight (K, 4, 3, max_in, H) and bias (K, 4, 3, H) gradients
+    of a chain without context from the wide backward's summed partials
+    (K, 4, ``wide_part_floats(H)``): layer 1, layer 0's row 0, layer 2's
+    column 0, then the biases; every other entry 0 (layer 0's context rows
+    are the context-weight gradient's)."""
+    n_blocks, h, hh = parts.shape[0], hidden, hidden * hidden
+    gw = parts.new_zeros((n_blocks, 4, 3, max_in, h))
+    gb = parts.new_zeros((n_blocks, 4, 3, h))
+    gw[:, :, 1, :h] = parts[..., :hh].reshape(n_blocks, 4, h, h)
+    gw[:, :, 0, 0] = parts[..., hh:hh + h]
+    gw[:, :, 2, :h, 0] = parts[..., hh + h:hh + 2 * h]
+    gb[:, :, 0] = parts[..., hh + 2 * h:hh + 3 * h]
+    gb[:, :, 1] = parts[..., hh + 3 * h:hh + 4 * h]
+    gb[:, :, 2, 0] = parts[..., hh + 4 * h]
+    return gw, gb
+
+
+def _launch_backward_wide(x, p, mode: int, weights, biases, gy, gld, inverse: bool,
+                          with_g1: bool):
+    """The wide backward on ``wide_bwd_plan``: (gx, each row's g1 (B·N,
+    4K·H) or None, the packed weight gradient of a chain without context
+    (K, 4, 3, max_in, H), the bias gradient), the partials summed here."""
+    b, n, _ = x.shape
+    x, p, weights, biases, gy, gld = kernel_args(x, p, weights, biases, gy, gld)
+    dev, rows = x.device, b * n
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    plan = wide_bwd_plan(rows, n_blocks, hidden)
+    gx = torch.empty((b, n, 2), device=dev, dtype=torch.float32)
+    g1 = (torch.empty((rows, 4 * n_blocks * hidden), device=dev, dtype=torch.float32)
+          if with_g1 else None)
+    gpart = torch.empty(plan["part_floats"], device=dev, dtype=torch.float32)
+    states = torch.empty(plan["state_floats"], device=dev, dtype=torch.float32)
+    rc = _library(WIDE_BUILD).nfdpf_coupling_chain_bwd_wide(
+        x.data_ptr(), p.data_ptr(), mode, weights.data_ptr(), biases.data_ptr(),
+        gy.data_ptr(), gld.data_ptr(), gx.data_ptr(), 0 if g1 is None else g1.data_ptr(),
+        gpart.data_ptr(), states.data_ptr(), rows, n, n_blocks, weights.shape[-2], hidden,
+        int(inverse), plan["tile_rows"], plan["nets_a_stage"], plan["grid"], _stream(x))
+    check_launch(rc, "coupling_chain_bwd_wide")
+    LAUNCHES["coupling_chain_bwd_wide"] += 1
+    parts = gpart.view(plan["grid"], n_blocks, 4, wide_part_floats(hidden)).sum(0)
+    return (gx, g1) + wide_grads(parts, hidden, weights.shape[-2])
+
+
+def _launch_ctx_grad_rows(lib, g1, ctx, n_blocks: int, hidden: int):
     """(the parts, the plan) of K5's g1: the context-weight gradient's first
-    kernel."""
+    kernel of ``lib``."""
     ctx, ctx_ptr, ctx_sb, ctx_sn = _ctx_arg(ctx)
     mode, _ = context_layout(ctx)
     (g1,) = kernel_args(g1)
@@ -675,7 +832,7 @@ def _launch_ctx_grad_rows(g1, ctx, n_blocks: int, hidden: int):
     rows, ps = g1.shape
     plan = ctx_weight_grad_plan(rows, ctx.shape[1], mode, ctx.shape[-1], ps)
     parts = torch.empty(plan["part_floats"], device=g1.device, dtype=torch.float32)
-    rc = _library(hidden).nfdpf_coupling_ctx_grad_rows(
+    rc = lib.nfdpf_coupling_ctx_grad_rows(
         g1.data_ptr(), rows, ctx.shape[1], mode, ctx_ptr, ctx_sb, ctx_sn, ctx.shape[-1],
         n_blocks, hidden, plan["rows_per_block"], plan["c_tile1"], int(plan["segments"]),
         parts.data_ptr(), _stream(g1))
@@ -684,23 +841,51 @@ def _launch_ctx_grad_rows(g1, ctx, n_blocks: int, hidden: int):
     return parts, plan
 
 
-def _launch_ctx_weight_grad(g1, ctx, gw):
+def _launch_ctx_weight_grad(lib, g1, ctx, gw):
     """Write layer 0's context rows of the packed weight gradient ``gw``
     (K, 4, 3, max_in, H) from K5's g1: the two kernels of the
-    context-weight gradient."""
+    context-weight gradient of ``lib``."""
     n_blocks, max_in, hidden = gw.shape[0], gw.shape[-2], gw.shape[-1]
-    parts, plan = _launch_ctx_grad_rows(g1, ctx, n_blocks, hidden)
+    parts, plan = _launch_ctx_grad_rows(lib, g1, ctx, n_blocks, hidden)
     ctx, ctx_ptr, ctx_sb, _ = _ctx_arg(ctx)
-    rc = _library(hidden).nfdpf_coupling_ctx_weight_grad(
+    rc = lib.nfdpf_coupling_ctx_weight_grad(
         parts.data_ptr(), plan["parts"], plan["pieces"], ctx_ptr, ctx_sb, ctx.shape[-1],
         n_blocks, max_in, hidden, int(plan["segments"]), gw.data_ptr(), _stream(gw))
     check_launch(rc, "coupling_ctx_weight_grad")
     LAUNCHES["coupling_ctx_weight_grad"] += 1
 
 
-def _launch_ctx_input_grad(g1, weights, ctx_dim: int):
+def ctx_grad_groups(ps: int) -> list:
+    """The column groups (start, width) in which the context-weight
+    gradient's kernels take rows of g1 ``ps`` wide: at most
+    ``CTX_GRAD_COLUMNS`` each."""
+    return [(a, min(CTX_GRAD_COLUMNS, ps - a)) for a in range(0, ps, CTX_GRAD_COLUMNS)]
+
+
+def _ctx_weight_grad_into(g1, ctx, gw):
+    """Layer 0's context rows of the packed weight gradient ``gw`` from g1 on
+    the library that runs the chain (``_chain_library``).  Rows of g1 wider
+    than ``CTX_GRAD_COLUMNS`` (only the wide pair's chains have them) go
+    through the kernels in column groups (``ctx_grad_groups``), each as a
+    chain of one block a quarter of the group wide, into a gradient of its
+    own, whose context rows are then laid into ``gw``'s."""
+    n_blocks, hidden, ps = gw.shape[0], gw.shape[-1], g1.shape[1]
+    lib = _chain_library(n_blocks, hidden)
+    if ps <= CTX_GRAD_COLUMNS:
+        _launch_ctx_weight_grad(lib, g1, ctx, gw)
+        return
+    c, cols = ctx.shape[-1], []
+    for a, width in ctx_grad_groups(ps):
+        part = torch.empty((1, 4, 3, 1 + c, width // 4), device=gw.device, dtype=torch.float32)
+        _launch_ctx_weight_grad(lib, g1[:, a:a + width].contiguous(), ctx, part)
+        cols.append(part[0, :, 0, 1:].permute(1, 0, 2).reshape(c, width))
+    rows = torch.cat(cols, 1).reshape(c, n_blocks, 4, hidden)
+    gw[:, :, 0, 1:1 + c] = rows.permute(1, 2, 0, 3)
+
+
+def _launch_ctx_input_grad(lib, g1, weights, ctx_dim: int):
     """The context's gradient (B·N, C) from K5's g1: the
-    context-input-gradient kernel."""
+    context-input-gradient kernel of ``lib``."""
     g1, weights = kernel_args(g1, weights)
     if g1.data_ptr() % 16:        # the kernel stages g1 16 bytes at a time
         g1 = g1.clone()
@@ -709,7 +894,7 @@ def _launch_ctx_input_grad(g1, weights, ctx_dim: int):
                          f"{tuple(weights.shape)}")
     plan = ctx_input_grad_plan(g1.shape[0], ctx_dim, g1.shape[1])
     gctx = torch.empty((g1.shape[0], ctx_dim), device=g1.device, dtype=torch.float32)
-    rc = _library(weights.shape[-1]).nfdpf_coupling_ctx_input_grad(
+    rc = lib.nfdpf_coupling_ctx_input_grad(
         g1.data_ptr(), g1.shape[0], ctx_dim, weights.shape[0], weights.shape[-2],
         weights.shape[-1], weights.data_ptr(), plan["tile_rows"], plan["tile_cols"],
         plan["rows_a_thread"], gctx.data_ptr(), _stream(g1))
@@ -726,27 +911,31 @@ def ctx_share(ctx: Optional[torch.Tensor], weights: torch.Tensor,
     tensors = [t for t in (ctx, weights, biases) if t is not None]
     if on_cpu(*tensors):
         return ctx_share_plain(ctx, weights, biases)
-    return _launch_ctx_share(ctx, weights, biases)[0]
+    lib = _chain_library(weights.shape[0], weights.shape[-1])
+    return _launch_ctx_share(lib, ctx, weights, biases)[0]
 
 
 def ctx_weight_grad(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Layer 0's context rows of the weight gradient (K, 4, C, H) from the
-    rows' g1: the context-weight-gradient kernel on CUDA tensors, its plain
-    version on the CPU."""
+    rows' g1: the context-weight-gradient kernels on CUDA tensors, their
+    plain version on the CPU."""
     if on_cpu(g1, ctx, weights):
         return ctx_weight_grad_plain(g1, ctx, weights)
-    # the kernel writes every entry returned (layer 0's context rows)
+    # the kernels write every entry returned (layer 0's context rows)
     gw = torch.empty(weights.shape, device=weights.device, dtype=torch.float32)
-    _launch_ctx_weight_grad(g1, ctx, gw)
+    _ctx_weight_grad_into(g1, ctx, gw)
     return gw[:, :, 0, 1:1 + ctx.shape[-1]]
 
 
 def ctx_grad_rows(g1: torch.Tensor, ctx: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """The context-weight gradient's parts (see ``ctx_grad_rows_plain``): its
-    first kernel on CUDA tensors, the plain version on the CPU."""
+    first kernel on CUDA tensors (rows of g1 at most ``CTX_GRAD_COLUMNS``
+    wide), the plain version on the CPU."""
     if on_cpu(g1, ctx, weights):
         return ctx_grad_rows_plain(g1, ctx, weights)
-    parts, plan = _launch_ctx_grad_rows(g1, ctx, weights.shape[0], weights.shape[-1])
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    parts, plan = _launch_ctx_grad_rows(_chain_library(n_blocks, hidden), g1, ctx, n_blocks,
+                                        hidden)
     ps = g1.shape[1]
     return parts.reshape((plan["parts"], ps) if plan["segments"]
                          else (plan["parts"], ctx.shape[-1], ps))
@@ -758,39 +947,49 @@ def ctx_input_grad(g1: torch.Tensor, weights: torch.Tensor, ctx_dim: int) -> tor
     CPU."""
     if on_cpu(g1, weights):
         return ctx_input_grad_plain(g1, weights, ctx_dim)
-    return _launch_ctx_input_grad(g1, weights, ctx_dim)
+    lib = _chain_library(weights.shape[0], weights.shape[-1])
+    return _launch_ctx_input_grad(lib, g1, weights, ctx_dim)
 
 
 class FusedCouplingChain(torch.autograd.Function):
     """(y, log_det) of a packed chain on CUDA tensors: the context-share
     kernel and the forward kernel; in the backward the backward kernel and,
-    with a context, the context-weight-gradient kernel and (only when the
-    context asks for one) the context-input-gradient kernel."""
+    with a context, the context-weight-gradient kernels and (only when the
+    context asks for one) the context-input-gradient kernel.  The narrow
+    pair where it takes the chain (``narrow_pair_takes``), else the wide
+    pair, with the wide library's context kernels."""
 
     @staticmethod
     def forward(fn, x, ctx, weights, biases, inverse):
-        _check_chain(x, ctx, weights, biases, backward=False)
-        p, mode = _launch_ctx_share(ctx, weights, biases)
+        _check_chain(x, ctx, weights, biases)
+        n_blocks, hidden = weights.shape[0], weights.shape[-1]
+        fn.wide = not narrow_pair_takes(n_blocks, hidden)
+        p, mode = _launch_ctx_share(_chain_library(n_blocks, hidden), ctx, weights, biases)
         fn.save_for_backward(x, ctx, weights, biases, p)
         fn.inverse, fn.mode = inverse, mode
-        return _launch_forward(x, p, mode, weights, biases, inverse)
+        launch = _launch_forward_wide if fn.wide else _launch_forward
+        return launch(x, p, mode, weights, biases, inverse)
 
     @staticmethod
     def backward(fn, gy, gld):
         x, ctx, weights, biases, p = fn.saved_tensors
-        _check_chain(x, ctx, weights, biases, backward=True)
         ctx_dim, hidden = 0 if ctx is None else ctx.shape[-1], weights.shape[-1]
-        gx, g1, gw_plain, gb = _launch_backward(x, p, fn.mode, weights, biases, gy, gld,
-                                                fn.inverse, ctx_dim > 0)
-        # the packed weight gradient: the rows of a chain without context,
-        # then layer 0's context rows (max_in >= hidden rows a layer)
-        gw = torch.zeros(weights.shape, device=weights.device, dtype=torch.float32)
-        gw[:, :, :, :hidden] = gw_plain
+        if fn.wide:
+            gx, g1, gw, gb = _launch_backward_wide(x, p, fn.mode, weights, biases, gy, gld,
+                                                   fn.inverse, ctx_dim > 0)
+        else:
+            gx, g1, gw_plain, gb = _launch_backward(x, p, fn.mode, weights, biases, gy, gld,
+                                                    fn.inverse, ctx_dim > 0)
+            # the packed weight gradient: the rows of a chain without context,
+            # then layer 0's context rows (max_in >= hidden rows a layer)
+            gw = torch.zeros(weights.shape, device=weights.device, dtype=torch.float32)
+            gw[:, :, :, :hidden] = gw_plain
         gctx = None
         if ctx_dim:
-            _launch_ctx_weight_grad(g1, ctx, gw)
+            _ctx_weight_grad_into(g1, ctx, gw)
             if fn.needs_input_grad[1]:
-                gctx = _launch_ctx_input_grad(g1, weights, ctx_dim).reshape(ctx.shape)
+                lib = _chain_library(weights.shape[0], hidden)
+                gctx = _launch_ctx_input_grad(lib, g1, weights, ctx_dim).reshape(ctx.shape)
         return gx, gctx, gw, gb, None
 
 
@@ -802,11 +1001,14 @@ def fused_coupling_chain(x: torch.Tensor, ctx: Optional[torch.Tensor],
     Returns (y, log_det) equal to ``FlowChain.forward`` (its log_det; the
     prior term is separate) or ``FlowChain.inverse``.  ctx is (B, N, C) or
     None.  Differentiable in x, ctx, weights and biases.  On CUDA a chain
-    9-15 wide is padded to 16 (``pad_hidden``) for the kernels.
+    the narrow pair takes 9-15 wide is padded to 16 (``pad_hidden``) for
+    it; every other chain runs on the wide pair as it is.
     """
     tensors = [t for t in (x, ctx, weights, biases) if t is not None]
     if on_cpu(*tensors):
-        _check_chain(x, ctx, weights, biases, backward=False)
+        _check_chain(x, ctx, weights, biases)
         return chain_apply_packed_plain(x, ctx, weights, biases, inverse)
-    weights, biases = pad_hidden(weights, biases, kernel_hidden(weights.shape[-1]))
+    n_blocks, hidden = weights.shape[0], weights.shape[-1]
+    if narrow_pair_takes(n_blocks, hidden):
+        weights, biases = pad_hidden(weights, biases, kernel_hidden(hidden))
     return FusedCouplingChain.apply(x, ctx, weights, biases, bool(inverse))

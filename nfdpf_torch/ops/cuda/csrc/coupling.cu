@@ -91,6 +91,13 @@
 // ptxas (CUDA 12.8, H = 8): about 150 registers a thread, no spills, no
 // stack (PERF.md has the counts, and those at H = 16).
 // Precise tanhf/expf (no fast-math).
+//
+// The chains that pair does not take (hidden above 16, more than 8 blocks,
+// or a factor tile past a block's shared memory: 4 or more blocks at 9-16)
+// run on a second pair, chain_fwd_wide_kernel and chain_bwd_wide_kernel
+// (their design above them), built once with -DNFDPF_HIDDEN=0: that
+// library takes H and K at run time, in the wide pair and in the context
+// kernels alike, and holds no K4/K5 of the narrow pair.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,7 +113,9 @@
 
 namespace {
 
-constexpr int kHidden = NFDPF_HIDDEN;   // the conditioners' hidden width H
+// the conditioners' hidden width H; 0 in the wide library, whose kernels
+// take it at run time
+constexpr int kHidden = NFDPF_HIDDEN;
 // lanes per net of a forward row (H / kFwdLanes hidden units each) and rows
 // per forward block, settled by a sweep at the filter's shapes (PERF.md)
 constexpr int kFwdLanes = kHidden % 4 == 0 ? 4 : kHidden % 2 == 0 ? 2 : 1;
@@ -902,15 +911,16 @@ template <int RPT>
 __global__ void chain_ctx_share_kernel(const float* __restrict__ ctx, long long sb, long long sn,
                                        int n, int C, int p_mode, const float* __restrict__ w,
                                        const float* __restrict__ bias, int max_in, int nets,
-                                       int R, int rows_a_block, int nets_a_block, int c_chunk,
-                                       float* __restrict__ p) {
+                                       int hidden, int R, int rows_a_block, int nets_a_block,
+                                       int c_chunk, float* __restrict__ p) {
   extern __shared__ __align__(16) float smem[];
-  const int et = nets_a_block * kHidden, t = threadIdx.x;
+  const int hid = kHidden > 0 ? kHidden : hidden;
+  const int et = nets_a_block * hid, t = threadIdx.x;
   const int u = t % et, first = (t / et) * RPT;
-  const int m0 = blockIdx.y * nets_a_block, m = m0 + u / kHidden, j = u % kHidden;
+  const int m0 = blockIdx.y * nets_a_block, m = m0 + u / hid, j = u % hid;
   const int d0 = blockIdx.x * rows_a_block, dn = min(rows_a_block, R - d0);
   // layer 0's rows 1..C of net m, H floats each, column j
-  const float* wm = w + (size_t)m * 3 * max_in * kHidden + kHidden + j;
+  const float* wm = w + (size_t)m * 3 * max_in * hid + hid + j;
   float acc[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
@@ -919,7 +929,7 @@ __global__ void chain_ctx_share_kernel(const float* __restrict__ ctx, long long 
     for (int i = 0; i < RPT; ++i) {
       if (first + i >= dn) break;
       const float* cd = ctx + ctx_offset(d0 + first + i, n, p_mode, sb, sn);
-      for (int c = 0; c < C; ++c) acc[i] = fmaf(__ldg(cd + c), __ldg(wm + c * kHidden), acc[i]);
+      for (int c = 0; c < C; ++c) acc[i] = fmaf(__ldg(cd + c), __ldg(wm + c * hid), acc[i]);
     }
   } else {
     const int ldc = (c_chunk + 3) / 4 * 4;
@@ -927,16 +937,16 @@ __global__ void chain_ctx_share_kernel(const float* __restrict__ ctx, long long 
     float* ws = smem + (size_t)rows_a_block * ldc;
     // each net's cn x H context rows are one run in the packing; 16-byte
     // copies where H is a multiple of 4 and the packing starts on 16 bytes
-    const int unit = (kHidden % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) ? 4 : 1;
+    const int unit = (hid % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) ? 4 : 1;
     for (int cb = 0; cb < C; cb += c_chunk) {
       const int cn = min(c_chunk, C - cb);
       stage_ctx_rows(cs, ldc, ctx, sb, sn, n, p_mode == kPerBatch, d0, dn, cb, cn);
-      for (int i = t * unit; i < nets_a_block * cn * kHidden; i += blockDim.x * unit) {
-        const int mm = i / (cn * kHidden), rest = i % (cn * kHidden);
-        const int c = rest / kHidden, jj = rest % kHidden;
-        float* dst = ws + c * et + mm * kHidden + jj;
-        const float* src = w + (size_t)(m0 + mm) * 3 * max_in * kHidden + kHidden +
-                           (size_t)(cb + c) * kHidden + jj;
+      for (int i = t * unit; i < nets_a_block * cn * hid; i += blockDim.x * unit) {
+        const int mm = i / (cn * hid), rest = i % (cn * hid);
+        const int c = rest / hid, jj = rest % hid;
+        float* dst = ws + c * et + mm * hid + jj;
+        const float* src = w + (size_t)(m0 + mm) * 3 * max_in * hid + hid +
+                           (size_t)(cb + c) * hid + jj;
         if (unit == 4) {
           copy_async16(dst, src);
         } else {
@@ -967,10 +977,10 @@ __global__ void chain_ctx_share_kernel(const float* __restrict__ ctx, long long 
       __syncthreads();   // before the next chunk is staged over this one
     }
   }
-  const float b0 = bias[m * 3 * kHidden + j];
+  const float b0 = bias[m * 3 * hid + j];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    if (first + i < dn) p[(size_t)(d0 + first + i) * nets * kHidden + m * kHidden + j] = b0 + acc[i];
+    if (first + i < dn) p[(size_t)(d0 + first + i) * nets * hid + m * hid + j] = b0 + acc[i];
   }
 }
 
@@ -1099,8 +1109,9 @@ chain_ctx_grad_rows_kernel(const float* __restrict__ g1, int rows, int n,
 __global__ void __launch_bounds__(kCtxThreads)
 chain_ctx_weight_grad_kernel(const float* __restrict__ parts, int J, int pieces,
                              const float* __restrict__ ctx, long long sb, int C, int ps,
-                             int max_in, int segments, float* __restrict__ gw) {
+                             int max_in, int hidden, int segments, float* __restrict__ gw) {
   extern __shared__ __align__(16) float smem[];
+  const int hid = kHidden > 0 ? kHidden : hidden;
   const int t = threadIdx.x, ps4 = ps / 4, c = blockIdx.x;
   const int ways = min(J, kCtxThreads / ps4), k = t / ps4, e4 = t % ps4;
   const float4* pv = reinterpret_cast<const float4*>(parts);
@@ -1130,8 +1141,8 @@ chain_ctx_weight_grad_kernel(const float* __restrict__ parts, int J, int pieces,
     const float out[4] = {sum.x, sum.y, sum.z, sum.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int col = 4 * e4 + i, m = col / kHidden, j = col % kHidden;
-      gw[(size_t)m * 3 * max_in * kHidden + (size_t)(1 + c) * kHidden + j] = out[i];
+      const int col = 4 * e4 + i, m = col / hid, j = col % hid;
+      gw[(size_t)m * 3 * max_in * hid + (size_t)(1 + c) * hid + j] = out[i];
     }
   }
 }
@@ -1234,15 +1245,16 @@ __device__ __forceinline__ void in_grad_step(const float* as, const float* bs, i
 template <int TY, int TM, int NJ>
 __global__ void __launch_bounds__(TY * kInLanes)
 chain_ctx_input_grad_kernel(const float* __restrict__ g1, int rows, int C, int ps, int max_in,
-                            const float* __restrict__ w, float* __restrict__ gctx) {
+                            int hidden, const float* __restrict__ w, float* __restrict__ gctx) {
   constexpr int BM = TM * TY, BN = kInLanes * NJ, threads = TY * kInLanes;
   constexpr int kq_full = kInChunk / 4, S = in_grad_stages(BM, BN);
   __shared__ __align__(16) float smem[in_grad_smem_floats(BM, BN)];
   const int t = threadIdx.x, tx = t % kInLanes, ty = t / kInLanes;
   const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
   const int nr = min(BM, rows - r0), nc = min(BN, C - c0);
-  const bool vec_w = kHidden % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  const size_t net_w = (size_t)3 * max_in * kHidden;
+  const int hid = kHidden > 0 ? kHidden : hidden;
+  const bool vec_w = hid % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const size_t net_w = (size_t)3 * max_in * hid;
   const int chunks = (ps + kInChunk - 1) / kInChunk;
   // stage chunk q into buffer q % S; past the last chunk an empty group, so
   // that group q is always the (q + 1)-th committed
@@ -1263,14 +1275,14 @@ chain_ctx_input_grad_kernel(const float* __restrict__ g1, int rows, int C, int p
     }
     if (vec_w) {
       for (int i = t; i < nc * kq; i += threads) {
-        const int c = i / kq, k = 4 * (i % kq), m = (k0 + k) / kHidden, j = (k0 + k) % kHidden;
-        copy_async16(bs + c * kInLd + k, w + m * net_w + (size_t)(1 + c0 + c) * kHidden + j);
+        const int c = i / kq, k = 4 * (i % kq), m = (k0 + k) / hid, j = (k0 + k) % hid;
+        copy_async16(bs + c * kInLd + k, w + m * net_w + (size_t)(1 + c0 + c) * hid + j);
       }
     } else {
       for (int i = t; i < nc * 4 * kq; i += threads) {
-        const int c = i / (4 * kq), k = i % (4 * kq), m = (k0 + k) / kHidden,
-                  j = (k0 + k) % kHidden;
-        copy_async4(bs + c * kInLd + k, w + m * net_w + (size_t)(1 + c0 + c) * kHidden + j);
+        const int c = i / (4 * kq), k = i % (4 * kq), m = (k0 + k) / hid,
+                  j = (k0 + k) % hid;
+        copy_async4(bs + c * kInLd + k, w + m * net_w + (size_t)(1 + c0 + c) * hid + j);
       }
     }
     copy_async_commit();
@@ -1312,6 +1324,487 @@ chain_ctx_input_grad_kernel(const float* __restrict__ g1, int rows, int C, int p
   }
 }
 
+// ---- the wide pair: K4 and K5 at any width the filter builds --------------
+//
+// chain_fwd_wide_kernel  replaces nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_kernel
+// chain_bwd_wide_kernel  replaces nfdpf_tpu/ops/pallas/coupling_pallas.py::_chain_bwd_kernel
+// for the chains the narrow pair above does not take: hidden 17-1,024,
+// more than 8 blocks, or 4 or more blocks at 9-16 (the narrow backward's
+// factor tile then passes a block's shared memory).  H and K are run-time
+// arguments (the library built with NFDPF_HIDDEN = 0); J, the hidden units a
+// lane holds (H <= 32·J), is a template argument (1, 2, 4, 8, 16, 32).
+//
+// What bounds them: per row and net 2H(H + 3) operations against 20 bytes
+// of a row's input and output (the backward about three times the
+// operations, and 4K·H floats of g1 written with a context), so the
+// operations bound is the larger one from H of a few units on; at the
+// filter's 3,200 rows the operations take microseconds and the time is the
+// dependent chain of 4K MLPs a row walks (times against bounds in PERF.md).
+// The design, a plain FMA one:
+//   * A row is one warp; lane l holds hidden units j = l + 32u (u < J) of a
+//     net.  Layer 0 reads the row's P (layer 0's bias and context share, from
+//     the context-share kernel, unchanged: ONE_ROW / PER_BATCH / PER_ROW) and
+//     writes its activations to the row's slice of shared memory, from which
+//     every lane reads layer 1's inputs (one broadcast load an input);
+//     layer 1 sums in ascending i from its bias, as the narrow pair; the
+//     output layer's products are summed by a butterfly, which leaves the
+//     same bits on every lane (each step adds the same two numbers on both
+//     lanes of a pair).
+//   * A block of 8 warps takes a tile of rows, a warp tile_rows / 8 of them
+//     one after another; lane q of a warp keeps its q-th row's state in
+//     registers.  The tile walks the chain's 4K nets in the order they
+//     apply, so the parameters are staged once a tile: per coupling block
+//     where its four nets fit a block's shared memory, else per net, with
+//     cp.async; where one net's layer 1 alone does not fit (H above about
+//     230) they are read from global memory, through L1 and L2.  A staged
+//     layer 1 takes rows of H | 1 floats, so that the forward's walk along a
+//     row and the backward's down a column both meet distinct banks.
+//     Staging per tile makes K unbounded.
+//   * The backward keeps no factor tile of the whole chain: as
+//     _chain_bwd_kernel (coupling_pallas.py:278-300) it runs the chain
+//     forward from x keeping each row's state after every half step (2K + 1
+//     (lower, upper) pairs a row, in a scratch buffer in global memory),
+//     then walks the nets backwards, recomputing each net's activations from
+//     the state it read.  A net's h1, h2, g1 and g2 of the tile's rows go to
+//     shared memory; then every weight and bias gradient of the net is a sum
+//     over the tile's rows in row order, a thread an entry, added into the
+//     block's own partial in global memory (written on its first tile).  The
+//     caller sums the partials as for K5.  No atomics: a launch gives the
+//     same bits every time.  Each row's g1 goes out in K5's layout (4K·H
+//     floats a row), so the context kernels take it unchanged.
+// No tensor cores: TF32 would break the gradients' 1e-4 tolerance.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * kWarp;
+constexpr int kWideMaxHidden = 1024;
+
+// A staged net's floats: layer 1 (H rows of wide_ld(H) floats), then layer
+// 0's row 0, layer 1's bias, layer 2's column 0 (H each) and its bias.
+__host__ __device__ __forceinline__ int wide_ld(int H) { return H | 1; }
+__host__ __device__ __forceinline__ int wide_net_floats(int H) { return H * wide_ld(H) + 3 * H + 1; }
+// A net's entries in the backward's partials: layer 1 (H x H), layer 0's
+// row 0, layer 2's column 0, layer 0's and layer 1's biases (H each) and
+// layer 2's (1).
+__host__ __device__ __forceinline__ int wide_part_floats(int H) { return H * H + 4 * H + 1; }
+
+// Where a net's parameters are read: staged (rows of wide_ld(H), layer 2's
+// column packed) or in the packing in global memory (rows of H, layer 2's
+// column H floats apart).
+struct WideNet {
+  const float* w1;
+  const float* w0;   // layer 0's row 0 (the half's weights)
+  const float* b1;
+  const float* w2;   // layer 2's column 0, w2_step floats apart
+  const float* b2;
+  int ld, w2_step;
+};
+
+__device__ __forceinline__ WideNet wide_net_global(const float* w, const float* bias, int m,
+                                                   int H, int max_in) {
+  const float* wm = w + (size_t)m * 3 * max_in * H;
+  const float* bm = bias + (size_t)m * 3 * H;
+  return {wm + (size_t)max_in * H, wm, bm + H, wm + (size_t)2 * max_in * H, bm + 2 * H, H, H};
+}
+
+__device__ __forceinline__ WideNet wide_net_staged(const float* s, int H) {
+  const int ld = wide_ld(H);
+  const float* v = s + H * ld;
+  return {s, v, v + H, v + 2 * H, v + 3 * H, ld, 1};
+}
+
+// Stage nets m0 .. m0 + count - 1 into dst, wide_net_floats(H) apart (every
+// thread of the block; the caller waits and synchronises).
+__device__ __forceinline__ void stage_wide(float* dst, const float* __restrict__ w,
+                                           const float* __restrict__ bias, int m0, int count,
+                                           int H, int max_in) {
+  const int ld = wide_ld(H), nf = wide_net_floats(H);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp, warps = blockDim.x / kWarp;
+  for (int c = 0; c < count; ++c) {
+    const WideNet g = wide_net_global(w, bias, m0 + c, H, max_in);
+    float* s = dst + (size_t)c * nf;
+    for (int i = warp; i < H; i += warps) {
+      for (int j = lane; j < H; j += kWarp) copy_async4(s + i * ld + j, g.w1 + (size_t)i * H + j);
+    }
+    float* v = s + H * ld;
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      copy_async4(v + j, g.w0 + j);
+      copy_async4(v + H + j, g.b1 + j);
+      copy_async4(v + 2 * H + j, g.w2 + (size_t)j * H);
+    }
+    if (threadIdx.x == 0) copy_async4(v + 3 * H, g.b2);
+  }
+}
+
+// Stage what position `pos` of the walk reads (net m of coupling block k):
+// the block's four nets at its first position, or net m alone; nothing when
+// the nets are read from global memory.  Returns where to read net m.
+__device__ __forceinline__ WideNet wide_stage_for(float* stage, const float* __restrict__ w,
+                                                  const float* __restrict__ bias, int nets_a_stage,
+                                                  bool block_first, int k, int net, int H,
+                                                  int max_in) {
+  const int m = 4 * k + net;
+  if (nets_a_stage == 0) return wide_net_global(w, bias, m, H, max_in);
+  if (nets_a_stage == 1 || block_first) {
+    __syncthreads();   // every reader of the previous stage is done
+    stage_wide(stage, w, bias, nets_a_stage == 1 ? m : 4 * k, nets_a_stage, H, max_in);
+    copy_async_wait();
+    __syncthreads();
+  }
+  return wide_net_staged(stage + (size_t)(nets_a_stage == 1 ? 0 : net) * wide_net_floats(H), H);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One conditioner MLP for one row on a warp (lane l: units l + 32u): layer
+// 0's activations from `half` and the row's P (prow: this net's H floats) go
+// to hs (the row's H floats of shared memory) and to h1; h2 of the lane's
+// units to h2.  Returns the output, the same bits on every lane.
+template <int J>
+__device__ __forceinline__ float wide_mlp(const WideNet& v, float half,
+                                          const float* __restrict__ prow, float* hs, int H,
+                                          int lane, float (&h1)[J], float (&h2)[J]) {
+  float a[J];
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    const int j = lane + kWarp * u;
+    h1[u] = 0.f;
+    a[u] = 0.f;
+    if (j < H) {
+      h1[u] = tanhf(fmaf(half, v.w0[j], __ldg(prow + j)));
+      hs[j] = h1[u];
+      a[u] = v.b1[j];
+    }
+  }
+  __syncwarp();
+  for (int i = 0; i < H; ++i) {
+    const float hi = hs[i];
+    const float* wr = v.w1 + (size_t)i * v.ld;
+#pragma unroll
+    for (int u = 0; u < J; ++u) {
+      const int j = lane + kWarp * u;
+      if (j < H) a[u] = fmaf(hi, wr[j], a[u]);
+    }
+  }
+  float part = 0.f;
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    const int j = lane + kWarp * u;
+    h2[u] = 0.f;
+    if (j < H) {
+      h2[u] = tanhf(a[u]);
+      part = fmaf(h2[u], v.w2[(size_t)j * v.w2_step], part);
+    }
+  }
+  __syncwarp();   // every lane has read hs
+  return warp_sum(part) + *v.b2;
+}
+
+// Backward of wide_mlp for one row, from its activations (h1, h2 of the
+// lane's units) and the output's gradient gout: h2, g2 and g1 of the row go
+// to the tile's rows h2row, g2row and g1row (g1 also to the row's g1 in
+// global memory, when g1_out is not null); returns d out / d half, the same
+// bits on every lane.  g1 sums g2 · layer 1's row in ascending order, as the
+// narrow backward.
+template <int J>
+__device__ __forceinline__ float wide_mlp_bwd(const WideNet& v, float gout, float* h2row,
+                                              float* g1row, float* g2row, const float (&h1)[J],
+                                              const float (&h2)[J], int H, int lane,
+                                              float* g1_out) {
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    const int j = lane + kWarp * u;
+    if (j < H) {
+      h2row[j] = h2[u];
+      g2row[j] = gout * v.w2[(size_t)j * v.w2_step] * (1.f - h2[u] * h2[u]);
+    }
+  }
+  __syncwarp();
+  float g1[J];
+#pragma unroll
+  for (int u = 0; u < J; ++u) g1[u] = 0.f;
+  for (int j = 0; j < H; ++j) {
+    const float gj = g2row[j];
+#pragma unroll
+    for (int u = 0; u < J; ++u) {
+      const int i = lane + kWarp * u;
+      if (i < H) g1[u] = fmaf(gj, v.w1[(size_t)i * v.ld + j], g1[u]);
+    }
+  }
+  float part = 0.f;
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    const int i = lane + kWarp * u;
+    if (i < H) {
+      g1[u] *= 1.f - h1[u] * h1[u];
+      g1row[i] = g1[u];
+      if (g1_out != nullptr) g1_out[i] = g1[u];
+      part = fmaf(g1[u], v.w0[i], part);
+    }
+  }
+  return warp_sum(part);
+}
+
+template <int J, bool INV>
+__global__ void __launch_bounds__(kWideThreads)
+chain_fwd_wide_kernel(const float2* __restrict__ x, const float* __restrict__ p, int p_mode,
+                      const float* __restrict__ w, const float* __restrict__ bias,
+                      float2* __restrict__ y, float* __restrict__ ld_out, int rows, int n, int K,
+                      int max_in, int H, int tile_rows, int nets_a_stage) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int ps = 4 * K * H, per_warp = tile_rows / kWideWarps;
+  // shared memory: the stage (nets_a_stage nets), then each warp's row slice
+  float* hs = smem + (size_t)nets_a_stage * wide_net_floats(H) + (size_t)warp * H;
+  const int tiles = (rows + tile_rows - 1) / tile_rows;
+  float h1[J], h2[J];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // lane q holds the warp's q-th row of the tile, r0 + warp + 8q: its
+    // state, the last t net's output and (inverse) the s net's of the pair
+    const int r0 = tile * tile_rows, my_row = r0 + warp + kWideWarps * lane;
+    const bool mine = lane < per_warp && my_row < rows;
+    float lo = 0.f, up = 0.f, ld = 0.f, tv = 0.f, sv = 0.f;
+    if (mine) {
+      const float2 v = x[my_row];
+      lo = v.x;
+      up = v.y;
+    }
+    for (int pos = 0; pos < 4 * K; ++pos) {
+      const int k = INV ? K - 1 - pos / 4 : pos / 4;
+      const int net = INV ? (pos + 2) % 4 : pos % 4;   // t1 s1 t2 s2, inverse t2 s2 t1 s1
+      const WideNet v = wide_stage_for(smem, w, bias, nets_a_stage, pos % 4 == 0, k, net, H,
+                                       max_in);
+      for (int q = 0; q < per_warp; ++q) {
+        const int row = r0 + warp + kWideWarps * q;
+        if (row >= rows) break;   // warp-uniform
+        const float half = __shfl_sync(0xffffffffu, net < 2 ? lo : up, q);
+        const float* prow = p + (size_t)ctx_row_of(row, n, p_mode) * ps + (size_t)(4 * k + net) * H;
+        const float out = wide_mlp<J>(v, half, prow, hs, H, lane, h1, h2);
+        if (lane == q) {
+          if (pos % 2 == 0) {
+            tv = out;
+          } else if (!INV) {
+            // the plain chain's order: upper, then lower, log_det + s1 + s2
+            if (net == 1) {
+              up = tv + up * expf(out);
+              sv = out;
+            } else {
+              lo = tv + lo * expf(out);
+              ld = ld + sv + out;
+            }
+          } else if (net == 3) {
+            lo = (lo - tv) * expf(-out);
+            sv = out;
+          } else {
+            up = (up - tv) * expf(-out);
+            ld = ld - out - sv;
+          }
+        }
+      }
+    }
+    if (mine) {
+      y[my_row] = make_float2(lo, up);
+      ld_out[my_row] = ld;
+    }
+  }
+}
+
+// The weight and bias gradients of net m over the tile's first nr rows,
+// into the block's partial (wide_part_floats(H) floats; `first`: the
+// block's first tile, which writes instead of adding).  A thread an entry,
+// each summed over the rows in row order.
+__device__ __forceinline__ void wide_reduce(float* part, const float* t_h1, const float* t_h2,
+                                            const float* t_g1, const float* t_g2,
+                                            const float* t_half, const float* t_gout, int nr,
+                                            int H, bool first) {
+  const int hh = H * H, np = wide_part_floats(H);
+  for (int e = threadIdx.x; e < np; e += blockDim.x) {
+    float acc = 0.f;
+    if (e < hh) {   // layer 1: h1[i] g2[j]
+      const int i = e / H, j = e % H;
+      for (int r = 0; r < nr; ++r) acc = fmaf(t_h1[r * H + i], t_g2[r * H + j], acc);
+    } else {
+      const int f = e - hh, c = f / H, j = f % H;
+      if (c == 0) {          // layer 0's row 0: half g1
+        for (int r = 0; r < nr; ++r) acc = fmaf(t_half[r], t_g1[r * H + j], acc);
+      } else if (c == 1) {   // layer 2's column 0: h2 gout
+        for (int r = 0; r < nr; ++r) acc = fmaf(t_h2[r * H + j], t_gout[r], acc);
+      } else if (c == 2) {   // layer 0's bias: g1
+        for (int r = 0; r < nr; ++r) acc += t_g1[r * H + j];
+      } else if (c == 3) {   // layer 1's bias: g2
+        for (int r = 0; r < nr; ++r) acc += t_g2[r * H + j];
+      } else {               // layer 2's bias: gout
+        for (int r = 0; r < nr; ++r) acc += t_gout[r];
+      }
+    }
+    part[e] = first ? acc : part[e] + acc;
+  }
+}
+
+template <int J, bool INV>
+__global__ void __launch_bounds__(kWideThreads)
+chain_bwd_wide_kernel(const float2* __restrict__ x, const float* __restrict__ p, int p_mode,
+                      const float* __restrict__ w, const float* __restrict__ bias,
+                      const float2* __restrict__ gy, const float* __restrict__ gld,
+                      float2* __restrict__ gx, float* __restrict__ g1_out,
+                      float* __restrict__ gpart, float2* __restrict__ states, int rows, int n,
+                      int K, int max_in, int H, int tile_rows, int nets_a_stage) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int ps = 4 * K * H, per_warp = tile_rows / kWideWarps, sw = 2 * K + 1;
+  // shared memory: the stage, then the tile's h1, h2, g1, g2 (tile_rows x H
+  // each), its rows' half inputs and output gradients
+  float* t_h1 = smem + (size_t)nets_a_stage * wide_net_floats(H);
+  float* t_h2 = t_h1 + (size_t)tile_rows * H;
+  float* t_g1 = t_h2 + (size_t)tile_rows * H;
+  float* t_g2 = t_g1 + (size_t)tile_rows * H;
+  float* t_half = t_g2 + (size_t)tile_rows * H;
+  float* t_gout = t_half + tile_rows;
+  float* part = gpart + (size_t)blockIdx.x * 4 * K * wide_part_floats(H);
+  const int tiles = (rows + tile_rows - 1) / tile_rows;
+  float h1[J], h2[J];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile * tile_rows, my_row = r0 + warp + kWideWarps * lane;
+    const int nr = min(tile_rows, rows - r0);
+    const bool mine = lane < per_warp && my_row < rows;
+    float2* my_states = states + (size_t)(mine ? my_row : 0) * sw;
+
+    // forward sweep: the forward kernel's walk, keeping the state after
+    // every half step (index pos / 2 + 1 after the s net at pos)
+    float lo = 0.f, up = 0.f, tv = 0.f;
+    if (mine) {
+      const float2 v = x[my_row];
+      lo = v.x;
+      up = v.y;
+      my_states[0] = v;
+    }
+    for (int pos = 0; pos < 4 * K; ++pos) {
+      const int k = INV ? K - 1 - pos / 4 : pos / 4;
+      const int net = INV ? (pos + 2) % 4 : pos % 4;
+      const WideNet v = wide_stage_for(smem, w, bias, nets_a_stage, pos % 4 == 0, k, net, H,
+                                       max_in);
+      for (int q = 0; q < per_warp; ++q) {
+        const int row = r0 + warp + kWideWarps * q;
+        if (row >= rows) break;   // warp-uniform
+        const float half = __shfl_sync(0xffffffffu, net < 2 ? lo : up, q);
+        const float* prow = p + (size_t)ctx_row_of(row, n, p_mode) * ps + (size_t)(4 * k + net) * H;
+        const float out = wide_mlp<J>(v, half, prow, t_h1 + (warp + kWideWarps * q) * H, H, lane,
+                                      h1, h2);
+        if (lane == q) {
+          if (pos % 2 == 0) {
+            tv = out;
+          } else {
+            if (!INV && net == 1) up = tv + up * expf(out);
+            if (!INV && net == 3) lo = tv + lo * expf(out);
+            if (INV && net == 3) lo = (lo - tv) * expf(-out);
+            if (INV && net == 1) up = (up - tv) * expf(-out);
+            my_states[pos / 2 + 1] = make_float2(lo, up);
+          }
+        }
+      }
+    }
+
+    // reverse sweep: lane q holds its row's gradients of lower and upper,
+    // of log_det, the exp of the pair's s net, the pair's d/d half so far,
+    // and the states around the coupling block (s0 before it, s1 after its
+    // first half, s2 after it)
+    float gl = 0.f, gu = 0.f, g_ld = 0.f, e = 0.f, gh = 0.f;
+    float2 s0 = make_float2(0.f, 0.f), s1 = s0, s2 = s0;
+    if (mine) {
+      const float2 g = gy[my_row];
+      gl = g.x;
+      gu = g.y;
+      g_ld = gld[my_row];
+    }
+    for (int pos = 4 * K - 1; pos >= 0; --pos) {
+      const int k = INV ? K - 1 - pos / 4 : pos / 4;
+      const int net = INV ? (pos + 2) % 4 : pos % 4;
+      if (pos % 4 == 3 && mine) {
+        s0 = my_states[pos / 2 - 1];
+        s1 = my_states[pos / 2];
+        s2 = my_states[pos / 2 + 1];
+      }
+      const WideNet v = wide_stage_for(smem, w, bias, nets_a_stage, pos % 4 == 3, k, net, H,
+                                       max_in);
+      for (int q = 0; q < per_warp; ++q) {
+        const int row = r0 + warp + kWideWarps * q, rl = warp + kWideWarps * q;
+        if (row >= rows) break;   // warp-uniform
+        const float r_gl = __shfl_sync(0xffffffffu, gl, q), r_gu = __shfl_sync(0xffffffffu, gu, q);
+        const float r_gld = __shfl_sync(0xffffffffu, g_ld, q);
+        const float r_e = __shfl_sync(0xffffffffu, e, q);
+        const float s0x = __shfl_sync(0xffffffffu, s0.x, q), s0y = __shfl_sync(0xffffffffu, s0.y, q);
+        const float s1x = __shfl_sync(0xffffffffu, s1.x, q), s1y = __shfl_sync(0xffffffffu, s1.y, q);
+        const float s2y = __shfl_sync(0xffffffffu, s2.y, q);
+        // the net's input half: forward, lower before the block (nets 0-1)
+        // or upper after its first half (2-3); inverse, upper before the
+        // block (2-3) or lower after its first half (0-1)
+        const float half = INV ? (net < 2 ? s1x : s0y) : (net < 2 ? s0x : s1y);
+        const float* prow = p + (size_t)ctx_row_of(row, n, p_mode) * ps + (size_t)(4 * k + net) * H;
+        const float out = wide_mlp<J>(v, half, prow, t_h1 + rl * H, H, lane, h1, h2);
+        // the output's gradient (the narrow backward's expressions)
+        float gout, r_e_new = r_e;
+        if (!INV) {
+          if (net == 3) {          // lower_out = t2 + lower_in * exp(s2); log_det += s2
+            r_e_new = expf(out);
+            gout = r_gl * s0x * r_e_new + r_gld;
+          } else if (net == 2) {
+            gout = r_gl;
+          } else if (net == 1) {   // up_mid = t1 + up_in * exp(s1); log_det += s1
+            r_e_new = expf(out);
+            gout = r_gu * s0y * r_e_new + r_gld;
+          } else {
+            gout = r_gu;
+          }
+        } else {
+          if (net == 1) {          // up_out = (up_in - t1) * exp(-s1); log_det -= s1
+            r_e_new = expf(-out);
+            gout = -r_gu * s2y - r_gld;
+          } else if (net == 0) {
+            gout = -r_gu * r_e;
+          } else if (net == 3) {   // lo_mid = (lo_in - t2) * exp(-s2); log_det -= s2
+            r_e_new = expf(-out);
+            gout = -r_gl * s1x - r_gld;
+          } else {
+            gout = -r_gl * r_e;
+          }
+        }
+        const float g_half = wide_mlp_bwd<J>(
+            v, gout, t_h2 + rl * H, t_g1 + rl * H, t_g2 + rl * H, h1, h2, H, lane,
+            g1_out == nullptr ? nullptr : g1_out + (size_t)row * ps + (size_t)(4 * k + net) * H);
+        if (lane == 0) {
+          t_half[rl] = half;
+          t_gout[rl] = gout;
+        }
+        if (lane == q) {
+          if (pos % 2 == 1) {      // an s net: its pair's t net comes next
+            e = r_e_new;
+            gh = g_half;
+          } else {
+            gh += g_half;
+            // the pair done: the gradients of both halves before it (t1/s1
+            // read lower and scale upper, t2/s2 the other way round, in
+            // either direction)
+            if (net == 0) {
+              gl = gl + gh;
+              gu = gu * e;
+            } else {
+              gl = gl * e;
+              gu = gu + gh;
+            }
+          }
+        }
+      }
+      __syncthreads();   // the tile's rows of this net are in shared memory
+      wide_reduce(part + (size_t)(4 * k + net) * wide_part_floats(H), t_h1, t_h2, t_g1, t_g2,
+                  t_half, t_gout, nr, H, tile == blockIdx.x);
+      __syncthreads();   // before the next net's rows are written
+    }
+    if (mine) gx[my_row] = make_float2(gl, gu);
+  }
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where the chain needs it.
 template <typename Kernel>
 int reserve_smem(Kernel kernel, size_t bytes) {
@@ -1331,10 +1824,27 @@ size_t bwd_smem_floats(int n_blocks, int threads) {
          (size_t)Fields<kHidden>::count(n_blocks) * (threads + 4);
 }
 
+// Shared memory of the wide pair in floats: the stage (nets_a_stage nets),
+// then the forward's row slice a warp, or the backward's tile of h1, h2,
+// g1, g2 and its rows' half inputs and output gradients.
+size_t wide_smem_floats(int H, int tile_rows, int nets_a_stage, bool backward) {
+  const size_t stage = (size_t)nets_a_stage * wide_net_floats(H);
+  return stage + (backward ? (size_t)tile_rows * (4 * H + 2) : (size_t)kWideWarps * H);
+}
+
+// Whether the hidden width `hidden` is this library's: its own in a library
+// built for one width, any up to kWideMaxHidden in the wide library.
+bool hidden_ok(int hidden) {
+  return kHidden > 0 ? hidden == kHidden : hidden > 0 && hidden <= kWideMaxHidden;
+}
+
 // The last launch of each kernel (nfdpf_coupling_launch_note reads them).
 enum NoteSlot { kNoteFwd, kNoteBwd, kNoteShare, kNoteGradRows, kNoteWeightGrad, kNoteInputGrad,
-                kNoteSlots };
+                kNoteFwdWide, kNoteBwdWide, kNoteSlots };
 LaunchNote notes[kNoteSlots] = {};
+
+// The wide pair's instantiations: J hidden units a lane (H <= 32·J).
+#define NFDPF_WIDE_UNITS(X) X(1) X(2) X(4) X(8) X(16) X(32)
 
 }  // namespace
 
@@ -1343,8 +1853,10 @@ LaunchNote notes[kNoteSlots] = {};
 // cudaGetLastError() right after the launch.  Shapes, types, devices,
 // alignment and contiguity are checked by the Python wrapper.  The hidden
 // width is fixed when the file is compiled (-DNFDPF_HIDDEN=H; the loader
-// builds one library per width at first use), so the H-wide activations are
-// register arrays with every loop over them unrolled.
+// builds one library per width at first use), so the narrow pair's H-wide
+// activations are register arrays with every loop over them unrolled; the
+// library built with -DNFDPF_HIDDEN=0 takes it at run time, in the wide
+// pair and the context kernels, and refuses the narrow pair.
 
 extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* p, int p_mode,
                                         const float* w, const float* b, float* y, float* ld,
@@ -1354,6 +1866,7 @@ extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* p, int p_mo
       p_mode > kPerRow) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#if NFDPF_HIDDEN > 0
   const int nets = 4 * n_blocks;
   const size_t smem = (FwdLayout<kHidden>{nets, 0}.floats() +
                        (size_t)max_ctx_rows(kFwdRows, n, p_mode) * nets * kHidden) *
@@ -1368,6 +1881,9 @@ extern "C" int nfdpf_coupling_chain_fwd(const float* x, const float* p, int p_mo
       reinterpret_cast<const float2*>(x), p, p_mode, w, b, reinterpret_cast<float2*>(y), ld,
       rows, n, n_blocks, max_in);
   return static_cast<int>(cudaGetLastError());
+#else
+  return static_cast<int>(cudaErrorInvalidValue);
+#endif
 }
 
 extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* p, int p_mode,
@@ -1380,6 +1896,7 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* p, int p_mo
       hidden != kHidden || p_mode < kOneRow || p_mode > kPerRow) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#if NFDPF_HIDDEN > 0
   // warps per block: enough for `grid` blocks to cover the rows in one tile
   // each, as far as shared memory allows; the blocks loop over the tiles
   int warps = std::min<long long>(kMaxWarps, (rows + (long long)kWarp * grid - 1) /
@@ -1398,6 +1915,91 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* p, int p_mo
       reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), g1, gw_part,
       gb_part, rows, n, n_blocks, max_in);
   return static_cast<int>(cudaGetLastError());
+#else
+  return static_cast<int>(cudaErrorInvalidValue);
+#endif
+}
+
+// The wide forward, on the wrapper's plan (wide_fwd_plan): blocks of 8 warps
+// over tiles of `tile_rows` rows (a multiple of 8, at most 256), `grid`
+// blocks looping over the tiles, the nets staged `nets_a_stage` (4, 1, or 0:
+// read from global memory) at a time.
+extern "C" int nfdpf_coupling_chain_fwd_wide(const float* x, const float* p, int p_mode,
+                                             const float* w, const float* b, float* y, float* ld,
+                                             int rows, int n, int n_blocks, int max_in,
+                                             int hidden, int inverse, int tile_rows,
+                                             int nets_a_stage, int grid, void* stream) {
+  if (rows <= 0 || n <= 0 || n_blocks <= 0 || !hidden_ok(hidden) ||
+      p_mode < kOneRow || p_mode > kPerRow || tile_rows <= 0 || tile_rows % kWideWarps != 0 ||
+      tile_rows > kWideWarps * kWarp || grid <= 0 ||
+      (nets_a_stage != 0 && nets_a_stage != 1 && nets_a_stage != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#if NFDPF_HIDDEN == 0
+  const size_t smem = wide_smem_floats(hidden, tile_rows, nets_a_stage, false) * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NFDPF_FWD_WIDE(J)                                                                    \
+  if (hidden <= kWarp * (J)) {                                                               \
+    auto kernel = inverse ? chain_fwd_wide_kernel<J, true> : chain_fwd_wide_kernel<J, false>; \
+    const int rc = reserve_smem(kernel, smem);                                               \
+    if (rc != 0) return rc;                                                                  \
+    note_launch(notes[kNoteFwdWide], kernel,                                                 \
+                inverse ? "chain_fwd_wide_kernel<" #J ", inverse>"                           \
+                        : "chain_fwd_wide_kernel<" #J ", forward>",                          \
+                grid, kWideThreads, smem);                                                   \
+    kernel<<<grid, kWideThreads, smem, s>>>(reinterpret_cast<const float2*>(x), p, p_mode, w, \
+                                            b, reinterpret_cast<float2*>(y), ld, rows, n,    \
+                                            n_blocks, max_in, hidden, tile_rows,             \
+                                            nets_a_stage);                                   \
+    return static_cast<int>(cudaGetLastError());                                             \
+  }
+  NFDPF_WIDE_UNITS(NFDPF_FWD_WIDE)
+#undef NFDPF_FWD_WIDE
+#endif
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide backward, on the wrapper's plan (wide_bwd_plan): as the wide
+// forward, `grid` blocks (at most one a tile), each writing its partial of
+// the weight and bias gradients (4K x wide_part_floats(H) floats) to
+// `gpart`; `states` holds 2K + 1 float2 a row; g1 may be null (no context).
+extern "C" int nfdpf_coupling_chain_bwd_wide(const float* x, const float* p, int p_mode,
+                                             const float* w, const float* b, const float* gy,
+                                             const float* gld, float* gx, float* g1,
+                                             float* gpart, float* states, int rows, int n,
+                                             int n_blocks, int max_in, int hidden, int inverse,
+                                             int tile_rows, int nets_a_stage, int grid,
+                                             void* stream) {
+  if (rows <= 0 || n <= 0 || n_blocks <= 0 || !hidden_ok(hidden) ||
+      p_mode < kOneRow || p_mode > kPerRow || tile_rows <= 0 || tile_rows % kWideWarps != 0 ||
+      tile_rows > kWideWarps * kWarp || grid <= 0 ||
+      grid > (rows + tile_rows - 1) / tile_rows ||
+      (nets_a_stage != 0 && nets_a_stage != 1 && nets_a_stage != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#if NFDPF_HIDDEN == 0
+  const size_t smem = wide_smem_floats(hidden, tile_rows, nets_a_stage, true) * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NFDPF_BWD_WIDE(J)                                                                    \
+  if (hidden <= kWarp * (J)) {                                                               \
+    auto kernel = inverse ? chain_bwd_wide_kernel<J, true> : chain_bwd_wide_kernel<J, false>; \
+    const int rc = reserve_smem(kernel, smem);                                               \
+    if (rc != 0) return rc;                                                                  \
+    note_launch(notes[kNoteBwdWide], kernel,                                                 \
+                inverse ? "chain_bwd_wide_kernel<" #J ", inverse>"                           \
+                        : "chain_bwd_wide_kernel<" #J ", forward>",                          \
+                grid, kWideThreads, smem);                                                   \
+    kernel<<<grid, kWideThreads, smem, s>>>(                                                 \
+        reinterpret_cast<const float2*>(x), p, p_mode, w, b,                                 \
+        reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), g1, gpart,  \
+        reinterpret_cast<float2*>(states), rows, n, n_blocks, max_in, hidden, tile_rows,     \
+        nets_a_stage);                                                                       \
+    return static_cast<int>(cudaGetLastError());                                             \
+  }
+  NFDPF_WIDE_UNITS(NFDPF_BWD_WIDE)
+#undef NFDPF_BWD_WIDE
+#endif
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // P (R x 4K·H) from a context of `ctx_dim` entries read through its batch and
@@ -1411,27 +2013,27 @@ extern "C" int nfdpf_coupling_ctx_share(const float* ctx, long long sb, long lon
                                         int rows_a_block, int nets_a_block, int rows_a_thread,
                                         int c_chunk, float* p, void* stream) {
   const int nets = 4 * n_blocks;
-  if (R <= 0 || n <= 0 || n_blocks <= 0 || hidden != kHidden || ctx_dim < 0 || c_chunk < 0 ||
+  if (R <= 0 || n <= 0 || n_blocks <= 0 || !hidden_ok(hidden) || ctx_dim < 0 || c_chunk < 0 ||
       rows_a_block <= 0 || nets_a_block <= 0 || nets % nets_a_block != 0 ||
       (rows_a_thread != 1 && rows_a_thread != 16) ||
       rows_a_block % rows_a_thread != 0 ||
-      rows_a_block / rows_a_thread * nets_a_block * kHidden > 1024) {
+      (long long)rows_a_block / rows_a_thread * nets_a_block * hidden > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int chunk = ctx_dim > 0 ? c_chunk : 0;
   const size_t smem = ((size_t)rows_a_block * ((chunk + 3) / 4 * 4) +
-                       (size_t)chunk * nets_a_block * kHidden) * sizeof(float);
+                       (size_t)chunk * nets_a_block * hidden) * sizeof(float);
   auto kernel = rows_a_thread == 16 ? chain_ctx_share_kernel<16> : chain_ctx_share_kernel<1>;
   const int rc = reserve_smem(kernel, smem);
   if (rc != 0) return rc;
   const dim3 grid((R + rows_a_block - 1) / rows_a_block, nets / nets_a_block);
-  const int threads = rows_a_block / rows_a_thread * nets_a_block * kHidden;
+  const int threads = rows_a_block / rows_a_thread * nets_a_block * hidden;
   note_launch(notes[kNoteShare], kernel,
               rows_a_thread == 16 ? "chain_ctx_share_kernel<16>" : "chain_ctx_share_kernel<1>",
               grid, threads, smem);
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ctx, sb, sn, n, ctx_dim, p_mode, w, b, max_in, nets, R, rows_a_block, nets_a_block, chunk,
-      p);
+      ctx, sb, sn, n, ctx_dim, p_mode, w, b, max_in, nets, hidden, R, rows_a_block, nets_a_block,
+      chunk, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1445,14 +2047,15 @@ extern "C" int nfdpf_coupling_ctx_grad_rows(const float* g1, int rows, int n, in
                                             int ctx_dim, int n_blocks, int hidden,
                                             int rows_per_block, int c_tile, int segments,
                                             float* parts, void* stream) {
-  const int ps = 4 * n_blocks * kHidden;
-  if (rows <= 0 || n <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
+  if (rows <= 0 || n <= 0 || ctx_dim <= 0 || n_blocks <= 0 || !hidden_ok(hidden) ||
       (p_mode != kPerBatch && p_mode != kPerRow) || rows_per_block <= 0 || c_tile <= 0 ||
-      ps / 4 > kCtxThreads || (!segments && ctx_ldc(c_tile) / 4 * (ps / 4) > kCtxThreads) ||
+      4 * n_blocks * hidden / 4 > kCtxThreads ||
+      (!segments && ctx_ldc(c_tile) / 4 * (n_blocks * hidden) > kCtxThreads) ||
       (segments && (p_mode != kPerBatch || rows % n != 0)) ||
       ((reinterpret_cast<uintptr_t>(g1) | reinterpret_cast<uintptr_t>(parts)) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int ps = 4 * n_blocks * hidden;
   const size_t smem = ctx_grad_rows_smem_floats(rows_per_block, ps, c_tile, segments) * sizeof(float);
   const int rc = reserve_smem(chain_ctx_grad_rows_kernel, smem);
   if (rc != 0) return rc;
@@ -1474,16 +2077,16 @@ extern "C" int nfdpf_coupling_ctx_weight_grad(const float* parts, int J, int pie
                                               const float* ctx, long long sb, int ctx_dim,
                                               int n_blocks, int max_in, int hidden, int segments,
                                               float* gw, void* stream) {
-  const int ps = 4 * n_blocks * kHidden;
-  if (J <= 0 || pieces <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
-      ps / 4 > kCtxThreads || (reinterpret_cast<uintptr_t>(parts) & 15) != 0) {
+  if (J <= 0 || pieces <= 0 || ctx_dim <= 0 || n_blocks <= 0 || !hidden_ok(hidden) ||
+      n_blocks * hidden > kCtxThreads || (reinterpret_cast<uintptr_t>(parts) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int ps = 4 * n_blocks * hidden;
   note_launch(notes[kNoteWeightGrad], chain_ctx_weight_grad_kernel,
               "chain_ctx_weight_grad_kernel", ctx_dim, kCtxThreads, kCtxThreads * sizeof(float4));
   chain_ctx_weight_grad_kernel<<<ctx_dim, kCtxThreads, kCtxThreads * sizeof(float4),
                                  static_cast<cudaStream_t>(stream)>>>(
-      parts, J, pieces, ctx, sb, ctx_dim, ps, max_in, segments, gw);
+      parts, J, pieces, ctx, sb, ctx_dim, ps, max_in, hidden, segments, gw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1495,12 +2098,12 @@ extern "C" int nfdpf_coupling_ctx_input_grad(const float* g1, int rows, int ctx_
                                              int max_in, int hidden, const float* w,
                                              int tile_rows, int tile_cols, int rows_a_thread,
                                              float* gctx, void* stream) {
-  if (rows <= 0 || ctx_dim <= 0 || n_blocks <= 0 || hidden != kHidden ||
+  if (rows <= 0 || ctx_dim <= 0 || n_blocks <= 0 || !hidden_ok(hidden) ||
       (reinterpret_cast<uintptr_t>(g1) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((rows + tile_rows - 1) / tile_rows, (ctx_dim + tile_cols - 1) / tile_cols);
-  const int ps = 4 * n_blocks * kHidden;
+  const int ps = 4 * n_blocks * hidden;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NFDPF_IN_LAUNCH(TY, TM, NJ)                                                          \
   if (tile_rows == (TM) * (TY) && tile_cols == kInLanes * (NJ) && rows_a_thread == (TM)) {    \
@@ -1508,7 +2111,7 @@ extern "C" int nfdpf_coupling_ctx_input_grad(const float* g1, int rows, int ctx_
                 "chain_ctx_input_grad_kernel<" #TY ", " #TM ", " #NJ ">", grid,               \
                 (TY) * kInLanes, 0);                                                         \
     chain_ctx_input_grad_kernel<TY, TM, NJ>                                                  \
-        <<<grid, (TY) * kInLanes, 0, s>>>(g1, rows, ctx_dim, ps, max_in, w, gctx);           \
+        <<<grid, (TY) * kInLanes, 0, s>>>(g1, rows, ctx_dim, ps, max_in, hidden, w, gctx);   \
     return static_cast<int>(cudaGetLastError());                                             \
   }
   NFDPF_IN_TILES(NFDPF_IN_LAUNCH)
@@ -1517,7 +2120,8 @@ extern "C" int nfdpf_coupling_ctx_input_grad(const float* g1, int rows, int ctx_
 }
 
 // The last launch noted in `slot` (fwd, bwd, share, the weight gradient's
-// first and second kernel, input gradient): read_launch_note's record.
+// first and second kernel, input gradient, the wide fwd and bwd):
+// read_launch_note's record.
 extern "C" int nfdpf_coupling_launch_note(int slot, long long* out, char* name, int len) {
   if (slot < 0 || slot >= kNoteSlots) return static_cast<int>(cudaErrorInvalidValue);
   return read_launch_note(notes[slot], out, name, len);

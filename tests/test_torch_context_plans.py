@@ -1,12 +1,15 @@
 """The launch plans of the context kernels (``coupling_cuda.ctx_share_plan``,
 ``ctx_weight_grad_plan`` and ``ctx_input_grad_plan``), which the wrapper
-computes on the host: for every chain that ``chain_refusal`` accepts, at the
+computes on the host: for every chain that the narrow pair takes, at the
 row counts the filter and the smoke run, each context row and each row of
 g1 falls in exactly one block, each context entry in exactly one tile, each
 entry of the context's gradient in exactly one thread, and the shared
 memory and threads fit an H100 block.  The weight gradient's parts (its first
 kernel's plain version on the plan), weighed and added in part order as
-its second kernel does, give the plain version of the whole gradient."""
+its second kernel does, give the plain version of the whole gradient.  The
+same for the wide pair's chains, up to hidden 256 and 12 blocks (the weight
+gradient in column groups of g1), and the wide pair's own plans
+(``wide_fwd_plan``, ``wide_bwd_plan``) and shared-memory mirrors."""
 
 import numpy as np
 import pytest
@@ -20,14 +23,11 @@ CTX_DIMS = (1, 4, 36, 196, 197, 1000)
 
 
 def _accepted_chains():
-    """(blocks, hidden) of every chain K4 and K5 take on the card."""
-    out = []
-    for hidden in range(1, cc.MAX_HIDDEN + 1):
-        for n_blocks in range(1, cc.MAX_BLOCKS + 1):
-            if all(cc.chain_refusal(n_blocks, hidden, 36, 100, True, bwd) is None
-                   for bwd in (False, True)):
-                out.append((n_blocks, hidden))
-    return out
+    """(blocks, hidden) of every chain the narrow pair (K4 and K5 of one
+    width) takes on the card."""
+    return [(n_blocks, hidden) for hidden in range(1, cc.MAX_HIDDEN + 1)
+            for n_blocks in range(1, cc.MAX_BLOCKS + 1)
+            if cc.narrow_pair_takes(n_blocks, hidden)]
 
 
 def _covers(total, per_block, blocks):
@@ -147,3 +147,104 @@ def test_ctx_grad_rows_parts_sum_to_the_plain_version(b, n, ctx_dim, broadcast, 
     ref = cc.ctx_weight_grad_plain(g1, ctx, w).permute(2, 0, 1, 3).reshape(ctx_dim, ps)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                atol=1e-12 * float(ref.abs().max()))
+
+
+# chains only the wide pair takes, as (blocks, hidden): the cases the card
+# runs (chip_smoke.py's WIDE_CHAINS), odd widths whose whole warps would pass
+# a share block, and 12 blocks at widths from 17 to 256
+WIDE_CHAINS = sorted({(4, 12), (2, 17), (4, 32), (9, 32), (12, 64), (2, 256), (9, 12),
+                      (3, 33), (1, 300), (1, 1024)}
+                     | {(12, h) for h in (17, 31, 33, 48, 64, 100, 128, 200, 255, 256)})
+
+
+def test_wide_chains_are_the_ones_the_narrow_pair_leaves():
+    """Every chain is the narrow pair's or the wide pair's, and none is
+    refused up to ``WIDE_MAX_HIDDEN``; the narrow pair keeps (3, 16) and
+    leaves (4, 16), (1, 17) and (9, 8)."""
+    assert (3, 16) in _accepted_chains() and (8, 8) in _accepted_chains()
+    for n_blocks, hidden in ((4, 16), (1, 17), (9, 8)) + tuple(WIDE_CHAINS):
+        assert not cc.narrow_pair_takes(n_blocks, hidden), (n_blocks, hidden)
+    for hidden in (1, 16, 17, 256, cc.WIDE_MAX_HIDDEN):
+        assert cc.chain_refusal(hidden) is None
+    assert "1024" in cc.chain_refusal(cc.WIDE_MAX_HIDDEN + 1)
+
+
+@pytest.mark.parametrize("b,n", ROW_SHAPES)
+def test_wide_plans_cover_every_row_once_and_fit_a_block(b, n):
+    """The wide pair's plans: tiles of 8·rpw rows (rpw 1, 2 or 4: a lane of a
+    warp holds a row's state) cover the rows once; the staged nets (a
+    coupling block's 4, one, or none: read from global memory) the most
+    that fit beside the tile, a layer 1 of H rows of H | 1 floats; the
+    shared memory the mirror's and within a block's; the backward's grid
+    at most one block a tile and its partials within ``WIDE_PART_BYTES``,
+    2K + 1 states a row."""
+    rows = b * n
+    for n_blocks, hidden in WIDE_CHAINS:
+        assert cc.wide_net_floats(hidden) == hidden * (hidden | 1) + 3 * hidden + 1
+        assert cc.wide_part_floats(hidden) == hidden * hidden + 4 * hidden + 1
+        for backward, plan in ((False, cc.wide_fwd_plan(rows, hidden)),
+                               (True, cc.wide_bwd_plan(rows, n_blocks, hidden))):
+            tile, stage = plan["tile_rows"], plan["nets_a_stage"]
+            where = (n_blocks, hidden, backward, plan)
+            assert tile in (8, 16, 32) and plan["threads"] == 32 * cc.WIDE_WARPS, where
+            assert _covers(rows, tile, plan["tiles"]), where
+            assert stage in (4, 1, 0), where
+            tile_floats = tile * (4 * hidden + 2) if backward else cc.WIDE_WARPS * hidden
+            assert plan["smem_bytes"] == 4 * (stage * cc.wide_net_floats(hidden)
+                                              + tile_floats), where
+            assert plan["smem_bytes"] == cc.wide_smem_bytes(hidden, tile, stage, backward)
+            assert plan["smem_bytes"] <= cc.MAX_SMEM_BYTES, where
+            bigger = {4: None, 1: 4, 0: 1}[stage]
+            assert bigger is None or cc.wide_smem_bytes(hidden, tile, bigger,
+                                                        backward) > cc.MAX_SMEM_BYTES, where
+            if backward:
+                assert 1 <= plan["grid"] <= min(plan["tiles"], cc.WIDE_BWD_MAX_GRID), where
+                per_block = 4 * n_blocks * cc.wide_part_floats(hidden)
+                assert plan["part_floats"] == plan["grid"] * per_block, where
+                assert 4 * plan["part_floats"] <= max(cc.WIDE_PART_BYTES, 4 * per_block), where
+                assert plan["state_floats"] == rows * 2 * (2 * n_blocks + 1), where
+            else:
+                assert plan["grid"] == plan["tiles"], where
+    # layer 1 alone of a net past ~230 wide does not fit a block: read from global memory
+    assert cc.wide_fwd_plan(rows, 128)["nets_a_stage"] == 1
+    assert cc.wide_fwd_plan(rows, 256)["nets_a_stage"] == 0
+
+
+@pytest.mark.parametrize("b,n", ROW_SHAPES)
+def test_ctx_plans_take_the_wide_chains(b, n):
+    """The context kernels on the wide library at the wide chains' widths:
+    a share block's threads (a thread a hidden unit of its nets) at most
+    1,024, its rows covered; the weight gradient's column groups of g1
+    (``ctx_grad_groups``: widths multiples of 4, at most
+    ``CTX_GRAD_COLUMNS``) cover 4K·H once, each a plan its kernels take;
+    the input gradient's tiles cover the context's gradient."""
+    rows = b * n
+    for n_blocks, hidden in WIDE_CHAINS:
+        ps = 4 * n_blocks * hidden
+        for ctx_dim in (0, 4, 36, 196):
+            for r in (b, rows):
+                plan = cc.ctx_share_plan(r, n_blocks, hidden, ctx_dim)
+                where = (n_blocks, hidden, ctx_dim, r, plan)
+                assert _covers(r, plan["rows_a_block"], plan["grid"][0]), where
+                assert plan["threads"] == (plan["rows_a_block"] // plan["rows_a_thread"]
+                                           * plan["nets_a_block"] * hidden) <= 1024, where
+                assert plan["smem_bytes"] <= cc.CTX_SHARE_SMEM_BYTES, where
+                assert plan["c_chunk"] <= ctx_dim, where
+            if not ctx_dim:
+                continue
+            groups = cc.ctx_grad_groups(ps)
+            assert [a for a, _ in groups] == list(range(0, ps, cc.CTX_GRAD_COLUMNS))
+            assert sum(width for _, width in groups) == ps
+            for _, width in groups:
+                assert width % 4 == 0 and width <= cc.CTX_GRAD_COLUMNS
+                for mode in (cc.PER_BATCH, cc.PER_ROW):
+                    plan = cc.ctx_weight_grad_plan(rows, n, mode, ctx_dim, width)
+                    where = (n_blocks, hidden, ctx_dim, mode, width, plan)
+                    assert width // 4 <= cc.CTX_THREADS, where
+                    if not plan["segments"]:
+                        assert -(-plan["c_tile1"] // 4) * (width // 4) <= cc.CTX_THREADS, where
+                    assert max(plan["smem_bytes1"], plan["smem_bytes2"]) <= cc.MAX_SMEM_BYTES
+            plan = cc.ctx_input_grad_plan(rows, ctx_dim, ps)
+            assert plan["grid"][0] * plan["tile_rows"] >= rows
+            assert plan["grid"][1] * plan["tile_cols"] >= ctx_dim
+            assert (plan["chunks"] - 1) * cc.CTX_IN_CHUNK < ps <= plan["chunks"] * cc.CTX_IN_CHUNK

@@ -312,15 +312,25 @@ def test_ot_resample_graph_matches_one_iteration_chunks(cuda, monkeypatch, b, n,
     torch.testing.assert_close(one[0].cpu(), plain[0], rtol=1e-4, atol=1e-3)
 
 
-def _chain_case(b, n, ctx_dim, seed, broadcast_ctx=False, n_blocks=2, hidden=8):
+def _chain_case(b, n, ctx_dim, seed, broadcast_ctx=False, n_blocks=2, hidden=8,
+                fan_in=False):
     """Packed chain parameters at std 0.3 (layout of ``pack_chain_params``:
-    only the rows and columns the chain reads are filled) and inputs."""
+    only the rows and columns the chain reads are filled) and inputs; with
+    ``fan_in`` a layer's std is 0.3·√(8 / its inputs) where it has more
+    than 8, so that a wide or deep chain keeps the pre-activations and the
+    scales of a hidden-8 chain (at 0.3 a 256-wide chain saturates every tanh
+    and its exp(s) reach e^15, where float32 rounding alone moves outputs by
+    1e-3 of their size)."""
     gen = torch.Generator().manual_seed(seed)
     in_dim, max_in = 1 + ctx_dim, max(1 + ctx_dim, hidden)
+
+    def std(inputs):
+        return 0.3 * math.sqrt(8 / inputs) if fan_in and inputs > 8 else 0.3
+
     w = torch.zeros(n_blocks, 4, 3, max_in, hidden)
-    w[:, :, 0, :in_dim] = torch.randn(n_blocks, 4, in_dim, hidden, generator=gen) * 0.3
-    w[:, :, 1, :hidden] = torch.randn(n_blocks, 4, hidden, hidden, generator=gen) * 0.3
-    w[:, :, 2, :hidden, 0] = torch.randn(n_blocks, 4, hidden, generator=gen) * 0.3
+    w[:, :, 0, :in_dim] = torch.randn(n_blocks, 4, in_dim, hidden, generator=gen) * std(in_dim)
+    w[:, :, 1, :hidden] = torch.randn(n_blocks, 4, hidden, hidden, generator=gen) * std(hidden)
+    w[:, :, 2, :hidden, 0] = torch.randn(n_blocks, 4, hidden, generator=gen) * std(hidden)
     bias = torch.randn(n_blocks, 4, 3, hidden, generator=gen) * 0.1
     bias[:, :, 2, 1:] = 0.0
     x = torch.randn(b, n, 2, generator=gen)
@@ -588,30 +598,127 @@ def test_bf16_cnf_train_step_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_coupling_chain_backward_refuses_what_its_shared_memory_cannot_hold(cuda):
-    """A chain the forward kernel takes but whose backward's shared memory
-    (twice the parameters of a chain without context plus its factor tile)
-    passes a block's: four blocks at hidden 16.  The forward launches, the
-    backward raises before a launch the card would refuse."""
+    """A chain whose narrow backward's shared memory (twice the parameters of
+    a chain without context plus its factor tile) passes a block's, four
+    blocks at hidden 16, is not refused: both directions run on the wide
+    pair, whose backward keeps no factor tile, and match the plain version
+    (outputs to rtol/atol 1e-5, gradients to 1e-4 of their scale)."""
     x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(2, 10, 4, 3, n_blocks=4,
                                                                 hidden=16))
     assert cc.bwd_smem_bytes(4, 16) > cc.MAX_SMEM_BYTES >= cc.fwd_smem_bytes(4, 16, 2)
-    w.requires_grad_()
-    y, ld = cc.fused_coupling_chain(x, ctx, w, bias)
-    with pytest.raises(ValueError, match="shared memory in the backward"):
-        torch.autograd.grad([y, ld], [w], [gy, gld])
+    assert not cc.narrow_pair_takes(4, 16)
+    outs = []
+    cc.reset_launches()
+    for fn in (cc.fused_coupling_chain, cc.chain_apply_packed_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        y, ld = fn(leaves[0], ctx, leaves[1], leaves[2])
+        outs.append([y, ld] + list(torch.autograd.grad([y, ld], leaves, [gy, gld])))
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["coupling_chain_wide"] == 1 and cc.LAUNCHES["coupling_chain_bwd_wide"] == 1
+    assert cc.LAUNCHES["coupling_chain"] == cc.LAUNCHES["coupling_chain_bwd"] == 0
+    for k, (got, ref) in enumerate(zip(*outs)):
+        got, ref = got.detach(), ref.detach()
+        tol = (1e-5, 1e-5) if k < 2 else (1e-4, 1e-4 * float(ref.abs().max()))
+        torch.testing.assert_close(got, ref, rtol=tol[0], atol=tol[1])
 
 
 @pytest.mark.cuda
 def test_coupling_chain_refuses_what_the_kernels_do_not_take(cuda):
-    """On CUDA tensors the wrapper launches or raises: no plain fallback."""
-    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, hidden=17))
+    """On CUDA tensors the wrapper launches or raises: no plain fallback.
+    Hidden 17 and nine blocks run (on the wide pair); a width past
+    ``WIDE_MAX_HIDDEN`` and tensors on two devices raise."""
+    for kwargs in (dict(hidden=17), dict(n_blocks=9)):
+        x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, **kwargs))
+        y, ld = cc.fused_coupling_chain(x, ctx, w, bias)
+        y_ref, ld_ref = cc.chain_apply_packed_plain(x, ctx, w, bias)
+        torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(ld, ld_ref, rtol=1e-5, atol=1e-5)
+    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(
+        1, 3, 1, 1, n_blocks=1, hidden=cc.WIDE_MAX_HIDDEN + 1))
     with pytest.raises(ValueError, match="hidden"):
-        cc.fused_coupling_chain(x, ctx, w, bias)
-    x, ctx, w, bias, _, _ = (t.to(cuda) for t in _chain_case(2, 10, 4, 1, n_blocks=9))
-    with pytest.raises(ValueError, match="blocks"):
         cc.fused_coupling_chain(x, ctx, w, bias)
     with pytest.raises(ValueError, match="several devices"):
         cc.fused_coupling_chain(x.cpu(), ctx, w, bias)
+
+
+# chains the narrow pair does not take, as (B, N, C, context broadcast,
+# blocks, hidden): four blocks at 12 (the narrow backward's tile), 17, 32 at
+# 4 and 9 blocks, 64 at 12 and 256 (layer 1 read from global memory), each at
+# the filter's (32, 100); a dense context at a ragged large N, no context,
+# ragged tiles, and 300 and 1,024 wide (16 and 32 units a lane) on few rows
+WIDE_CHAINS = [(32, 100, 4, True, 4, 12), (32, 100, 36, True, 2, 17),
+               (32, 100, 196, True, 4, 32), (32, 100, 36, True, 9, 32),
+               (32, 100, 4, True, 12, 64), (32, 100, 36, True, 2, 256),
+               (4, 4097, 36, False, 4, 32), (4, 4097, 0, False, 4, 32),
+               (3, 33, 5, True, 9, 12), (5, 7, 3, False, 3, 33),
+               (2, 33, 4, True, 1, 300), (1, 24, 4, True, 1, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n,ctx_dim,broadcast,n_blocks,hidden", WIDE_CHAINS)
+def test_coupling_chain_wide_pair_matches_plain(cuda, b, n, ctx_dim, broadcast, n_blocks,
+                                                hidden, inverse):
+    """The wide pair with the wide library's context kernels against the
+    plain version's autograd, weights scaled to their fan-in (``_chain_case``):
+    outputs to rtol/atol 1e-5, every gradient (x,
+    the context, weights, biases) to 1e-4 of its scale; the same bits from a
+    second call; each wide kernel launched once a call and the narrow pair
+    never."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) if t is not None else None for t in _chain_case(
+        b, n, ctx_dim, 37 * b + n + hidden, broadcast, n_blocks, hidden, fan_in=True))
+    assert not cc.narrow_pair_takes(n_blocks, hidden)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        c = None if ctx is None else ctx.clone().requires_grad_()
+        c_in = None if c is None else c.expand(b, n, ctx_dim)
+        y, ld = fn(leaves[0], c_in, leaves[1], leaves[2], inverse)
+        wanted = leaves + ([] if c is None else [c])
+        return [y, ld] + list(torch.autograd.grad([y, ld], wanted, [gy, gld]))
+
+    cc.reset_launches()
+    got, again = run(cc.fused_coupling_chain), run(cc.fused_coupling_chain)
+    torch.cuda.synchronize()
+    fwd = "coupling_chain_wide_inverse" if inverse else "coupling_chain_wide"
+    want = {fwd: 2, "coupling_chain_bwd_wide": 2, "coupling_ctx_share": 2}
+    if ctx_dim:
+        groups = len(cc.ctx_grad_groups(4 * n_blocks * hidden))
+        want.update(coupling_ctx_grad_rows=2 * groups, coupling_ctx_weight_grad=2 * groups,
+                    coupling_ctx_input_grad=2)
+    assert {k: v for k, v in cc.LAUNCHES.items() if v} == want
+    ref = run(cc.chain_apply_packed_plain)
+    for k, (a, a2, r) in enumerate(zip(got, again, ref)):
+        a, a2, r = a.detach(), a2.detach(), r.detach()
+        assert torch.equal(a, a2)
+        if k < 2:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_coupling_chain_wide_pair_agrees_with_the_narrow_pair(cuda, inverse):
+    """At hidden 8 and two blocks, a chain both pairs take, the wide pair's
+    launchers against the narrow pair's on the same P: outputs to rtol/atol
+    1e-5, gx, g1 and the weight and bias gradients to 1e-4 of their
+    scale."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(32, 100, 36, 41, True))
+    ctx = ctx.expand(32, 100, 36)
+    p, mode = cc._launch_ctx_share(cc._library(8), ctx, w, bias)
+    p_wide, mode_wide = cc._launch_ctx_share(cc._library(cc.WIDE_BUILD), ctx, w, bias)
+    assert mode_wide == mode and torch.equal(p_wide, p)
+    narrow = cc._launch_forward(x, p, mode, w, bias, inverse)
+    wide = cc._launch_forward_wide(x, p, mode, w, bias, inverse)
+    for a, r in zip(wide, narrow):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    gx, g1, gw_plain, gb = cc._launch_backward(x, p, mode, w, bias, gy, gld, inverse, True)
+    gw = torch.zeros_like(w)
+    gw[:, :, :, :8] = gw_plain
+    for a, r in zip(cc._launch_backward_wide(x, p, mode, w, bias, gy, gld, inverse, True),
+                    (gx, g1, gw, gb)):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
 
 
 # contexts wider than the kernels' shared memory held before the context's

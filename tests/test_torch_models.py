@@ -403,35 +403,54 @@ def test_warm_start_off_the_streaming_path_raises(overrides):
 
 
 # chains and whether the CUDA coupling kernels refuse them, as (overrides,
-# refused on CUDA): up to 16 wide they take them (9-15 padded to 16), with a
-# context of any width (its share of layer 0 is a kernel of its own); four
-# blocks at width 9-16 pass the backward's shared memory with any context
+# refused on CUDA): the narrow pair takes them up to 16 wide (9-15 padded to
+# 16) and up to 8 blocks, with a context of any width (its share of layer 0
+# is a kernel of its own), and the wide pair every other chain up to
+# WIDE_MAX_HIDDEN wide, with any number of blocks: hidden 17, nine blocks,
+# four blocks at width 9-16 (the narrow backward's shared memory), four at 32
+# and hidden 256 build for CUDA
 COUPLING_LIMITS = {
     "hidden16": (dict(flow_hidden_dim=16), False),
     "hidden12": (dict(flow_hidden_dim=12), False),
-    "hidden17": (dict(flow_hidden_dim=17), True),
-    "blocks9": (dict(n_sequence=9), True),
+    "hidden17": (dict(flow_hidden_dim=17), False),
+    "blocks9": (dict(n_sequence=9), False),
     "hidden16_module_route": (dict(flow_hidden_dim=16, pallas_coupling=False), False),
     # the proposal's context is the 192-wide CGLOW encoding + 4
     "cglow_proposal": (dict(measurement="CGLOW"), False),
     "cglow_proposal_module_route": (dict(measurement="CGLOW", pallas_coupling=False), False),
     # --hiddensize 117 makes the proposal's context 121 wide
     "hiddensize117": (dict(hidden_size=117), False),
-    "blocks4_hidden16": (dict(n_sequence=4, flow_hidden_dim=16), True),
+    "blocks4_hidden16": (dict(n_sequence=4, flow_hidden_dim=16), False),
+    "hidden32_blocks4": (dict(n_sequence=4, flow_hidden_dim=32), False),
+    "hidden256": (dict(flow_hidden_dim=256), False),
 }
 
 
+@pytest.fixture
+def one_intra_op_thread():
+    """torch on one intra-op thread for the test, restored after it.  The
+    test workers share the machine's cores, each with as many torch
+    threads: a train step of 256-wide flows took ~195 s in each of six
+    processes at 8 threads against ~2 s at one (the checks here are
+    finiteness and non-zero gradients, which no thread count moves)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("case", sorted(COUPLING_LIMITS))
-def test_coupling_kernel_limits_are_refused_when_built(case):
-    """A CNF-DPF whose packed chains K4/K5 cannot take is refused when it is
-    built for CUDA, before anything reaches the card (so this runs without
-    one); one they take, and the module route, are not refused.  On the CPU the same configuration
-    builds and takes a train step on the plain version."""
+def test_coupling_kernel_limits_are_refused_when_built(case, one_intra_op_thread):
+    """A CNF-DPF whose packed chains neither pair of coupling kernels takes is
+    refused when it is built for CUDA, before anything reaches the card (so
+    this runs without one); one they take, and the module route, are not
+    refused.  On the CPU the same configuration builds and takes a train
+    step on the plain version."""
     overrides, refused = COUPLING_LIMITS[case]
     cfg = DPFConfig(**{**SLICE, "num_particles": 10, "ess_threshold": 1.01, "nf_dyn": True,
                        "nf_cond": True, "pallas_coupling": True, **overrides})
     if refused:
-        with pytest.raises(NotImplementedError, match=r"K4/K5.*queue 2, item 20"):
+        with pytest.raises(NotImplementedError, match="CUDA coupling kernels"):
             DPF(cfg, device="cuda")
     else:
         check_coupling_kernels(cfg)
@@ -444,3 +463,17 @@ def test_coupling_kernel_limits_are_refused_when_built(case):
     assert np.isfinite(float(metrics["loss"])) and float(metrics["resample_count"]) > 0
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for name, p in trainer.engine.named_parameters() if name.startswith("nf_dyn"))
+
+
+def test_coupling_kernels_refuse_a_chain_past_the_widest_when_built():
+    """A chain wider than ``WIDE_MAX_HIDDEN`` (the context share takes a
+    thread a hidden unit of a net) is refused when the filter is built for
+    CUDA, before anything reaches the card; the module route is not."""
+    from nfdpf_torch.ops.cuda.coupling_cuda import WIDE_MAX_HIDDEN
+
+    cfg = DPFConfig(**{**SLICE, "nf_dyn": True, "nf_cond": True, "pallas_coupling": True,
+                       "flow_hidden_dim": WIDE_MAX_HIDDEN + 1})
+    with pytest.raises(NotImplementedError, match="CUDA coupling kernels.*hidden <= 1024"):
+        DPF(cfg, device="cuda")
+    check_coupling_kernels(DPFConfig(**{**SLICE, "nf_dyn": True, "pallas_coupling": False,
+                                        "flow_hidden_dim": 2048}))

@@ -374,7 +374,20 @@ def _float64_grads(js, settings):
             if p.grad is not None}
 
 
-def test_encode_per_step_train_step_matches_jax(jax_per_step):
+@pytest.fixture(scope="module")
+def port_per_step(jax_per_step):
+    """The port's ablation from the JAX step's parameters and noise, once for
+    the tests that read it: (the trainer after its train step, the step's
+    metrics, the eval loss it gave before the step; an eval step leaves a
+    trainer as it was)."""
+    js = jax_per_step
+    trainer = _port_trainer(js, dict(BASE, encode_per_step=True))
+    noise = _noise(js["key"])
+    eval_loss = float(trainer.eval_step(js["batch"], noise=noise)[0]["loss"])
+    return trainer, trainer.train_step(js["batch"], noise=noise), eval_loss
+
+
+def test_encode_per_step_train_step_matches_jax(jax_per_step, port_per_step):
     """A train step of the ablation against JAX's: loss terms rtol 1e-5,
     gradients 1e-4 (decoder 1e-2), but 2e-3 for the first two conv layers
     and the first BatchNorm, where JAX's float32 run sits up to 1.1e-3 from
@@ -384,8 +397,7 @@ def test_encode_per_step_train_step_matches_jax(jax_per_step):
     1e-4 / atol 1e-5."""
     js = jax_per_step
     settings = dict(BASE, encode_per_step=True)
-    trainer = _port_trainer(js, settings)
-    metrics = trainer.train_step(js["batch"], noise=_noise(js["key"]))
+    trainer, metrics, _ = port_per_step
     _check_step(trainer, metrics, js, _per_step_bound, loss_rtol=1e-5)
     rest = js["aux"]["new_rest"]
     _assert_running_stats(trainer.engine.encoder, rest["encoder"]["batch_stats"],
@@ -398,23 +410,22 @@ def test_encode_per_step_train_step_matches_jax(jax_per_step):
             assert _rel(p.grad.numpy(), g64[name]) < 1e-4, name
 
 
-def test_encode_per_step_eval_is_the_hoisted_encode(jax_per_step):
+def test_encode_per_step_eval_is_the_hoisted_encode(jax_per_step, port_per_step):
     """As tests/test_filter.py holds JAX: in eval mode the ablation is the
     hoisted encode (loss rtol 1e-6), and after a train step its encoder BN
     statistics differ from the hoisted mode's (T per-step updates and one
-    full-frame update against one)."""
+    full-frame update against one).  Each mode's eval step runs on the
+    trainer before its train step (an eval step leaves it as it was); the
+    ablation's are ``port_per_step``'s."""
     js = jax_per_step
     noise = _noise(js["key"])
-    losses, stats = {}, {}
-    for per_step in (False, True):
-        settings = dict(BASE, encode_per_step=per_step)
-        losses[per_step] = float(
-            _port_trainer(js, settings).eval_step(js["batch"], noise=noise)[0]["loss"])
-        trainer = _port_trainer(js, settings)
-        trainer.train_step(js["batch"], noise=noise)
-        stats[per_step] = trainer.engine.encoder.norms[0].running_mean.clone()
-    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-6)
-    assert not torch.allclose(stats[True], stats[False])
+    trainer = _port_trainer(js, BASE)
+    hoisted_loss = float(trainer.eval_step(js["batch"], noise=noise)[0]["loss"])
+    trainer.train_step(js["batch"], noise=noise)
+    per_step, _, per_step_loss = port_per_step
+    np.testing.assert_allclose(per_step_loss, hoisted_loss, rtol=1e-6)
+    assert not torch.allclose(per_step.engine.encoder.norms[0].running_mean,
+                              trainer.engine.encoder.norms[0].running_mean)
 
 
 def test_encode_per_step_in_eval_mode_raises():
