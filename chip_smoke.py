@@ -37,7 +37,8 @@ Phases, one line of output each, then the device line last:
    pair (``chain_kernels_wide``: the chains the narrow pair does not take,
    hidden 12 at four blocks, 17, 32 at four and nine blocks, 64 at twelve
    and 256, at (B=32, N=100) with contexts 4, 36 and 196 wide broadcast
-   over the particles, and a dense 36-wide context and none at (B=4,
+   over the particles, 512 and 1,024 at two blocks there with the 36-wide
+   one, and a dense 36-wide context and none at (B=4,
    N=4097)) through the wrapper against the plain version, bit-equal
    repeats, each case timed beside its bound, the plain version and the
    module route, its launches' registers and shared memory held to the
@@ -78,7 +79,9 @@ Phases, one line of output each, then the device line last:
    beside them), ``per_step`` (the bootstrap DPF with the per-step
    encode and torch's default initialisation) and ``cnf_wide`` (the
    CNF-DPF with four 32-wide coupling blocks: both flows on the wide
-   pair).  A counter a slice does not name must read 0;
+   pair; ``wide_step`` beside it: the wide pair's device ms a step from
+   its launches and the kernel phase's times).  A counter a slice does not
+   name must read 0;
 4. the warm start: the bootstrap slice's eval filter at full width, cold
    and with ``sinkhorn_warm_start``: the first firing takes the same
    Sinkhorn iterations both ways, the later ones together at most 1.1× the
@@ -453,7 +456,7 @@ def chain_resources(hidden: int) -> dict:
 def wide_resources() -> dict:
     """ptxas's counts (``ptxas_counts``) of the wide library's kernels: the
     wide pair's instantiations and its context kernels.  Raises where the
-    report names a wide kernel of some units a lane or direction without
+    report names a wide kernel of some tile shape or direction without
     its registers."""
     from nfdpf_torch.ops.cuda import build
     from nfdpf_torch.ops.cuda import coupling_cuda as cc
@@ -461,13 +464,14 @@ def wide_resources() -> dict:
     text = build.build_log[" ".join(("coupling",) + cc.build_defines(cc.WIDE_BUILD))]["ptxas"]
     out = ptxas_counts(text, r"chain_(?:fwd_wide|bwd_wide|ctx_share|ctx_grad_rows|"
                              r"ctx_weight_grad|ctx_input_grad)_kernel")
-    for kernel in ("chain_fwd_wide_kernel", "chain_bwd_wide_kernel"):
-        for units in (1, 2, 4, 8, 16, 32):
+    for kernel, tiles in (("chain_fwd_wide_kernel", cc.WIDE_FWD_TILES),
+                          ("chain_bwd_wide_kernel", cc.WIDE_BWD_TILES)):
+        for tm, tn in sorted({t[1:3] for t in tiles}):
             for direction in ("forward", "inverse"):
-                if "registers" not in out.get(f"{kernel}<{units}, {direction}>", {}):
-                    raise AssertionError(f"the wide library's ptxas report names no "
-                                         f"{kernel}<{units}, {direction}> with its registers: "
-                                         f"{out}")
+                name = f"{kernel}<{tm}, {tn}, {direction}>"
+                if "registers" not in out.get(name, {}):
+                    raise AssertionError(f"the wide library's ptxas report names no {name} with "
+                                         f"its registers: {out}")
     return out
 
 
@@ -1264,13 +1268,15 @@ def context_kernel_edges(cc) -> dict:
 
 # the wide pair's cases as (hidden, blocks): four blocks at 12 (the narrow
 # backward's factor tile), 17, 32 at four and nine blocks, 64 at twelve and
-# 256 (layer 1 read from global memory), each at the filter's (32, 100) with
-# the dynamics flow's, the proposal's and the CGLOW proposal's context
-# broadcast over the particles; at two of them a dense 36-wide context and
-# none at a ragged large N
+# 256, each at the filter's (32, 100) with the dynamics flow's, the
+# proposal's and the CGLOW proposal's context broadcast over the particles;
+# 512 and 1,024 (the widest tiles) there with the proposal's context; at two
+# of them a dense 36-wide context and none at a ragged large N
 WIDE_CHAINS = ((12, 4), (17, 2), (32, 4), (32, 9), (64, 12), (256, 2))
 WIDE_CONTEXTS = (4, 36, 196)
+WIDE_LARGE = ((512, 2), (1024, 2))
 WIDE_DENSE = ((32, 4), (64, 12))
+WIDE_SPILL_FREE = 256   # hidden widths up to this: the launched instantiation spills nothing
 WIDE_ITERS = 20     # CUDA-graph replays a timed kernel call; eager plain/module calls: 3
 
 
@@ -1295,7 +1301,7 @@ def phase_chain_kernels_wide():
     """The wide pair (``chain_fwd_wide_kernel``, ``chain_bwd_wide_kernel``)
     through ``fused_coupling_chain`` and its autograd Function, both
     directions, against the plain version and its autograd at every case of
-    ``WIDE_CHAINS`` x ``WIDE_CONTEXTS`` and ``WIDE_DENSE``: outputs to
+    ``WIDE_CHAINS`` x ``WIDE_CONTEXTS``, ``WIDE_LARGE`` and ``WIDE_DENSE``: outputs to
     ``CHAIN_TOL``, every gradient (x, the context, weights, biases) to
     ``CHAIN_GRAD_TOL``, each of the case's scale (|err| <= tol·|ref| +
     tol·max|ref|), and the outputs at most twice as far from a float64 run
@@ -1315,6 +1321,7 @@ def phase_chain_kernels_wide():
     dev, f4 = torch.device("cuda"), 4.0
     results, records = {}, {}
     cases = [(h, k, 32, 100, c, True) for h, k in WIDE_CHAINS for c in WIDE_CONTEXTS]
+    cases += [(h, k, 32, 100, 36, True) for h, k in WIDE_LARGE]
     cases += [(h, k, 4, 4097, c, False) for h, k in WIDE_DENSE for c in (36, 0)]
     wide_lib = cc._library(cc.WIDE_BUILD)
     for hidden, n_blocks, b, n, c, broadcast in cases:
@@ -1499,6 +1506,29 @@ def wide_against_narrow() -> dict:
                                                                  inverse, True),
                                         (gx, g1, gw, gb))]
             out[case] = {"max_abs_err": max(e[0] for e in errs)}
+    return out
+
+
+def phase_wide_step(row: dict, wide: dict) -> dict:
+    """The wide pair's device ms a train step of ``slice_cnf_wide`` (both
+    flows four 32-wide blocks at (32, 100), contexts 4 and 36 broadcast over
+    the particles): its 3 train steps' launches of each wide kernel times the
+    kernel's mean device ms over those cases (``chain_kernels_wide``, both
+    directions), over 3; beside the slice's step median and peak memory."""
+    cases = [f"H32_K4_B32_N100_C{c}_{d}" for c in (4, 36) for d in ("forward", "inverse")]
+    ms = {name: statistics.mean(wide[name][case]["ms"] for case in cases)
+          for name in ("coupling_chain_wide", "coupling_chain_bwd_wide")}
+    launches = row["launches_train_3_steps"]
+    n_fwd = launches["coupling_chain_wide"] + launches["coupling_chain_wide_inverse"]
+    out = {"phase": "wide_step", "slice": row["phase"], "median_step_ms": row["median_step_ms"],
+           "peak_mem_gib": row["peak_mem_gib"], "kernel_ms": ms,
+           "launches_a_step": {"forward": n_fwd / 3,
+                               "backward": launches["coupling_chain_bwd_wide"] / 3},
+           "wide_pair_device_ms_per_step": (n_fwd * ms["coupling_chain_wide"]
+                                            + launches["coupling_chain_bwd_wide"]
+                                            * ms["coupling_chain_bwd_wide"]) / 3,
+           "note": "launches x the kernels' CUDA-graph ms at the slice's chains, not a trace"}
+    log(out)
     return out
 
 
@@ -2672,15 +2702,18 @@ def main() -> int:
     log({"phase": "chain_resources", "ptxas": ptxas[cnf.flow_hidden_dim],
          f"ptxas_h{H16}": ptxas[H16], "ptxas_update": ptxas_update, "ptxas_wide": ptxas_wide})
     # every wide launch's registers are ptxas's for the instantiation it ran,
-    # which spills nothing
+    # which spills nothing up to hidden WIDE_SPILL_FREE (the spills of the
+    # widest tiles are recorded)
     for name in WIDE_LINE:
         for case, rec in wide[name].items():
             counts = ptxas_wide[rec["kernel"]]
-            if (rec["registers"], counts.get("spill_bytes", 0)) != (counts["registers"], 0):
+            spills = counts.get("spill_bytes", 0)
+            if (rec["registers"] != counts["registers"]
+                    or (spills and int(case.split("_")[0][1:]) <= WIDE_SPILL_FREE)):
                 raise AssertionError(f"{name}@{case}: the launch of {rec['kernel']} took "
                                      f"{rec['registers']} registers; ptxas says {counts} "
-                                     f"(spills must be 0)")
-            rec["ptxas_spill_bytes"] = counts.get("spill_bytes", 0)
+                                     f"(spills must be 0 up to hidden {WIDE_SPILL_FREE})")
+            rec["ptxas_spill_bytes"] = spills
     # the redesigned kernels' recorded launches against ptxas's counts, the
     # launched kernel the one the wrapper's plan names
     update_at = kernels["sinkhorn_update"][AT["sinkhorn_update"]]
@@ -2702,6 +2735,7 @@ def main() -> int:
                                  f"memory; ptxas says {counts} (spills must be 0)")
         rec["ptxas_spill_bytes"] = counts.get("spill_bytes", 0)
     slices = {name: phase_slice(name, *spec, args.profile) for name, spec in SLICES.items()}
+    phase_wide_step(slices["slice_cnf_wide"], wide)
     phase_remat(slices["slice_cglow"], slices["slice_cglow_remat"])
     phase_warm_start()
     phase_parity("parity", SLICE)

@@ -59,21 +59,25 @@ parameters of a chain without context in the card's shared memory (227 KB;
 wide pair, one library (``WIDE_BUILD``) whose kernels take the hidden width
 and the number of blocks at run time, the context kernels included:
 
-* ``chain_fwd_wide_kernel`` (K4 for the wide chains): a row a warp, each lane
-  ⌈H/32⌉ hidden units of a net, the parameters staged per coupling block or
-  per net, or read from global memory (``wide_fwd_plan``);
-* ``chain_bwd_wide_kernel`` (K5 for them): the chain forward keeping each
-  row's state after every half step, then the nets backwards, each
-  recomputed from the state it read; the weight and bias gradients as
-  sums over tiles of rows into one partial per thread block
+* ``chain_fwd_wide_kernel`` (K4 for the wide chains): a block of 256
+  threads walks a tile of rows through the chain's nets, layer 1 a
+  register-tiled product of the tile's activations with the net's weights
+  streamed through a ring of chunks in shared memory (each net's weights
+  read once a tile of rows), the row sums and each row's update after it
+  (``wide_fwd_plan``);
+* ``chain_bwd_wide_kernel`` (K5 for them): the walk forward keeping each
+  row's state after every half step, then the nets backwards on the same
+  tile: the layer-1 product again, g1 from a second product on the
+  weights' columns, the weight gradient from a third that contracts over
+  the tile's rows, all into one partial per thread block
   (``wide_bwd_plan``), summed here; g1 in K5's layout.
 
 The context-weight gradient's kernels take rows of g1 at most
 ``CTX_GRAD_COLUMNS`` wide; a wider chain's g1 goes through them in column
 groups.  ``chain_refusal`` says why a chain runs on neither pair: a hidden
 width above ``WIDE_MAX_HIDDEN`` (the context-share kernel takes a thread a
-hidden unit of a net, at most 1,024 a block, and a wide lane holds at most
-32 units).
+hidden unit of a net, at most 1,024 a block; the wide pair's tile shapes
+reach 1,024 units).
 """
 
 from __future__ import annotations
@@ -101,10 +105,18 @@ PADDED_ABOVE = 8                  # wider chains run at MAX_HIDDEN, zero-padded
 MAX_BLOCKS = 8                    # chain blocks the narrow pair takes
 WIDE_BUILD = 0                    # the library whose kernels take H at run time
 WIDE_MAX_HIDDEN = 1024            # the widest chain (kWideMaxHidden)
-WIDE_WARPS = 8                    # warps of a wide block, a row each at a time (kWideWarps)
-WIDE_TILE_TARGET = 2 * 132        # tiles of rows that give every SM a wide block or more
-WIDE_BWD_MAX_GRID = 2 * 132       # wide backward blocks, each with a partial
-WIDE_PART_BYTES = 256 << 20       # what the wide backward's partials may take
+WIDE_THREADS = 256                # threads of a wide block (kWideThreads)
+WIDE_STAGES = 3                   # chunks of layer 1 in a wide block's ring (kWideStages)
+WIDE_CHUNKS = (64, 32, 16, 8, 4)  # rows of layer 1 a ring chunk may take, the most that fit
+# the wide pair's tiles as (widest hidden, TM, TN, TC): a thread TM rows x TN
+# units, TC threads across the units, (WIDE_THREADS / TC)·TM rows a tile
+# (NFDPF_WIDE_FWD_TILES / NFDPF_WIDE_BWD_TILES in csrc/coupling.cu)
+WIDE_FWD_TILES = ((32, 2, 1, 32), (64, 4, 2, 32), (128, 4, 4, 32), (256, 4, 8, 32),
+                  (512, 8, 8, 64), (1024, 8, 8, 128))
+WIDE_BWD_TILES = ((32, 4, 1, 32), (64, 4, 2, 32), (128, 4, 4, 32), (256, 8, 4, 64),
+                  (512, 8, 8, 64), (1024, 4, 8, 128))
+WIDE_P_STAGE = 2048               # floats of a tile's rows of P a vector slot takes (kWidePStage)
+WIDE_PART_BYTES = 4 << 30         # what the wide backward's partials may take
 MAX_SMEM_BYTES = 232448           # dynamic shared memory a Hopper block can opt in to
 FWD_ROWS_PER_BLOCK = 32           # forward rows per block
 BWD_MAX_GRID = 132                # backward blocks: at most one per SM
@@ -145,9 +157,9 @@ _SIGNATURES = {
     "nfdpf_coupling_chain_bwd": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_chain_fwd_wide": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_chain_bwd_wide": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                      _I, _I, _I, _I, _I, _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "nfdpf_coupling_ctx_share": [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _P, _P],
     "nfdpf_coupling_ctx_grad_rows": [_P, _I, _I, _I, _P, _L, _L, _I, _I, _I, _I, _I, _I,
@@ -417,13 +429,6 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def wide_net_floats(hidden: int) -> int:
-    """A net's floats staged by the wide pair (``wide_net_floats`` in
-    ``csrc/coupling.cu``): layer 1 in rows of hidden | 1 floats, layer 0's
-    row 0, layer 1's bias, layer 2's column 0 and its bias."""
-    return hidden * (hidden | 1) + 3 * hidden + 1
-
-
 def wide_part_floats(hidden: int) -> int:
     """A net's entries in the wide backward's partials: layer 1 (H x H),
     layer 0's row 0, layer 2's column 0, layer 0's and 1's biases, layer
@@ -431,46 +436,66 @@ def wide_part_floats(hidden: int) -> int:
     return hidden * hidden + 4 * hidden + 1
 
 
-def wide_smem_bytes(hidden: int, tile_rows: int, nets_a_stage: int, backward: bool) -> int:
+def wide_vec_floats(hidden: int, tile_rows: int, hp: int) -> int:
+    """A slot of the wide block's vector ring (``wide_vec_floats`` in
+    ``csrc/coupling.cu``): layer 0's row 0, layer 1's bias and layer 2's
+    column (hp floats each), layer 2's bias (4), then the tile's rows of P
+    (``tile_rows`` x H rounded to 4) where they take at most
+    ``WIDE_P_STAGE`` floats."""
+    rows_p = tile_rows * _cdiv(hidden, 4) * 4
+    return 3 * hp + 4 + (rows_p if rows_p <= WIDE_P_STAGE else 0)
+
+
+def wide_smem_bytes(hidden: int, tile_rows: int, tc: int, tn: int, kc: int,
+                    backward: bool) -> int:
     """Shared memory of a wide block (``wide_smem_floats`` in
-    ``csrc/coupling.cu``): ``nets_a_stage`` staged nets, then the forward's
-    row slice (H floats) a warp, or the backward's tile of h1, h2, g1, g2
-    (``tile_rows`` x H each) and its rows' half inputs and output
-    gradients."""
-    rest = tile_rows * (4 * hidden + 2) if backward else WIDE_WARPS * hidden
-    return 4 * (nets_a_stage * wide_net_floats(hidden) + rest)
+    ``csrc/coupling.cu``): the ring's ``WIDE_STAGES`` chunks of ``kc`` rows
+    of hp + 4 floats (hp = tc·tn units) and as many slots of the vector
+    ring (``wide_vec_floats``), the tile's h1 (``tile_rows`` rows reaching
+    past hp or ⌈H / R⌉·R units, rounded to 4, + 4), with the backward its
+    g2 and four sums a row group and unit; the row sums (a float a row and
+    warp of its group), each row's half and row of P, and (backward) its
+    output gradient."""
+    hp = tc * tn
+    ldt = _cdiv(max(hp, _cdiv(hidden, tile_rows) * tile_rows), 4) * 4 + 4
+    floats = (WIDE_STAGES * (kc * (hp + 4) + wide_vec_floats(hidden, tile_rows, hp))
+              + tile_rows * ldt + tile_rows * (tc // 32) + 2 * tile_rows)
+    if backward:
+        floats += tile_rows * ldt + 4 * (WIDE_THREADS // tc) * hp + tile_rows
+    return 4 * floats
 
 
 def _wide_plan(rows: int, hidden: int, backward: bool) -> dict:
-    """Tiles of 8·rpw rows (rpw rows a warp: 4, 2 or 1, the most that still
-    make ``WIDE_TILE_TARGET`` tiles, fewer where the backward's tile does
-    not fit), the nets staged a coupling block (4), a net (1) or none (0)
-    at a time, the most that fit a block's shared memory beside the tile."""
-    want = next((r for r in (4, 2, 1) if _cdiv(rows, WIDE_WARPS * r) >= WIDE_TILE_TARGET), 1)
-    rpw, stage = next((r, s) for r in (4, 2, 1) for s in (4, 1, 0) if r <= want and
-                      wide_smem_bytes(hidden, WIDE_WARPS * r, s, backward) <= MAX_SMEM_BYTES)
-    tile = WIDE_WARPS * rpw
-    return {"tile_rows": tile, "nets_a_stage": stage, "tiles": _cdiv(rows, tile),
-            "grid": _cdiv(rows, tile), "threads": 32 * WIDE_WARPS,
-            "smem_bytes": wide_smem_bytes(hidden, tile, stage, backward)}
+    """The tile shape of ``WIDE_FWD_TILES`` / ``WIDE_BWD_TILES`` for the
+    width, and the largest chunk of ``WIDE_CHUNKS`` (at most the next power
+    of two of H rounded to 4) whose ring fits a block's shared memory beside
+    the tile; a block a tile."""
+    _, tm, tn, tc = next(t for t in (WIDE_BWD_TILES if backward else WIDE_FWD_TILES)
+                         if hidden <= t[0])
+    tile = WIDE_THREADS // tc * tm
+    most = 1 << max(2, (_cdiv(hidden, 4) * 4 - 1).bit_length())
+    kc = next(k for k in WIDE_CHUNKS if k <= most and
+              wide_smem_bytes(hidden, tile, tc, tn, k, backward) <= MAX_SMEM_BYTES)
+    return {"tile_rows": tile, "tc": tc, "tm": tm, "tn": tn, "kc": kc,
+            "tiles": _cdiv(rows, tile), "grid": _cdiv(rows, tile), "threads": WIDE_THREADS,
+            "smem_bytes": wide_smem_bytes(hidden, tile, tc, tn, kc, backward)}
 
 
 def wide_fwd_plan(rows: int, hidden: int) -> dict:
     """How the wide forward covers ``rows`` rows of a chain at hidden width
-    ``hidden``: ``_wide_plan``, a block a tile."""
+    ``hidden``: ``_wide_plan``."""
     return _wide_plan(rows, hidden, False)
 
 
 def wide_bwd_plan(rows: int, n_blocks: int, hidden: int) -> dict:
     """How the wide backward covers ``rows`` rows: ``_wide_plan``'s tiles
-    over at most ``WIDE_BWD_MAX_GRID`` blocks, fewer where their partials
-    (4K·``wide_part_floats`` floats each, ``part_floats`` in all) would
-    pass ``WIDE_PART_BYTES``; ``state_floats``, the rows' states after each
-    half step (2K + 1 pairs a row)."""
+    over fewer blocks where their partials (4K·``wide_part_floats`` floats
+    each, ``part_floats`` in all) would pass ``WIDE_PART_BYTES`` (a block
+    then adds its later tiles into its partial); ``state_floats``, the
+    rows' states after each half step (2K + 1 pairs a row)."""
     plan = _wide_plan(rows, hidden, True)
     per_block = 4 * n_blocks * wide_part_floats(hidden)
-    plan["grid"] = max(1, min(plan["tiles"], WIDE_BWD_MAX_GRID,
-                              WIDE_PART_BYTES // (4 * per_block)))
+    plan["grid"] = max(1, min(plan["tiles"], WIDE_PART_BYTES // (4 * per_block)))
     plan["part_floats"] = plan["grid"] * per_block
     plan["state_floats"] = rows * 2 * (2 * n_blocks + 1)
     return plan
@@ -732,6 +757,11 @@ def _launch_forward(x, p, mode: int, weights, biases, inverse: bool):
     return y, ld
 
 
+def _wide_args(plan: dict) -> tuple:
+    """A wide plan as the wide entry points take it."""
+    return tuple(plan[k] for k in ("tile_rows", "tc", "tm", "tn", "kc", "grid"))
+
+
 def _launch_forward_wide(x, p, mode: int, weights, biases, inverse: bool):
     """The wide forward on rows x with P, on ``wide_fwd_plan``."""
     b, n, _ = x.shape
@@ -743,7 +773,7 @@ def _launch_forward_wide(x, p, mode: int, weights, biases, inverse: bool):
     rc = _library(WIDE_BUILD).nfdpf_coupling_chain_fwd_wide(
         x.data_ptr(), p.data_ptr(), mode, weights.data_ptr(), biases.data_ptr(),
         y.data_ptr(), ld.data_ptr(), b * n, n, n_blocks, weights.shape[-2], hidden,
-        int(inverse), plan["tile_rows"], plan["nets_a_stage"], plan["grid"], _stream(x))
+        int(inverse), *_wide_args(plan), _stream(x))
     counter = "coupling_chain_wide_inverse" if inverse else "coupling_chain_wide"
     check_launch(rc, counter)
     LAUNCHES[counter] += 1
@@ -795,11 +825,11 @@ def wide_grads(parts: torch.Tensor, hidden: int,
     return gw, gb
 
 
-def _launch_backward_wide(x, p, mode: int, weights, biases, gy, gld, inverse: bool,
-                          with_g1: bool):
-    """The wide backward on ``wide_bwd_plan``: (gx, each row's g1 (B·N,
-    4K·H) or None, the packed weight gradient of a chain without context
-    (K, 4, 3, max_in, H), the bias gradient), the partials summed here."""
+def wide_backward_parts(x, p, mode: int, weights, biases, gy, gld, inverse: bool,
+                        with_g1: bool):
+    """The wide backward kernel on ``wide_bwd_plan``: (gx, each row's g1
+    (B·N, 4K·H) or None, the blocks' partials (grid, K, 4,
+    ``wide_part_floats(H)``))."""
     b, n, _ = x.shape
     x, p, weights, biases, gy, gld = kernel_args(x, p, weights, biases, gy, gld)
     dev, rows = x.device, b * n
@@ -814,11 +844,19 @@ def _launch_backward_wide(x, p, mode: int, weights, biases, gy, gld, inverse: bo
         x.data_ptr(), p.data_ptr(), mode, weights.data_ptr(), biases.data_ptr(),
         gy.data_ptr(), gld.data_ptr(), gx.data_ptr(), 0 if g1 is None else g1.data_ptr(),
         gpart.data_ptr(), states.data_ptr(), rows, n, n_blocks, weights.shape[-2], hidden,
-        int(inverse), plan["tile_rows"], plan["nets_a_stage"], plan["grid"], _stream(x))
+        int(inverse), *_wide_args(plan), _stream(x))
     check_launch(rc, "coupling_chain_bwd_wide")
     LAUNCHES["coupling_chain_bwd_wide"] += 1
-    parts = gpart.view(plan["grid"], n_blocks, 4, wide_part_floats(hidden)).sum(0)
-    return (gx, g1) + wide_grads(parts, hidden, weights.shape[-2])
+    return gx, g1, gpart.view(plan["grid"], n_blocks, 4, wide_part_floats(hidden))
+
+
+def _launch_backward_wide(x, p, mode: int, weights, biases, gy, gld, inverse: bool,
+                          with_g1: bool):
+    """The wide backward: (gx, each row's g1 (B·N, 4K·H) or None, the packed
+    weight gradient of a chain without context (K, 4, 3, max_in, H), the
+    bias gradient), the partials summed here."""
+    gx, g1, parts = wide_backward_parts(x, p, mode, weights, biases, gy, gld, inverse, with_g1)
+    return (gx, g1) + wide_grads(parts.sum(0), weights.shape[-1], weights.shape[-2])
 
 
 def _launch_ctx_grad_rows(lib, g1, ctx, n_blocks: int, hidden: int):

@@ -1331,477 +1331,788 @@ chain_ctx_input_grad_kernel(const float* __restrict__ g1, int rows, int C, int p
 // for the chains the narrow pair above does not take: hidden 17-1,024,
 // more than 8 blocks, or 4 or more blocks at 9-16 (the narrow backward's
 // factor tile then passes a block's shared memory).  H and K are run-time
-// arguments (the library built with NFDPF_HIDDEN = 0); J, the hidden units a
-// lane holds (H <= 32·J), is a template argument (1, 2, 4, 8, 16, 32).
+// arguments (the library built with NFDPF_HIDDEN = 0).
 //
 // What bounds them: per row and net 2H(H + 3) operations against 20 bytes
-// of a row's input and output (the backward about three times the
+// of a row's input and output (the backward about four times the
 // operations, and 4K·H floats of g1 written with a context), so the
-// operations bound is the larger one from H of a few units on; at the
-// filter's 3,200 rows the operations take microseconds and the time is the
-// dependent chain of 4K MLPs a row walks (times against bounds in PERF.md).
-// The design, a plain FMA one:
-//   * A row is one warp; lane l holds hidden units j = l + 32u (u < J) of a
-//     net.  Layer 0 reads the row's P (layer 0's bias and context share, from
-//     the context-share kernel, unchanged: ONE_ROW / PER_BATCH / PER_ROW) and
-//     writes its activations to the row's slice of shared memory, from which
-//     every lane reads layer 1's inputs (one broadcast load an input);
-//     layer 1 sums in ascending i from its bias, as the narrow pair; the
-//     output layer's products are summed by a butterfly, which leaves the
-//     same bits on every lane (each step adds the same two numbers on both
-//     lanes of a pair).
-//   * A block of 8 warps takes a tile of rows, a warp tile_rows / 8 of them
-//     one after another; lane q of a warp keeps its q-th row's state in
-//     registers.  The tile walks the chain's 4K nets in the order they
-//     apply, so the parameters are staged once a tile: per coupling block
-//     where its four nets fit a block's shared memory, else per net, with
-//     cp.async; where one net's layer 1 alone does not fit (H above about
-//     230) they are read from global memory, through L1 and L2.  A staged
-//     layer 1 takes rows of H | 1 floats, so that the forward's walk along a
-//     row and the backward's down a column both meet distinct banks.
-//     Staging per tile makes K unbounded.
+// operations bound is the larger one from H of a few units on.  Nearly all
+// of it is layer 1, an R x H x H product per net and tile of R rows; at the
+// filter's 3,200 rows and H of a few tens the time is the dependent walk of
+// 4K nets, each a few block-wide steps (times against bounds in PERF.md).
+// The design, row-tiled products in plain fp32 FMA:
+//   * A block of kWideThreads threads owns a tile of R rows for the whole
+//     walk of the chain's 4K nets.  Its threads form a TR x TC grid over a
+//     layer's R x H outputs: thread (tr, tc) holds rows tr·TM .. tr·TM +
+//     TM - 1 and units tc + TC·u (u < TN) in registers (TM, TN template
+//     arguments; TC, R and the chunk rows kc at run time, the wrapper's
+//     plan; TC a multiple of 32, so a warp's lanes share their rows).
+//   * A net: layer 0's activations h1 (R x H) are built in shared memory
+//     from each row's half, layer 0's row 0 and the row's P (the context
+//     share's output, unchanged: ONE_ROW / PER_BATCH / PER_ROW); layer 1 is
+//     a register-tiled product: per k step a thread reads TM values of h1
+//     (float4 along k, a broadcast within the warp) and TN of W1 (lanes on
+//     neighbouring units) and does TM·TN FMAs, each accumulator one fmaf
+//     chain in ascending k from its bias, as the narrow pair sums.
+//   * W1 streams through a ring of kWideStages chunks of kc rows in shared
+//     memory by cp.async.  The chunks of a walk form one stream, so the
+//     next net's first chunks load during the current net's last chunks
+//     and its epilogue; a net's first chunk brings its small vectors too
+//     (layer 0's row 0, the biases, layer 2's column) and, where they fit,
+//     the tile's rows of P, into a ring of their own, so that no step of a
+//     net waits on global memory.  Each net's weights are read once per
+//     tile of R rows, not once per row.
+//   * The epilogue: tanh, layer 2's products summed over a thread's units,
+//     a butterfly over the warp, the warps of a row group through shared
+//     memory in a fixed order; thread r of the block owns row r's state,
+//     updates it and publishes the next net's half.
 //   * The backward keeps no factor tile of the whole chain: as
-//     _chain_bwd_kernel (coupling_pallas.py:278-300) it runs the chain
-//     forward from x keeping each row's state after every half step (2K + 1
+//     _chain_bwd_kernel (coupling_pallas.py:278-300) it runs the walk
+//     forward keeping each row's state after every half step (2K + 1
 //     (lower, upper) pairs a row, in a scratch buffer in global memory),
-//     then walks the nets backwards, recomputing each net's activations from
-//     the state it read.  A net's h1, h2, g1 and g2 of the tile's rows go to
-//     shared memory; then every weight and bias gradient of the net is a sum
-//     over the tile's rows in row order, a thread an entry, added into the
-//     block's own partial in global memory (written on its first tile).  The
-//     caller sums the partials as for K5.  No atomics: a launch gives the
-//     same bits every time.  Each row's g1 goes out in K5's layout (4K·H
-//     floats a row), so the context kernels take it unchanged.
-// No tensor cores: TF32 would break the gradients' 1e-4 tolerance.
-constexpr int kWideWarps = 8;
-constexpr int kWideThreads = kWideWarps * kWarp;
+//     then walks the nets backwards on the same tile.  Per net: h1 and the
+//     layer-1 product again, g2 = gout·w2·(1 - h2²) into shared memory; g1 =
+//     (g2 · W1ᵀ) ⊙ (1 - h1²), a second product whose ring holds W1's columns
+//     as rows (a transposed stage), out to global memory in K5's layout
+//     (the context kernels' input) and summed against the half's weights
+//     for d/d half; the weight gradient h1ᵀ · g2, a third product that
+//     contracts over the tile's rows, R rows of W1 at a time; the biases'
+//     and the halves' columns' gradients from per-thread sums over its rows
+//     added across the row groups in order.  All of it goes into the
+//     block's own partial in global memory (written on its first tile,
+//     added to on the next), which the caller sums.  No atomics: a launch
+//     gives the same bits every time.
+//   * Tiles (the wrapper's WIDE_FWD_TILES / WIDE_BWD_TILES): 16 rows at H
+//     <= 32 in the forward (two blocks an SM), else 32 up to H = 512, and
+//     16 (forward) or 8 (backward) beyond, where a tile's h1, g2 and ring
+//     fill a block's shared memory.  Where 3,200 rows make too few tiles for
+//     132 SMs the plan takes a smaller R rather than splitting a net's
+//     units over a cluster: at small H a net's time is its block-wide steps'
+//     instructions and waits, not its products, and a cluster would add a
+//     distributed exchange to every one of them.
+// No tensor cores: 3xTF32 would triple the products' instructions for the
+// tolerance, and plain TF32 would break the gradients' 1e-4.
+constexpr int kWideThreads = 256;   // a wide block: 8 warps
+constexpr int kWideStages = 3;      // chunks of layer 1 in the ring, nets in the vector ring
 constexpr int kWideMaxHidden = 1024;
+constexpr int kWidePStage = 2048;   // most floats of a net's rows of P the vector ring stages
 
-// A staged net's floats: layer 1 (H rows of wide_ld(H) floats), then layer
-// 0's row 0, layer 1's bias, layer 2's column 0 (H each) and its bias.
-__host__ __device__ __forceinline__ int wide_ld(int H) { return H | 1; }
-__host__ __device__ __forceinline__ int wide_net_floats(int H) { return H * wide_ld(H) + 3 * H + 1; }
+// Floats a ring chunk's row takes (hp = TC·TN units; hp + 4 keeps a
+// transposed stage's writes on distinct banks) and a row of the tile's
+// activations (as far as a product reads: hp units, or the weight
+// gradient's R rows of W1 at a time).
+__host__ __device__ __forceinline__ int wide_ldb(int hp) { return hp + 4; }
+__host__ __device__ __forceinline__ int wide_ldt(int H, int R, int hp) {
+  const int reach = (H + R - 1) / R * R;
+  return ((reach > hp ? reach : hp) + 3) / 4 * 4 + 4;
+}
+// Whether the vector ring stages the tile's rows of P (R x H rounded to 4).
+__host__ __device__ __forceinline__ bool wide_p_staged(int H, int R) {
+  return R * ((H + 3) / 4 * 4) <= kWidePStage;
+}
+// A slot of the vector ring: layer 0's row 0, layer 1's bias, layer 2's
+// column (hp each), layer 2's bias (4), then the tile's rows of P where
+// staged.
+__host__ __device__ __forceinline__ int wide_vec_floats(int H, int R, int hp) {
+  return 3 * hp + 4 + (wide_p_staged(H, R) ? R * ((H + 3) / 4 * 4) : 0);
+}
 // A net's entries in the backward's partials: layer 1 (H x H), layer 0's
 // row 0, layer 2's column 0, layer 0's and layer 1's biases (H each) and
 // layer 2's (1).
 __host__ __device__ __forceinline__ int wide_part_floats(int H) { return H * H + 4 * H + 1; }
 
-// Where a net's parameters are read: staged (rows of wide_ld(H), layer 2's
-// column packed) or in the packing in global memory (rows of H, layer 2's
-// column H floats apart).
-struct WideNet {
-  const float* w1;
-  const float* w0;   // layer 0's row 0 (the half's weights)
-  const float* b1;
-  const float* w2;   // layer 2's column 0, w2_step floats apart
-  const float* b2;
-  int ld, w2_step;
+// Shared memory of a wide block in floats: the ring (kWideStages chunks of
+// kc rows) and the vector ring (kWideStages slots), the tile's h1 (R
+// rows), with the backward its g2 (R rows) and four per-row-group sums a
+// unit; the warps' row sums, each row's half and row of P, and (backward)
+// its output gradient.
+__host__ __device__ __forceinline__ size_t wide_smem_floats(int H, int R, int TC, int TN, int kc,
+                                                           bool backward) {
+  const int hp = TC * TN, ldt = wide_ldt(H, R, hp);
+  size_t f = (size_t)kWideStages * (kc * wide_ldb(hp) + wide_vec_floats(H, R, hp)) +
+             (size_t)R * ldt + (size_t)R * (TC / kWarp) + 2 * R;
+  if (backward) f += (size_t)R * ldt + 4 * (size_t)(kWideThreads / TC) * hp + R;
+  return f;
+}
+
+// A wide block's inputs, geometry and the places of its shared memory.
+struct Wide {
+  const float* p;   // P, each row's layer-0 bias and context share
+  const float* w;   // the packed chain
+  const float* bias;
+  int p_mode, n, K, max_in;
+  int H, h4, R, TC, TR, hp, kc, nck, ldb, ldt, wpr, vf;
+  bool pst;         // the vector ring stages P
+  int tc, tr;       // this thread's unit lane and row group
+  float *ring, *vring, *h1, *g2, *scr, *red, *st_half, *st_gout;
+  int* st_prow;     // each row's row of P (ctx_row_of)
 };
 
-__device__ __forceinline__ WideNet wide_net_global(const float* w, const float* bias, int m,
-                                                   int H, int max_in) {
-  const float* wm = w + (size_t)m * 3 * max_in * H;
-  const float* bm = bias + (size_t)m * 3 * H;
-  return {wm + (size_t)max_in * H, wm, bm + H, wm + (size_t)2 * max_in * H, bm + 2 * H, H, H};
+// The next chunk a walk's stream fetches: the walk's idx-th net, its q-th
+// chunk (per a net: nck, or 2·nck on the backward's way back, the columns
+// after the rows), into ring slot `slot`.
+struct WideStream {
+  int idx, q, per, slot;
+  bool reverse;
+};
+
+__device__ __forceinline__ Wide wide_geom(const float* p, int p_mode, int n, const float* w,
+                                          const float* bias, int K, int max_in, int H, int R,
+                                          int TC, int TN, int kc, float* s, bool backward) {
+  Wide g;
+  g.p = p;
+  g.w = w;
+  g.bias = bias;
+  g.p_mode = p_mode;
+  g.n = n;
+  g.K = K;
+  g.max_in = max_in;
+  g.H = H;
+  g.h4 = (H + 3) / 4 * 4;
+  g.R = R;
+  g.TC = TC;
+  g.TR = kWideThreads / TC;
+  g.hp = TC * TN;
+  g.kc = kc;
+  g.nck = (g.h4 + kc - 1) / kc;
+  g.ldb = wide_ldb(g.hp);
+  g.ldt = wide_ldt(H, R, g.hp);
+  g.wpr = TC / kWarp;
+  g.vf = wide_vec_floats(H, R, g.hp);
+  g.pst = wide_p_staged(H, R);
+  g.tc = threadIdx.x % TC;
+  g.tr = threadIdx.x / TC;
+  g.ring = s;
+  s += (size_t)kWideStages * kc * g.ldb;
+  g.vring = s;
+  s += (size_t)kWideStages * g.vf;
+  g.h1 = s;
+  s += (size_t)R * g.ldt;
+  g.g2 = s;
+  if (backward) s += (size_t)R * g.ldt;
+  g.scr = s;
+  if (backward) s += 4 * (size_t)g.TR * g.hp;
+  g.red = s;
+  s += (size_t)R * g.wpr;
+  g.st_prow = reinterpret_cast<int*>(s);
+  s += R;
+  g.st_half = s;
+  g.st_gout = s + R;
+  return g;
 }
 
-__device__ __forceinline__ WideNet wide_net_staged(const float* s, int H) {
-  const int ld = wide_ld(H);
-  const float* v = s + H * ld;
-  return {s, v, v + H, v + 2 * H, v + 3 * H, ld, 1};
+// Net m of the walk's position pos: forward t1 s1 t2 s2 a block, inverse
+// the blocks backwards, t2 s2 t1 s1 each.
+template <bool INV>
+__device__ __forceinline__ int wide_net_at(int pos, int K) {
+  const int k = INV ? K - 1 - pos / 4 : pos / 4;
+  return 4 * k + (INV ? (pos + 2) % 4 : pos % 4);
 }
 
-// Stage nets m0 .. m0 + count - 1 into dst, wide_net_floats(H) apart (every
-// thread of the block; the caller waits and synchronises).
-__device__ __forceinline__ void stage_wide(float* dst, const float* __restrict__ w,
-                                           const float* __restrict__ bias, int m0, int count,
-                                           int H, int max_in) {
-  const int ld = wide_ld(H), nf = wide_net_floats(H);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp, warps = blockDim.x / kWarp;
-  for (int c = 0; c < count; ++c) {
-    const WideNet g = wide_net_global(w, bias, m0 + c, H, max_in);
-    float* s = dst + (size_t)c * nf;
-    for (int i = warp; i < H; i += warps) {
-      for (int j = lane; j < H; j += kWarp) copy_async4(s + i * ld + j, g.w1 + (size_t)i * H + j);
+// Layers 0-2 of net m in the packing (w[K][4][3][max_in][H]).
+__device__ __forceinline__ const float* wide_layer(const Wide& g, int m, int layer) {
+  return g.w + ((size_t)m * 3 + layer) * g.max_in * g.H;
+}
+
+// The vector ring's slot of the walk's idx-th net.
+__device__ __forceinline__ const float* wide_vecs(const Wide& g, int idx) {
+  return g.vring + (size_t)(idx % kWideStages) * g.vf;
+}
+
+// cp.async copies that write zeros where `valid` is false (no read then).
+__device__ __forceinline__ void copy_async16_zfill(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void copy_async4_zfill(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Stage chunk kb of a layer 1 (w1: H x H, rows of H) into `slot`: its rows
+// k0 .. k0 + kc - 1 (rows from H on zero), or with `trans` its columns j0 ..
+// j0 + kc - 1 as rows (slot[jj][i] = W1[i][j0 + jj]; columns from H on
+// zero).  Every thread of the block; the caller commits.
+__device__ __forceinline__ void wide_stage_chunk(const Wide& g, const float* __restrict__ w1,
+                                                 int kb, bool trans, float* slot) {
+  const int k0 = kb * g.kc, H = g.H;
+  if (trans) {
+    // kc is a power of two: a thread a (column, row) pair, neighbouring
+    // threads on neighbouring columns of one row of W1
+    const int lkc = __ffs(g.kc) - 1;
+    for (int e = threadIdx.x; e < g.kc * H; e += kWideThreads) {
+      const int jj = e & (g.kc - 1), i = e >> lkc, j = k0 + jj;
+      copy_async4_zfill(slot + jj * g.ldb + i, w1 + (size_t)i * H + (j < H ? j : 0), j < H);
     }
-    float* v = s + H * ld;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      copy_async4(v + j, g.w0 + j);
-      copy_async4(v + H + j, g.b1 + j);
-      copy_async4(v + 2 * H + j, g.w2 + (size_t)j * H);
+    return;
+  }
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const bool by16 = H % 4 == 0 && (reinterpret_cast<uintptr_t>(w1) & 15) == 0;
+  for (int kk = warp; kk < g.kc; kk += kWideThreads / kWarp) {
+    const int k = k0 + kk;
+    const float* src = w1 + (size_t)(k < H ? k : 0) * H;
+    float* dst = slot + kk * g.ldb;
+    if (by16) {
+      for (int q = 4 * lane; q < H; q += 4 * kWarp) copy_async16_zfill(dst + q, src + q, k < H);
+    } else {
+      for (int j = lane; j < H; j += kWarp) copy_async4_zfill(dst + j, src + j, k < H);
     }
-    if (threadIdx.x == 0) copy_async4(v + 3 * H, g.b2);
   }
 }
 
-// Stage what position `pos` of the walk reads (net m of coupling block k):
-// the block's four nets at its first position, or net m alone; nothing when
-// the nets are read from global memory.  Returns where to read net m.
-__device__ __forceinline__ WideNet wide_stage_for(float* stage, const float* __restrict__ w,
-                                                  const float* __restrict__ bias, int nets_a_stage,
-                                                  bool block_first, int k, int net, int H,
-                                                  int max_in) {
-  const int m = 4 * k + net;
-  if (nets_a_stage == 0) return wide_net_global(w, bias, m, H, max_in);
-  if (nets_a_stage == 1 || block_first) {
-    __syncthreads();   // every reader of the previous stage is done
-    stage_wide(stage, w, bias, nets_a_stage == 1 ? m : 4 * k, nets_a_stage, H, max_in);
-    copy_async_wait();
-    __syncthreads();
+// Stage net m's vectors (and, where staged, the tile's rows of P) into
+// the vector ring's slot `vs`.  Every thread of the block; the caller
+// commits.
+__device__ __forceinline__ void wide_stage_vecs(const Wide& g, int m, int r0, int nr, float* vs) {
+  const int H = g.H;
+  const float* w0 = wide_layer(g, m, 0);
+  const float* w2 = wide_layer(g, m, 2);
+  const float* b1 = g.bias + ((size_t)m * 3 + 1) * H;
+  // 16-byte copies where H is a multiple of 4 (every row then starts on 16
+  // bytes, as the slot's parts do); layer 2's column is strided
+  const bool by16 = H % 4 == 0 && ((reinterpret_cast<uintptr_t>(g.w) |
+                                    reinterpret_cast<uintptr_t>(g.bias) |
+                                    reinterpret_cast<uintptr_t>(g.p)) & 15) == 0;
+  if (by16) {
+    for (int j = 4 * threadIdx.x; j < H; j += 4 * kWideThreads) {
+      copy_async16(vs + j, w0 + j);
+      copy_async16(vs + g.hp + j, b1 + j);
+    }
+  } else {
+    for (int j = threadIdx.x; j < H; j += kWideThreads) {
+      copy_async4(vs + j, w0 + j);
+      copy_async4(vs + g.hp + j, b1 + j);
+    }
   }
-  return wide_net_staged(stage + (size_t)(nets_a_stage == 1 ? 0 : net) * wide_net_floats(H), H);
+  for (int j = threadIdx.x; j < H; j += kWideThreads) {
+    copy_async4(vs + 2 * g.hp + j, w2 + (size_t)j * H);
+  }
+  if (threadIdx.x == 0) copy_async4(vs + 3 * g.hp, b1 + H);   // layer 2's bias
+  if (!g.pst) return;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp, ps = 4 * g.K * H;
+  for (int r = warp; r < nr; r += kWideThreads / kWarp) {
+    const float* prow = g.p + (size_t)g.st_prow[r] * ps + (size_t)m * H;
+    float* dst = vs + 3 * g.hp + 4 + r * g.h4;
+    if (by16) {
+      for (int i = 4 * lane; i < H; i += 4 * kWarp) copy_async16(dst + i, prow + i);
+    } else {
+      for (int i = lane; i < H; i += kWarp) copy_async4(dst + i, prow + i);
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Start the copies of the stream's next chunk into its ring slot (a net's
+// vectors with its first chunk), commit (a group also past the stream's
+// end, so that every step waits alike) and advance: the forward walk's
+// chunks of each net's layer 1, or (`reverse`) the backward's, the nets in
+// reverse order, each its layer 1's rows, then its columns.
+template <bool INV>
+__device__ __forceinline__ void wide_fetch(const Wide& g, WideStream& st, int r0, int nr) {
+  const int nets = 4 * g.K;
+  if (st.idx < nets) {
+    const int m = wide_net_at<INV>(st.reverse ? nets - 1 - st.idx : st.idx, g.K);
+    const bool trans = st.q >= g.nck;
+    wide_stage_chunk(g, wide_layer(g, m, 1), trans ? st.q - g.nck : st.q, trans,
+                     g.ring + (size_t)st.slot * g.kc * g.ldb);
+    if (st.q == 0) {
+      wide_stage_vecs(g, m, r0, nr, g.vring + (size_t)(st.idx % kWideStages) * g.vf);
+    }
+  }
+  copy_async_commit();
+  if (++st.q == st.per) {
+    st.q = 0;
+    ++st.idx;
+  }
+  st.slot = st.slot == kWideStages - 1 ? 0 : st.slot + 1;
 }
 
-// One conditioner MLP for one row on a warp (lane l: units l + 32u): layer
-// 0's activations from `half` and the row's P (prow: this net's H floats) go
-// to hs (the row's H floats of shared memory) and to h1; h2 of the lane's
-// units to h2.  Returns the output, the same bits on every lane.
-template <int J>
-__device__ __forceinline__ float wide_mlp(const WideNet& v, float half,
-                                          const float* __restrict__ prow, float* hs, int H,
-                                          int lane, float (&h1)[J], float (&h2)[J]) {
-  float a[J];
-#pragma unroll
-  for (int u = 0; u < J; ++u) {
-    const int j = lane + kWarp * u;
-    h1[u] = 0.f;
-    a[u] = 0.f;
-    if (j < H) {
-      h1[u] = tanhf(fmaf(half, v.w0[j], __ldg(prow + j)));
-      hs[j] = h1[u];
-      a[u] = v.b1[j];
-    }
-  }
-  __syncwarp();
-  for (int i = 0; i < H; ++i) {
-    const float hi = hs[i];
-    const float* wr = v.w1 + (size_t)i * v.ld;
-#pragma unroll
-    for (int u = 0; u < J; ++u) {
-      const int j = lane + kWarp * u;
-      if (j < H) a[u] = fmaf(hi, wr[j], a[u]);
-    }
-  }
-  float part = 0.f;
-#pragma unroll
-  for (int u = 0; u < J; ++u) {
-    const int j = lane + kWarp * u;
-    h2[u] = 0.f;
-    if (j < H) {
-      h2[u] = tanhf(a[u]);
-      part = fmaf(h2[u], v.w2[(size_t)j * v.w2_step], part);
-    }
-  }
-  __syncwarp();   // every lane has read hs
-  return warp_sum(part) + *v.b2;
+// A walk's stream with the copies of its first kWideStages - 1 chunks
+// started, after the block's synchronisation (which also publishes the
+// rows of P the caller noted).
+template <bool INV>
+__device__ __forceinline__ WideStream wide_stream_start(const Wide& g, bool reverse, int r0,
+                                                        int nr) {
+  __syncthreads();   // every reader of the rings and of the tile before is done
+  WideStream st{0, 0, reverse ? 2 * g.nck : g.nck, 0, reverse};
+  for (int c = 0; c < kWideStages - 1; ++c) wide_fetch<INV>(g, st, r0, nr);
+  return st;
 }
 
-// Backward of wide_mlp for one row, from its activations (h1, h2 of the
-// lane's units) and the output's gradient gout: h2, g2 and g1 of the row go
-// to the tile's rows h2row, g2row and g1row (g1 also to the row's g1 in
-// global memory, when g1_out is not null); returns d out / d half, the same
-// bits on every lane.  g1 sums g2 · layer 1's row in ascending order, as the
-// narrow backward.
-template <int J>
-__device__ __forceinline__ float wide_mlp_bwd(const WideNet& v, float gout, float* h2row,
-                                              float* g1row, float* g2row, const float (&h1)[J],
-                                              const float (&h2)[J], int H, int lane,
-                                              float* g1_out) {
-#pragma unroll
-  for (int u = 0; u < J; ++u) {
-    const int j = lane + kWarp * u;
-    if (j < H) {
-      h2row[j] = h2[u];
-      g2row[j] = gout * v.w2[(size_t)j * v.w2_step] * (1.f - h2[u] * h2[u]);
-    }
-  }
-  __syncwarp();
-  float g1[J];
-#pragma unroll
-  for (int u = 0; u < J; ++u) g1[u] = 0.f;
-  for (int j = 0; j < H; ++j) {
-    const float gj = g2row[j];
-#pragma unroll
-    for (int u = 0; u < J; ++u) {
-      const int i = lane + kWarp * u;
-      if (i < H) g1[u] = fmaf(gj, v.w1[(size_t)i * v.ld + j], g1[u]);
-    }
-  }
-  float part = 0.f;
-#pragma unroll
-  for (int u = 0; u < J; ++u) {
-    const int i = lane + kWarp * u;
-    if (i < H) {
-      g1[u] *= 1.f - h1[u] * h1[u];
-      g1row[i] = g1[u];
-      if (g1_out != nullptr) g1_out[i] = g1[u];
-      part = fmaf(g1[u], v.w0[i], part);
-    }
-  }
-  return warp_sum(part);
+// The start of the walk's idx-th net: its vectors (copied with its first
+// chunk, at most one later group in flight) have landed; every thread
+// synchronises.
+__device__ __forceinline__ void wide_net_start() {
+  copy_async_wait_group<kWideStages - 2>();
+  __syncthreads();
 }
 
-template <int J, bool INV>
-__global__ void __launch_bounds__(kWideThreads)
+// Layer 0's activations of the tile's rows for net m into g.h1 (row r:
+// tanh(half_r · w0 + P's row of r), zero past H and on rows past nr).
+__device__ __forceinline__ void wide_build_h1(const Wide& g, const float* vs, int m, int r0,
+                                              int nr) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp, ps = 4 * g.K * g.H;
+  for (int r = warp; r < g.R; r += kWideThreads / kWarp) {
+    float* row = g.h1 + (size_t)r * g.ldt;
+    if (r < nr) {
+      const float half = g.st_half[r];
+      const float* prow = g.pst ? vs + 3 * g.hp + 4 + r * g.h4
+                                : g.p + (size_t)g.st_prow[r] * ps + (size_t)m * g.H;
+      for (int i = lane; i < g.h4; i += kWarp) {
+        row[i] = i < g.H ? tanhf(fmaf(half, vs[i], prow[i])) : 0.f;
+      }
+    } else {
+      for (int i = lane; i < g.h4; i += kWarp) row[i] = 0.f;
+    }
+  }
+}
+
+// acc[m][u] += sum over k < klen of a[m][k] · b[k][u]: a is the thread's
+// first row of the A operand at the chunk's first k (rows lda apart, float4
+// along k), b the chunk at the thread's first unit (rows ldb apart, units
+// TC apart).  Ascending k: each accumulator one fmaf chain.
+template <int TM, int TN>
+__device__ __forceinline__ void wide_mma(float (&acc)[TM][TN], const float* a, int lda,
+                                         const float* b, int ldb, int klen, int TC) {
+#pragma unroll 2
+  for (int kk = 0; kk < klen; kk += 4) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = *reinterpret_cast<const float4*>(a + (size_t)i * lda + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float bv[TN];
+#pragma unroll
+      for (int u = 0; u < TN; ++u) bv[u] = b[(kk + q) * ldb + TC * u];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float x = q == 0 ? av[i].x : q == 1 ? av[i].y : q == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int u = 0; u < TN; ++u) acc[i][u] = fmaf(x, bv[u], acc[i][u]);
+      }
+    }
+  }
+}
+
+// acc = the bias of the thread's units (in shared memory; none: 0).
+template <int TM, int TN>
+__device__ __forceinline__ void wide_init_acc(float (&acc)[TM][TN], const Wide& g,
+                                              const float* bias) {
+#pragma unroll
+  for (int u = 0; u < TN; ++u) {
+    const int j = g.tc + g.TC * u;
+    const float b = bias != nullptr && j < g.H ? bias[j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][u] = b;
+  }
+}
+
+// A chunk step of a product, chunk c of the stream: wait for it (and the
+// vectors that came with it), make it visible, and start the copy of the
+// chunk kWideStages - 1 on into the slot the block has left.  Returns
+// chunk c's slot.  A product of a net takes the stream's next nck chunks,
+// acc += A · B over each (wide_mma).
+template <bool INV>
+__device__ __forceinline__ const float* wide_chunk_step(const Wide& g, int c, WideStream& st,
+                                                        int r0, int nr) {
+  copy_async_wait_group<kWideStages - 2>();
+  __syncthreads();
+  wide_fetch<INV>(g, st, r0, nr);
+  return g.ring + (size_t)(c % kWideStages) * g.kc * g.ldb;
+}
+
+// The row sums of v[i][u] · vec[unit] over the thread's units (ascending
+// u; vec in shared memory), then over the warp (a butterfly), into
+// g.red[row][warp of the row group]; the caller synchronises and adds the
+// row group's warps.
+template <int TM, int TN>
+__device__ __forceinline__ void wide_row_sums(const Wide& g, const float (&v)[TM][TN],
+                                              const float* vec) {
+  float part[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) part[i] = 0.f;
+#pragma unroll
+  for (int u = 0; u < TN; ++u) {
+    const int j = g.tc + g.TC * u;
+    if (j < g.H) {
+      const float x = vec[j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) part[i] = fmaf(v[i][u], x, part[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float s = part[i];
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (threadIdx.x % kWarp == 0) g.red[(g.tr * TM + i) * g.wpr + g.tc / kWarp] = s;
+  }
+}
+
+// Row r's sum of its warps' parts (in warp order).
+__device__ __forceinline__ float wide_row_total(const Wide& g, int r) {
+  float s = g.red[r * g.wpr];
+  for (int q = 1; q < g.wpr; ++q) s += g.red[r * g.wpr + q];
+  return s;
+}
+
+// Add v into the block's partial (its first tile writes, without reading).
+__device__ __forceinline__ void wide_part_add(float* dst, float v, bool first) {
+  if (first) {
+    *dst = v;
+  } else {
+    *dst += v;
+  }
+}
+
+// A row's state after the walk's pos-th net (net `net`) gave `out`: a t
+// net's output is kept (tv) until its s net applies the pair, in the plain
+// chain's order (upper, then lower; log_det + s1 + s2, inverse - s1 - s2).
+template <bool INV>
+__device__ __forceinline__ void wide_apply(int pos, int net, float out, float& lo, float& up,
+                                           float& ld, float& tv, float& sv) {
+  if (pos % 2 == 0) {
+    tv = out;
+  } else if (!INV) {
+    if (net == 1) {
+      up = tv + up * expf(out);
+      sv = out;
+    } else {
+      lo = tv + lo * expf(out);
+      ld = ld + sv + out;
+    }
+  } else if (net == 3) {
+    lo = (lo - tv) * expf(-out);
+    sv = out;
+  } else {
+    up = (up - tv) * expf(-out);
+    ld = ld - out - sv;
+  }
+}
+
+// The walk of the tile's rows (r0 .. r0 + nr - 1, inputs x) through the
+// chain's 4K nets in the order they apply, to y and ld_out, or with
+// `states` (sw pairs a row) each row's state before the walk and after
+// every half step (the backward's forward sweep).  Thread r < nr keeps row
+// r's state; the rows' sums and halves pass through shared memory.
+template <int TM, int TN, bool INV>
+__device__ __forceinline__ void wide_walk(const Wide& g, const float2* __restrict__ x, int r0,
+                                          int nr, float2* y, float* ld_out, float2* states,
+                                          int sw) {
+  const int t = threadIdx.x, nets = 4 * g.K, rw = g.tr * TM;
+  const bool own = t < nr;
+  float lo = 0.f, up = 0.f, ld = 0.f, tv = 0.f, sv = 0.f;
+  float2* my_states = own && states != nullptr ? states + (size_t)(r0 + t) * sw : nullptr;
+  if (own) {
+    const float2 v = x[r0 + t];
+    lo = v.x;
+    up = v.y;
+    if (my_states != nullptr) my_states[0] = v;
+  }
+  if (t < g.R) g.st_prow[t] = t < nr ? ctx_row_of(r0 + t, g.n, g.p_mode) : 0;
+  WideStream st = wide_stream_start<INV>(g, false, r0, nr);
+  if (t < g.R) g.st_half[t] = INV ? up : lo;   // t1 reads lower, inverse t2 upper
+  int c = 0;
+  for (int pos = 0; pos < nets; ++pos) {
+    const int m = wide_net_at<INV>(pos, g.K), net = m % 4;
+    const float* vs = wide_vecs(g, pos);
+    wide_net_start();   // the net's vectors; each row's half; the tile's h1 free
+    wide_build_h1(g, vs, m, r0, nr);
+    float acc[TM][TN];
+    wide_init_acc<TM, TN>(acc, g, vs + g.hp);
+    for (int kb = 0; kb < g.nck; ++kb, ++c) {
+      const float* slot = wide_chunk_step<INV>(g, c, st, r0, nr);
+      const int k0 = kb * g.kc;
+      wide_mma<TM, TN>(acc, g.h1 + (size_t)rw * g.ldt + k0, g.ldt, slot + g.tc, g.ldb,
+                       min(g.kc, g.h4 - k0), g.TC);
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int u = 0; u < TN; ++u) acc[i][u] = tanhf(acc[i][u]);
+    }
+    wide_row_sums<TM, TN>(g, acc, vs + 2 * g.hp);
+    __syncthreads();   // the row sums
+    if (own) {
+      wide_apply<INV>(pos, net, wide_row_total(g, t) + vs[3 * g.hp], lo, up, ld, tv, sv);
+      if (my_states != nullptr && pos % 2 == 1) my_states[pos / 2 + 1] = make_float2(lo, up);
+      if (pos + 1 < nets) g.st_half[t] = wide_net_at<INV>(pos + 1, g.K) % 4 < 2 ? lo : up;
+    }
+  }
+  if (own && y != nullptr) {
+    y[r0 + t] = make_float2(lo, up);
+    ld_out[r0 + t] = ld;
+  }
+}
+
+template <int TM, int TN, bool INV>
+__global__ void __launch_bounds__(kWideThreads, 1)
 chain_fwd_wide_kernel(const float2* __restrict__ x, const float* __restrict__ p, int p_mode,
                       const float* __restrict__ w, const float* __restrict__ bias,
                       float2* __restrict__ y, float* __restrict__ ld_out, int rows, int n, int K,
-                      int max_in, int H, int tile_rows, int nets_a_stage) {
+                      int max_in, int H, int tile_rows, int tc, int kc) {
   extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int ps = 4 * K * H, per_warp = tile_rows / kWideWarps;
-  // shared memory: the stage (nets_a_stage nets), then each warp's row slice
-  float* hs = smem + (size_t)nets_a_stage * wide_net_floats(H) + (size_t)warp * H;
+  const Wide g = wide_geom(p, p_mode, n, w, bias, K, max_in, H, tile_rows, tc, TN, kc, smem,
+                           false);
   const int tiles = (rows + tile_rows - 1) / tile_rows;
-  float h1[J], h2[J];
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    // lane q holds the warp's q-th row of the tile, r0 + warp + 8q: its
-    // state, the last t net's output and (inverse) the s net's of the pair
-    const int r0 = tile * tile_rows, my_row = r0 + warp + kWideWarps * lane;
-    const bool mine = lane < per_warp && my_row < rows;
-    float lo = 0.f, up = 0.f, ld = 0.f, tv = 0.f, sv = 0.f;
-    if (mine) {
-      const float2 v = x[my_row];
-      lo = v.x;
-      up = v.y;
-    }
-    for (int pos = 0; pos < 4 * K; ++pos) {
-      const int k = INV ? K - 1 - pos / 4 : pos / 4;
-      const int net = INV ? (pos + 2) % 4 : pos % 4;   // t1 s1 t2 s2, inverse t2 s2 t1 s1
-      const WideNet v = wide_stage_for(smem, w, bias, nets_a_stage, pos % 4 == 0, k, net, H,
-                                       max_in);
-      for (int q = 0; q < per_warp; ++q) {
-        const int row = r0 + warp + kWideWarps * q;
-        if (row >= rows) break;   // warp-uniform
-        const float half = __shfl_sync(0xffffffffu, net < 2 ? lo : up, q);
-        const float* prow = p + (size_t)ctx_row_of(row, n, p_mode) * ps + (size_t)(4 * k + net) * H;
-        const float out = wide_mlp<J>(v, half, prow, hs, H, lane, h1, h2);
-        if (lane == q) {
-          if (pos % 2 == 0) {
-            tv = out;
-          } else if (!INV) {
-            // the plain chain's order: upper, then lower, log_det + s1 + s2
-            if (net == 1) {
-              up = tv + up * expf(out);
-              sv = out;
-            } else {
-              lo = tv + lo * expf(out);
-              ld = ld + sv + out;
-            }
-          } else if (net == 3) {
-            lo = (lo - tv) * expf(-out);
-            sv = out;
-          } else {
-            up = (up - tv) * expf(-out);
-            ld = ld - out - sv;
-          }
-        }
-      }
-    }
-    if (mine) {
-      y[my_row] = make_float2(lo, up);
-      ld_out[my_row] = ld;
-    }
+    const int r0 = tile * tile_rows;
+    wide_walk<TM, TN, INV>(g, x, r0, min(tile_rows, rows - r0), y, ld_out, nullptr, 0);
   }
 }
 
-// The weight and bias gradients of net m over the tile's first nr rows,
-// into the block's partial (wide_part_floats(H) floats; `first`: the
-// block's first tile, which writes instead of adding).  A thread an entry,
-// each summed over the rows in row order.
-__device__ __forceinline__ void wide_reduce(float* part, const float* t_h1, const float* t_h2,
-                                            const float* t_g1, const float* t_g2,
-                                            const float* t_half, const float* t_gout, int nr,
-                                            int H, bool first) {
-  const int hh = H * H, np = wide_part_floats(H);
-  for (int e = threadIdx.x; e < np; e += blockDim.x) {
-    float acc = 0.f;
-    if (e < hh) {   // layer 1: h1[i] g2[j]
-      const int i = e / H, j = e % H;
-      for (int r = 0; r < nr; ++r) acc = fmaf(t_h1[r * H + i], t_g2[r * H + j], acc);
-    } else {
-      const int f = e - hh, c = f / H, j = f % H;
-      if (c == 0) {          // layer 0's row 0: half g1
-        for (int r = 0; r < nr; ++r) acc = fmaf(t_half[r], t_g1[r * H + j], acc);
-      } else if (c == 1) {   // layer 2's column 0: h2 gout
-        for (int r = 0; r < nr; ++r) acc = fmaf(t_h2[r * H + j], t_gout[r], acc);
-      } else if (c == 2) {   // layer 0's bias: g1
-        for (int r = 0; r < nr; ++r) acc += t_g1[r * H + j];
-      } else if (c == 3) {   // layer 1's bias: g2
-        for (int r = 0; r < nr; ++r) acc += t_g2[r * H + j];
-      } else {               // layer 2's bias: gout
-        for (int r = 0; r < nr; ++r) acc += t_gout[r];
-      }
+// The sums over the row groups (in order) of a unit's two per-row-group
+// sums in `scr` (as the backward's epilogues leave them) into the partial
+// at a and b (H entries each).
+__device__ __forceinline__ void wide_unit_sums(const Wide& g, const float* scr, float* a,
+                                               float* b, bool first) {
+  for (int j = threadIdx.x; j < g.H; j += kWideThreads) {
+    float sa = 0.f, sb = 0.f;
+    for (int q = 0; q < g.TR; ++q) {
+      sa += scr[q * g.hp + j];
+      sb += scr[(g.TR + q) * g.hp + j];
     }
-    part[e] = first ? acc : part[e] + acc;
+    wide_part_add(a + j, sa, first);
+    wide_part_add(b + j, sb, first);
   }
 }
 
-template <int J, bool INV>
-__global__ void __launch_bounds__(kWideThreads)
+template <int TM, int TN, bool INV>
+__global__ void __launch_bounds__(kWideThreads, 1)
 chain_bwd_wide_kernel(const float2* __restrict__ x, const float* __restrict__ p, int p_mode,
                       const float* __restrict__ w, const float* __restrict__ bias,
                       const float2* __restrict__ gy, const float* __restrict__ gld,
                       float2* __restrict__ gx, float* __restrict__ g1_out,
                       float* __restrict__ gpart, float2* __restrict__ states, int rows, int n,
-                      int K, int max_in, int H, int tile_rows, int nets_a_stage) {
+                      int K, int max_in, int H, int tile_rows, int tc, int kc) {
   extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int ps = 4 * K * H, per_warp = tile_rows / kWideWarps, sw = 2 * K + 1;
-  // shared memory: the stage, then the tile's h1, h2, g1, g2 (tile_rows x H
-  // each), its rows' half inputs and output gradients
-  float* t_h1 = smem + (size_t)nets_a_stage * wide_net_floats(H);
-  float* t_h2 = t_h1 + (size_t)tile_rows * H;
-  float* t_g1 = t_h2 + (size_t)tile_rows * H;
-  float* t_g2 = t_g1 + (size_t)tile_rows * H;
-  float* t_half = t_g2 + (size_t)tile_rows * H;
-  float* t_gout = t_half + tile_rows;
-  float* part = gpart + (size_t)blockIdx.x * 4 * K * wide_part_floats(H);
-  const int tiles = (rows + tile_rows - 1) / tile_rows;
-  float h1[J], h2[J];
+  const Wide g = wide_geom(p, p_mode, n, w, bias, K, max_in, H, tile_rows, tc, TN, kc, smem,
+                           true);
+  const int t = threadIdx.x, ps = 4 * K * H, nets = 4 * K, sw = 2 * K + 1;
+  const int pf = wide_part_floats(H), hh = H * H, R = tile_rows, rw = g.tr * TM;
+  const int tiles = (rows + R - 1) / R;
+  float* part = gpart + (size_t)blockIdx.x * nets * pf;
+  float* scr_a = g.scr;                            // layer 2's column, layer 1's bias
+  float* scr_b = g.scr + 2 * (size_t)g.TR * g.hp;  // layer 0's row 0 and bias
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int r0 = tile * tile_rows, my_row = r0 + warp + kWideWarps * lane;
-    const int nr = min(tile_rows, rows - r0);
-    const bool mine = lane < per_warp && my_row < rows;
-    float2* my_states = states + (size_t)(mine ? my_row : 0) * sw;
+    const bool first = tile == blockIdx.x;
+    const int r0 = tile * R, nr = min(R, rows - r0);
+    const bool own = t < nr;
+    float2* my_states = states + (size_t)(own ? r0 + t : 0) * sw;
 
-    // forward sweep: the forward kernel's walk, keeping the state after
-    // every half step (index pos / 2 + 1 after the s net at pos)
-    float lo = 0.f, up = 0.f, tv = 0.f;
-    if (mine) {
-      const float2 v = x[my_row];
-      lo = v.x;
-      up = v.y;
-      my_states[0] = v;
-    }
-    for (int pos = 0; pos < 4 * K; ++pos) {
-      const int k = INV ? K - 1 - pos / 4 : pos / 4;
-      const int net = INV ? (pos + 2) % 4 : pos % 4;
-      const WideNet v = wide_stage_for(smem, w, bias, nets_a_stage, pos % 4 == 0, k, net, H,
-                                       max_in);
-      for (int q = 0; q < per_warp; ++q) {
-        const int row = r0 + warp + kWideWarps * q;
-        if (row >= rows) break;   // warp-uniform
-        const float half = __shfl_sync(0xffffffffu, net < 2 ? lo : up, q);
-        const float* prow = p + (size_t)ctx_row_of(row, n, p_mode) * ps + (size_t)(4 * k + net) * H;
-        const float out = wide_mlp<J>(v, half, prow, t_h1 + (warp + kWideWarps * q) * H, H, lane,
-                                      h1, h2);
-        if (lane == q) {
-          if (pos % 2 == 0) {
-            tv = out;
-          } else {
-            if (!INV && net == 1) up = tv + up * expf(out);
-            if (!INV && net == 3) lo = tv + lo * expf(out);
-            if (INV && net == 3) lo = (lo - tv) * expf(-out);
-            if (INV && net == 1) up = (up - tv) * expf(-out);
-            my_states[pos / 2 + 1] = make_float2(lo, up);
-          }
-        }
-      }
-    }
+    // the forward sweep, keeping each row's state after every half step
+    wide_walk<TM, TN, INV>(g, x, r0, nr, nullptr, nullptr, states, sw);
 
-    // reverse sweep: lane q holds its row's gradients of lower and upper,
-    // of log_det, the exp of the pair's s net, the pair's d/d half so far,
-    // and the states around the coupling block (s0 before it, s1 after its
-    // first half, s2 after it)
-    float gl = 0.f, gu = 0.f, g_ld = 0.f, e = 0.f, gh = 0.f;
+    // the nets backwards: a net's chunks of W1 for its layer-1 product, then
+    // its columns for g1's.  A net's sums over the row groups go into the
+    // partial after the next barrier that follows them: layer 2's column
+    // and layer 1's bias at the g1 product's first chunk, layer 0's row and
+    // bias at the next net's first (or after the walk)
+    WideStream st = wide_stream_start<INV>(g, true, r0, nr);
+    // thread r < nr: its row's gradients of lower and upper, of log_det,
+    // the exp of the pair's s net, the pair's d/d half so far, the states
+    // around the coupling block (s0 before it, s1 after its first half, s2
+    // after it), and the net's output gradient and exp
+    float gl = 0.f, gu = 0.f, g_ld = 0.f, e = 0.f, gh = 0.f, gout = 0.f, e_new = 0.f;
     float2 s0 = make_float2(0.f, 0.f), s1 = s0, s2 = s0;
-    if (mine) {
-      const float2 g = gy[my_row];
-      gl = g.x;
-      gu = g.y;
-      g_ld = gld[my_row];
+    if (own) {
+      const float2 v = gy[r0 + t];
+      gl = v.x;
+      gu = v.y;
+      g_ld = gld[r0 + t];
     }
-    for (int pos = 4 * K - 1; pos >= 0; --pos) {
-      const int k = INV ? K - 1 - pos / 4 : pos / 4;
-      const int net = INV ? (pos + 2) % 4 : pos % 4;
-      if (pos % 4 == 3 && mine) {
-        s0 = my_states[pos / 2 - 1];
-        s1 = my_states[pos / 2];
-        s2 = my_states[pos / 2 + 1];
-      }
-      const WideNet v = wide_stage_for(smem, w, bias, nets_a_stage, pos % 4 == 3, k, net, H,
-                                       max_in);
-      for (int q = 0; q < per_warp; ++q) {
-        const int row = r0 + warp + kWideWarps * q, rl = warp + kWideWarps * q;
-        if (row >= rows) break;   // warp-uniform
-        const float r_gl = __shfl_sync(0xffffffffu, gl, q), r_gu = __shfl_sync(0xffffffffu, gu, q);
-        const float r_gld = __shfl_sync(0xffffffffu, g_ld, q);
-        const float r_e = __shfl_sync(0xffffffffu, e, q);
-        const float s0x = __shfl_sync(0xffffffffu, s0.x, q), s0y = __shfl_sync(0xffffffffu, s0.y, q);
-        const float s1x = __shfl_sync(0xffffffffu, s1.x, q), s1y = __shfl_sync(0xffffffffu, s1.y, q);
-        const float s2y = __shfl_sync(0xffffffffu, s2.y, q);
+    if (t < R) {
+      g.st_half[t] = 0.f;
+      g.st_gout[t] = 0.f;
+    }
+    float* pm_last = nullptr;   // the net whose layer-0 sums wait
+    int c = 0;
+    for (int pos = nets - 1; pos >= 0; --pos) {
+      const int m = wide_net_at<INV>(pos, K), net = m % 4;
+      const float* vs = wide_vecs(g, nets - 1 - pos);
+      float* pm = part + (size_t)m * pf;
+      if (own) {
+        if (pos % 4 == 3) {
+          s0 = my_states[pos / 2 - 1];
+          s1 = my_states[pos / 2];
+          s2 = my_states[pos / 2 + 1];
+        }
         // the net's input half: forward, lower before the block (nets 0-1)
         // or upper after its first half (2-3); inverse, upper before the
         // block (2-3) or lower after its first half (0-1)
-        const float half = INV ? (net < 2 ? s1x : s0y) : (net < 2 ? s0x : s1y);
-        const float* prow = p + (size_t)ctx_row_of(row, n, p_mode) * ps + (size_t)(4 * k + net) * H;
-        const float out = wide_mlp<J>(v, half, prow, t_h1 + rl * H, H, lane, h1, h2);
+        g.st_half[t] = INV ? (net < 2 ? s1.x : s0.y) : (net < 2 ? s0.x : s1.y);
+      }
+      wide_net_start();   // the net's vectors; each row's half; the tile's h1 free
+      wide_build_h1(g, vs, m, r0, nr);
+      if (pm_last != nullptr) wide_unit_sums(g, scr_b, pm_last + hh, pm_last + hh + 2 * H, first);
+      float acc[TM][TN];
+      wide_init_acc<TM, TN>(acc, g, vs + g.hp);
+      for (int kb = 0; kb < g.nck; ++kb, ++c) {
+        const float* slot = wide_chunk_step<INV>(g, c, st, r0, nr);
+        const int k0 = kb * g.kc;
+        wide_mma<TM, TN>(acc, g.h1 + (size_t)rw * g.ldt + k0, g.ldt, slot + g.tc, g.ldb,
+                         min(g.kc, g.h4 - k0), g.TC);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int u = 0; u < TN; ++u) acc[i][u] = tanhf(acc[i][u]);   // h2
+      }
+      wide_row_sums<TM, TN>(g, acc, vs + 2 * g.hp);
+      __syncthreads();   // the row sums
+      if (own) {
         // the output's gradient (the narrow backward's expressions)
-        float gout, r_e_new = r_e;
+        const float out = wide_row_total(g, t) + vs[3 * g.hp];
+        e_new = e;
         if (!INV) {
           if (net == 3) {          // lower_out = t2 + lower_in * exp(s2); log_det += s2
-            r_e_new = expf(out);
-            gout = r_gl * s0x * r_e_new + r_gld;
+            e_new = expf(out);
+            gout = gl * s0.x * e_new + g_ld;
           } else if (net == 2) {
-            gout = r_gl;
+            gout = gl;
           } else if (net == 1) {   // up_mid = t1 + up_in * exp(s1); log_det += s1
-            r_e_new = expf(out);
-            gout = r_gu * s0y * r_e_new + r_gld;
+            e_new = expf(out);
+            gout = gu * s0.y * e_new + g_ld;
           } else {
-            gout = r_gu;
+            gout = gu;
           }
         } else {
           if (net == 1) {          // up_out = (up_in - t1) * exp(-s1); log_det -= s1
-            r_e_new = expf(-out);
-            gout = -r_gu * s2y - r_gld;
+            e_new = expf(-out);
+            gout = -gu * s2.y - g_ld;
           } else if (net == 0) {
-            gout = -r_gu * r_e;
+            gout = -gu * e;
           } else if (net == 3) {   // lo_mid = (lo_in - t2) * exp(-s2); log_det -= s2
-            r_e_new = expf(-out);
-            gout = -r_gl * s1x - r_gld;
+            e_new = expf(-out);
+            gout = -gl * s1.x - g_ld;
           } else {
-            gout = -r_gl * r_e;
+            gout = -gl * e;
           }
         }
-        const float g_half = wide_mlp_bwd<J>(
-            v, gout, t_h2 + rl * H, t_g1 + rl * H, t_g2 + rl * H, h1, h2, H, lane,
-            g1_out == nullptr ? nullptr : g1_out + (size_t)row * ps + (size_t)(4 * k + net) * H);
-        if (lane == 0) {
-          t_half[rl] = half;
-          t_gout[rl] = gout;
+        g.st_gout[t] = gout;
+      }
+      __syncthreads();   // each row's output gradient
+      // g2 into the tile, and the thread's sums over its rows of h2 · gout
+      // (layer 2's column) and of g2 (layer 1's bias) per unit
+#pragma unroll
+      for (int u = 0; u < TN; ++u) {
+        const int j = g.tc + g.TC * u;
+        if (j < H) {
+          const float w2j = vs[2 * g.hp + j];
+          float sw2 = 0.f, sb1 = 0.f;
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float h = acc[i][u], go = g.st_gout[rw + i], gj = go * w2j * (1.f - h * h);
+            g.g2[(size_t)(rw + i) * g.ldt + j] = gj;
+            sw2 = fmaf(h, go, sw2);
+            sb1 += gj;
+          }
+          scr_a[g.tr * g.hp + j] = sw2;
+          scr_a[(g.TR + g.tr) * g.hp + j] = sb1;
+        } else if (j < g.h4) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) g.g2[(size_t)(rw + i) * g.ldt + j] = 0.f;
         }
-        if (lane == q) {
-          if (pos % 2 == 1) {      // an s net: its pair's t net comes next
-            e = r_e_new;
-            gh = g_half;
-          } else {
-            gh += g_half;
-            // the pair done: the gradients of both halves before it (t1/s1
-            // read lower and scale upper, t2/s2 the other way round, in
-            // either direction)
-            if (net == 0) {
-              gl = gl + gh;
-              gu = gu * e;
-            } else {
-              gl = gl * e;
-              gu = gu + gh;
+      }
+      // g1 = (g2 · W1ᵀ) ⊙ (1 - h1²): the product on W1's columns
+      wide_init_acc<TM, TN>(acc, g, nullptr);
+      for (int kb = 0; kb < g.nck; ++kb, ++c) {
+        const float* slot = wide_chunk_step<INV>(g, c, st, r0, nr);
+        if (kb == 0) {
+          wide_unit_sums(g, scr_a, pm + hh + H, pm + hh + 3 * H, first);
+          if (t < kWarp) {   // layer 2's bias: the first warp's butterfly over the rows
+            float sg = 0.f;
+            for (int r = t; r < nr; r += kWarp) sg += g.st_gout[r];
+#pragma unroll
+            for (int o = kWarp / 2; o > 0; o >>= 1) sg += __shfl_xor_sync(0xffffffffu, sg, o);
+            if (t == 0) wide_part_add(pm + hh + 4 * H, sg, first);
+          }
+        }
+        const int k0 = kb * g.kc;
+        wide_mma<TM, TN>(acc, g.g2 + (size_t)rw * g.ldt + k0, g.ldt, slot + g.tc, g.ldb,
+                         min(g.kc, g.h4 - k0), g.TC);
+      }
+#pragma unroll
+      for (int u = 0; u < TN; ++u) {
+        const int j = g.tc + g.TC * u;
+        if (j < H) {
+          float sg0 = 0.f, sb0 = 0.f;
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const int r = rw + i;
+            const float h = g.h1[(size_t)r * g.ldt + j];
+            acc[i][u] *= 1.f - h * h;
+            if (g1_out != nullptr && r < nr) {
+              g1_out[(size_t)(r0 + r) * ps + (size_t)m * H + j] = acc[i][u];
             }
+            sg0 = fmaf(g.st_half[r], acc[i][u], sg0);
+            sb0 += acc[i][u];
+          }
+          scr_b[g.tr * g.hp + j] = sg0;
+          scr_b[(g.TR + g.tr) * g.hp + j] = sb0;
+        }
+      }
+      // d out / d half = g1 · layer 0's row 0
+      wide_row_sums<TM, TN>(g, acc, vs);
+      __syncthreads();   // the row sums
+      if (own) {
+        const float g_half = wide_row_total(g, t);
+        if (pos % 2 == 1) {      // an s net: its pair's t net comes next
+          e = e_new;
+          gh = g_half;
+        } else {
+          gh += g_half;
+          // the pair done: the gradients of both halves before it (t1/s1
+          // read lower and scale upper, t2/s2 the other way round, in
+          // either direction)
+          if (net == 0) {
+            gl = gl + gh;
+            gu = gu * e;
+          } else {
+            gl = gl * e;
+            gu = gu + gh;
           }
         }
       }
-      __syncthreads();   // the tile's rows of this net are in shared memory
-      wide_reduce(part + (size_t)(4 * k + net) * wide_part_floats(H), t_h1, t_h2, t_g1, t_g2,
-                  t_half, t_gout, nr, H, tile == blockIdx.x);
-      __syncthreads();   // before the next net's rows are written
+      pm_last = pm;
+      // layer 1's weight gradient h1ᵀ · g2 over the tile's rows, R rows of
+      // W1 at a time, each entry summed in row order
+      for (int ib = 0; ib < H; ib += R) {
+        float wg[TM][TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int u = 0; u < TN; ++u) wg[i][u] = 0.f;
+        }
+        const float* a = g.h1 + ib + rw;
+        const float* b = g.g2 + g.tc;
+        for (int r = 0; r < nr; ++r) {
+          float av[TM], bv[TN];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) av[i] = a[(size_t)r * g.ldt + i];
+#pragma unroll
+          for (int u = 0; u < TN; ++u) bv[u] = b[(size_t)r * g.ldt + g.TC * u];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+#pragma unroll
+            for (int u = 0; u < TN; ++u) wg[i][u] = fmaf(av[i], bv[u], wg[i][u]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int wi = ib + rw + i;
+#pragma unroll
+          for (int u = 0; u < TN; ++u) {
+            const int j = g.tc + g.TC * u;
+            if (wi < H && j < H) wide_part_add(pm + (size_t)wi * H + j, wg[i][u], first);
+          }
+        }
+      }
     }
-    if (mine) gx[my_row] = make_float2(gl, gu);
+    __syncthreads();   // the last net's layer-0 sums
+    wide_unit_sums(g, scr_b, pm_last + hh, pm_last + hh + 2 * H, first);
+    if (own) gx[r0 + t] = make_float2(gl, gu);
   }
 }
 
@@ -1824,14 +2135,6 @@ size_t bwd_smem_floats(int n_blocks, int threads) {
          (size_t)Fields<kHidden>::count(n_blocks) * (threads + 4);
 }
 
-// Shared memory of the wide pair in floats: the stage (nets_a_stage nets),
-// then the forward's row slice a warp, or the backward's tile of h1, h2,
-// g1, g2 and its rows' half inputs and output gradients.
-size_t wide_smem_floats(int H, int tile_rows, int nets_a_stage, bool backward) {
-  const size_t stage = (size_t)nets_a_stage * wide_net_floats(H);
-  return stage + (backward ? (size_t)tile_rows * (4 * H + 2) : (size_t)kWideWarps * H);
-}
-
 // Whether the hidden width `hidden` is this library's: its own in a library
 // built for one width, any up to kWideMaxHidden in the wide library.
 bool hidden_ok(int hidden) {
@@ -1843,8 +2146,19 @@ enum NoteSlot { kNoteFwd, kNoteBwd, kNoteShare, kNoteGradRows, kNoteWeightGrad, 
                 kNoteFwdWide, kNoteBwdWide, kNoteSlots };
 LaunchNote notes[kNoteSlots] = {};
 
-// The wide pair's instantiations: J hidden units a lane (H <= 32·J).
-#define NFDPF_WIDE_UNITS(X) X(1) X(2) X(4) X(8) X(16) X(32)
+// The wide pair's tile shapes, as X(TM, TN): a thread TM rows x TN units
+// (coupling_cuda.WIDE_FWD_TILES, WIDE_BWD_TILES).
+#define NFDPF_WIDE_FWD_TILES(X) X(2, 1) X(4, 2) X(4, 4) X(4, 8) X(8, 8)
+#define NFDPF_WIDE_BWD_TILES(X) X(4, 1) X(4, 2) X(4, 4) X(8, 4) X(4, 8) X(8, 8)
+
+// A plan the wide pair takes: TC a multiple of 32 that divides the block,
+// R = (threads / TC)·TM rows, TC·TN >= H units, chunks of a power of two
+// 4-64 rows.
+bool wide_plan_ok(int hidden, int tile_rows, int tc, int tm, int tn, int kc) {
+  return hidden_ok(hidden) && tc >= kWarp && tc % kWarp == 0 && kWideThreads % tc == 0 &&
+         tile_rows == kWideThreads / tc * tm && tc * tn >= hidden && kc >= 4 && kc <= 64 &&
+         (kc & (kc - 1)) == 0;
+}
 
 }  // namespace
 
@@ -1920,40 +2234,38 @@ extern "C" int nfdpf_coupling_chain_bwd(const float* x, const float* p, int p_mo
 #endif
 }
 
-// The wide forward, on the wrapper's plan (wide_fwd_plan): blocks of 8 warps
-// over tiles of `tile_rows` rows (a multiple of 8, at most 256), `grid`
-// blocks looping over the tiles, the nets staged `nets_a_stage` (4, 1, or 0:
-// read from global memory) at a time.
+// The wide forward, on the wrapper's plan (wide_fwd_plan): `grid` blocks of
+// kWideThreads threads looping over tiles of `tile_rows` rows, `tc` threads
+// across a layer's units, a thread tm rows x tn units, layer 1 staged in
+// chunks of `kc` rows.
 extern "C" int nfdpf_coupling_chain_fwd_wide(const float* x, const float* p, int p_mode,
                                              const float* w, const float* b, float* y, float* ld,
                                              int rows, int n, int n_blocks, int max_in,
-                                             int hidden, int inverse, int tile_rows,
-                                             int nets_a_stage, int grid, void* stream) {
-  if (rows <= 0 || n <= 0 || n_blocks <= 0 || !hidden_ok(hidden) ||
-      p_mode < kOneRow || p_mode > kPerRow || tile_rows <= 0 || tile_rows % kWideWarps != 0 ||
-      tile_rows > kWideWarps * kWarp || grid <= 0 ||
-      (nets_a_stage != 0 && nets_a_stage != 1 && nets_a_stage != 4)) {
+                                             int hidden, int inverse, int tile_rows, int tc,
+                                             int tm, int tn, int kc, int grid, void* stream) {
+  if (rows <= 0 || n <= 0 || n_blocks <= 0 || p_mode < kOneRow || p_mode > kPerRow ||
+      grid <= 0 || !wide_plan_ok(hidden, tile_rows, tc, tm, tn, kc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #if NFDPF_HIDDEN == 0
-  const size_t smem = wide_smem_floats(hidden, tile_rows, nets_a_stage, false) * sizeof(float);
+  const size_t smem = wide_smem_floats(hidden, tile_rows, tc, tn, kc, false) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NFDPF_FWD_WIDE(J)                                                                    \
-  if (hidden <= kWarp * (J)) {                                                               \
-    auto kernel = inverse ? chain_fwd_wide_kernel<J, true> : chain_fwd_wide_kernel<J, false>; \
+#define NFDPF_FWD_WIDE(TM, TN)                                                               \
+  if (tm == (TM) && tn == (TN)) {                                                            \
+    auto kernel = inverse ? chain_fwd_wide_kernel<TM, TN, true>                              \
+                          : chain_fwd_wide_kernel<TM, TN, false>;                            \
     const int rc = reserve_smem(kernel, smem);                                               \
     if (rc != 0) return rc;                                                                  \
     note_launch(notes[kNoteFwdWide], kernel,                                                 \
-                inverse ? "chain_fwd_wide_kernel<" #J ", inverse>"                           \
-                        : "chain_fwd_wide_kernel<" #J ", forward>",                          \
+                inverse ? "chain_fwd_wide_kernel<" #TM ", " #TN ", inverse>"                 \
+                        : "chain_fwd_wide_kernel<" #TM ", " #TN ", forward>",                \
                 grid, kWideThreads, smem);                                                   \
     kernel<<<grid, kWideThreads, smem, s>>>(reinterpret_cast<const float2*>(x), p, p_mode, w, \
                                             b, reinterpret_cast<float2*>(y), ld, rows, n,    \
-                                            n_blocks, max_in, hidden, tile_rows,             \
-                                            nets_a_stage);                                   \
+                                            n_blocks, max_in, hidden, tile_rows, tc, kc);    \
     return static_cast<int>(cudaGetLastError());                                             \
   }
-  NFDPF_WIDE_UNITS(NFDPF_FWD_WIDE)
+  NFDPF_WIDE_FWD_TILES(NFDPF_FWD_WIDE)
 #undef NFDPF_FWD_WIDE
 #endif
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1968,35 +2280,34 @@ extern "C" int nfdpf_coupling_chain_bwd_wide(const float* x, const float* p, int
                                              const float* gld, float* gx, float* g1,
                                              float* gpart, float* states, int rows, int n,
                                              int n_blocks, int max_in, int hidden, int inverse,
-                                             int tile_rows, int nets_a_stage, int grid,
-                                             void* stream) {
-  if (rows <= 0 || n <= 0 || n_blocks <= 0 || !hidden_ok(hidden) ||
-      p_mode < kOneRow || p_mode > kPerRow || tile_rows <= 0 || tile_rows % kWideWarps != 0 ||
-      tile_rows > kWideWarps * kWarp || grid <= 0 ||
-      grid > (rows + tile_rows - 1) / tile_rows ||
-      (nets_a_stage != 0 && nets_a_stage != 1 && nets_a_stage != 4)) {
+                                             int tile_rows, int tc, int tm, int tn, int kc,
+                                             int grid, void* stream) {
+  if (rows <= 0 || n <= 0 || n_blocks <= 0 || p_mode < kOneRow || p_mode > kPerRow ||
+      grid <= 0 || !wide_plan_ok(hidden, tile_rows, tc, tm, tn, kc) ||
+      grid > (rows + tile_rows - 1) / tile_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #if NFDPF_HIDDEN == 0
-  const size_t smem = wide_smem_floats(hidden, tile_rows, nets_a_stage, true) * sizeof(float);
+  const size_t smem = wide_smem_floats(hidden, tile_rows, tc, tn, kc, true) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NFDPF_BWD_WIDE(J)                                                                    \
-  if (hidden <= kWarp * (J)) {                                                               \
-    auto kernel = inverse ? chain_bwd_wide_kernel<J, true> : chain_bwd_wide_kernel<J, false>; \
+#define NFDPF_BWD_WIDE(TM, TN)                                                               \
+  if (tm == (TM) && tn == (TN)) {                                                            \
+    auto kernel = inverse ? chain_bwd_wide_kernel<TM, TN, true>                              \
+                          : chain_bwd_wide_kernel<TM, TN, false>;                            \
     const int rc = reserve_smem(kernel, smem);                                               \
     if (rc != 0) return rc;                                                                  \
     note_launch(notes[kNoteBwdWide], kernel,                                                 \
-                inverse ? "chain_bwd_wide_kernel<" #J ", inverse>"                           \
-                        : "chain_bwd_wide_kernel<" #J ", forward>",                          \
+                inverse ? "chain_bwd_wide_kernel<" #TM ", " #TN ", inverse>"                 \
+                        : "chain_bwd_wide_kernel<" #TM ", " #TN ", forward>",                \
                 grid, kWideThreads, smem);                                                   \
     kernel<<<grid, kWideThreads, smem, s>>>(                                                 \
         reinterpret_cast<const float2*>(x), p, p_mode, w, b,                                 \
         reinterpret_cast<const float2*>(gy), gld, reinterpret_cast<float2*>(gx), g1, gpart,  \
-        reinterpret_cast<float2*>(states), rows, n, n_blocks, max_in, hidden, tile_rows,     \
-        nets_a_stage);                                                                       \
+        reinterpret_cast<float2*>(states), rows, n, n_blocks, max_in, hidden, tile_rows, tc, \
+        kc);                                                                                 \
     return static_cast<int>(cudaGetLastError());                                             \
   }
-  NFDPF_WIDE_UNITS(NFDPF_BWD_WIDE)
+  NFDPF_WIDE_BWD_TILES(NFDPF_BWD_WIDE)
 #undef NFDPF_BWD_WIDE
 #endif
   return static_cast<int>(cudaErrorInvalidValue);

@@ -9,7 +9,8 @@ kernel's plain version on the plan), weighed and added in part order as
 its second kernel does, give the plain version of the whole gradient.  The
 same for the wide pair's chains, up to hidden 256 and 12 blocks (the weight
 gradient in column groups of g1), and the wide pair's own plans
-(``wide_fwd_plan``, ``wide_bwd_plan``) and shared-memory mirrors."""
+(``wide_fwd_plan``, ``wide_bwd_plan``) and shared-memory mirrors at every
+width up to 1,024."""
 
 import numpy as np
 import pytest
@@ -169,45 +170,76 @@ def test_wide_chains_are_the_ones_the_narrow_pair_leaves():
     assert "1024" in cc.chain_refusal(cc.WIDE_MAX_HIDDEN + 1)
 
 
+def _wide_smem_floats(hidden, tile_rows, tc, tn, kc, backward):
+    """The wide block's shared memory in floats, written out from its layout
+    (``wide_smem_floats`` in ``csrc/coupling.cu``): the ring's 3 chunks of
+    kc rows of hp + 4 floats and 3 slots of the vector ring (three vectors
+    of hp, layer 2's bias in 4, the tile's rows of P where they take at most
+    2,048 floats), the tile's h1 (and the backward's g2) in rows
+    reaching past every unit a thread holds and every row of W1 the weight
+    gradient's passes of ``tile_rows`` take, the row sums a warp, each row's
+    half and row of P (and output gradient), the backward's four sums a
+    row group and unit."""
+    hp = tc * tn
+    reach = max(hp, -(-hidden // tile_rows) * tile_rows)
+    ldt = -(-reach // 4) * 4 + 4
+    rows_p = tile_rows * (-(-hidden // 4) * 4)
+    vec = 3 * hp + 4 + (rows_p if rows_p <= 2048 else 0)
+    floats = 3 * (kc * (hp + 4) + vec) + tile_rows * ldt + tile_rows * (tc // 32) + 2 * tile_rows
+    if backward:
+        floats += tile_rows * ldt + 4 * (256 // tc) * hp + tile_rows
+    return floats
+
+
 @pytest.mark.parametrize("b,n", ROW_SHAPES)
 def test_wide_plans_cover_every_row_once_and_fit_a_block(b, n):
-    """The wide pair's plans: tiles of 8·rpw rows (rpw 1, 2 or 4: a lane of a
-    warp holds a row's state) cover the rows once; the staged nets (a
-    coupling block's 4, one, or none: read from global memory) the most
-    that fit beside the tile, a layer 1 of H rows of H | 1 floats; the
-    shared memory the mirror's and within a block's; the backward's grid
-    at most one block a tile and its partials within ``WIDE_PART_BYTES``,
-    2K + 1 states a row."""
+    """The wide pair's plans at every hidden width 17-1,024 (and the wide
+    chains' narrower ones) and 1, 2, 4, 9 and 12 blocks: tiles of
+    (256 / TC)·TM rows cover the rows once; TC a multiple of 32 that
+    divides the block, TC·TN units at least H, the shape the width's entry
+    of ``WIDE_FWD_TILES`` / ``WIDE_BWD_TILES``; the ring's chunks a power of
+    two no larger than H needs, the largest of ``WIDE_CHUNKS`` that fits;
+    the shared memory the mirror's, the layout's and within a block's; the
+    backward's grid at most one block a tile, its partials within
+    ``WIDE_PART_BYTES`` (a block's own beyond it), 2K + 1 states a row."""
     rows = b * n
-    for n_blocks, hidden in WIDE_CHAINS:
-        assert cc.wide_net_floats(hidden) == hidden * (hidden | 1) + 3 * hidden + 1
+    widths = sorted(set(range(17, cc.WIDE_MAX_HIDDEN + 1)) | {h for _, h in WIDE_CHAINS})
+    for hidden in widths:
         assert cc.wide_part_floats(hidden) == hidden * hidden + 4 * hidden + 1
-        for backward, plan in ((False, cc.wide_fwd_plan(rows, hidden)),
-                               (True, cc.wide_bwd_plan(rows, n_blocks, hidden))):
-            tile, stage = plan["tile_rows"], plan["nets_a_stage"]
-            where = (n_blocks, hidden, backward, plan)
-            assert tile in (8, 16, 32) and plan["threads"] == 32 * cc.WIDE_WARPS, where
-            assert _covers(rows, tile, plan["tiles"]), where
-            assert stage in (4, 1, 0), where
-            tile_floats = tile * (4 * hidden + 2) if backward else cc.WIDE_WARPS * hidden
-            assert plan["smem_bytes"] == 4 * (stage * cc.wide_net_floats(hidden)
-                                              + tile_floats), where
-            assert plan["smem_bytes"] == cc.wide_smem_bytes(hidden, tile, stage, backward)
-            assert plan["smem_bytes"] <= cc.MAX_SMEM_BYTES, where
-            bigger = {4: None, 1: 4, 0: 1}[stage]
-            assert bigger is None or cc.wide_smem_bytes(hidden, tile, bigger,
-                                                        backward) > cc.MAX_SMEM_BYTES, where
-            if backward:
-                assert 1 <= plan["grid"] <= min(plan["tiles"], cc.WIDE_BWD_MAX_GRID), where
-                per_block = 4 * n_blocks * cc.wide_part_floats(hidden)
-                assert plan["part_floats"] == plan["grid"] * per_block, where
-                assert 4 * plan["part_floats"] <= max(cc.WIDE_PART_BYTES, 4 * per_block), where
-                assert plan["state_floats"] == rows * 2 * (2 * n_blocks + 1), where
-            else:
-                assert plan["grid"] == plan["tiles"], where
-    # layer 1 alone of a net past ~230 wide does not fit a block: read from global memory
-    assert cc.wide_fwd_plan(rows, 128)["nets_a_stage"] == 1
-    assert cc.wide_fwd_plan(rows, 256)["nets_a_stage"] == 0
+        for backward, tiles in ((False, cc.WIDE_FWD_TILES), (True, cc.WIDE_BWD_TILES)):
+            shape = next(t[1:] for t in tiles if hidden <= t[0])
+            for n_blocks in (1, 2, 4, 9, 12):
+                plan = (cc.wide_bwd_plan(rows, n_blocks, hidden) if backward
+                        else cc.wide_fwd_plan(rows, hidden))
+                tile, tc, tn, kc = plan["tile_rows"], plan["tc"], plan["tn"], plan["kc"]
+                where = (n_blocks, hidden, backward, plan)
+                assert (plan["tm"], tn, tc) == shape, where
+                assert tc % 32 == 0 and 256 % tc == 0 and plan["threads"] == 256, where
+                assert tile == 256 // tc * plan["tm"] <= 64 and tc * tn >= hidden, where
+                assert _covers(rows, tile, plan["tiles"]), where
+                most = 1 << max(2, (-(-hidden // 4) * 4 - 1).bit_length())
+                assert kc in cc.WIDE_CHUNKS and kc <= most, where
+                bigger = [k for k in cc.WIDE_CHUNKS if kc < k <= most]
+                assert all(cc.wide_smem_bytes(hidden, tile, tc, tn, k, backward)
+                           > cc.MAX_SMEM_BYTES for k in bigger), where
+                assert plan["smem_bytes"] == cc.wide_smem_bytes(hidden, tile, tc, tn, kc,
+                                                                backward), where
+                assert plan["smem_bytes"] == 4 * _wide_smem_floats(hidden, tile, tc, tn, kc,
+                                                                   backward), where
+                assert plan["smem_bytes"] <= cc.MAX_SMEM_BYTES, where
+                if backward:
+                    assert 1 <= plan["grid"] <= plan["tiles"], where
+                    per_block = 4 * n_blocks * cc.wide_part_floats(hidden)
+                    assert plan["part_floats"] == plan["grid"] * per_block, where
+                    assert 4 * plan["part_floats"] <= max(cc.WIDE_PART_BYTES, 4 * per_block), where
+                    assert plan["state_floats"] == rows * 2 * (2 * n_blocks + 1), where
+                else:
+                    assert plan["grid"] == plan["tiles"], where
+    # the filter's rows at hidden 256, two blocks: a block a tile of 32 rows,
+    # 100 partials of 2.1 MB (the earlier design's 120 took 255 MB)
+    plan = cc.wide_bwd_plan(3200, 2, 256)
+    assert (plan["tile_rows"], plan["grid"]) == (32, 100)
+    assert 4 * plan["part_floats"] <= 215e6
 
 
 @pytest.mark.parametrize("b,n", ROW_SHAPES)

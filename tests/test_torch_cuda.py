@@ -645,13 +645,16 @@ def test_coupling_chain_refuses_what_the_kernels_do_not_take(cuda):
 # blocks, hidden): four blocks at 12 (the narrow backward's tile), 17, 32 at
 # 4 and 9 blocks, 64 at 12 and 256 (layer 1 read from global memory), each at
 # the filter's (32, 100); a dense context at a ragged large N, no context,
-# ragged tiles, and 300 and 1,024 wide (16 and 32 units a lane) on few rows
+# ragged tiles, 300 and 1,024 wide on few rows, and 512 and 1,024 at the
+# filter's (32, 100) (at 1,024 the partials' cap leaves fewer blocks than
+# tiles: a block adds its later tiles into its partial)
 WIDE_CHAINS = [(32, 100, 4, True, 4, 12), (32, 100, 36, True, 2, 17),
                (32, 100, 196, True, 4, 32), (32, 100, 36, True, 9, 32),
                (32, 100, 4, True, 12, 64), (32, 100, 36, True, 2, 256),
                (4, 4097, 36, False, 4, 32), (4, 4097, 0, False, 4, 32),
                (3, 33, 5, True, 9, 12), (5, 7, 3, False, 3, 33),
-               (2, 33, 4, True, 1, 300), (1, 24, 4, True, 1, 1024)]
+               (2, 33, 4, True, 1, 300), (1, 24, 4, True, 1, 1024),
+               (32, 100, 36, True, 2, 512), (32, 100, 36, True, 2, 1024)]
 
 
 @pytest.mark.cuda
@@ -695,6 +698,33 @@ def test_coupling_chain_wide_pair_matches_plain(cuda, b, n, ctx_dim, broadcast, 
             torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
         else:
             torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+# the wide backward's repeats: the slice's chain, a 256-wide one (a block a
+# tile) and a 1,024-wide one (blocks that add their later tiles)
+WIDE_REPEATS = [(32, 100, 36, 4, 32), (32, 100, 36, 2, 256), (32, 100, 36, 2, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n,ctx_dim,n_blocks,hidden", WIDE_REPEATS)
+def test_coupling_chain_wide_backward_repeats_bit_for_bit(cuda, b, n, ctx_dim, n_blocks, hidden,
+                                                          inverse):
+    """The wide backward kernel launched twice on the same inputs gives the
+    same bits: gx, g1 and every block's partial of the weight and bias
+    gradients (no atomics: each entry summed in a fixed order)."""
+    x, ctx, w, bias, gy, gld = (t.to(cuda) for t in _chain_case(
+        b, n, ctx_dim, 43 * b + n + hidden, True, n_blocks, hidden, fan_in=True))
+    p, mode = cc._launch_ctx_share(cc._library(cc.WIDE_BUILD), ctx.expand(b, n, ctx_dim), w,
+                                   bias)
+    plan = cc.wide_bwd_plan(b * n, n_blocks, hidden)
+    first = cc.wide_backward_parts(x, p, mode, w, bias, gy, gld, inverse, True)
+    again = cc.wide_backward_parts(x, p, mode, w, bias, gy, gld, inverse, True)
+    torch.cuda.synchronize()
+    assert first[2].shape == (plan["grid"], n_blocks, 4, cc.wide_part_floats(hidden))
+    assert bool(torch.isfinite(first[2]).all())
+    for a, a2 in zip(first, again):
+        assert torch.equal(a, a2)
 
 
 @pytest.mark.cuda

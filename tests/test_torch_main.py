@@ -45,6 +45,18 @@ NAME = "toy_pn=2.0_d=3_const"
 LR = DPFConfig().lr
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """torch on one intra-op thread for this file's tests, restored after
+    them: the test workers share the machine's cores, and at 8 threads each
+    the port's train steps spend their time waiting on one another
+    (tests/test_torch_models.py's ``one_intra_op_thread``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _interpret_mode(monkeypatch):
     monkeypatch.setattr(cp, "_INTERPRET", True)
