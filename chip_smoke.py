@@ -99,6 +99,14 @@ Phases, one line of output each, then the device line last:
    12), on the weights the 1×1 convolution makes, against float64
    ``torch.linalg`` on the CPU, with their times and ``torch.linalg``'s on
    the card;
+6b. flow_library: the flows no configuration builds (MAF, ActNorm, the LU
+   linear map, planar, radial, both neural-spline flows), ``TransitionMLP``
+   and a mixed ``FlowChain`` of five of them, at the state width and the
+   defaults, on the card at B·N = 3,200 and 40,960 rows, forward and
+   inverse: outputs, log-dets and the gradients of the input and every
+   parameter against float64 on the CPU, with the eager ms of the forward
+   and of forward + backward and the forward's device ms (plain PyTorch, as
+   the JAX package's plain jnp: no kernel of ours may launch);
 7. simulator: disk-tracking sequences (T=50, 25 distractors, 128 px) made
    on the card, timed (sequences/s, to host arrays as the dataset writer
    takes them and on the card alone), and the same draws through the CPU:
@@ -113,7 +121,9 @@ Phases, one line of output each, then the device line last:
    (``--testing --model-path``).  Per run the launch counts (set to 0 just
    before, read just after), the gate's firings, step times, peak memory
    and seconds; every artifact, the epoch after each run and finite losses
-   are checked, and K4 and K5 must have launched;
+   are checked, K4 and K5 must have launched, and ``checkpoint_metadata``
+   of the final checkpoint must give the restored tree's shapes, dtypes
+   and other leaves with no tensor's data;
 9. kernels_rows_ne_cols: K1 (G = 1, 2) and K2 (both directions) on N rows
    against M columns, as K6 runs them, at (B, N, M) = (32, 50, 100),
    (10, 50, 100), (4, 5120, 10240) and the ragged (3, 1037, 2053), with the
@@ -1992,6 +2002,164 @@ def phase_linalg():
     return row
 
 
+# ---------------------------------------------------------------------------
+# the flow library: flows no configuration reaches (plain PyTorch, as the
+# JAX package writes them in plain jnp), on the card against float64 on
+# the CPU
+# ---------------------------------------------------------------------------
+
+FLOW_DIM = 2                                   # the filter's state width
+FLOW_ROWS = {"B32_N100": (32, 100), "B4_N10240": (4, 10240)}
+FLOW_TOL = 1e-5         # outputs and log-dets: |err| <= tol + tol·|ref|
+FLOW_CHAIN_TOL = 5e-5   # the mixed chain's (five float32 flows in a row)
+FLOW_GRAD_TOL = 1e-4    # each gradient: ‖err‖ <= tol·‖ref‖
+FLOW_SHIFT_STD = 0.1    # added to every initial parameter (ActNorm starts as the identity)
+FLOW_ITERS = 20
+FLOW_SYNCING_INVERSE = ("invertible_linear", "mixed_chain")   # linalg.inv reads its status
+
+
+def flow_library_modules() -> dict:
+    """Each flow of the library the filter does not build, at the state
+    width and the defaults (hidden 8, K=5, B=3.0), ``TransitionMLP``, and a
+    mixed ``FlowChain``; name → (module, has an inverse)."""
+    from nfdpf_torch.models.nets import TransitionMLP
+    from nfdpf_torch.ops import flows as F
+
+    d = FLOW_DIM
+    chain = F.FlowChain([F.ActNorm(d), F.InvertibleLinear(d), F.NSFCoupling(d), F.MAF(d),
+                         F.NSFAutoregressive(d)])
+    return {"maf": (F.MAF(d), True), "actnorm": (F.ActNorm(d), True),
+            "invertible_linear": (F.InvertibleLinear(d), True), "planar": (F.Planar(d), False),
+            "radial": (F.Radial(d), False), "nsf_autoregressive": (F.NSFAutoregressive(d), True),
+            "nsf_coupling": (F.NSFCoupling(d), True), "transition_mlp": (TransitionMLP(d), False),
+            "mixed_chain": (chain, True)}
+
+
+def _flow_outputs(module, x, inverse: bool) -> tuple:
+    out = module.inverse(x) if inverse else module(x)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _flow_loss(outs) -> torch.Tensor:
+    """Σ sin(y) + Σ (each log-prob or log-det)²."""
+    loss = torch.sum(torch.sin(outs[0]))
+    for extra in outs[1:]:
+        loss = loss + torch.sum(extra * extra)
+    return loss
+
+
+def _flow_grads(module, x, inverse: bool):
+    """The outputs and the gradients of ``_flow_loss`` for x and every
+    parameter, detached."""
+    module.zero_grad()
+    x = x.detach().clone().requires_grad_()
+    outs = _flow_outputs(module, x, inverse)
+    _flow_loss(outs).backward()
+    grads = {"x": x.grad, **{n: p.grad for n, p in module.named_parameters()}}
+    return [o.detach() for o in outs], grads
+
+
+def aten_ops(fn) -> int:
+    """How many aten ops one call of ``fn`` dispatches (views included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def _flow_errors(outs, grads, ref_outs, ref_grads, tol: float):
+    """The outputs' largest |err| / (tol + tol·|ref|), and each gradient's
+    ‖err‖ / ‖ref‖, against the float64 run."""
+    out_ratio = max(float(((o.cpu().double() - r).abs() / (tol + tol * r.abs())).max())
+                    for o, r in zip(outs, ref_outs))
+    grad_err = {k: float((g.cpu().double() - ref_grads[k]).norm() / ref_grads[k].norm())
+                for k, g in grads.items()}
+    return out_ratio, grad_err
+
+
+def phase_flow_library(smi: str):
+    """Each module of ``flow_library_modules`` on the card in float32 at
+    (32, 100) and (4, 10240) rows of the state width, forward and (where
+    the JAX package has one) inverse, against the same module in float64 on
+    the CPU from the same parameters and inputs: outputs, log-dets (and the
+    chain's prior log-prob) within the CPU tests' tolerances (FLOW_TOL, the
+    chain FLOW_CHAIN_TOL) and the gradients of the input and every
+    parameter within FLOW_GRAD_TOL, or, where float32 itself sits farther
+    from float64 (the spline flows' steep bins over 40,960 rows), at most
+    twice as far as the module's float32 run on the CPU.  The ms of the
+    forward and of forward + backward over eager calls (CUDA events: the
+    host's dispatch included), and the forward's device time alone (a
+    CUDA-graph replay) where nothing in it syncs, and the aten ops the
+    forward dispatches.  No kernel of ours runs: every launch counter must
+    still read 0."""
+    import copy
+
+    from nfdpf_torch.models.nets import flax_init_
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(19)
+    rows = {}
+    reset_launch_counts()
+    for name, (module, invertible) in flow_library_modules().items():
+        flax_init_(module, gen)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.add_(torch.randn(p.shape, generator=gen) * FLOW_SHIFT_STD)
+        ref_mod = copy.deepcopy(module).double()
+        card = copy.deepcopy(module).to(dev)
+        tol = FLOW_CHAIN_TOL if name == "mixed_chain" else FLOW_TOL
+        for at, (b, n) in FLOW_ROWS.items():
+            x = torch.randn(b, n, FLOW_DIM, generator=gen) * 2.0   # some outside the tails at ±3
+            xd = x.to(dev)
+            xg = xd.clone().requires_grad_()
+            for inverse in ((False, True) if invertible else (False,)):
+                ref = _flow_grads(ref_mod, x.double(), inverse)
+                out_ratio, grad_err = _flow_errors(*_flow_grads(card, xd, inverse), *ref, tol)
+                cpu_ratio, cpu_grad_err = _flow_errors(*_flow_grads(module, x, inverse), *ref,
+                                                       tol)
+
+                def fwd_bwd(inverse=inverse):
+                    _flow_loss(_flow_outputs(card, xg, inverse)).backward()
+                with torch.no_grad():
+                    ops = aten_ops(lambda: _flow_outputs(card, xd, inverse))
+                    ms = call_ms(lambda: _flow_outputs(card, xd, inverse), FLOW_ITERS)
+                    # the device's own time (a CUDA-graph replay) where nothing
+                    # syncs: not InvertibleLinear's inverse (linalg.inv checks)
+                    dev_ms = None if inverse and name in FLOW_SYNCING_INVERSE else device_ms(
+                        lambda: _flow_outputs(card, xd, inverse), FLOW_ITERS)
+                key = f"{name}{'_inverse' if inverse else ''}@{at}"
+                rows[key] = {"ms": ms, "device_ms": dev_ms, "aten_ops": ops,
+                             "fwd_bwd_ms": call_ms(fwd_bwd, FLOW_ITERS),
+                             "max_err_over_tol": out_ratio, "cpu_f32_max_err_over_tol": cpu_ratio,
+                             "max_grad_rel_err": max(grad_err.values()),
+                             "cpu_f32_max_grad_rel_err": max(cpu_grad_err.values()),
+                             "worst_grad": max(grad_err, key=grad_err.get)}
+                bad_out = out_ratio > max(1.0, 2 * cpu_ratio)
+                bad_grad = [k for k, e in grad_err.items()
+                            if e > max(FLOW_GRAD_TOL, 2 * cpu_grad_err[k])]
+                if bad_out or bad_grad:
+                    raise AssertionError(f"flow_library {key}: outputs at {out_ratio} of their "
+                                         f"tolerance (the CPU's float32 {cpu_ratio}), gradients "
+                                         f"{grad_err} (the CPU's float32 {cpu_grad_err})")
+    launched = {k: v for k, v in launch_counts().items() if v}
+    row = {"phase": "flow_library", "card": smi,
+           "rows": {k: b * n for k, (b, n) in FLOW_ROWS.items()},
+           "tol": {"outputs": FLOW_TOL, "mixed_chain": FLOW_CHAIN_TOL,
+                   "grad_rel": FLOW_GRAD_TOL, "else": "2x the CPU's float32 run"},
+           "cases": rows, "kernel_launches": launched}
+    log(row)
+    if launched:
+        raise AssertionError(f"flow_library launched kernels of ours: {launched}")
+    return row
+
+
 def phase_simulator():
     """Sequences of the default simulator (T=50, 25 distractors, 128 px)
     made on the card, in the dataset writer's chunks of 32: timed to host
@@ -2049,6 +2217,23 @@ MAIN_CLI_FLAGS = ["--NF-dyn", "--NF-cond", "--pallas-coupling", "--use-pallas",
 MAIN_CLI_ARTIFACTS = ("models/best", "models/final", "data/eval_loss_epoch.npy",
                       "data/eval_result_best.npz", "data/test_loss_epoch.npy",
                       "data/test_result.npz")
+
+
+def metadata_against_restored(path: str):
+    """``checkpoint_metadata(path)`` against the restored tree, leaf by
+    leaf: a tensor's is a meta tensor of its shape and dtype, any other
+    leaf equal.  Returns the leaf count and what disagrees."""
+    from nfdpf_torch.utils.checkpoint import checkpoint_metadata, restore_checkpoint
+
+    leaves, full = [], []
+    torch.utils._pytree.tree_map(leaves.append, checkpoint_metadata(path))
+    torch.utils._pytree.tree_map(full.append, restore_checkpoint(path))
+    if len(leaves) != len(full):
+        return len(leaves), [f"checkpoint_metadata: {len(leaves)} leaves, restored {len(full)}"]
+    bad = [i for i, (m, r) in enumerate(zip(leaves, full))
+           if not ((torch.is_tensor(m) and m.is_meta and m.shape == r.shape
+                    and m.dtype == r.dtype) if torch.is_tensor(r) else m == r)]
+    return len(leaves), ([f"checkpoint_metadata disagrees at leaves {bad[:5]}"] if bad else [])
 
 
 def phase_main_cli():
@@ -2123,7 +2308,9 @@ def phase_main_cli():
             train = [s for s in steps if s["kind"] == "train_step"]
             evals = [s for s in steps if s["kind"] == "eval_step"]
             missing = [a for a in MAIN_CLI_ARTIFACTS if not os.path.exists(os.path.join(run_dir, a))]
-            saved_epoch = restore_checkpoint(os.path.join(run_dir, "models", "final"))["epoch"]
+            final = os.path.join(run_dir, "models", "final")
+            saved_epoch = restore_checkpoint(final)["epoch"]
+            meta_leaves, meta_bad = metadata_against_restored(final)
             test_losses = np.load(os.path.join(run_dir, "data", "test_loss_epoch.npy"))
             eval_losses = np.load(os.path.join(run_dir, "data", "eval_loss_epoch.npy"))
             rows[name] = {
@@ -2137,8 +2324,9 @@ def phase_main_cli():
                 "ess_firings_eval": [s["resample_count"] for s in evals],
                 "train_losses": [s["loss"] for s in train],
                 "eval_loss_epoch": eval_losses.tolist(), "test_losses": test_losses.tolist(),
-                "saved_epoch": saved_epoch, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-            bad = []
+                "saved_epoch": saved_epoch, "metadata_leaves": meta_leaves,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            bad = meta_bad
             if missing:
                 bad.append(f"missing artifacts {missing}")
             if saved_epoch != epoch:
@@ -2768,6 +2956,7 @@ def main() -> int:
         raise AssertionError(f"parity_cnf_wide: the card run did not launch {missing}: "
                              f"{launched}")
     phase_linalg()
+    flow_library = phase_flow_library(card)
     phase_simulator()
     cli = phase_main_cli()
     rect = phase_rect_kernels()
@@ -2882,7 +3071,8 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": kernels, "k3": k3,
                        f"kernels_h{H16}": h16,
-                       **slices, "main_cli": cli, "kernels_rows_ne_cols": rect, "k6": k6,
+                       **slices, "flow_library": flow_library, "main_cli": cli,
+                       "kernels_rows_ne_cols": rect, "k6": k6,
                        **meshes}, fh, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     name = torch.cuda.get_device_name(0)

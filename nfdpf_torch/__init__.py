@@ -8,4 +8,6 @@ Importing the package loads the config only.
 
 from nfdpf_torch.config import DPFConfig, parse_args
 
-__all__ = ["DPFConfig", "parse_args"]
+__version__ = "0.1.0"
+
+__all__ = ["DPFConfig", "parse_args", "__version__"]

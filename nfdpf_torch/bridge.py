@@ -23,8 +23,17 @@ Mapping rules:
   ``params/flows_{k}/{t1,s1,t2,s2}/Dense_{i}/{kernel,bias}`` →
   ``{chain}.flows.{k}.{t1,s1,t2,s2}.fc{i+1}.{weight,bias}``, kernels
   transposed like every Dense;
-* the measurement's ``particle_encoder`` and (``NN``) ``likelihood_net``:
-  ``Dense_{i}`` → ``fc{i+1}``;
+* the measurement's ``particle_encoder`` and (``NN``) ``likelihood_net``,
+  and a ``TransitionMLP`` (``mlp_state_from_jax``): ``Dense_{i}`` →
+  ``fc{i+1}``;
+* any flow of the flow library, or a ``FlowChain`` of mixed flows
+  (``flow_state_from_jax``, which reads the port's module for the kinds):
+  ``flows_{k}`` → ``flows.{k}``; a conditioner's ``Dense_{j}`` → ``fc{j+1}``
+  under its net (``t1``..``s2``, ``f1``/``f2``, MAF's and the
+  autoregressive spline's ``layers_{i}`` → ``layers.{i}``); the flows'
+  vectors (``initial_param``, ``init_param``, ``mu``/``log_sigma``,
+  ``L``/``S``/``U``, ``w``/``u``/``b``, ``x0``/``log_alpha``/``beta``) by
+  their names, and the LU map's ``constants/P`` → its buffer ``P``;
 * the CGLOW measurement's ``cglow`` (``cglow_state_from_jax``):
   ``layer_mods_{i}`` → ``layer_mods.{i}``; a conditioning net's
   ``ConvResize_{i}/Conv_0`` → ``resize.{i}.conv`` with the (kh, kw, I, O)
@@ -47,6 +56,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from nfdpf_torch.ops import flows
 from nfdpf_torch.parallel.mesh import replicate
 
 
@@ -75,6 +85,13 @@ def _bn(out, prefix, params, stats, i):
         out[f"{prefix}.norms.{i}.running_var"] = stats[f"BatchNorm_{i}"]["var"]
 
 
+def _mlp(out, prefix, layers):
+    """A three-layer MLP's ``Dense_{i}`` → ``{prefix}fc{i+1}``."""
+    for i in range(3):
+        out[f"{prefix}fc{i + 1}.weight"] = _dense_w(layers[f"Dense_{i}"]["kernel"])
+        out[f"{prefix}fc{i + 1}.bias"] = layers[f"Dense_{i}"]["bias"]
+
+
 def flow_chain_state_from_jax(chain_variables, prefix: str = "") -> Dict[str, np.ndarray]:
     """Map one RealNVP ``FlowChain``'s ``{"params": {"flows_{k}": ..}}`` to
     the port's ``FlowChain`` names, each prefixed with ``prefix``."""
@@ -82,10 +99,50 @@ def flow_chain_state_from_jax(chain_variables, prefix: str = "") -> Dict[str, np
     blocks = chain_variables["params"]
     for k in range(len(blocks)):
         for net, layers in blocks[f"flows_{k}"].items():
-            for i in range(3):
-                name = f"{prefix}flows.{k}.{net}.fc{i + 1}"
-                out[f"{name}.weight"] = _dense_w(layers[f"Dense_{i}"]["kernel"])
-                out[f"{name}.bias"] = layers[f"Dense_{i}"]["bias"]
+            _mlp(out, f"{prefix}flows.{k}.{net}.", layers)
+    return {k: _f32(v) for k, v in out.items()}
+
+
+def mlp_state_from_jax(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Map a three-layer MLP's ``{"Dense_{i}": ..}`` params (a
+    ``TransitionMLP``'s, the particle encoder's, the likelihood head's) to
+    ``{prefix}fc{i+1}``."""
+    out: Dict[str, np.ndarray] = {}
+    _mlp(out, prefix, params)
+    return {k: _f32(v) for k, v in out.items()}
+
+
+_FLOW_VECTORS = {flows.MAF: ("initial_param",), flows.NSFAutoregressive: ("init_param",),
+                 flows.ActNorm: ("mu", "log_sigma"), flows.InvertibleLinear: ("L", "S", "U"),
+                 flows.Planar: ("w", "u", "b"), flows.Radial: ("x0", "log_alpha", "beta")}
+_FLOW_NETS = {flows.AffineCoupling: ("t1", "s1", "t2", "s2"), flows.NSFCoupling: ("f1", "f2")}
+
+
+def _flow(out, flow, params, constants, prefix):
+    if isinstance(flow, flows.FlowChain):
+        for k, sub in enumerate(flow.flows):
+            _flow(out, sub, params[f"flows_{k}"], (constants or {}).get(f"flows_{k}"),
+                  f"{prefix}flows.{k}.")
+        return
+    kind = type(flow)
+    if kind not in _FLOW_VECTORS and kind not in _FLOW_NETS:
+        raise KeyError(f"bridge: no mapping for the flow {kind.__name__}")
+    for name in _FLOW_VECTORS.get(kind, ()):
+        out[prefix + name] = params[name]
+    for net in _FLOW_NETS.get(kind, ()):
+        _mlp(out, f"{prefix}{net}.", params[net])
+    for i in range(len(getattr(flow, "layers", ()))):
+        _mlp(out, f"{prefix}layers.{i}.", params[f"layers_{i}"])
+    if kind is flows.InvertibleLinear and constants is not None:
+        out[prefix + "P"] = constants["P"]
+
+
+def flow_state_from_jax(flow, variables, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Map the flax ``variables`` (``{"params": .., "constants": ..}``, or a
+    gradient tree as ``{"params": grads}``) of one flow or ``FlowChain`` to
+    the names of the port's ``flow``, each prefixed with ``prefix``."""
+    out: Dict[str, np.ndarray] = {}
+    _flow(out, flow, variables["params"], variables.get("constants"), prefix)
     return {k: _f32(v) for k, v in out.items()}
 
 
@@ -173,10 +230,8 @@ def torch_state_from_jax(variables) -> Dict[str, np.ndarray]:
     if unknown:
         raise KeyError(f"bridge: no mapping for the measurement's {unknown}")
     for net in ("particle_encoder", "likelihood_net"):
-        for i in range(3 if net in meas else 0):
-            layer = meas[net][f"Dense_{i}"]
-            out[f"measurement.{net}.fc{i + 1}.weight"] = _dense_w(layer["kernel"])
-            out[f"measurement.{net}.fc{i + 1}.bias"] = layer["bias"]
+        if net in meas:
+            _mlp(out, f"measurement.{net}.", meas[net])
     if "cnf" in meas:
         out.update(flow_chain_state_from_jax({"params": meas["cnf"]}, prefix="measurement.cnf."))
     if "cglow" in meas:

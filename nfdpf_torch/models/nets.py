@@ -1,7 +1,7 @@
-"""NN building blocks: observation encoder/decoder, particle encoder and the
-likelihood head.
+"""NN building blocks: observation encoder/decoder, particle encoder, the
+likelihood head and the learned transition.
 
-Counterparts of ``nfdpf_tpu/models/nets.py:59-162``.  The public functions
+Counterparts of ``nfdpf_tpu/models/nets.py:59-179``.  The public functions
 keep the JAX package's NHWC image layout; the convolutions run in PyTorch's
 NCHW inside.  Layer order is Conv → ReLU → BatchNorm, with the flax
 BatchNorm's rule for running statistics (``FlaxBatchNorm``).
@@ -197,6 +197,21 @@ class LikelihoodNet(nn.Module):
         return torch.sigmoid(self.fc3(F.relu(self.fc2(F.relu(self.fc1(x))))))
 
 
+class TransitionMLP(nn.Module):
+    """Learned transition state→64→64→state with ReLUs, applied on
+    (..., state_dim).  No configuration uses it (nor does the JAX package's
+    filter); flax's default initialisers."""
+
+    def __init__(self, state_dim: int = 2):
+        super().__init__()
+        self.fc1 = nn.Linear(state_dim, 64)
+        self.fc2 = nn.Linear(64, 64)
+        self.fc3 = nn.Linear(64, state_dim)
+
+    def forward(self, s: torch.Tensor) -> torch.Tensor:
+        return self.fc3(F.relu(self.fc2(F.relu(self.fc1(s)))))
+
+
 def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """``t`` ← N(0, std²) drawn on the CPU, or zeros (no draw) at std 0."""
     if std == 0.0:
@@ -214,7 +229,9 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
     flows' conditioners, the conditional GLOW's layers) draws its weights
     from N(0, init_std²) instead (zeros at 0), and its bias from
     N(0, bias_std²) where it carries a ``bias_std``; a module with a
-    ``param_init_std`` dict draws each of the named parameters so.
+    ``param_init_std`` dict draws each of the named parameters so, and one
+    with a ``param_init_uniform`` dict draws each from U[0, scale), as
+    flax's ``uniform(scale)``.
     ``generator`` must live on the CPU; the draws are copied to the
     parameters' device, in the order the modules were registered.  The
     ``torch_init`` layers are drawn after all of them, and the flax draw
@@ -225,6 +242,9 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         for name, std in getattr(m, "param_init_std", {}).items():
             _normal_(getattr(m, name), std, generator)
+        for name, scale in getattr(m, "param_init_uniform", {}).items():
+            p = getattr(m, name)
+            p.copy_(torch.empty(p.shape).uniform_(0.0, scale, generator=generator))
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             draw = torch.empty(w.shape)

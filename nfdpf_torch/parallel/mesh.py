@@ -167,6 +167,13 @@ def shard_batch(batch: dict, mesh: Optional[Mesh]) -> dict:
     return {k: local_slice(v, mesh, DATA_AXIS, 0) for k, v in batch.items()}
 
 
+def constrain(x: torch.Tensor, mesh: Optional[Mesh], *spec) -> torch.Tensor:
+    """``x`` as it is.  JAX's counterpart pins a layout with a sharding
+    constraint, which never changes values; here each rank holds its shard
+    explicitly, so there is no layout to pin."""
+    return x
+
+
 @torch.no_grad()
 def replicate(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
     """Broadcast every parameter and buffer of ``module`` from the mesh's

@@ -42,6 +42,14 @@ def restore_checkpoint(path: str, map_location=None) -> Any:
                       weights_only=True)
 
 
+def checkpoint_metadata(path: str) -> Any:
+    """The tree saved in ``path`` with every tensor on the meta device: its
+    leaves carry ``.shape`` and ``.dtype`` and no data (torch skips the
+    storages' records), the other leaves as saved.  Lets a caller build a
+    matching template, or pick a format, before reading any array."""
+    return restore_checkpoint(path, map_location="meta")
+
+
 def latest_checkpoint(root: str, prefix: str = "ckpt_") -> Optional[str]:
     """The ``{prefix}<n>`` entry of ``root`` with the largest ``n``, or None."""
     if not os.path.isdir(root):

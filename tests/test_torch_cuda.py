@@ -1157,3 +1157,66 @@ def test_main_one_epoch_on_cuda(cuda, tmp_path, monkeypatch):
                      "test_result.npz"):
         assert (run_dir / "data" / artifact).is_file(), artifact
     assert cc.LAUNCHES["coupling_chain"] > 0 and cc.LAUNCHES["coupling_chain_bwd"] > 0
+
+
+INVERTIBLE_FLOWS = ("maf", "actnorm", "lu", "nsf_ar", "nsf_cl", "chain")
+
+
+def _flow_library():
+    from nfdpf_torch.models.nets import TransitionMLP
+    from nfdpf_torch.ops import flows as F
+
+    chain = F.FlowChain([F.ActNorm(2), F.InvertibleLinear(2), F.NSFCoupling(2), F.MAF(2),
+                         F.NSFAutoregressive(2)])
+    return {"maf": F.MAF(2), "actnorm": F.ActNorm(2), "lu": F.InvertibleLinear(2),
+            "planar": F.Planar(2), "radial": F.Radial(2), "nsf_ar": F.NSFAutoregressive(2),
+            "nsf_cl": F.NSFCoupling(2), "transition_mlp": TransitionMLP(2), "chain": chain}
+
+
+def _flow_run(module, x, inverse):
+    """Outputs and the gradients of Σ sin(y) + Σ (log-det, log-prob)² for
+    x and every parameter."""
+    module.zero_grad()
+    x = x.detach().clone().requires_grad_()
+    out = module.inverse(x) if inverse else module(x)
+    out = out if isinstance(out, tuple) else (out,)
+    loss = torch.sum(torch.sin(out[0])) + sum(torch.sum(o * o) for o in out[1:])
+    loss.backward()
+    grads = [x.grad] + [p.grad for p in module.parameters()]
+    return [o.detach().cpu().double() for o in out], [g.cpu().double() for g in grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["maf", "actnorm", "lu", "planar", "radial", "nsf_ar", "nsf_cl",
+                                  "transition_mlp", "chain"])
+def test_flow_library_on_the_card_matches_float64(cuda, name):
+    """The flow library's modules (plain PyTorch, no kernel of ours) on the
+    card in float32 at (32, 100, 2), forward and inverse where they have
+    one, against float64 on the CPU: outputs within 1e-5 + 1e-5·|ref| (the
+    chain 5e-5) and gradients within 1e-4 in relative norm, or at most
+    twice as far as the CPU's own float32 run (the splines' steep bins)."""
+    import copy
+
+    from nfdpf_torch.models.nets import flax_init_
+
+    gen = torch.Generator().manual_seed(3)
+    module = _flow_library()[name]
+    flax_init_(module, gen)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.1)
+    x = torch.randn(32, 100, 2, generator=gen) * 2.0
+    tol = 5e-5 if name == "chain" else 1e-5
+    card, ref = copy.deepcopy(module).to(cuda), copy.deepcopy(module).double()
+    for inverse in (False, True) if name in INVERTIBLE_FLOWS else (False,):
+        ref_out, ref_grads = _flow_run(ref, x.double(), inverse)
+        errs = []
+        for got_out, got_grads in (_flow_run(card, x.to(cuda), inverse),
+                                   _flow_run(module, x, inverse)):
+            errs.append((max(float(((o - r).abs() / (tol + tol * r.abs())).max())
+                             for o, r in zip(got_out, ref_out)),
+                         [float((g - r).norm() / r.norm()) for g, r in zip(got_grads, ref_grads)]))
+        (out_card, grads_card), (out_cpu, grads_cpu) = errs
+        assert out_card <= max(1.0, 2 * out_cpu), (inverse, out_card, out_cpu)
+        for g, c in zip(grads_card, grads_cpu):
+            assert g <= max(1e-4, 2 * c), (inverse, grads_card, grads_cpu)

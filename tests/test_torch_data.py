@@ -15,6 +15,8 @@ import torch
 from nfdpf_tpu.data import simulator as jsim
 from nfdpf_tpu.data.dataset import DiskDataset as JaxDiskDataset
 from nfdpf_tpu.data.dataset import iterate_batches as jax_iterate_batches
+from nfdpf_tpu.data.skew_t_plot import hansen_skew_t_pdf as jax_hansen_skew_t_pdf
+from nfdpf_torch.data import skew_t_plot
 from nfdpf_torch.data import simulator as tsim
 from nfdpf_torch.data.dataset import FIELDS, DiskDataset, iterate_batches
 
@@ -204,3 +206,23 @@ def test_cli_writes_the_shards(tmp_path, monkeypatch):
                                             for s in ("test", "train", "val")]
     ds = DiskDataset(str(tmp_path), "toy_pn=2.0_d=2_const", "train_data")
     assert ds.data["image"].shape == (8, 3, 128, 128, 3)
+
+
+@pytest.mark.parametrize("eta,lam", [(30.0, 0.0), (5.0, 0.0), (5.0, 0.5), (5.0, -0.5), (2.5, 0.9)])
+def test_skew_t_pdf_equals_jax_and_integrates_to_one(eta, lam):
+    """Hansen's skewed-t density: bit for bit JAX's numpy function, and the
+    properties tests/test_utils_extra.py checks (non-negative, integral 1
+    within 1e-2 over [−30, 30], symmetric at λ = 0)."""
+    x = np.linspace(-30, 30, 20001)
+    pdf = skew_t_plot.hansen_skew_t_pdf(x, eta, lam)
+    np.testing.assert_array_equal(pdf, jax_hansen_skew_t_pdf(x, eta, lam))
+    assert np.all(pdf >= 0) and abs(np.trapezoid(pdf, x) - 1.0) < 1e-2
+    if lam == 0.0:
+        np.testing.assert_allclose(pdf, pdf[::-1], rtol=1e-10)
+
+
+def test_skew_t_main_writes_its_png(tmp_path):
+    out = str(tmp_path / "skew.png")
+    skew_t_plot.main(out)
+    with open(out, "rb") as fh:
+        assert fh.read(8) == b"\x89PNG\r\n\x1a\n"

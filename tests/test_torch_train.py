@@ -310,12 +310,88 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import nfdpf_torch.main, nfdpf_torch.data.simulator, nfdpf_torch.data.dataset\n"
             "import nfdpf_torch.utils.checkpoint, nfdpf_torch.utils.metrics\n"
             "import nfdpf_torch.utils.freeze, nfdpf_torch.utils.profiling, nfdpf_torch.viz\n"
+            "import nfdpf_torch.ops.rqs, nfdpf_torch.ops.flows, nfdpf_torch.data.skew_t_plot\n"
+            "import nfdpf_torch.ops, nfdpf_torch.models, nfdpf_torch.data, nfdpf_torch.utils\n"
+            "import nfdpf_torch.parallel\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'nfdpf_tpu', 'matplotlib')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("package", ["", "ops", "models", "data", "utils", "parallel"])
+def test_package_exports_equal_the_jax_packages(package):
+    """Each sub-package's ``__all__`` (and the top level's, with
+    ``__version__``) names what the JAX package's names, and each name
+    resolves."""
+    import importlib
+
+    ours = importlib.import_module(".".join(filter(None, ("nfdpf_torch", package))))
+    theirs = importlib.import_module(".".join(filter(None, ("nfdpf_tpu", package))))
+    assert ours.__all__ == theirs.__all__
+    assert all(hasattr(ours, name) for name in ours.__all__)
+    if not package:
+        assert ours.__version__ == theirs.__version__
+
+
+# JAX-package names with no counterpart in the port's module of the same path
+JAX_ONLY = {
+    "Array": "the alias of jax.Array; the port annotates torch.Tensor",
+    "TrainState": "train.py: the flax train state; the port's Trainer holds a module and "
+                  "a torch optimizer",
+    "_split_variables": "train.py: flax's collections apart; a torch module holds them together",
+    "_merge_variables": "train.py: the same, merged back",
+    "_LoopState": "ops/sinkhorn.py: the carry of lax.while_loop; the port loops in Python",
+    "_mm": "ops/linalg.py: jnp.matmul at HIGHEST precision; torch's float32 matmul is "
+           "full precision with TF32 off",
+    "_inv_fwd": "ops/linalg.py: a custom_vjp half; the port's _Inv is an autograd.Function",
+    "_inv_bwd": "ops/linalg.py: the same",
+    "_logabsdet_fwd": "ops/linalg.py: a custom_vjp half; the port's _LogAbsDet",
+    "_logabsdet_bwd": "ops/linalg.py: the same",
+    "_logabsdet_fwd_impl": "ops/linalg.py: the port's _logabsdet_impl",
+    "_normal_init": "models/cglow.py: a flax initialiser; flax_init_ reads param_init_std",
+    "_dense": "models/nets.py: a Dense with torch's init; flax_init_'s torch_init marks",
+    "torch_uniform": "models/nets.py: torch's U(±1/√fan_in); flax_init_'s torch_init draws it",
+}
+
+
+def _top_level_names(path):
+    import ast
+
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        targets = node.targets if isinstance(node, ast.Assign) else (
+            [node.target] if isinstance(node, ast.AnnAssign) else [])
+        names.update(t.id for t in targets if isinstance(t, ast.Name))
+    return names
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Module by module, every top-level def, class and assignment of the
+    JAX package is in the port's module of the same path, but for
+    ``JAX_ONLY``.  ``ops/pallas`` is left out: its kernels are ported into
+    ``ops/cuda`` under the CUDA route's names (the kernel table in
+    PERF.md)."""
+    import glob
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    missing, seen = {}, set()
+    for path in sorted(glob.glob(os.path.join(root, "nfdpf_tpu", "**", "*.py"), recursive=True)):
+        rel = os.path.relpath(path, os.path.join(root, "nfdpf_tpu"))
+        if rel.startswith("ops" + os.sep + "pallas"):
+            continue
+        port = os.path.join(root, "nfdpf_torch", rel)
+        ours = _top_level_names(port) if os.path.exists(port) else set()
+        seen |= _top_level_names(path)
+        left = sorted(_top_level_names(path) - ours - set(JAX_ONLY))
+        if left:
+            missing[rel] = left
+    assert not missing, missing
+    assert set(JAX_ONLY) <= seen, sorted(set(JAX_ONLY) - seen)
 
 
 def test_trainer_needs_a_gpu_unless_told_cpu(monkeypatch, tmp_path):

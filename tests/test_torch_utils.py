@@ -17,7 +17,12 @@ import torch
 
 from nfdpf_tpu.utils.freeze import masked_optimizer as jax_masked_optimizer
 from nfdpf_torch import viz
-from nfdpf_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+from nfdpf_torch.utils.checkpoint import (
+    checkpoint_metadata,
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from nfdpf_torch.utils.freeze import frozen_mask, masked_optimizer
 from nfdpf_torch.utils.metrics import MetricsLogger, is_primary
 from nfdpf_torch.utils.profiling import ThroughputMeter, trace
@@ -115,6 +120,31 @@ def test_checkpoint_roundtrip_and_latest(tmp_path):
     save_checkpoint(str(tmp_path / "ckpt_10"), tree)
     assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "ckpt_10")
     assert latest_checkpoint(str(tmp_path / "missing")) is None
+
+
+def test_checkpoint_metadata_reads_shapes_and_dtypes_only(tmp_path):
+    """``checkpoint_metadata`` gives the saved tree with every tensor on the
+    meta device (shape and dtype, no data) and the other leaves as saved."""
+    opt = torch.optim.Adam(_Two().parameters())
+    opt.step()
+    tree = {"model": {"w": torch.arange(6.0).reshape(2, 3),
+                      "n": torch.zeros(4, dtype=torch.int64)},
+            "optimizer": opt.state_dict(), "epoch": 3, "name": "best"}
+    path = str(tmp_path / "ckpt_0")
+    save_checkpoint(path, tree)
+    meta = checkpoint_metadata(path)
+    full = restore_checkpoint(path)
+    leaves, ref = [], []
+    torch.utils._pytree.tree_map(leaves.append, meta)
+    torch.utils._pytree.tree_map(ref.append, full)
+    assert len(leaves) == len(ref)
+    assert any(torch.is_tensor(a) for a in ref)
+    for got, want in zip(leaves, ref):
+        if torch.is_tensor(want):
+            assert got.is_meta and got.shape == want.shape and got.dtype == want.dtype
+        else:
+            assert got == want
+    assert meta["epoch"] == 3 and meta["name"] == "best"
 
 
 def test_all_plots_render(tmp_path):
