@@ -94,6 +94,7 @@ from nfdpf_torch.parallel.mesh import (
     local_slice,
     psum,
 )
+from nfdpf_torch.utils.profiling import bracket_backward, span
 
 
 class FilterOutput(NamedTuple):
@@ -257,10 +258,10 @@ class DPF(nn.Module):
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         """(..., H, W, 3) → (..., h); updates BN running stats in train mode."""
-        return self.encoder(images)
+        return bracket_backward("nets.encoder", self.encoder, images)
 
     def decode(self, encodings: torch.Tensor) -> torch.Tensor:
-        return self.decoder(encodings)
+        return bracket_backward("nets.decoder", self.decoder, encodings)
 
     def _step(self, gate: bool, particles, probs, vel, enc_t, normal, offset, warm,
               fused_dyn, fused_cond):
@@ -276,7 +277,8 @@ class DPF(nn.Module):
         cfg = self.config
         mesh = self.mesh
         if gate:
-            particles, probs, idx, sk_iters, pots = self._resample(particles, probs, offset, warm)
+            particles, probs, idx, sk_iters, pots = bracket_backward(
+                "resample", self._resample, particles, probs, offset, warm)
         else:
             idx, sk_iters, pots = None, 0, None
         log_probs_r = torch.log(probs)
@@ -349,39 +351,41 @@ class DPF(nn.Module):
                                 "indices", "jacobians", "priors")}
         gates, iters = [], []
         for t in range(seq_len):
-            enc_t = encode_step(t)
-            ess = effective_sample_size(probs, mesh)
-            # one device sync; on a mesh the ESS is all-reduced, so every rank
-            # reads the same gate
-            gate = bool(ess < cfg.ess_threshold * cfg.num_particles)
-            # the draws, in the order the resampler and the motion take them
-            offset = None
-            if gate and cfg.resampler_type == "soft":
-                offset = local(offsets[t] if offsets is not None else torch.rand(
-                    (global_batch, 1), generator=generator, device=dev)
-                    * (1.0 / cfg.num_particles), 0)
-            normal = local(motion[t] if motion is not None else torch.randn(
-                (global_batch, cfg.num_particles, particles.shape[-1]), generator=generator,
-                device=dev), 0, 1)
-            args = (gate, particles, probs, vel, enc_t, normal, offset, warm, fused_dyn,
-                    fused_cond)
-            if remat:
-                # the step draws nothing, so no RNG state is stashed for it
-                step = checkpoint(self._step, *args, use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                step = self._step(*args)
-            propose, new_probs, mean_log_w, noise_t, lki_log, idx, jac, prior_log, sk_iters, \
-                pots = step
-            if gate and warm is not None:
-                warm = (pots, True)
-            obs_lik = obs_lik + mean_log_w
-            for k, v in zip(hist, (propose, new_probs, noise_t, lki_log,
-                                   idx0 if idx is None else idx, jac, prior_log)):
-                hist[k].append(v)
-            gates.append(gate)
-            iters.append(sk_iters)
-            particles, probs, vel = propose, new_probs, vel_seq[:, t]
+            with span("filter.step", t):
+                enc_t = encode_step(t)
+                with span("filter.gate"):
+                    ess = effective_sample_size(probs, mesh)
+                    # one device sync; on a mesh the ESS is all-reduced, so every
+                    # rank reads the same gate
+                    gate = bool(ess < cfg.ess_threshold * cfg.num_particles)
+                # the draws, in the order the resampler and the motion take them
+                offset = None
+                if gate and cfg.resampler_type == "soft":
+                    offset = local(offsets[t] if offsets is not None else torch.rand(
+                        (global_batch, 1), generator=generator, device=dev)
+                        * (1.0 / cfg.num_particles), 0)
+                normal = local(motion[t] if motion is not None else torch.randn(
+                    (global_batch, cfg.num_particles, particles.shape[-1]), generator=generator,
+                    device=dev), 0, 1)
+                args = (gate, particles, probs, vel, enc_t, normal, offset, warm, fused_dyn,
+                        fused_cond)
+                if remat:
+                    # the step draws nothing, so no RNG state is stashed for it
+                    step = checkpoint(self._step, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+                else:
+                    step = self._step(*args)
+                propose, new_probs, mean_log_w, noise_t, lki_log, idx, jac, prior_log, sk_iters, \
+                    pots = step
+                if gate and warm is not None:
+                    warm = (pots, True)
+                obs_lik = obs_lik + mean_log_w
+                for k, v in zip(hist, (propose, new_probs, noise_t, lki_log,
+                                       idx0 if idx is None else idx, jac, prior_log)):
+                    hist[k].append(v)
+                gates.append(gate)
+                iters.append(sk_iters)
+                particles, probs, vel = propose, new_probs, vel_seq[:, t]
 
         stacked = {k: torch.stack(v, dim=1) for k, v in hist.items()}
         return FilterOutput(

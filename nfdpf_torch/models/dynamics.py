@@ -31,6 +31,7 @@ from nfdpf_torch.ops.cuda.coupling_cuda import fused_coupling_chain
 from nfdpf_torch.ops.density import log_normal_density
 from nfdpf_torch.ops.flows import FlowChain
 from nfdpf_torch.parallel.mesh import PARTICLE_AXIS, all_gather
+from nfdpf_torch.utils.profiling import bracket_backward
 
 Packed = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -75,6 +76,19 @@ def _stats_context(particles: torch.Tensor, mean=None, std=None,
     return ctx.expand(particles.shape[0], particles.shape[1], ctx.shape[-1])
 
 
+def _apply_chain(flow: Optional[FlowChain], x: torch.Tensor, ctx: torch.Tensor,
+                 fused: Packed, inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x', log_det) of a flow chain with its context, inverse or forward:
+    the packed chain through ``fused_coupling_chain`` where ``fused`` holds
+    it, else the ``FlowChain`` module."""
+    if fused is not None:
+        return fused_coupling_chain(x, ctx, fused[0], fused[1], inverse)
+    if inverse:
+        return flow.inverse(x, ctx)
+    out, _, log_det = flow.forward(x, ctx)
+    return out, log_det
+
+
 def nf_dynamic_model(
     dyn_flow: Optional[FlowChain],
     particles: torch.Tensor,
@@ -96,12 +110,8 @@ def nf_dynamic_model(
     if not use_nf:
         return particles, torch.zeros(particles.shape[:2], device=particles.device)
     ctx = _stats_context(particles, mean, std, mesh=mesh)
-    if fused is not None:
-        out, log_det = fused_coupling_chain(particles, ctx, fused[0], fused[1], not forward)
-    elif forward:
-        out, _, log_det = dyn_flow.forward(particles, ctx)
-    else:
-        out, log_det = dyn_flow.inverse(particles, ctx)
+    out, log_det = bracket_backward("dynamics", _apply_chain, dyn_flow, particles, ctx, fused,
+                                    not forward)
     return out, -log_det
 
 
@@ -116,10 +126,8 @@ def normalising_flow_propose(
     per-particle context obs encoding ‖ detached particle mean ‖ std.
     Returns (proposed, jac = −log_det)."""
     ctx = _stats_context(particles_pred, lead=obs_encoding[:, None, :], mesh=mesh)
-    if fused is not None:
-        out, log_det = fused_coupling_chain(particles_pred, ctx, fused[0], fused[1], True)
-    else:
-        out, log_det = cond_flow.inverse(particles_pred, ctx)
+    out, log_det = bracket_backward("proposal", _apply_chain, cond_flow, particles_pred, ctx,
+                                    fused, True)
     return out, -log_det
 
 
@@ -168,5 +176,5 @@ def proposal_likelihood(
         prior_log = density(noise) + jac_dynamic
         propose_log = prior_log
 
-    lki_log = measurement_fn(encodings, propose)
+    lki_log = bracket_backward("measurement", measurement_fn, encodings, propose)
     return propose, lki_log, prior_log, propose_log

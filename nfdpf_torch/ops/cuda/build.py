@@ -22,6 +22,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from nfdpf_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,8 +68,9 @@ def build(name: str, defines: tuple = ()) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    with span("cuda.build"):
+        proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")

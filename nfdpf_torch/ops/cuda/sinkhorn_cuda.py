@@ -35,6 +35,12 @@ K1 on the rank's rows against every rank's columns, one all-gather of its
 output, and the update over all N on every rank;
 ``ot_resample_streaming_sharded_plain`` is its plain version, the JAX body's
 eager loop.
+
+Under a profiler the loop's host side is in spans (``utils/profiling.py``):
+``ot.loop`` around a firing's loop, ``ot.replay`` around each chunk of
+iterations (a graph replay on the card), ``ot.stop_read`` around each host
+read of the stop flag and ``ot.capture`` around building a graph; none
+inside a captured region.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from nfdpf_torch.parallel.mesh import (
     gather_into,
     pmax,
 )
+from nfdpf_torch.utils.profiling import span
 
 # kernel launches since the last reset, by kernel; "streaming_resample" and
 # "sharded_resample" count the calls on the card of the drivers K3 and K6,
@@ -443,7 +450,7 @@ class _Loop:
         a side stream (which loads the kernels; the caller loads the firing
         again).  Under no_grad, never inside a replay."""
         dev = self.x.device
-        with torch.no_grad():
+        with torch.no_grad(), span("ot.capture"):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -519,14 +526,17 @@ def _iterate(loop: _Loop, k: int, max_iter: int, convergence: str, mesh) -> int:
     follows the group's decision."""
     if axis_size(mesh, DATA_AXIS) == 1:
         while True:
-            loop.chunk(k)
-            done, i = loop.state[:2].tolist()        # the one host read of a chunk
+            with span("ot.replay"):
+                loop.chunk(k)
+            with span("ot.stop_read"):
+                done, i = loop.state[:2].tolist()        # the one host read of a chunk
             STREAMING_LOOP["host_reads"] += 1
             if done:
                 return i
     i = 0
     while True:
-        loop.iteration(freeze=False)
+        with span("ot.replay"):
+            loop.iteration(freeze=False)
         if loop.x.is_cuda:
             LAUNCHES["sinkhorn_lse"] += 1
             LAUNCHES["sinkhorn_update"] += 1
@@ -534,7 +544,9 @@ def _iterate(loop: _Loop, k: int, max_iter: int, convergence: str, mesh) -> int:
         if not i < max_iter - 1:
             return i
         STREAMING_LOOP["host_reads"] += 1
-        if not agree(loop.state[2] != 0, mesh, DATA_AXIS, convergence):
+        with span("ot.stop_read"):
+            running = agree(loop.state[2] != 0, mesh, DATA_AXIS, convergence)
+        if not running:
             return i
 
 
@@ -558,11 +570,12 @@ def _run_loop(scaled_x, logw, eps_target, eps_run, a_y, b_x, threshold, scaling_
         loop = _Loop(b, n, dev, params, logw.dtype)
         if cached:
             _LOOPS[key] = loop
-    loop.load(*inputs)
-    if cached and loop.graph is None:
-        loop._capture(k)
+    with span("ot.loop"):
         loop.load(*inputs)
-    i = _iterate(loop, k, max_iter, convergence, mesh)
+        if cached and loop.graph is None:
+            loop._capture(k)
+            loop.load(*inputs)
+        i = _iterate(loop, k, max_iter, convergence, mesh)
     STREAMING_LOOP["iters"] += i
     return loop.a_y.clone(), loop.b_x.clone(), i
 
@@ -853,8 +866,9 @@ def _sharded_loop(scaled_all, logw_all, eps_target, eps_run, a_y, b_x, threshold
         return pots[:, 0], pots[:, 1], 0
     params = (float(threshold), float(scaling_factor), int(max_iter), convergence)
     loop = _ShardedLoop(b, n, scaled_all.device, params, logw_all.dtype, mesh)
-    loop.load(scaled_all, logw_all, eps_target, eps_run, pots[:, 0], pots[:, 1])
-    i = _iterate(loop, loop_chunk(n), max_iter, convergence, mesh)
+    with span("ot.loop"):
+        loop.load(scaled_all, logw_all, eps_target, eps_run, pots[:, 0], pots[:, 1])
+        i = _iterate(loop, loop_chunk(n), max_iter, convergence, mesh)
     STREAMING_LOOP["iters"] += i
     return loop.a_y, loop.b_x, i
 

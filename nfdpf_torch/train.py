@@ -59,6 +59,7 @@ from nfdpf_torch.parallel.mesh import (
 )
 from nfdpf_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from nfdpf_torch.utils.metrics import MetricsLogger
+from nfdpf_torch.utils.profiling import span
 
 METRIC_KEYS = ("loss", "loss_sup", "loss_ae", "loss_pseudolik", "obs_likelihood",
                "resample_count", "sinkhorn_iters")
@@ -84,11 +85,13 @@ class Trainer:
 
     def init_state(self, seed: int) -> None:
         """Re-initialise the parameters from ``seed`` (then broadcast from
-        the mesh's first rank), start a fresh Adam and the epoch count at 0."""
+        the mesh's first rank), start a fresh Adam and the epoch and step
+        counts at 0."""
         self.engine.init(seed)
         replicate(self.engine, self.mesh)
         self.optimizer = torch.optim.Adam(self.engine.parameters(), lr=self.config.lr)
         self.epoch = 0
+        self.steps = 0
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the trainer's device, for the random draws of a step."""
@@ -136,46 +139,47 @@ class Trainer:
         vel = state[..., 2:] + 4.0 * self._local(vel_normal)
 
         out, encodings = engine.filter(images, start_state, vel, noise, generator)
-
-        if train and "mask" in noise:
-            mask = self._local(noise["mask"])
-        elif train:
-            mask = self._local(L.semi_supervised_mask(b * shards, t, cfg.labeled_ratio,
-                                                      generator, self.device))
-        else:
-            mask = 1.0
-        loss_sup, predictions = L.supervised_loss(
-            out.particles, out.weights, state, mask, train, cfg.labeled_ratio, mesh)
-
-        frames = images.reshape((b * t,) + images.shape[2:])
-        if cfg.encode_per_step and train:
-            # the ablation's AE path, as the reference computes it: a second
-            # full-frame encode (BN statistics over all B·T frames, its running
-            # update on top of the filter's T per-step ones) feeds the decoder
-            ae_enc = engine.encode(frames)
-        else:
-            ae_enc = encodings.reshape(b * t, -1)
-        recon = engine.decode(ae_enc)
-        loss_ae = L.autoencoder_loss(frames, recon, mesh)
-        loss_pl = torch.zeros((), device=self.device)
-        if cfg.train_type == "SDPF":
-            if cfg.nf_dyn:
-                loss_pl = L.pseudolikelihood_loss_nf(
-                    out.weights, out.noise, out.likelihoods, out.indices, out.jacobians,
-                    out.priors, cfg.block_length, mesh)
+        with span("losses"):
+            if train and "mask" in noise:
+                mask = self._local(noise["mask"])
+            elif train:
+                mask = self._local(L.semi_supervised_mask(b * shards, t, cfg.labeled_ratio,
+                                                          generator, self.device))
             else:
-                loss_pl = L.pseudolikelihood_loss(
-                    out.weights, out.noise, out.likelihoods, out.indices, cfg.block_length,
-                    cfg.pos_noise, cfg.vel_noise, mesh)
-            total = 1.0 * loss_sup + 0.01 * loss_pl + 2.0 * loss_ae
-        else:
-            total = 1.0 * loss_sup + 2.0 * loss_ae
+                mask = 1.0
+            loss_sup, predictions = L.supervised_loss(
+                out.particles, out.weights, state, mask, train, cfg.labeled_ratio, mesh)
+
+            frames = images.reshape((b * t,) + images.shape[2:])
+            if cfg.encode_per_step and train:
+                # the ablation's AE path, as the reference computes it: a second
+                # full-frame encode (BN statistics over all B·T frames, its running
+                # update on top of the filter's T per-step ones) feeds the decoder
+                ae_enc = engine.encode(frames)
+            else:
+                ae_enc = encodings.reshape(b * t, -1)
+            recon = engine.decode(ae_enc)
+            loss_ae = L.autoencoder_loss(frames, recon, mesh)
+            loss_pl = torch.zeros((), device=self.device)
+            if cfg.train_type == "SDPF":
+                if cfg.nf_dyn:
+                    loss_pl = L.pseudolikelihood_loss_nf(
+                        out.weights, out.noise, out.likelihoods, out.indices, out.jacobians,
+                        out.priors, cfg.block_length, mesh)
+                else:
+                    loss_pl = L.pseudolikelihood_loss(
+                        out.weights, out.noise, out.likelihoods, out.indices, cfg.block_length,
+                        cfg.pos_noise, cfg.vel_noise, mesh)
+                total = 1.0 * loss_sup + 0.01 * loss_pl + 2.0 * loss_ae
+            else:
+                total = 1.0 * loss_sup + 2.0 * loss_ae
 
         aux = {
             "loss_sup": loss_sup,
             "loss_ae": loss_ae,
             "loss_pseudolik": loss_pl,
             "obs_likelihood": out.obs_likelihood,
+            # CPU tensors made from host lists: no device sync
             "resample_count": out.resampled.sum().item(),
             "sinkhorn_iters": out.sinkhorn_iters.sum().item(),
             "predictions": predictions,
@@ -192,18 +196,24 @@ class Trainer:
                    generator: Optional[torch.Generator] = None) -> dict:
         """One optimizer step: forward, backward, the gradients averaged over
         the mesh, Adam.  Returns the metrics."""
-        loss, aux = self._loss(batch, True, noise, generator)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        average_gradients(self.engine.parameters(), self.mesh)
-        self.optimizer.step()
-        return self._metrics(loss, aux)
+        self.steps += 1
+        with span("train_step", self.steps):
+            with span("loss"):
+                loss, aux = self._loss(batch, True, noise, generator)
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                average_gradients(self.engine.parameters(), self.mesh)
+                self.optimizer.step()
+            return self._metrics(loss, aux)
 
     @torch.no_grad()
     def eval_step(self, batch: dict, noise: Optional[dict] = None,
                   generator: Optional[torch.Generator] = None):
         """Forward in eval mode (BN running statistics).  Returns (metrics, aux)."""
-        loss, aux = self._loss(batch, False, noise, generator)
+        with span("eval_step"):
+            loss, aux = self._loss(batch, False, noise, generator)
         return self._metrics(loss, aux), aux
 
     def ae_step(self, images) -> torch.Tensor:

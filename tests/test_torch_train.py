@@ -354,6 +354,8 @@ JAX_ONLY = {
     "_normal_init": "models/cglow.py: a flax initialiser; flax_init_ reads param_init_std",
     "_dense": "models/nets.py: a Dense with torch's init; flax_init_'s torch_init marks",
     "torch_uniform": "models/nets.py: torch's U(±1/√fan_in); flax_init_'s torch_init draws it",
+    "ThroughputMeter": "utils/profiling.py: nothing read the port's meter; its benchmark "
+                       "times its own window, and the port's spans time the layers",
 }
 
 

@@ -1,8 +1,8 @@
 """nfdpf_torch's utilities and plots, as tests/test_utils_extra.py and
 tests/test_viz.py hold the JAX package's: parameter freezing against the
-JAX masked optimizer, the metrics logger, the throughput meter, the
-profiler trace, checkpoints, and every plot (which needs matplotlib and
-says so when it is missing)."""
+JAX masked optimizer, the metrics logger, the profiler trace (its spans:
+tests/test_torch_spans.py), checkpoints, and every plot (which needs
+matplotlib and says so when it is missing)."""
 
 import builtins
 import json
@@ -25,7 +25,7 @@ from nfdpf_torch.utils.checkpoint import (
 )
 from nfdpf_torch.utils.freeze import frozen_mask, masked_optimizer
 from nfdpf_torch.utils.metrics import MetricsLogger, is_primary
-from nfdpf_torch.utils.profiling import ThroughputMeter, trace
+from nfdpf_torch.utils.profiling import trace
 
 
 class _Two(torch.nn.Module):
@@ -85,16 +85,6 @@ def test_metrics_logger_jsonl(tmp_path):
     lines = open(os.path.join(log_dir, "metrics.jsonl")).readlines()
     rec = json.loads(lines[0])
     assert rec["tag"] == "Sup_loss/loss" and rec["value"] == 1.25 and rec["step"] == 3
-
-
-def test_throughput_meter():
-    meter = ThroughputMeter(batch=2, particles=10, seq_len=5, warmup=1)
-    x = torch.ones(4)
-    for _ in range(4):
-        meter.tick(x)
-    assert meter.rate(x) > 0
-    assert meter.transitions_per_step == 100
-    assert np.isnan(ThroughputMeter(1, 1, 1, warmup=3).rate())
 
 
 def test_profiler_trace(tmp_path):
