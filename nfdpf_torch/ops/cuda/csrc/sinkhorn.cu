@@ -18,26 +18,36 @@
 // can be replayed in a CUDA graph.
 //
 // What bounds them on an H100.  The work is N*M*(7 + 4*G) (lse) or N*M*14
-// (apply) fp32 operations and one expf per group per pair, against
+// (apply) fp32 operations and one exponential per group per pair, against
 // O((N + M) * d) bytes: the operation bound (67 TFLOP/s) is the larger one,
-// and in practice the special-function unit (one ex2 per expf) and the fp32
-// pipe that expands precise expf set the pace.  At the filter's N = 100 a call is little more than
-// a launch; what matters there is that the few pairs are spread over the
-// whole card and that no thread waits on a chain of dependent expf.
+// and in practice instruction issue and the special-function unit (16 ex2
+// a clock per SM) set the pace.  K2 takes a precise expf, which the fp32
+// pipe expands around the unit's ex2; K1 works in base 2 (below), so that a
+// term is one ex2 and nothing around it.  At the filter's N = 100 a call
+// is little more than a launch; what matters there is that the few pairs
+// are spread over the whole card and that no thread waits on a chain of
+// dependent exponentials.
 //
 // The design (one decomposition for both kernels):
 //   * columns across lanes, rows across warps.  A warp owns R consecutive
 //     rows; its 32 lanes stride the columns of a tile staged in shared
 //     memory, C columns per lane and tile.  A lane holds R*G (lse) or R
-//     (apply) independent partial results, so R*G*C expf are in flight per
-//     thread with no dependency between them;
+//     (apply) independent partial results, so its exponentials have no
+//     dependency between them;
+//   * lse in base 2: a lane turns each column's potentials into base 2 as
+//     it reads them, f2 = f*log2(e) (once per column, shared by its R
+//     rows), and a batch's scale is -log2(e)/(2 eps_b); a pair's value is
+//     v = fma(d2, scale2, f2) and its term 2^(v - max), one ex2 with no range
+//     reduction, since v - max <= 0.  The output is max*ln(2) + log(sum).
+//     The base change adds one rounding (of f2) of the size of the one
+//     v = f + nc carried before; the ex2 has expf's 2-ulp bound;
 //   * lse, one tile (M <= 128, the filter's case): a two-pass logsumexp in
 //     registers.  All values of the tile, their maximum by a lane-local max
-//     and a 5-step xor butterfly, then the sum of expf(v - max) and a second
+//     and a 5-step xor butterfly, then the sum of 2^(v - max) and a second
 //     butterfly.  No rescale at all;
 //   * lse, many tiles: the tile-wise recurrence of the TPU kernel, kept per
 //     lane.  Per tile a lane takes the maximum of its C values, rescales its
-//     running sum ONCE (s * expf(m - new_m)) and adds C independent expf.
+//     running sum ONCE (s * 2^(m - new_m)) and adds C independent terms.
 //     The lanes' (max, sum) pairs are merged by two butterflies after the
 //     last tile, so the sweep itself has no shuffle;
 //   * apply: each lane accumulates (ax, ay) for its R rows over its columns;
@@ -54,23 +64,26 @@
 //   * the ragged last tile is filled with f = -inf (lse) or c = -inf, v = 0
 //     (apply), so the sweep has no bounds test; maxima of -inf are guarded
 //     (no inf - inf);
-//   * precise expf/logf (no fast-math, no __expf): the Sinkhorn loop's
-//     stopping test must fire on the same iteration as the plain version's.
-//     -0.5*d2/eps is a multiplication by a per-batch -0.5/eps (one IEEE
-//     division per thread, none per pair): against a division per pair it
-//     gave the same errors and the same stopping iterations and was 25-45 %
-//     faster at large M (PERF.md has the timing of both).
+//   * no fast-math and no __expf (whose error grows with |x|): the Sinkhorn
+//     loop's stopping test must fire on the same iteration as the plain
+//     version's.  K1's ex2 and K2's precise expf keep 2 ulp, logf is
+//     precise.  The cost's 1/eps is a multiplication by a per-batch scale
+//     (one IEEE division per thread, none per pair): against a division per
+//     pair it gave the same errors and the same stopping iterations and was
+//     25-45 % faster at large M (PERF.md has the timing of both).
 // Not used, and why: TMA wants 2-D boxes of at least 16 bytes a row and pays
 // off for tiles of tens of KB, these are 1-D runs of 1-4 KB; tensor cores
 // would take the product T @ v, which has 2 output columns and 4 of the 14
-// operations per pair, while the rest is distance arithmetic and one expf
-// per pair that they cannot do.
+// operations per pair, while the rest is distance arithmetic and one
+// exponential per pair that they cannot do.
 //
-// Registers (ptxas, sm_90a, CUDA 12.8), no spills in any instantiation: lse
-// one tile 32; lse many tiles 124-127 (G=2: 64 tile values live per thread)
-// and 64-80 (G=1); apply 47-48.  What was tried and what it cost is in
-// PERF.md (rows per warp 1-8, columns per lane 2-8, the division per pair,
-// the single tile read straight from global memory instead of staged).
+// Registers (ptxas, sm_90a), no spills in any instantiation: lse one tile
+// 32-40; lse many tiles 128 (G=2) and 96 (G=1), at 8 rows a warp, 8
+// columns a lane and 4 warps a block, the fastest of the tiles timed at
+// (8, 10240), (4, 4097) and (4, 5120 x 10240); apply 47-48.  What was tried
+// and what it cost is in PERF.md (rows per warp 1-16, columns per lane 2-8,
+// warps per block 4-8, the division per pair, the single tile read straight
+// from global memory instead of staged).
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -86,9 +99,15 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kSmallR = 2;        // M <= 128: rows per warp
 constexpr int kSmallRG = 4;       // M <= 128: warps (row groups) per block
 constexpr int kSmallC = 4;        // M <= 128: one tile of 32 * 4 columns
-constexpr int kLargeR = 4;        // M > 128: rows per warp
-constexpr int kLargeC = 8;        // M > 128: columns per lane and tile
-constexpr int kLargeWarps = 8;    // M > 128: RG * CS warps per block
+constexpr int kLargeR = 4;        // K2, M > 128: rows per warp
+constexpr int kLargeC = 8;        // K2, M > 128: columns per lane and tile
+constexpr int kLargeWarps = 8;    // K2, M > 128: RG * CS warps per block
+constexpr int kLseR = 8;          // K1, M > 128: rows per warp
+constexpr int kLseC = 8;          // K1, M > 128: columns per lane and tile
+constexpr int kLseWarps = 4;      // K1, M > 128: RG * CS warps per block
+
+constexpr float kLog2e = 1.4426950408889634f;   // log2(e)
+constexpr float kLn2 = 0.6931471805599453f;     // ln(2)
 
 // A block is RG row groups x CS column splits, one warp each.  Warp (rg, cs)
 // owns rows [row0, row0 + R) and, in every staged tile of 32*CS*C columns,
@@ -121,6 +140,24 @@ __device__ __forceinline__ float neg_cost(float2 xi, float2 yj, float scale) {
   const float dx = xi.x - yj.x;
   const float dy = xi.y - yj.y;
   return (dx * dx + dy * dy) * scale;
+}
+
+// ||x_i - y_j||^2
+__device__ __forceinline__ float sq_dist(float2 xi, float2 yj) {
+  const float dx = xi.x - yj.x;
+  const float dy = xi.y - yj.y;
+  return fmaf(dx, dx, dy * dy);
+}
+
+// 2^t for t <= 0 on the special-function unit: ex2.approx.ftz.f32 is the
+// instruction exp2f compiles to (2 ulp), without exp2f's scaling around it
+// for results below 2^-126, which are flushed to zero here.  K1 adds 2^t to
+// a sum that holds its largest term, 2^0 = 1, so such a term is below the
+// sum's ulp and adds nothing either way.
+__device__ __forceinline__ float ex2(float t) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(t));
+  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -170,7 +207,7 @@ lse_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
   const int cs = warp % CS;
   const int row0 = (blockIdx.x * RG + rg) * R;
   const bool live = row0 < n;                  // the same for a whole warp
-  const float scale = -0.5f / eps[b];
+  const float scale2 = -0.5f * kLog2e / eps[b];   // -log2(e) / (2 eps_b)
   const float2* yb = y + (size_t)b * m;
   const float* fb = f + (size_t)b * G * m;
 
@@ -201,46 +238,48 @@ lse_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
     }
     if (!live) continue;
 
-    float val[R][G][C];
-    float top[R][G];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int g = 0; g < G; ++g) top[r][g] = -INFINITY;
+    // the lane's C columns, their potentials in base 2, shared by its R rows
+    float2 yk[C];
+    float fk[G][C];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int j = cs * 32 + lane + k * S::kStride;
-      const float2 yj = ys[buf][j];
-      float fj[G];
+      yk[k] = ys[buf][j];
 #pragma unroll
-      for (int g = 0; g < G; ++g) fj[g] = fs[buf][g][j];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float nc = neg_cost(xr[r], yj, scale);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float v = fj[g] + nc;
-          val[r][g][k] = v;
-          top[r][g] = fmaxf(top[r][g], v);
-        }
-      }
+      for (int g = 0; g < G; ++g) fk[g][k] = fs[buf][g][j] * kLog2e;
     }
+    // a row at a time: its values and maxima, then its terms, so that one
+    // row's ex2 (special-function unit) overlap the next row's distances
+    // (fp32 pipe) in the compiler's schedule
 #pragma unroll
     for (int r = 0; r < R; ++r) {
+      float val[G][C];
+      float top[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) top[g] = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const float d2 = sq_dist(xr[r], yk[k]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          val[g][k] = fmaf(d2, scale2, fk[g][k]);
+          top[g] = fmaxf(top[g], val[g][k]);
+        }
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float acc;
         float new_m;
         if (ONE) {
-          new_m = warp_max(top[r][g]);
+          new_m = warp_max(top[g]);
           acc = 0.f;
         } else {
-          new_m = fmaxf(mx[r][g], top[r][g]);
-          acc = sum[r][g] * expf(mx[r][g] - guarded(new_m));   // one rescale per tile
+          new_m = fmaxf(mx[r][g], top[g]);
+          acc = sum[r][g] * ex2(mx[r][g] - guarded(new_m));   // one rescale per tile
         }
         const float ref = guarded(new_m);
 #pragma unroll
-        for (int k = 0; k < C; ++k) acc += expf(val[r][g][k] - ref);
+        for (int k = 0; k < C; ++k) acc += ex2(val[g][k] - ref);
         mx[r][g] = new_m;
         sum[r][g] = acc;
       }
@@ -255,7 +294,7 @@ lse_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
       for (int g = 0; g < G; ++g) {
         if (!ONE) {
           const float all = warp_max(mx[r][g]);
-          sum[r][g] *= expf(mx[r][g] - guarded(all));
+          sum[r][g] *= ex2(mx[r][g] - guarded(all));
           mx[r][g] = all;
         }
         sum[r][g] = warp_sum(sum[r][g]);
@@ -288,7 +327,7 @@ lse_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
 #pragma unroll
           for (int c = 0; c < CS; ++c)
             acc += red_s[((rg * CS + c) * R + r) * G + g]
-                   * expf(red_m[((rg * CS + c) * R + r) * G + g] - ref);
+                   * ex2(red_m[((rg * CS + c) * R + r) * G + g] - ref);
           mx[r][g] = all;
           sum[r][g] = acc;
         }
@@ -301,7 +340,7 @@ lse_kernel(const float* __restrict__ eps, const float2* __restrict__ x,
 #pragma unroll
       for (int g = 0; g < G; ++g)
         if (lane == g * R + r && row0 + r < n)
-          out[((size_t)b * G + g) * n + row0 + r] = mx[r][g] + logf(sum[r][g]);
+          out[((size_t)b * G + g) * n + row0 + r] = fmaf(mx[r][g], kLn2, logf(sum[r][g]));
   }
 }
 
@@ -723,14 +762,17 @@ int sm_count() {
   return sms;
 }
 
-// Column splits for M > 128: the fewest of {1, 2, 4} that give the grid two
-// blocks per SM, as long as a split tile still fits into the columns.
+// Column splits for M > 128 of a kernel with R rows per warp, C columns per
+// lane and tile and WARPS warps per block: the fewest of {1, 2, 4} that give
+// the grid two blocks per SM, as long as a split tile still fits into the
+// columns.
+template <int R, int C, int WARPS>
 int pick_split(int b, int n, int m) {
   int cs = 1;
   while (cs < 4) {
-    const int block_rows = kLargeR * (kLargeWarps / cs);
+    const int block_rows = R * (WARPS / cs);
     const long blocks = (long)((n + block_rows - 1) / block_rows) * b;
-    if (blocks >= 2L * sm_count() || 32 * (2 * cs) * kLargeC > m) break;
+    if (blocks >= 2L * sm_count() || 32 * (2 * cs) * C > m) break;
     cs *= 2;
   }
   return cs;
@@ -744,9 +786,9 @@ dim3 grid_for(int b, int n) {
 template <int G, int CS>
 void launch_lse_large(cudaStream_t s, const float* eps, const float2* x, const float2* y,
                       const float* f, float* out, int b, int n, int m) {
-  constexpr int R = kLargeR, RG = kLargeWarps / CS;
-  lse_kernel<G, R, RG, CS, kLargeC, false>
-      <<<grid_for<R, RG>(b, n), 32 * kLargeWarps, 0, s>>>(eps, x, y, f, out, n, m);
+  constexpr int R = kLseR, RG = kLseWarps / CS;
+  lse_kernel<G, R, RG, CS, kLseC, false>
+      <<<grid_for<R, RG>(b, n), 32 * kLseWarps, 0, s>>>(eps, x, y, f, out, n, m);
 }
 
 template <int G>
@@ -758,7 +800,7 @@ void launch_lse(cudaStream_t s, const float* eps, const float2* x, const float2*
         <<<grid_for<R, RG>(b, n), 32 * RG, 0, s>>>(eps, x, y, f, out, n, m);
     return;
   }
-  switch (pick_split(b, n, m)) {
+  switch (pick_split<kLseR, kLseC, kLseWarps>(b, n, m)) {
     case 1: launch_lse_large<G, 1>(s, eps, x, y, f, out, b, n, m); break;
     case 2: launch_lse_large<G, 2>(s, eps, x, y, f, out, b, n, m); break;
     default: launch_lse_large<G, 4>(s, eps, x, y, f, out, b, n, m); break;
@@ -812,7 +854,7 @@ extern "C" int nfdpf_transport_apply(const float* eps, const float* x, const flo
     apply_kernel<R, RG, 1, kSmallC>
         <<<grid_for<R, RG>(b, n), 32 * RG, 0, s>>>(eps, x2, y2, v2, r, c, out2, n, m);
   } else {
-    switch (pick_split(b, n, m)) {
+    switch (pick_split<kLargeR, kLargeC, kLargeWarps>(b, n, m)) {
       case 1: launch_apply_large<1>(s, eps, x2, y2, v2, r, c, out2, b, n, m); break;
       case 2: launch_apply_large<2>(s, eps, x2, y2, v2, r, c, out2, b, n, m); break;
       default: launch_apply_large<4>(s, eps, x2, y2, v2, r, c, out2, b, n, m); break;

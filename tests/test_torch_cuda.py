@@ -36,12 +36,21 @@ def _inputs(b, n, seed):
     return x, v, r, c, probe, gen
 
 
+def _lse_plain_by_rows(eps, x, y, fs, rows=1024):
+    """``lse_multi_plain`` a block of ``rows`` rows at a time: each row's
+    logsumexp is its own, and the whole (B, G, N, M) matrix of a large shape
+    would not fit."""
+    return torch.cat([sc.lse_multi_plain(eps, x[:, i:i + rows], y, fs)
+                      for i in range(0, x.shape[1], rows)], dim=-1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(32, 100), (4, 4097)])
+@pytest.mark.parametrize("b,n", [(32, 100), (4, 4097), (8, 10240)])
 @pytest.mark.parametrize("groups", [1, 2])
 def test_lse_kernel_matches_plain(cuda, b, n, groups):
-    """K1 to rtol/atol 1e-5 at the main path's shape (one staged tile, a
-    two-pass logsumexp) and a ragged large one (33 tiles, running maxima)."""
+    """K1 to rtol/atol 1e-5 at the filter's shape (one staged tile, a
+    two-pass logsumexp), a ragged large one (33 tiles, running maxima) and
+    the benchmark cell's (B=8, N=10,240: 80 tiles)."""
     x, _, _, _, _, gen = _inputs(b, n, b + n)
     fs = torch.randn(b, groups, n, generator=gen).to(cuda)
     x = x.to(cuda)
@@ -50,7 +59,33 @@ def test_lse_kernel_matches_plain(cuda, b, n, groups):
     got = sc.streaming_lse_multi(eps, x, x, fs)
     torch.cuda.synchronize()
     assert sc.LAUNCHES["sinkhorn_lse"] == 1
-    torch.testing.assert_close(got, sc.lse_multi_plain(eps, x, x, fs), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, _lse_plain_by_rows(eps, x, x, fs), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(4, 100, 100), (2, 100, 37), (3, 50, 5000), (2, 4097, 4097)])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_lse_kernel_where_most_terms_underflow(cuda, b, n, m, groups):
+    """Points ~60 apart and a small ε, as the resampler's raw particles at
+    its target ε would be: most of a row's terms lie below 2^-126 of its
+    largest, which K1 flushes to zero (they are below the ulp of a sum
+    holding 1).  K1 to rtol/atol 1e-5 all the same, on one tile and on
+    many."""
+    gen = torch.Generator().manual_seed(29 * b + n + m)
+    x = (torch.randn(b, n, 2, generator=gen) * 20).to(cuda)
+    y = x[:, :m].contiguous() if m <= n else (torch.randn(b, m, 2, generator=gen) * 20).to(cuda)
+    fs = torch.randn(b, groups, m, generator=gen).to(cuda)
+    eps = torch.linspace(0.01, 0.1, b).to(cuda)
+    ref = _lse_plain_by_rows(eps, x, y, fs)
+    # the share of terms more than 126 binades below their row's largest
+    terms = torch.cat([fs[:, :, None, :] - sc._pair_cost(x[:, i:i + 1024], y)[:, None]
+                       / eps[:, None, None, None] for i in range(0, n, 1024)], dim=2)
+    below = terms - terms.amax(-1, keepdim=True) < -126 * math.log(2)
+    assert float(below.double().mean()) > 0.9
+    got = sc.streaming_lse_multi(eps, x, y, fs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -173,6 +208,21 @@ def test_sinkhorn_kernels_repeat_bitwise(cuda, b, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("convergence", ["all", "any"])
+@pytest.mark.parametrize("b,n", [(8, 100), (2, 4097)])
+def test_ot_resample_matches_plain_driver_on_card(cuda, b, n, convergence):
+    """The resampler on the kernels against its plain version on the card
+    (the eager loop on torch's logsumexp): the same iteration count, the
+    particles within rtol 1e-4 / atol 1e-3 (magnitude 60); at N=4,097 K1
+    takes many tiles."""
+    x, probs = _loop_inputs(b, n, 31 * b + n, cuda)
+    got = sc.ot_resample_streaming(x, probs, convergence=convergence)
+    plain = sc.ot_resample_streaming_plain(x, probs, convergence=convergence)
+    assert got[3] == plain[3] > 0
+    torch.testing.assert_close(got[0], plain[0], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_ot_resample_on_kernels_matches_cpu(cuda):
     """The resampler on the kernels against the same on the CPU's plain
     versions: same iteration count, particles within atol 1e-3 (magnitude 60)."""
@@ -280,6 +330,7 @@ def test_sinkhorn_update_kernel_freezes_and_repeats(cuda, b, n):
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 @pytest.mark.parametrize("convergence", ["all", "any"])
 @pytest.mark.parametrize("b,n,max_iter", [(32, 100, 100), (10, 100, 100), (4, 4097, 100),
+                                          (2, 4097, 100),
                                           (32, 100, 9), (32, 100, 2), (32, 100, 1)])
 def test_ot_resample_graph_matches_one_iteration_chunks(cuda, monkeypatch, b, n, max_iter,
                                                         convergence, warm):
